@@ -8,8 +8,13 @@ setup(
     version="0.1.0",
     description="TPU-native training-acceleration framework "
                 "(JAX/XLA/Pallas)",
-    packages=find_packages(include=["torchacc_tpu", "torchacc_tpu.*"]),
-    package_data={"torchacc_tpu.data": ["_native/*.cc"]},
+    packages=find_packages(include=["torchacc_tpu", "torchacc_tpu.*",
+                                    "torchacc_tpu_torch",
+                                    "torchacc_tpu_torch.*"]),
+    package_data={"torchacc_tpu.data": ["_native/*.cc"],
+                  # the PyTorch/CUDA port's kernels, built with nvcc at
+                  # first use
+                  "torchacc_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy",
