@@ -1,0 +1,172 @@
+"""The port's flash attention (plain path: ``ops/attention.py`` behind
+the ``ops/flash_attention.py`` custom ops) against the JAX package's
+Pallas kernels B1-B3, run in interpret mode on the CPU as
+tests/test_flash_attention.py runs them.  Inputs come from numpy seeds;
+both sides compute in f32.
+
+Tolerances: o and lse atol = rtol = 2e-5 (the same f32 softmax, tiled
+online in JAX and dense in the port); dq/dk/dv atol = rtol = 1e-4 (the
+backward sums up to group x sk f32 products in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchacc_tpu.ops.flash_attention import (
+    flash_attention as jax_flash,
+    flash_attention_bwd as jax_flash_bwd,
+    segment_ids_from_positions as jax_seg_from_pos,
+)
+from torchacc_tpu_torch.ops.attn import attention
+from torchacc_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    segment_ids_from_positions,
+)
+
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_compile_cache():
+    prev = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    yield
+    jax.config.update("jax_enable_compilation_cache", prev)
+
+
+def _packed_positions(rng, b, s):
+    """Position ids of documents of random lengths packed into each row."""
+    rows = []
+    for _ in range(b):
+        pos = []
+        while len(pos) < s:
+            pos += list(range(int(rng.integers(3, 30))))
+        rows.append(pos[:s])
+    return np.asarray(rows, np.int32)
+
+
+CASES = {   # b, sq, sk, hq, hk, d, options
+    "causal_gqa_8_4": (2, 64, 64, 8, 4, 32, {}),
+    "causal_mqa_8_1": (1, 72, 72, 8, 1, 32, {}),
+    "full_mha": (1, 48, 48, 4, 4, 32, dict(causal=False)),
+    "window": (1, 96, 96, 4, 2, 32, dict(window=(20, -1))),
+    "window_both_sides": (1, 64, 64, 4, 2, 32,
+                          dict(causal=False, window=(9, 7))),
+    "softcap": (2, 64, 64, 8, 4, 32, dict(logit_softcap=5.0)),
+    "segments_gqa_8_4": (2, 80, 80, 8, 4, 32, dict(segments=True)),
+    "segments_window_softcap": (1, 96, 96, 8, 1, 32,
+                                dict(segments=True, window=(16, -1),
+                                     logit_softcap=8.0)),
+    "sk_gt_sq": (1, 40, 96, 4, 2, 32, {}),
+    "sq_gt_sk_empty_rows": (1, 96, 40, 4, 2, 32, {}),
+}
+
+
+def _inputs(seed, b, sq, sk, hq, hk, d, segments):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hk, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hk, d)).astype(np.float32)
+    do = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    seg = None
+    if segments:
+        seg = np.array(jax_seg_from_pos(
+            jnp.asarray(_packed_positions(rng, b, sq))))
+    return q, k, v, do, seg
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_matches_jax_kernels(case):
+    b, sq, sk, hq, hk, d, opts = CASES[case]
+    opts = dict(opts)
+    q, k, v, do, seg = _inputs(0, b, sq, sk, hq, hk, d,
+                               opts.pop("segments", False))
+    jseg = {} if seg is None else dict(q_segment_ids=jnp.asarray(seg),
+                                       kv_segment_ids=jnp.asarray(seg))
+    tseg = {} if seg is None else dict(
+        q_segment_ids=torch.from_numpy(seg),
+        kv_segment_ids=torch.from_numpy(seg))
+    blocks = dict(block_q=32, block_k=32)   # several tiles per side
+
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    jo, jlse = jax_flash(jq, jk, jv, return_lse=True, **jseg, **blocks,
+                         **opts)
+    _, vjp = jax.vjp(lambda a, b_, c: jax_flash(a, b_, c, **jseg, **blocks,
+                                                **opts), jq, jk, jv)
+    jgrads = vjp(jnp.asarray(do))
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    to, tlse = flash_attention(tq, tk, tv, return_lse=True, **tseg, **opts)
+    out = flash_attention(tq, tk, tv, **tseg, **opts)
+    tgrads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **FWD_TOL)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo),
+                               **FWD_TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **FWD_TOL)
+    for name, a, b_ in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), **GRAD_TOL,
+                                   err_msg=name)
+    # the standalone backward agrees with the JAX one from the same (o, lse)
+    sb = flash_attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                             to, tlse, torch.from_numpy(do), **tseg, **opts)
+    jb = jax_flash_bwd(jq, jk, jv, jo, jlse, jnp.asarray(do), **jseg,
+                       **blocks, **opts)
+    for a, b_ in zip(sb, jb):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), **GRAD_TOL)
+
+
+def test_empty_rows_give_zeros_and_neg_inf_lse():
+    b, sq, sk, hq, hk, d, _ = CASES["sq_gt_sk_empty_rows"]
+    q, k, v, do, _ = _inputs(1, b, sq, sk, hq, hk, d, False)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o, lse = flash_attention(tq, tk, tv, return_lse=True)
+    empty = sq - sk          # query i sits at i + sk - sq: negative = blind
+    assert (o[:, :empty] == 0).all()
+    assert (lse[:, :, :empty] == -1e30).all()
+    assert torch.isfinite(lse[:, :, empty:]).all()
+    out = flash_attention(tq, tk, tv)
+    dq, dk, dv = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    assert (dq[:, :empty] == 0).all()
+    assert all(torch.isfinite(g).all() for g in (dq, dk, dv))
+
+
+def test_segment_ids_from_positions_matches_jax():
+    pos = _packed_positions(np.random.default_rng(2), 3, 50)
+    np.testing.assert_array_equal(
+        segment_ids_from_positions(torch.from_numpy(pos)).numpy(),
+        np.asarray(jax_seg_from_pos(jnp.asarray(pos))))
+
+
+def test_dispatcher_routes_cpu_tensors_to_the_plain_path():
+    q, k, v, _, _ = _inputs(3, 1, 32, 32, 4, 2, 32, False)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out = attention(tq, tk, tv, impl="auto")
+    ref = attention(tq, tk, tv, impl="torch")
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention(tq, tk, tv, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        attention(tq, tk, tv, impl="pallas")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(alibi_slopes=torch.ones(4)), dict(dropout_p=0.1),
+    dict(q_offset=8), dict(k_offset=2), dict(h_offset=1), dict(b_offset=1)],
+    ids=["alibi", "dropout", "q_offset", "k_offset", "h_offset", "b_offset"])
+def test_unported_features_raise(kw):
+    q, k, v, _, _ = _inputs(4, 1, 16, 16, 4, 2, 32, False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+
+
+def test_mismatched_segment_ids_raise():
+    q, k, v, _, _ = _inputs(5, 1, 16, 16, 4, 2, 32, False)
+    with pytest.raises(ValueError, match="together"):
+        flash_attention(*map(torch.from_numpy, (q, k, v)),
+                        q_segment_ids=torch.zeros(1, 16, dtype=torch.int32))

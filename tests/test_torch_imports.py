@@ -58,6 +58,19 @@ def test_package_imports_with_jax_blocked():
         "import torchacc_tpu_torch.ops._build\n"
         "import torchacc_tpu_torch.serve.engine\n"
         "import torchacc_tpu_torch.models.convert\n"
+        "import torchacc_tpu_torch.ops.attention\n"
+        "import torchacc_tpu_torch.ops.attn\n"
+        "import torchacc_tpu_torch.ops.flash_attention\n"
+        "import torchacc_tpu_torch.ops.fused\n"
+        "import torchacc_tpu_torch.utils.remat\n"
+        "import torchacc_tpu_torch.train\n"
+        "import torchacc_tpu_torch.train.accelerate\n"
+        "import torchacc_tpu_torch.train.amp\n"
+        "import torchacc_tpu_torch.train.schedules\n"
+        "import torchacc_tpu_torch.train.state\n"
+        "import torchacc_tpu_torch.train.trainer\n"
+        "from torchacc_tpu_torch import (Trainer, accelerate, "
+        "ComputeConfig, MemoryConfig)\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax') and "
         "sys.modules[m] is not None for m in sys.modules)\n"
         "print('ok')\n")

@@ -6,16 +6,26 @@ NVIDIA Hopper card.  Every kernel that the JAX package wrote in Pallas
 is written again by hand for ``sm_90a`` under ``csrc/`` and built with
 ``nvcc`` at first use (``ops/_build.py``).
 
-This first slice is the serving path: ``serve.ServeEngine`` over a
-paged KV cache, driving ``models.TransformerLM`` through
+Two slices are ported.  Serving: ``serve.ServeEngine`` over a paged KV
+cache, driving ``models.TransformerLM`` through
 ``serve.scheduler.PagedDecoder`` and the paged-attention kernel
-(``ops.paged_attention``).  It imports torch, numpy and the standard
-library only — never jax, flax or torchacc_tpu.
+(``ops.paged_attention``).  Training: ``train.accelerate`` ->
+``train.Trainer`` (``step``/``fit``) over ``TransformerLM``'s forward,
+with the flash-attention kernels forward and backward
+(``ops.flash_attention``), the fused linear + CE head, selective remat
+and AdamW over f32 masters with a bf16 compute shadow.  It imports
+torch, numpy and the standard library only — never jax, flax or
+torchacc_tpu.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from torchacc_tpu_torch.config import Config, ServeConfig  # noqa: E402
+from torchacc_tpu_torch.config import (  # noqa: E402
+    ComputeConfig,
+    Config,
+    MemoryConfig,
+    ServeConfig,
+)
 from torchacc_tpu_torch.models import (  # noqa: E402
     ModelConfig,
     TransformerLM,
@@ -28,7 +38,10 @@ from torchacc_tpu_torch.serve import (  # noqa: E402
     ServeEngine,
 )
 
+from torchacc_tpu_torch.train import Trainer, accelerate  # noqa: E402
+
 __all__ = [
-    "Config", "ServeConfig", "ModelConfig", "TransformerLM", "get_preset",
-    "init_params", "Request", "RequestResult", "ServeEngine",
+    "Config", "ServeConfig", "ComputeConfig", "MemoryConfig", "ModelConfig",
+    "TransformerLM", "get_preset", "init_params", "Request", "RequestResult",
+    "ServeEngine", "Trainer", "accelerate",
 ]

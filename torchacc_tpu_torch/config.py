@@ -1,16 +1,21 @@
-"""Serving configuration (torchacc_tpu/config.py ``ServeConfig`` and its
-``validate``), plus a small ``Config`` whose ``.serve`` is the block
-the engine reads.
+"""Configuration (torchacc_tpu/config.py): ``ServeConfig`` for the
+serving engine, ``ComputeConfig`` and ``MemoryConfig`` for training,
+and a ``Config`` that holds them.
 
-Only the fields this slice implements are here: the journal, deadline
-shedding and preemption, and graceful drain are not ported yet
+Only the fields the port implements are here.  The journal, deadline
+shedding, preemption and graceful drain of serving, and the dist, data,
+perf, resilience and obs blocks of training, are not ported yet
 (ROADMAP.md, queue A), so their switches are absent rather than
-silently ignored.
+silently ignored.  A field that is here but takes a value the port does
+not implement (fp16 with its loss scaler, quantized matmuls, host
+offload, gradient accumulation) raises by name in ``validate``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import torch
 
 
 class ConfigError(ValueError):
@@ -20,6 +25,12 @@ class ConfigError(ValueError):
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ConfigError(msg)
+
+
+def _unported(cond: bool, msg: str) -> None:
+    if not cond:
+        raise NotImplementedError(msg + " is not ported to "
+                                  "torchacc_tpu_torch yet (ROADMAP.md)")
 
 
 @dataclass
@@ -68,7 +79,92 @@ class ServeConfig:
 
 
 @dataclass
+class ComputeConfig:
+    """Numerics and kernel selection (``ComputeConfig``), with torch
+    dtypes in place of the JAX package's dtype names."""
+
+    # activation/compute dtype
+    dtype: torch.dtype = torch.bfloat16
+    # master parameter dtype
+    param_dtype: torch.dtype = torch.float32
+    # 'auto' (the CUDA kernels for CUDA tensors, the plain version for
+    # CPU tensors) | 'cuda' | 'torch'; the JAX package's auto|pallas|xla
+    attention_impl: str = "auto"
+    # fused (chunked) linear + cross-entropy loss
+    fused_kernels: bool = True
+    # 'default' | 'high' | 'highest': torch.set_float32_matmul_precision
+    # ('default' leaves the process setting as it is)
+    matmul_precision: str = "default"
+    # Megatron-style main params: the forward and backward read a bf16
+    # copy of the f32 masters (train/amp.py bf16_param_shadow)
+    bf16_compute_params: bool = False
+    # quantized matmuls: only 'none' is ported (B5 waits, ROADMAP A11)
+    quant: str = "none"
+
+    def validate(self) -> None:
+        _check(self.dtype in (torch.bfloat16, torch.float16, torch.float32),
+               f"compute.dtype must be bfloat16|float16|float32, got "
+               f"{self.dtype}")
+        _unported(self.dtype != torch.float16,
+                  "compute.dtype=float16 (the dynamic loss scaler)")
+        _check(self.param_dtype in (torch.bfloat16, torch.float32),
+               f"compute.param_dtype must be bfloat16|float32, got "
+               f"{self.param_dtype}")
+        _check(not self.bf16_compute_params
+               or (self.dtype == torch.bfloat16
+                   and self.param_dtype == torch.float32),
+               "compute.bf16_compute_params requires dtype=bfloat16 with "
+               "param_dtype=float32")
+        _check(self.attention_impl in ("auto", "cuda", "torch"),
+               f"compute.attention_impl must be auto|cuda|torch, got "
+               f"{self.attention_impl!r}")
+        _check(self.matmul_precision in ("default", "high", "highest"),
+               f"compute.matmul_precision invalid: {self.matmul_precision}")
+        _check(self.quant in ("none", "int8", "fp8"),
+               f"compute.quant must be none|int8|fp8, got {self.quant}")
+        _unported(self.quant == "none", f"compute.quant={self.quant!r}")
+
+
+@dataclass
+class MemoryConfig:
+    """Rematerialisation policy (``MemoryConfig``): ``gc`` wraps each
+    decoder block in ``torch.utils.checkpoint`` with the selective save
+    policy ``gc_policy`` (utils/remat.py)."""
+
+    gc: bool = False
+    # 'nothing' | 'save_attn' | 'save_attn_mlp' are ported; the JAX
+    # package's 'dots', 'dots_with_no_batch_dims' and 'offload_dots'
+    # raise by name
+    gc_policy: str = "nothing"
+
+    _GC_POLICIES = ("nothing", "dots", "dots_with_no_batch_dims",
+                    "save_attn", "save_attn_mlp", "offload_dots")
+    _PORTED = ("nothing", "save_attn", "save_attn_mlp")
+
+    def validate(self) -> None:
+        _check(self.gc_policy in self._GC_POLICIES,
+               f"memory.gc_policy invalid: {self.gc_policy}")
+        _unported(self.gc_policy in self._PORTED,
+                  f"memory.gc_policy={self.gc_policy!r}")
+
+
+@dataclass
 class Config:
-    """The framework config; this slice reads only ``serve``."""
+    """The framework config.  Serving reads ``serve``; training reads
+    ``compute``, ``memory``, ``grad_accum`` and ``seed``."""
 
     serve: ServeConfig = field(default_factory=ServeConfig)
+    compute: ComputeConfig = field(default_factory=ComputeConfig)
+    memory: MemoryConfig = field(default_factory=MemoryConfig)
+    # micro-batches per optimizer step; only 1 is ported (ROADMAP A11)
+    grad_accum: int = 1
+    # seed of the random weights Trainer.init() makes
+    seed: int = 0
+
+    def validate(self) -> None:
+        self.serve.validate()
+        self.compute.validate()
+        self.memory.validate()
+        _check(self.grad_accum >= 1, "grad_accum must be >= 1")
+        _unported(self.grad_accum == 1,
+                  f"grad_accum={self.grad_accum} (gradient accumulation)")

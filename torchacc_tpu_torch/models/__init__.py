@@ -1,6 +1,7 @@
-"""Model zoo of the port (the Llama family the serving slice runs)."""
+"""Model zoo of the port (the Llama family the serving and training
+slices run)."""
 
-from torchacc_tpu_torch.models.convert import params_from_jax
+from torchacc_tpu_torch.models.convert import params_from_jax, params_to_jax
 from torchacc_tpu_torch.models.presets import PRESETS, get_preset
 from torchacc_tpu_torch.models.transformer import (
     ModelConfig,
@@ -10,4 +11,4 @@ from torchacc_tpu_torch.models.transformer import (
 )
 
 __all__ = ["ModelConfig", "TransformerLM", "head_logits", "init_params",
-           "params_from_jax", "get_preset", "PRESETS"]
+           "params_from_jax", "params_to_jax", "get_preset", "PRESETS"]

@@ -1,5 +1,7 @@
 """Carry a flax ``TransformerLM`` param tree over into the port's
-``TransformerLM``, so that both packages compute the same function.
+``TransformerLM`` (``params_from_jax``), so that both packages compute
+the same function, and back (``params_to_jax``: port weights or
+gradients in the flax layout, for comparing them leaf by leaf).
 
 The tree is the JAX package's stacked ``scan_layers`` layout with numpy
 leaves (``jax.tree.map(np.asarray, params)``)::
@@ -18,7 +20,7 @@ flax kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -34,10 +36,14 @@ def _t(a, device, dtype) -> torch.Tensor:
 @torch.no_grad()
 def params_from_jax(cfg: ModelConfig, tree: Mapping,
                     device: Optional[Union[str, torch.device]] = None,
-                    dtype: Optional[torch.dtype] = None) -> TransformerLM:
+                    dtype: Optional[torch.dtype] = None,
+                    trainable: bool = False) -> TransformerLM:
     """A port ``TransformerLM`` holding the weights of ``tree``, on the
     card unless ``device`` says otherwise (``None`` means CUDA and raises
-    where there is no card)."""
+    where there is no card).  ``trainable`` gives masters to train: in
+    ``cfg.param_dtype`` (f32) unless ``dtype`` says otherwise, with
+    ``requires_grad`` on and the module in train mode; otherwise the
+    weights are frozen and the module is in eval mode."""
     device = resolve_device(device)
     dtype = dtype or cfg.param_dtype
     model = TransformerLM(cfg, device="meta", dtype=dtype)
@@ -67,4 +73,39 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
     if model.lm_head is not None:
         model.lm_head.weight.copy_(
             _t(np.asarray(tree["lm_head"]["kernel"]).T, device, dtype))
-    return model.requires_grad_(False).eval()
+    return model.requires_grad_(trainable).train(trainable)
+
+
+def params_to_jax(cfg: ModelConfig,
+                  named: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`params_from_jax`: ``{port parameter name:
+    tensor}`` (``model.named_parameters()``, or the same names mapped to
+    gradients) as a flax stacked-layout tree of f32 numpy arrays."""
+    t = lambda n: named[n].detach().float().cpu().numpy()
+    h, d = cfg.hidden_size, cfg.head_size
+    heads = {"q_proj": cfg.num_heads, "k_proj": cfg.kv_heads,
+             "v_proj": cfg.kv_heads}
+    layers = range(cfg.num_layers)
+    stack = lambda f: np.stack([f(i) for i in layers])
+    attn = {}
+    for name, nh in heads.items():
+        attn[name] = {"kernel": stack(lambda i: t(
+            f"layers.{i}.attn.{name}.weight").T.reshape(h, nh, d))}
+        if cfg.qkv_bias:
+            attn[name]["bias"] = stack(lambda i: t(
+                f"layers.{i}.attn.{name}.bias").reshape(nh, d))
+    attn["o_proj"] = {"kernel": stack(lambda i: t(
+        f"layers.{i}.attn.o_proj.weight").T.reshape(cfg.num_heads, d, h))}
+    mlp = {name: {"kernel": stack(lambda i: t(f"layers.{i}.mlp.{name}.weight").T)}
+           for name in ("gate_proj", "up_proj", "down_proj")}
+    tree = {
+        "embed_tokens": {"embedding": t("embed_tokens.weight")},
+        "layers": {"block": {
+            "ln1": {"scale": stack(lambda i: t(f"layers.{i}.ln1.weight"))},
+            "ln2": {"scale": stack(lambda i: t(f"layers.{i}.ln2.weight"))},
+            "attn": attn, "mlp": mlp}},
+        "final_norm": {"scale": t("final_norm.weight")},
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": t("lm_head.weight").T}
+    return tree

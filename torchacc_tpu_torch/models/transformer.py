@@ -1,17 +1,22 @@
 """Decoder-only transformer LM (the port of torchacc_tpu/models/
-transformer.py, serving subset).
+transformer.py, Llama subset).
 
 ``ModelConfig`` is a copy of the JAX package's config with torch dtypes:
 every field is there, so a JAX config maps onto it field by field, but
-the serving forward (serve/scheduler.py) implements only the Llama
-family — rmsnorm, swiglu, plain RoPE (``rope_theta``, ``rope_scale``),
-GQA, ``qkv_bias``, ``tie_embeddings`` and ``attn_logit_softcap`` — and
-``serve.scheduler._check_supported`` rejects the rest by name.
+the port implements only the Llama family — rmsnorm, swiglu, plain RoPE
+(``rope_theta``, ``rope_scale``), GQA, ``qkv_bias``, ``tie_embeddings``
+and ``attn_logit_softcap``.  The serving forward (serve/scheduler.py)
+and the training forward here both reject the rest by name.
 
 ``TransformerLM`` is an ``nn.Module`` that holds the weights in
-``nn.Linear`` layout (``[out, in]``); the forward over the paged cache
-lives in ``serve.scheduler.PagedDecoder`` as in the JAX package.
-``init_params`` draws every matrix from normal(0.02) with a
+``nn.Linear`` layout (``[out, in]``).  Its ``forward`` is the training
+forward (``TransformerLM.__call__`` of the JAX package): embedding,
+the blocks — each rematerialised under ``cfg.remat`` with the selective
+policy of utils/remat.py — the final norm, and the head (or the final
+hidden for the fused CE loss).  Attention goes through ``ops.attn``, so
+the flash-attention kernels run for CUDA tensors.  The forward over the
+paged cache lives in ``serve.scheduler.PagedDecoder`` as in the JAX
+package.  ``init_params`` draws every matrix from normal(0.02) with a
 ``torch.Generator`` (norm scales one, biases zero), as the flax init
 does — the numbers differ from JAX's for the same seed; tests that
 compare the two packages carry the JAX weights over with
@@ -20,6 +25,7 @@ compare the two packages carry the JAX weights over with
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Union
 
@@ -27,7 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchacc_tpu_torch.models.generate import embed
 from torchacc_tpu_torch.ops._common import resolve_device
+from torchacc_tpu_torch.ops.attn import attention
+from torchacc_tpu_torch.utils.remat import checkpoint_block, checkpoint_name
 
 
 @dataclass(frozen=True)
@@ -154,9 +163,59 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(size, **factory))
 
 
+# ModelConfig fields of the Llama family, which the serving and the
+# training forward implement for any value
+LLAMA_FIELDS = frozenset({
+    "vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
+    "head_dim", "intermediate_size", "max_seq_len", "rope_theta",
+    "rope_scale", "norm_eps", "qkv_bias", "tie_embeddings",
+    "attn_logit_softcap", "query_scale", "dtype", "param_dtype",
+})
+# the training forward also implements remat and the attention choice;
+# every other field must keep its default
+_TRAIN_FIELDS = LLAMA_FIELDS | {"remat", "remat_policy", "attention_impl"}
+# fields that pick how the JAX package lays out or shards the step, or
+# knobs inert while their feature is off; none changes what one device
+# computes
+_TRAIN_INERT = frozenset({
+    "scan_layers", "cache_len", "quant_sites", "quant_amax_history_len",
+    "quant_impl", "pp_num_micro", "pp_virtual", "logical_axis_rules",
+    "tp_vocab_head", "num_experts_per_tok", "router_aux_weight",
+    "moe_dispatch", "moe_renorm_topk", "moe_capacity_factor",
+    "parallel_block_shared_norm", "norm_bias",
+})
+
+
+def check_training_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError naming every field the training forward
+    of this port does not implement."""
+    bad = [f"{f.name}={getattr(cfg, f.name)!r}"
+           for f in dataclasses.fields(cfg)
+           if f.name not in _TRAIN_FIELDS and f.name not in _TRAIN_INERT
+           and getattr(cfg, f.name) != f.default]
+    if bad:
+        raise NotImplementedError(
+            "the training forward of torchacc_tpu_torch does not support "
+            + ", ".join(bad) + " (it implements rmsnorm, swiglu, plain "
+            "RoPE, GQA, qkv_bias, tie_embeddings and attn_logit_softcap)")
+
+
+def dense(cfg: ModelConfig, x: torch.Tensor,
+          lin: nn.Linear) -> torch.Tensor:
+    """A projection with both operands in the compute dtype (flax
+    ``Dense(dtype=cfg.dtype)``); ``.to`` is free when the weight already
+    is (the bf16 shadow)."""
+    dt = cfg.dtype
+    y = F.linear(x.to(dt), lin.weight.to(dt))
+    if lin.bias is not None:
+        y = y + lin.bias.to(dt)
+    return y
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
+        self.cfg = cfg
         h, d = cfg.hidden_size, cfg.head_size
         self.q_proj = nn.Linear(h, cfg.num_heads * d, bias=cfg.qkv_bias,
                                 **factory)
@@ -166,36 +225,83 @@ class Attention(nn.Module):
                                 **factory)
         self.o_proj = nn.Linear(cfg.num_heads * d, h, bias=False, **factory)
 
+    def forward(self, x, positions, segment_ids=None):
+        """``Attention.__call__`` (:480) without the KV cache: q/k/v
+        projections, RoPE, causal attention over ``segment_ids``, o
+        projection.  The ``checkpoint_name`` sites are the JAX package's
+        names for the selective remat policies."""
+        cfg = self.cfg
+        b, s = x.shape[:2]
+        d = cfg.head_size
+        with checkpoint_name("qkv_proj"):
+            q = dense(cfg, x, self.q_proj).view(b, s, cfg.num_heads, d)
+            k = dense(cfg, x, self.k_proj).view(b, s, cfg.kv_heads, d)
+            v = dense(cfg, x, self.v_proj).view(b, s, cfg.kv_heads, d)
+        rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
+              else positions)
+        q, k = rope(q, k, rp, cfg)
+        out = attention(q, k, v, causal=True, window=cfg.window,
+                        scale=cfg.query_scale, q_segment_ids=segment_ids,
+                        kv_segment_ids=segment_ids,
+                        logit_softcap=cfg.attn_logit_softcap,
+                        impl=cfg.attention_impl)
+        with checkpoint_name("attn_out"):
+            return dense(cfg, out.reshape(b, s, -1), self.o_proj)
+
 
 class Mlp(nn.Module):
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
+        self.cfg = cfg
         h, f = cfg.hidden_size, cfg.ffn_size
         self.gate_proj = nn.Linear(h, f, bias=False, **factory)
         self.up_proj = nn.Linear(h, f, bias=False, **factory)
         self.down_proj = nn.Linear(f, h, bias=False, **factory)
 
+    def forward(self, x):
+        """SwiGLU ``Mlp.__call__`` (:665)."""
+        cfg = self.cfg
+        with checkpoint_name("mlp_gate_up"):
+            gate = dense(cfg, x, self.gate_proj)
+            up = dense(cfg, x, self.up_proj)
+        with checkpoint_name("mlp_out"):
+            return dense(cfg, F.silu(gate) * up, self.down_proj)
+
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = RMSNorm(cfg.hidden_size, **factory)
         self.attn = Attention(cfg, **factory)
         self.ln2 = RMSNorm(cfg.hidden_size, **factory)
         self.mlp = Mlp(cfg, **factory)
 
+    def forward(self, x, positions, segment_ids=None):
+        """Pre-norm ``Block.__call__`` (:722)."""
+        cfg = self.cfg
+        h = x + self.attn(rms_norm(cfg, x, self.ln1.weight), positions,
+                          segment_ids)
+        return h + self.mlp(rms_norm(cfg, h, self.ln2.weight))
+
 
 class TransformerLM(nn.Module):
-    """The weights of a Llama-family decoder: ``embed_tokens``,
+    """A Llama-family decoder: ``embed_tokens``,
     ``layers[i].{ln1, attn.{q,k,v,o}_proj, ln2, mlp.{gate,up,down}_proj}``,
-    ``final_norm`` and ``lm_head`` (absent when ``tie_embeddings``)."""
+    ``final_norm`` and ``lm_head`` (absent when ``tie_embeddings``).
+
+    The weights are made on ``device``: the card when it is ``None``
+    (raising where there is none), ``"meta"`` for a model whose weights
+    are made later (``init_params``, ``Trainer.init``).  Their values are
+    ``nn.Linear``'s default init; ``init_params`` gives the flax one."""
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
-        factory = {"device": device, "dtype": dtype or cfg.param_dtype}
+        factory = {"device": resolve_device(device),
+                   "dtype": dtype or cfg.param_dtype}
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **factory)
         self.layers = nn.ModuleList(
@@ -209,15 +315,81 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
+    def forward(self, input_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """``TransformerLM.__call__`` (:853): f32 logits ``[b, s, V]``, or
+        with ``return_hidden`` the final-normed hidden in the compute
+        dtype (the fused CE head applies the vocab projection itself).
+        ``positions`` default to ``arange``; ``segment_ids`` mark packed
+        documents.  Under ``cfg.remat`` each block is a checkpoint
+        region with the selective policy ``cfg.remat_policy``."""
+        cfg = self.cfg
+        check_training_supported(cfg)
+        b, s = input_ids.shape
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+        x = embed(cfg, self, input_ids)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint_block(layer, cfg.remat_policy, x, positions,
+                                     segment_ids)
+            else:
+                x = layer(x, positions, segment_ids)
+        if return_hidden:
+            return rms_norm(cfg, x, self.final_norm.weight)
+        logits = head_logits(cfg, self, x)
+        if cfg.logit_softcap > 0.0:
+            logits = torch.tanh(logits / cfg.logit_softcap) \
+                * cfg.logit_softcap
+        return logits
+
+
+def set_model_config(model: nn.Module, cfg: ModelConfig) -> None:
+    """Give ``model`` and every submodule holding a config ``cfg`` (the
+    weights are untouched)."""
+    for mod in model.modules():
+        if isinstance(getattr(mod, "cfg", None), ModelConfig):
+            mod.cfg = cfg
+
+
+def head_weight(model: TransformerLM) -> torch.Tensor:
+    """The vocab projection ``[V, h]``: the embedding when tied."""
+    return (model.embed_tokens.weight if model.cfg.tie_embeddings
+            else model.lm_head.weight)
+
+
+def loss_sum_count(logits: torch.Tensor, labels: torch.Tensor,
+                   loss_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross entropy (:1268): (sum over valid tokens, valid
+    count); -100 labels are ignored."""
+    valid = labels != -100
+    if loss_mask is not None:
+        valid = valid & (loss_mask != 0)
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, safe[..., None])[..., 0]
+    return (torch.where(valid, -ll, 0.0).sum(),
+            valid.sum().to(torch.float32))
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy (:1289)."""
+    total, count = loss_sum_count(logits, labels, loss_mask)
+    return total / torch.clamp(count, min=1.0)
+
 
 def head_logits(cfg: ModelConfig, model: TransformerLM,
                 x: torch.Tensor) -> torch.Tensor:
     """Final norm -> vocab projection in the compute dtype -> f32 logits
     (``head_logits`` of the JAX package)."""
     xn = rms_norm(cfg, x, model.final_norm.weight)
-    w = (model.embed_tokens.weight if cfg.tie_embeddings
-         else model.lm_head.weight)
-    return F.linear(xn.to(cfg.dtype), w.to(cfg.dtype)).float()
+    return F.linear(xn.to(cfg.dtype), head_weight(model).to(cfg.dtype)
+                    ).float()
 
 
 @torch.no_grad()

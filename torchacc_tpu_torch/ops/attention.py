@@ -1,0 +1,153 @@
+"""Dense (plain PyTorch) attention with LSE output, and its backward from
+saved (o, lse): the port of torchacc_tpu/ops/attention.py
+``attention_reference`` (:99) and ``attention_reference_bwd`` (:179).
+
+These are the plain versions beside the flash-attention kernels
+(``ops/flash_attention.py``, ``csrc/flash_attention.cu``): the CPU path
+and the tests use them, and ``chip_smoke.py`` holds the kernels against
+them on the card.  Nothing on the card's main path calls them.
+
+Conventions as in the JAX package: q/k/v are ``[batch, seq, heads,
+head_dim]`` (BSHD); GQA maps q head ``i`` to kv head ``i // group``;
+for ``sq != sk`` the geometry is bottom-right aligned (query ``i`` sits
+at position ``i + sk - sq``); the window is ``(left, right)`` with -1
+unbounded; segment ids ``[batch, seq]`` mask pairs from different
+documents; a row that sees no key gives zeros and ``lse = NEG_INF``.
+Scores, softmax and both products run in f32; outputs are cast back to
+the inputs' dtype.  ALiBi, dropout and the context-parallel offsets are
+not ported (ROADMAP.md, queue B).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from torchacc_tpu_torch.ops._common import NEG_INF
+
+
+def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
+    """Broadcast kv heads to q heads (``jnp.repeat`` order)."""
+    kh = k.shape[2]
+    if kh == num_q_heads:
+        return k
+    return k.repeat_interleave(num_q_heads // kh, dim=2)
+
+
+def make_attention_mask(q_len: int, kv_len: int, causal: bool = True,
+                        window: Tuple[int, int] = (-1, -1),
+                        q_segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None,
+                        q_offset: int = 0,
+                        device=None) -> torch.Tensor:
+    """Boolean ``[q_len, kv_len]`` (``[b, q_len, kv_len]`` with segment
+    ids) mask, True = attend; ``q_offset`` shifts the query positions."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    left, right = window
+    if left >= 0:
+        mask &= kv_pos >= q_pos - left
+    if right >= 0:
+        mask &= kv_pos <= q_pos + right
+    if q_segment_ids is not None:
+        seg = q_segment_ids[..., :, None] == kv_segment_ids[..., None, :]
+        mask = mask & seg
+    return mask
+
+
+def _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids):
+    sq, sk = q.shape[1], k.shape[1]
+    mask = make_attention_mask(sq, sk, causal, window, q_segment_ids,
+                               kv_segment_ids, q_offset=sk - sq,
+                               device=q.device)
+    return mask[:, None] if mask.ndim == 3 else mask     # [b|1, 1?, q, k]
+
+
+def _scores(q, k, scale, logit_softcap):
+    """f32 ``[b, h, q, k]`` scores after the scale and the softcap, and
+    the softcap's chain factor ``1 - (s / c)^2`` (1.0 when off)."""
+    kr = _repeat_kv(k, q.shape[2])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    dcap = 1.0
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+        dcap = 1.0 - (s / logit_softcap) ** 2
+    return s, dcap
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Tuple[int, int] = (-1, -1),
+    scale: Optional[float] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    return_lse: bool = False,
+    logit_softcap: float = 0.0,
+):
+    """Plain attention.  Returns ``out`` or ``(out, lse [b, h, sq] f32)``."""
+    b, sq, hq, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    s, _ = _scores(q, k, scale, logit_softcap)
+    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
+    s = torch.where(mask, s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)                       # [b, h, q]
+    probs = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    vr = _repeat_kv(v, hq)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vr.float()).to(q.dtype)
+    if return_lse:
+        # a row that sees no key: logsumexp of NEG_INF entries is
+        # NEG_INF + log(sk); the flash contract pins it to NEG_INF
+        empty = ~mask.any(dim=-1)
+        lse = torch.where(empty, NEG_INF, lse)
+        return out, lse
+    return out
+
+
+def attention_reference_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Tuple[int, int] = (-1, -1),
+    scale: Optional[float] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logit_softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain flash-style backward from saved ``(o, lse)``: ``(dq, dk,
+    dv)``, GQA grads summed over each kv head's group.  With
+    ``delta = rowsum(dO * O)``: ``dS = P * (dO V^T - delta) * dcap``."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    group = hq // hk
+    s, dcap = _scores(q, k, scale, logit_softcap)
+    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
+    p = torch.where(mask, torch.exp(s - lse[..., None].float()), 0.0)
+    kr = _repeat_kv(k, hq).float()
+    vr = _repeat_kv(v, hq).float()
+    qf, dof = q.float(), do.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = (p * dp - p * delta[..., None]) * dcap * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    if group > 1:
+        dk = dk.reshape(b, sk, hk, group, d).sum(dim=3)
+        dv = dv.reshape(b, sk, hk, group, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -55,7 +55,9 @@ import torch.nn.functional as F
 
 from torchacc_tpu_torch.models.generate import embed, sample_slots
 from torchacc_tpu_torch.models.transformer import (
+    LLAMA_FIELDS,
     ModelConfig,
+    dense,
     head_logits,
     rms_norm,
     rope,
@@ -71,12 +73,7 @@ from torchacc_tpu_torch.utils.logger import logger
 from torchacc_tpu_torch.utils.metrics import counters
 
 # ModelConfig fields the paged forward implements for any value
-_SUPPORTED_FIELDS = frozenset({
-    "vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
-    "head_dim", "intermediate_size", "max_seq_len", "rope_theta",
-    "rope_scale", "norm_eps", "qkv_bias", "tie_embeddings",
-    "attn_logit_softcap", "query_scale", "dtype", "param_dtype",
-})
+_SUPPORTED_FIELDS = LLAMA_FIELDS
 # fields that select training-time execution only and cannot change
 # what the serving forward computes (the JAX package's audit:
 # scheduler.py _AUDITED_MODEL_FIELDS); the MoE knobs are inert while
@@ -128,11 +125,7 @@ class PagedDecoder:
 
     def _dense(self, x, lin: torch.nn.Linear):
         """Both operands in the compute dtype (``_dense``)."""
-        dt = self.cfg.dtype
-        y = F.linear(x.to(dt), lin.weight.to(dt))
-        if lin.bias is not None:
-            y = y + lin.bias.to(dt)
-        return y
+        return dense(self.cfg, x, lin)
 
     def _layer(self, layer, x, positions, kp, vp, tables, ctx_lens,
                flat_b, flat_o):

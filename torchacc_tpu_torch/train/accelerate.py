@@ -1,0 +1,77 @@
+"""``accelerate()`` — the one-call entry point (the port of
+torchacc_tpu/train/accelerate.py ``accelerate``, :68, and
+``apply_config_to_model``, :31).
+
+It validates the config, folds its compute and memory settings into the
+model config, and builds the ``Trainer``.  It takes a ``ModelConfig``
+(the model is made by ``Trainer.init`` from ``config.seed``) or a port
+``TransformerLM`` (its weights are trained).  Hugging Face models and
+checkpoints wait for the model-breadth slice, and the ``AsyncLoader``
+that wraps a dataloader for the data-feed slice (ROADMAP A7, A10):
+both raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable, Optional, Tuple, Union
+
+import torch
+
+from torchacc_tpu_torch.config import Config
+from torchacc_tpu_torch.models.transformer import (
+    ModelConfig,
+    TransformerLM,
+    set_model_config,
+)
+from torchacc_tpu_torch.train.schedules import GradientTransformation
+from torchacc_tpu_torch.train.trainer import Trainer
+
+
+def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
+    """Fold the framework's compute and memory settings into the model
+    config (the fields this port implements)."""
+    return dataclasses.replace(
+        mc,
+        dtype=config.compute.dtype,
+        param_dtype=config.compute.param_dtype,
+        attention_impl=config.compute.attention_impl,
+        remat=config.memory.gc,
+        remat_policy=config.memory.gc_policy,
+        quant=config.compute.quant,
+    )
+
+
+def accelerate(
+    model: Any,
+    dataloader: Optional[Iterable] = None,
+    config: Optional[Config] = None,
+    optimizer: Optional[GradientTransformation] = None,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+    **trainer_kwargs,
+) -> Tuple[Trainer, None]:
+    """Returns ``(trainer, None)``; feed batches to ``trainer.step`` or
+    ``trainer.fit``.  A ``ModelConfig``'s model is made on ``device``
+    (None = the card); a ``TransformerLM`` trains where it lies."""
+    config = config or Config()
+    config.validate()
+    if dataloader is not None:
+        raise NotImplementedError(
+            "accelerate(): the AsyncLoader is not ported yet (ROADMAP A7); "
+            "pass dataloader=None and give the batches to Trainer.fit")
+    if config.compute.matmul_precision != "default":
+        torch.set_float32_matmul_precision(config.compute.matmul_precision)
+    if isinstance(model, ModelConfig):
+        model = TransformerLM(apply_config_to_model(model, config),
+                              device="meta")
+    elif isinstance(model, TransformerLM):
+        set_model_config(model, apply_config_to_model(model.cfg, config))
+    else:
+        raise NotImplementedError(
+            f"accelerate() takes a ModelConfig or a torchacc_tpu_torch "
+            f"TransformerLM; {type(model).__name__} (Hugging Face models "
+            f"and checkpoints) waits for the model-breadth slice "
+            f"(ROADMAP A10)")
+    return Trainer(model, config, optimizer=optimizer, device=device,
+                   **trainer_kwargs), None

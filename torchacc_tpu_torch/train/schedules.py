@@ -1,0 +1,135 @@
+"""Learning-rate schedules and the optimizer (the port of
+torchacc_tpu/train/schedules.py): ``warmup_cosine`` (:18),
+``clip_by_global_norm_f32`` (:40) and ``adamw`` (:66), on plain torch
+tensors with no optax.
+
+``adamw`` computes exactly optax's ``chain(clip_by_global_norm_f32,
+adamw(lr, b1, b2, eps, weight_decay))``: the global norm accumulated in
+f32; Adam moments ``mu = b1 mu + (1 - b1) g`` and ``nu = b2 nu + (1 -
+b2) g^2`` with bias correction by ``1 - b^t`` (t counting from 1);
+``eps`` outside the square root (``eps_root`` 0); decoupled weight decay
+``+ wd * param`` on every leaf (optax's default mask is None); the step
+``-lr(count) * update`` with the schedule read at the count *before*
+the increment, as ``scale_by_schedule`` does.  Where optax builds a
+new updates tree, the port updates the masters and the moments in
+place, one parameter at a time, so that its transient memory is one
+parameter's f32 copy (the port may update in place where that saves
+memory).  Gradients are upcast to f32 per element before the moment
+math; optax multiplies a bf16 gradient by ``1 - b`` in bf16 first.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Union
+
+import torch
+
+from torchacc_tpu_torch.train.amp import global_norm_f32
+
+Schedule = Callable[[int], float]
+
+
+def warmup_cosine(peak_lr: float, total_steps: int, warmup_steps: int = 0,
+                  end_lr_ratio: float = 0.1) -> Schedule:
+    """Linear warmup from 0 to ``peak_lr`` over ``warmup_steps``, then
+    cosine decay to ``peak_lr * end_lr_ratio`` at ``total_steps``
+    (optax ``warmup_cosine_decay_schedule`` / ``cosine_decay_schedule``)."""
+    def cosine(count: int, init: float, decay_steps: int,
+               alpha: float) -> float:
+        count = min(count, decay_steps)
+        decay = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return init * ((1.0 - alpha) * decay + alpha)
+
+    if warmup_steps <= 0:
+        steps = max(total_steps, 1)
+        return lambda count: cosine(count, peak_lr, steps, end_lr_ratio)
+    decay_steps = max(total_steps, warmup_steps + 1) - warmup_steps
+    alpha = 0.0 if peak_lr == 0.0 else (peak_lr * end_lr_ratio) / peak_lr
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
+            return -peak_lr * frac + peak_lr
+        return cosine(count - warmup_steps, peak_lr, decay_steps, alpha)
+    return schedule
+
+
+def clip_by_global_norm_f32(grads, max_norm: float):
+    """``(scale, norm)``: the factor ``min(1, max_norm / max(norm,
+    1e-16))`` by which every gradient is multiplied, and the f32 global
+    norm, both 0-dim tensors on the device."""
+    norm = global_norm_f32(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-16), max=1.0)
+    return scale, norm
+
+
+@dataclass
+class AdamWState:
+    """Adam moments per parameter name (f32) and the update count."""
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    count: int = 0
+
+
+class GradientTransformation:
+    """The port's optimizer protocol: ``init(params) -> state`` and
+    ``update_(grads, state, params) -> grad_norm`` applying one step in
+    place to ``params`` (f32 masters) and ``state``."""
+
+    def init(self, params: Dict[str, torch.Tensor]):
+        raise NotImplementedError
+
+    def update_(self, grads: Dict[str, torch.Tensor], state,
+                params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class AdamW(GradientTransformation):
+    def __init__(self, lr: Union[float, Schedule], *, weight_decay: float,
+                 b1: float, b2: float, eps: float,
+                 grad_clip_norm: Optional[float]):
+        self.lr = lr if callable(lr) else (lambda count, v=lr: v)
+        self.weight_decay, self.b1, self.b2 = weight_decay, b1, b2
+        self.eps, self.grad_clip_norm = eps, grad_clip_norm
+
+    def init(self, params):
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return AdamWState(mu={n: zeros(p) for n, p in params.items()},
+                          nu={n: zeros(p) for n, p in params.items()})
+
+    @torch.no_grad()
+    def update_(self, grads, state, params):
+        if self.grad_clip_norm:
+            scale, norm = clip_by_global_norm_f32(grads.values(),
+                                                  self.grad_clip_norm)
+        else:
+            scale, norm = None, global_norm_f32(grads.values())
+        lr = float(self.lr(state.count))
+        t = state.count + 1
+        bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        for name, p in params.items():
+            g = grads[name]
+            if scale is not None:
+                # optax casts the clipped gradient back to its own dtype
+                g = (g.float() * scale).to(g.dtype)
+            g = g.float()
+            mu, nu = state.mu[name], state.nu[name]
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            upd = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+            if self.weight_decay:
+                upd.add_(p.float(), alpha=self.weight_decay)
+            p.add_(upd.mul_(-lr).to(p.dtype))
+        state.count = t
+        return norm
+
+
+def adamw(lr: Union[float, Schedule], *, weight_decay: float = 0.01,
+          b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          grad_clip_norm: Optional[float] = 1.0) -> AdamW:
+    """AdamW with optional f32 global-norm clipping (the LLM-training
+    default of the JAX package's ``schedules.adamw``)."""
+    return AdamW(lr, weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
+                 grad_clip_norm=grad_clip_norm)
