@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (torchacc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--layers 32] [--train-layers 8] [--train-steps 8]
-                          [--check-layers 2] [--reps 50] [--seed 0]
-                          [--profile]
+                          [--quant-steps 6] [--check-layers 2] [--reps 50]
+                          [--seed 0] [--profile]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -24,8 +24,20 @@ Phases, each of which exits non-zero when it fails:
    case, an f32 case, and an sq != sk case with empty rows — then each
    kernel's time at the training shape beside the plain version's, SDPA
    with the same dense mask (forward; forward+backward minus forward for
-   the backward) and the least time the card could take;
-5. the serving phase: the llama3-8b preset at full width (hidden 4096,
+   the backward) and the least time the card could take.  An ALiBi case
+   and a dropout case (p = 0.1, a fixed seed) hold all three kernels to
+   the same one-ulp tolerance (a wrong keep bit moves o by far more),
+   and the dropped fraction is read back within 3 sigma of p;
+5. the quantized-matmul kernel phase: B5 against its plain version on
+   the same CUDA tensors, int8 and fp8, bf16, at the four shapes of a
+   llama3-8b layer with M = 8192 tokens (q/o 4096 -> 4096, k/v 4096 ->
+   1024, gate/up 4096 -> 14336, down 14336 -> 4096), a ragged shape and
+   an f32 case — int8 bitwise, fp8 within a stated tolerance — then the
+   kernel's time beside the plain version's, library calls on operands
+   quantized beforehand (torch._int_mm, torch._scaled_mm) and the bf16
+   torch.matmul of the same shape (yardsticks the port never calls),
+   and the least time the card could take;
+6. the serving phase: the llama3-8b preset at full width (hidden 4096,
    32/8 heads, ffn 14336, vocab 128256) and --layers deep, bf16 weights
    from init_params(seed) on the card, served through ServeEngine —
    two waves of 4 greedy requests, prompts 64..2000 tokens, 32 new
@@ -36,7 +48,7 @@ Phases, each of which exits non-zero when it fails:
    kernel must match the plain attention path within a bf16 tolerance,
    and two controls (plain attention with the GQA head map wrong, and
    with a chunk's last row blind to its own key) must not;
-6. the training phase: llama3-8b at full width and --train-layers deep
+7. the training phase: llama3-8b at full width and --train-layers deep
    (the depth is the only cut: 32 layers of f32 masters and AdamW state
    need ~128 GB), through accelerate() -> Trainer.step with bf16
    compute over f32 masters and save_attn_mlp remat, stepping one
@@ -44,12 +56,31 @@ Phases, each of which exits non-zero when it fails:
    first 2 are warm-up).  Every loss must be finite and the last below
    the first; each flash kernel must have launched exactly layers x
    steps times (so remat never re-ran the forward kernel);
-7. the model-level check: --check-layers deep at full width, one
+8. the quantized training phase: the same model, depth, seed, batch and
+   configuration with compute.quant = 'int8' for --quant-steps steps
+   (the first 2 are warm-up), then 'fp8' for 2 fewer.  Every loss must
+   be finite and the last below the first; the first-step loss must lie
+   within 2% of the unquantized phase's; B5 must have launched exactly
+   7 x layers x steps times (remat never re-ran it); every amax history
+   must hold min(steps, 16) non-zero entries, the newest first; the step
+   time, tokens/s and peak memory are printed beside the unquantized
+   ones;
+9. the model-level check: --check-layers deep at full width, one
    forward + backward through the kernels and through
    attention_impl='torch' from the same weights and batch; the loss and
    the first layer's q/k/v-projection and the embedding gradients must
    agree within a limit set from readings, and a control (plain
-   attention with the segment mask ignored) must not.
+   attention with the segment mask ignored) must not.  Then the same
+   with quant = 'int8' through quant_impl='cuda' and 'torch' from the
+   same weights, batch and mid-run amax histories: the kernel is bitwise
+   the plain version, so the loss and the first layer's gradients must
+   agree exactly (every reading was 0), and a control (a per-tensor
+   weight scale in place of the per-channel one) must not; fp8 likewise
+   within a limit set from readings.
+
+No earlier phase was cut to make room: the whole run takes about 160 s
+(about 55 s of it the build), against 64.5 s before the quantized phases
+were added.
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -77,6 +108,13 @@ FLASH = {   # kernel -> the Pallas kernel it replaces
     "bwd_dkv": "torchacc_tpu/ops/flash_attention.py:481",
 }
 FLASH_SOURCE = "torchacc_tpu_torch/csrc/flash_attention.cu"
+PEAK_8BIT_OPS = 1979e12                 # int8 and fp8, dense
+QMM = dict(route="cuda",
+           source="torchacc_tpu_torch/csrc/quantized_matmul.cu",
+           replaces="torchacc_tpu/ops/quantized_matmul.py:175")
+# one llama3-8b layer's quantized sites: name -> (K, N, launches a layer)
+QMM_SITES = {"q_o": (4096, 4096, 2), "k_v": (4096, 1024, 2),
+             "gate_up": (4096, 14336, 2), "down": (14336, 4096, 1)}
 TRAIN_B, TRAIN_S = 2, 4096              # tokens per training step: 8192
 
 
@@ -512,23 +550,33 @@ def _flash_phase(torch, args):
            torch.float32: dict(atol=1e-5, rtol=1e-5)}
     grad_tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
                 torch.float32: dict(atol=1e-4, rtol=1e-4)}
-    cases = {   # b, sq, sk, dtype, segments, causal, window, softcap
+    slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda",
+                                         dtype=torch.float32) / H)
+    cases = {   # b, sq, sk, dtype, segments, causal, window, softcap, more
         "train": (TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, True, True,
-                  (-1, -1), 0.0),
+                  (-1, -1), 0.0, {}),
         "window_softcap": (1, 2048, 2048, torch.bfloat16, False, True,
-                           (1024, -1), 50.0),
-        "f32": (1, 1024, 1024, torch.float32, True, True, (-1, -1), 0.0),
+                           (1024, -1), 50.0, {}),
+        "f32": (1, 1024, 1024, torch.float32, True, True, (-1, -1), 0.0, {}),
         "sq_ne_sk_empty_rows": (1, 1536, 512, torch.bfloat16, False, True,
-                                (-1, -1), 0.0),
+                                (-1, -1), 0.0, {}),
+        "alibi": (1, 2048, 2048, torch.bfloat16, True, True, (-1, -1), 0.0,
+                  dict(alibi_slopes=slopes)),
+        "dropout": (1, 2048, 2048, torch.bfloat16, True, True, (-1, -1),
+                    0.0, dict(dropout_p=0.1, dropout_seed=1234)),
+        "dropout_alibi_f32": (1, 1024, 1024, torch.float32, True, True,
+                              (-1, -1), 0.0,
+                              dict(dropout_p=0.1, dropout_seed=99,
+                                   alibi_slopes=slopes)),
     }
     results = {}
-    for name, (b, sq, sk, dtype, segments, causal, window,
-               cap) in cases.items():
+    for name, (b, sq, sk, dtype, segments, causal, window, cap,
+               more) in cases.items():
         q, k, v, do, seg = _flash_inputs(torch, rng, b, sq, sk, dtype,
                                          segments)
         scale = D ** -0.5
         kw = dict(causal=causal, window=window, logit_softcap=cap,
-                  q_segment_ids=seg, kv_segment_ids=seg)
+                  q_segment_ids=seg, kv_segment_ids=seg, **more)
         got, ref = {}, {}
         for impl, out in (("cuda", got), ("torch", ref)):
             out["o"], out["lse"] = fa.flash_attention(
@@ -574,7 +622,30 @@ def _flash_phase(torch, args):
         results[name] = rec
         del q, k, v, do, seg
         torch.cuda.empty_cache()
+    results["dropped_fraction"] = _dropped_fraction(torch, fa)
     return results
+
+
+def _dropped_fraction(torch, fa, p=0.1, seed=4321, s=2048):
+    """The share of pairs the forward kernel drops, read back: with
+    q = 0 every row's probabilities are uniform and with v = 1 an output
+    entry is (kept pairs of the row) / (s * (1 - p)), so 1 - mean(o) *
+    (1 - p) is the dropped share of the H * s * s pairs.  f32, so that
+    the reading is exact to ~1e-7."""
+    q = torch.zeros((1, s, H, D), device="cuda")
+    k = torch.zeros((1, s, KH, D), device="cuda")
+    o = fa.flash_attention(q, k, torch.ones_like(k), causal=False,
+                           dropout_p=p, dropout_seed=seed, impl="cuda")
+    dropped = 1.0 - o[..., 0].double().mean().item() * (1.0 - p)
+    n = H * s * s
+    sigma = (p * (1.0 - p) / n) ** 0.5
+    print(f"flash dropout: dropped fraction {dropped:.6f} of {n} pairs at "
+          f"p = {p} (sigma {sigma:.2g}, |diff| / sigma "
+          f"{abs(dropped - p) / sigma:.2f})", flush=True)
+    if abs(dropped - p) > 3 * sigma + 1e-6:
+        _fail(f"flash dropout: dropped fraction {dropped} is further than "
+              f"3 sigma from p = {p}")
+    return dropped
 
 
 def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
@@ -643,6 +714,132 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
 
 
 # ---------------------------------------------------------------------------
+# quantized-matmul kernel phase
+# ---------------------------------------------------------------------------
+
+def _qmm_inputs(torch, rng, m, k, n, dtype):
+    """Activations ~N(0, 1) with a few outliers (what a delayed scale
+    clips), a weight [N, K] (the nn.Linear layout) ~N(0, 0.02) with
+    per-channel spread."""
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
+    x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.float32)
+    x[::97, ::89] *= 6.0
+    w = torch.randn((n, k), generator=gen, device="cuda",
+                    dtype=torch.float32) * 0.02
+    w *= 1.0 + 3.0 * torch.rand((n, 1), generator=gen, device="cuda")
+    return x.to(dtype), w.to(dtype)
+
+
+def _qmm_phase(torch, args):
+    """B5 against the plain version; times at the main path's shapes."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.quantized_matmul as qm
+    rng = np.random.default_rng(args.seed + 4)
+    m = TRAIN_B * TRAIN_S
+    # fp8: the kernel quantizes to the same e4m3 values and sums the same
+    # exact products in f32 in another order (32 at a time on the tensor
+    # cores) than the plain f32 matmul; the output is bf16, so one bf16 ulp (atol 1e-3 + rtol 1e-2); f32
+    # outputs: 1e-4 of the value + 1e-4 (K up to 14336 f32 terms)
+    fp8_tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+               torch.float32: dict(atol=1e-4, rtol=1e-4)}
+    shapes = {name: (m, k, n, torch.bfloat16)
+              for name, (k, n, _) in QMM_SITES.items()}
+    shapes["ragged"] = (1000, 1111, 777, torch.bfloat16)
+    shapes["f32"] = (1024, 512, 768, torch.float32)
+    results = {fmt: {} for fmt in ("int8", "fp8")}
+    one = torch.ones((), device="cuda")
+    for name, (mm, k, n, dtype) in shapes.items():
+        x, w = _qmm_inputs(torch, rng, mm, k, n, dtype)
+        wt = w.t()                                   # [K, N] view of [N, K]
+        timed = name in QMM_SITES
+        if timed:
+            a = torch.empty((mm, n), device="cuda", dtype=dtype)
+            bf16_ms = _time_ms(torch, lambda i: torch.matmul(x, wt, out=a),
+                               args.reps)
+            del a
+        for fmt in ("int8", "fp8"):
+            # a delayed scale below the tensor's amax: some values clip
+            sx = qm.compute_scale(qm._amax(x) * 0.5, fmt)
+            sw = qm.per_channel_scale(wt, fmt)
+            got = qm._qmm2d_cuda(x, wt, sx, sw, fmt)
+            ref = qm._qmm2d_plain(x, wt, sx, sw, fmt).to(dtype)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                _fail(f"qmm {fmt} {name}: non-finite output")
+            err = (got.float() - ref.float()).abs().max().item()
+            rec = {"m": mm, "k": k, "n": n, "dtype": str(dtype),
+                   "max_abs_err": err,
+                   "ref_max": ref.float().abs().max().item()}
+            if fmt == "int8":
+                if not torch.equal(got, ref):
+                    _fail(f"qmm int8 {name}: the kernel is not bitwise the "
+                          f"plain version (max abs err {err})")
+            else:
+                try:
+                    torch.testing.assert_close(got.float(), ref.float(),
+                                               **fp8_tol[dtype])
+                except AssertionError as e:
+                    _fail(f"qmm fp8 {name} disagrees with the plain "
+                          f"version: {e}")
+            del got, ref
+            if timed:
+                rec["ms"] = _time_ms(torch, lambda i: qm._qmm2d_cuda(
+                    x, wt, sx, sw, fmt), args.reps)
+                rec["plain_ms"] = _time_ms(torch, lambda i: qm._qmm2d_plain(
+                    x, wt, sx, sw, fmt), 2, warm=1)
+                rec["bf16_matmul_ms"] = bf16_ms
+                # yardstick: one library call on operands quantized before
+                qx = qm.quantize(x, sx, fmt)
+                qw = qm.quantize(w, sw[:, None], fmt)        # [N, K]
+                try:
+                    if fmt == "int8":
+                        lib = lambda i: torch._int_mm(qx, qw.t())
+                    else:
+                        lib = lambda i: torch._scaled_mm(
+                            qx, qw.t(), scale_a=one, scale_b=one,
+                            out_dtype=torch.bfloat16)
+                    rec["library_ms"] = _time_ms(torch, lib, args.reps)
+                except Exception as e:       # the private call's signature
+                    print(f"qmm {fmt} {name}: no library time "
+                          f"({type(e).__name__}: {e})", flush=True)
+                    rec["library_ms"] = None
+                del qx, qw
+                e = x.element_size()
+                nbytes = (mm * k + k * n + mm * n) * e + 4 * (n + 1)
+                ops = 2 * mm * n * k
+                tb, tf = nbytes / PEAK_BYTES_PER_S, ops / PEAK_8BIT_OPS
+                rec.update(bytes=nbytes, ops=ops, bound_ms=max(tb, tf) * 1e3,
+                           bound_by="bytes" if tb >= tf else "operations")
+            results[fmt][name] = rec
+            lib_ms = rec.get("library_ms")
+            print(f"qmm {fmt} {name} [{mm}x{k}]x[{k}x{n}] {dtype}: max_abs_err "
+                  f"{err:.3g} (ref max {rec['ref_max']:.3g})"
+                  + (f"; kernel {rec['ms']:.4f} ms "
+                     f"({rec['ops'] / rec['ms'] / 1e9:.0f} TOP/s), plain "
+                     f"{rec['plain_ms']:.2f} ms, library "
+                     + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+                     + f", bf16 matmul {bf16_ms:.4f} ms, bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                     if timed else ""), flush=True)
+        del x, w, wt
+        torch.cuda.empty_cache()
+    # per launch on the main path: the mean over one layer's 7 launches
+    for fmt, recs in results.items():
+        per_layer = sum(c for _, _, c in QMM_SITES.values())
+        summary = {}
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                    "bf16_matmul_ms"):
+            vals = [recs[s][key] for s in QMM_SITES]
+            summary[key] = (None if any(v is None for v in vals) else sum(
+                v * QMM_SITES[s][2] for v, s in zip(vals, QMM_SITES))
+                / per_layer)
+        summary["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+        summary["bound_by"] = recs["gate_up"]["bound_by"]
+        recs["per_launch"] = summary
+    return results
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -660,39 +857,50 @@ def _train_batch(torch, rng, vocab):
             "segment_ids": segment_ids_from_positions(pos).cuda()}
 
 
-def _training_phase(torch, args):
+def _training_phase(torch, args, quant="none", steps=None, ref_loss=None):
+    """Train llama3-8b at full width through accelerate() ->
+    Trainer.step.  ``quant``: compute.quant of the run; ``ref_loss``: the
+    unquantized run's first-step loss, which a quantized run's must lie
+    within 2% of (the JAX package's own bar)."""
     import numpy as np
     import torchacc_tpu_torch.ops.flash_attention as fa
+    import torchacc_tpu_torch.ops.quantized_matmul as qm
     from torchacc_tpu_torch import (ComputeConfig, Config, MemoryConfig,
                                     accelerate, get_preset)
     from torchacc_tpu_torch.train import adamw, warmup_cosine
 
-    layers, steps, warm = args.train_layers, args.train_steps, 2
-    if steps < warm + 4:
-        _fail(f"--train-steps must be at least {warm + 4}")
-    print(f"training: llama3-8b at full width, depth cut to {layers} of 32 "
+    layers, warm = args.train_layers, 2
+    steps = args.train_steps if steps is None else steps
+    tag = "training" if quant == "none" else f"training[{quant}]"
+    if steps < warm + 2:
+        _fail(f"{tag}: at least {warm + 2} steps are needed")
+    print(f"{tag}: llama3-8b at full width, depth cut to {layers} of 32 "
           f"layers", flush=True)
     cfg = get_preset("llama3-8b", num_layers=layers)
-    conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+    conf = Config(compute=ComputeConfig(bf16_compute_params=True,
+                                        quant=quant),
                   memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
                   seed=args.seed)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    # the schedule's length does not depend on the run, so that a
+    # quantized run's steps see the unquantized run's learning rates
     trainer, _ = accelerate(cfg, None, conf, optimizer=adamw(
-        warmup_cosine(3e-4, steps, warmup_steps=1)))
+        warmup_cosine(3e-4, args.train_steps, warmup_steps=1)))
     state = trainer.init()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state.params.values())
-    print(f"training: {n_params / 1e9:.3f}B params (f32 masters, AdamW, "
+    print(f"{tag}: {n_params / 1e9:.3f}B params (f32 masters, AdamW, "
           f"bf16 shadow) made in {time.perf_counter() - t0:.1f} s",
           flush=True)
     batch = _train_batch(torch, np.random.default_rng(args.seed + 2),
                          cfg.vocab_size)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     losses, norms = [], []
-    for key in fa.launch_counts:         # counts start here ...
-        fa.launch_counts[key] = 0
+    for counts in (fa.launch_counts, qm.launch_counts):
+        for key in counts:               # counts start here ...
+            counts[key] = 0
     ev[0].record()
     for i in range(steps):
         m = trainer.step(batch)
@@ -701,6 +909,7 @@ def _training_phase(torch, args):
         ev[i + 1].record()
     torch.cuda.synchronize()
     launches = dict(fa.launch_counts)    # ... and are read here
+    qmm_launches = dict(qm.launch_counts)
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
     losses = [x.item() for x in losses]
     norms = [x.item() for x in norms]
@@ -712,39 +921,71 @@ def _training_phase(torch, args):
     # head included) + causal attention 6 * L * hidden * seq
     flops_tok = 6.0 * n_params + 6.0 * layers * cfg.hidden_size * TRAIN_S
     mfu = flops_tok * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
-    print(f"training: losses {_fmt(losses)}; grad norms {_fmt(norms)}",
+    print(f"{tag}: losses {_fmt(losses)}; grad norms {_fmt(norms)}",
           flush=True)
-    print(f"training: step ms {_fmt(step_ms)} (first {warm} warm-up); "
+    print(f"{tag}: step ms {_fmt(step_ms)} (first {warm} warm-up); "
           f"mean of the timed {ms:.1f} ms, {tokens / (ms / 1e3):.0f} "
-          f"tokens/s, MFU {mfu:.4f} of 989 TFLOP/s (6N + 6*L*h*s per token, "
-          f"N = {n_params}); peak allocated {peak / 2**30:.2f} GiB; flash "
-          f"launches {launches}", flush=True)
+          f"tokens/s, MFU {mfu:.4f} of the bf16 peak 989 TFLOP/s (6N + "
+          f"6*L*h*s per token, N = {n_params}); peak allocated "
+          f"{peak / 2**30:.2f} GiB; flash launches {launches}; quantized-"
+          f"matmul launches {qmm_launches}", flush=True)
     if not all(np.isfinite(losses)):
-        _fail(f"training: a loss is not finite: {losses}")
+        _fail(f"{tag}: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        _fail(f"training: the loss did not fall on the repeated batch: "
+        _fail(f"{tag}: the loss did not fall on the repeated batch: "
               f"{losses}")
     for key, n in launches.items():
         if n != layers * steps:
-            _fail(f"training: flash {key} launches {n} != layers {layers} x "
+            _fail(f"{tag}: flash {key} launches {n} != layers {layers} x "
                   f"steps {steps} (a re-run forward means remat recomputed "
                   f"the attention)")
+    for fmt, n in qmm_launches.items():
+        want = 7 * layers * steps if fmt == quant else 0
+        if n != want:
+            _fail(f"{tag}: quantized-matmul {fmt} launches {n} != {want} "
+                  f"(7 sites x layers {layers} x steps {steps}; more means "
+                  f"remat re-ran the kernel)")
+    if quant != "none":
+        rel = abs(losses[0] - ref_loss) / ref_loss
+        print(f"{tag}: first-step loss {losses[0]:.5f} against the "
+              f"unquantized {ref_loss:.5f}: relative difference {rel:.3g} "
+              f"(limit 0.02)", flush=True)
+        if rel > 0.02:
+            _fail(f"{tag}: the first-step loss parts from the unquantized "
+                  f"one by {rel:.3g} > 0.02")
+        hists = trainer.state.quant
+        filled = min(steps, cfg.quant_amax_history_len)
+        nonzero = torch.stack([(h > 0).sum() for h in hists.values()])
+        newest = torch.stack([(h[:filled] > 0).all()
+                              for h in hists.values()])
+        if (len(hists) != 7 * layers
+                or not bool((nonzero == filled).all())
+                or not bool(newest.all())):
+            _fail(f"{tag}: every one of the {7 * layers} amax histories "
+                  f"must hold {filled} non-zero entries, the newest first; "
+                  f"got {len(hists)} histories with {nonzero.tolist()}")
+        amax = torch.stack([h[0] for h in hists.values()])
+        print(f"{tag}: {len(hists)} amax histories, {filled} entries each; "
+              f"newest amax {amax.min().item():.3g}..{amax.max().item():.3g}",
+              flush=True)
     if args.profile:
-        _profile_step(torch, trainer, batch)
+        _profile_step(torch, trainer, batch, tag)
     del trainer, state, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": ms, "mfu": mfu,
-            "losses": losses, "peak_bytes": peak}
+    return {"launches": launches, "qmm_launches": qmm_launches,
+            "step_ms": ms, "mfu": mfu, "losses": losses, "peak_bytes": peak,
+            "tokens_per_s": tokens / (ms / 1e3), "steps": steps}
 
 
-def _profile_step(torch, trainer, batch):
+def _profile_step(torch, trainer, batch, tag="training"):
     """One more training step under torch.profiler: device time by
     kernel (the top ones on stdout, the whole table and a chrome trace
     under train_profile/), and the device's busy and idle share of the
     step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "train_profile")
+                           "train_profile" if tag == "training"
+                           else "train_profile_" + tag[9:-1])
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -765,6 +1006,7 @@ def _profile_step(torch, trainer, batch):
     for a in kern:
         name = a.key
         g = ("flash attention" if "::fwd_" in name or "::bwd_d" in name
+             else "quantized matmul (B5)" if "qmm_kernel" in name
              else "GEMM (cuBLAS)" if any(t in name for t in (
                  "nvjet", "gemm", "gemv", "xmma", "cutlass"))
              else "elementwise, copy, reduce (aten)" if "at::native" in name
@@ -774,12 +1016,12 @@ def _profile_step(torch, trainer, batch):
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=80))
     prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
-    print(f"profile: one step, wall {wall_ms:.1f} ms (profiled), device "
+    print(f"profile {tag}: one step, wall {wall_ms:.1f} ms (profiled), device "
           f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
           + "; ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(
               groups.items(), key=lambda kv: -kv[1])), flush=True)
     for a in kern[:15]:
-        print(f"profile: {a.self_device_time_total / 1e3:9.2f} ms "
+        print(f"profile {tag}: {a.self_device_time_total / 1e3:9.2f} ms "
               f"x{a.count:<5d} {a.key[:110]}", flush=True)
 
 
@@ -858,6 +1100,112 @@ def _model_check_phase(torch, args):
     return rel
 
 
+def _quant_check_limit(fmt, layers):
+    """Quantized sites, kernel against plain version, at the model level:
+    the largest relative difference allowed (max |a - b| / max |b| over
+    the loss and the first layer's gradients).  Set from readings
+    (PERF.md) over seeds 0-2 at 2 and 4 layers.  int8: the kernel is the
+    plain version bit for bit and every reading was 0.0, so nothing is
+    allowed.  fp8: the f32 sums differ in order, a bf16 output flips by
+    an ulp here and there, and a flipped e4m3 step downstream is 6%:
+    0.024-0.030 at 2 layers and 0.071 at 4, against 0.17-0.27 and
+    0.29-0.39 for the control."""
+    return 0.0 if fmt == "int8" else 0.04 * layers
+
+
+def _quant_check_phase(torch, args):
+    """One forward + backward of llama3-8b at full width with quantized
+    sites, through quant_impl='cuda' and 'torch' from the same weights,
+    batch and mid-run amax histories; and a control, the plain version
+    with one per-tensor weight scale in place of the per-channel ones."""
+    import dataclasses
+    import numpy as np
+    import torchacc_tpu_torch.ops.quantized_matmul as qm
+    from torchacc_tpu_torch import get_preset, init_params
+    from torchacc_tpu_torch.models.transformer import (
+        head_weight, init_quant_state, set_model_config)
+    from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
+    from torchacc_tpu_torch.train import shift_labels
+
+    layers = args.check_layers
+    base = get_preset("llama3-8b", num_layers=layers, remat=True,
+                      remat_policy="save_attn_mlp")
+    model = init_params(base, seed=args.seed, device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(True).train()
+    batch = _train_batch(torch, np.random.default_rng(args.seed + 3),
+                         base.vocab_size)
+    labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+    # the embedding's gradient is summed with atomics (another order
+    # every run), so the first layer's projections are watched instead
+    watched = {f"layer0.{n}": getattr(model.layers[0].attn, n).weight
+               for n in ("q_proj", "k_proj", "v_proj")}
+    watched["layer0.down_proj"] = model.layers[0].mlp.down_proj.weight
+    per_channel = qm.per_channel_scale
+
+    def per_tensor(w2d, fmt):
+        return qm.compute_scale(qm._amax(w2d), fmt).expand(
+            w2d.shape[1]).contiguous()
+
+    out = {}
+    for fmt in ("int8", "fp8"):
+        cfg = dataclasses.replace(base, quant=fmt)
+
+        def run(impl, hist, record=None):
+            set_model_config(model, dataclasses.replace(cfg,
+                                                        quant_impl=impl))
+            hidden = model(batch["input_ids"], batch["positions"],
+                           batch["segment_ids"], return_hidden=True,
+                           quant=hist, quant_out=record)
+            l_sum, count = fused_linear_cross_entropy(
+                hidden, head_weight(model).t(), labels)
+            loss = l_sum / count
+            loss.backward()
+            res = {"loss": loss.detach().float().reshape(1)}
+            res.update({n: p.grad.float().clone()
+                        for n, p in watched.items()})
+            model.zero_grad(set_to_none=True)
+            return res
+
+        # mid-run histories: those one step through the kernel leaves
+        hist = {}
+        run("cuda", init_quant_state(cfg, "cuda"), hist)
+        ref = run("torch", hist)
+        rel = {}
+        for name, impl in (("kernel", "cuda"), ("per_tensor_scale", "torch")):
+            qm.per_channel_scale = (per_tensor if name == "per_tensor_scale"
+                                    else per_channel)
+            try:
+                got = run(impl, hist)
+            finally:
+                qm.per_channel_scale = per_channel
+            if not all(torch.isfinite(t).all() for t in got.values()):
+                _fail(f"quant check {fmt} ({name}): non-finite loss or "
+                      f"gradient")
+            rel[name] = {n: ((got[n] - ref[n]).abs().max()
+                             / ref[n].abs().max()).item() for n in ref}
+        limit = _quant_check_limit(fmt, layers)
+        show = lambda d: json.dumps({k: float(f"{v:.4g}")
+                                     for k, v in d.items()})
+        print(f"quant check {fmt} ({layers} layers): loss "
+              f"{ref['loss'].item():.5f}; relative difference from the "
+              f"plain quantized matmul: kernel {show(rel['kernel'])}, "
+              f"control (per-tensor weight scale) "
+              f"{show(rel['per_tensor_scale'])}; limit {limit:.3g}",
+              flush=True)
+        worst = max(rel["kernel"].values())
+        if worst > limit:
+            _fail(f"quant check {fmt}: the kernel parts from the plain "
+                  f"version by {worst:.3g} > {limit:.3g}")
+        if max(rel["per_tensor_scale"].values()) <= limit:
+            _fail(f"quant check {fmt}: the per-tensor-scale control stays "
+                  f"within {limit:.3g}: the check cannot tell a wrong scale "
+                  f"apart")
+        out[fmt] = rel
+    del model, watched
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -867,6 +1215,9 @@ def main():
     ap.add_argument("--train-steps", type=int, default=8,
                     help="training steps on the repeated batch (the "
                          "first 2 are warm-up)")
+    ap.add_argument("--quant-steps", type=int, default=6,
+                    help="training steps with compute.quant='int8' (the "
+                         "first 2 are warm-up); 'fp8' takes 2 fewer")
     ap.add_argument("--check-layers", type=int, default=2,
                     help="depth of the model-level kernel-vs-plain check")
     ap.add_argument("--reps", type=int, default=50,
@@ -905,11 +1256,30 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}", file=sys.stderr)
 
+    if args.train_steps < 6:
+        _fail("--train-steps must be at least 6")
     kern = _kernel_phase(torch, args, pa)
     flash = _flash_phase(torch, args)["train"]
+    qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
     train = _training_phase(torch, args)
+    qtrain = {
+        "int8": _training_phase(torch, args, "int8", args.quant_steps,
+                                train["losses"][0]),
+        "fp8": _training_phase(torch, args, "fp8",
+                               max(4, args.quant_steps - 2),
+                               train["losses"][0])}
+    for fmt, r in qtrain.items():
+        print(f"training[{fmt}] beside the unquantized step: "
+              f"{r['step_ms']:.1f} ms against {train['step_ms']:.1f} ms "
+              f"({r['step_ms'] / train['step_ms']:.3f}x), "
+              f"{r['tokens_per_s']:.0f} against "
+              f"{train['tokens_per_s']:.0f} tokens/s, MFU (bf16 peak) "
+              f"{r['mfu']:.4f} against {train['mfu']:.4f}, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} against "
+              f"{train['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     _model_check_phase(torch, args)
+    _quant_check_phase(torch, args)
 
     entries = []
     for shape in ("decode", "prefill"):
@@ -935,6 +1305,20 @@ def main():
             bound_ms=flash[f"{name}_bound_ms"],
             bound_by=flash[f"{name}_bound_by"],
             library_ms=flash.get(f"library_{part}_ms")))
+    for fmt in ("int8", "fp8"):
+        q, run = qmm[fmt]["per_launch"], qtrain[fmt]
+        entries.append(dict(
+            QMM, name=f"quantized_matmul[{fmt}]",
+            launches=run["qmm_launches"][fmt],
+            launches_per_step=run["qmm_launches"][fmt] / run["steps"],
+            max_abs_err=q["max_abs_err"], ms=q["ms"],
+            plain_ms=q["plain_ms"], bound_ms=q["bound_ms"],
+            bound_by=q["bound_by"], library_ms=q["library_ms"],
+            bf16_matmul_ms=q["bf16_matmul_ms"],
+            per_launch="mean over the 7 launches of one layer",
+            per_shape={s: {k: qmm[fmt][s][k] for k in (
+                "m", "k", "n", "ms", "plain_ms", "bound_ms", "library_ms",
+                "bf16_matmul_ms", "max_abs_err")} for s in QMM_SITES}))
     print(f"total: {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ both sides compute in f32.
 
 Tolerances: o and lse atol = rtol = 2e-5 (the same f32 softmax, tiled
 online in JAX and dense in the port); dq/dk/dv atol = rtol = 1e-4 (the
-backward sums up to group x sk f32 products in another order).
+backward sums up to group x sk f32 products in another order).  The
+ALiBi and dropout cases hold the same: the bias is the same f32
+expression and the keep mask is bit for bit JAX's (a wrong keep bit
+moves o by a whole probability).
 """
 
 import jax
@@ -20,6 +23,9 @@ from torchacc_tpu.ops.flash_attention import (
     flash_attention_bwd as jax_flash_bwd,
     segment_ids_from_positions as jax_seg_from_pos,
 )
+from torchacc_tpu.ops._common import dropout_keep as jax_dropout_keep
+from torchacc_tpu.ops._common import mix32 as jax_mix32
+from torchacc_tpu_torch.ops._common import dropout_keep, mix32
 from torchacc_tpu_torch.ops.attn import attention
 from torchacc_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -64,6 +70,20 @@ CASES = {   # b, sq, sk, hq, hk, d, options
                                      logit_softcap=8.0)),
     "sk_gt_sq": (1, 40, 96, 4, 2, 32, {}),
     "sq_gt_sk_empty_rows": (1, 96, 40, 4, 2, 32, {}),
+    "alibi_gqa_8_4": (2, 64, 64, 8, 4, 32, dict(alibi=True)),
+    "alibi_sk_gt_sq_window_softcap": (1, 40, 96, 4, 2, 32,
+                                      dict(alibi=True, window=(30, -1),
+                                           logit_softcap=6.0)),
+    "alibi_full_segments": (1, 80, 80, 8, 1, 32,
+                            dict(alibi=True, causal=False, segments=True)),
+    "dropout_gqa_8_4": (2, 64, 64, 8, 4, 32,
+                        dict(dropout_p=0.1, dropout_seed=5)),
+    "dropout_half_mqa_segments": (2, 80, 80, 8, 1, 32,
+                                  dict(dropout_p=0.5, dropout_seed=123456789,
+                                       segments=True)),
+    "dropout_alibi_softcap_sk_gt_sq": (1, 40, 96, 4, 2, 32,
+                                       dict(dropout_p=0.25, dropout_seed=0,
+                                            alibi=True, logit_softcap=5.0)),
 }
 
 
@@ -91,6 +111,11 @@ def test_flash_matches_jax_kernels(case):
     tseg = {} if seg is None else dict(
         q_segment_ids=torch.from_numpy(seg),
         kv_segment_ids=torch.from_numpy(seg))
+    if opts.pop("alibi", False):
+        slopes = (2.0 ** (-8.0 * np.arange(1, hq + 1) / hq)).astype(
+            np.float32)
+        jseg["alibi_slopes"] = jnp.asarray(slopes)
+        tseg["alibi_slopes"] = torch.from_numpy(slopes)
     blocks = dict(block_q=32, block_k=32)   # several tiles per side
 
     jq, jk, jv = map(jnp.asarray, (q, k, v))
@@ -156,13 +181,80 @@ def test_dispatcher_routes_cpu_tensors_to_the_plain_path():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(alibi_slopes=torch.ones(4)), dict(dropout_p=0.1),
     dict(q_offset=8), dict(k_offset=2), dict(h_offset=1), dict(b_offset=1)],
-    ids=["alibi", "dropout", "q_offset", "k_offset", "h_offset", "b_offset"])
+    ids=["q_offset", "k_offset", "h_offset", "b_offset"])
 def test_unported_features_raise(kw):
     q, k, v, _, _ = _inputs(4, 1, 16, 16, 4, 2, 32, False)
     with pytest.raises(NotImplementedError, match="not ported"):
         flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+
+
+def test_alibi_and_dropout_arguments_are_checked():
+    q, k, v, _, _ = _inputs(4, 1, 16, 16, 4, 2, 32, False)
+    args = tuple(map(torch.from_numpy, (q, k, v)))
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        flash_attention(*args, alibi_slopes=torch.ones(3))
+    with pytest.raises(ValueError, match="dropout_p"):
+        flash_attention(*args, dropout_p=1.0)
+    with pytest.raises(TypeError, match="host int"):
+        flash_attention(*args, dropout_p=0.1, dropout_seed=torch.tensor(3))
+    # the slopes are hyperparameters: no gradient reaches them
+    slopes = torch.full((4,), 0.5, requires_grad=True)
+    tq = args[0].clone().requires_grad_()
+    flash_attention(tq, args[1], args[2], alibi_slopes=slopes).sum().backward()
+    assert slopes.grad is None and tq.grad is not None
+    # no seed means seed 0; p = 0 is no dropout at all
+    a = flash_attention(*args, dropout_p=0.3)
+    b = flash_attention(*args, dropout_p=0.3, dropout_seed=0)
+    assert torch.equal(a, b)
+    assert torch.equal(flash_attention(*args, dropout_p=0.0, dropout_seed=9),
+                       flash_attention(*args))
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5, 1.0 - 2.0 ** -30],
+                         ids=["p0.1", "p0.5", "p~1"])
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1, -3])
+def test_dropout_keep_matches_jax_bit_for_bit(seed, p):
+    """The port's int64-masked hash against the JAX uint32 one: same
+    keep bits for several seeds (a negative one wraps), heads, batches
+    and position offsets."""
+    rng = np.random.default_rng(6)
+    vals = rng.integers(0, 2 ** 32, size=64, dtype=np.uint64)
+    np.testing.assert_array_equal(
+        mix32(torch.from_numpy(vals.astype(np.int64))).numpy(),
+        np.asarray(jax_mix32(jnp.asarray(vals.astype(np.uint32)))))
+    jseed = jnp.asarray(seed, jnp.int32)
+    for b_off, h_off, q_off, k_off in ((0, 0, 0, 0), (3, 5, 4096, 17),
+                                       (0, 31, 100000, 99999)):
+        b_idx = (np.arange(2) + b_off)[:, None, None]
+        h_idx = (np.arange(3) + h_off)[None, :, None]
+        q_pos, k_pos = np.arange(37) + q_off, np.arange(29) + k_off
+        want = jax_dropout_keep(
+            jseed, jnp.asarray(b_idx, jnp.uint32),
+            jnp.asarray(h_idx, jnp.uint32), jnp.asarray(q_pos, jnp.int32),
+            jnp.asarray(k_pos, jnp.int32), p)
+        got = dropout_keep(seed, torch.from_numpy(b_idx),
+                           torch.from_numpy(h_idx), torch.from_numpy(q_pos),
+                           torch.from_numpy(k_pos), p)
+        assert got.shape == (2, 3, 37, 29) and got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    kept = got.float().mean().item()
+    assert abs(kept - (1 - p)) < 0.05
+
+
+def test_dropout_leaves_the_lse_undropped_and_scales_pv():
+    q, k, v, _, _ = _inputs(7, 2, 48, 48, 4, 2, 32, False)
+    args = tuple(map(torch.from_numpy, (q, k, v)))
+    _, lse0 = flash_attention(*args, return_lse=True)
+    o, lse = flash_attention(*args, return_lse=True, dropout_p=0.4,
+                             dropout_seed=11)
+    assert torch.equal(lse, lse0)
+    # with v = 1 an output entry is the kept share of its row over 1 - p
+    ones = torch.ones_like(args[2])
+    o1 = flash_attention(args[0], args[1], ones, causal=False, dropout_p=0.4,
+                         dropout_seed=11)
+    kept = o1[..., 0] * (1 - 0.4)
+    assert 0.5 < kept.mean().item() < 0.7 and kept.max().item() <= 1.0 + 1e-5
 
 
 def test_mismatched_segment_ids_raise():

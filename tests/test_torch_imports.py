@@ -38,6 +38,7 @@ def _imported_modules(path):
 def test_sources_exist():
     srcs = _sources()
     assert os.path.exists(srcs[0]) and len(srcs) > 10
+    assert os.path.join(PKG, "ops", "quantized_matmul.py") in srcs
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -62,6 +63,8 @@ def test_package_imports_with_jax_blocked():
         "import torchacc_tpu_torch.ops.attn\n"
         "import torchacc_tpu_torch.ops.flash_attention\n"
         "import torchacc_tpu_torch.ops.fused\n"
+        "import torchacc_tpu_torch.ops.quantized_matmul\n"
+        "import torchacc_tpu_torch.ops._common\n"
         "import torchacc_tpu_torch.utils.remat\n"
         "import torchacc_tpu_torch.train\n"
         "import torchacc_tpu_torch.train.accelerate\n"
@@ -70,7 +73,10 @@ def test_package_imports_with_jax_blocked():
         "import torchacc_tpu_torch.train.state\n"
         "import torchacc_tpu_torch.train.trainer\n"
         "from torchacc_tpu_torch import (Trainer, accelerate, "
-        "ComputeConfig, MemoryConfig)\n"
+        "ComputeConfig, MemoryConfig, ConfigError)\n"
+        "from torchacc_tpu_torch.ops.quantized_matmul import ("
+        "QuantLinear, quantized_dot)\n"
+        "from torchacc_tpu_torch.models.convert import quant_from_jax\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax') and "
         "sys.modules[m] is not None for m in sys.modules)\n"
         "print('ok')\n")

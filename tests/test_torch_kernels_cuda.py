@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (paged attention B4, flash
-attention B1-B3) against their plain PyTorch versions, on the card.  jax-free, so that it runs on a machine with a
+attention B1-B3, quantized matmul B5) against their plain PyTorch
+versions, on the card.  jax-free, so that it runs on a machine with a
 GPU and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -16,7 +17,9 @@ most one bf16 ulp, 2^-7 of the value).  The flash backward kernels
 against the plain backward from the same (o, lse): bf16 one ulp as
 above, f32 atol = rtol = 1e-4 (dk and dv sum group x sk products of f32
 terms in another order than the plain einsums).  Gradients through each
-path's own forward: see ``_autograd_tol``.
+path's own forward: see ``_autograd_tol``.  The quantized matmul: int8
+bitwise (both sides sum exact integers and share every rounding); fp8
+see ``FP8_TOL``.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 
 import torchacc_tpu_torch.ops.flash_attention as fa
 import torchacc_tpu_torch.ops.paged_attention as pa
+import torchacc_tpu_torch.ops.quantized_matmul as qm
 from torchacc_tpu_torch.ops._build import build_all
 
 pytestmark = pytest.mark.cuda
@@ -189,6 +193,12 @@ FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
     "sq_gt_sk_d128": (1, 100, 40, 4, 2, 128),      # leading rows see no key
 }
 FLASH_OPTS = {
+    "alibi": dict(alibi=True),
+    "alibi_window_softcap": dict(alibi=True, window=(40, -1),
+                                 logit_softcap=10.0),
+    "dropout": dict(dropout_p=0.1, dropout_seed=7),
+    "dropout_segments_alibi": dict(dropout_p=0.3, dropout_seed=-5,
+                                   segments=True, alibi=True),
     "causal": {},
     "full": dict(causal=False),
     "window": dict(window=(30, -1)),
@@ -246,6 +256,10 @@ def test_flash_kernels_match_plain(card, geom, opt, dtype):
     kw = dict(FLASH_OPTS[opt])
     q, k, v, do, segs = _flash_case(0, card, dtype, *FLASH_GEOMS[geom],
                                     segments=kw.pop("segments", False))
+    if kw.pop("alibi", False):
+        hq = q.shape[2]
+        kw["alibi_slopes"] = 2.0 ** (-8.0 * torch.arange(
+            1, hq + 1, device=card, dtype=torch.float32) / hq)
     before = dict(fa.launch_counts)
     got = _flash_run(q, k, v, do, segs, "cuda", **kw)
     torch.cuda.synchronize()
@@ -300,7 +314,152 @@ def test_flash_auto_launches_and_rejects(card):
                            impl="cuda")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half(), impl="cuda")
-    for kw in (dict(alibi_slopes=torch.ones(8, device=card)),
-               dict(dropout_p=0.1), dict(q_offset=3)):
-        with pytest.raises(NotImplementedError):
-            fa.flash_attention(q, k, v, **kw)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, k, v, q_offset=3)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        fa.flash_attention(q, k, v, alibi_slopes=torch.ones(3, device=card))
+
+
+def test_flash_dropout_fraction_and_seed(card):
+    """With v = 1 every output entry is the kept share of its row's
+    probabilities over 1 - p: its mean over many rows reads the dropped
+    fraction.  Another seed gives another mask, the same seed the same."""
+    p = 0.1
+    b, s, h, d = 2, 512, 8, 128
+    gen = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((b, s, h, d), generator=gen, device=card,
+                    dtype=torch.bfloat16) * 0.05      # near-uniform rows
+    k = torch.randn((b, s, 2, d), generator=gen, device=card,
+                    dtype=torch.bfloat16) * 0.05
+    v = torch.ones_like(k)
+    o = fa.flash_attention(q, k, v, causal=False, dropout_p=p,
+                           dropout_seed=3).float()
+    kept = o[..., 0] * (1 - p)                 # [b, s, h], each over s keys
+    n = b * s * h * s
+    sigma = (p * (1 - p) / n) ** 0.5
+    assert abs((1 - kept.mean().item()) - p) < 3 * sigma + 2e-3
+    same = fa.flash_attention(q, k, v, causal=False, dropout_p=p,
+                              dropout_seed=3).float()
+    other = fa.flash_attention(q, k, v, causal=False, dropout_p=p,
+                               dropout_seed=4).float()
+    assert torch.equal(o, same) and not torch.equal(o, other)
+
+
+# ---------------------------------------------------------------------------
+# quantized matmul (B5)
+# ---------------------------------------------------------------------------
+
+# fp8: the kernel quantizes to the same e4m3 values as the plain version
+# and sums the same exact products in f32 in another order (tensor-core
+# groups of 32); the plain side is an f32 matmul.  bf16 outputs: one bf16 ulp.  f32 outputs: 2e-5 of the row's
+# magnitude scale (K = 300 terms, f32 sums)
+FP8_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+
+QMM_SHAPES = {   # M, K, N
+    "tile": (128, 128, 128),
+    "ragged": (200, 300, 136),
+    "odd": (77, 65, 51),              # K, N odd: scalar loads and stores
+    "tall": (1024, 512, 96),
+    "k_lt_tile": (33, 16, 40),
+}
+
+
+def _qmm_case(seed, device, dtype, m, k, n):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.05
+                          * (1 + rng.random((n, 1)) * 4)).astype(np.float32))
+    return x.to(device, dtype), w.to(device, dtype)
+
+
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", sorted(QMM_SHAPES))
+def test_quantized_matmul_kernel_matches_plain(card, shape, fmt, dtype,
+                                               layout):
+    x, w = _qmm_case(0, card, dtype, *QMM_SHAPES[shape])
+    # 'nk': the nn.Linear weight read where it lies; 'kn': the flax layout
+    kernel = w.t() if layout == "nk" else w.t().contiguous()
+    before = dict(qm.launch_counts)
+    for x_scale in (None, torch.tensor(0.011, device=card)):   # clips some
+        got = qm.quantized_dot(x, kernel, 1, fmt=fmt, x_scale=x_scale,
+                               impl="cuda")
+        ref = qm.quantized_dot(x, kernel, 1, fmt=fmt, x_scale=x_scale,
+                               impl="torch")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        if fmt == "int8":
+            assert torch.equal(got, ref), (got.float() - ref.float()
+                                           ).abs().max().item()
+        else:
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **FP8_TOL[dtype])
+    before[fmt] += 2
+    assert qm.launch_counts == before
+
+
+def test_quantized_matmul_zero_rows_and_grads(card):
+    """All-zero inputs go through scale 1; the gradient is the
+    straight-through one; auto launches the kernel; CPU tensors and
+    wrong dtypes are refused."""
+    x, w = _qmm_case(1, card, torch.bfloat16, 64, 96, 80)
+    z = qm.quantized_dot(torch.zeros_like(x), w.t(), fmt="int8")
+    assert (z == 0).all()
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = qm.launch_counts["fp8"]
+    y = qm.quantized_dot(xg, wg.t(), fmt="fp8")
+    assert qm.launch_counts["fp8"] == before + 1
+    g = torch.randn_like(y)
+    y.backward(g)
+    torch.testing.assert_close(xg.grad, g @ w, atol=1e-2, rtol=2e-2)
+    torch.testing.assert_close(wg.grad, g.t() @ x, atol=1e-2, rtol=2e-2)
+    assert wg.grad.is_contiguous()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qm.quantized_dot(x.cpu(), w.cpu().t(), impl="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qm.quantized_dot(x.half(), w.half().t(), impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        qm.quantized_dot(x, w.t(), impl="pallas")
+
+
+def test_quantized_model_on_card_matches_plain_path(card):
+    """llama-tiny (head_dim 32) with quant='int8' under save_attn_mlp
+    remat: the loss through the kernel equals the plain path's bitwise
+    and every gradient agrees (the backward matmuls are the same calls),
+    the kernel launches 7 per layer and step, not again in the
+    recompute, and each history advances once."""
+    import dataclasses
+    from torchacc_tpu_torch import get_preset, init_params
+    from torchacc_tpu_torch.models.transformer import (
+        init_quant_state, loss_fn, set_model_config)
+    cfg = get_preset("llama-tiny", dtype=torch.float32, num_layers=2,
+                     vocab_size=512, quant="int8", remat=True,
+                     remat_policy="save_attn_mlp", attention_impl="torch")
+    model = init_params(cfg, seed=0, device=card).requires_grad_(True).train()
+    ids = torch.randint(0, 512, (2, 48), device=card,
+                        generator=torch.Generator(device=card).manual_seed(1))
+    labels = torch.roll(ids, -1, dims=1)
+    results = {}
+    for impl in ("cuda", "torch"):
+        set_model_config(model, dataclasses.replace(cfg, quant_impl=impl))
+        quant, new = init_quant_state(cfg, card), {}
+        before = qm.launch_counts["int8"]
+        loss = loss_fn(model(ids, quant=quant, quant_out=new), labels)
+        loss.backward()
+        launched = qm.launch_counts["int8"] - before
+        assert launched == (7 * cfg.num_layers if impl == "cuda" else 0)
+        assert all((h > 0).sum().item() == 1 and h[0] > 0
+                   for h in new.values()) and len(new) == 14
+        assert all((h == 0).all() for h in quant.values())
+        results[impl] = (loss.detach(), [p.grad.clone()
+                                         for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+    # the forward is bitwise; the embedding gradient is summed with
+    # atomics, in an order that changes from run to run
+    assert torch.equal(results["cuda"][0], results["torch"][0])
+    for a, b in zip(results["cuda"][1], results["torch"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)

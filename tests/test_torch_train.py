@@ -139,6 +139,72 @@ def test_logits_and_every_gradient_match_jax(tiny):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("seed", [0, 41])
+def test_attn_dropout_matches_jax_for_the_same_seed(tiny, seed):
+    """llama-tiny with attn_dropout = 0.1: for the same dropout_seed the
+    port's per-layer seeds and keep masks are the JAX model's, so logits
+    and gradients agree as they do without dropout; with no seed
+    (evaluation) dropout is off."""
+    jcfg, params, cfg = tiny
+    jcfg = dataclasses.replace(jcfg, attn_dropout=0.1)
+    cfg = dataclasses.replace(cfg, attn_dropout=0.1)
+    batch = _batch(6)
+    labels = np.array(jax_shift_labels(jnp.asarray(batch["input_ids"]),
+                                       jnp.asarray(batch["segment_ids"])))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def jloss(p, dropout_seed):
+        logits = JaxLM(jcfg).apply(
+            {"params": p}, jb["input_ids"], positions=jb["positions"],
+            segment_ids=jb["segment_ids"], dropout_seed=dropout_seed)
+        s, c = jax_loss(logits, jnp.asarray(labels))
+        return s / c, logits
+    jp = jax.tree.map(jnp.asarray, params)
+    (_, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+        jp, jnp.asarray(seed, jnp.int32))
+    _, jplain = jloss(jp, None)
+
+    model = params_from_jax(cfg, params, device="cpu", trainable=True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits = model(tb["input_ids"], tb["positions"], tb["segment_ids"],
+                   dropout_seed=seed)
+    loss_fn(logits, torch.from_numpy(labels).long()).backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=2e-5)
+    assert np.abs(np.asarray(jlogits) - np.asarray(jplain)).max() > 1e-3
+    with torch.no_grad():
+        plain = model(tb["input_ids"], tb["positions"], tb["segment_ids"])
+    np.testing.assert_allclose(plain.numpy(), np.asarray(jplain), atol=2e-5)
+    got = params_to_jax(cfg, {n: p.grad for n, p in model.named_parameters()})
+    want = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    for path, g in _leaves(got):
+        ref = want[path]
+        np.testing.assert_allclose(g, ref, atol=2e-3 * np.abs(ref).max(),
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_trainer_seeds_dropout_with_the_step_on_train_steps_only():
+    mc = get_preset("llama-tiny", num_layers=2, hidden_size=64, num_heads=4,
+                    num_kv_heads=2, intermediate_size=128, vocab_size=128,
+                    attn_dropout=0.2)
+    conf = tt.Config(compute=tt.ComputeConfig(dtype=torch.float32))
+    trainer, _ = accelerate(mc, None, conf, device="cpu")
+    trainer.init()
+    seen = []
+    fwd = trainer.model.forward
+
+    def spy(*a, **k):
+        seen.append(k.get("dropout_seed"))
+        return fwd(*a, **k)
+    trainer.model.forward = spy
+    batch = _batch(7, vocab=128)
+    for _ in range(3):
+        trainer.step(batch)
+    e1 = trainer.eval_step(batch)["loss"].item()
+    e2 = trainer.eval_step(batch)["loss"].item()
+    assert seen == [0, 1, 2, None, None] and e1 == e2
+
+
 @pytest.mark.parametrize("cap", [0.0, 30.0])
 def test_fused_ce_matches_jax(cap):
     rng = np.random.default_rng(1)
@@ -331,7 +397,8 @@ def test_bf16_shadow_invariant_and_fit():
 def test_unported_settings_raise():
     mc = get_preset("llama-tiny", num_layers=1)
     for conf in (tt.Config(grad_accum=2),
-                 tt.Config(compute=tt.ComputeConfig(quant="int8")),
+                 tt.Config(compute=tt.ComputeConfig(
+                     quant="int8", quant_sites=("attn", "mlp", "head"))),
                  tt.Config(compute=tt.ComputeConfig(dtype=torch.float16)),
                  tt.Config(memory=tt.MemoryConfig(gc=True,
                                                   gc_policy="offload_dots"))):

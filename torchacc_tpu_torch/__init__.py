@@ -6,23 +6,29 @@ NVIDIA Hopper card.  Every kernel that the JAX package wrote in Pallas
 is written again by hand for ``sm_90a`` under ``csrc/`` and built with
 ``nvcc`` at first use (``ops/_build.py``).
 
-Two slices are ported.  Serving: ``serve.ServeEngine`` over a paged KV
+Three slices are ported.  Serving: ``serve.ServeEngine`` over a paged KV
 cache, driving ``models.TransformerLM`` through
 ``serve.scheduler.PagedDecoder`` and the paged-attention kernel
 (``ops.paged_attention``).  Training: ``train.accelerate`` ->
 ``train.Trainer`` (``step``/``fit``) over ``TransformerLM``'s forward,
 with the flash-attention kernels forward and backward
 (``ops.flash_attention``), the fused linear + CE head, selective remat
-and AdamW over f32 masters with a bf16 compute shadow.  It imports
+and AdamW over f32 masters with a bf16 compute shadow.  Quantized
+training: ``compute.quant`` = 'int8' | 'fp8' runs the forward product of
+the attention and MLP projections through the fused
+quantize-matmul-dequantize kernel (``ops.quantized_matmul``) with
+delayed scaling, its amax histories carried in ``TrainState.quant``.
+It imports
 torch, numpy and the standard library only — never jax, flax or
 torchacc_tpu.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from torchacc_tpu_torch.config import (  # noqa: E402
     ComputeConfig,
     Config,
+    ConfigError,
     MemoryConfig,
     ServeConfig,
 )
@@ -41,7 +47,7 @@ from torchacc_tpu_torch.serve import (  # noqa: E402
 from torchacc_tpu_torch.train import Trainer, accelerate  # noqa: E402
 
 __all__ = [
-    "Config", "ServeConfig", "ComputeConfig", "MemoryConfig", "ModelConfig",
+    "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig", "ModelConfig",
     "TransformerLM", "get_preset", "init_params", "Request", "RequestResult",
     "ServeEngine", "Trainer", "accelerate",
 ]

@@ -7,13 +7,14 @@ shedding, preemption and graceful drain of serving, and the dist, data,
 perf, resilience and obs blocks of training, are not ported yet
 (ROADMAP.md, queue A), so their switches are absent rather than
 silently ignored.  A field that is here but takes a value the port does
-not implement (fp16 with its loss scaler, quantized matmuls, host
-offload, gradient accumulation) raises by name in ``validate``.
+not implement (fp16 with its loss scaler, the quantized vocab head,
+host offload, gradient accumulation) raises by name in ``validate``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Tuple
 
 import torch
 
@@ -98,8 +99,23 @@ class ComputeConfig:
     # Megatron-style main params: the forward and backward read a bf16
     # copy of the f32 masters (train/amp.py bf16_param_shadow)
     bf16_compute_params: bool = False
-    # quantized matmuls: only 'none' is ported (B5 waits, ROADMAP A11)
+    # quantized forward matmuls (ops/quantized_matmul.py): 'int8' | 'fp8'
+    # run the selected dense sites' forward product in the low-precision
+    # format, with delayed per-tensor activation scaling (amax histories
+    # in TrainState.quant) and just-in-time per-channel weight scales;
+    # the backward stays in the compute dtype (straight-through).
+    # 'none' is the unquantized step: no quant state exists
     quant: str = "none"
+    # which dense sites quantize: 'attn' = q/k/v/o projections, 'mlp' =
+    # gate/up/down; 'head' (the vocab projection) is not ported
+    quant_sites: Tuple[str, ...] = ("attn", "mlp")
+    # rolling amax window per site
+    quant_amax_history_len: int = 16
+    # 'auto' (the CUDA kernel for CUDA tensors, the plain version for
+    # CPU tensors) | 'cuda' | 'torch'; the JAX package's auto|pallas|xla
+    quant_impl: str = "auto"
+
+    _QUANT_SITES = ("attn", "mlp", "head")
 
     def validate(self) -> None:
         _check(self.dtype in (torch.bfloat16, torch.float16, torch.float32),
@@ -122,7 +138,21 @@ class ComputeConfig:
                f"compute.matmul_precision invalid: {self.matmul_precision}")
         _check(self.quant in ("none", "int8", "fp8"),
                f"compute.quant must be none|int8|fp8, got {self.quant}")
-        _unported(self.quant == "none", f"compute.quant={self.quant!r}")
+        _check(self.quant_impl in ("auto", "cuda", "torch"),
+               f"compute.quant_impl must be auto|cuda|torch, got "
+               f"{self.quant_impl!r}")
+        _check(self.quant_amax_history_len >= 1,
+               "compute.quant_amax_history_len must be >= 1")
+        if self.quant != "none":
+            _check(len(self.quant_sites) >= 1,
+                   "compute.quant_sites must name at least one site")
+            for s in self.quant_sites:
+                _check(s in self._QUANT_SITES,
+                       f"compute.quant_sites entries must be in "
+                       f"{self._QUANT_SITES}, got {s!r}")
+            _unported("head" not in self.quant_sites,
+                      "compute.quant_sites containing 'head' (the "
+                      "quantized vocab projection)")
 
 
 @dataclass
@@ -156,7 +186,9 @@ class Config:
     serve: ServeConfig = field(default_factory=ServeConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
-    # micro-batches per optimizer step; only 1 is ported (ROADMAP A11)
+    # micro-batches per optimizer step; only 1 is ported (gradient
+    # accumulation, which also threads the quant histories micro by
+    # micro, is still to port: ROADMAP.md)
     grad_accum: int = 1
     # seed of the random weights Trainer.init() makes
     seed: int = 0

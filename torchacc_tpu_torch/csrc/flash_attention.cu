@@ -22,8 +22,20 @@
  * zero gradients.  The backward rebuilds P = exp(s - lse) from the
  * saved LSE and takes dS = P * (dO.V - delta) * (1 - (s/c)^2) * scale
  * with delta = rowsum(dO * O), computed by the caller (as the JAX
- * wrapper does at :555).  ALiBi, dropout and the context-parallel
- * offsets are not ported; the wrapper refuses them.
+ * wrapper does at :555).  ALiBi adds -slope[h] * |i + (sk - sq) - j| to
+ * the score after the scale and the softcap (_alibi_bias, :108), on
+ * every tile; the slopes get no gradient.  Dropout keeps a pair when a
+ * hash of (seed, batch, q head, i, j) — the murmur3-finalizer hash of
+ * ops/_common.py dropout_keep, bit for bit the JAX package's — is at
+ * least p * 2^32, and scales the kept P by 1 / (1 - p) for P.V only:
+ * l and the LSE stay undropped (:240-250), and the backward takes
+ * dS = (P~ * dO.V - P * delta) * ... and dV = P~^T dO with the same keep
+ * bits (_recompute_p, :382); B3 keys the hash by the q head of the
+ * group, not the kv head (:494).  Both are compiled into kernels of
+ * their own (the EXTRA template flag), so the kernels of the plain
+ * training path carry none of their code or registers: with the code
+ * inline, B1 ran 28% slower on an H100 (chip_smoke.py).  The context-parallel offsets are not
+ * ported; the wrapper refuses them.
  *
  * What bounds them on an H100 (3.35 TB/s; 989 TFLOP/s bf16 on tensor
  * cores, 67 TFLOP/s f32 on CUDA cores): at the training shape
@@ -82,11 +94,46 @@ constexpr int kLdP = kTile + kPad; // row stride of the score tiles
 constexpr float kNegInf = -1e30f;
 
 struct Geom {
-  const int* qseg;   // [b, sq] or null
-  const int* kseg;   // [b, sk] or null
+  const int* qseg;      // [b, sq] or null
+  const int* kseg;      // [b, sk] or null
+  const float* alibi;   // [hq] slopes or null
   int sq, sk, hq, hk, causal, wl, wr, shift;
   float scale, softcap;
+  int drop_on;          // dropout on P.V
+  uint32_t drop_seed, drop_thresh;   // keep where hash >= thresh
+  float drop_scale;     // 1 / (1 - p)
 };
+
+// murmur3 finalizer, and the dropout hash of ops/_common.py: a pair is
+// kept when mix32(mix32(base ^ q) ^ mix32(k * K')) >= thresh, with
+// base = mix32(seed + batch * B' + q head)
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+__device__ __forceinline__ uint32_t drop_base(const Geom& g, int bi, int h) {
+  return mix32(g.drop_seed + uint32_t(bi) * 0x85EBCA6Bu + uint32_t(h));
+}
+__device__ __forceinline__ uint32_t drop_row(uint32_t base, int qi) {
+  return mix32(base ^ uint32_t(qi));
+}
+__device__ __forceinline__ uint32_t drop_col(int kj) {
+  return mix32(uint32_t(kj) * 0x9E3779B9u);
+}
+// the factor on a kept / dropped P entry: 1 / (1 - p) or 0
+__device__ __forceinline__ float drop_factor(const Geom& g, uint32_t row, uint32_t col) {
+  return mix32(row ^ col) >= g.drop_thresh ? g.drop_scale : 0.f;
+}
+// dS without the softcap and scale factors: P * (dP - delta), or with
+// dropout P~ * dP - P * delta
+__device__ __forceinline__ float ds_core(bool drop_on, float p, float f, float dp,
+                                         float delta) {
+  return drop_on ? (p * f) * dp - p * delta : p * (dp - delta);
+}
 
 // the CUDA-core kernels are instantiated for float only (bf16 goes to
 // the tensor-core kernels); T stays a parameter of their tile code
@@ -280,8 +327,10 @@ __device__ __forceinline__ int2 q_range(const Geom& g, int k0) {
   return make_int2((begin / kTile) * kTile, end);
 }
 
-// score after scale and softcap, and the softcap chain factor
-__device__ __forceinline__ float cap_score(const Geom& g, float dot, float* dcap) {
+// score after scale, softcap and the ALiBi bias of pair (qi, kj), and
+// the softcap chain factor (taken before the bias lands)
+__device__ __forceinline__ float cap_score(const Geom& g, float dot, bool has_alibi,
+                                           float slope, int qi, int kj, float* dcap) {
   float x = dot * g.scale;
   *dcap = 1.f;
   if (g.softcap > 0.f) {
@@ -289,6 +338,7 @@ __device__ __forceinline__ float cap_score(const Geom& g, float dot, float* dcap
     x = g.softcap * t;
     *dcap = 1.f - t * t;
   }
+  if (has_alibi) x -= slope * fabsf(float(qi + g.shift - kj));
   return x;
 }
 
@@ -313,7 +363,7 @@ constexpr size_t dkv_smem() {
 // B1: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
@@ -333,6 +383,16 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / (g.hq / g.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool has_seg = g.qseg != nullptr;
+  // ALiBi and dropout compile away from the EXTRA = false kernels
+  const bool has_alibi = EXTRA && g.alibi != nullptr;
+  const bool drop_on = EXTRA && g.drop_on;
+  const float slope = has_alibi ? g.alibi[h] : 0.f;
+  uint32_t drow[4] = {0u, 0u, 0u, 0u};
+  if (drop_on) {
+    const uint32_t base = drop_base(g, bi, h);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) drow[i] = drop_row(base, q0 + ty * 4 + i);
+  }
 
   load_tile<T, D>(q_s, q, bi, q0, g.sq, g.hq, h);
   int2 qsr = make_int2(0, 0);
@@ -375,7 +435,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float dcap;
-        const float x = cap_score(g, s[i][j], &dcap);
+        const float x = cap_score(g, s[i][j], has_alibi, slope, q0 + r, k0 + c, &dcap);
         ok[j] = visible(g, q0 + r, k0 + c) && (!has_seg || qseg_s[r] == kseg_s[c]);
         s[i][j] = ok[j] ? x : kNegInf;
         tmax = fmaxf(tmax, s[i][j]);
@@ -386,8 +446,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        p_s[r * kLdP + tx + 16 * j] = p;
+        psum += p;      // l and the LSE stay undropped
+        p_s[r * kLdP + tx + 16 * j] =
+            drop_on ? p * drop_factor(g, drow[i], drop_col(k0 + tx + 16 * j)) : p;
       }
       l[i] = alpha * l[i] + row_sum(psum);
       m[i] = m_new;
@@ -419,7 +480,7 @@ __global__ void __launch_bounds__(kThreads)
 // B2: dq
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
@@ -441,6 +502,16 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / (g.hq / g.hk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool has_seg = g.qseg != nullptr;
+  // ALiBi and dropout compile away from the EXTRA = false kernels
+  const bool has_alibi = EXTRA && g.alibi != nullptr;
+  const bool drop_on = EXTRA && g.drop_on;
+  const float slope = has_alibi ? g.alibi[h] : 0.f;
+  uint32_t drow[4] = {0u, 0u, 0u, 0u};
+  if (drop_on) {
+    const uint32_t base = drop_base(g, bi, h);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) drow[i] = drop_row(base, q0 + ty * 4 + i);
+  }
 
   load_tile<T, D>(q_s, q, bi, q0, g.sq, g.hq, h);
   load_tile<T, D>(do_s, dout, bi, q0, g.sq, g.hq, h);
@@ -488,11 +559,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float dcap;
-        const float x = cap_score(g, s[i][j], &dcap);
+        const float x = cap_score(g, s[i][j], has_alibi, slope, q0 + r, k0 + c, &dcap);
         const bool ok = visible(g, q0 + r, k0 + c) &&
                         (!has_seg || qseg_s[r] == kseg_s[c]);
         const float p = ok ? expf(x - lse_r[i]) : 0.f;
-        ds_s[r * kLdP + c] = p * (dp[i][j] - delta_r[i]) * dcap * g.scale;
+        const float f = drop_on ? drop_factor(g, drow[i], drop_col(k0 + c)) : 1.f;
+        ds_s[r * kLdP + c] = ds_core(drop_on, p, f, dp[i][j], delta_r[i]) * dcap * g.scale;
       }
     }
     __syncthreads();
@@ -516,7 +588,7 @@ __global__ void __launch_bounds__(kThreads)
 // B3: dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
@@ -541,6 +613,9 @@ __global__ void __launch_bounds__(kThreads)
   const int group = g.hq / g.hk;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool has_seg = g.qseg != nullptr;
+  // ALiBi and dropout compile away from the EXTRA = false kernels
+  const bool has_alibi = EXTRA && g.alibi != nullptr;
+  const bool drop_on = EXTRA && g.drop_on;
 
   load_tile<T, D>(k_s, k, bi, k0, g.sk, g.hk, kvh);
   load_tile<T, D>(v_s, v, bi, k0, g.sk, g.hk, kvh);
@@ -558,8 +633,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < C::DPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   const int2 qr = q_range(g, k0);
+  uint32_t dcol[4] = {0u, 0u, 0u, 0u};   // this thread's keys
+  if (drop_on) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dcol[i] = drop_col(k0 + ty * 4 + i);
+  }
   for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
+    const int h = kvh * group + gi;       // ALiBi and dropout go by q head
+    const float slope = has_alibi ? g.alibi[h] : 0.f;
+    const uint32_t dbase = drop_on ? drop_base(g, bi, h) : 0u;
     for (int q0 = qr.x; q0 < qr.y; q0 += kTile) {
       __syncthreads();
       if (has_seg) {
@@ -588,12 +670,14 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
           float dcap;
-          const float x = cap_score(g, s[i][j], &dcap);
+          const float x = cap_score(g, s[i][j], has_alibi, slope, q0 + c, k0 + r, &dcap);
           const bool ok = visible(g, q0 + c, k0 + r) &&
                           (!has_seg || qseg_s[c] == kseg_s[r]);
           const float p = ok ? expf(x - lse_s[c]) : 0.f;
-          pt_s[r * kLdP + c] = p;
-          dst_s[r * kLdP + c] = p * (dp[i][j] - delta_s[c]) * dcap * g.scale;
+          const float f =
+              drop_on ? drop_factor(g, drop_row(dbase, q0 + c), dcol[i]) : 1.f;
+          pt_s[r * kLdP + c] = p * f;      // dV takes the dropped P
+          dst_s[r * kLdP + c] = ds_core(drop_on, p, f, dp[i][j], delta_s[c]) * dcap * g.scale;
         }
       }
       __syncthreads();
@@ -767,7 +851,7 @@ constexpr size_t dkv_mma_smem() {
 }
 
 // B1 on tensor cores
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kMmaThreads)
     fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -787,6 +871,16 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int grp = lane >> 2, tid = lane & 3;
   const int wrow = warp * 16;
   const bool has_seg = g.qseg != nullptr;
+  // ALiBi and dropout compile away from the EXTRA = false kernels
+  const bool has_alibi = EXTRA && g.alibi != nullptr;
+  const bool drop_on = EXTRA && g.drop_on;
+  const float slope = has_alibi ? g.alibi[h] : 0.f;
+  uint32_t drow[2] = {0u, 0u};
+  if (drop_on) {
+    const uint32_t base = drop_base(g, bi, h);
+    drow[0] = drop_row(base, q0 + wrow + grp);
+    drow[1] = drop_row(base, q0 + wrow + grp + 8);
+  }
 
   load_tile_bf16<D, kTile>(q_s, q, bi, q0, g.sq, g.hq, h);
   int2 qsr = make_int2(0, 0);
@@ -828,7 +922,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int e = 0; e < 2; ++e) {
           const int c = n * 8 + tid * 2 + e;
           float dcap;
-          const float x = cap_score(g, s[n][2 * half + e], &dcap);
+          const float x = cap_score(g, s[n][2 * half + e], has_alibi, slope, q0 + r, k0 + c, &dcap);
           const bool ok = visible(g, q0 + r, k0 + c) &&
                           (!has_seg || qseg_s[r] == kseg_s[c]);
           s[n][2 * half + e] = ok ? x : kNegInf;
@@ -845,7 +939,9 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int e = 0; e < 2; ++e) {
           float& x = s[n][2 * half + e];
           x = x == kNegInf ? 0.f : expf(x - m_new);
-          psum += x;
+          psum += x;    // l and the LSE stay undropped
+          if (drop_on)
+            x *= drop_factor(g, drow[half], drop_col(k0 + n * 8 + tid * 2 + e));
         }
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
       psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -877,7 +973,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // B2 on tensor cores
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kMmaThreads)
     bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -900,6 +996,16 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int grp = lane >> 2, tid = lane & 3;
   const int wrow = warp * 16;
   const bool has_seg = g.qseg != nullptr;
+  // ALiBi and dropout compile away from the EXTRA = false kernels
+  const bool has_alibi = EXTRA && g.alibi != nullptr;
+  const bool drop_on = EXTRA && g.drop_on;
+  const float slope = has_alibi ? g.alibi[h] : 0.f;
+  uint32_t drow[2] = {0u, 0u};
+  if (drop_on) {
+    const uint32_t base = drop_base(g, bi, h);
+    drow[0] = drop_row(base, q0 + wrow + grp);
+    drow[1] = drop_row(base, q0 + wrow + grp + 8);
+  }
 
   load_tile_bf16<D, kTile>(q_s, q, bi, q0, g.sq, g.hq, h);
   load_tile_bf16<D, kTile>(do_s, dout, bi, q0, g.sq, g.hq, h);
@@ -948,11 +1054,12 @@ __global__ void __launch_bounds__(kMmaThreads)
         const int r = wrow + grp + 8 * half;
         const int c = n * 8 + tid * 2 + (e & 1);
         float dcap;
-        const float x = cap_score(g, s[n][e], &dcap);
+        const float x = cap_score(g, s[n][e], has_alibi, slope, q0 + r, k0 + c, &dcap);
         const bool ok = visible(g, q0 + r, k0 + c) &&
                         (!has_seg || qseg_s[r] == kseg_s[c]);
         const float p = ok ? expf(x - lse_r[half]) : 0.f;
-        s[n][e] = p * (dp[n][e] - delta_r[half]) * dcap * g.scale;
+        const float f = drop_on ? drop_factor(g, drow[half], drop_col(k0 + c)) : 1.f;
+        s[n][e] = ds_core(drop_on, p, f, dp[n][e], delta_r[half]) * dcap * g.scale;
       }
     mma_pv<D, kTile / 16>(acc, s, k_s, lane);
   }
@@ -971,7 +1078,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // B3 on tensor cores: each warp owns 16 keys, and walks the visible q
 // rows 32 at a time
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kMmaThreads)
     bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -998,6 +1105,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int grp = lane >> 2, tid = lane & 3;
   const int wrow = warp * 16;
   const bool has_seg = g.qseg != nullptr;
+  // ALiBi and dropout compile away from the EXTRA = false kernels
+  const bool has_alibi = EXTRA && g.alibi != nullptr;
+  const bool drop_on = EXTRA && g.drop_on;
 
   load_tile_bf16<D, kTile>(k_s, k, bi, k0, g.sk, g.hk, kvh);
   load_tile_bf16<D, kTile>(v_s, v, bi, k0, g.sk, g.hk, kvh);
@@ -1023,8 +1133,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   if (g.wl >= 0) qend = min(qend, khi + g.wl - g.shift + 1);
   qbeg = (qbeg / kBqDkv) * kBqDkv;
 
+  uint32_t dcol[2] = {0u, 0u};            // this thread's keys
+  if (drop_on) {
+    dcol[0] = drop_col(k0 + wrow + grp);
+    dcol[1] = drop_col(k0 + wrow + grp + 8);
+  }
   for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
+    const int h = kvh * group + gi;       // ALiBi and dropout go by q head
+    const float slope = has_alibi ? g.alibi[h] : 0.f;
+    const uint32_t dbase = drop_on ? drop_base(g, bi, h) : 0u;
     for (int q0 = qbeg; q0 < qend; q0 += kBqDkv) {
       __syncthreads();
       if (has_seg) {
@@ -1053,12 +1170,14 @@ __global__ void __launch_bounds__(kMmaThreads)
           const int r = wrow + grp + 8 * (e >> 1);     // key
           const int c = n * 8 + tid * 2 + (e & 1);     // q row
           float dcap;
-          const float x = cap_score(g, st[n][e], &dcap);
+          const float x = cap_score(g, st[n][e], has_alibi, slope, q0 + c, k0 + r, &dcap);
           const bool ok = visible(g, q0 + c, k0 + r) &&
                           (!has_seg || qseg_s[c] == kseg_s[r]);
           const float p = ok ? expf(x - lse_s[c]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - delta_s[c]) * dcap * g.scale;
+          const float f =
+              drop_on ? drop_factor(g, drop_row(dbase, q0 + c), dcol[e >> 1]) : 1.f;
+          st[n][e] = p * f;                // dV takes the dropped P
+          dpt[n][e] = ds_core(drop_on, p, f, dpt[n][e], delta_s[c]) * dcap * g.scale;
         }
       mma_pv<D, kBqDkv / 16>(dv_acc, st, do_s, lane);
       mma_pv<D, kBqDkv / 16>(dk_acc, dpt, q_s, lane);
@@ -1093,46 +1212,46 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int D>
+template <typename T, int D, bool EXTRA>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int b, const Geom& g, cudaStream_t st) {
   const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
   if constexpr (kMma<T>) {
     constexpr size_t smem = fwd_mma_smem<D>();
-    static const cudaError_t attr = set_smem(fwd_mma_kernel<D>, smem);
+    static const cudaError_t attr = set_smem(fwd_mma_kernel<D, EXTRA>, smem);
     if (attr != cudaSuccess) return attr;
-    fwd_mma_kernel<D><<<grid, kMmaThreads, smem, st>>>(
+    fwd_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), g);
   } else {
     constexpr size_t smem = fwd_smem<D>();
-    static const cudaError_t attr = set_smem(fwd_kernel<T, D>, smem);
+    static const cudaError_t attr = set_smem(fwd_kernel<T, D, EXTRA>, smem);
     if (attr != cudaSuccess) return attr;
-    fwd_kernel<T, D><<<grid, kThreads, smem, st>>>(
+    fwd_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), g);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool EXTRA>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int b, const Geom& g, cudaStream_t st) {
   const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
   if constexpr (kMma<T>) {
     constexpr size_t smem = dq_mma_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dq_mma_kernel<D>, smem);
+    static const cudaError_t attr = set_smem(bwd_dq_mma_kernel<D, EXTRA>, smem);
     if (attr != cudaSuccess) return attr;
-    bwd_dq_mma_kernel<D><<<grid, kMmaThreads, smem, st>>>(
+    bwd_dq_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dq), g);
   } else {
     constexpr size_t smem = dq_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dq_kernel<T, D>, smem);
+    static const cudaError_t attr = set_smem(bwd_dq_kernel<T, D, EXTRA>, smem);
     if (attr != cudaSuccess) return attr;
-    bwd_dq_kernel<T, D><<<grid, kThreads, smem, st>>>(
+    bwd_dq_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dq), g);
@@ -1140,24 +1259,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool EXTRA>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int b, const Geom& g, cudaStream_t st) {
   const dim3 grid((g.sk + kTile - 1) / kTile, g.hk, b);
   if constexpr (kMma<T>) {
     constexpr size_t smem = dkv_mma_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dkv_mma_kernel<D>, smem);
+    static const cudaError_t attr = set_smem(bwd_dkv_mma_kernel<D, EXTRA>, smem);
     if (attr != cudaSuccess) return attr;
-    bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, smem, st>>>(
+    bwd_dkv_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), g);
   } else {
     constexpr size_t smem = dkv_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dkv_kernel<T, D>, smem);
+    static const cudaError_t attr = set_smem(bwd_dkv_kernel<T, D, EXTRA>, smem);
     if (attr != cudaSuccess) return attr;
-    bwd_dkv_kernel<T, D><<<grid, kThreads, smem, st>>>(
+    bwd_dkv_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), g);
@@ -1165,14 +1284,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-Geom make_geom(const void* qseg, const void* kseg, int sq, int sk, int hq,
-               int hk, int causal, int wl, int wr, float scale, float softcap) {
+Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, int sk,
+               int hq, int hk, int causal, int wl, int wr, float scale, float softcap,
+               int drop_on, unsigned drop_seed, unsigned drop_thresh, float drop_scale) {
   Geom g;
   g.qseg = static_cast<const int*>(qseg);
   g.kseg = static_cast<const int*>(kseg);
+  g.alibi = static_cast<const float*>(alibi);
   g.sq = sq; g.sk = sk; g.hq = hq; g.hk = hk;
   g.causal = causal; g.wl = wl; g.wr = wr; g.shift = sk - sq;
   g.scale = scale; g.softcap = softcap;
+  g.drop_on = drop_on; g.drop_seed = drop_seed; g.drop_thresh = drop_thresh;
+  g.drop_scale = drop_scale;
   return g;
 }
 
@@ -1180,48 +1303,65 @@ Geom make_geom(const void* qseg, const void* kseg, int sq, int sk, int hq,
 
 // The C interface.  q/k/v/dout/o/dq/dk/dv are BSHD and contiguous, of
 // dtype 0 = float32 or 1 = bfloat16; lse and delta are [b, hq, sq]
-// float32; qseg/kseg are [b, sq] / [b, sk] int32, or both null.  Each
+// float32; qseg/kseg are [b, sq] / [b, sk] int32, or both null; alibi is
+// [hq] float32 slopes or null; with drop_on a pair is kept when its hash
+// (drop_seed) is >= drop_thresh and kept P entries are scaled by
+// drop_scale.  Each
 // returns the cudaError_t of its launch (0 = success), launches on
 // `stream` and does not synchronise.
+// ALiBi and dropout have kernels of their own (EXTRA), so that the
+// kernels of the plain training path carry none of their code
+#define FLASH_DISPATCH_D(LAUNCH, T, DD, ...)                               \
+  do {                                                                     \
+    if (g.alibi != nullptr || g.drop_on) return LAUNCH<T, DD, true>(__VA_ARGS__); \
+    return LAUNCH<T, DD, false>(__VA_ARGS__);                              \
+  } while (0)
 #define FLASH_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                     \
-    if (dtype == 0 && d == 32) return LAUNCH<float, 32>(__VA_ARGS__);      \
-    if (dtype == 0 && d == 128) return LAUNCH<float, 128>(__VA_ARGS__);    \
-    if (dtype == 1 && d == 32) return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__); \
-    if (dtype == 1 && d == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); \
+    if (dtype == 0 && d == 32) FLASH_DISPATCH_D(LAUNCH, float, 32, __VA_ARGS__); \
+    if (dtype == 0 && d == 128) FLASH_DISPATCH_D(LAUNCH, float, 128, __VA_ARGS__); \
+    if (dtype == 1 && d == 32) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 32, __VA_ARGS__); \
+    if (dtype == 1 && d == 128) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 128, __VA_ARGS__); \
     return cudaErrorInvalidValue;                                          \
   } while (0)
 
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* qseg,
-    const void* kseg, void* o, void* lse, int b, int sq, int sk, int hq,
-    int hk, int d, int causal, int wl, int wr, float scale, float softcap,
+    const void* kseg, const void* alibi, void* o, void* lse, int b, int sq, int sk,
+    int hq, int hk, int d, int causal, int wl, int wr, float scale, float softcap,
+    int drop_on, unsigned drop_seed, unsigned drop_thresh, float drop_scale,
     int dtype, void* stream) {
   if (b == 0 || sq == 0) return 0;
-  const Geom g = make_geom(qseg, kseg, sq, sk, hq, hk, causal, wl, wr, scale, softcap);
+  const Geom g = make_geom(qseg, kseg, alibi, sq, sk, hq, hk, causal, wl, wr, scale,
+                           softcap, drop_on, drop_seed, drop_thresh, drop_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, b, g, st);
 }
 
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* qseg,
-    const void* kseg, const void* dout, const void* lse, const void* delta,
-    void* dq, int b, int sq, int sk, int hq, int hk, int d, int causal, int wl,
-    int wr, float scale, float softcap, int dtype, void* stream) {
+    const void* kseg, const void* alibi, const void* dout, const void* lse,
+    const void* delta, void* dq, int b, int sq, int sk, int hq, int hk, int d,
+    int causal, int wl, int wr, float scale, float softcap, int drop_on,
+    unsigned drop_seed, unsigned drop_thresh, float drop_scale, int dtype,
+    void* stream) {
   if (b == 0 || sq == 0) return 0;
-  const Geom g = make_geom(qseg, kseg, sq, sk, hq, hk, causal, wl, wr, scale, softcap);
+  const Geom g = make_geom(qseg, kseg, alibi, sq, sk, hq, hk, causal, wl, wr, scale,
+                           softcap, drop_on, drop_seed, drop_thresh, drop_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, b, g, st);
 }
 
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* qseg,
-    const void* kseg, const void* dout, const void* lse, const void* delta,
-    void* dk, void* dv, int b, int sq, int sk, int hq, int hk, int d,
-    int causal, int wl, int wr, float scale, float softcap, int dtype,
+    const void* kseg, const void* alibi, const void* dout, const void* lse,
+    const void* delta, void* dk, void* dv, int b, int sq, int sk, int hq, int hk,
+    int d, int causal, int wl, int wr, float scale, float softcap, int drop_on,
+    unsigned drop_seed, unsigned drop_thresh, float drop_scale, int dtype,
     void* stream) {
   if (b == 0 || sk == 0) return 0;
-  const Geom g = make_geom(qseg, kseg, sq, sk, hq, hk, causal, wl, wr, scale, softcap);
+  const Geom g = make_geom(qseg, kseg, alibi, sq, sk, hq, hk, causal, wl, wr, scale,
+                           softcap, drop_on, drop_seed, drop_thresh, drop_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, b, g, st);
 }

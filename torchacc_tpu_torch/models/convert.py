@@ -16,6 +16,14 @@ leaves (``jax.tree.map(np.asarray, params)``)::
     lm_head.kernel                       [h, V]   (absent when tied)
 
 flax kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``.
+
+``quant_from_jax`` / ``quant_to_jax`` carry the delayed-scaling amax
+histories of the quantized matmul sites the same way: the flax
+``'quant'`` collection, which the JAX model keeps stacked over the
+layers whether or not it scans them
+(``layers.block.<attn|mlp>.<linear>.amax_history [L, len]``), against the
+port's ``TrainState.quant`` (``layers.<i>.<attn|mlp>.<linear>`` ->
+``[len]``).
 """
 
 from __future__ import annotations
@@ -25,7 +33,11 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from torchacc_tpu_torch.models.transformer import ModelConfig, TransformerLM
+from torchacc_tpu_torch.models.transformer import (
+    ModelConfig,
+    TransformerLM,
+    quant_site_names,
+)
 from torchacc_tpu_torch.ops._common import resolve_device
 
 
@@ -109,3 +121,42 @@ def params_to_jax(cfg: ModelConfig,
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"kernel": t("lm_head.weight").T}
     return tree
+
+
+def quant_from_jax(cfg: ModelConfig, tree: Mapping,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> Optional[Dict[str, torch.Tensor]]:
+    """The port's amax histories (``TrainState.quant``) from the flax
+    ``'quant'`` collection ``tree`` (numpy leaves), on the card unless
+    ``device`` says otherwise; None when ``cfg`` quantizes no site."""
+    names = quant_site_names(cfg)
+    if not names:
+        return None
+    device = resolve_device(device)
+    blk = tree["layers"]["block"]
+    out = {}
+    for name in names:
+        _, i, site, lin = name.split(".")
+        hist = np.asarray(blk[site][lin]["amax_history"])[int(i)]
+        if hist.shape != (cfg.quant_amax_history_len,):
+            raise ValueError(
+                f"{name}: history of shape {hist.shape}, expected "
+                f"({cfg.quant_amax_history_len},)")
+        out[name] = _t(hist, device, torch.float32)
+    return out
+
+
+def quant_to_jax(cfg: ModelConfig,
+                 quant: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`quant_from_jax`: the flax ``'quant'``
+    collection (stacked ``[L, len]`` f32 numpy leaves)."""
+    blk: Dict = {}
+    for name in quant_site_names(cfg):
+        _, i, site, lin = name.split(".")
+        rows = blk.setdefault(site, {}).setdefault(lin, [])
+        assert len(rows) == int(i)
+        rows.append(quant[name].detach().float().cpu().numpy())
+    return {"layers": {"block": {
+        site: {lin: {"amax_history": np.stack(rows)}
+               for lin, rows in lins.items()}
+        for site, lins in blk.items()}}}

@@ -5,8 +5,21 @@ transformer.py, Llama subset).
 every field is there, so a JAX config maps onto it field by field, but
 the port implements only the Llama family — rmsnorm, swiglu, plain RoPE
 (``rope_theta``, ``rope_scale``), GQA, ``qkv_bias``, ``tie_embeddings``
-and ``attn_logit_softcap``.  The serving forward (serve/scheduler.py)
-and the training forward here both reject the rest by name.
+and ``attn_logit_softcap`` — plus, in the training forward, attention
+dropout (``attn_dropout``) and quantized forward matmuls (``quant``,
+``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
+``quant_impl``).  The serving forward (serve/scheduler.py) and the
+training forward here both reject the rest by name.
+
+Quantized sites keep ``nn.Linear``'s parameter names and shapes:
+``quant`` flips execution, never layout.  Their delayed-scaling amax
+histories are not held by the modules.  As the flax ``'quant'``
+collection is passed to ``apply``, ``forward`` takes them as ``quant``
+(site name -> history) and, on a train step, writes the advanced ones
+into the dict ``quant_out``; it never changes a history in place.  So a
+checkpoint region that re-runs in the backward reads the histories the
+step started with, computes the same scales, and writes the same new
+histories again: the ``Trainer`` commits them once, after the backward.
 
 ``TransformerLM`` is an ``nn.Module`` that holds the weights in
 ``nn.Linear`` layout (``[out, in]``).  Its ``forward`` is the training
@@ -26,6 +39,7 @@ compare the two packages carry the JAX weights over with
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Union
 
@@ -36,6 +50,10 @@ from torch import nn
 from torchacc_tpu_torch.models.generate import embed
 from torchacc_tpu_torch.ops._common import resolve_device
 from torchacc_tpu_torch.ops.attn import attention
+from torchacc_tpu_torch.ops.quantized_matmul import (
+    amax_history_init,
+    quant_linear,
+)
 from torchacc_tpu_torch.utils.remat import checkpoint_block, checkpoint_name
 
 
@@ -171,15 +189,18 @@ LLAMA_FIELDS = frozenset({
     "rope_scale", "norm_eps", "qkv_bias", "tie_embeddings",
     "attn_logit_softcap", "query_scale", "dtype", "param_dtype",
 })
-# the training forward also implements remat and the attention choice;
-# every other field must keep its default
-_TRAIN_FIELDS = LLAMA_FIELDS | {"remat", "remat_policy", "attention_impl"}
+# the training forward also implements remat, the attention choice,
+# attention dropout and the quantized matmuls; every other field must
+# keep its default
+_TRAIN_FIELDS = LLAMA_FIELDS | {
+    "remat", "remat_policy", "attention_impl", "attn_dropout", "quant",
+    "quant_sites", "quant_amax_history_len", "quant_impl"}
 # fields that pick how the JAX package lays out or shards the step, or
 # knobs inert while their feature is off; none changes what one device
 # computes
 _TRAIN_INERT = frozenset({
-    "scan_layers", "cache_len", "quant_sites", "quant_amax_history_len",
-    "quant_impl", "pp_num_micro", "pp_virtual", "logical_axis_rules",
+    "scan_layers", "cache_len", "pp_num_micro", "pp_virtual",
+    "logical_axis_rules",
     "tp_vocab_head", "num_experts_per_tok", "router_aux_weight",
     "moe_dispatch", "moe_renorm_topk", "moe_capacity_factor",
     "parallel_block_shared_norm", "norm_bias",
@@ -198,13 +219,93 @@ def check_training_supported(cfg: ModelConfig) -> None:
             "the training forward of torchacc_tpu_torch does not support "
             + ", ".join(bad) + " (it implements rmsnorm, swiglu, plain "
             "RoPE, GQA, qkv_bias, tie_embeddings and attn_logit_softcap)")
+    if cfg.quant != "none" and "head" in cfg.quant_sites:
+        raise NotImplementedError(
+            "quant_sites includes 'head': the quantized vocab projection "
+            "is not ported to torchacc_tpu_torch yet (the fused CE head "
+            "stays in the compute dtype, and the materialised quantized "
+            "head waits for the model-breadth slice, ROADMAP.md A10); "
+            "drop 'head' from quant_sites")
 
 
-def dense(cfg: ModelConfig, x: torch.Tensor,
-          lin: nn.Linear) -> torch.Tensor:
+_M32 = 0xFFFFFFFF
+
+
+def _layer_seed(dropout_seed: int, layer_idx: int) -> int:
+    """Decorrelate dropout across layers: mix the layer index into the
+    seed on uint32 arithmetic (``_layer_seed`` of the JAX package)."""
+    return ((int(dropout_seed) & _M32) + layer_idx * 0x9E3779B9) & _M32
+
+
+def quant_site_on(cfg: ModelConfig, site: str) -> bool:
+    """Whether a dense ``site`` ('attn' | 'mlp' | 'head') runs the
+    quantized matmul.  Decode always runs the plain dense; the parameter
+    layouts are the same either way, so this only picks execution."""
+    return (cfg.quant != "none" and site in cfg.quant_sites
+            and not cfg.decode)
+
+
+_SITE_LINEARS = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
+                 "mlp": ("gate_proj", "up_proj", "down_proj")}
+
+
+def quant_site_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The name of every quantized matmul site of ``cfg``, in forward
+    order: ``layers.<i>.<attn|mlp>.<linear>`` (the module's path)."""
+    return tuple(f"layers.{i}.{site}.{lin}"
+                 for i in range(cfg.num_layers)
+                 for site, lins in _SITE_LINEARS.items()
+                 if quant_site_on(cfg, site) for lin in lins)
+
+
+def init_quant_state(cfg: ModelConfig,
+                     device: Optional[Union[str, torch.device]] = None):
+    """Fresh (all zero: "no observation yet") amax histories for every
+    quantized site, on the card unless ``device`` says otherwise; None
+    when ``cfg.quant`` is 'none'."""
+    names = quant_site_names(cfg)
+    if not names:
+        return None
+    device = resolve_device(device)
+    return {n: amax_history_init(cfg.quant_amax_history_len, device=device)
+            for n in names}
+
+
+class QuantScope:
+    """The delayed-scaling histories of one forward: sites read theirs
+    from ``histories`` and, when ``new`` is a dict (a train step), put
+    the advanced one there.  With ``new`` None (evaluation) nothing is
+    written."""
+
+    def __init__(self, histories, new=None):
+        self.histories = histories
+        self.new = new
+
+    def linear(self, cfg: ModelConfig, name: str, x: torch.Tensor,
+               lin: nn.Linear) -> torch.Tensor:
+        if name not in self.histories:
+            raise KeyError(
+                f"no amax history for the quantized site {name!r}: pass "
+                f"the TrainState.quant of this model config")
+        y, hist = quant_linear(
+            x, lin.weight, lin.bias, self.histories[name], fmt=cfg.quant,
+            impl=cfg.quant_impl, dtype=cfg.dtype,
+            update=self.new is not None)
+        if self.new is not None:
+            self.new[name] = hist
+        return y
+
+
+def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
+          quant: Optional[QuantScope] = None,
+          name: Optional[str] = None) -> torch.Tensor:
     """A projection with both operands in the compute dtype (flax
     ``Dense(dtype=cfg.dtype)``); ``.to`` is free when the weight already
-    is (the bf16 shadow)."""
+    is (the bf16 shadow).  With ``quant`` the product is the quantized
+    one of the site ``name`` (``_quant_dense`` of the JAX package); the
+    bias is added after it, in the compute dtype."""
+    if quant is not None:
+        return quant.linear(cfg, name, x, lin)
     dt = cfg.dtype
     y = F.linear(x.to(dt), lin.weight.to(dt))
     if lin.bias is not None:
@@ -225,28 +326,43 @@ class Attention(nn.Module):
                                 **factory)
         self.o_proj = nn.Linear(cfg.num_heads * d, h, bias=False, **factory)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, dropout_seed=None,
+                quant=None, name="attn"):
         """``Attention.__call__`` (:480) without the KV cache: q/k/v
         projections, RoPE, causal attention over ``segment_ids``, o
         projection.  The ``checkpoint_name`` sites are the JAX package's
-        names for the selective remat policies."""
+        names for the selective remat policies.  ``dropout_seed`` (this
+        layer's) turns attention dropout on when ``cfg.attn_dropout`` is
+        set; ``quant`` is the forward's :class:`QuantScope` and ``name``
+        this module's path, which prefixes its sites' names."""
         cfg = self.cfg
         b, s = x.shape[:2]
         d = cfg.head_size
+        qs = quant if quant_site_on(cfg, "attn") else None
         with checkpoint_name("qkv_proj"):
-            q = dense(cfg, x, self.q_proj).view(b, s, cfg.num_heads, d)
-            k = dense(cfg, x, self.k_proj).view(b, s, cfg.kv_heads, d)
-            v = dense(cfg, x, self.v_proj).view(b, s, cfg.kv_heads, d)
+            q = dense(cfg, x, self.q_proj, qs, f"{name}.q_proj").view(
+                b, s, cfg.num_heads, d)
+            k = dense(cfg, x, self.k_proj, qs, f"{name}.k_proj").view(
+                b, s, cfg.kv_heads, d)
+            v = dense(cfg, x, self.v_proj, qs, f"{name}.v_proj").view(
+                b, s, cfg.kv_heads, d)
         rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
               else positions)
         q, k = rope(q, k, rp, cfg)
+        dropout_p, seed = 0.0, None
+        if cfg.attn_dropout > 0.0 and dropout_seed is not None:
+            dropout_p, seed = cfg.attn_dropout, dropout_seed
         out = attention(q, k, v, causal=True, window=cfg.window,
                         scale=cfg.query_scale, q_segment_ids=segment_ids,
-                        kv_segment_ids=segment_ids,
+                        kv_segment_ids=segment_ids, dropout_p=dropout_p,
+                        dropout_seed=seed,
                         logit_softcap=cfg.attn_logit_softcap,
                         impl=cfg.attention_impl)
         with checkpoint_name("attn_out"):
-            return dense(cfg, out.reshape(b, s, -1), self.o_proj)
+            # the JAX o_proj contracts (heads, d); flattened it is the
+            # same [M, K] @ [K, N]
+            return dense(cfg, out.reshape(b, s, -1), self.o_proj, qs,
+                         f"{name}.o_proj")
 
 
 class Mlp(nn.Module):
@@ -258,14 +374,16 @@ class Mlp(nn.Module):
         self.up_proj = nn.Linear(h, f, bias=False, **factory)
         self.down_proj = nn.Linear(f, h, bias=False, **factory)
 
-    def forward(self, x):
+    def forward(self, x, quant=None, name="mlp"):
         """SwiGLU ``Mlp.__call__`` (:665)."""
         cfg = self.cfg
+        qs = quant if quant_site_on(cfg, "mlp") else None
         with checkpoint_name("mlp_gate_up"):
-            gate = dense(cfg, x, self.gate_proj)
-            up = dense(cfg, x, self.up_proj)
+            gate = dense(cfg, x, self.gate_proj, qs, f"{name}.gate_proj")
+            up = dense(cfg, x, self.up_proj, qs, f"{name}.up_proj")
         with checkpoint_name("mlp_out"):
-            return dense(cfg, F.silu(gate) * up, self.down_proj)
+            return dense(cfg, F.silu(gate) * up, self.down_proj, qs,
+                         f"{name}.down_proj")
 
 
 class Block(nn.Module):
@@ -277,12 +395,14 @@ class Block(nn.Module):
         self.ln2 = RMSNorm(cfg.hidden_size, **factory)
         self.mlp = Mlp(cfg, **factory)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, dropout_seed=None,
+                quant=None, name="block"):
         """Pre-norm ``Block.__call__`` (:722)."""
         cfg = self.cfg
         h = x + self.attn(rms_norm(cfg, x, self.ln1.weight), positions,
-                          segment_ids)
-        return h + self.mlp(rms_norm(cfg, h, self.ln2.weight))
+                          segment_ids, dropout_seed, quant, f"{name}.attn")
+        return h + self.mlp(rms_norm(cfg, h, self.ln2.weight), quant,
+                            f"{name}.mlp")
 
 
 class TransformerLM(nn.Module):
@@ -318,26 +438,49 @@ class TransformerLM(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                dropout_seed: Optional[int] = None,
+                quant=None, quant_out=None) -> torch.Tensor:
         """``TransformerLM.__call__`` (:853): f32 logits ``[b, s, V]``, or
         with ``return_hidden`` the final-normed hidden in the compute
         dtype (the fused CE head applies the vocab projection itself).
         ``positions`` default to ``arange``; ``segment_ids`` mark packed
         documents.  Under ``cfg.remat`` each block is a checkpoint
-        region with the selective policy ``cfg.remat_policy``."""
+        region with the selective policy ``cfg.remat_policy``.
+
+        ``dropout_seed``: attention dropout is on iff ``cfg.attn_dropout``
+        is set and the caller gives a seed (a host int: train steps do,
+        evaluation does not); one seed fans out to per-layer seeds.
+        ``quant``: with ``cfg.quant`` on, the amax histories by site name
+        (``TrainState.quant``, ``init_quant_state``); they are read, never
+        changed.  ``quant_out``: a dict that receives each site's
+        advanced history (a train step; the flax mutable collection);
+        None reads the scales and records nothing (evaluation)."""
         cfg = self.cfg
         check_training_supported(cfg)
+        scope = None
+        if quant_site_names(cfg):
+            if quant is None:
+                raise ValueError(
+                    "quant != 'none' but no amax histories were passed to "
+                    "forward(): thread TrainState.quant through it "
+                    "(init_quant_state(cfg) makes fresh ones)")
+            scope = QuantScope(quant, quant_out)
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
         x = embed(cfg, self, input_ids)
         remat = cfg.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
+        for i, layer in enumerate(self.layers):
+            kw = dict(dropout_seed=_layer_seed(dropout_seed, i) if drop
+                      else None, quant=scope, name=f"layers.{i}")
             if remat:
-                x = checkpoint_block(layer, cfg.remat_policy, x, positions,
+                x = checkpoint_block(functools.partial(layer, **kw),
+                                     cfg.remat_policy, x, positions,
                                      segment_ids)
             else:
-                x = layer(x, positions, segment_ids)
+                x = layer(x, positions, segment_ids, **kw)
         if return_hidden:
             return rms_norm(cfg, x, self.final_norm.weight)
         logits = head_logits(cfg, self, x)

@@ -14,8 +14,12 @@ at position ``i + sk - sq``); the window is ``(left, right)`` with -1
 unbounded; segment ids ``[batch, seq]`` mask pairs from different
 documents; a row that sees no key gives zeros and ``lse = NEG_INF``.
 Scores, softmax and both products run in f32; outputs are cast back to
-the inputs' dtype.  ALiBi, dropout and the context-parallel offsets are
-not ported (ROADMAP.md, queue B).
+the inputs' dtype.  ALiBi adds ``-slope[h] * |i + (sk - sq) - j|`` after
+the scale and the softcap; dropout keeps a pair by the coordinate hash
+of ``ops/_common.py`` (bit for bit the JAX package's) and scales the
+kept probabilities by ``1 / (1 - p)`` for the P @ V product only, so the
+LSE stays that of the undropped softmax.  The context-parallel offsets
+are not ported (ROADMAP.md, A12).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from torchacc_tpu_torch.ops._common import NEG_INF
+from torchacc_tpu_torch.ops._common import NEG_INF, dropout_keep
 
 
 def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
@@ -67,16 +71,40 @@ def _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids):
     return mask[:, None] if mask.ndim == 3 else mask     # [b|1, 1?, q, k]
 
 
-def _scores(q, k, scale, logit_softcap):
-    """f32 ``[b, h, q, k]`` scores after the scale and the softcap, and
-    the softcap's chain factor ``1 - (s / c)^2`` (1.0 when off)."""
+def _scores(q, k, scale, logit_softcap, alibi_slopes=None):
+    """f32 ``[b, h, q, k]`` scores after the scale, the softcap and the
+    ALiBi bias, and the softcap's chain factor ``1 - (s / c)^2`` (1.0
+    when off), taken before the bias lands."""
     kr = _repeat_kv(k, q.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
     dcap = 1.0
     if logit_softcap > 0.0:
         s = logit_softcap * torch.tanh(s / logit_softcap)
         dcap = 1.0 - (s / logit_softcap) ** 2
+    if alibi_slopes is not None:
+        sq, sk = q.shape[1], k.shape[1]
+        q_pos = torch.arange(sq, dtype=torch.float32, device=q.device) \
+            + (sk - sq)
+        k_pos = torch.arange(sk, dtype=torch.float32, device=q.device)
+        dist = (q_pos[:, None] - k_pos[None, :]).abs()
+        s = s + (-alibi_slopes.detach().float()[:, None, None] * dist[None])
     return s, dcap
+
+
+def _dropped(p, dropout_p, dropout_seed):
+    """``p [b, h, q, k]`` with dropout applied: kept entries scaled by
+    ``1 / (1 - p)``, the rest zero (``p`` itself when dropout is off)."""
+    if dropout_p <= 0.0:
+        return p
+    b, h, sq, sk = p.shape
+    dev = p.device
+    keep = dropout_keep(
+        0 if dropout_seed is None else dropout_seed,
+        torch.arange(b, device=dev)[:, None, None],
+        torch.arange(h, device=dev)[None, :, None],
+        torch.arange(sq, device=dev), torch.arange(sk, device=dev),
+        dropout_p)
+    return torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_p))
 
 
 def attention_reference(
@@ -89,6 +117,9 @@ def attention_reference(
     scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
     return_lse: bool = False,
     logit_softcap: float = 0.0,
 ):
@@ -96,11 +127,12 @@ def attention_reference(
     b, sq, hq, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    s, _ = _scores(q, k, scale, logit_softcap)
+    s, _ = _scores(q, k, scale, logit_softcap, alibi_slopes)
     mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
     s = torch.where(mask, s, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)                       # [b, h, q]
     probs = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    probs = _dropped(probs, dropout_p, dropout_seed)
     vr = _repeat_kv(v, hq)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vr.float()).to(q.dtype)
     if return_lse:
@@ -125,28 +157,33 @@ def attention_reference_bwd(
     scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
     logit_softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain flash-style backward from saved ``(o, lse)``: ``(dq, dk,
     dv)``, GQA grads summed over each kv head's group.  With
-    ``delta = rowsum(dO * O)``: ``dS = P * (dO V^T - delta) * dcap``."""
+    ``delta = rowsum(dO * O)`` and ``P~`` the dropout-scaled ``P``:
+    ``dS = (P~ * dO V^T - P * delta) * dcap``, ``dV = P~^T dO``."""
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if scale is None:
         scale = d ** -0.5
     group = hq // hk
-    s, dcap = _scores(q, k, scale, logit_softcap)
+    s, dcap = _scores(q, k, scale, logit_softcap, alibi_slopes)
     mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
     p = torch.where(mask, torch.exp(s - lse[..., None].float()), 0.0)
+    p_tilde = _dropped(p, dropout_p, dropout_seed)
     kr = _repeat_kv(k, hq).float()
     vr = _repeat_kv(v, hq).float()
     qf, dof = q.float(), do.float()
     delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
-    ds = (p * dp - p * delta[..., None]) * dcap * scale
+    ds = (p_tilde * dp - p * delta[..., None]) * dcap * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_tilde, dof)
     if group > 1:
         dk = dk.reshape(b, sk, hk, group, d).sum(dim=3)
         dv = dv.reshape(b, sk, hk, group, d).sum(dim=3)

@@ -1,6 +1,7 @@
 """Flash attention forward and backward (the port of
 torchacc_tpu/ops/flash_attention.py): causal, sliding window, packed
-segment ids, GQA/MQA, score softcap, and the per-row log-sum-exp.
+segment ids, GQA/MQA, score softcap, ALiBi, dropout on P @ V, and the
+per-row log-sum-exp.
 
 - The kernels (``csrc/flash_attention.cu``), built at first use and
   bound with ctypes: B1 the forward, B2 dq and B3 dk/dv.  Each launch
@@ -23,8 +24,13 @@ and can save its outputs (``o`` and ``lse``, the JAX package's
 ``attn_ctx``/``attn_lse``): under ``save_attn*`` the forward kernel runs
 once per layer and step, not again in the recompute.
 
-ALiBi, dropout and the context-parallel offsets (the JAX ``meta``
-operand, ``:734``) are not ported: they raise (ROADMAP.md, queue B).
+ALiBi slopes are hyperparameters and get no gradient.  Dropout keeps a
+pair by the stateless coordinate hash of ``ops/_common.py`` (seed,
+batch, q head, q position, k position), the same bits in the forward,
+both backward kernels, the plain version and the JAX package; it scales
+P for P @ V only, so the LSE is the undropped one.  The context-parallel
+offsets (the q/k/h/b entries of the JAX ``meta`` operand, ``:734``) are
+not ported: they raise (ROADMAP.md, A12, their only caller).
 """
 
 import ctypes
@@ -33,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from torchacc_tpu_torch.ops import _build
+from torchacc_tpu_torch.ops._common import dropout_threshold
 from torchacc_tpu_torch.ops.attention import (
     attention_reference,
     attention_reference_bwd,
@@ -64,12 +71,13 @@ def _kernel_fns():
                     lib.flash_attention_bwd_dkv)
     if fwd.argtypes is None:
         # b, sq, sk, hq, hk, d, causal, left, right; scale, softcap;
-        # dtype, stream
-        tail = [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int,
-                                                            ctypes.c_void_p]
-        fwd.argtypes = [ctypes.c_void_p] * 7 + tail
-        dq.argtypes = [ctypes.c_void_p] * 9 + tail
-        dkv.argtypes = [ctypes.c_void_p] * 10 + tail
+        # dropout on, seed, threshold, 1 / (1 - p); dtype, stream
+        tail = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
+                + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
+        fwd.argtypes = [ctypes.c_void_p] * 8 + tail
+        dq.argtypes = [ctypes.c_void_p] * 10 + tail
+        dkv.argtypes = [ctypes.c_void_p] * 11 + tail
         for fn in (fwd, dq, dkv):
             fn.restype = ctypes.c_int
     return fwd, dq, dkv
@@ -101,15 +109,25 @@ def _check_kernel_args(tensors, segs) -> None:
         raise ValueError(f"kernels take head_dim in {_KERNEL_HEAD_DIMS}, "
                          f"got {d}")
     for name, t in segs.items():
-        if t is not None and t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
+        if t is None:
+            continue
+        want = torch.float32 if name == "alibi_slopes" else torch.int32
+        if t.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {t.dtype}")
 
 
-def _geom(q, k, causal, window, scale, softcap):
+def _geom(q, k, causal, window, scale, softcap, dropout_p, dropout_seed):
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     return [b, sq, sk, hq, hk, d, int(causal), int(window[0]),
-            int(window[1]), float(scale), float(softcap)]
+            int(window[1]), float(scale), float(softcap),
+            int(dropout_p > 0.0), int(dropout_seed) & 0xFFFFFFFF,
+            dropout_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0]
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def _raise_on(err, name, q):
@@ -119,19 +137,20 @@ def _raise_on(err, name, q):
             f"(q {tuple(q.shape)} {q.dtype})")
 
 
-def _fwd_cuda(q, k, v, qseg, kseg, causal, window, scale, softcap):
+def _fwd_cuda(q, k, v, qseg, kseg, causal, window, scale, softcap,
+              alibi=None, dropout_p=0.0, dropout_seed=0):
     _check_kernel_args({"q": q, "k": k, "v": v},
-                       {"q_segment_ids": qseg, "kv_segment_ids": kseg})
+                       {"q_segment_ids": qseg, "kv_segment_ids": kseg,
+                        "alibi_slopes": alibi})
     fwd, _, _ = _kernel_fns()
     b, sq, hq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              qseg.data_ptr() if qseg is not None else None,
-              kseg.data_ptr() if kseg is not None else None,
-              o.data_ptr(), lse.data_ptr(),
-              *_geom(q, k, causal, window, scale, softcap),
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg),
+              _ptr(kseg), _ptr(alibi), o.data_ptr(), lse.data_ptr(),
+              *_geom(q, k, causal, window, scale, softcap, dropout_p,
+                     dropout_seed),
               _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, "forward", q)
     launch_counts["fwd"] += 1
@@ -144,20 +163,21 @@ def _bwd_delta(o, do):
     return torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
 
 
-def _bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg):
-    return [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            qseg.data_ptr() if qseg is not None else None,
-            kseg.data_ptr() if kseg is not None else None,
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+def _bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi):
+    return [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg),
+            _ptr(kseg), _ptr(alibi), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()]
 
 
 def _dq_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
-             softcap):
+             softcap, alibi=None, dropout_p=0.0, dropout_seed=0):
     """B2: dq from the saved lse and delta (one launch)."""
     _, dq_fn, _ = _kernel_fns()
     dq = torch.empty_like(q)
-    err = dq_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg),
-                dq.data_ptr(), *_geom(q, k, causal, window, scale, softcap),
+    err = dq_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi),
+                dq.data_ptr(),
+                *_geom(q, k, causal, window, scale, softcap, dropout_p,
+                       dropout_seed),
                 _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "dq", q)
@@ -166,13 +186,14 @@ def _dq_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
 
 
 def _dkv_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
-              softcap):
+              softcap, alibi=None, dropout_p=0.0, dropout_seed=0):
     """B3: dk and dv from the saved lse and delta (one launch)."""
     _, _, dkv_fn = _kernel_fns()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = dkv_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg),
+    err = dkv_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi),
                  dk.data_ptr(), dv.data_ptr(),
-                 *_geom(q, k, causal, window, scale, softcap),
+                 *_geom(q, k, causal, window, scale, softcap, dropout_p,
+                        dropout_seed),
                  _DTYPE_CODE[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "dk/dv", q)
@@ -181,13 +202,14 @@ def _dkv_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
 
 
 def _bwd_cuda(q, k, v, o, lse, do, qseg, kseg, causal, window, scale,
-              softcap):
+              softcap, alibi=None, dropout_p=0.0, dropout_seed=0):
     _check_kernel_args({"q": q, "k": k, "v": v, "o": o, "do": do},
-                       {"q_segment_ids": qseg, "kv_segment_ids": kseg})
+                       {"q_segment_ids": qseg, "kv_segment_ids": kseg,
+                        "alibi_slopes": alibi})
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32 [b, hq, sq]")
     args = (q, k, v, do, lse, _bwd_delta(o, do), qseg, kseg, causal,
-            window, scale, softcap)
+            window, scale, softcap, alibi, dropout_p, dropout_seed)
     return (_dq_cuda(*args),) + _dkv_cuda(*args)
 
 
@@ -206,18 +228,22 @@ def _use_kernel(impl: str, q: torch.Tensor) -> bool:
 @torch.library.custom_op("torchacc_tpu_torch::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_segment_ids: Optional[torch.Tensor],
-                  kv_segment_ids: Optional[torch.Tensor], causal: bool,
+                  kv_segment_ids: Optional[torch.Tensor],
+                  alibi_slopes: Optional[torch.Tensor], causal: bool,
                   window_left: int, window_right: int, scale: float,
-                  logit_softcap: float, impl: str
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  logit_softcap: float, dropout_p: float, dropout_seed: int,
+                  impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     window = (window_left, window_right)
     if _use_kernel(impl, q):
         return _fwd_cuda(q, k, v, q_segment_ids, kv_segment_ids, causal,
-                         window, scale, logit_softcap)
+                         window, scale, logit_softcap, alibi_slopes,
+                         dropout_p, dropout_seed)
     o, lse = attention_reference(
         q, k, v, causal=causal, window=window, scale=scale,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-        return_lse=True, logit_softcap=logit_softcap)
+        alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+        dropout_seed=dropout_seed, return_lse=True,
+        logit_softcap=logit_softcap)
     return o, lse.contiguous()
 
 
@@ -225,33 +251,38 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                   q_segment_ids: Optional[torch.Tensor],
-                  kv_segment_ids: Optional[torch.Tensor], causal: bool,
+                  kv_segment_ids: Optional[torch.Tensor],
+                  alibi_slopes: Optional[torch.Tensor], causal: bool,
                   window_left: int, window_right: int, scale: float,
-                  logit_softcap: float, impl: str
+                  logit_softcap: float, dropout_p: float, dropout_seed: int,
+                  impl: str
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     window = (window_left, window_right)
     if _use_kernel(impl, q):
         return _bwd_cuda(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids,
-                         causal, window, scale, logit_softcap)
+                         causal, window, scale, logit_softcap, alibi_slopes,
+                         dropout_p, dropout_seed)
     return attention_reference_bwd(
         q, k, v, o, lse, do, causal=causal, window=window, scale=scale,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-        logit_softcap=logit_softcap)
+        alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+        dropout_seed=dropout_seed, logit_softcap=logit_softcap)
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, qseg, kseg = inputs[:5]
+    q, k, v, qseg, kseg, alibi = inputs[:6]
     o, lse = output
-    ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
-    ctx.params = inputs[5:]
+    ctx.save_for_backward(q, k, v, o, lse, qseg, kseg, alibi)
+    ctx.params = inputs[6:]
     ctx.mark_non_differentiable(lse)
 
 
 def _backward(ctx, do, _dlse):
-    q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
+    q, k, v, o, lse, qseg, kseg, alibi = ctx.saved_tensors
     dq, dk, dv = _flash_bwd_op(q, k, v, o, lse, do.contiguous(), qseg, kseg,
-                               *ctx.params)
-    return (dq, dk, dv) + (None,) * 8
+                               alibi, *ctx.params)
+    # the slopes are hyperparameters: no gradient (JAX :803)
+    return (dq, dk, dv) + (None,) * 11
 
 
 _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
@@ -262,7 +293,7 @@ _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 # ---------------------------------------------------------------------------
 
 def _prepare(q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes,
-             dropout_p, offsets, scale):
+             dropout_p, dropout_seed, offsets, scale):
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q [b, sq, hq, d], k/v [b, sk, hk, d] expected; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -275,20 +306,28 @@ def _prepare(q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes,
         raise ValueError(
             "q_segment_ids and kv_segment_ids must be provided together")
     if alibi_slopes is not None:
-        raise NotImplementedError("flash_attention: alibi_slopes is not "
-                                  "ported yet (ROADMAP.md, queue B)")
-    if dropout_p > 0.0:
-        raise NotImplementedError("flash_attention: dropout_p > 0 is not "
-                                  "ported yet (ROADMAP.md, queue B)")
+        if tuple(alibi_slopes.shape) != (hq,):
+            raise ValueError(
+                f"alibi_slopes must have shape ({hq},) (one slope per q "
+                f"head), got {tuple(alibi_slopes.shape)}")
+        alibi_slopes = alibi_slopes.detach().to(torch.float32).contiguous()
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if dropout_seed is not None and not isinstance(dropout_seed, int):
+        raise TypeError(
+            f"dropout_seed must be a host int (the train step), got "
+            f"{type(dropout_seed).__name__}")
     if any(not isinstance(x, int) or x != 0 for x in offsets):
         raise NotImplementedError(
             "flash_attention: non-zero q/k/h/b offsets (the context-"
-            "parallel meta) are not ported yet (ROADMAP.md, queue B)")
+            "parallel meta) are not ported yet (ROADMAP.md, A12)")
     segs = [None if s is None else s.to(torch.int32).contiguous()
             for s in (q_segment_ids, kv_segment_ids)]
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return q.contiguous(), k.contiguous(), v.contiguous(), segs, float(scale)
+    seed = 0 if dropout_seed is None else int(dropout_seed)
+    return (q.contiguous(), k.contiguous(), v.contiguous(), segs,
+            alibi_slopes, float(dropout_p), seed, float(scale))
 
 
 def flash_attention(
@@ -315,12 +354,16 @@ def flash_attention(
     """``[b, s, h, d]`` flash attention.  Returns ``out`` (differentiable,
     through the backward kernels) or, with ``return_lse``, ``(out,
     lse [b, h, sq] f32)`` with no gradient, as in JAX (the forward-only
-    path of the context-parallel ring)."""
-    q, k, v, (qseg, kseg), scale = _prepare(
+    path of the context-parallel ring).  ``alibi_slopes``: ``[hq]`` f32
+    per-head slopes.  ``dropout_p`` / ``dropout_seed``: dropout on the
+    post-softmax probabilities; the seed is a host int (None = 0), and
+    the same seed gives the same mask on every path."""
+    q, k, v, (qseg, kseg), alibi, dropout_p, seed, scale = _prepare(
         q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes, dropout_p,
-        (q_offset, k_offset, h_offset, b_offset), scale)
-    args = (q, k, v, qseg, kseg, bool(causal), int(window[0]),
-            int(window[1]), scale, float(logit_softcap), impl)
+        dropout_seed, (q_offset, k_offset, h_offset, b_offset), scale)
+    args = (q, k, v, qseg, kseg, alibi, bool(causal), int(window[0]),
+            int(window[1]), scale, float(logit_softcap), dropout_p, seed,
+            impl)
     if return_lse:
         with torch.no_grad():
             return _flash_fwd_op(*args)
@@ -352,11 +395,11 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Standalone backward: ``(dq, dk, dv)`` from saved ``(o, lse)``,
     BSHD in and out, lse ``[b, h, sq]`` f32."""
-    q, k, v, (qseg, kseg), scale = _prepare(
+    q, k, v, (qseg, kseg), alibi, dropout_p, seed, scale = _prepare(
         q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes, dropout_p,
-        (q_offset, k_offset, h_offset, b_offset), scale)
+        dropout_seed, (q_offset, k_offset, h_offset, b_offset), scale)
     return _flash_bwd_op(q, k, v, o.contiguous(),
                          lse.to(torch.float32).contiguous(),
-                         do.contiguous(), qseg, kseg, bool(causal),
+                         do.contiguous(), qseg, kseg, alibi, bool(causal),
                          int(window[0]), int(window[1]), scale,
-                         float(logit_softcap), impl)
+                         float(logit_softcap), dropout_p, seed, impl)

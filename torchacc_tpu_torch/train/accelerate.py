@@ -39,6 +39,9 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
         remat=config.memory.gc,
         remat_policy=config.memory.gc_policy,
         quant=config.compute.quant,
+        quant_sites=tuple(config.compute.quant_sites),
+        quant_amax_history_len=config.compute.quant_amax_history_len,
+        quant_impl=config.compute.quant_impl,
     )
 
 

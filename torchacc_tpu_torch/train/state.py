@@ -1,14 +1,14 @@
 """Train state (the port of torchacc_tpu/train/state.py ``TrainState``,
-:21): the step, the f32 master parameters by name, and the optimizer
-state.  The fp16 scaler and the quantized-matmul histories of the JAX
-state are not ported (ROADMAP A11).  The step is a host integer: the
-JAX trainer mirrors its device step on the host too (``_host_step``),
-and the port never needs it on the device."""
+:21): the step, the f32 master parameters by name, the optimizer state,
+and the delayed-scaling amax histories of the quantized matmul sites.
+The fp16 scaler of the JAX state is not ported.  The step is a host
+integer: the JAX trainer mirrors its device step on the host too
+(``_host_step``), and the port never needs it on the device."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -18,3 +18,8 @@ class TrainState:
     step: int
     params: Dict[str, torch.Tensor]
     opt_state: Any
+    # amax histories of the quantized matmul sites by site name
+    # (models/transformer.py quant_site_names), each
+    # [quant_amax_history_len] f32; None when compute.quant == 'none',
+    # so the state without quantization is what it was
+    quant: Optional[Dict[str, torch.Tensor]] = None

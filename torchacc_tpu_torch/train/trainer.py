@@ -1,6 +1,6 @@
 """The Trainer, core only (the port of torchacc_tpu/train/trainer.py):
-``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933)
-and ``fit`` (:1272), on one device.
+``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933),
+``eval_step`` and ``fit`` (:1272), on one device.
 
 One step is forward -> loss (the fused linear + CE head by default) ->
 backward -> f32 global-norm clip -> AdamW on the f32 masters; with
@@ -10,7 +10,13 @@ Where JAX jits one donated step function, the port runs eagerly and
 updates the masters and moments in place.  ``step`` returns the loss
 and the gradient norm as device tensors and does not synchronise;
 ``fit`` reads the loss back only on its logging steps, as the JAX loop
-does.  The resilience, SDC, guard, telemetry, tiered-checkpoint and
+does.  With ``compute.quant`` on, the delayed-scaling amax histories
+ride ``TrainState.quant``: a step's forward reads them, the sites put
+the advanced histories aside, and the step commits those once, after
+the backward (a remat recompute reads the same histories the forward
+did and advances nothing twice); ``eval_step`` reads and records
+nothing.  With ``attn_dropout`` set, a train step passes its step
+number as the dropout seed; evaluation passes none.  The resilience, SDC, guard, telemetry, tiered-checkpoint and
 dispatch-ring hooks are not ported (ROADMAP A9, A13).
 """
 
@@ -26,9 +32,12 @@ from torch import nn
 from torchacc_tpu_torch.config import Config
 from torchacc_tpu_torch.models.transformer import (
     TransformerLM,
+    check_training_supported,
     head_weight,
     init_params,
+    init_quant_state,
     loss_sum_count,
+    quant_site_names,
 )
 from torchacc_tpu_torch.ops._common import resolve_device
 from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
@@ -96,6 +105,10 @@ class Trainer:
                               and not model.cfg.head_bias)
         self.device = (resolve_device(device) if model.device.type == "meta"
                        else model.device)
+        if isinstance(model, TransformerLM):
+            # an unported composition (the 'head' quant site, ...) raises
+            # by name here, not at the first step
+            check_training_supported(model.cfg)
         self.state: Optional[TrainState] = None
 
     # -- init ---------------------------------------------------------------
@@ -125,7 +138,10 @@ class Trainer:
                 _swap_param(self.model, name, shadow[name])
                 shadow[name] = self.model.get_parameter(name)
         self.model.requires_grad_(True).train()
-        self.state = TrainState(step=0, params=masters, opt_state=opt_state)
+        # zero histories: "no observation yet", so the first quantized
+        # step falls back to just-in-time scales
+        self.state = TrainState(step=0, params=masters, opt_state=opt_state,
+                                quant=init_quant_state(cfg, self.device))
         n = sum(p.numel() for p in masters.values())
         logger.info(f"initialised {n / 1e6:.1f}M params on {self.device}")
         return self.state
@@ -135,10 +151,25 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def _forward_sum_count(self, batch):
-        """(loss_sum, token_count) of one batch."""
+    def _forward_sum_count(self, batch, train: bool = True):
+        """(loss_sum, token_count, new_quant) of one batch.  On a train
+        step the quantized sites' advanced histories come back as the
+        third element (None when quant is off, and in evaluation, which
+        reads the scales and records nothing) and attention dropout gets
+        the step as its seed."""
+        cfg = self.model.cfg
         kw = dict(positions=batch.get("positions"),
                   segment_ids=batch.get("segment_ids"))
+        new_quant = None
+        if self.state.quant is not None:
+            new_quant = {} if train else None
+            kw.update(quant=self.state.quant, quant_out=new_quant)
+        if train and cfg.attn_dropout > 0.0:
+            kw["dropout_seed"] = self.state.step
+        l_sum, count = self._loss_sum_count(batch, kw)
+        return l_sum, count, new_quant
+
+    def _loss_sum_count(self, batch, kw):
         if self._use_fused_ce:
             hidden = self.model(batch["input_ids"], return_hidden=True, **kw)
             labels = batch.get("labels", shift_labels(
@@ -157,9 +188,17 @@ class Trainer:
         if self.state is None:
             self.init()
         batch = self._batch(batch)
-        l_sum, count = self._forward_sum_count(batch)
+        l_sum, count, new_quant = self._forward_sum_count(batch)
         loss = l_sum / torch.clamp(count, min=1.0)
         loss.backward()
+        if new_quant is not None:
+            # committed once, after the backward: a recompute has read
+            # the histories this step started with
+            missing = set(quant_site_names(self.model.cfg)) - set(new_quant)
+            if missing:
+                raise RuntimeError(f"quantized sites that recorded no amax "
+                                   f"this step: {sorted(missing)}")
+            self.state.quant = new_quant
         named = list(self.model.named_parameters())
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in named}
@@ -169,6 +208,22 @@ class Trainer:
             p.grad = None
         self.state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The loss of one batch without a gradient or an update: no
+        dropout, and the quantized sites read their scales and leave the
+        histories as they are."""
+        if self.state is None:
+            self.init()
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            l_sum, count, _ = self._forward_sum_count(self._batch(batch),
+                                                      train=False)
+        finally:
+            self.model.train(was_training)
+        return {"loss": l_sum / torch.clamp(count, min=1.0)}
 
     # -- loop -----------------------------------------------------------------
     def fit(self, loader, *, max_steps: Optional[int] = None,

@@ -9,8 +9,9 @@ instead: the backward re-runs the block's forward, and an op whose
 outputs the policy saved returns them from the cache instead of
 computing again.  So the port names *sites*: the model wraps its
 projections in :func:`checkpoint_name`, and a policy saves the matmul
-outputs made inside the named sites, plus the flash-attention forward
-op whole (``o`` and ``lse``, JAX's ``attn_ctx``/``attn_lse``):
+outputs made inside the named sites (a quantized site's matmul is the
+quantized-matmul forward op, so its kernel does not re-run), plus the
+flash-attention forward op whole (``o`` and ``lse``, JAX's ``attn_ctx``/``attn_lse``):
 
 =================  ==========================================================
 'nothing'          save nothing: the block's whole forward re-runs,
@@ -43,6 +44,7 @@ from torch.utils.checkpoint import (
 )
 
 import torchacc_tpu_torch.ops.flash_attention  # noqa: F401  (the op below)
+import torchacc_tpu_torch.ops.quantized_matmul  # noqa: F401  (the op below)
 
 _POLICY_NAMES = {
     "save_attn": ("qkv_proj", "attn_out", "mlp_out"),
@@ -51,6 +53,8 @@ _POLICY_NAMES = {
 _MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
             torch.ops.aten.bmm.default}
 _FLASH_FWD = torch.ops.torchacc_tpu_torch.flash_fwd.default
+# the quantized forward product of a site counts as its matmul
+_MATMULS.add(torch.ops.torchacc_tpu_torch.qmm_fwd.default)
 
 # the innermost site of each thread (the recompute of a checkpoint
 # region runs in autograd's thread)
