@@ -19,7 +19,7 @@ above, f32 atol = rtol = 1e-4 (dk and dv sum group x sk products of f32
 terms in another order than the plain einsums).  Gradients through each
 path's own forward: see ``_autograd_tol``.  The quantized matmul: int8
 bitwise (both sides sum exact integers and share every rounding); fp8
-see ``FP8_TOL``.
+see ``FP8_ATOL``.
 """
 
 import numpy as np
@@ -349,12 +349,17 @@ def test_flash_dropout_fraction_and_seed(card):
 # quantized matmul (B5)
 # ---------------------------------------------------------------------------
 
-# fp8: the kernel quantizes to the same e4m3 values as the plain version
-# and sums the same exact products in f32 in another order (tensor-core
-# groups of 32); the plain side is an f32 matmul.  bf16 outputs: one bf16 ulp.  f32 outputs: 2e-5 of the row's
-# magnitude scale (K = 300 terms, f32 sums)
+# fp8: the kernels quantize to the same e4m3 values as the plain version
+# and sum the same exact products in f32 (on the f16 tensor cores) in
+# another order than the plain f32 matmul.  bf16 outputs: one bf16 ulp.
+# f32 outputs: 2e-5 of the value plus 2e-5 (K up to 1029 f32 terms of a
+# few hundredths; the atol grows with the scales of x and w)
 FP8_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
            torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+# the fp8 result against an f64 product of its e4m3 operands at K = 14336,
+# relative to max |ref| (read on an H100: 1.9e-6; the plain f32 matmul
+# 1.7e-7)
+FP8_F64_LIMIT = 4e-6
 
 QMM_SHAPES = {   # M, K, N
     "tile": (128, 128, 128),
@@ -362,7 +367,14 @@ QMM_SHAPES = {   # M, K, N
     "odd": (77, 65, 51),              # K, N odd: scalar loads and stores
     "tall": (1024, 512, 96),
     "k_lt_tile": (33, 16, 40),
+    "k_5_mod_16": (96, 1029, 72),     # K padded to 1040 for TMA
 }
+
+
+def _fp8_close(got, ref, dtype, scale=1.0):
+    tol = FP8_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol["rtol"],
+                               atol=tol["atol"] * scale)
 
 
 def _qmm_case(seed, device, dtype, m, k, n):
@@ -396,10 +408,61 @@ def test_quantized_matmul_kernel_matches_plain(card, shape, fmt, dtype,
             assert torch.equal(got, ref), (got.float() - ref.float()
                                            ).abs().max().item()
         else:
-            torch.testing.assert_close(got.float(), ref.float(),
-                                       **FP8_TOL[dtype])
+            _fp8_close(got, ref, dtype)
     before[fmt] += 2
     assert qm.launch_counts == before
+
+
+# scales at the ends of the f32 range take the division (quant4_div)
+SCALE_CASES = {"plain": (1.0, 1.0), "tiny_x_huge_w": (1e-23, 1e27),
+               "huge_x_tiny_w": (1e27, 1e-23)}
+
+
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", sorted(QMM_SHAPES))
+def test_quantize_kernel_is_the_plain_quantize_pass(card, shape, fmt, dtype,
+                                                    layout):
+    """The quantize pass writes the plain pass's padded K-major bytes bit
+    for bit, for normal and range-end scales; the GEMM on them gives the
+    plain result (int8 bitwise)."""
+    x, w = _qmm_case(2, card, dtype, *QMM_SHAPES[shape])
+    for case, (mx, mw) in SCALE_CASES.items():
+        xs, ws = (x.float() * mx).to(dtype), (w.float() * mw).to(dtype)
+        kernel = ws.t() if layout == "nk" else ws.t().contiguous()
+        sx = qm.compute_scale(qm._amax(xs) * 0.5, fmt)
+        sw = qm.per_channel_scale(kernel, fmt)
+        plan, x2, w2, sx2, sw2 = qm._cuda_operands(xs, kernel, sx, sw, fmt)
+        qx, qw = qm._quantize_cuda(plan, x2, w2, sx2, sw2, fmt)
+        px, pw = qm._quantize_pass_plain(xs, kernel, sx, sw, fmt)
+        torch.cuda.synchronize()
+        for got, want, name in ((qx, px, "qx"), (qw, pw, "qw")):
+            assert got.dtype == want.dtype == qm._OPERAND_DTYPE[fmt]
+            bad = (got.view(torch.uint8) != want.view(torch.uint8)).sum()
+            assert bad.item() == 0, f"{case}: {name} differs in {bad} bytes"
+        got = qm._gemm_cuda(plan, qx, qw, sx2, sw2, fmt, dtype)
+        ref = qm._gemm_plain(px, pw, sx, sw, fmt).to(dtype)
+        torch.cuda.synchronize()
+        if fmt == "int8":
+            assert torch.equal(got, ref), case
+        else:
+            _fp8_close(got, ref, dtype, mx * mw)
+
+
+def test_fp8_sum_against_an_f64_product_at_k_14336(card):
+    """The fp8 GEMM against an f64 product of the same e4m3 operands, at
+    down's depth: within FP8_F64_LIMIT of max |ref|, an f32 sum's level."""
+    x, w = _qmm_case(3, card, torch.bfloat16, 256, 14336, 512)
+    sx = qm.compute_scale(qm._amax(x), "fp8")
+    sw = qm.per_channel_scale(w.t(), "fp8")
+    plan, x2, w2, sx2, sw2 = qm._cuda_operands(x, w.t(), sx, sw, "fp8")
+    qx, qw = qm._quantize_cuda(plan, x2, w2, sx2, sw2, "fp8")
+    got = qm._gemm_cuda(plan, qx, qw, sx2, sw2, "fp8", torch.float32)
+    ref = (qx.double() @ qw.double().t()) * (sx2.double() * sw2.double())
+    err = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    assert err < FP8_F64_LIMIT, err
 
 
 def test_quantized_matmul_zero_rows_and_grads(card):

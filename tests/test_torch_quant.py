@@ -185,6 +185,108 @@ def test_quantized_dot_matches_jax_xla_and_pallas(case, fmt, dt, x_scale):
     assert np.abs(_np(got) - _np(ref_t)).max() / scale < tol
 
 
+# -- (2b) the two kernels' plain counterparts and the launch plan -------------
+
+@pytest.mark.parametrize("layout", ["nk", "kn"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", FMTS)
+def test_quantize_pass_plain_matches_jax_quantize(fmt, dt, layout):
+    """The padded K-major operands the quantize kernel writes, from JAX
+    ``quantize`` bit for bit (fp8: the e4m3 values as float16, exact);
+    K = 37 (5 mod 16), the pad columns zero."""
+    tdt, jdt = DTYPES[dt]
+    rng = np.random.default_rng(5)
+    m, k, n = 19, 37, 23
+    x = (rng.standard_normal((m, k)) * 2.0).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)     # [N, K]
+    tx = torch.from_numpy(x).to(tdt)
+    tw = torch.from_numpy(w).to(tdt)
+    kernel = tw.t() if layout == "nk" else tw.t().contiguous()      # [K, N]
+    jx, jk = jnp.asarray(x).astype(jdt), jnp.asarray(w.T).astype(jdt)
+    sx = tq.compute_scale(tq._amax(tx) * 0.5, fmt)          # clips some
+    sw = tq.per_channel_scale(kernel, fmt)
+    qx, qw = tq._quantize_pass_plain(tx, kernel, sx, sw, fmt)
+    kp = tq._qmm_plan(tx, kernel, fmt).kp
+    assert kp == 48 and qx.shape == (m, kp) and qw.shape == (n, kp)
+    assert qx.dtype == qw.dtype == tq._OPERAND_DTYPE[fmt]
+    assert (qx[:, k:] == 0).all() and (qw[:, k:] == 0).all()
+    want_x = jq.quantize(jx, jnp.asarray(sx.numpy()), fmt)
+    want_w = jq.quantize(jk, jnp.asarray(sw.numpy())[None, :], fmt).T
+    for got, want in ((qx, want_x), (qw, want_w)):
+        # back in the format's own dtype, the bytes are JAX's
+        np.testing.assert_array_equal(
+            got[:, :k].to(tq._FORMATS[fmt][0]).view(torch.uint8).numpy(),
+            np.asarray(want).view(np.uint8))
+        np.testing.assert_array_equal(got[:, :k].float().numpy(),
+                                      np.asarray(want).astype(np.float32))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", FMTS)
+def test_gemm_plain_on_padded_operands_matches_jax_xla(fmt, dt):
+    """The GEMM kernel's plain counterpart (the exact dot of the padded
+    operands, two rounded multiplies) against JAX ``_qmm2d_xla``: int8
+    bitwise, fp8 to 1e-6 (f32 summation order)."""
+    tdt, jdt = DTYPES[dt]
+    rng = np.random.default_rng(6)
+    m, k, n = 21, 69, 30
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)     # [K, N]
+    tx, tw = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    sx = tq.compute_scale(tq._amax(tx), fmt)
+    sw = tq.per_channel_scale(tw, fmt)
+    got = tq._gemm_plain(*tq._quantize_pass_plain(tx, tw, sx, sw, fmt),
+                         sx, sw, fmt)
+    want = jq._qmm2d_xla(jnp.asarray(x).astype(jdt),
+                         jnp.asarray(w).astype(jdt),
+                         jnp.asarray(sx.numpy()), jnp.asarray(sw.numpy()),
+                         fmt)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    if fmt == "int8":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_qmm_plan_lays_out_the_launches():
+    bf = torch.bfloat16
+    x = torch.zeros(8192, 4096, dtype=bf)
+    w_nk = torch.zeros(14336, 4096, dtype=bf)          # an nn.Linear weight
+    p = tq._qmm_plan(x, w_nk.t(), "int8")
+    assert (p.m, p.n, p.k, p.kp) == (8192, 14336, 4096, 4096)
+    assert (p.w_layout, p.ldw, p.w_copy) == ("nk", 4096, False)
+    assert p.bn == 256
+    assert p.map_a == ((4096, 8192), 4096, (128, 128))
+    assert p.map_b == ((4096, 14336), 4096, (128, 256))
+    # fp8's operands are float16: rows of 2 Kp bytes; narrow N takes 128
+    p = tq._qmm_plan(x, w_nk.t(), "fp8")
+    assert (p.kp, p.bn) == (4096, 256)
+    assert p.map_a == ((8192, 8192), 8192, (128, 128))
+    assert p.map_b == ((8192, 14336), 8192, (128, 256))
+    for fmt in FMTS:
+        assert tq._qmm_plan(x, torch.zeros(1024, 4096, dtype=bf).t(),
+                            fmt).bn == 128
+    # [K, N] row-major, with a padded leading dimension; K padded to 16
+    xs = torch.zeros(10, 37)
+    w_kn = torch.zeros(37, 40)[:, :30]
+    p = tq._qmm_plan(xs, w_kn, "int8")
+    assert (p.kp, p.w_layout, p.ldw, p.w_copy) == (48, "kn", 40, False)
+    assert p.map_a == ((48, 10), 48, (128, 128))
+    assert tq._qmm_plan(torch.zeros(3, 0), torch.zeros(0, 5), "int8").kp == 16
+    # neither layout: the weight is copied to [K, N]
+    p = tq._qmm_plan(xs, torch.zeros(30, 37 * 2).t()[::2], "int8")
+    assert (p.w_layout, p.ldw, p.w_copy) == ("kn", 30, True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tq._qmm_plan(xs.half(), w_kn.half(), "int8")
+    with pytest.raises(ValueError, match="must match"):
+        tq._qmm_plan(xs, w_kn.to(bf), "int8")
+    with pytest.raises(ValueError, match="overflow the int32"):
+        tq._qmm_plan(torch.zeros(1, 133_001), torch.zeros(133_001, 1), "int8")
+    with pytest.raises(ValueError, match="quant format"):
+        tq._qmm_plan(xs, w_kn, "int4")
+
+
 def test_quantized_dot_reads_a_linear_weight_where_it_lies():
     """``weight.t()`` of an ``nn.Linear`` ([N, K] memory) gives the bits
     of the contiguous [K, N] kernel, with no copy on the way in."""

@@ -240,6 +240,44 @@ def test_fused_ce_matches_jax(cap):
     np.testing.assert_allclose(ls.item(), tl.item(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_fused_ce_bf16_matches_jax(cap):
+    """bf16 hidden and head: each chunk's logits are f32 from the bf16
+    operands on both sides, so the loss agrees to f32 summation order
+    (rtol 1e-6; logits rounded to bf16 first part from JAX by ~3e-5).
+    JAX's VJP returns the gradients in bf16 and sums dw over the chunks
+    in bf16; the port rounds dz to bf16 before its bf16 matmuls and sums
+    dw in f32: within two bf16 steps of the largest entry (atol 2e-2 of
+    max |ref|) plus one of the entry (rtol 1e-2)."""
+    rng = np.random.default_rng(1)
+    h, v = 64, 1000
+    hidden = rng.standard_normal((3, 100, h)).astype(np.float32)
+    w = (rng.standard_normal((h, v)) * 0.3).astype(np.float32)
+    labels = rng.integers(0, v, size=(3, 100)).astype(np.int32)
+    labels[rng.random((3, 100)) < 0.2] = -100
+    jh = jnp.asarray(hidden).astype(jnp.bfloat16)
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+
+    def jf(x, w_):
+        return jax_fused_ce(x, w_, jnp.asarray(labels), chunk_rows=64,
+                            logit_softcap=cap)
+    (jl, jc), jvjp = jax.vjp(jf, jh, jw)
+    jdh, jdw = jvjp((jnp.ones(()), jnp.zeros(())))
+
+    th = torch.from_numpy(hidden).to(torch.bfloat16).requires_grad_()
+    tw = torch.from_numpy(w).to(torch.bfloat16).requires_grad_()
+    tl, tc = fused_linear_cross_entropy(th, tw, torch.from_numpy(labels),
+                                        chunk_rows=64, logit_softcap=cap)
+    tl.backward()
+    assert tl.dtype == torch.float32 and tc.item() == float(jc)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
+    for got, want in ((th.grad, jdh), (tw.grad, jdw)):
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
+                                   atol=2e-2 * np.abs(want).max())
+
+
 def test_shift_labels_with_segments_matches_jax():
     batch = _batch(2)
     seg = batch["segment_ids"].copy()

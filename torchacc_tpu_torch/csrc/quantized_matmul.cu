@@ -1,6 +1,8 @@
 /*
- * Fused quantize -> matmul -> dequantize, written by hand for Hopper
- * (sm_90a).  It replaces the Pallas TPU kernel _qmm_kernel of
+ * Quantized matmul, written by hand for Hopper (sm_90a): a quantize pass
+ * and a GEMM on TMA-fed shared memory and wgmma (8-bit for int8, f16 for
+ * the e4m3 values of fp8).  Together they
+ * replace the Pallas TPU kernel _qmm_kernel of
  * torchacc_tpu/ops/quantized_matmul.py (:175, pallas_call :233 in
  * _qmm2d_pallas) — B5.
  *
@@ -15,63 +17,60 @@
  * cast to x's dtype.  int8: qmax 127, Q rounds half to even, the sum is
  * an exact int32 (127^2 * K < 2^31 needs K < 133 144; the wrapper
  * refuses more).  fp8: qmax 448, Q is the e4m3 cast (round to nearest
- * even, saturating), the products are exact in f32 and summed in f32.
- * The quantized operands live in shared memory only: they never reach
- * device memory, which is what the TPU kernel fuses.
+ * even, saturating), the products are exact and summed in f32.
  *
  * Bitwise int8.  Every rounding is the plain version's: the IEEE
  * quotient x / s (never x * (1 / s) where the two could differ), the
  * clip before the round, round half to even, int32 -> f32 conversion
  * to nearest even, and the epilogue as two separate multiplies
- * acc_f32 * (sx * sw[n]) with no FMA contraction.  So the int8 kernel
- * equals the plain version bit for bit; the fp8 kernel quantizes to the
- * same e4m3 values and differs only in the order of the f32 sum.
+ * acc_f32 * (sx * sw[n]) with no FMA contraction.  So the int8 result
+ * equals the plain version bit for bit; fp8 quantizes to the same e4m3
+ * values and sums the same exact products in f32, in another order.
  *
- * What bounds it on an H100 (3.35 TB/s; 1 979 TOP/s dense int8 and
- * fp8): at the training shapes (M = 8192 tokens, K and N 1024..14336,
- * bf16) it does 2*M*N*K operations over (M*K + K*N + M*N) * 2 bytes,
- * hundreds of operations per byte: bound by operations.  What this
- * first version is really bound by is the quantization itself: a tile
- * of x is quantized again by every CTA along N and a tile of w by every
- * CTA along M, (BM + BN) / (BM * BN) elements per multiply-add, and an
- * element costs ~12 CUDA-core instructions against 1/128 of a
- * tensor-core instruction per multiply-add.
+ * What bounds it on an H100 (3.35 TB/s; 1 979 TOP/s dense int8, 989
+ * TFLOP/s f16): at the training shapes (M = 8192 tokens, K and N 1024..14336,
+ * bf16) the product does 2*M*N*K operations over (M*K + K*N + M*N) * 2
+ * bytes, hundreds of operations per byte: bound by operations.  The
+ * first version fused the quantization into the GEMM, as the TPU kernel
+ * does, and every CTA quantized its x and w tiles again (112 times
+ * along N at gate/up): the quantization set the pace, at 7% of the
+ * 8-bit peak.
  *
- * What the design does about it:
- *  - the quotient.  div.rn costs ~15 instructions with its range
- *    checks.  The scale's correctly rounded reciprocal is taken once; a
- *    product and two fma corrections then give the IEEE quotient bit for
- *    bit (quotient() below), in five instructions and with no branch.
- *    (Rounding x * (1 / s) alone and redoing only the values near a
- *    rounding tie is no shortcut: with bf16 inputs, exact ties are
- *    common, not rare);
- *  - a CTA owns a BM x BN = 128 x 128 output tile and loops over K (the
- *    TPU's sequential K grid axis with a VMEM accumulator becomes the
- *    loop; the accumulators stay in registers); 8 warps, each 64 x 32,
- *    on mma.sync m16n8k32 (s8.s8 -> s32, e4m3.e4m3 -> f32);
- *  - two stages of quantized tiles in shared memory: while one is
- *    multiplied, warps that are done fill the other (16-byte loads,
- *    quantize, 8-byte stores); one barrier a K step, two CTAs an SM;
- *  - CTAs are numbered so that those running together cover a square
- *    patch of the output (16 tiles of M by the tiles of N), which keeps
- *    the x and w tiles they share in L2;
- *  - the weight is read where it lies: [N, K] row-major (an nn.Linear)
- *    or [K, N] row-major; both become K-contiguous rows in shared
- *    memory, which is what the "col" B operand of mma.sync wants;
- *  - no 512-tiles, no zero padding to tile multiples, no K grid axis:
- *    ragged M, N and K are predicated (rows and columns out of range
- *    quantize to 0 and add nothing);
- *  - fp8 accumulates in the mma's f32 accumulator over all of K.  Adding
- *    each K step's sums on the CUDA cores instead (in case the tensor
- *    cores kept fewer bits of a running sum) changed no bit of the
- *    error against an f64 product on an H100, so it is not done.
- * Measured on an H100 SXM at 700 W (chip_smoke.py): about 7% of the
- * 8-bit peak, 5x the time of the bf16 matmul of the same shape: the
- * quantization takes the time.  wgmma, TMA and
- * quantizing each tile once for a cluster of CTAs (shared through
- * distributed shared memory) are later work.
+ * What this design does about it:
+ *  - qmm_quantize_kernel: one launch quantizes each operand once, into
+ *    device memory: qx [M, Kp] and qw [N, Kp], K-major (what wgmma takes
+ *    for A and B alike), Kp = K rounded up to 16 (TMA's row stride is a
+ *    multiple of 16 bytes; the pad columns are 0 and add nothing).  int8
+ *    as bytes; fp8 as the e4m3 values widened to f16, which holds every
+ *    one of them exactly (below).  The weight is read where it lies:
+ *    [N, K] row-major (an nn.Linear) row by row, [K, N] row-major with
+ *    neighbouring threads on neighbouring columns.  Bound by bytes: the
+ *    operands read once, the quantized operands written once;
+ *  - qmm_gemm_wgmma: one persistent CTA an SM walks 128 x BN output
+ *    tiles (BN 256, or 128 for narrow N).  One producer thread keeps TMA
+ *    loads of 128-byte-deep A and B tiles (128-byte swizzle) in flight
+ *    through a ring of stages, with full/empty mbarrier pairs, and runs
+ *    on into the next tile while the last one is stored; two consumer
+ *    warpgroups, 64 rows each, run wgmma.mma_async over the stage's 128
+ *    bytes of K (m64nBNk32 s8.s8 -> s32, or m64nBNk16 f16.f16 -> f32)
+ *    from shared memory, one wgmma group in flight, and release a stage
+ *    when its group is done.  setmaxnreg moves registers from the
+ *    producer warpgroup to the consumers.  Ragged M, N and K: TMA fills
+ *    the rows and columns out of range with zeros; the epilogue's stores
+ *    are predicated, its scales staged in shared memory.  Tiles are
+ *    walked so that those in work together cover a patch of 16 tiles of
+ *    M by the tiles of N (shared tiles stay in L2);
+ *  - fp8 on the f16 tensor cores: Hopper's e4m3 wgmma keeps about 13
+ *    bits of its sums, not f32's 24, and adding its partial sums into
+ *    f32 registers, as often as every k32 step, still leaves the result
+ *    about 75 times further from an f64 product than an f32 sum (read on
+ *    an H100, PERF.md).  The f16 wgmma sums the same exact products
+ *    (e4m3 has a 4-bit significand and exponents within f16's) in f32,
+ *    at half the 8-bit rate and with twice the operand bytes.
  */
 
+#include <cuda.h>   // CUtensorMap and its enums only: the encoder is reached
+                    // through the runtime, so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -80,14 +79,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBM = 128, kBN = 128;
-constexpr int kWarpsM = 2, kWarpsN = 4;
-constexpr int kMT = kBM / kWarpsM / 16;   // m16 tiles per warp: 4
-constexpr int kNT = kBN / kWarpsN / 8;    // n8 tiles per warp: 4
-constexpr int kPad = 16;                  // bytes of row padding (bank spread)
-constexpr int kGroupM = 16;               // M tiles per patch of CTAs
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -106,24 +97,6 @@ __device__ __forceinline__ void store_out2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store_out2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -206,298 +179,576 @@ __device__ __forceinline__ uint32_t quant4(const float (&x)[4], const Scale (&sc
 }
 
 // ---------------------------------------------------------------------------
-// tile loads: 16 bytes of a row per thread and load
+// the quantize pass: 16 elements of one K row per thread
 // ---------------------------------------------------------------------------
 
-// elements [row][col .. col + VEC) of a row-major [rows][cols] array with
-// leading dimension ld; out-of-range elements read as zero
-template <typename T>
-__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ base, int row, int col,
-                                            int rows, int cols, long long ld, bool vec_ok) {
-  constexpr int VEC = 16 / sizeof(T);
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (row < rows && col < cols) {
-    const T* p = base + size_t(row) * ld + col;
-    if (vec_ok && col + VEC <= cols) {
-      r = *reinterpret_cast<const uint4*>(p);
-    } else {
-      T* e = reinterpret_cast<T*>(&r);
+constexpr int kQThreads = 256;
+
+// bytes of a quantized operand element: an int8, or an e4m3 value as f16
+template <bool FP8>
+constexpr int kOpBytes = FP8 ? 2 : 1;
+
+// 16 quantized values (bytes, element i in byte i % 4 of word i / 4) to
+// their place in a K row: int8 as they are; e4m3 widened to f16, which is
+// exact, 32 bytes
+template <bool FP8>
+__device__ __forceinline__ void store_q16(unsigned char* dst, uint4 q) {
+  if constexpr (FP8) {
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+    uint32_t h[8];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        if (col + j < cols) e[j] = p[j];
+    for (int v = 0; v < 4; ++v) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+            __nv_fp8x2_storage_t((w[v] >> (16 * p)) & 0xffffu), __NV_E4M3);
+        h[2 * v + p] = uint32_t(r.x) | (uint32_t(r.y) << 16);
+      }
     }
+    reinterpret_cast<uint4*>(dst)[0] = make_uint4(h[0], h[1], h[2], h[3]);
+    reinterpret_cast<uint4*>(dst)[1] = make_uint4(h[4], h[5], h[6], h[7]);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = q;
   }
-  return r;
 }
 
+// 16 values of one scale to 16 bytes; bytes from `valid` on are the pad: 0
+template <bool FP8>
+__device__ __forceinline__ uint4 quant16(const float (&f)[16], const Scale& sc, int valid) {
+  const Scale s4[4] = {sc, sc, sc, sc};
+  uint32_t q[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float f4[4] = {f[4 * v], f[4 * v + 1], f[4 * v + 2], f[4 * v + 3]};
+    q[v] = quant4<FP8>(f4, s4);
+  }
+  if (valid < 16) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (4 * v + b >= valid) q[v] &= ~(0xffu << (8 * b));
+  }
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// elements [k0, k0 + 16) of row `row` of a K-major [rows, Kp] operand,
+// from the contiguous elements src[row * ld + k0 ...]
+template <typename T, bool FP8>
+__device__ __forceinline__ void quant_row_chunk(const T* __restrict__ src, long long ld,
+                                                float scale, int K, int Kp,
+                                                unsigned char* __restrict__ dst, int row,
+                                                int k0, bool vec_ok) {
+  const int valid = min(16, K - k0);
+  uint4 q = make_uint4(0u, 0u, 0u, 0u);
+  if (valid > 0) {
+    const T* p = src + size_t(row) * ld + k0;
+    float f[16];
+    if (vec_ok && valid == 16) {
+      constexpr int NV = sizeof(T);          // 16-byte loads for 16 elements
+      uint4 raw[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) raw[v] = reinterpret_cast<const uint4*>(p)[v];
+      const T* e = reinterpret_cast<const T*>(raw);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) f[j] = to_f32(e[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) f[j] = j < valid ? to_f32(p[j]) : 0.f;
+    }
+    q = quant16<FP8>(f, make_scale(scale), valid);
+  }
+  store_q16<FP8>(dst + (size_t(row) * Kp + k0) * kOpBytes<FP8>, q);
+}
+
+// Blocks [0, x_blocks) quantize x into qx; the rest quantize w into qw.
+// One thread writes one 16-byte chunk of a K row.
 template <typename T, bool FP8, bool W_KN>
-__global__ void __launch_bounds__(kThreads, 2)
-    qmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const float* __restrict__ sx_p, const float* __restrict__ sw,
-               T* __restrict__ out, int M, int N, int K, long long ldw, int x_vec_ok,
-               int w_vec_ok, int out_pair_ok) {
-  constexpr int VEC = 16 / sizeof(T);             // elements per 16-byte load
-  constexpr int BK = 128 / sizeof(T);             // bf16: 64, f32: 32
-  constexpr int LD = BK + kPad;                   // bytes per shared row
-  constexpr int XCH = kBM * BK / VEC / kThreads;  // x chunks per thread: 4
-  constexpr int WCH = kBN * BK / VEC / kThreads;  // w chunks per thread: 4
-  constexpr int CPR = BK / VEC;                   // chunks per K row of a tile
+__global__ void __launch_bounds__(kQThreads)
+    qmm_quantize_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const float* __restrict__ sx_p, const float* __restrict__ sw,
+                 unsigned char* __restrict__ qx, unsigned char* __restrict__ qw, int M, int N,
+                 int K, int Kp, long long ldw, long long x_blocks, int x_vec_ok, int w_vec_ok) {
+  const int cpr = Kp / 16;                   // chunks per K row
+  if (blockIdx.x < x_blocks) {
+    const long long i = (long long)blockIdx.x * kQThreads + threadIdx.x;
+    if (i >= (long long)M * cpr) return;
+    quant_row_chunk<T, FP8>(x, K, *sx_p, K, Kp, qx, int(i / cpr), int(i % cpr) * 16,
+                            x_vec_ok);
+    return;
+  }
+  const long long i = (long long)(blockIdx.x - x_blocks) * kQThreads + threadIdx.x;
+  if (i >= (long long)N * cpr) return;
+  if constexpr (W_KN) {
+    // w [K, N] row-major: neighbouring threads take neighbouring columns
+    // n, so that each of the 16 K rows a chunk reads is read coalesced
+    const int n = int(i % N), k0 = int(i / N) * 16;
+    const int valid = min(16, K - k0);
+    float f[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      f[j] = j < valid ? to_f32(w[size_t(k0 + j) * ldw + n]) : 0.f;
+    store_q16<FP8>(qw + (size_t(n) * Kp + k0) * kOpBytes<FP8>,
+                   valid > 0 ? quant16<FP8>(f, make_scale(sw[n]), valid)
+                             : make_uint4(0u, 0u, 0u, 0u));
+  } else {
+    const int n = int(i / cpr);
+    quant_row_chunk<T, FP8>(w, ldw, sw[n], K, Kp, qw, n, int(i % cpr) * 16, w_vec_ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the GEMM: TMA, mbarriers and wgmma (PTX)
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;            // rows of a CTA tile: two consumer warpgroups of 64
+constexpr int kBK = 128;            // bytes of K a stage: one 128-byte swizzle row
+constexpr int kGemmThreads = 384;   // a producer warpgroup and two consumer warpgroups
+constexpr int kGroupM = 16;         // M tiles per patch of CTAs
+
+template <int BN>
+struct GemmCfg {
+  static constexpr int kStages = BN == 256 ? 4 : 6;
+  static constexpr int kStageA = kBM * kBK, kStageB = BN * kBK;
+  // the stages, the barriers, the tile's scales, and 1 KB to align the
+  // stages to the 1024-byte period of the 128-byte swizzle
+  static constexpr int kSmem =
+      kStages * (kStageA + kStageB) + 2 * kStages * 8 + BN * 4 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// box (kBK bytes of K, rows) at (k0, row0) of a map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k0, int row0,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma's shared-memory operand: K-major rows of 128 bytes under the
+// 128-byte swizzle, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4)   // start address / 16
+         | (uint64_t(1) << 16)                     // leading byte offset (unused here) / 16
+         | (uint64_t(1024 >> 4) << 32)             // stride byte offset / 16
+         | (uint64_t(1) << 62);                    // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define QMM_D4(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
+#define QMM_D16(C, i) QMM_D4(C, i), QMM_D4(C, i + 4), QMM_D4(C, i + 8), QMM_D4(C, i + 12)
+#define QMM_D64(C, i) QMM_D16(C, i), QMM_D16(C, i + 16), QMM_D16(C, i + 32), QMM_D16(C, i + 48)
+#define QMM_R64                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "    \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "    \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "    \
+  "%61, %62, %63"
+#define QMM_R128                                                                   \
+  QMM_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "    \
+  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "    \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "   \
+  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, " \
+  "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// one product of the warpgroup over 32 bytes of K, N = 2 * (registers a
+// thread): m64nNk32 on int8, m64nNk16 on f16 (both K-major, so no
+// transposes); d = a * b + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" QMM_R64 "}, %64, %65, p;\n}\n"
+      : QMM_D64("+r", 0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" QMM_R128 "}, %128, %129, p;\n}\n"
+      : QMM_D64("+r", 0), QMM_D64("+r", 64)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" QMM_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : QMM_D64("+f", 0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {" QMM_R128
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : QMM_D64("+f", 0), QMM_D64("+f", 64)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// output tile t of the grid's walk: CTAs that run together cover kGroupM
+// tiles of M by the tiles of N (the A and B tiles they share stay in L2)
+template <int BN>
+__device__ __forceinline__ void tile_origin(int t, int M, int N, int& m0, int& n0) {
+  const int ntm = (M + kBM - 1) / kBM, ntn = (N + BN - 1) / BN;
+  const int per_group = kGroupM * ntn;
+  const int first_m = (t / per_group) * kGroupM;
+  const int gsize = min(kGroupM, ntm - first_m);
+  const int in_group = t % per_group;
+  m0 = (first_m + in_group % gsize) * kBM;
+  n0 = (in_group / gsize) * BN;
+}
+
+// Persistent: a CTA walks tiles blockIdx.x, + gridDim.x, ...; the
+// producer runs on into the next tile's stages while the consumers
+// store the last one.
+template <bool FP8, int BN, typename T>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    qmm_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, const float* __restrict__ sx_p,
+                   const float* __restrict__ sw, T* __restrict__ out, int M, int N, int k_tiles,
+                   int tiles, int out_pair_ok) {
+  using Cfg = GemmCfg<BN>;
+  constexpr int S = Cfg::kStages;
+  constexpr int R = BN / 2;                 // accumulator registers a thread
   using Acc = typename std::conditional<FP8, float, int>::type;
 
-  // two stages of quantized tiles: one is multiplied while the next is
-  // written
-  __shared__ __align__(16) unsigned char xs_all[2 * kBM * LD];
-  __shared__ __align__(16) unsigned char ws_all[2 * kBN * LD];
-  __shared__ float sw_s[kBN];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sa = smem;                           // S x [kBM][kBK]
+  unsigned char* sb = smem + S * Cfg::kStageA;        // S x [BN][kBK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + S * Cfg::kStageB);
+  uint64_t* empty = full + S;
+  float* scale_s = reinterpret_cast<float*>(empty + S);   // [BN]: sx * sw[n]
 
-  // CTAs that run together cover kGroupM tiles of M by the tiles of N
-  const int ntm = (M + kBM - 1) / kBM, ntn = (N + kBN - 1) / kBN;
-  const int per_group = kGroupM * ntn;
-  const int group = blockIdx.x / per_group;
-  const int first_m = group * kGroupM;
-  const int gsize = min(kGroupM, ntm - first_m);
-  const int in_group = blockIdx.x % per_group;
-  const int m0 = (first_m + in_group % gsize) * kBM;
-  const int n0 = (in_group / gsize) * kBN;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / kWarpsN) * (kBM / kWarpsM);
-  const int wn = (warp % kWarpsN) * (kBN / kWarpsN);
-
-  if (threadIdx.x < kBN)
-    sw_s[threadIdx.x] = n0 + threadIdx.x < N ? sw[n0 + threadIdx.x] : 1.f;
-  const float sx = *sx_p;
-  const Scale scx = make_scale(sx);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);    // the producer's expect_tx; then the bytes
+      mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // the weight scale of each chunk this thread quantizes: one row (n)
-  // per chunk when w lies [N, K]
-  Scale scw[WCH];
-  if constexpr (!W_KN) {
-#pragma unroll
-    for (int c = 0; c < WCH; ++c)
-      scw[c] = make_scale(sw_s[(threadIdx.x + c * kThreads) / CPR]);
-  }
-
-  Acc acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // chunks [c0, c1) of this thread's share of the tiles at k0
-  uint4 xraw[XCH], wraw[WCH];
-  auto gload = [&](int k0, int c0, int c1) {
-#pragma unroll
-    for (int c = 0; c < XCH; ++c) {
-      if (c < c0 || c >= c1) continue;
-      const int i = threadIdx.x + c * kThreads;
-      xraw[c] = load_chunk<T>(x, m0 + i / CPR, k0 + (i % CPR) * VEC, M, K, K, x_vec_ok);
-    }
-#pragma unroll
-    for (int c = 0; c < WCH; ++c) {
-      if (c < c0 || c >= c1) continue;
-      const int i = threadIdx.x + c * kThreads;
-      if constexpr (W_KN) {
-        constexpr int NPR = kBN / VEC;            // chunks per N row of a tile
-        wraw[c] = load_chunk<T>(w, k0 + i / NPR, n0 + (i % NPR) * VEC, K, N, ldw, w_vec_ok);
-      } else {
-        wraw[c] = load_chunk<T>(w, n0 + i / CPR, k0 + (i % CPR) * VEC, N, K, ldw, w_vec_ok);
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;                                 // stages filled so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int m0, n0;
+        tile_origin<BN>(t, M, N, m0, n0);
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);   // the first round passes
+          mbar_expect_tx(&full[s], Cfg::kStageA + Cfg::kStageB);
+          tma_load(sa + s * Cfg::kStageA, &map_a, kt * kBK, m0, &full[s]);
+          tma_load(sb + s * Cfg::kStageB, &map_b, kt * kBK, n0, &full[s]);
+        }
       }
     }
-  };
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tc = threadIdx.x - 128;        // 0..255
+    const int c = tc / 128;                  // rows [64c, 64c + 64) of the tile
+    const int warp = (tc / 32) % 4, lane = tc % 32;
+    const auto release = [&](int s) {
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    const float sx = *sx_p;
+    int it = 0;                                   // stages consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int m0, n0;
+      tile_origin<BN>(t, M, N, m0, n0);
+      // this tile's weight scale, read now and used in the epilogue
+      const float my_sw = tc < BN && n0 + tc < N ? sw[n0 + tc] : 0.f;
+      Acc acc[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] = 0;
 
-  auto quantize_store = [&](int stage, int c0, int c1) {
-    unsigned char* xs = xs_all + stage * (kBM * LD);
-    unsigned char* ws = ws_all + stage * (kBN * LD);
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        // the descriptors of step k are 32 bytes = 2 units further on
+        const uint64_t da = smem_desc(sa + s * Cfg::kStageA + c * 64 * kBK);
+        const uint64_t db = smem_desc(sb + s * Cfg::kStageB);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < XCH; ++c) {
-      if (c < c0 || c >= c1) continue;
-      const int i = threadIdx.x + c * kThreads;
-      const T* e = reinterpret_cast<const T*>(&xraw[c]);
-      const Scale s4[4] = {scx, scx, scx, scx};
-      uint32_t q[VEC / 4];
-#pragma unroll
-      for (int v = 0; v < VEC / 4; ++v) {
-        const float f[4] = {to_f32(e[4 * v]), to_f32(e[4 * v + 1]), to_f32(e[4 * v + 2]),
-                            to_f32(e[4 * v + 3])};
-        q[v] = quant4<FP8>(f, s4);
+        for (int k = 0; k < kBK / 32; ++k) wgmma(acc, da + 2 * k, db + 2 * k, 1);
+        wgmma_commit();
+        // one group in flight: the previous stage's is done
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (kt > 0) release((it - 1) % S);
       }
-      unsigned char* dst = xs + (i / CPR) * LD + (i % CPR) * VEC;
-      if constexpr (VEC == 8) *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
-      else *reinterpret_cast<uint32_t*>(dst) = q[0];
-    }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release((it - 1) % S);
+
+      // sx * sw[n] for the tile's columns, once the last tile's epilogue
+      // has read its own (barrier 1: the two consumer warpgroups)
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (tc < BN) scale_s[tc] = __fmul_rn(sx, my_sw);
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+      // out = float(acc) * (sx * sw[n]): two multiplies, each rounded.
+      // Register 4j + 2h + e holds row 16 warp + lane / 4 + 8h, column
+      // 8j + 2 (lane % 4) + e of the warpgroup's 64 x BN tile.
+      const int row0 = m0 + 64 * c + 16 * warp + lane / 4;
 #pragma unroll
-    for (int c = 0; c < WCH; ++c) {
-      if (c < c0 || c >= c1) continue;
-      const int i = threadIdx.x + c * kThreads;
-      const T* e = reinterpret_cast<const T*>(&wraw[c]);
-      if constexpr (W_KN) {
-        // a chunk holds VEC columns (n) of one k: a byte each, a shared
-        // row apart
-        constexpr int NPR = kBN / VEC;
-        const int kk = i / NPR, nn = (i % NPR) * VEC;
+      for (int j = 0; j < BN / 8; ++j) {
+        const int nl = 8 * j + 2 * (lane % 4), n = n0 + nl;
+        if (n >= N) continue;
+        const float d0 = scale_s[nl], d1 = scale_s[nl + 1];
 #pragma unroll
-        for (int v = 0; v < VEC / 4; ++v) {
-          float f[4];
-          Scale s4[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            f[j] = to_f32(e[4 * v + j]);
-            s4[j] = make_scale(sw_s[nn + 4 * v + j]);
+        for (int h = 0; h < 2; ++h) {
+          const int m = row0 + 8 * h;
+          if (m >= M) continue;
+          float a0, a1;
+          if constexpr (FP8) {
+            a0 = acc[4 * j + 2 * h];
+            a1 = acc[4 * j + 2 * h + 1];
+          } else {
+            a0 = __int2float_rn(acc[4 * j + 2 * h]);
+            a1 = __int2float_rn(acc[4 * j + 2 * h + 1]);
           }
-          const uint32_t q = quant4<FP8>(f, s4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            ws[(nn + 4 * v + j) * LD + kk] = (unsigned char)((q >> (8 * j)) & 0xffu);
-        }
-      } else {
-        const Scale s4[4] = {scw[c], scw[c], scw[c], scw[c]};
-        uint32_t q[VEC / 4];
-#pragma unroll
-        for (int v = 0; v < VEC / 4; ++v) {
-          const float f[4] = {to_f32(e[4 * v]), to_f32(e[4 * v + 1]), to_f32(e[4 * v + 2]),
-                              to_f32(e[4 * v + 3])};
-          q[v] = quant4<FP8>(f, s4);
-        }
-        unsigned char* dst = ws + (i / CPR) * LD + (i % CPR) * VEC;
-        if constexpr (VEC == 8) *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
-        else *reinterpret_cast<uint32_t*>(dst) = q[0];
-      }
-    }
-  };
-
-  static_assert(XCH == WCH && XCH % 2 == 0, "the tiles' chunks are filled in two halves");
-  gload(0, 0, XCH);
-  quantize_store(0, 0, XCH);
-  __syncthreads();
-  int stage = 0;
-  for (int k0 = 0; k0 < K; k0 += BK, stage ^= 1) {
-    const bool more = k0 + BK < K;
-    const unsigned char* xs = xs_all + stage * (kBM * LD);
-    const unsigned char* ws = ws_all + stage * (kBN * LD);
-
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t b[kNT][2];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const unsigned char* pb = ws + (wn + j * 8 + g) * LD + ks * 32 + t * 4;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(pb);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(pb + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const unsigned char* pa = xs + (wm + i * 16 + g) * LD + ks * 32 + t * 4;
-        const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(pa),
-                               *reinterpret_cast<const uint32_t*>(pa + 8 * LD),
-                               *reinterpret_cast<const uint32_t*>(pa + 16),
-                               *reinterpret_cast<const uint32_t*>(pa + 8 * LD + 16)};
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          if constexpr (FP8) mma_e4m3(acc[i][j], a, b[j][0], b[j][1]);
-          else mma_s8(acc[i][j], a, b[j][0], b[j][1]);
+          const float v0 = __fmul_rn(a0, d0), v1 = __fmul_rn(a1, d1);
+          T* p = out + size_t(m) * N + n;
+          if (out_pair_ok && n + 1 < N) {
+            store_out2(p, v0, v1);
+          } else {
+            store_out<T>(p, v0);
+            if (n + 1 < N) store_out<T>(p + 1, v1);
+          }
         }
       }
     }
-    // a warp that is done multiplying fills the next stage while others
-    // still multiply; one barrier a K step.  The raw tiles are loaded
-    // here, half at a time, and not held in registers across the
-    // products: that keeps the kernel within 128 registers, so two CTAs
-    // share an SM and hide each other's loads and barriers (faster on an
-    // H100 than one CTA with the loads in flight during the products)
-    if (more) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        gload(k0 + BK, h * (XCH / 2), (h + 1) * (XCH / 2));
-        quantize_store(stage ^ 1, h * (XCH / 2), (h + 1) * (XCH / 2));
-      }
-    }
-    __syncthreads();
-  }
-
-  // out = float(acc) * (sx * sw[n]): two multiplies, each rounded
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int nl = wn + j * 8 + t * 2;
-    const int n = n0 + nl;
-    const float d0 = __fmul_rn(sx, sw_s[nl]);
-    const float d1 = __fmul_rn(sx, sw_s[nl + 1]);
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm + i * 16 + g + 8 * half;
-        if (m >= M) continue;
-        float a0, a1;
-        if constexpr (FP8) {
-          a0 = acc[i][j][2 * half];
-          a1 = acc[i][j][2 * half + 1];
-        } else {
-          a0 = __int2float_rn(acc[i][j][2 * half]);
-          a1 = __int2float_rn(acc[i][j][2 * half + 1]);
-        }
-        const float v0 = __fmul_rn(a0, d0), v1 = __fmul_rn(a1, d1);
-        T* p = out + size_t(m) * N + n;
-        if (out_pair_ok && n + 1 < N) {
-          store_out2(p, v0, v1);
-        } else {
-          if (n < N) store_out<T>(p, v0);
-          if (n + 1 < N) store_out<T>(p + 1, v1);
-        }
-      }
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// error codes of the C interface beyond cudaError_t
+constexpr int kErrNoEncoder = 100000;       // cuTensorMapEncodeTiled not found
+constexpr int kErrEncode = 200000;          // + the CUresult of the encoder
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the map of a K-major [rows, row_bytes] operand, read as bytes in boxes of
+// kBK bytes of K by box_rows rows, 128-byte swizzle, zeros out of range
+int make_map(CUtensorMap* map, const void* base, long long row_bytes, int rows, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[2] = {cuuint64_t(row_bytes), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(kBK), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + int(r);
+}
+
+bool aligned(const void* p, size_t a) { return reinterpret_cast<uintptr_t>(p) % a == 0; }
+
 template <typename T, bool FP8, bool W_KN>
-cudaError_t launch(const void* x, const void* w, const void* sx, const void* sw, void* out,
-                   int M, int N, int K, long long ldw, cudaStream_t st) {
+int launch_quantize(const void* x, const void* w, const void* sx, const void* sw, void* qx,
+                    void* qw, int M, int N, int K, int Kp, long long ldw, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
-  const auto aligned = [](const void* p, size_t a) {
-    return reinterpret_cast<uintptr_t>(p) % a == 0;
-  };
+  const long long cpr = Kp / 16;
+  const long long xb = ((long long)M * cpr + kQThreads - 1) / kQThreads;
+  const long long wb = ((long long)N * cpr + kQThreads - 1) / kQThreads;
+  if (xb + wb > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int x_vec_ok = aligned(x, 16) && K % VEC == 0;
   const int w_vec_ok = aligned(w, 16) && ldw % VEC == 0;
-  const int out_pair_ok = aligned(out, 2 * sizeof(T)) && N % 2 == 0;
-  const long long tiles =
-      (long long)((M + kBM - 1) / kBM) * (long long)((N + kBN - 1) / kBN);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  qmm_kernel<T, FP8, W_KN><<<int(tiles), kThreads, 0, st>>>(
+  qmm_quantize_kernel<T, FP8, W_KN><<<unsigned(xb + wb), kQThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(sx),
-      static_cast<const float*>(sw), static_cast<T*>(out), M, N, K, ldw, x_vec_ok, w_vec_ok,
-      out_pair_ok);
+      static_cast<const float*>(sw), static_cast<unsigned char*>(qx),
+      static_cast<unsigned char*>(qw), M, N, K, Kp, ldw, xb, x_vec_ok, w_vec_ok);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* w, const void* sx, const void* sw, void* out,
-                     int M, int N, int K, long long ldw, int w_kn, int fmt, cudaStream_t st) {
-  if (fmt == 0 && w_kn) return launch<T, false, true>(x, w, sx, sw, out, M, N, K, ldw, st);
-  if (fmt == 0) return launch<T, false, false>(x, w, sx, sw, out, M, N, K, ldw, st);
-  if (fmt == 1 && w_kn) return launch<T, true, true>(x, w, sx, sw, out, M, N, K, ldw, st);
-  if (fmt == 1) return launch<T, true, false>(x, w, sx, sw, out, M, N, K, ldw, st);
+int dispatch_quantize(const void* x, const void* w, const void* sx, const void* sw, void* qx,
+                      void* qw, int M, int N, int K, int Kp, long long ldw, int w_kn, int fmt,
+                      cudaStream_t st) {
+  if (fmt == 0 && w_kn) return launch_quantize<T, false, true>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, st);
+  if (fmt == 0) return launch_quantize<T, false, false>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, st);
+  if (fmt == 1 && w_kn) return launch_quantize<T, true, true>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, st);
+  if (fmt == 1) return launch_quantize<T, true, false>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, st);
+  return cudaErrorInvalidValue;
+}
+
+// what a launch reads once per device and keeps: the SM count, and
+// whether each GEMM instantiation's shared-memory limit (an attribute of
+// the function on the device) is set
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+
+template <bool FP8, int BN, typename T>
+int launch_gemm(const void* qx, const void* qw, const void* sx, const void* sw, void* out,
+                int M, int N, int Kp, cudaStream_t st) {
+  using Cfg = GemmCfg<BN>;
+  static bool smem_set[kMaxDevices];
+  const auto kernel = qmm_gemm_wgmma<FP8, BN, T>;
+  int dev = 0;
+  cudaError_t r = cudaGetDevice(&dev);
+  if (r != cudaSuccess) return r;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    r = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+    if (r != cudaSuccess) return r;
+    smem_set[dev] = true;
+  }
+  if (g_sms[dev] == 0) {
+    r = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (r != cudaSuccess) return r;
+  }
+  const long long row_bytes = (long long)Kp * kOpBytes<FP8>;
+  CUtensorMap map_a, map_b;
+  int e = make_map(&map_a, qx, row_bytes, M, kBM);
+  if (e == 0) e = make_map(&map_b, qw, row_bytes, N, BN);
+  if (e != 0) return e;
+  const long long tiles = (long long)((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int sms = g_sms[dev];
+  const int pair_ok = aligned(out, 2 * sizeof(T)) && N % 2 == 0;
+  kernel<<<unsigned(tiles < sms ? tiles : sms), kGemmThreads, Cfg::kSmem, st>>>(
+      map_a, map_b, static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<T*>(out), M, N, int((row_bytes + kBK - 1) / kBK), int(tiles), pair_ok);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_gemm(const void* qx, const void* qw, const void* sx, const void* sw, void* out,
+                  int M, int N, int Kp, int bn, int fmt, cudaStream_t st) {
+  if (fmt == 0 && bn == 256) return launch_gemm<false, 256, T>(qx, qw, sx, sw, out, M, N, Kp, st);
+  if (fmt == 0 && bn == 128) return launch_gemm<false, 128, T>(qx, qw, sx, sw, out, M, N, Kp, st);
+  if (fmt == 1 && bn == 256) return launch_gemm<true, 256, T>(qx, qw, sx, sw, out, M, N, Kp, st);
+  if (fmt == 1 && bn == 128) return launch_gemm<true, 128, T>(qx, qw, sx, sw, out, M, N, Kp, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The C interface.  x [M, K] and out [M, N] are contiguous, of dtype
-// 0 = float32 or 1 = bfloat16; w has the same dtype and holds [K, N]
-// either as [N, K] row-major with leading dimension ldw (w_kn = 0) or as
-// [K, N] row-major with leading dimension ldw (w_kn = 1); sx is one
-// float32 and sw [N] float32, on the device.  fmt 0 = int8, 1 = fp8
-// (e4m3).  Returns the cudaError_t of the launch (0 = success), launches
-// on `stream` and does not synchronise.
-extern "C" int quantized_matmul(const void* x, const void* w, const void* sx, const void* sw,
-                                void* out, int M, int N, int K, long long ldw, int w_kn,
-                                int fmt, int dtype, void* stream) {
+// The C interface.  Both launch on `stream`, do not synchronise, and
+// return 0 on success, else a cudaError_t of the launch, or 100000 when
+// the runtime does not reach cuTensorMapEncodeTiled, or 200000 + its
+// CUresult when it refuses a map.
+//
+// qmm_quantize: x [M, K] contiguous, of dtype 0 = float32 or 1 =
+// bfloat16; w of the same dtype holds [K, N] either as [N, K] row-major
+// with leading dimension ldw (w_kn = 0) or as [K, N] row-major with
+// leading dimension ldw (w_kn = 1); sx one float32 and sw [N] float32.
+// Writes qx [M, Kp] and qw [N, Kp] (int8 for fmt 0; for fmt 1 the e4m3
+// values as float16), K-major, columns K..Kp zero; Kp is a multiple of
+// 16, >= K.
+extern "C" int qmm_quantize(const void* x, const void* w, const void* sx, const void* sw,
+                            void* qx, void* qw, int M, int N, int K, int Kp, long long ldw,
+                            int w_kn, int fmt, int dtype, void* stream) {
+  if (Kp % 16 != 0 || Kp < K || !aligned(qx, 16) || !aligned(qw, 16))
+    return cudaErrorInvalidValue;
+  if (M == 0 && N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_quantize<float>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, w_kn, fmt, st);
+  if (dtype == 1)
+    return dispatch_quantize<__nv_bfloat16>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, w_kn, fmt,
+                                            st);
+  return cudaErrorInvalidValue;
+}
+
+// qmm_gemm: out [M, N] (dtype 0 = float32, 1 = bfloat16) =
+// float(qx [M, Kp] . qw [N, Kp]^T) * (sx * sw[n]), on what qmm_quantize
+// wrote for fmt; bn 128 or 256 columns a CTA.
+extern "C" int qmm_gemm(const void* qx, const void* qw, const void* sx, const void* sw,
+                        void* out, int M, int N, int Kp, int bn, int fmt, int dtype,
+                        void* stream) {
+  if (Kp % 16 != 0 || Kp <= 0) return cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, w, sx, sw, out, M, N, K, ldw, w_kn, fmt, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, w, sx, sw, out, M, N, K, ldw, w_kn, fmt, st);
+  if (dtype == 0) return dispatch_gemm<float>(qx, qw, sx, sw, out, M, N, Kp, bn, fmt, st);
+  if (dtype == 1) return dispatch_gemm<__nv_bfloat16>(qx, qw, sx, sw, out, M, N, Kp, bn, fmt, st);
   return cudaErrorInvalidValue;
 }

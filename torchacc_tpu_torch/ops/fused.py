@@ -6,10 +6,15 @@ time, and the backward recomputes each chunk's logits instead of
 saving them, so the full ``[tokens, vocab]`` f32 logits (4.2 GB at
 8192 tokens and Llama-3's 128256 vocab) never exist; one chunk's do.
 JAX computes this outside any Pallas kernel, so it is plain torch here
-too: the matmuls go to ``torch.matmul``, in the operands' dtype.  A
-bf16 matmul rounds its logits to bf16 before the f32 loss math, where
-the JAX dot keeps them f32 (``preferred_element_type``); the serving
-head (``models.transformer.head_logits``) does the same.
+too.  Each chunk's logits are the f32 result of the operands in their
+own dtype, as JAX's ``preferred_element_type=jnp.float32`` dot gives
+them (:104-105), never a bf16 product cast afterwards: on the card
+``torch.mm(..., out_dtype=torch.float32)`` (cuBLAS, f32 output); on the
+CPU the operands are upcast to f32, where the products of bf16 values
+are exact.  The backward's matmuls take the operands' dtype, and dx and
+dw come out in it, as JAX's VJP returns them.  The serving head
+(``models.transformer.head_logits``) rounds its logits in the compute
+dtype, as JAX's does.
 """
 
 from __future__ import annotations
@@ -23,10 +28,21 @@ def _softcap(z: torch.Tensor, cap: float) -> torch.Tensor:
     return z if cap <= 0.0 else torch.tanh(z / cap) * cap
 
 
+def _logits_f32(x, w):
+    """``x @ w`` as f32 from operands in their own dtype: a choice by
+    device, not a fallback (a PyTorch without ``aten::mm.dtype`` for
+    CUDA raises, naming it)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cuda":
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
 def _chunk_loss(x, w, y, cap):
     """f32 logits of one chunk (softcapped), their lse, the valid mask
     and the chunk's loss sum."""
-    z = _softcap((x @ w).float(), cap)
+    z = _softcap(_logits_f32(x, w), cap)
     lse = torch.logsumexp(z, dim=-1)
     valid = y != -100
     safe = torch.where(valid, y, 0)

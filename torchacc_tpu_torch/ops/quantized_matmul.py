@@ -9,19 +9,24 @@ Formats: int8 symmetric [-127, 127], round half to even; fp8 e4m3
 
 Two executable paths, chosen like ``ops/flash_attention.py``:
 
-- the kernel (``csrc/quantized_matmul.cu``, B5, built at first use and
-  bound with ctypes): a fused quantize -> matmul -> dequantize kernel.
-  It reads ``x [M, K]`` and ``w`` in the compute dtype, quantizes the
-  tiles in shared memory, multiplies on the tensor cores (int32
-  accumulator for int8, f32 for fp8) and writes ``acc * (sx * sw[n])``
-  in ``x``'s dtype; the quantized operands never reach device memory.
-  Each launch adds one to :data:`launch_counts` under the format's
-  name, where the kernel launches.
-- the plain version (:func:`_qmm2d_plain`): explicit quantize, an exact
-  product, dequantize.  The CPU path and the tests use it, and
-  ``chip_smoke.py`` holds the kernel against it on the card.  For int8
-  both paths accumulate exact integers and share every rounding, so the
-  kernel and the plain version agree **bitwise**.
+- the kernels (``csrc/quantized_matmul.cu``, B5, built at first use and
+  bound with ctypes), two launches a call: a quantize pass writes each
+  operand once, K-major, ``qx [M, Kp]`` and ``qw [N, Kp]`` (``Kp`` = K
+  rounded up to 16, the pad zero; int8 bytes, or the e4m3 values of fp8
+  as float16, which holds each exactly), then a GEMM on TMA-fed shared
+  memory and ``wgmma`` (int8 with an int32 accumulator; f16 with an f32
+  one, since Hopper's e4m3 ``wgmma`` keeps fewer bits of its sums than
+  f32) writes ``acc * (sx * sw[n])`` in ``x``'s dtype.
+  :func:`_qmm_plan` lays out what both are launched with.  Each call
+  adds one to :data:`launch_counts` under the format's name, where the
+  kernels launch.
+- the plain version (:func:`_qmm2d_plain`): the plain counterparts of
+  the two kernels, :func:`_quantize_pass_plain` (explicit quantize into
+  the padded operands) and :func:`_gemm_plain` (an exact product,
+  dequantize).  The CPU path and the tests use it, and ``chip_smoke.py``
+  holds the kernels against it on the card.  For int8 both paths
+  accumulate exact integers and share every rounding, so the kernels and
+  the plain version agree **bitwise**.
 
 ``impl``: 'auto' sends CUDA tensors to the kernel and CPU tensors to the
 plain version; 'cuda' forces the kernel (and raises on CPU tensors);
@@ -50,13 +55,13 @@ its history and returns the new one (:class:`QuantLinear`,
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from torchacc_tpu_torch.ops import _build
-from torchacc_tpu_torch.ops._common import resolve_device
+from torchacc_tpu_torch.ops._common import resolve_device, round_up
 
 #: quantization formats: dtype + largest representable magnitude.  int8
 #: uses the symmetric [-127, 127] range; fp8 is e4m3 (max finite 448),
@@ -66,15 +71,20 @@ _FORMATS = {
     "fp8": (torch.float8_e4m3fn, 448.0),
 }
 _FMT_CODE = {"int8": 0, "fp8": 1}
+#: the dtype of the quantized operands the GEMM reads: fp8's e4m3 values
+#: as float16 (every one exact), for the f16 tensor cores' f32 sums
+_OPERAND_DTYPE = {"int8": torch.int8, "fp8": torch.float16}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # int32 accumulation is exact while 127^2 * K < 2^31, i.e. K < 133 144
 _INT8_MAX_K = 133_000
 
-#: kernel launches so far, counted where the kernel launches;
-#: chip_smoke.py sets them to 0 before the quantized training run and
-#: reads them after
+#: B5 calls so far (a quantize pass and a GEMM each), counted where the
+#: kernels launch; chip_smoke.py sets them to 0 before the quantized
+#: training run and reads them after
 launch_counts = {"int8": 0, "fp8": 0}
-
+#: the GEMM's CTA tile: rows of M (two warpgroups of 64) and bytes of K
+#: a stage (one 128-byte swizzle row)
+_BM, _BK = 128, 128
 
 
 def quant_formats() -> Tuple[str, ...]:
@@ -187,47 +197,73 @@ def _exact_dot(qx: torch.Tensor, qw: torch.Tensor, fmt: str) -> torch.Tensor:
                         qw.to(torch.int32)).to(torch.float32)
 
 
+def _padded_k(k: int) -> int:
+    """``Kp``: K rounded up to 16, at least 16 (TMA's row stride is a
+    multiple of 16 bytes)."""
+    return max(16, round_up(k, 16))
+
+
+def _quantize_pass_plain(x2d: torch.Tensor, w2d: torch.Tensor,
+                         sx: torch.Tensor, sw: torch.Tensor, fmt: str
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the quantize kernel writes, plainly: ``qx [M, Kp]`` and
+    ``qw [N, Kp]`` in :data:`_OPERAND_DTYPE`, both K-major, the pad
+    columns ``K..Kp`` zero."""
+    kp = _padded_k(x2d.shape[1])
+    dt = _OPERAND_DTYPE[fmt]
+
+    def padded(q):
+        out = torch.zeros((q.shape[0], kp), dtype=dt, device=q.device)
+        out[:, :q.shape[1]] = q.to(dt)
+        return out
+    return (padded(quantize(x2d, sx, fmt)),
+            padded(quantize(w2d, sw[None, :], fmt).t()))
+
+
+def _gemm_plain(qx: torch.Tensor, qw: torch.Tensor, sx: torch.Tensor,
+                sw: torch.Tensor, fmt: str) -> torch.Tensor:
+    """What the GEMM kernel computes, plainly: the exact dot of the
+    padded ``qx [M, Kp]`` and ``qw [N, Kp]``, then ``acc * (sx * sw[n])``
+    as two rounded multiplies.  f32 result."""
+    return _exact_dot(qx, qw.t(), fmt) * (sx.to(torch.float32) * sw)[None, :]
+
+
 def _qmm2d_plain(x2d: torch.Tensor, w2d: torch.Tensor, sx: torch.Tensor,
                  sw: torch.Tensor, fmt: str) -> torch.Tensor:
     """``[M, K] @ [K, N]`` on explicitly quantized operands (the JAX
-    ``_qmm2d_xla``, :152).  Dequantization folds the two scales into one
-    ``[N]`` row.  f32 result."""
-    qx = quantize(x2d, sx, fmt)
-    qw = quantize(w2d, sw[None, :], fmt)
-    return _exact_dot(qx, qw, fmt) * (sx.to(torch.float32) * sw)[None, :]
+    ``_qmm2d_xla``, :152): the two kernels' plain counterparts.  The pad
+    columns add exact zeros.  f32 result."""
+    return _gemm_plain(*_quantize_pass_plain(x2d, w2d, sx, sw, fmt), sx, sw,
+                       fmt)
 
 
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
-def _kernel_fn():
-    """The bound C entry point (built and loaded at first use)."""
-    fn = _build.load("quantized_matmul").quantized_matmul
-    if fn.argtypes is None:
-        # x, w, sx, sw, out; M, N, K; ldw, w_kn, fmt, dtype; stream
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+class QmmPlan(NamedTuple):
+    """What B5's two kernels are launched with, from the shapes and
+    strides alone."""
+    m: int
+    n: int
+    k: int
+    kp: int                  # K rounded up to 16: the rows of qx and qw
+    w_layout: str            # 'nk': [N, K] row-major; 'kn': [K, N] row-major
+    ldw: int                 # the weight's leading dimension, in elements
+    w_copy: bool             # neither layout: the weight is copied to 'kn'
+    bn: int                  # columns of a GEMM CTA tile: 128 or 256
+    map_a: Tuple             # qx's TMA map in bytes: dims (row, M), stride, box
+    map_b: Tuple             # qw's TMA map in bytes: dims (row, N), stride, box
 
 
-def _qmm2d_cuda(x2d: torch.Tensor, w2d: torch.Tensor, sx: torch.Tensor,
-                sw: torch.Tensor, fmt: str) -> torch.Tensor:
-    """B5: one launch.  ``w2d`` is ``[K, N]`` with either dim contiguous
-    (``weight.t()`` of an ``nn.Linear`` is read as it lies, ``[N, K]``
-    row-major).  Returns ``[M, N]`` in ``x2d``'s dtype."""
+def _qmm_plan(x2d: torch.Tensor, w2d: torch.Tensor, fmt: str) -> QmmPlan:
+    """Lay out B5's launches for ``x2d [M, K] @ w2d [K, N]`` (x
+    contiguous; the weight in either layout, read where it lies), and
+    refuse what the kernels do not take.  N up to 1024 takes 128-column
+    tiles, the rest 256."""
+    _fmt(fmt)
     m, k = x2d.shape
     n = w2d.shape[1]
-    for name, t in (("x", x2d), ("kernel", w2d), ("x_scale", sx),
-                    ("the weight scale", sw)):
-        if t.device.type != "cuda":
-            raise ValueError(
-                f"the quantized-matmul kernel needs CUDA tensors; {name} is "
-                f"on {t.device} (use impl='torch' for the plain version)")
-        if t.device != x2d.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x2d.device}")
     if x2d.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernel takes float32 or bfloat16, got "
                          f"{x2d.dtype}")
@@ -238,27 +274,106 @@ def _qmm2d_cuda(x2d: torch.Tensor, w2d: torch.Tensor, sx: torch.Tensor,
         raise ValueError(
             f"int8: K = {k} > {_INT8_MAX_K} could overflow the int32 "
             f"accumulator (127^2 * K must stay below 2^31)")
-    x2d = x2d.contiguous()
+    kp = _padded_k(k)
+    if max(m, n, kp) >= 2**31:
+        raise ValueError(f"x [{m}, {k}] @ [{k}, {n}] is beyond the kernels' "
+                         f"32-bit sizes")
+    w_copy = False
     if w2d.stride(0) == 1 and w2d.stride(1) >= max(k, 1):
-        w_kn, ldw = 0, w2d.stride(1)            # [N, K] row-major
+        w_layout, ldw = "nk", w2d.stride(1)
+    elif w2d.stride(1) == 1 and w2d.stride(0) >= max(n, 1):
+        w_layout, ldw = "kn", w2d.stride(0)
     else:
-        if not (w2d.stride(1) == 1 and w2d.stride(0) >= max(n, 1)):
-            w2d = w2d.contiguous()
-        w_kn, ldw = 1, w2d.stride(0)            # [K, N] row-major
-    sx = sx.to(torch.float32).reshape(1).contiguous()
-    sw = sw.to(torch.float32).contiguous()
-    out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
-    if m == 0 or n == 0:
-        return out
-    err = _kernel_fn()(
-        x2d.data_ptr(), w2d.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), m, n, k, ldw, w_kn, _FMT_CODE[fmt],
-        _DTYPE_CODE[x2d.dtype],
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+        w_layout, ldw, w_copy = "kn", n, True
+    bn = 128 if n <= 1024 else 256
+    row = kp * _OPERAND_DTYPE[fmt].itemsize
+    return QmmPlan(m=m, n=n, k=k, kp=kp, w_layout=w_layout, ldw=ldw,
+                   w_copy=w_copy, bn=bn, map_a=((row, m), row, (_BK, _BM)),
+                   map_b=((row, n), row, (_BK, bn)))
+
+
+def _lib():
+    """The bound C entry points (built and loaded at first use)."""
+    lib = _build.load("quantized_matmul")
+    if lib.qmm_quantize.argtypes is None:
+        # x, w, sx, sw, qx, qw; M, N, K, Kp; ldw; w_kn, fmt, dtype; stream
+        lib.qmm_quantize.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.qmm_quantize.restype = ctypes.c_int
+        # qx, qw, sx, sw, out; M, N, Kp, bn, fmt, dtype; stream
+        lib.qmm_gemm.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                                 + [ctypes.c_void_p])
+        lib.qmm_gemm.restype = ctypes.c_int
+    return lib
+
+
+def _check(err: int, what: str, plan: QmmPlan, fmt: str) -> None:
     if err != 0:
         raise RuntimeError(
-            f"quantized-matmul kernel launch failed: cudaError {err} "
-            f"({fmt}, x {tuple(x2d.shape)} {x2d.dtype}, n {n})")
+            f"quantized-matmul {what} launch failed: error {err} "
+            f"(cudaError_t; 100000: no cuTensorMapEncodeTiled; 200000 + a "
+            f"CUresult: the map was refused) for {fmt}, x [{plan.m}, "
+            f"{plan.k}], n {plan.n}")
+
+
+def _quantize_cuda(plan: QmmPlan, x2d, w2d, sx, sw, fmt):
+    """The quantize kernel: ``(qx [M, Kp], qw [N, Kp])``."""
+    dt = _OPERAND_DTYPE[fmt]
+    qx = torch.empty((plan.m, plan.kp), dtype=dt, device=x2d.device)
+    qw = torch.empty((plan.n, plan.kp), dtype=dt, device=x2d.device)
+    err = _lib().qmm_quantize(
+        x2d.data_ptr(), w2d.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        qx.data_ptr(), qw.data_ptr(), plan.m, plan.n, plan.k, plan.kp,
+        plan.ldw, int(plan.w_layout == "kn"), _FMT_CODE[fmt],
+        _DTYPE_CODE[x2d.dtype],
+        torch.cuda.current_stream(x2d.device).cuda_stream)
+    _check(err, "quantize", plan, fmt)
+    return qx, qw
+
+
+def _gemm_cuda(plan: QmmPlan, qx, qw, sx, sw, fmt, dtype):
+    """The GEMM: ``[M, N]`` in ``dtype``."""
+    out = torch.empty((plan.m, plan.n), dtype=dtype, device=qx.device)
+    err = _lib().qmm_gemm(
+        qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), plan.m, plan.n, plan.kp, plan.bn, _FMT_CODE[fmt],
+        _DTYPE_CODE[dtype],
+        torch.cuda.current_stream(qx.device).cuda_stream)
+    _check(err, "GEMM", plan, fmt)
+    return out
+
+
+def _cuda_operands(x2d, w2d, sx, sw, fmt):
+    """Validated operands of the kernels and their plan."""
+    for name, t in (("x", x2d), ("kernel", w2d), ("x_scale", sx),
+                    ("the weight scale", sw)):
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"the quantized-matmul kernel needs CUDA tensors; {name} is "
+                f"on {t.device} (use impl='torch' for the plain version)")
+        if t.device != x2d.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x2d.device}")
+    x2d = x2d.contiguous()
+    plan = _qmm_plan(x2d, w2d, fmt)
+    if plan.w_copy:
+        w2d = w2d.contiguous()
+    return (plan, x2d, w2d, sx.to(torch.float32).reshape(1).contiguous(),
+            sw.to(torch.float32).contiguous())
+
+
+def _qmm2d_cuda(x2d: torch.Tensor, w2d: torch.Tensor, sx: torch.Tensor,
+                sw: torch.Tensor, fmt: str) -> torch.Tensor:
+    """B5: the quantize pass, then the GEMM.  ``w2d`` is ``[K, N]`` with
+    either dim contiguous (``weight.t()`` of an ``nn.Linear`` is read as
+    it lies, ``[N, K]`` row-major).  Returns ``[M, N]`` in ``x2d``'s
+    dtype."""
+    plan, x2d, w2d, sx, sw = _cuda_operands(x2d, w2d, sx, sw, fmt)
+    if plan.m == 0 or plan.n == 0:
+        return torch.empty((plan.m, plan.n), dtype=x2d.dtype,
+                           device=x2d.device)
+    qx, qw = _quantize_cuda(plan, x2d, w2d, sx, sw, fmt)
+    out = _gemm_cuda(plan, qx, qw, sx, sw, fmt, x2d.dtype)
     launch_counts[fmt] += 1
     return out
 
