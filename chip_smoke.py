@@ -10,13 +10,18 @@ Phases, each of which exits non-zero when it fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. the build: every kernel source under torchacc_tpu_torch/csrc/ is
    compiled by nvcc for sm_90a, one process per source, all at once;
-3. the paged-attention kernel phase: B4 against its plain PyTorch
-   version on the same CUDA tensors (bf16, Llama-3-8B heads H=32 KH=8
-   D=128, BS=16, shuffled block tables, decode S=8 T=1 with contexts
-   0..~2k, a prefill chunk S=1 T=256, softcap and window cases), then
-   its time beside the plain version's, one library call on
-   pre-gathered K/V (F.scaled_dot_product_attention, a yardstick the
-   port never calls) and the least time the card could take;
+3. the paged-attention kernel phase: B4 (a tensor-core body for
+   prefill chunks, a split-context body for decode) against its plain
+   PyTorch version on the same CUDA tensors (bf16, Llama-3-8B heads
+   H=32 KH=8 D=128, BS=16, shuffled block tables, decode S=8 T=1 with
+   contexts 0..~2k, a prefill chunk S=1 T=256, softcap and window
+   cases, a long decode with contexts on and beside the split
+   boundaries up to 8192, and a batched prefill of chunks of 256, 100
+   and 1 tokens with pad rows), then its time beside the plain
+   version's, one library call on pre-gathered K/V
+   (F.scaled_dot_product_attention, a yardstick the port never calls),
+   the least time the card could take and the host's time to issue a
+   call;
 4. the flash-attention kernel phase: B1 (forward), B2 (dq) and B3
    (dk/dv) against the plain version on the same CUDA tensors — the
    training shape b=2 s=4096 H=32 KH=8 D=128 bf16, causal, packed
@@ -54,7 +59,10 @@ Phases, each of which exits non-zero when it fails:
    (chunks); every request's last-prompt-position logits through the
    kernel must match the plain attention path within a bf16 tolerance,
    and two controls (plain attention with the GQA head map wrong, and
-   with a chunk's last row blind to its own key) must not;
+   with a chunk's last row blind to its own key) must not.  With
+   --profile, one decode iteration (8 slots) and one 256-token prefill
+   chunk run under torch.profiler: B4, cuBLAS and elementwise device
+   ms, and the device's busy and idle share;
 7. the training phase: llama3-8b at full width and --train-layers deep
    (the depth is the only cut: 32 layers of f32 masters and AdamW state
    need ~128 GB), through accelerate() -> Trainer.step with bf16
@@ -147,10 +155,11 @@ def _card():
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def _paged_case(torch, rng, ctx, t, layers, dtype):
+def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None):
     """Per-layer pools with random contents and per-slot shuffled block
     tables (different per layer, so timing loops do not re-read one
-    layer's pages out of L2)."""
+    layer's pages out of L2).  Each slot's first query row sits at
+    ctx - t unless ``q_start`` says otherwise."""
     import numpy as np
     s = len(ctx)
     mb = max(1, -(-max(ctx) // BS))
@@ -167,7 +176,8 @@ def _paged_case(torch, rng, ctx, t, layers, dtype):
     v = torch.randn((layers, nb, BS, KH, D), generator=gen, device="cuda",
                     dtype=dtype)
     q = torch.randn((s, t, H, D), generator=gen, device="cuda", dtype=dtype)
-    q_start = np.asarray([max(c - t, 0) for c in ctx], np.int32)
+    q_start = np.asarray(q_start if q_start is not None
+                         else [max(c - t, 0) for c in ctx], np.int32)
     cuda_i32 = lambda a: torch.from_numpy(a).cuda()
     return (q, k, v, cuda_i32(tables), cuda_i32(np.asarray(ctx, np.int32)),
             cuda_i32(q_start))
@@ -219,6 +229,10 @@ def _time_ms(torch, fn, iters, warm=3):
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    # keep the card busy while the host queues the launches, so that a
+    # kernel shorter than its host issue time is timed on the card and
+    # not at the host's pace (~10 ms at the H100's clock)
+    torch.cuda._sleep(20_000_000)
     a.record()
     for i in range(iters):
         fn(i)
@@ -238,16 +252,29 @@ def _kernel_phase(torch, args, pa):
     tol = dict(atol=1e-3, rtol=1e-2)
     layers = 8                      # distinct pools cycled while timing
     decode_ctx = [0, 1, 17, 255, 1000, 1231, 1999, 2032]
-    cases = {
-        "decode": (decode_ctx, 1, (-1, -1), 0.0),
-        "prefill": ([1300], 256, (-1, -1), 0.0),
-        "decode_softcap": (decode_ctx, 1, (-1, -1), 50.0),
-        "prefill_window": ([1300], 256, (128, -1), 0.0),
+    # long decode up to 8192: contexts on and one past where the kernel's
+    # cut of a slot's keys into the plan's parts changes (the 128-key
+    # minimum part; parts of two 64-key stages)
+    parts = pa._paged_plan(
+        (8, 1, H, D), (8 * 512 + 1, BS, KH, D), 8192 // BS, torch.bfloat16,
+        torch.cuda.get_device_properties(0).multi_processor_count).splits
+    long_ctx = [1, 127, 128, 129, 128 * parts, 128 * parts + 1, 6000, 8192]
+    cases = {   # name: (contexts, T, window, softcap, q_start or None)
+        "decode": (decode_ctx, 1, (-1, -1), 0.0, None),
+        "prefill": ([1300], 256, (-1, -1), 0.0, None),
+        "decode_softcap": (decode_ctx, 1, (-1, -1), 50.0, None),
+        "prefill_window": ([1300], 256, (128, -1), 0.0, None),
+        "decode_long": (long_ctx, 1, (-1, -1), 0.0, None),
+        # three chunks of 256, 100 and 1 tokens in one 256-row dispatch:
+        # the short ones leave pad rows past their context
+        "prefill_batched": ([256, 800, 1501], 256, (-1, -1), 0.0,
+                            [0, 700, 1500]),
     }
+    timed = ("decode", "prefill", "decode_long")
     results = {}
-    for name, (ctx, t, window, cap) in cases.items():
+    for name, (ctx, t, window, cap, q0s) in cases.items():
         q, k, v, tables, lens, q_start = _paged_case(
-            torch, rng, ctx, t, layers, torch.bfloat16)
+            torch, rng, ctx, t, layers, torch.bfloat16, q0s)
         kw = dict(window=window, logit_softcap=cap)
         out = pa.paged_attention(q, k[0], v[0], tables[0], lens, q_start,
                                  impl="cuda", **kw)
@@ -257,8 +284,9 @@ def _kernel_phase(torch, args, pa):
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.isfinite(out).all():
             _fail(f"kernel case {name}: non-finite output")
-        if ctx[0] == 0 and out[0].abs().max().item() != 0.0:
-            _fail(f"kernel case {name}: the ctx=0 slot is not zero")
+        if any(c == 0 and out[i].abs().max().item() != 0.0
+               for i, c in enumerate(ctx)):
+            _fail(f"kernel case {name}: a ctx=0 slot is not zero")
         try:
             torch.testing.assert_close(out.float(), ref.float(), **tol)
         except AssertionError as e:
@@ -266,8 +294,10 @@ def _kernel_phase(torch, args, pa):
                   f"{e}")
         rec = {"max_abs_err": err, "tolerance": tol, "ctx": ctx, "t": t,
                "window": list(window), "softcap": cap}
-        if name in ("decode", "prefill"):
+        if name in timed:
             iters = args.reps
+            rec["host_ms"] = _host_ms(torch, lambda: pa.paged_attention(
+                q, k[0], v[0], tables[0], lens, q_start, impl="cuda", **kw))
             rec["ms"] = _time_ms(torch, lambda i: pa.paged_attention(
                 q, k[i % layers], v[i % layers], tables[i % layers], lens,
                 q_start, impl="cuda", **kw), iters)
@@ -303,7 +333,8 @@ def _kernel_phase(torch, args, pa):
               f"rtol {tol['rtol']})"
               + (f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
                  f" ms, library {rec['library_ms']:.4f} ms, bound "
-                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), host "
+                 f"{rec['host_ms']:.4f} ms a call"
                  if "ms" in rec else ""), flush=True)
         del q, k, v, tables
     return results
@@ -379,6 +410,86 @@ def _prompt_logits(torch, model, cfg, prompts, impl, attend=None):
     finally:
         sched_mod.paged_attention = saved
     return out
+
+
+def _device_groups(prof, groups_of):
+    """Device-side rows of a profile (kernels, copies, sets: an
+    operator's row repeats the time of the kernels it launched), their
+    busy ms and their ms summed by group_of(name)."""
+    from torch.autograd import DeviceType
+    kern = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and a.self_device_time_total > 0]
+    kern.sort(key=lambda a: -a.self_device_time_total)
+    groups = {}
+    for a in kern:
+        g = groups_of(a.key)
+        groups[g] = groups.get(g, 0.0) + a.self_device_time_total / 1e3
+    return kern, sum(a.self_device_time_total for a in kern) / 1e3, groups
+
+
+def _serving_group(name):
+    return ("paged attention (B4)" if "paged_" in name
+            else "GEMM (cuBLAS)" if any(t in name for t in (
+                "nvjet", "gemm", "gemv", "xmma", "cutlass"))
+            else "elementwise, copy, reduce (aten)" if "at::native" in name
+            or "Memcpy" in name or "Memset" in name else "other")
+
+
+def _serving_profile(torch, model, cfg):
+    """One decode iteration of 8 slots (contexts 65..2001, the serving
+    run's table width) and one 256-token prefill chunk at position 1024,
+    each through PagedDecoder under torch.profiler: B4, cuBLAS and
+    elementwise device ms, and the device's busy and idle share of the
+    step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from torchacc_tpu_torch import ServeConfig
+    from torchacc_tpu_torch.serve import PagedDecoder, make_pools
+    from torchacc_tpu_torch.serve.kv_cache import blocks_needed
+    slots, used = 8, 2304 // BS                  # blocks a slot holds
+    width = blocks_needed(cfg.max_seq_len + 2, BS)   # the engine's tables
+    one = ServeConfig(block_size=BS, prefill_chunk=256, max_slots=slots,
+                      num_blocks=slots * used + 1)
+    pools = make_pools(cfg, one, torch.device("cuda"))
+    tables = torch.zeros((slots, width), dtype=torch.int32, device="cuda")
+    tables[:, :used] = 1 + torch.arange(slots * used, dtype=torch.int32,
+                                        device="cuda").view(slots, used)
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = lambda n: torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                                   device="cuda", dtype=torch.int32)
+    seq_lens = i32([64, 700, 1337, 2000, 129, 1000, 1800, 333])
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    steps = {
+        "decode": lambda dec: dec.decode(pools, toks(slots), tables, seq_lens,
+                                         active, None, None, None, None,
+                                         all_greedy=True),
+        "prefill": lambda dec: dec.prefill(pools, tables[:1], i32([1024]),
+                                           toks(256)[None], i32([256]),
+                                           with_head=True),
+    }
+    with torch.inference_mode():
+        dec = PagedDecoder(model, one)
+        for what, step in steps.items():
+            step(dec)                            # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(dec)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kern, busy_ms, groups = _device_groups(prof, _serving_group)
+            print(f"profile serving {what}: one step, wall {wall_ms:.2f} ms "
+                  f"(profiled), device busy {busy_ms:.2f} ms, idle share "
+                  f"{1 - busy_ms / wall_ms:.3f}; " + "; ".join(
+                      f"{g} {ms:.3f} ms" for g, ms in sorted(
+                          groups.items(), key=lambda kv: -kv[1])), flush=True)
+            for a in kern[:6]:
+                print(f"profile serving {what}: "
+                      f"{a.self_device_time_total / 1e3:9.3f} ms "
+                      f"x{a.count:<5d} {a.key[:100]}", flush=True)
+    del pools
 
 
 def _serving_phase(torch, args, pa):
@@ -457,6 +568,8 @@ def _serving_phase(torch, args, pa):
     eng.close()
     del eng, sched
     torch.cuda.empty_cache()
+    if args.profile:
+        _serving_profile(torch, model, cfg)
 
     # last-prompt-position logits: kernel vs plain attention, same model,
     # same prompts; and two controls, plain attention made wrong on
@@ -1100,24 +1213,10 @@ def _profile_step(torch, trainer, batch, tag="training"):
         trainer.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only (kernels, copies, sets): an operator's row
-    # repeats the time of the kernels it launched
-    from torch.autograd import DeviceType
-    kern = [a for a in prof.key_averages()
-            if a.device_type == DeviceType.CUDA
-            and a.self_device_time_total > 0]
-    kern.sort(key=lambda a: -a.self_device_time_total)
-    busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
-    groups = {}
-    for a in kern:
-        name = a.key
-        g = ("flash attention" if "::fwd_" in name or "::bwd_d" in name
-             else "quantized matmul (B5)" if "qmm_" in name
-             else "GEMM (cuBLAS)" if any(t in name for t in (
-                 "nvjet", "gemm", "gemv", "xmma", "cutlass"))
-             else "elementwise, copy, reduce (aten)" if "at::native" in name
-             or "Memcpy" in name or "Memset" in name else "other")
-        groups[g] = groups.get(g, 0.0) + a.self_device_time_total / 1e3
+    kern, busy_ms, groups = _device_groups(prof, lambda name: (
+        "flash attention" if "::fwd_" in name or "::bwd_d" in name
+        else "quantized matmul (B5)" if "qmm_" in name
+        else _serving_group(name)))
     with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=80))
@@ -1331,7 +1430,9 @@ def main():
                     help="timed kernel launches per shape")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more training step (torch.profiler)")
+                    help="profile one decode iteration and one prefill "
+                         "chunk of the served model and one more training "
+                         "step of each run (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -1395,9 +1496,11 @@ def main():
             KERNEL, name=f"{KERNEL['name']}[{shape}]",
             launches=launches[shape],
             launches_per_dispatch=launches[shape] / dispatches[shape],
-            max_abs_err=k["max_abs_err"], ms=k["ms"],
-            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+            max_abs_err=max(kern[c]["max_abs_err"] for c in kern
+                            if (kern[c]["t"] == 1) == (shape == "decode")),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            host_ms=k["host_ms"]))
     for name, replaces in FLASH.items():
         part = "fwd" if name == "fwd" else "bwd"
         errs = ("o", "lse") if name == "fwd" else (

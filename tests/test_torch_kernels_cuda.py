@@ -46,7 +46,11 @@ def card():
 
 
 def _case(seed, device, dtype, *, slots, heads, kv_heads, d, bs, t,
-          ctx_lens):
+          ctx_lens, q_starts=None):
+    """Random pools and shuffled block tables; each slot's first query
+    row sits at ctx - t (a chunk that ends the context) unless
+    ``q_starts`` says otherwise (a batched prefill whose short chunks
+    leave pad rows past their context)."""
     rng = np.random.default_rng(seed)
     mb = max(1, -(-max(ctx_lens) // bs)) + 1      # one spare table column
     nb = slots * mb + 1
@@ -58,10 +62,33 @@ def _case(seed, device, dtype, *, slots, heads, kv_heads, d, bs, t,
     kp = rng.standard_normal((nb, bs, kv_heads, d)).astype(np.float32)
     vp = rng.standard_normal((nb, bs, kv_heads, d)).astype(np.float32)
     q = rng.standard_normal((slots, t, heads, d)).astype(np.float32)
-    q_start = np.asarray([max(c - t, 0) for c in ctx_lens], np.int32)
+    q_start = np.asarray(q_starts if q_starts is not None
+                         else [max(c - t, 0) for c in ctx_lens], np.int32)
     f = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
     i = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
     return f(q), f(kp), f(vp), i(tables), i(ctx_lens), i(q_start)
+
+
+def _decode_splits(device, slots, heads, kv_heads, d, bs, max_ctx):
+    """The parts the decode plan cuts each slot's keys into for this
+    geometry on this card (the table width is _case's: max_ctx rounded
+    up to blocks, plus one)."""
+    mb = -(-max_ctx // bs) + 1
+    plan = pa._paged_plan((slots, 1, heads, d), (slots * mb + 1, bs,
+                                                 kv_heads, d), mb,
+                          torch.bfloat16,
+                          torch.cuda.get_device_properties(device)
+                          .multi_processor_count)
+    return plan.splits
+
+
+def _around_split(parts):
+    """Contexts on and one either side of where the kernel's cut of a
+    slot's keys changes: the 128-key minimum part, and parts of exactly
+    two 64-key stages each; a slot that sees nothing; the longest
+    context the geometry takes."""
+    return [127, 128, 129, 0, 128 * parts - 1, 128 * parts,
+            128 * parts + 1, 8192]
 
 
 GEOMS = {
@@ -73,9 +100,34 @@ GEOMS = {
                                t=1, ctx_lens=[5, 130, 64]),
     "chunk_mqa_d128_bs32": dict(slots=2, heads=4, kv_heads=1, d=128, bs=32,
                                 t=9, ctx_lens=[9, 100]),
+    # long decode, contexts around the kernel's part boundaries
+    # (ctx_lens from _around_split at the card's parts)
+    "decode_long_d128": dict(slots=8, heads=32, kv_heads=8, d=128, bs=16,
+                             t=1, ctx_lens=_around_split),
+    "decode_zero_beside_long": dict(slots=4, heads=32, kv_heads=8, d=128,
+                                    bs=16, t=1, ctx_lens=[0, 5000, 0, 3001]),
+    "decode_long_d32": dict(slots=3, heads=8, kv_heads=2, d=32, bs=16, t=1,
+                            ctx_lens=[4097, 0, 1234]),
+    # batched prefill: chunks of 256, 100 and 1 tokens padded to 256 rows
+    "prefill_batched_pad": dict(slots=3, heads=32, kv_heads=8, d=128, bs=16,
+                                t=256, ctx_lens=[256, 800, 1501],
+                                q_starts=[0, 700, 1500]),
+    "chunk_gqa_d32": dict(slots=2, heads=8, kv_heads=2, d=32, bs=16, t=70,
+                          ctx_lens=[70, 300]),
 }
 OPTS = {"plain": {}, "softcap": dict(logit_softcap=30.0),
-        "window": dict(window=(20, -1))}
+        "window": dict(window=(20, -1)),
+        # a left edge that cuts the long decodes' splits
+        "wide_window": dict(window=(1000, -1))}
+
+
+def _geom(name, device):
+    g = dict(GEOMS[name])
+    if callable(g["ctx_lens"]):
+        g["ctx_lens"] = g["ctx_lens"](_decode_splits(
+            device, g["slots"], g["heads"], g["kv_heads"], g["d"], g["bs"],
+            8192))
+    return g
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -83,7 +135,7 @@ OPTS = {"plain": {}, "softcap": dict(logit_softcap=30.0),
 @pytest.mark.parametrize("opt", sorted(OPTS))
 @pytest.mark.parametrize("geom", sorted(GEOMS))
 def test_paged_attention_kernel_matches_plain(card, geom, opt, dtype):
-    args = _case(0, card, dtype, **GEOMS[geom])
+    args = _case(0, card, dtype, **_geom(geom, card))
     shape = "decode" if GEOMS[geom]["t"] == 1 else "prefill"
     before = dict(pa.launch_counts)
     out = pa.paged_attention(*args, impl="cuda", **OPTS[opt])
@@ -96,6 +148,17 @@ def test_paged_attention_kernel_matches_plain(card, geom, opt, dtype):
     for s, c in enumerate(ctx):
         if c == 0:
             assert (out[s] == 0).all()
+
+
+def test_split_decode_is_bitwise_repeatable(card):
+    """The merge walks the splits in a fixed order, whichever CTA of a
+    (slot, kv head) finishes last: two calls give the same bits."""
+    args = _case(5, card, torch.bfloat16, **_geom("decode_long_d128", card))
+    for opt in ({}, dict(window=(1000, -1))):
+        first = pa.paged_attention(*args, impl="cuda", **opt)
+        for _ in range(3):
+            again = pa.paged_attention(*args, impl="cuda", **opt)
+            assert torch.equal(first, again)
 
 
 def test_auto_launches_kernel_for_cuda_tensors(card):

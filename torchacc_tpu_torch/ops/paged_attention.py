@@ -9,10 +9,13 @@ blocks; ``context_lens [S]`` counts every banked token of the slot
 is the position of the slot's first query row, so causality is
 ``kv_pos <= q_start + t``.  Slots with ``context_lens == 0`` give zeros.
 
-- ``_paged_attention_cuda``: the hand-written Hopper kernel
+- ``_paged_attention_cuda``: the hand-written Hopper kernels
   (``csrc/paged_attention.cu``), built at first use and bound with
-  ctypes.  Each launch adds one to :data:`launch_counts`, under its
-  shape: ``"decode"`` for ``T == 1``, ``"prefill"`` for a chunk.
+  ctypes.  :func:`_paged_plan` picks the body and lays out its launch:
+  bf16 prefill chunks on the tensor cores, bf16 decode with the context
+  split across CTAs and merged in the kernel, f32 on the CUDA cores.
+  Each call is one launch and adds one to :data:`launch_counts`, under
+  its shape: ``"decode"`` for ``T == 1``, ``"prefill"`` for a chunk.
 - ``_paged_attention_torch``: the plain PyTorch version, numerically the
   JAX ``_paged_attention_xla`` (f32 scores, NEG_INF mask, masked
   probabilities zeroed).  The CPU tests and the comparison phase of
@@ -27,7 +30,8 @@ that fails to build or launch: it raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,7 +43,18 @@ from torchacc_tpu_torch.ops._common import NEG_INF
 launch_counts = {"decode": 0, "prefill": 0}
 
 _KERNEL_HEAD_DIMS = (32, 128)      # llama-tiny, llama3-8b
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel bodies (paged_attention_fwd's ``body``)
+_BODY_CODE = {"f32": 0, "prefill_mma": 1, "decode_split": 2}
+_ROWS_F32 = 32          # rows a CTA of the f32 body (kRowsF32)
+_ROWS_MMA = 64          # rows a CTA of the tensor-core prefill
+_DECODE_ROWS = 16       # rows of a decode CTA: the group, padded to m16
+_MAX_GROUP = _DECODE_ROWS   # q heads per kv head the decode body takes
+_MIN_SPLIT_KEYS = 128   # keys a part takes at least (kMinSplitKeys)
+_MAX_SPLITS = 32        # parts a tile's keys are cut into (kMaxSplits)
+_CTAS_PER_SM = 4        # decode CTAs an SM
+_PREFILL_CTAS_PER_SM = 2   # prefill CTAs an SM (kMinBlocks)
+_MAX_GRID_YZ = 65535    # CUDA's limit on grid dims y (kv heads), z (slots)
 
 
 def _paged_attention_torch(q, k_pool, v_pool, block_tables, context_lens,
@@ -79,6 +94,81 @@ def _paged_attention_torch(q, k_pool, v_pool, block_tables, context_lens,
     return out.to(q.dtype)
 
 
+class PagedPlan(NamedTuple):
+    """How one call launches: the kernel body, its grid ``(row tiles x
+    splits, kv heads, slots)``, the query rows of a tile (the rows are
+    the (token, q head) pairs of one kv head) and the parts each tile's
+    keys are split into."""
+
+    body: str
+    grid: Tuple[int, int, int]
+    rows: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=256)
+def _paged_plan(q_shape: Tuple[int, int, int, int],
+                pool_shape: Tuple[int, int, int, int], max_blocks: int,
+                dtype: torch.dtype, sms: int) -> PagedPlan:
+    """Lay out B4's launch for ``q [S, T, H, D]`` over a pool ``[NB, BS,
+    KH, D]`` with tables ``[S, max_blocks]`` on a card of ``sms`` SMs.
+
+    - f32 (any T): the CUDA-core body, 32 rows a CTA, keys unsplit;
+    - bf16 prefill (T > 1): 64-row tiles on the tensor cores; the keys
+      are split where the tiles alone would not fill two CTAs an SM;
+    - bf16 decode (T = 1): the group's rows (padded to 16) a CTA, the
+      keys split into about ``_CTAS_PER_SM * sms / (S * KH)`` parts.
+
+    The kernel cuts a tile's visible keys into ``splits`` parts of whole
+    64-key stages, at least ``_MIN_SPLIT_KEYS`` each, on the card: the
+    grid comes from the shapes and the table width alone, never from
+    ``context_lens``, which stays on the card.  The table width caps the
+    parts at what a full table could fill."""
+    s_, t_, h, _ = q_shape
+    _, bs, kh, _ = pool_shape
+    group = h // kh
+    if s_ > _MAX_GRID_YZ or kh > _MAX_GRID_YZ:
+        raise ValueError(f"the kernel takes at most {_MAX_GRID_YZ} slots "
+                         f"and kv heads, got {s_} and {kh}")
+    cdiv = lambda a, b: -(-a // b)
+    if dtype == torch.float32:
+        return PagedPlan("f32", (cdiv(group * t_, _ROWS_F32), kh, s_),
+                         _ROWS_F32, 1)
+    max_parts = min(_MAX_SPLITS, max(1, cdiv(max_blocks * bs,
+                                             _MIN_SPLIT_KEYS)))
+    if t_ > 1:
+        tiles = cdiv(group * t_, _ROWS_MMA)
+        splits = min(max_parts, max(
+            1, _PREFILL_CTAS_PER_SM * sms // (s_ * kh * tiles)))
+        return PagedPlan("prefill_mma", (tiles * splits, kh, s_), _ROWS_MMA,
+                         splits)
+    if group > _MAX_GROUP:
+        raise ValueError(
+            f"the bf16 decode kernel takes at most {_MAX_GROUP} q heads per "
+            f"kv head, got {group}")
+    splits = min(max_parts, cdiv(_CTAS_PER_SM * sms, s_ * kh))
+    return PagedPlan("decode_split", (splits, kh, s_), _DECODE_ROWS, splits)
+
+
+#: per (device, stream): the merge counters of split keys, one per
+#: (slot, kv head, row tile).  Zeroed once when made; the merging CTA
+#: resets each counter it used, so no call launches a memset.
+_merge_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _merge_counters.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _merge_counters[(device.index, stream)] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_kernel_args(q, k_pool, v_pool, block_tables, context_lens,
                        q_start) -> None:
     """Raise on anything the kernel does not take."""
@@ -94,7 +184,7 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, context_lens,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype}/{v_pool.dtype} must "
@@ -111,6 +201,9 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, context_lens,
     if d not in _KERNEL_HEAD_DIMS or k_pool.shape[-1] != d:
         raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS} "
                          f"(q and pool alike), got {d} / {k_pool.shape[-1]}")
+    if k_pool.shape[0] * k_pool.shape[1] >= 2**31:
+        raise ValueError(f"the kernel indexes pool rows with 32 bits; got "
+                         f"{k_pool.shape[0]} x {k_pool.shape[1]}")
     for name in ("q", "k_pool", "v_pool"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -120,8 +213,8 @@ def _kernel_fn():
     """The bound C entry point (built and loaded at first use)."""
     fn = _build.load("paged_attention").paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -131,19 +224,33 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, context_lens,
                           q_start, scale, window, logit_softcap):
     _check_kernel_args(q, k_pool, v_pool, block_tables, context_lens, q_start)
     s_, t_, h, d = q.shape
-    nb, bs, kh, _ = k_pool.shape
+    _, bs, kh, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    plan = _paged_plan(tuple(q.shape), tuple(k_pool.shape), mb, q.dtype,
+                       _sm_count(q.device.index))
     fn = _kernel_fn()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = None
+    counters = 0
+    if plan.splits > 1:
+        # each part's (o, m, l), from the caching allocator
+        ws = torch.empty(s_ * kh * plan.grid[0] * plan.rows * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream,
+                             s_ * kh * plan.grid[0] // plan.splits).data_ptr()
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(),
-             q_start.data_ptr(), out.data_ptr(), s_, t_, h, kh, d, bs,
-             block_tables.shape[1], float(scale), float(logit_softcap),
-             int(window[0]), int(window[1]), _DTYPE_CODE[q.dtype], stream)
+             q_start.data_ptr(), out.data_ptr(),
+             0 if ws is None else ws.data_ptr(), counters,
+             s_, t_, h, kh, d, bs, mb, _BODY_CODE[plan.body], plan.grid[0],
+             plan.splits, float(scale), float(logit_softcap),
+             int(window[0]), int(window[1]), stream)
     if err != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: cudaError {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, pool {tuple(k_pool.shape)})")
+            f"(q {tuple(q.shape)} {q.dtype}, pool {tuple(k_pool.shape)}, "
+            f"{plan})")
     launch_counts["decode" if t_ == 1 else "prefill"] += 1
     return out
 
