@@ -29,7 +29,8 @@ Phases, each of which exits non-zero when it fails:
    case, an f32 case, and an sq != sk case with empty rows — then each
    kernel's time at the training shape beside the plain version's, SDPA
    with the same dense mask (forward; forward+backward minus forward for
-   the backward) and the least time the card could take.  An ALiBi case
+   the backward), the least time the card could take, and each kernel's
+   achieved TFLOP/s and share of that bound.  An ALiBi case
    and a dropout case (p = 0.1, a fixed seed) hold all three kernels to
    the same one-ulp tolerance (a wrong keep bit moves o by far more),
    and the dropped fraction is read back within 3 sigma of p;
@@ -93,8 +94,9 @@ Phases, each of which exits non-zero when it fails:
    weight scale in place of the per-channel one) must not; fp8 likewise
    within a limit set from readings.
 
-No earlier phase was cut to make room: the whole run takes about 135 s
-(about 40 s of it the build).
+No earlier phase was cut to make room: the whole run takes about 140 s
+(about 45 s of it the build; stderr has each kernel's registers and
+spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -139,6 +141,36 @@ TRAIN_B, TRAIN_S = 2, 4096              # tokens per training step: 8192
 def _fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _ptxas_report(log):
+    """(kernel, 'registers; spills') for each kernel in nvcc's -Xptxas -v
+    output, the kernel as its name and template arguments: a name in the
+    anonymous namespace is mangled as ..._cu_<8 hex><length><name>I...E"""
+    import re
+    out, fn, seen = [], None, set()
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled, fn = m.group(1), m.group(1)
+            m2 = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if m2:
+                n, at = int(m2.group(1)), m2.end()
+                args = re.match(r"I(.*?)EE", mangled[at + n:])
+                fn = mangled[at:at + n] + (
+                    "<" + ", ".join(re.findall(r"L[ib](\d+)E", args.group(1) + "E"))
+                    + ">" if args else "")
+            spill = None
+            continue
+        if fn is None:
+            continue
+        if "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and fn not in seen:
+            seen.add(fn)
+            out.append((fn, f"{line.strip().removeprefix('ptxas info    : ')}; "
+                            f"{spill}"))
+    return out
 
 
 def _card():
@@ -837,6 +869,10 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
             flops[kname]
         out[f"{kname}_bound_ms"] = max(tb, tf) * 1e3
         out[f"{kname}_bound_by"] = "bytes" if tb >= tf else "operations"
+        # achieved rate on the algorithm's flops, and the share of the bound
+        out[f"{kname}_tflops"] = flops[kname] / out[f"{kname}_ms"] / 1e9
+        out[f"{kname}_bound_share"] = \
+            out[f"{kname}_bound_ms"] / out[f"{kname}_ms"]
     print(f"flash train shape: visible pairs/head {pairs}; kernel ms fwd "
           f"{out['fwd_ms']:.3f} dq {out['bwd_dq_ms']:.3f} dkv "
           f"{out['bwd_dkv_ms']:.3f}; plain ms fwd {out['plain_fwd_ms']:.2f} "
@@ -846,6 +882,14 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
           f"{out['fwd_bound_ms']:.4f} dq {out['bwd_dq_bound_ms']:.4f} dkv "
           f"{out['bwd_dkv_bound_ms']:.4f} ({out['fwd_bound_by']})",
           flush=True)
+    print("flash train shape: achieved " + ", ".join(
+        f"{kname} {out[f'{kname}_tflops']:.1f} TFLOP/s "
+        f"({out[f'{kname}_tflops'] / (PEAK_BF16_FLOPS / 1e12):.3f} of the "
+        f"bf16 peak), {out[f'{kname}_bound_share']:.3f} of its bound"
+        for kname in FLASH) + f"; bwd_dq + bwd_dkv "
+        f"{out['bwd_dq_ms'] + out['bwd_dkv_ms']:.3f} ms against SDPA's "
+        f"backward {out.get('library_bwd_ms', float('nan')):.3f} ms",
+        flush=True)
     return out
 
 
@@ -1460,9 +1504,8 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"build: {sorted(logs) or 'cached'} in {build_s:.1f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}", file=sys.stderr)
+        for fn, stats in _ptxas_report(log):
+            print(f"build {name}: {fn}: {stats}", file=sys.stderr)
 
     if args.train_steps < 6:
         _fail("--train-steps must be at least 6")
@@ -1514,7 +1557,9 @@ def main():
             ms=flash[f"{name}_ms"], plain_ms=flash[f"plain_{part}_ms"],
             bound_ms=flash[f"{name}_bound_ms"],
             bound_by=flash[f"{name}_bound_by"],
-            library_ms=flash.get(f"library_{part}_ms")))
+            library_ms=flash.get(f"library_{part}_ms"),
+            tflops=flash[f"{name}_tflops"],
+            bound_share=flash[f"{name}_bound_share"]))
     for fmt in ("int8", "fp8"):
         q, run = qmm[fmt]["per_launch"], qtrain[fmt]
         entries.append(dict(

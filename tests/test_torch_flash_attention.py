@@ -26,6 +26,14 @@ from torchacc_tpu.ops.flash_attention import (
 from torchacc_tpu.ops._common import dropout_keep as jax_dropout_keep
 from torchacc_tpu.ops._common import mix32 as jax_mix32
 from torchacc_tpu_torch.ops._common import dropout_keep, mix32
+from torchacc_tpu_torch.ops.attention import (
+    _dropped,
+    _mask4,
+    _repeat_kv,
+    _scores,
+    attention_reference,
+    attention_reference_bwd,
+)
 from torchacc_tpu_torch.ops.attn import attention
 from torchacc_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -262,3 +270,135 @@ def test_mismatched_segment_ids_raise():
     with pytest.raises(ValueError, match="together"):
         flash_attention(*map(torch.from_numpy, (q, k, v)),
                         q_segment_ids=torch.zeros(1, 16, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernels' rounding, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+# the card's tolerance for the bf16 backward kernels against the f32
+# plain backward from the same (o, lse): one bf16 ulp
+# (tests/test_torch_kernels_cuda.py GRAD_TOL, chip_smoke.py grad_tol)
+CARD_BF16_GRAD_TOL = dict(atol=1e-3, rtol=1e-2)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bwd_rounded(q, k, v, o, lse, do, split, *, causal=True, window=(-1, -1),
+                 q_segment_ids=None, kv_segment_ids=None):
+    """A mirror of the plain backward (``attention_reference_bwd``) that
+    rounds P~ and dS to bf16 before the second products, as the bf16
+    kernels feed them to the tensor cores: once (``split=False``, the JAX
+    kernels' ``ds.astype(k.dtype)`` and ``p_tilde.astype(do.dtype)``) or
+    as hi + lo, two bf16 values whose sum keeps ~16 bits (``split=True``,
+    what B2 and B3 do)."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    s, dcap = _scores(q, k, scale, 0.0)
+    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
+    p = torch.where(mask, torch.exp(s - lse[..., None].float()), 0.0)
+    p_tilde = _dropped(p, 0.0, None)
+    kr, vr = _repeat_kv(k, hq).float(), _repeat_kv(v, hq).float()
+    qf, dof = q.float(), do.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = (p_tilde * dp - p * delta[..., None]) * dcap * scale
+
+    def r(x):
+        hi = _bf16(x)
+        return hi + _bf16(x - hi) if split else hi
+
+    dq = torch.einsum("bhqk,bkhd->bqhd", r(ds), kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", r(ds), qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", r(p_tilde), dof)
+    if hq > hk:
+        dk = dk.reshape(b, sk, hk, hq // hk, d).sum(dim=3)
+        dv = dv.reshape(b, sk, hk, hq // hk, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _worst_over_tol(a, b, tol):
+    a, b = a.float(), b.float()
+    return ((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max().item()
+
+
+def _bf16_inputs(seed, b, s, hq, hk, d, lo, hi):
+    """bf16 q, k, v, dO from numpy and packed documents of lengths in
+    [lo, hi)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    q, k, v, do = f(b, s, hq, d), f(b, s, hk, d), f(b, s, hk, d), \
+        f(b, s, hq, d)
+    rows = []
+    for _ in range(b):
+        pos = []
+        while len(pos) < s:
+            pos += list(range(int(rng.integers(lo, hi))))
+        rows.append(pos[:s])
+    seg = segment_ids_from_positions(torch.from_numpy(
+        np.asarray(rows, np.int32)))
+    return q, k, v, do, seg
+
+
+@pytest.mark.parametrize("geom", [(2, 64, 8, 4, 32), (1, 96, 8, 1, 128)],
+                         ids=["gqa_d32", "mqa_d128"])
+def test_single_rounding_mirror_matches_jax_bf16_kernels(geom):
+    """The mirror rounding once is the JAX kernels' arithmetic: on the
+    same bf16 inputs and (o, lse) it agrees with JAX's flash backward in
+    interpret mode to one bf16 ulp of the outputs (both round f32 sums of
+    the same bf16 products, in another order; read: at most 1.1e-6)."""
+    b, s, hq, hk, d = geom
+    q, k, v, do, seg = _bf16_inputs(21, b, s, hq, hk, d, 3, 40)
+    j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    jseg = jnp.asarray(seg.numpy())
+    segs = dict(q_segment_ids=jseg, kv_segment_ids=jseg)
+    blocks = dict(block_q=32, block_k=32)
+    jo, jlse = jax_flash(j(q), j(k), j(v), return_lse=True, **segs, **blocks)
+    jgrads = jax_flash_bwd(j(q), j(k), j(v), jo, jlse, j(do), **segs,
+                           **blocks)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    mirror = _bwd_rounded(q, k, v, o, lse, do, split=False,
+                          q_segment_ids=seg, kv_segment_ids=seg)
+    print("max |mirror - JAX| of dq, dk, dv:",   # readings, PERF.md
+          [float(np.abs(a.float().numpy()
+                        - np.asarray(b_.astype(jnp.float32))).max())
+           for a, b_ in zip(mirror, jgrads)])
+    for name, a, b_ in zip(("dq", "dk", "dv"), mirror, jgrads):
+        np.testing.assert_allclose(
+            a.float().numpy(), np.asarray(b_.astype(jnp.float32)),
+            atol=1e-5, rtol=1e-2, err_msg=name)
+
+
+@pytest.mark.parametrize("geom", [(1, 1024, 8, 2, 128, 256, 2048),
+                                  (1, 2048, 4, 1, 128, 256, 2048),
+                                  (2, 512, 8, 1, 32, 3, 30)],
+                         ids=["s1024_gqa", "s2048_mqa", "s512_d32_short_docs"])
+def test_bf16_rounding_of_p_and_ds_against_the_f32_backward(geom):
+    """Decides how B2 and B3 feed P~ and dS to the tensor cores.  Against
+    the f32 plain backward from the same (o, lse), at the card's
+    unchanged one-ulp tolerance and packed documents: hi + lo stays
+    within it; rounding once, as the JAX kernels do, does not (every
+    document's first rows see few keys, so their P and dS are large and
+    one bf16 rounding of them moves dq, dk, dv by more than one ulp).
+    So all three second products take hi + lo on the card."""
+    b, s, hq, hk, d, lo, hi = geom
+    q, k, v, do, seg = _bf16_inputs(22, b, s, hq, hk, d, lo, hi)
+    segs = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    o, lse = attention_reference(q, k, v, return_lse=True, **segs)
+    ref = attention_reference_bwd(q, k, v, o, lse, do, **segs)
+    split = _bwd_rounded(q, k, v, o, lse, do, split=True, **segs)
+    once = _bwd_rounded(q, k, v, o, lse, do, split=False, **segs)
+    for name, a, r in zip(("dq", "dk", "dv"), split, ref):
+        torch.testing.assert_close(a.float(), r.float(), **CARD_BF16_GRAD_TOL,
+                                   msg=lambda m: f"hi + lo {name}: {m}")
+    worst = {kind: [_worst_over_tol(a, r, CARD_BF16_GRAD_TOL)
+                    for a, r in zip(grads, ref)]
+             for kind, grads in (("hi + lo", split), ("once", once))}
+    print(f"worst |err| / tol of dq, dk, dv: {worst}")   # readings, PERF.md
+    assert max(worst["once"]) > 1.0

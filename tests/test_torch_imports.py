@@ -1,6 +1,7 @@
 """The port stands alone: no file of torchacc_tpu_torch/ and no line of
-chip_smoke.py imports jax, flax or the JAX package, and the package
-imports in a process where jax cannot be imported."""
+chip_smoke.py or of the port's timing script imports jax, flax or the
+JAX package, and the package imports in a process where jax cannot be
+imported."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "torchacc_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "torch_flash_bwd_turns.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

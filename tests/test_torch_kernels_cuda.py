@@ -254,6 +254,7 @@ FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
     "mha_d32": (1, 130, 130, 4, 4, 32),
     "mqa_d32_sk_gt_sq": (2, 70, 150, 4, 1, 32),
     "sq_gt_sk_d128": (1, 100, 40, 4, 2, 128),      # leading rows see no key
+    "mqa_group8_d128": (1, 200, 200, 8, 1, 128),   # one kv head for 8 q heads
 }
 FLASH_OPTS = {
     "alibi": dict(alibi=True),
@@ -406,6 +407,79 @@ def test_flash_dropout_fraction_and_seed(card):
     other = fa.flash_attention(q, k, v, causal=False, dropout_p=p,
                                dropout_seed=4).float()
     assert torch.equal(o, same) and not torch.equal(o, other)
+
+
+# sq / sk on both sides of the backward kernels' tile edges (64-row
+# streamed tiles, 128-row CTA blocks)
+FLASH_EDGE_SIZES = [(1, 1), (63, 63), (64, 64), (65, 65), (127, 127),
+                    (129, 129), (1, 129), (129, 1), (63, 129), (129, 65),
+                    (65, 127)]
+FLASH_EDGE_OPTS = {
+    "causal": {},
+    "full": dict(causal=False),
+    "segments_window_both": dict(segments=True, causal=False,
+                                 window=(40, 9)),
+}
+
+
+def _bwd_pair(q, k, v, do, segs, **kw):
+    """B2/B3 from the forward kernel's (o, lse) and the plain backward
+    from the same (o, lse)."""
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
+                                **segs, **kw)
+    return [fa.flash_attention_bwd(q, k, v, o, lse, do, impl=impl, **segs,
+                                   **kw) for impl in ("cuda", "torch")]
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
+@pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
+                         ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
+def test_flash_bwd_kernels_at_tile_edges(card, sq, sk, opt, d):
+    kw = dict(FLASH_EDGE_OPTS[opt])
+    segments = kw.pop("segments", False) and sq == sk
+    q, k, v, do, segs = _flash_case(11, card, torch.bfloat16, 2, sq, sk, 8,
+                                    2, d, segments=segments)
+    got, ref = _bwd_pair(q, k, v, do, segs, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _close(a, b, GRAD_TOL[torch.bfloat16], name)
+
+
+def test_flash_bwd_kernels_4096_packed_documents_group8(card):
+    """The training length with packed documents of 256-2047 tokens and
+    8 q heads on one kv head."""
+    rng = np.random.default_rng(12)
+    b, s, hq, hk, d = 1, 4096, 8, 1, 128
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v, do = f(b, s, hq, d), f(b, s, hk, d), f(b, s, hk, d), \
+        f(b, s, hq, d)
+    pos = []
+    while len(pos) < s:
+        pos += list(range(int(rng.integers(256, 2048))))
+    seg = fa.segment_ids_from_positions(
+        torch.tensor([pos[:s]], dtype=torch.int32)).to(card)
+    segs = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    got, ref = _bwd_pair(q, k, v, do, segs)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, ref):
+        _close(a, b_, GRAD_TOL[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype):
+    """Each CTA owns its output and writes it once (no atomics): B2 and
+    B3 give the same bits on every call."""
+    q, k, v, do, segs = _flash_case(13, card, dtype, 2, 700, 700, 8, 2, 128,
+                                    segments=True)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
+                                **segs)
+    runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, impl="cuda", **segs)
+            for _ in range(4)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -46,29 +46,36 @@
  * too.  So the products belong on the tensor cores.
  *
  * Two implementations of each kernel, chosen by the input dtype:
- *  - bf16 (the training path): fwd_mma_kernel, bwd_dq_mma_kernel and
- *    bwd_dkv_mma_kernel put every product on the tensor cores with
- *    mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows;
+ *  - bf16 (the training path), every product on the tensor cores:
+ *    fwd_mma_kernel on mma.sync m16n8k16, 4 warps of 16 rows, tiles
+ *    loaded through registers; bwd_dq_wgmma_kernel and
+ *    bwd_dkv_wgmma_kernel on wgmma, fed by TMA through a ring of
+ *    shared-memory stages by a producer warp, with two consumer
+ *    warpgroups of 64 rows each (the section "B2 and B3 in bf16");
  *  - f32 (the exact comparison with the plain version, which the card
  *    cannot make in bf16): fwd_kernel, bwd_dq_kernel and bwd_dkv_kernel
  *    run the dots on CUDA cores in f32, 256 threads each computing a
  *    4x4 block of scores from float4 shared-memory reads (8 loads per
  *    64 FMAs), rows padded to d + 4 floats so the 16 column threads hit
  *    distinct banks.
- * wgmma, TMA and a producer/consumer pipeline are later work.
+ * The forward on wgmma is later work.
  *
  * What the design does about it, in both:
  *  - grid order: the TPU's kv axis (B1, B2) and (group, q) axes (B3)
  *    were sequential grid axes carrying VMEM scratch.  Here each CTA
  *    owns its output tile and loops over the other axis itself: one CTA
- *    per (batch, q head, 64 query rows) for B1/B2 and one per (batch,
- *    kv head, 64 keys) for B3, which sums dk/dv over every q head of
- *    its group and every visible q tile in registers and writes them
- *    once (no atomics, no per-q-head dk/dv in device memory);
+ *    per (batch, q head, 64 query rows) for B1 and the f32 B2, per
+ *    (batch, q head, 128 query rows) for the bf16 B2, and per (batch,
+ *    kv head, 64 keys; 128 in bf16) for B3, which sums dk/dv over every
+ *    q head of its group and every visible q tile in registers and
+ *    writes them once (no atomics, no per-q-head dk/dv in device
+ *    memory, the same bits on every call);
  *  - only visible tiles are loaded: causality ends B1/B2's kv walk at
  *    the diagonal and starts B3's q walk there, the window bounds the
  *    other end, and a tile pair whose segment-id ranges do not meet is
  *    skipped (packed documents) — the work follows the visible pairs;
+ *    the bf16 backward masks only edge tiles (the diagonal, a window
+ *    edge, a ragged end, more than one segment id);
  *  - heavy tiles first: under causality the last q tiles (B1/B2) and
  *    the first kv tiles (B3) see the most, so they are scheduled first;
  *  - online softmax in f32 with m, l and the output rows in registers;
@@ -84,6 +91,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_ptx.cuh"   // mbarriers, TMA, wgmma descriptors, the map encoder
 
 namespace {
 
@@ -718,7 +727,6 @@ __global__ void __launch_bounds__(kThreads)
 // ldmatrix.trans from the same row-major tiles.
 
 constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
-constexpr int kBqDkv = 32;         // q rows per step of B3's walk
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -840,16 +848,6 @@ template <int D>
 constexpr size_t fwd_mma_smem() {
   return sizeof(__nv_bfloat16) * 3 * size_t(kTile) * (D + 8) + sizeof(int) * 2 * kTile;
 }
-template <int D>
-constexpr size_t dq_mma_smem() {
-  return sizeof(__nv_bfloat16) * 4 * size_t(kTile) * (D + 8) + sizeof(int) * 2 * kTile;
-}
-template <int D>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(__nv_bfloat16) * (2 * size_t(kTile) + 2 * kBqDkv) * (D + 8) +
-         sizeof(float) * 2 * kBqDkv + sizeof(int) * (kTile + kBqDkv);
-}
-
 // B1 on tensor cores
 template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -972,229 +970,794 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// B2 on tensor cores
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dq, Geom g) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + kTile * LD;
-  __nv_bfloat16* k_s = do_s + kTile * LD;
-  __nv_bfloat16* v_s = k_s + kTile * LD;
-  int* qseg_s = reinterpret_cast<int*>(v_s + kTile * LD);
-  int* kseg_s = qseg_s + kTile;
+// ---------------------------------------------------------------------------
+// B2 and B3 in bf16: wgmma fed by TMA through a ring of shared-memory stages
+// ---------------------------------------------------------------------------
+//
+// One CTA of three warpgroups.  Warp 0 is the producer: it walks the
+// visible tiles of the CTA's other axis (each lane probes one of the next
+// 32 tiles for a segment id in common), brings each in by TMA into the
+// next stage of a ring (full/empty mbarrier pairs) with the tile's rows'
+// segment ids (and in B3 their LSE and delta) beside it, and ends the
+// walk with a stage marked -1.  The two consumer warpgroups own 64 rows
+// each of the CTA's 128 and run every product on wgmma: the scores and
+// dP from shared memory (both operands K-major), the second products
+// with A (P~ or dS) from registers and B read through wgmma's transpose
+// flag (MN-major).  Only edge tiles (the diagonal, a window edge, a
+// ragged end, more than one segment id) take the masks; the others run
+// a loop of an fma, an ex2 and the dS arithmetic.  setmaxnreg moves
+// registers from the producer warpgroup to the consumers.
+//
+// Tiles lie in shared memory as [rows][64] bf16 boxes of 128-byte rows
+// under the 128-byte swizzle, one box a 64 columns of the head dim (a
+// head dim of 32 is read as one box of 64 whose upper half TMA fills
+// with zeros).  A rank-4 tensor map over [b, s, h, d] cuts a head's
+// rows out of the BSHD tensor; rows past s read as zeros.
+//
+// P~ and dS enter the second products as hi + lo, two bf16 values each
+// (split_bf16): rounding them once to bf16, as the JAX kernels do,
+// leaves dq, dk and dv 2.7-13x the one-ulp tolerance from the f32 plain
+// backward (tests/test_torch_flash_attention.py rehearses both on the
+// CPU), so each second product is two wgmma.
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (g.hq / g.hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tid = lane & 3;
-  const int wrow = warp * 16;
-  const bool has_seg = g.qseg != nullptr;
-  // ALiBi and dropout compile away from the EXTRA = false kernels
-  const bool has_alibi = EXTRA && g.alibi != nullptr;
-  const bool drop_on = EXTRA && g.drop_on;
-  const float slope = has_alibi ? g.alibi[h] : 0.f;
-  uint32_t drow[2] = {0u, 0u};
-  if (drop_on) {
-    const uint32_t base = drop_base(g, bi, h);
-    drow[0] = drop_row(base, q0 + wrow + grp);
-    drow[1] = drop_row(base, q0 + wrow + grp + 8);
-  }
+constexpr int kWgThreads = 384;    // the producer warpgroup and two consumer warpgroups
+constexpr int kBlk = 128;          // rows a CTA owns: 64 a consumer warpgroup
+constexpr int kStep = 64;          // rows of a streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-  load_tile_bf16<D, kTile>(q_s, q, bi, q0, g.sq, g.hq, h);
-  load_tile_bf16<D, kTile>(do_s, dout, bi, q0, g.sq, g.hq, h);
-  float lse_r[2], delta_r[2];
+template <int D>
+struct WgCfg {
+  static constexpr int DP = D < 64 ? 64 : D;    // head dim as stored
+  static constexpr int NB = DP / 64;            // 128-byte boxes a row spans
+  static constexpr int kRes = kBlk * DP * 2;    // a resident [128][DP] tile, bytes
+  static constexpr int kTileB = kStep * DP * 2; // a streamed [64][DP] tile, bytes
+  // ring stages, chosen on an H100: B3 ran 3-6% faster on 2 than on 3
+  static constexpr int kStagesDq = D == 128 ? 3 : 4;
+  static constexpr int kStagesDkv = D == 128 ? 2 : 4;
+};
+
+// what the producer leaves beside a stage's tiles
+struct StageInfo {
+  int pos;              // first row of the tile (B2: a key, B3: a q row); -1: no more
+  int head;             // the q head (B3)
+  int seg_edge;         // segment ids not one id shared with the CTA's rows
+  int pad;
+  int seg[kStep];       // the tile's rows' segment ids
+};
+
+// B3: the stage's q rows' LSE times log2(e), and delta
+struct RowStats {
+  float lse2[kStep];
+  float delta[kStep];
+};
+
+// two resident tiles, two streamed tiles a stage, the stage notes (and
+// for B3 the row statistics), 2 barriers a stage and one, and 1 KB to
+// align to the swizzle period
+template <int D, int S, bool STATS>
+constexpr size_t wg_smem() {
+  using C = WgCfg<D>;
+  return 2 * size_t(C::kRes) + 2 * size_t(C::kTileB) * S +
+         (sizeof(StageInfo) + (STATS ? sizeof(RowStats) : 0)) * S + 8 * (2 * S + 1) + 1024;
+}
+
+// 2^x on the special-function unit; flushes results below 2^-126 to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// kv range [begin, end) that some row of q rows [q0, q0 + n) can see,
+// begin rounded down to a multiple of kStep
+__device__ __forceinline__ int2 kv_span(const Geom& g, int q0, int n) {
+  const int qlo = q0 + g.shift;
+  const int qhi = min(q0 + n, g.sq) - 1 + g.shift;
+  int begin = g.wl >= 0 ? max(0, qlo - g.wl) : 0;
+  int end = g.sk;
+  if (g.causal) end = min(end, qhi + 1);
+  if (g.wr >= 0) end = min(end, qhi + g.wr + 1);
+  return make_int2((begin / kStep) * kStep, end);
+}
+
+// q range [begin, end) of the rows that can see some key of [k0, k0 + n),
+// begin rounded down to a multiple of kStep
+__device__ __forceinline__ int2 q_span(const Geom& g, int k0, int n) {
+  const int khi = min(k0 + n, g.sk) - 1;
+  int begin = 0;
+  if (g.causal) begin = max(begin, k0 - g.shift);
+  if (g.wr >= 0) begin = max(begin, k0 - g.wr - g.shift);
+  int end = g.sq;
+  if (g.wl >= 0) end = min(end, khi + g.wl - g.shift + 1);
+  return make_int2((begin / kStep) * kStep, end);
+}
+
+// does some pair of q rows [q0, q1) and keys [k0, k1) pass the causal and
+// window masks (a bounding test: false means none does)
+__device__ __forceinline__ bool any_visible(const Geom& g, int q0, int q1, int k0, int k1) {
+  q1 = min(q1, g.sq);
+  k1 = min(k1, g.sk);
+  if (q0 >= q1 || k0 >= k1) return false;
+  const int qlo = q0 + g.shift, qhi = q1 - 1 + g.shift;
+  if (g.causal && k0 > qhi) return false;
+  if (g.wl >= 0 && k1 - 1 < qlo - g.wl) return false;
+  if (g.wr >= 0 && k0 > qhi + g.wr) return false;
+  return true;
+}
+
+// does every pair pass them (no mask needed but the segments')
+__device__ __forceinline__ bool all_visible(const Geom& g, int q0, int q1, int k0, int k1) {
+  if (q1 > g.sq || k1 > g.sk) return false;
+  const int qlo = q0 + g.shift, qhi = q1 - 1 + g.shift;
+  if (g.causal && k1 - 1 > qlo) return false;
+  if (g.wl >= 0 && k0 < qhi - g.wl) return false;
+  if (g.wr >= 0 && k1 - 1 > qlo + g.wr) return false;
+  return true;
+}
+
+// the keys [lo, hi] that q row qi may see by the causal and window masks
+// (hi < lo: none; a row past sq sees none)
+__device__ __forceinline__ int2 key_bounds(const Geom& g, int qi) {
+  const int qp = qi + g.shift;
+  int lo = g.wl >= 0 ? qp - g.wl : 0;
+  int hi = g.sk - 1;
+  if (g.causal) hi = min(hi, qp);
+  if (g.wr >= 0) hi = min(hi, qp + g.wr);
+  if (qi >= g.sq) hi = -1;
+  return make_int2(max(lo, 0), hi);
+}
+
+// the q rows [lo, hi] that may see key kj by the causal and window masks
+// (hi < lo: none; a key past sk is seen by none)
+__device__ __forceinline__ int2 query_bounds(const Geom& g, int kj) {
+  int lo = 0;
+  if (g.causal) lo = max(lo, kj - g.shift);
+  if (g.wr >= 0) lo = max(lo, kj - g.wr - g.shift);
+  int hi = g.sq - 1;
+  if (g.wl >= 0) hi = min(hi, kj + g.wl - g.shift);
+  if (kj >= g.sk) hi = -1;
+  return make_int2(lo, hi);
+}
+
+// segment ids of rows [row0, row0 + 32 N) below S, N a lane (rows
+// row0 + lane + 32 i), and their [min, max] over the warp
+template <int N>
+__device__ __forceinline__ int2 warp_seg_span(const int* seg, int row0, int S, int lane,
+                                              int (&v)[N]) {
+  int lo = INT_MAX, hi = INT_MIN;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = q0 + wrow + grp + 8 * half;
-    const size_t at = (size_t(bi) * g.hq + h) * g.sq + qi;
-    lse_r[half] = qi < g.sq ? lse[at] : 0.f;
-    delta_r[half] = qi < g.sq ? delta[at] : 0.f;
-  }
-  int2 qsr = make_int2(0, 0);
-  if (has_seg) {
-    load_seg<kTile>(qseg_s, g.qseg, bi, q0, g.sq);
-    __syncthreads();
-    qsr = seg_range<kTile>(qseg_s, q0, g.sq);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int2 kr = kv_range(g, q0);
-  for (int k0 = kr.x; k0 < kr.y; k0 += kTile) {
-    __syncthreads();
-    if (has_seg) {
-      load_seg<kTile>(kseg_s, g.kseg, bi, k0, g.sk);
-      __syncthreads();
-      const int2 ksr = seg_range<kTile>(kseg_s, k0, g.sk);
-      if (ksr.y < qsr.x || ksr.x > qsr.y) continue;
+  for (int i = 0; i < N; ++i) {
+    const int r = row0 + lane + 32 * i;
+    v[i] = r < S ? seg[r] : 0;
+    if (r < S) {
+      lo = min(lo, v[i]);
+      hi = max(hi, v[i]);
     }
-    load_tile_bf16<D, kTile>(k_s, k, bi, k0, g.sk, g.hk, kvh);
-    load_tile_bf16<D, kTile>(v_s, v, bi, k0, g.sk, g.hk, kvh);
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_abt<D, kTile / 8>(s, q_s, k_s, wrow, grp, tid);
-    mma_abt<D, kTile / 8>(dp, do_s, v_s, wrow, grp, tid);
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int r = wrow + grp + 8 * half;
-        const int c = n * 8 + tid * 2 + (e & 1);
-        float dcap;
-        const float x = cap_score(g, s[n][e], has_alibi, slope, q0 + r, k0 + c, &dcap);
-        const bool ok = visible(g, q0 + r, k0 + c) &&
-                        (!has_seg || qseg_s[r] == kseg_s[c]);
-        const float p = ok ? expf(x - lse_r[half]) : 0.f;
-        const float f = drop_on ? drop_factor(g, drow[half], drop_col(k0 + c)) : 1.f;
-        s[n][e] = ds_core(drop_on, p, f, dp[n][e], delta_r[half]) * dcap * g.scale;
-      }
-    mma_pv<D, kTile / 16>(acc, s, k_s, lane);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  return make_int2(lo, hi);
+}
 
+// bit i: tile [base + 64 i, + 64), below `end`, holds a segment id in
+// `span` (every tile below `end` without segments); each lane probes
+// one tile, so 32 tiles cost one pass of loads, not 32 round trips
+__device__ __forceinline__ unsigned tiles_meeting(const int* seg, int base, int end, int S,
+                                                  int2 span, bool has_seg, int lane) {
+  const int t0 = base + lane * kStep;
+  bool hit = t0 < end;
+  if (has_seg && hit) {
+    int lo = INT_MAX, hi = INT_MIN;
+    const int n = min(kStep, S - t0);
+#pragma unroll 8
+    for (int r = 0; r < n; ++r) {
+      const int v = __ldg(seg + t0 + r);
+      lo = min(lo, v);
+      hi = max(hi, v);
+    }
+    hit = hi >= span.x && lo <= span.y;
+  }
+  return __ballot_sync(0xffffffffu, hit);
+}
+
+// the tile's segment ids are one id, the same as every one of the CTA's
+__device__ __forceinline__ bool seg_uniform(int2 a, int2 b) {
+  return a.x == a.y && b.x == b.y && a.x == b.x;
+}
+
+// S = A B^T over 16 of K, m64n64k16, both operands K-major in shared
+// memory; d = a b + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HP_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HP_D32("+f", 0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A B over 16 of K: A from registers (a bf16 fragment), B MN-major
+// in shared memory (the transpose flag); N = 64 or 128
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HP_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HP_D32("+f", 0)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HP_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HP_D64("+f", 0)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// acc (64 rows of this warpgroup) = A[rows] . B^T over DP columns: A the
+// 64 rows at `a` of a resident or streamed tile whose boxes are `a_box`
+// bytes apart, B the 64 rows at `b` of a tile with boxes `b_box` apart
+template <int DP>
+__device__ __forceinline__ void scores(float (&acc)[32], const unsigned char* a, int a_box,
+                                       const unsigned char* b, int b_box) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = q0 + wrow + grp + 8 * half;
-    if (qi >= g.sq) continue;
-    __nv_bfloat16* row = dq + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + tid * 2) =
-          pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;   // 16 columns = 32 bytes
+    wgmma_ss(acc, smem_desc(a + box * a_box + off), smem_desc(b + box * b_box + off), kk > 0);
   }
 }
 
-// B3 on tensor cores: each warp owns 16 keys, and walks the visible q
-// rows 32 at a time
+// acc += X . B over the tile's 64 rows of K: X as hi + lo bf16 fragments
+// (4 registers a k16 slice), B the [64][DP] tile at `b` (MN-major)
+template <int DP>
+__device__ __forceinline__ void product_hilo(float (&acc)[DP / 2], const uint32_t (&hi)[16],
+                                             const uint32_t (&lo)[16], const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk) {
+    const uint64_t desc = smem_desc_mn(b + kk * 16 * 128, kStep * 128);
+    wgmma_rs(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3], desc);
+    wgmma_rs(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3], desc);
+  }
+}
+
+// a 64 x 64 accumulator as the A fragments of its k16 slices, hi + lo:
+// register 4 kk + m holds the values of accumulator registers
+// 8 kk + 2 m and 8 kk + 2 m + 1 (the wgmma register layouts of the
+// accumulator and of A agree)
+__device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)[16],
+                                            uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int m = 0; m < 16; ++m) split_bf16(x[2 * m], x[2 * m + 1], hi[m], lo[m]);
+}
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// B2 on wgmma: one CTA per (batch, q head, 128 q rows), keys streamed 64
+// at a time
 template <int D, bool EXTRA>
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                       Geom g) {
-  constexpr int LD = D + 8;
-  constexpr int NQ = kBqDkv / 8;     // n-tiles of q rows
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kTile * LD;
-  __nv_bfloat16* q_s = v_s + kTile * LD;
-  __nv_bfloat16* do_s = q_s + kBqDkv * LD;
-  float* lse_s = reinterpret_cast<float*>(do_s + kBqDkv * LD);
-  float* delta_s = lse_s + kBqDkv;
-  int* kseg_s = reinterpret_cast<int*>(delta_s + kBqDkv);
-  int* qseg_s = kseg_s + kTile;
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,    // boxes of 128 rows
+                        const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_k,    // boxes of 64 rows
+                        const __grid_constant__ CUtensorMap map_v,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, Geom g) {
+  using C = WgCfg<D>;
+  constexpr int S = C::kStagesDq, DP = C::DP;
+  extern __shared__ __align__(1024) unsigned char wg_buf[];
+  unsigned char* q_s = align1024(wg_buf);
+  unsigned char* do_s = q_s + C::kRes;
+  unsigned char* ring = do_s + C::kRes;                  // S x (K, V)
+  StageInfo* info = reinterpret_cast<StageInfo*>(ring + 2 * S * C::kTileB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(info + S);
+  uint64_t* empty = full + S;
+  uint64_t* res = empty + S;
 
-  const int k0 = blockIdx.x * kTile;
-  const int kvh = blockIdx.y, bi = blockIdx.z;
-  const int group = g.hq / g.hk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tid = lane & 3;
-  const int wrow = warp * 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlk;   // heavy tiles first
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int kvh = h / (g.hq / g.hk);
   const bool has_seg = g.qseg != nullptr;
-  // ALiBi and dropout compile away from the EXTRA = false kernels
-  const bool has_alibi = EXTRA && g.alibi != nullptr;
-  const bool drop_on = EXTRA && g.drop_on;
 
-  load_tile_bf16<D, kTile>(k_s, k, bi, k0, g.sk, g.hk, kvh);
-  load_tile_bf16<D, kTile>(v_s, v, bi, k0, g.sk, g.hk, kvh);
-  int2 ksr = make_int2(0, 0);
-  if (has_seg) {
-    load_seg<kTile>(kseg_s, g.kseg, bi, k0, g.sk);
-    __syncthreads();
-    ksr = seg_range<kTile>(kseg_s, k0, g.sk);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 32);   // every producer lane; lane 0 with the bytes
+      mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    mbar_init(res, 1);
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(res, 2 * C::kRes);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  // q rows that can see some key of this tile, in steps of kBqDkv
-  const int khi = min(k0 + kTile, g.sk) - 1;
-  int qbeg = 0;
-  if (g.causal) qbeg = max(qbeg, k0 - g.shift);
-  if (g.wr >= 0) qbeg = max(qbeg, k0 - g.wr - g.shift);
-  int qend = g.sq;
-  if (g.wl >= 0) qend = min(qend, khi + g.wl - g.shift + 1);
-  qbeg = (qbeg / kBqDkv) * kBqDkv;
-
-  uint32_t dcol[2] = {0u, 0u};            // this thread's keys
-  if (drop_on) {
-    dcol[0] = drop_col(k0 + wrow + grp);
-    dcol[1] = drop_col(k0 + wrow + grp + 8);
-  }
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;       // ALiBi and dropout go by q head
-    const float slope = has_alibi ? g.alibi[h] : 0.f;
-    const uint32_t dbase = drop_on ? drop_base(g, bi, h) : 0u;
-    for (int q0 = qbeg; q0 < qend; q0 += kBqDkv) {
-      __syncthreads();
-      if (has_seg) {
-        load_seg<kBqDkv>(qseg_s, g.qseg, bi, q0, g.sq);
-        __syncthreads();
-        const int2 qsr = seg_range<kBqDkv>(qseg_s, q0, g.sq);
-        if (ksr.y < qsr.x || ksr.x > qsr.y) continue;
-      }
-      if (threadIdx.x < kBqDkv) {
-        const int qi = q0 + threadIdx.x;
-        const size_t at = (size_t(bi) * g.hq + h) * g.sq + qi;
-        lse_s[threadIdx.x] = qi < g.sq ? lse[at] : 0.f;
-        delta_s[threadIdx.x] = qi < g.sq ? delta[at] : 0.f;
-      }
-      load_tile_bf16<D, kBqDkv>(q_s, q, bi, q0, g.sq, g.hq, h);
-      load_tile_bf16<D, kBqDkv>(do_s, dout, bi, q0, g.sq, g.hq, h);
-      __syncthreads();
-
-      float st[NQ][4], dpt[NQ][4];        // rows: keys, columns: q rows
-      mma_abt<D, NQ>(st, k_s, q_s, wrow, grp, tid);
-      mma_abt<D, NQ>(dpt, v_s, do_s, wrow, grp, tid);
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wrow + grp + 8 * (e >> 1);     // key
-          const int c = n * 8 + tid * 2 + (e & 1);     // q row
-          float dcap;
-          const float x = cap_score(g, st[n][e], has_alibi, slope, q0 + c, k0 + r, &dcap);
-          const bool ok = visible(g, q0 + c, k0 + r) &&
-                          (!has_seg || qseg_s[c] == kseg_s[r]);
-          const float p = ok ? expf(x - lse_s[c]) : 0.f;
-          const float f =
-              drop_on ? drop_factor(g, drop_row(dbase, q0 + c), dcol[e >> 1]) : 1.f;
-          st[n][e] = p * f;                // dV takes the dropped P
-          dpt[n][e] = ds_core(drop_on, p, f, dpt[n][e], delta_s[c]) * dcap * g.scale;
+        for (int b = 0; b < C::NB; ++b) {
+          tma_load4(q_s + b * kBlk * 128, &map_q, 64 * b, h, q0, bi, res);
+          tma_load4(do_s + b * kBlk * 128, &map_do, 64 * b, h, q0, bi, res);
         }
-      mma_pv<D, kBqDkv / 16>(dv_acc, st, do_s, lane);
-      mma_pv<D, kBqDkv / 16>(dk_acc, dpt, q_s, lane);
+      }
+      int2 qsr = make_int2(0, 0);
+      if (has_seg) {
+        int v[kBlk / 32];
+        qsr = warp_seg_span<kBlk / 32>(g.qseg + size_t(bi) * g.sq, q0, g.sq, lane, v);
+      }
+      const int2 kr = kv_span(g, q0, kBlk);
+      const int* kseg = has_seg ? g.kseg + size_t(bi) * g.sk : nullptr;
+      int it = 0;
+      for (int base = kr.x; base < kr.y; base += 32 * kStep) {
+        // the next 32 key tiles that share a segment with the CTA's rows
+        for (unsigned todo = tiles_meeting(kseg, base, kr.y, g.sk, qsr, has_seg, lane); todo;
+             todo &= todo - 1) {
+          const int k0 = base + (__ffs(todo) - 1) * kStep;
+          int seg[kStep / 32] = {0, 0};
+          int seg_edge = 0;
+          if (has_seg)
+            seg_edge = !seg_uniform(warp_seg_span<kStep / 32>(kseg, k0, g.sk, lane, seg), qsr);
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);       // the first round passes
+          StageInfo& in = info[s];
+          in.seg[lane] = seg[0];
+          in.seg[lane + 32] = seg[1];
+          if (lane == 0) {
+            in.pos = k0;
+            in.seg_edge = seg_edge;
+            mbar_expect_tx(&full[s], 2 * C::kTileB);
+            unsigned char* ks = ring + s * 2 * C::kTileB;
+#pragma unroll
+            for (int b = 0; b < C::NB; ++b) {
+              tma_load4(ks + b * kStep * 128, &map_k, 64 * b, kvh, k0, bi, &full[s]);
+              tma_load4(ks + C::kTileB + b * kStep * 128, &map_v, 64 * b, kvh, k0, bi, &full[s]);
+            }
+          } else {
+            mbar_arrive(&full[s]);
+          }
+          ++it;
+        }
+      }
+      const int s = it % S;                              // no more tiles
+      mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+      if (lane == 0) info[s].pos = -1;
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tc = threadIdx.x - 128;
+    const int c = tc >> 7;                     // rows [q0 + 64c, + 64)
+    const int warp = (tc >> 5) & 3, lane = tc & 31;
+    const int grp = lane >> 2, t4 = lane & 3;
+    const int qc0 = q0 + 64 * c;
+    // ALiBi and dropout compile away from the EXTRA = false kernels
+    const bool has_alibi = EXTRA && g.alibi != nullptr;
+    const bool drop_on = EXTRA && g.drop_on;
+    const bool plain = !has_alibi && g.softcap == 0.f;
+    const float slope = has_alibi ? g.alibi[h] : 0.f;
+    const float sl2 = g.scale * kLog2e;
+    // this thread's rows: qc0 + 16 warp + grp + 8 hh
+    float lse2[2], delta_r[2];
+    int qseg_r[2];
+    uint32_t drow[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qc0 + 16 * warp + grp + 8 * hh;
+      const size_t at = (size_t(bi) * g.hq + h) * g.sq + qi;
+      lse2[hh] = qi < g.sq ? lse[at] * kLog2e : 0.f;
+      delta_r[hh] = qi < g.sq ? delta[at] : 0.f;
+      qseg_r[hh] = has_seg && qi < g.sq ? g.qseg[size_t(bi) * g.sq + qi] : 0;
+      drow[hh] = drop_on ? drop_row(drop_base(g, bi, h), qi) : 0u;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    mbar_wait(res, 0);
+
+    for (int it = 0;; ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const StageInfo& in = info[s];
+      const int k0 = in.pos;
+      if (k0 < 0) break;
+      if (!any_visible(g, qc0, qc0 + 64, k0, k0 + kStep)) {
+        release(&empty[s], lane);
+        continue;
+      }
+      const bool edge = in.seg_edge || !all_visible(g, qc0, qc0 + 64, k0, k0 + kStep);
+      const unsigned char* ks = ring + s * 2 * C::kTileB;
+      const unsigned char* vs = ks + C::kTileB;
+
+      float sc[32], dp[32];
+      wgmma_fence();
+      scores<DP>(sc, q_s + c * 64 * 128, kBlk * 128, ks, kStep * 128);
+      wgmma_commit();
+      scores<DP>(dp, do_s + c * 64 * 128, kBlk * 128, vs, kStep * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // P = exp(s - lse), then dS = (P~ dP - P delta) dcap scale in dp;
+      // register 4 j + 2 hh + e is row 16 warp + grp + 8 hh, key
+      // 8 j + 2 t4 + e
+      if (plain && !drop_on && !edge) {     // an interior tile: no mask
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          const float p = exp2_ftz(fmaf(sc[i], sl2, -lse2[hh]));
+          dp[i] = p * (dp[i] - delta_r[hh]) * g.scale;
+        }
+      } else {
+        // the keys [klo, khi] each row may see (causal, window, ragged
+        // ends), and the tile's key segment ids, two a load
+        int klo[2], khi[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int qi = qc0 + 16 * warp + grp + 8 * hh;
+          const int2 kb = key_bounds(g, qi);
+          klo[hh] = kb.x - k0;
+          khi[hh] = kb.y - k0;
+        }
+        if (plain && !drop_on) {            // an edge tile of the plain path
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int2 ks = has_seg ? *reinterpret_cast<const int2*>(&in.seg[8 * j + 2 * t4])
+                                    : make_int2(0, 0);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * hh + e;
+                const int cj = 8 * j + 2 * t4 + e;
+                const bool ok = cj >= klo[hh] && cj <= khi[hh] &&
+                                (!has_seg || qseg_r[hh] == (e ? ks.y : ks.x));
+                const float p = ok ? exp2_ftz(fmaf(sc[i], sl2, -lse2[hh])) : 0.f;
+                dp[i] = p * (dp[i] - delta_r[hh]) * g.scale;
+              }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int2 ks = has_seg ? *reinterpret_cast<const int2*>(&in.seg[8 * j + 2 * t4])
+                                    : make_int2(0, 0);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * hh + e;
+                const int cj = 8 * j + 2 * t4 + e;
+                float p, dcap = 1.f;
+                if (plain) {
+                  p = exp2_ftz(fmaf(sc[i], sl2, -lse2[hh]));
+                } else {
+                  const int qi = qc0 + 16 * warp + grp + 8 * hh;
+                  const float x = cap_score(g, sc[i], has_alibi, slope, qi, k0 + cj, &dcap);
+                  p = exp2_ftz(fmaf(x, kLog2e, -lse2[hh]));
+                }
+                if (edge && !(cj >= klo[hh] && cj <= khi[hh] &&
+                              (!has_seg || qseg_r[hh] == (e ? ks.y : ks.x))))
+                  p = 0.f;
+                const float f = drop_on ? drop_factor(g, drow[hh], drop_col(k0 + cj)) : 1.f;
+                dp[i] = ds_core(drop_on, p, f, dp[i], delta_r[hh]) * dcap * g.scale;
+              }
+          }
+        }
+      }
+      uint32_t hi[16], lo[16];
+      split_frags(dp, hi, lo);
+      wgmma_fence();
+      product_hilo<DP>(acc, hi, lo, ks);     // dq += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(hi);
+      fence_regs(lo);
+      release(&empty[s], lane);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qc0 + 16 * warp + grp + 8 * hh;
+      if (qi >= g.sq) continue;
+      __nv_bfloat16* row = dq + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
   }
+}
+
+// B3 on wgmma: one CTA per (batch, kv head, 128 keys), q rows of every
+// q head of the group streamed 64 at a time
+template <int D, bool EXTRA>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,   // boxes of 128 rows
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_q,   // boxes of 64 rows
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         Geom g) {
+  using C = WgCfg<D>;
+  constexpr int S = C::kStagesDkv, DP = C::DP;
+  extern __shared__ __align__(1024) unsigned char wg_buf[];
+  unsigned char* k_s = align1024(wg_buf);
+  unsigned char* v_s = k_s + C::kRes;
+  unsigned char* ring = v_s + C::kRes;                   // S x (Q, dO)
+  StageInfo* info = reinterpret_cast<StageInfo*>(ring + 2 * S * C::kTileB);
+  RowStats* stats = reinterpret_cast<RowStats*>(info + S);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + S);
+  uint64_t* empty = full + S;
+  uint64_t* res = empty + S;
+
+  const int k0 = blockIdx.x * kBlk;          // the first kv tiles see the most
+  const int kvh = blockIdx.y, bi = blockIdx.z;
+  const int group = g.hq / g.hk;
+  const bool has_seg = g.qseg != nullptr;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(res, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(res, 2 * C::kRes);
+#pragma unroll
+        for (int b = 0; b < C::NB; ++b) {
+          tma_load4(k_s + b * kBlk * 128, &map_k, 64 * b, kvh, k0, bi, res);
+          tma_load4(v_s + b * kBlk * 128, &map_v, 64 * b, kvh, k0, bi, res);
+        }
+      }
+      int2 ksr = make_int2(0, 0);
+      if (has_seg) {
+        int v[kBlk / 32];
+        ksr = warp_seg_span<kBlk / 32>(g.kseg + size_t(bi) * g.sk, k0, g.sk, lane, v);
+      }
+      const int2 qr = q_span(g, k0, kBlk);
+      const int* qseg = has_seg ? g.qseg + size_t(bi) * g.sq : nullptr;
+      int it = 0;
+      for (int base = qr.x; base < qr.y; base += 32 * kStep) {
+        // the next 32 q tiles that share a segment with the CTA's keys,
+        // walked for every q head of the group
+        const unsigned meet = tiles_meeting(qseg, base, qr.y, g.sq, ksr, has_seg, lane);
+        for (int gi = 0; gi < group; ++gi) {
+          const int h = kvh * group + gi;     // ALiBi and dropout go by q head
+          for (unsigned todo = meet; todo; todo &= todo - 1) {
+            const int q0 = base + (__ffs(todo) - 1) * kStep;
+            int seg[kStep / 32] = {0, 0};
+            int seg_edge = 0;
+            if (has_seg)
+              seg_edge = !seg_uniform(warp_seg_span<kStep / 32>(qseg, q0, g.sq, lane, seg), ksr);
+            float l[2], dl[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int qi = q0 + lane + 32 * i;
+              const size_t at = (size_t(bi) * g.hq + h) * g.sq + qi;
+              l[i] = qi < g.sq ? lse[at] * kLog2e : 0.f;
+              dl[i] = qi < g.sq ? delta[at] : 0.f;
+            }
+            const int s = it % S;
+            mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+            StageInfo& in = info[s];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              in.seg[lane + 32 * i] = seg[i];
+              stats[s].lse2[lane + 32 * i] = l[i];
+              stats[s].delta[lane + 32 * i] = dl[i];
+            }
+            if (lane == 0) {
+              in.pos = q0;
+              in.head = h;
+              in.seg_edge = seg_edge;
+              mbar_expect_tx(&full[s], 2 * C::kTileB);
+              unsigned char* qs = ring + s * 2 * C::kTileB;
+#pragma unroll
+              for (int b = 0; b < C::NB; ++b) {
+                tma_load4(qs + b * kStep * 128, &map_q, 64 * b, h, q0, bi, &full[s]);
+                tma_load4(qs + C::kTileB + b * kStep * 128, &map_do, 64 * b, h, q0, bi,
+                          &full[s]);
+              }
+            } else {
+              mbar_arrive(&full[s]);
+            }
+            ++it;
+          }
+        }
+      }
+      const int s = it % S;                  // no more tiles
+      mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+      if (lane == 0) info[s].pos = -1;
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tc = threadIdx.x - 128;
+    const int c = tc >> 7;                   // keys [k0 + 64c, + 64)
+    const int warp = (tc >> 5) & 3, lane = tc & 31;
+    const int grp = lane >> 2, t4 = lane & 3;
+    const int kc0 = k0 + 64 * c;
+    const bool has_alibi = EXTRA && g.alibi != nullptr;
+    const bool drop_on = EXTRA && g.drop_on;
+    const bool plain = !has_alibi && g.softcap == 0.f;
+    const float sl2 = g.scale * kLog2e;
+    // this thread's keys: kc0 + 16 warp + grp + 8 hh
+    int kseg_r[2];
+    uint32_t dcol[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kj = kc0 + 16 * warp + grp + 8 * hh;
+      kseg_r[hh] = has_seg && kj < g.sk ? g.kseg[size_t(bi) * g.sk + kj] : 0;
+      dcol[hh] = drop_on ? drop_col(kj) : 0u;
+    }
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(res, 0);
+
+    for (int it = 0;; ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const StageInfo& in = info[s];
+      const RowStats& rs = stats[s];
+      const int q0 = in.pos;
+      if (q0 < 0) break;
+      if (!any_visible(g, q0, q0 + kStep, kc0, kc0 + 64)) {
+        release(&empty[s], lane);
+        continue;
+      }
+      const int h = in.head;
+      const bool edge = in.seg_edge || !all_visible(g, q0, q0 + kStep, kc0, kc0 + 64);
+      const float slope = has_alibi ? g.alibi[h] : 0.f;
+      const uint32_t dbase = drop_on ? drop_base(g, bi, h) : 0u;
+      const unsigned char* qs = ring + s * 2 * C::kTileB;
+      const unsigned char* dos = qs + C::kTileB;
+
+      // S^T = K Q^T and dP^T = V dO^T: rows keys, columns q rows
+      float st[32], dpt[32];
+      wgmma_fence();
+      scores<DP>(st, k_s + c * 64 * 128, kBlk * 128, qs, kStep * 128);
+      wgmma_commit();
+      scores<DP>(dpt, v_s + c * 64 * 128, kBlk * 128, dos, kStep * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      // P~^T in st and dS^T in dpt; register 4 j + 2 hh + e is key
+      // 16 warp + grp + 8 hh, q row 8 j + 2 t4 + e
+      if (plain && !drop_on && !edge) {     // an interior tile: no mask
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(&rs.lse2[8 * j + 2 * t4]);
+          const float2 dl = *reinterpret_cast<const float2*>(&rs.delta[8 * j + 2 * t4]);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hh + e;
+              const float p = exp2_ftz(fmaf(st[i], sl2, -(e ? l2.y : l2.x)));
+              dpt[i] = p * (dpt[i] - (e ? dl.y : dl.x)) * g.scale;
+              st[i] = p;
+            }
+        }
+      } else {
+        // the q rows [qlo, qhi] each key may be seen by (causal, window,
+        // ragged ends)
+        int qlo[2], qhi[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int2 qb = query_bounds(g, kc0 + 16 * warp + grp + 8 * hh);
+          qlo[hh] = qb.x - q0;
+          qhi[hh] = qb.y - q0;
+        }
+        if (plain && !drop_on) {            // an edge tile of the plain path
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(&rs.lse2[8 * j + 2 * t4]);
+            const float2 dl = *reinterpret_cast<const float2*>(&rs.delta[8 * j + 2 * t4]);
+            const int2 qs = has_seg ? *reinterpret_cast<const int2*>(&in.seg[8 * j + 2 * t4])
+                                    : make_int2(0, 0);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * hh + e;
+                const int cq = 8 * j + 2 * t4 + e;
+                const bool ok = cq >= qlo[hh] && cq <= qhi[hh] &&
+                                (!has_seg || kseg_r[hh] == (e ? qs.y : qs.x));
+                const float p = ok ? exp2_ftz(fmaf(st[i], sl2, -(e ? l2.y : l2.x))) : 0.f;
+                dpt[i] = p * (dpt[i] - (e ? dl.y : dl.x)) * g.scale;
+                st[i] = p;
+              }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(&rs.lse2[8 * j + 2 * t4]);
+            const float2 dl = *reinterpret_cast<const float2*>(&rs.delta[8 * j + 2 * t4]);
+            const int2 qs = has_seg ? *reinterpret_cast<const int2*>(&in.seg[8 * j + 2 * t4])
+                                    : make_int2(0, 0);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * hh + e;
+                const int cq = 8 * j + 2 * t4 + e;
+                const int kj = kc0 + 16 * warp + grp + 8 * hh;
+                float p, dcap = 1.f;
+                if (plain) {
+                  p = exp2_ftz(fmaf(st[i], sl2, -(e ? l2.y : l2.x)));
+                } else {
+                  const float x = cap_score(g, st[i], has_alibi, slope, q0 + cq, kj, &dcap);
+                  p = exp2_ftz(fmaf(x, kLog2e, -(e ? l2.y : l2.x)));
+                }
+                if (edge && !(cq >= qlo[hh] && cq <= qhi[hh] &&
+                              (!has_seg || kseg_r[hh] == (e ? qs.y : qs.x))))
+                  p = 0.f;
+                const float f =
+                    drop_on ? drop_factor(g, drop_row(dbase, q0 + cq), dcol[hh]) : 1.f;
+                dpt[i] = ds_core(drop_on, p, f, dpt[i], e ? dl.y : dl.x) * dcap * g.scale;
+                st[i] = p * f;                 // dV takes the dropped P
+              }
+          }
+        }
+      }
+      uint32_t ph[16], pl[16];
+      split_frags(st, ph, pl);
+      wgmma_fence();
+      product_hilo<DP>(dv_acc, ph, pl, dos);   // dv += P~^T dO
+      wgmma_commit();
+      uint32_t dh[16], dl[16];
+      split_frags(dpt, dh, dl);
+      wgmma_fence();
+      product_hilo<DP>(dk_acc, dh, dl, qs);    // dk += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      fence_regs(dh);
+      fence_regs(dl);
+      release(&empty[s], lane);
+    }
 
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int kj = k0 + wrow + grp + 8 * half;
-    if (kj >= g.sk) continue;
-    const size_t base = ((size_t(bi) * g.sk + kj) * g.hk + kvh) * D;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kj = kc0 + 16 * warp + grp + 8 * hh;
+      if (kj >= g.sk) continue;
+      const size_t base = ((size_t(bi) * g.sk + kj) * g.hk + kvh) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + base + n * 8 + tid * 2) =
-          pack_bf16(dk_acc[n][2 * half], dk_acc[n][2 * half + 1]);
-      *reinterpret_cast<uint32_t*>(dv + base + n * 8 + tid * 2) =
-          pack_bf16(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + base + 8 * j + 2 * t4) =
+            pack_bf16(dk_acc[4 * j + 2 * hh], dk_acc[4 * j + 2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(dv + base + 8 * j + 2 * t4) =
+            pack_bf16(dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
+      }
     }
   }
 }
@@ -1203,30 +1766,46 @@ __global__ void __launch_bounds__(kMmaThreads)
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
-}
-
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
+// the map of one head's rows of a BSHD bf16 tensor [b, s, h, d]: boxes
+// of 64 columns by `rows` rows of one head and batch, 128-byte swizzle,
+// zeros out of range (rows past s, columns past d)
+int make_bshd_map(CUtensorMap* map, const void* base, int b, int s, int h, int d, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(h), cuuint64_t(s), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * 2, cuuint64_t(h) * d * 2,
+                                 cuuint64_t(s) * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + int(r);
+}
+
+// Each launcher sets its kernel's dynamic shared-memory limit once per
+// device (an attribute of the function on each device) and returns the
+// launch's cudaError_t, or an error of the map encoder.
 template <typename T, int D, bool EXTRA>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int b, const Geom& g, cudaStream_t st) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+               const Geom& g, cudaStream_t st) {
   const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
+  static bool attr[kMaxDevices];
   if constexpr (kMma<T>) {
     constexpr size_t smem = fwd_mma_smem<D>();
-    static const cudaError_t attr = set_smem(fwd_mma_kernel<D, EXTRA>, smem);
-    if (attr != cudaSuccess) return attr;
+    const cudaError_t r = smem_attr_per_device(fwd_mma_kernel<D, EXTRA>, int(smem), attr);
+    if (r != cudaSuccess) return r;
     fwd_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), g);
   } else {
     constexpr size_t smem = fwd_smem<D>();
-    static const cudaError_t attr = set_smem(fwd_kernel<T, D, EXTRA>, smem);
-    if (attr != cudaSuccess) return attr;
+    const cudaError_t r = smem_attr_per_device(fwd_kernel<T, D, EXTRA>, int(smem), attr);
+    if (r != cudaSuccess) return r;
     fwd_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), g);
@@ -1235,22 +1814,29 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T, int D, bool EXTRA>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int b, const Geom& g, cudaStream_t st) {
-  const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int b, const Geom& g, cudaStream_t st) {
+  static bool attr[kMaxDevices];
   if constexpr (kMma<T>) {
-    constexpr size_t smem = dq_mma_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dq_mma_kernel<D, EXTRA>, smem);
-    if (attr != cudaSuccess) return attr;
-    bwd_dq_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dq), g);
+    constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDq, false>();
+    const auto kernel = bwd_dq_wgmma_kernel<D, EXTRA>;
+    const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
+    if (r != cudaSuccess) return r;
+    CUtensorMap mq, mdo, mk, mv;
+    int e = make_bshd_map(&mq, q, b, g.sq, g.hq, D, kBlk);
+    if (e == 0) e = make_bshd_map(&mdo, dout, b, g.sq, g.hq, D, kBlk);
+    if (e == 0) e = make_bshd_map(&mk, k, b, g.sk, g.hk, D, kStep);
+    if (e == 0) e = make_bshd_map(&mv, v, b, g.sk, g.hk, D, kStep);
+    if (e != 0) return e;
+    const dim3 grid((g.sq + kBlk - 1) / kBlk, g.hq, b);
+    kernel<<<grid, kWgThreads, smem, st>>>(mq, mdo, mk, mv, static_cast<const float*>(lse),
+                                           static_cast<const float*>(delta),
+                                           static_cast<T*>(dq), g);
   } else {
     constexpr size_t smem = dq_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dq_kernel<T, D, EXTRA>, smem);
-    if (attr != cudaSuccess) return attr;
+    const cudaError_t r = smem_attr_per_device(bwd_dq_kernel<T, D, EXTRA>, int(smem), attr);
+    if (r != cudaSuccess) return r;
+    const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
     bwd_dq_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -1260,22 +1846,29 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }
 
 template <typename T, int D, bool EXTRA>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int b, const Geom& g, cudaStream_t st) {
-  const dim3 grid((g.sk + kTile - 1) / kTile, g.hk, b);
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int b, const Geom& g, cudaStream_t st) {
+  static bool attr[kMaxDevices];
   if constexpr (kMma<T>) {
-    constexpr size_t smem = dkv_mma_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dkv_mma_kernel<D, EXTRA>, smem);
-    if (attr != cudaSuccess) return attr;
-    bwd_dkv_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), g);
+    constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDkv, true>();
+    const auto kernel = bwd_dkv_wgmma_kernel<D, EXTRA>;
+    const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
+    if (r != cudaSuccess) return r;
+    CUtensorMap mk, mv, mq, mdo;
+    int e = make_bshd_map(&mk, k, b, g.sk, g.hk, D, kBlk);
+    if (e == 0) e = make_bshd_map(&mv, v, b, g.sk, g.hk, D, kBlk);
+    if (e == 0) e = make_bshd_map(&mq, q, b, g.sq, g.hq, D, kStep);
+    if (e == 0) e = make_bshd_map(&mdo, dout, b, g.sq, g.hq, D, kStep);
+    if (e != 0) return e;
+    const dim3 grid((g.sk + kBlk - 1) / kBlk, g.hk, b);
+    kernel<<<grid, kWgThreads, smem, st>>>(mk, mv, mq, mdo, static_cast<const float*>(lse),
+                                           static_cast<const float*>(delta),
+                                           static_cast<T*>(dk), static_cast<T*>(dv), g);
   } else {
     constexpr size_t smem = dkv_smem<D>();
-    static const cudaError_t attr = set_smem(bwd_dkv_kernel<T, D, EXTRA>, smem);
-    if (attr != cudaSuccess) return attr;
+    const cudaError_t r = smem_attr_per_device(bwd_dkv_kernel<T, D, EXTRA>, int(smem), attr);
+    if (r != cudaSuccess) return r;
+    const dim3 grid((g.sk + kTile - 1) / kTile, g.hk, b);
     bwd_dkv_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -1301,14 +1894,15 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
 
 }  // namespace
 
-// The C interface.  q/k/v/dout/o/dq/dk/dv are BSHD and contiguous, of
-// dtype 0 = float32 or 1 = bfloat16; lse and delta are [b, hq, sq]
-// float32; qseg/kseg are [b, sq] / [b, sk] int32, or both null; alibi is
-// [hq] float32 slopes or null; with drop_on a pair is kept when its hash
-// (drop_seed) is >= drop_thresh and kept P entries are scaled by
-// drop_scale.  Each
-// returns the cudaError_t of its launch (0 = success), launches on
-// `stream` and does not synchronise.
+// The C interface.  q/k/v/dout/o/dq/dk/dv are BSHD and contiguous (16-byte
+// aligned), of dtype 0 = float32 or 1 = bfloat16; lse and delta are
+// [b, hq, sq] float32; qseg/kseg are [b, sq] / [b, sk] int32, or both
+// null; alibi is [hq] float32 slopes or null; with drop_on a pair is kept
+// when its hash (drop_seed) is >= drop_thresh and kept P entries are
+// scaled by drop_scale.  Each launches on `stream`, does not synchronise,
+// and returns 0 on success, else the cudaError_t of its launch, or
+// 100000 when the runtime does not reach cuTensorMapEncodeTiled, or
+// 200000 + its CUresult when it refuses a map (the bf16 backward).
 // ALiBi and dropout have kernels of their own (EXTRA), so that the
 // kernels of the plain training path carry none of their code
 #define FLASH_DISPATCH_D(LAUNCH, T, DD, ...)                               \

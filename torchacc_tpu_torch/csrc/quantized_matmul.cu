@@ -69,14 +69,14 @@
  *    at half the 8-bit rate and with twice the operand bytes.
  */
 
-#include <cuda.h>   // CUtensorMap and its enums only: the encoder is reached
-                    // through the runtime, so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_ptx.cuh"   // mbarriers, TMA, wgmma descriptors, the map encoder
 
 namespace {
 
@@ -316,129 +316,37 @@ struct GemmCfg {
       kStages * (kStageA + kStageB) + 2 * kStages * 8 + BN * 4 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// box (kBK bytes of K, rows) at (k0, row0) of a map into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k0, int row0,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma's shared-memory operand: K-major rows of 128 bytes under the
-// 128-byte swizzle, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4)   // start address / 16
-         | (uint64_t(1) << 16)                     // leading byte offset (unused here) / 16
-         | (uint64_t(1024 >> 4) << 32)             // stride byte offset / 16
-         | (uint64_t(1) << 62);                    // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define QMM_D4(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
-#define QMM_D16(C, i) QMM_D4(C, i), QMM_D4(C, i + 4), QMM_D4(C, i + 8), QMM_D4(C, i + 12)
-#define QMM_D64(C, i) QMM_D16(C, i), QMM_D16(C, i + 16), QMM_D16(C, i + 32), QMM_D16(C, i + 48)
-#define QMM_R64                                                                    \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "    \
-  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "    \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "    \
-  "%61, %62, %63"
-#define QMM_R128                                                                   \
-  QMM_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "    \
-  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "    \
-  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "   \
-  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, " \
-  "%119, %120, %121, %122, %123, %124, %125, %126, %127"
-
 // one product of the warpgroup over 32 bytes of K, N = 2 * (registers a
 // thread): m64nNk32 on int8, m64nNk16 on f16 (both K-major, so no
 // transposes); d = a * b + (scale_d ? d : 0)
 __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" QMM_R64 "}, %64, %65, p;\n}\n"
-      : QMM_D64("+r", 0)
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" HP_R64 "}, %64, %65, p;\n}\n"
+      : HP_D64("+r", 0)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 __device__ __forceinline__ void wgmma(int (&d)[128], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" QMM_R128 "}, %128, %129, p;\n}\n"
-      : QMM_D64("+r", 0), QMM_D64("+r", 64)
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" HP_R128 "}, %128, %129, p;\n}\n"
+      : HP_D64("+r", 0), HP_D64("+r", 64)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" QMM_R64
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" HP_R64
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : QMM_D64("+f", 0)
+      : HP_D64("+f", 0)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {" QMM_R128
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {" HP_R128
       "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : QMM_D64("+f", 0), QMM_D64("+f", 64)
+      : HP_D64("+f", 0), HP_D64("+f", 64)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -484,7 +392,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       mbar_init(&full[s], 1);    // the producer's expect_tx; then the bytes
       mbar_init(&empty[s], 8);   // every consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -530,18 +438,18 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         // the descriptors of step k are 32 bytes = 2 units further on
         const uint64_t da = smem_desc(sa + s * Cfg::kStageA + c * 64 * kBK);
         const uint64_t db = smem_desc(sb + s * Cfg::kStageB);
-        fence_acc(acc);
+        fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < kBK / 32; ++k) wgmma(acc, da + 2 * k, db + 2 * k, 1);
         wgmma_commit();
         // one group in flight: the previous stage's is done
         wgmma_wait<1>();
-        fence_acc(acc);
+        fence_regs(acc);
         if (kt > 0) release((it - 1) % S);
       }
       wgmma_wait<0>();
-      fence_acc(acc);
+      fence_regs(acc);
       release((it - 1) % S);
 
       // sx * sw[n] for the tile's columns, once the last tile's epilogue
@@ -589,31 +497,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-// error codes of the C interface beyond cudaError_t
-constexpr int kErrNoEncoder = 100000;       // cuTensorMapEncodeTiled not found
-constexpr int kErrEncode = 200000;          // + the CUresult of the encoder
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // the map of a K-major [rows, row_bytes] operand, read as bytes in boxes of
 // kBK bytes of K by box_rows rows, 128-byte swizzle, zeros out of range
 int make_map(CUtensorMap* map, const void* base, long long row_bytes, int rows, int box_rows) {
@@ -660,12 +543,6 @@ int dispatch_quantize(const void* x, const void* w, const void* sx, const void* 
   return cudaErrorInvalidValue;
 }
 
-// what a launch reads once per device and keeps: the SM count, and
-// whether each GEMM instantiation's shared-memory limit (an attribute of
-// the function on the device) is set
-constexpr int kMaxDevices = 64;
-int g_sms[kMaxDevices];
-
 template <bool FP8, int BN, typename T>
 int launch_gemm(const void* qx, const void* qw, const void* sx, const void* sw, void* out,
                 int M, int N, int Kp, cudaStream_t st) {
@@ -673,18 +550,11 @@ int launch_gemm(const void* qx, const void* qw, const void* sx, const void* sw, 
   static bool smem_set[kMaxDevices];
   const auto kernel = qmm_gemm_wgmma<FP8, BN, T>;
   int dev = 0;
-  cudaError_t r = cudaGetDevice(&dev);
+  cudaError_t r = smem_attr_per_device(kernel, Cfg::kSmem, smem_set, &dev);
   if (r != cudaSuccess) return r;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    r = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
-    if (r != cudaSuccess) return r;
-    smem_set[dev] = true;
-  }
-  if (g_sms[dev] == 0) {
-    r = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (r != cudaSuccess) return r;
-  }
+  int sms = 0;
+  r = sm_count(dev, &sms);
+  if (r != cudaSuccess) return r;
   const long long row_bytes = (long long)Kp * kOpBytes<FP8>;
   CUtensorMap map_a, map_b;
   int e = make_map(&map_a, qx, row_bytes, M, kBM);
@@ -692,7 +562,6 @@ int launch_gemm(const void* qx, const void* qw, const void* sx, const void* sw, 
   if (e != 0) return e;
   const long long tiles = (long long)((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int sms = g_sms[dev];
   const int pair_ok = aligned(out, 2 * sizeof(T)) && N % 2 == 0;
   kernel<<<unsigned(tiles < sms ? tiles : sms), kGemmThreads, Cfg::kSmem, st>>>(
       map_a, map_b, static_cast<const float*>(sx), static_cast<const float*>(sw),

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, which is loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 Libraries land in ``torchacc_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is loaded as it is.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them together.  Nothing here runs at import time.
@@ -51,10 +52,16 @@ def _nvcc() -> str:
     return path
 
 
+def _headers() -> List[str]:
+    """Every shared header under ``csrc/``: a source may include any."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for f in [f"{name}.cu"] + _headers():
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

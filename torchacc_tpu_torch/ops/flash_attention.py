@@ -133,7 +133,9 @@ def _ptr(t):
 def _raise_on(err, name, q):
     if err != 0:
         raise RuntimeError(
-            f"flash-attention {name} kernel launch failed: cudaError {err} "
+            f"flash-attention {name} kernel launch failed: error {err} "
+            f"(a cudaError_t; 100000: no tensor-map encoder; 200000 + a "
+            f"CUresult: a tensor map refused) "
             f"(q {tuple(q.shape)} {q.dtype})")
 
 
