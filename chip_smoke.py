@@ -94,8 +94,8 @@ Phases, each of which exits non-zero when it fails:
    weight scale in place of the per-channel one) must not; fp8 likewise
    within a limit set from readings.
 
-No earlier phase was cut to make room: the whole run takes about 140 s
-(about 45 s of it the build; stderr has each kernel's registers and
+No earlier phase was cut to make room: the whole run takes 105-140 s
+(30-45 s of it the build; stderr has each kernel's registers and
 spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
@@ -124,6 +124,11 @@ FLASH = {   # kernel -> the Pallas kernel it replaces
     "bwd_dkv": "torchacc_tpu/ops/flash_attention.py:481",
 }
 FLASH_SOURCE = "torchacc_tpu_torch/csrc/flash_attention.cu"
+# the kernel each flash entry point runs on bf16, the main path's dtype:
+# wgmma fed by TMA through a producer/consumer ring
+FLASH_BODY = {name: f"{kernel} (wgmma, TMA ring)" for name, kernel in (
+    ("fwd", "fwd_wgmma_kernel"), ("bwd_dq", "bwd_dq_wgmma_kernel"),
+    ("bwd_dkv", "bwd_dkv_wgmma_kernel"))}
 PEAK_8BIT_OPS = 1979e12                 # int8 and fp8, dense
 # the fp8 sum against an f64 product of its e4m3 operands, max |err| /
 # max |ref|, at K = 14336: read 2.7e-6 on an H100 (the plain f32 matmul
@@ -1550,7 +1555,7 @@ def main():
             ("dq",) if name == "bwd_dq" else ("dk", "dv"))
         entries.append(dict(
             name=f"flash_attention[{name}]", route="cuda",
-            source=FLASH_SOURCE, replaces=replaces,
+            body=FLASH_BODY[name], source=FLASH_SOURCE, replaces=replaces,
             launches=train["launches"][name],
             launches_per_step=train["launches"][name] / args.train_steps,
             max_abs_err=max(flash[e]["max_abs_err"] for e in errs),

@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Time the flash-attention backward kernels of the PyTorch/CUDA port
-(B2 dq and B3 dk/dv, torchacc_tpu_torch/csrc/flash_attention.cu)
+"""Time the flash-attention kernels of the PyTorch/CUDA port (B1 the
+forward, B2 dq and B3 dk/dv, torchacc_tpu_torch/csrc/flash_attention.cu)
 against another version of that source, in turns, on one NVIDIA card.
 
     git show <rev>:torchacc_tpu_torch/csrc/flash_attention.cu > other.cu
-    python3 scripts/torch_flash_bwd_turns.py --other other.cu \
-        [--reps 50] [--train-layers 8] [--train-steps 4] [--seed 0]
+    python3 scripts/torch_flash_turns.py --other other.cu \
+        [--kernels fwd|bwd|all] [--mask docs|causal|full] [--reps 50] \
+        [--train-layers 8] [--train-steps 4] [--seed 0]
 
 The other source must have the same C interface.  It is compiled by
-nvcc (sm_90a, the port's flags) into a library of its own name; its
-backward entry points are swapped in under ops/flash_attention.py, so
-both sides run the same wrappers, the same forward kernel and the same
-inputs.  Phases, every measurement in turns (other, this, this, other):
+nvcc (sm_90a, the port's flags) into a library of its own name; the
+entry points that --kernels names (fwd: flash_attention_fwd; bwd:
+flash_attention_bwd_dq and flash_attention_bwd_dkv; all: the three) are
+swapped in under ops/flash_attention.py, so both sides run the same
+wrappers, this source's other kernels and the same inputs.  Phases,
+every measurement in turns (other, this, this, other):
 
 1. kernels: chip_smoke.py's flash training shape (b 2, s 4096, 32 q /
-   8 kv heads of 128, bf16, causal, packed documents from the same
-   seed), each side's B2 and B3 against the plain backward at the
-   card's one-ulp bf16 tolerance, then chip_smoke.py's _flash_times on
-   each side: kernel ms (CUDA events), SDPA's backward in the same call,
-   the bound, achieved TFLOP/s;
+   8 kv heads of 128, bf16) under --mask: docs, causal over packed
+   documents from the same seed (the training step's mask); causal,
+   one document; full, no mask; each side's swapped kernels against the plain version at the
+   card's tolerances (o one bf16 ulp, lse 1e-5; dq, dk, dv one bf16 ulp
+   against the plain backward from the same (o, lse)), then
+   chip_smoke.py's _flash_times on each side: kernel ms (CUDA events),
+   SDPA's forward and backward in the same call, the bound, achieved
+   TFLOP/s;
 2. training (--train-steps > 0): chip_smoke.py's bf16 training step
    (llama3-8b width, --train-layers deep, save_attn_mlp remat, one
    packed batch of 2 x 4096 tokens), one warm-up step and
@@ -40,18 +46,29 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+SWAPPED = {"fwd": (0,), "bwd": (1, 2), "all": (0, 1, 2)}
+MASKS = {"docs": (True, True), "causal": (False, True),   # segments, causal
+         "full": (False, False)}
+KEYS = {"fwd": ("fwd_ms", "library_fwd_ms", "fwd_tflops", "fwd_bound_ms",
+                "fwd_bound_share"),
+        "bwd": ("bwd_dq_ms", "bwd_dkv_ms", "library_bwd_ms",
+                "bwd_dq_tflops", "bwd_dkv_tflops", "bwd_dq_bound_ms",
+                "bwd_dkv_bound_ms", "bwd_dq_bound_share",
+                "bwd_dkv_bound_share")}
+
 
 def _bind(lib):
-    """The backward entry points of a flash-attention library, typed as
-    ops/flash_attention.py types them."""
-    dq, dkv = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
+    """The entry points of a flash-attention library (forward, dq,
+    dk/dv), typed as ops/flash_attention.py types them."""
+    fns = (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
+           lib.flash_attention_bwd_dkv)
     tail = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
             + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
             + [ctypes.c_int, ctypes.c_void_p])
-    dq.argtypes = [ctypes.c_void_p] * 10 + tail
-    dkv.argtypes = [ctypes.c_void_p] * 11 + tail
-    dq.restype = dkv.restype = ctypes.c_int
-    return dq, dkv
+    for fn, n in zip(fns, (8, 10, 11)):
+        fn.argtypes = [ctypes.c_void_p] * n + tail
+        fn.restype = ctypes.c_int
+    return fns
 
 
 def _build_other(path):
@@ -72,10 +89,24 @@ def _build_other(path):
     return _bind(ctypes.CDLL(out))
 
 
+def _worst(torch, got, ref, tols):
+    """Worst |err| / (atol + rtol |ref|) of each named output."""
+    out = {}
+    for name, a, r in zip(tols, got, ref):
+        a, r = a.float(), r.float()
+        t = tols[name]
+        out[name] = ((a - r).abs() / (t[0] + t[1] * r.abs())).max().item()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="another csrc/flash_attention.cu to time against")
+    ap.add_argument("--kernels", choices=sorted(SWAPPED), default="all",
+                    help="which kernels to take from the other source")
+    ap.add_argument("--mask", choices=sorted(MASKS), default="docs",
+                    help="the kernels' mask at the training shape")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--train-layers", type=int, default=8)
     ap.add_argument("--train-steps", type=int, default=4,
@@ -98,52 +129,71 @@ def main():
     print(f"card: {card}", flush=True)
     build_all()
     this = fa._kernel_fns()
-    other_dq, other_dkv = _build_other(args.other)
-    sides = {"this": this, "other": (this[0], other_dq, other_dkv)}
+    other = _build_other(args.other)
+    swapped = SWAPPED[args.kernels]
+    sides = {"this": this,
+             "other": tuple(other[i] if i in swapped else this[i]
+                            for i in range(3))}
     turns = ["other", "this", "this", "other"]
+    parts = [p for p in ("fwd", "bwd") if p == args.kernels
+             or args.kernels == "all"]
 
     def use(side):
         fa._kernel_fns = lambda: sides[side]
 
     # 1. kernels at the training shape, chip_smoke.py's inputs
+    segments, causal = MASKS[args.mask]
     rng = np.random.default_rng(args.seed + 1)
     q, k, v, do, seg = cs._flash_inputs(torch, rng, cs.TRAIN_B, cs.TRAIN_S,
-                                        cs.TRAIN_S, torch.bfloat16, True)
-    kw = dict(q_segment_ids=seg, kv_segment_ids=seg)
-    o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **kw)
-    ref = fa.flash_attention_bwd(q, k, v, o, lse, do, impl="torch", **kw)
-    result = {"card": card, "other": args.other, "kernels": {},
+                                        cs.TRAIN_S, torch.bfloat16, segments)
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    result = {"card": card, "other": args.other, "kernels_swapped":
+              args.kernels, "mask": args.mask, "kernels": {},
               "agreement": {}}
+    ref_fwd = fa.flash_attention(q, k, v, return_lse=True, impl="torch", **kw)
+    use("this")
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **kw)
+    ref_bwd = fa.flash_attention_bwd(q, k, v, o, lse, do, impl="torch", **kw)
     for side in ("other", "this"):
         use(side)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, impl="cuda", **kw)
-        torch.cuda.synchronize()
         worst = {}
-        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
-            err = (a.float() - r.float()).abs()
-            worst[name] = (err / (1e-3 + 1e-2 * r.float().abs())).max().item()
+        if "fwd" in parts:
+            got = fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
+                                     **kw)
+            worst.update(_worst(torch, got, ref_fwd,
+                                {"o": (1e-3, 1e-2), "lse": (1e-5, 1e-5)}))
+        if "bwd" in parts:
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, impl="cuda",
+                                         **kw)
+            worst.update(_worst(torch, got, ref_bwd, {
+                "dq": (1e-3, 1e-2), "dk": (1e-3, 1e-2), "dv": (1e-3, 1e-2)}))
+        torch.cuda.synchronize()
         result["agreement"][side] = worst
-        print(f"{side}: worst |err| / one-ulp tol against the plain "
-              f"backward {worst}", flush=True)
+        print(f"{side}: worst |err| / tol against the plain version "
+              f"{worst}", flush=True)
         if max(worst.values()) > 1.0:
-            sys.exit(f"{side}'s backward kernels disagree with the plain "
-                     f"backward")
+            sys.exit(f"{side}'s kernels disagree with the plain version")
         del got
-    del ref
+    del ref_fwd, ref_bwd
     torch.cuda.empty_cache()
+    keys = [key for p in parts for key in KEYS[p]]
     for i, side in enumerate(turns):
         use(side)
         t = cs._flash_times(torch, F, fa, args, q, k, v, do, seg,
-                            cs.D ** -0.5, True, (-1, -1), 0.0)
-        keep = {key: t[key] for key in (
-            "bwd_dq_ms", "bwd_dkv_ms", "library_bwd_ms", "bwd_dq_tflops",
-            "bwd_dkv_tflops", "bwd_dq_bound_ms", "bwd_dkv_bound_ms",
-            "bwd_dq_bound_share", "bwd_dkv_bound_share")}
+                            cs.D ** -0.5, causal, (-1, -1), 0.0)
+        keep = {key: t[key] for key in keys}
         result["kernels"][f"{i}_{side}"] = keep
-        print(f"turn {i} ({side}): dq {keep['bwd_dq_ms']:.4f} ms, dkv "
-              f"{keep['bwd_dkv_ms']:.4f} ms, sum "
-              f"{keep['bwd_dq_ms'] + keep['bwd_dkv_ms']:.4f} ms; SDPA "
-              f"backward {keep['library_bwd_ms']:.4f} ms", flush=True)
+        line = []
+        if "fwd" in parts:
+            line.append(f"fwd {keep['fwd_ms']:.4f} ms ({keep['fwd_tflops']:.1f} "
+                        f"TFLOP/s, {keep['fwd_bound_share']:.3f} of its "
+                        f"bound); SDPA forward {keep['library_fwd_ms']:.4f} ms")
+        if "bwd" in parts:
+            line.append(f"dq {keep['bwd_dq_ms']:.4f} ms, dkv "
+                        f"{keep['bwd_dkv_ms']:.4f} ms, sum "
+                        f"{keep['bwd_dq_ms'] + keep['bwd_dkv_ms']:.4f} ms; "
+                        f"SDPA backward {keep['library_bwd_ms']:.4f} ms")
+        print(f"turn {i} ({side}): " + "; ".join(line), flush=True)
     use("this")
     del q, k, v, do, seg, o, lse
     torch.cuda.empty_cache()

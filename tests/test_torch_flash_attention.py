@@ -25,7 +25,7 @@ from torchacc_tpu.ops.flash_attention import (
 )
 from torchacc_tpu.ops._common import dropout_keep as jax_dropout_keep
 from torchacc_tpu.ops._common import mix32 as jax_mix32
-from torchacc_tpu_torch.ops._common import dropout_keep, mix32
+from torchacc_tpu_torch.ops._common import NEG_INF, dropout_keep, mix32
 from torchacc_tpu_torch.ops.attention import (
     _dropped,
     _mask4,
@@ -402,3 +402,103 @@ def test_bf16_rounding_of_p_and_ds_against_the_f32_backward(geom):
              for kind, grads in (("hi + lo", split), ("once", once))}
     print(f"worst |err| / tol of dq, dk, dv: {worst}")   # readings, PERF.md
     assert max(worst["once"]) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward kernel's rounding of P, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+# the card's tolerance for the bf16 forward kernel's o against the f32
+# plain forward: one bf16 ulp (tests/test_torch_kernels_cuda.py TOL,
+# chip_smoke.py tol)
+CARD_BF16_FWD_TOL = dict(atol=1e-3, rtol=1e-2)
+
+
+def _fwd_rounded(q, k, v, split, *, block_k=64, causal=True,
+                 window=(-1, -1), q_segment_ids=None, kv_segment_ids=None):
+    """A mirror of the plain forward (``attention_reference``) walked
+    online over blocks of ``block_k`` keys, as the kernels walk them,
+    that rounds P (taken against the running row max) to bf16 before
+    P V: once (``split=False``, the JAX kernel's ``p_v.astype(v.dtype)``)
+    or as hi + lo, two bf16 values whose sum keeps ~16 bits
+    (``split=True``).  The row sum l and so the LSE take the unrounded
+    P.  Returns ``(o, lse)``."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    s, _ = _scores(q, k, d ** -0.5, 0.0)
+    mask = _mask4(q, k, causal, window, q_segment_ids,
+                  kv_segment_ids).expand(s.shape)
+    s = torch.where(mask, s, NEG_INF)
+    vr = _repeat_kv(v, hq).float()
+    m = torch.full((b, hq, sq), NEG_INF)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, d))
+
+    def r(x):
+        hi = _bf16(x)
+        return hi + _bf16(x - hi) if split else hi
+
+    for k0 in range(0, sk, block_k):
+        sb, mb = s[..., k0:k0 + block_k], mask[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, sb.max(dim=-1).values)
+        p = torch.where(mb, torch.exp(sb - m_new[..., None]), 0.0)
+        alpha = torch.where(m == NEG_INF, 0.0, torch.exp(m - m_new))
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", r(p), vr[:, k0:k0 + block_k])
+        m = m_new
+    safe = torch.where(l == 0.0, 1.0, l)
+    o = (acc / safe[..., None]).transpose(1, 2).to(q.dtype)
+    return o, torch.where(l == 0.0, NEG_INF, m + torch.log(safe))
+
+
+@pytest.mark.parametrize("geom", [(2, 64, 8, 4, 32), (1, 96, 8, 1, 128)],
+                         ids=["gqa_d32", "mqa_d128"])
+def test_fwd_single_rounding_mirror_matches_jax_bf16_kernel(geom):
+    """The forward mirror rounding P once, walked in JAX's blocks of 32
+    keys, is the JAX kernel's arithmetic: on the same bf16 inputs it
+    agrees with JAX's Pallas forward in interpret mode to one bf16 ulp
+    of o, and the LSE to f32 accuracy."""
+    b, s, hq, hk, d = geom
+    q, k, v, _, seg = _bf16_inputs(23, b, s, hq, hk, d, 3, 40)
+    j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    jseg = jnp.asarray(seg.numpy())
+    jo, jlse = jax_flash(j(q), j(k), j(v), return_lse=True,
+                         q_segment_ids=jseg, kv_segment_ids=jseg,
+                         block_q=32, block_k=32)
+    o, lse = _fwd_rounded(q, k, v, split=False, block_k=32,
+                          q_segment_ids=seg, kv_segment_ids=seg)
+    jo = np.asarray(jo.astype(jnp.float32))
+    print("max |mirror - JAX| of o, lse:",      # readings, PERF.md
+          float(np.abs(o.float().numpy() - jo).max()),
+          float(np.abs(lse.numpy() - np.asarray(jlse)).max()))
+    np.testing.assert_allclose(o.float().numpy(), jo, atol=1e-5, rtol=1e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("geom", [(1, 1024, 8, 2, 128, 256, 2048),
+                                  (1, 2048, 4, 1, 128, 256, 2048),
+                                  (2, 512, 8, 1, 32, 3, 30)],
+                         ids=["s1024_gqa", "s2048_mqa", "s512_d32_short_docs"])
+def test_bf16_rounding_of_p_against_the_f32_forward(geom):
+    """Decides how the bf16 B1 feeds P to P V.  Against the f32 plain
+    forward, at the card's unchanged one-ulp tolerance on o and packed
+    documents walked in the kernel's 64-key tiles: hi + lo stays within
+    it; rounding once, as the JAX kernel does, does not (a document's
+    first rows see few keys, so their P is large and one bf16 rounding
+    of it moves o by more than an ulp).  So P V takes hi + lo on the
+    card, as B2 and B3 do."""
+    b, s, hq, hk, d, lo, hi = geom
+    q, k, v, _, seg = _bf16_inputs(24, b, s, hq, hk, d, lo, hi)
+    segs = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    ref_o, ref_lse = attention_reference(q, k, v, return_lse=True, **segs)
+    split = _fwd_rounded(q, k, v, split=True, **segs)
+    once = _fwd_rounded(q, k, v, split=False, **segs)
+    worst = {kind: _worst_over_tol(o, ref_o, CARD_BF16_FWD_TOL)
+             for kind, (o, _) in (("hi + lo", split), ("once", once))}
+    print(f"worst |err| / tol of o: {worst}")    # readings, PERF.md
+    torch.testing.assert_close(split[0].float(), ref_o.float(),
+                               **CARD_BF16_FWD_TOL)
+    torch.testing.assert_close(split[1], ref_lse, atol=1e-5, rtol=1e-5)
+    assert worst["once"] > 1.0

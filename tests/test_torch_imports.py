@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "torchacc_tpu")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_flash_bwd_turns.py")]
+           os.path.join(ROOT, "scripts", "torch_flash_turns.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

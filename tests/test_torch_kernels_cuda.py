@@ -409,7 +409,7 @@ def test_flash_dropout_fraction_and_seed(card):
     assert torch.equal(o, same) and not torch.equal(o, other)
 
 
-# sq / sk on both sides of the backward kernels' tile edges (64-row
+# sq / sk on both sides of the bf16 kernels' tile edges (64-row
 # streamed tiles, 128-row CTA blocks)
 FLASH_EDGE_SIZES = [(1, 1), (63, 63), (64, 64), (65, 65), (127, 127),
                     (129, 129), (1, 129), (129, 1), (63, 129), (129, 65),
@@ -475,6 +475,56 @@ def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype):
     o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
                                 **segs)
     runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, impl="cuda", **segs)
+            for _ in range(4)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
+@pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
+                         ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
+def test_flash_fwd_kernel_at_tile_edges(card, sq, sk, opt, d):
+    kw = dict(FLASH_EDGE_OPTS[opt])
+    segments = kw.pop("segments", False) and sq == sk
+    q, k, v, _, segs = _flash_case(14, card, torch.bfloat16, 2, sq, sk, 8,
+                                   2, d, segments=segments)
+    got, ref = (fa.flash_attention(q, k, v, return_lse=True, impl=impl,
+                                   **segs, **kw) for impl in ("cuda", "torch"))
+    _close(got[0], ref[0], TOL[torch.bfloat16], "o")
+    _close(got[1], ref[1], TOL[torch.float32], "lse")
+
+
+def test_flash_fwd_kernel_4096_packed_documents_group8(card):
+    """The training length with packed documents of 256-2047 tokens and
+    8 q heads on one kv head."""
+    rng = np.random.default_rng(15)
+    b, s, hq, hk, d = 1, 4096, 8, 1, 128
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v = f(b, s, hq, d), f(b, s, hk, d), f(b, s, hk, d)
+    pos = []
+    while len(pos) < s:
+        pos += list(range(int(rng.integers(256, 2048))))
+    seg = fa.segment_ids_from_positions(
+        torch.tensor([pos[:s]], dtype=torch.int32)).to(card)
+    segs = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    got, ref = (fa.flash_attention(q, k, v, return_lse=True, impl=impl,
+                                   **segs) for impl in ("cuda", "torch"))
+    _close(got[0], ref[0], TOL[torch.bfloat16], "o")
+    _close(got[1], ref[1], TOL[torch.float32], "lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_fwd_kernel_repeats_bit_for_bit(card, dtype):
+    """Each CTA owns its rows and writes them once: B1 gives the same
+    bits on every call."""
+    q, k, v, _, segs = _flash_case(16, card, dtype, 2, 700, 700, 8, 2, 128,
+                                   segments=True)
+    runs = [fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **segs)
             for _ in range(4)]
     torch.cuda.synchronize()
     for run in runs[1:]:

@@ -47,34 +47,32 @@
  *
  * Two implementations of each kernel, chosen by the input dtype:
  *  - bf16 (the training path), every product on the tensor cores:
- *    fwd_mma_kernel on mma.sync m16n8k16, 4 warps of 16 rows, tiles
- *    loaded through registers; bwd_dq_wgmma_kernel and
- *    bwd_dkv_wgmma_kernel on wgmma, fed by TMA through a ring of
- *    shared-memory stages by a producer warp, with two consumer
- *    warpgroups of 64 rows each (the section "B2 and B3 in bf16");
+ *    fwd_wgmma_kernel, bwd_dq_wgmma_kernel and bwd_dkv_wgmma_kernel on
+ *    wgmma, fed by TMA through a ring of shared-memory stages by a
+ *    producer warp, with two consumer warpgroups of 64 rows each (the
+ *    section "B1, B2 and B3 in bf16");
  *  - f32 (the exact comparison with the plain version, which the card
  *    cannot make in bf16): fwd_kernel, bwd_dq_kernel and bwd_dkv_kernel
  *    run the dots on CUDA cores in f32, 256 threads each computing a
  *    4x4 block of scores from float4 shared-memory reads (8 loads per
  *    64 FMAs), rows padded to d + 4 floats so the 16 column threads hit
  *    distinct banks.
- * The forward on wgmma is later work.
  *
  * What the design does about it, in both:
  *  - grid order: the TPU's kv axis (B1, B2) and (group, q) axes (B3)
  *    were sequential grid axes carrying VMEM scratch.  Here each CTA
  *    owns its output tile and loops over the other axis itself: one CTA
- *    per (batch, q head, 64 query rows) for B1 and the f32 B2, per
- *    (batch, q head, 128 query rows) for the bf16 B2, and per (batch,
- *    kv head, 64 keys; 128 in bf16) for B3, which sums dk/dv over every
- *    q head of its group and every visible q tile in registers and
- *    writes them once (no atomics, no per-q-head dk/dv in device
- *    memory, the same bits on every call);
+ *    per (batch, q head, 64 query rows) for the f32 B1 and B2, per
+ *    (batch, q head, 128 query rows) for the bf16 B1 and B2, and per
+ *    (batch, kv head, 64 keys; 128 in bf16) for B3, which sums dk/dv
+ *    over every q head of its group and every visible q tile in
+ *    registers and writes them once (no atomics, no per-q-head dk/dv in
+ *    device memory, the same bits on every call);
  *  - only visible tiles are loaded: causality ends B1/B2's kv walk at
  *    the diagonal and starts B3's q walk there, the window bounds the
  *    other end, and a tile pair whose segment-id ranges do not meet is
  *    skipped (packed documents) — the work follows the visible pairs;
- *    the bf16 backward masks only edge tiles (the diagonal, a window
+ *    the bf16 kernels mask only edge tiles (the diagonal, a window
  *    edge, a ragged end, more than one segment id);
  *  - heavy tiles first: under causality the last q tiles (B1/B2) and
  *    the first kv tiles (B3) see the most, so they are scheduled first;
@@ -711,99 +709,93 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulate)
+// B1, B2 and B3 in bf16: wgmma fed by TMA through a ring of shared-memory
+// stages
 // ---------------------------------------------------------------------------
 //
-// The same three kernels for bf16 inputs, with every product on the
-// tensor cores.  Tiles stay bf16 in shared memory (rows padded by 8
-// elements, so the fragment loads of a warp hit 32 distinct banks);
-// each warp owns 16 rows.  Scores, softmax and the row statistics stay
-// f32 in the accumulator registers.  P (and dS in the backward) enter
-// the second product as the sum of two bf16 values, hi + lo: where the
-// JAX kernels round them to bf16 once (:252, :467), this keeps ~16 bits,
-// so the kernels agree with the plain f32 version to one bf16 ulp of
-// the output, as the f32 kernels do.  Operands that a product needs
-// transposed (V in P.V, K in dS.K, dO and Q in B3) are read with
-// ldmatrix.trans from the same row-major tiles.
+// One CTA of three warpgroups.  Warp 0 is the producer: it walks the
+// visible tiles of the CTA's other axis (each lane probes one of the next
+// 32 tiles for a segment id in common; B1 reads the 32 tiles' ids from
+// one bulk copy into shared memory), brings each in by TMA into the
+// next stage of a ring (full/empty mbarrier pairs) with the tile's rows'
+// segment ids (and in B3 their LSE and delta) beside it, and ends the
+// walk with a stage marked -1.  The two consumer warpgroups own 64 rows
+// each of the CTA's 128 and run every product on wgmma: the scores and
+// dP from shared memory (both operands K-major), the second products
+// with A (P, P~ or dS) from registers and B read through wgmma's
+// transpose flag (MN-major).  Only edge tiles (the diagonal, a window
+// edge, a ragged end, more than one segment id) take the masks; the
+// others run a loop of an fma, an ex2 and the dS arithmetic (B1: the
+// online softmax).  setmaxnreg moves registers from the producer
+// warpgroup to the consumers.
+//
+// Tiles lie in shared memory as [rows][64] bf16 boxes of 128-byte rows
+// under the 128-byte swizzle, one box a 64 columns of the head dim (a
+// head dim of 32 is read as one box of 64 whose upper half TMA fills
+// with zeros).  A rank-4 tensor map over [b, s, h, d] cuts a head's
+// rows out of the BSHD tensor; rows past s read as zeros.
+//
+// P, P~ and dS enter the second products as hi + lo, two bf16 values
+// each (split_bf16): rounding them once to bf16, as the JAX kernels do,
+// leaves dq, dk and dv 2.7-13x and o 1.6-3.2x the one-ulp tolerance from
+// the f32 plain versions (tests/test_torch_flash_attention.py rehearses
+// both on the CPU), so each second product is two wgmma.
 
-constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
+constexpr int kWgThreads = 384;    // the producer warpgroup and two consumer warpgroups
+constexpr int kBlk = 128;          // rows a CTA owns: 64 a consumer warpgroup
+constexpr int kStep = 64;          // rows of a streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int D>
+struct WgCfg {
+  static constexpr int DP = D < 64 ? 64 : D;    // head dim as stored
+  static constexpr int NB = DP / 64;            // 128-byte boxes a row spans
+  static constexpr int kRes = kBlk * DP * 2;    // a resident [128][DP] tile, bytes
+  static constexpr int kTileB = kStep * DP * 2; // a streamed [64][DP] tile, bytes
+  // ring stages, chosen on an H100: B3 ran 3-6% faster on 2 than on 3
+  static constexpr int kStagesFwd = 4;
+  static constexpr int kStagesDq = D == 128 ? 3 : 4;
+  static constexpr int kStagesDkv = D == 128 ? 2 : 4;
+};
+
+// what the producer leaves beside a stage's tiles
+struct StageInfo {
+  int pos;              // first row of the tile (B1, B2: a key; B3: a q row); -1: no more
+  int head;             // the q head (B3)
+  int seg_edge;         // segment ids not one id shared with the CTA's rows
+  int seg_lo, seg_hi;   // the least and greatest of the tile's rows' segment ids (B1)
+  int meet;             // bit c: the ids meet those of rows [q0 + 64c, + 64) (B1)
+  int seg[kStep];       // the tile's rows' segment ids
+};
+
+// B3: the stage's q rows' LSE times log2(e), and delta
+struct RowStats {
+  float lse2[kStep];
+  float delta[kStep];
+};
+
+// RES resident tiles, two streamed tiles a stage, the stage notes (and
+// for B3 the row statistics), 2 barriers a stage and one, and 1 KB to
+// align to the swizzle period
+template <int D, int S, bool STATS, int RES = 2>
+constexpr size_t wg_smem() {
+  using C = WgCfg<D>;
+  return RES * size_t(C::kRes) + 2 * size_t(C::kTileB) * S +
+         (sizeof(StageInfo) + (STATS ? sizeof(RowStats) : 0)) * S + 8 * (2 * S + 1) + 1024;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 2^x on the special-function unit; flushes results below 2^-126 to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two f32 -> one register of two bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of head h of a BSHD bf16 tensor into dst
-// [ROWS][D + 8] bf16; rows past S read as zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src, int bi,
-                                               int row0, int S, int H, int h) {
-  constexpr int CPR = D / 8;
-  constexpr int LD = D + 8;
-  constexpr int N = ROWS * CPR / kMmaThreads;
-  static_assert(ROWS * CPR % kMmaThreads == 0, "tile loads must split evenly");
-  uint4 raw[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int i = threadIdx.x + n * kMmaThreads;
-    const int row = row0 + i / CPR;
-    raw[n] = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S)
-      raw[n] = *reinterpret_cast<const uint4*>(
-          src + ((size_t(bi) * S + row) * H + h) * D + (i % CPR) * 8);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int i = threadIdx.x + n * kMmaThreads;
-    *reinterpret_cast<uint4*>(dst + (i / CPR) * LD + (i % CPR) * 8) = raw[n];
-  }
-}
-
-// acc[nt][.] = A[warp's 16 rows] . B[row nt*8 + .]^T over D, for NT
-// n-tiles of 8 rows of B; A and B [.][D + 8] bf16, row-major
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const __nv_bfloat16* A,
-                                        const __nv_bfloat16* B, int arow, int grp,
-                                        int tid) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const __nv_bfloat16* pa = A + (arow + grp) * LD + ks * 16 + tid * 2;
-    const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * LD), ld32(pa + 8),
-                           ld32(pa + 8 * LD + 8)};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat16* pb = B + (n * 8 + grp) * LD + ks * 16 + tid * 2;
-      mma_bf16(acc[n], a, ld32(pb), ld32(pb + 8));
-    }
-  }
 }
 
 // x0, x1 as the sum of two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
@@ -814,238 +806,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// acc[nd][.] += P . V over KS k-steps of 16, where P is held as the
-// accumulators of mma_abt (p[2*KS][4]) and V is [16*KS][D + 8] bf16
-// row-major (read transposed with ldmatrix).  P goes in as hi + lo, two
-// products per step, so it keeps ~16 bits instead of bf16's 8
-template <int D, int KS>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[2 * KS][4],
-                                       const __nv_bfloat16* V, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_bf16(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
-    split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
-    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
-    const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, V + row * LD + dn * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * dn], hi, b[0], b[1]);
-      mma_bf16(acc[2 * dn], lo, b[0], b[1]);
-      mma_bf16(acc[2 * dn + 1], hi, b[2], b[3]);
-      mma_bf16(acc[2 * dn + 1], lo, b[2], b[3]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t fwd_mma_smem() {
-  return sizeof(__nv_bfloat16) * 3 * size_t(kTile) * (D + 8) + sizeof(int) * 2 * kTile;
-}
-// B1 on tensor cores
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(kMmaThreads)
-    fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                   float* __restrict__ lse, Geom g) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kTile * LD;
-  __nv_bfloat16* v_s = k_s + kTile * LD;
-  int* qseg_s = reinterpret_cast<int*>(v_s + kTile * LD);
-  int* kseg_s = qseg_s + kTile;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (g.hq / g.hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tid = lane & 3;
-  const int wrow = warp * 16;
-  const bool has_seg = g.qseg != nullptr;
-  // ALiBi and dropout compile away from the EXTRA = false kernels
-  const bool has_alibi = EXTRA && g.alibi != nullptr;
-  const bool drop_on = EXTRA && g.drop_on;
-  const float slope = has_alibi ? g.alibi[h] : 0.f;
-  uint32_t drow[2] = {0u, 0u};
-  if (drop_on) {
-    const uint32_t base = drop_base(g, bi, h);
-    drow[0] = drop_row(base, q0 + wrow + grp);
-    drow[1] = drop_row(base, q0 + wrow + grp + 8);
-  }
-
-  load_tile_bf16<D, kTile>(q_s, q, bi, q0, g.sq, g.hq, h);
-  int2 qsr = make_int2(0, 0);
-  if (has_seg) {
-    load_seg<kTile>(qseg_s, g.qseg, bi, q0, g.sq);
-    __syncthreads();
-    qsr = seg_range<kTile>(qseg_s, q0, g.sq);
-  }
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int2 kr = kv_range(g, q0);
-  for (int k0 = kr.x; k0 < kr.y; k0 += kTile) {
-    __syncthreads();
-    if (has_seg) {
-      load_seg<kTile>(kseg_s, g.kseg, bi, k0, g.sk);
-      __syncthreads();
-      const int2 ksr = seg_range<kTile>(kseg_s, k0, g.sk);
-      if (ksr.y < qsr.x || ksr.x > qsr.y) continue;
-    }
-    load_tile_bf16<D, kTile>(k_s, k, bi, k0, g.sk, g.hk, kvh);
-    load_tile_bf16<D, kTile>(v_s, v, bi, k0, g.sk, g.hk, kvh);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-    mma_abt<D, kTile / 8>(s, q_s, k_s, wrow, grp, tid);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wrow + grp + 8 * half;
-      float tmax = kNegInf;
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n * 8 + tid * 2 + e;
-          float dcap;
-          const float x = cap_score(g, s[n][2 * half + e], has_alibi, slope, q0 + r, k0 + c, &dcap);
-          const bool ok = visible(g, q0 + r, k0 + c) &&
-                          (!has_seg || qseg_s[r] == kseg_s[c]);
-          s[n][2 * half + e] = ok ? x : kNegInf;
-          tmax = fmaxf(tmax, s[n][2 * half + e]);
-        }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float m_new = fmaxf(m[half], tmax);
-      const float alpha = m[half] == kNegInf ? 0.f : expf(m[half] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * half + e];
-          x = x == kNegInf ? 0.f : expf(x - m_new);
-          psum += x;    // l and the LSE stay undropped
-          if (drop_on)
-            x *= drop_factor(g, drow[half], drop_col(k0 + n * 8 + tid * 2 + e));
-        }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      l[half] = alpha * l[half] + psum;
-      m[half] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * half] *= alpha;
-        acc[n][2 * half + 1] *= alpha;
-      }
-    }
-    mma_pv<D, kTile / 16>(acc, s, v_s, lane);
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = q0 + wrow + grp + 8 * half;
-    if (qi >= g.sq) continue;
-    const float inv = l[half] == 0.f ? 0.f : 1.f / l[half];
-    __nv_bfloat16* orow = o + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + tid * 2) =
-          pack_bf16(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
-    if (tid == 0)
-      lse[(size_t(bi) * g.hq + h) * g.sq + qi] =
-          l[half] == 0.f ? kNegInf : m[half] + logf(l[half]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B2 and B3 in bf16: wgmma fed by TMA through a ring of shared-memory stages
-// ---------------------------------------------------------------------------
-//
-// One CTA of three warpgroups.  Warp 0 is the producer: it walks the
-// visible tiles of the CTA's other axis (each lane probes one of the next
-// 32 tiles for a segment id in common), brings each in by TMA into the
-// next stage of a ring (full/empty mbarrier pairs) with the tile's rows'
-// segment ids (and in B3 their LSE and delta) beside it, and ends the
-// walk with a stage marked -1.  The two consumer warpgroups own 64 rows
-// each of the CTA's 128 and run every product on wgmma: the scores and
-// dP from shared memory (both operands K-major), the second products
-// with A (P~ or dS) from registers and B read through wgmma's transpose
-// flag (MN-major).  Only edge tiles (the diagonal, a window edge, a
-// ragged end, more than one segment id) take the masks; the others run
-// a loop of an fma, an ex2 and the dS arithmetic.  setmaxnreg moves
-// registers from the producer warpgroup to the consumers.
-//
-// Tiles lie in shared memory as [rows][64] bf16 boxes of 128-byte rows
-// under the 128-byte swizzle, one box a 64 columns of the head dim (a
-// head dim of 32 is read as one box of 64 whose upper half TMA fills
-// with zeros).  A rank-4 tensor map over [b, s, h, d] cuts a head's
-// rows out of the BSHD tensor; rows past s read as zeros.
-//
-// P~ and dS enter the second products as hi + lo, two bf16 values each
-// (split_bf16): rounding them once to bf16, as the JAX kernels do,
-// leaves dq, dk and dv 2.7-13x the one-ulp tolerance from the f32 plain
-// backward (tests/test_torch_flash_attention.py rehearses both on the
-// CPU), so each second product is two wgmma.
-
-constexpr int kWgThreads = 384;    // the producer warpgroup and two consumer warpgroups
-constexpr int kBlk = 128;          // rows a CTA owns: 64 a consumer warpgroup
-constexpr int kStep = 64;          // rows of a streamed tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-struct WgCfg {
-  static constexpr int DP = D < 64 ? 64 : D;    // head dim as stored
-  static constexpr int NB = DP / 64;            // 128-byte boxes a row spans
-  static constexpr int kRes = kBlk * DP * 2;    // a resident [128][DP] tile, bytes
-  static constexpr int kTileB = kStep * DP * 2; // a streamed [64][DP] tile, bytes
-  // ring stages, chosen on an H100: B3 ran 3-6% faster on 2 than on 3
-  static constexpr int kStagesDq = D == 128 ? 3 : 4;
-  static constexpr int kStagesDkv = D == 128 ? 2 : 4;
-};
-
-// what the producer leaves beside a stage's tiles
-struct StageInfo {
-  int pos;              // first row of the tile (B2: a key, B3: a q row); -1: no more
-  int head;             // the q head (B3)
-  int seg_edge;         // segment ids not one id shared with the CTA's rows
-  int pad;
-  int seg[kStep];       // the tile's rows' segment ids
-};
-
-// B3: the stage's q rows' LSE times log2(e), and delta
-struct RowStats {
-  float lse2[kStep];
-  float delta[kStep];
-};
-
-// two resident tiles, two streamed tiles a stage, the stage notes (and
-// for B3 the row statistics), 2 barriers a stage and one, and 1 KB to
-// align to the swizzle period
-template <int D, int S, bool STATS>
-constexpr size_t wg_smem() {
-  using C = WgCfg<D>;
-  return 2 * size_t(C::kRes) + 2 * size_t(C::kTileB) * S +
-         (sizeof(StageInfo) + (STATS ? sizeof(RowStats) : 0)) * S + 8 * (2 * S + 1) + 1024;
-}
-
-// 2^x on the special-function unit; flushes results below 2^-126 to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -1245,6 +1005,376 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
+constexpr int kWin = 32 * kStep;   // keys of a probe window: 32 tiles, one a lane
+
+// keys [base, base + n) of `seg` into the shared window `win`, by one
+// bulk copy where `seg + base` is 16-byte aligned (the last n % 4 by
+// loads), else by the warp's loads; every lane returns once `win` holds
+// them.  `parity` is the phase of `bar` to wait for; it flips when the
+// bulk copy ran.
+__device__ __forceinline__ void load_window(int* win, const int* seg, int base, int n,
+                                            uint64_t* bar, int& parity, int lane) {
+  const int* src = seg + base;
+  const int nb = (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? n & ~3 : 0;
+  fence_proxy_async();        // the last window's reads before the copy's writes
+  __syncwarp();
+  if (nb > 0 && lane == 0) {
+    mbar_expect_tx(bar, nb * 4);
+    bulk_load(win, src, nb * 4, bar);
+  }
+  for (int i = nb + lane; i < n; i += 32) win[i] = __ldg(src + i);
+  if (nb > 0) {
+    mbar_wait(bar, parity);
+    parity ^= 1;
+  }
+  __syncwarp();
+}
+
+// tiles_meeting from a window in shared memory: lane i reads tile i's
+// ids starting at its own offset, so the 32 lanes hit 32 banks
+__device__ __forceinline__ unsigned tiles_meeting_win(const int* win, int base, int end, int S,
+                                                      int2 span, int lane) {
+  const int t0 = base + lane * kStep;
+  bool hit = t0 < end;
+  if (hit) {
+    int lo = INT_MAX, hi = INT_MIN;
+    const int n = min(kStep, S - t0);
+    const int* tile = win + lane * kStep;
+#pragma unroll 8
+    for (int r = 0; r < kStep; ++r) {
+      const int j = (r + lane) & (kStep - 1);
+      if (j < n) {
+        lo = min(lo, tile[j]);
+        hi = max(hi, tile[j]);
+      }
+    }
+    hit = hi >= span.x && lo <= span.y;
+  }
+  return __ballot_sync(0xffffffffu, hit);
+}
+
+// The producer warp of B1 and B2: walks the key tiles that q rows
+// [q0, q0 + 128) may see (kv_span; with segment ids only the tiles that
+// share one with those rows, 32 probed at a time), brings each tile's K
+// and V by TMA into the next stage of the ring with its keys' segment
+// ids beside it, and ends the walk with a stage marked -1.  With `win`
+// (kWin ints of shared memory and its barrier, B1) each probe window's
+// key segment ids come in by one bulk copy and are read from there;
+// without it (B2) every lane loads its tile's ids from global memory.
+template <int D, int S>
+__device__ __forceinline__ void walk_keys(const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                          unsigned char* ring, StageInfo* info, uint64_t* full,
+                                          uint64_t* empty, const Geom& g, int q0, int bi,
+                                          int kvh, int lane, int* win = nullptr,
+                                          uint64_t* win_bar = nullptr) {
+  using C = WgCfg<D>;
+  const bool has_seg = g.qseg != nullptr;
+  int2 qsr = make_int2(0, 0);
+  if (has_seg) {
+    int v[kBlk / 32];
+    qsr = warp_seg_span<kBlk / 32>(g.qseg + size_t(bi) * g.sq, q0, g.sq, lane, v);
+  }
+  const int2 kr = kv_span(g, q0, kBlk);
+  const int* kseg = has_seg ? g.kseg + size_t(bi) * g.sk : nullptr;
+  const bool use_win = has_seg && win != nullptr;
+  int2 hsr[2] = {qsr, qsr};          // each consumer warpgroup's rows' ids (B1)
+  if (use_win) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      int v[2];
+      hsr[c] = warp_seg_span<2>(g.qseg + size_t(bi) * g.sq, q0 + 64 * c, g.sq, lane, v);
+    }
+  }
+  int it = 0, parity = 0;
+  for (int base = kr.x; base < kr.y; base += kWin) {
+    // the next 32 key tiles that share a segment with the CTA's rows
+    unsigned todo;
+    if (use_win) {
+      load_window(win, kseg, base, min(kWin, g.sk - base), win_bar, parity, lane);
+      todo = tiles_meeting_win(win, base, kr.y, g.sk, qsr, lane);
+    } else {
+      todo = tiles_meeting(kseg, base, kr.y, g.sk, qsr, has_seg, lane);
+    }
+    for (; todo; todo &= todo - 1) {
+      const int k0 = base + (__ffs(todo) - 1) * kStep;
+      int seg[kStep / 32] = {0, 0};
+      int2 ksr = make_int2(0, 0);
+      if (use_win)
+        ksr = warp_seg_span<kStep / 32>(win + (k0 - base), 0, g.sk - k0, lane, seg);
+      else if (has_seg)
+        ksr = warp_seg_span<kStep / 32>(kseg, k0, g.sk, lane, seg);
+      const int s = it % S;
+      mbar_wait(&empty[s], ((it / S) & 1) ^ 1);       // the first round passes
+      StageInfo& in = info[s];
+      in.seg[lane] = seg[0];
+      in.seg[lane + 32] = seg[1];
+      if (lane == 0) {
+        in.pos = k0;
+        in.seg_edge = has_seg && !seg_uniform(ksr, qsr);
+        in.seg_lo = ksr.x;
+        in.seg_hi = ksr.y;
+        in.meet = (ksr.y >= hsr[0].x && ksr.x <= hsr[0].y) |
+                  (ksr.y >= hsr[1].x && ksr.x <= hsr[1].y) << 1;
+        mbar_expect_tx(&full[s], 2 * C::kTileB);
+        unsigned char* ks = ring + s * 2 * C::kTileB;
+#pragma unroll
+        for (int b = 0; b < C::NB; ++b) {
+          tma_load4(ks + b * kStep * 128, map_k, 64 * b, kvh, k0, bi, &full[s]);
+          tma_load4(ks + C::kTileB + b * kStep * 128, map_v, 64 * b, kvh, k0, bi, &full[s]);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+      ++it;
+    }
+  }
+  const int s = it % S;                                // no more tiles
+  mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+  if (lane == 0) info[s].pos = -1;
+  mbar_arrive(&full[s]);
+}
+
+// B1 on wgmma: one CTA per (batch, q head, 128 q rows), keys streamed 64
+// at a time.  Each consumer thread holds two rows' online softmax: the
+// running max m (log2 units), its share of the row sum l (the quad's four
+// shares are added at the end) and its 64 x DP/2 slice of O, all f32.
+// Scores are taken as the raw dot and scaled inside the exponent's fma
+// (scale * log2 e, one ex2 a score); softcap and ALiBi take the general
+// loop in natural units.  The LSE is m ln 2 + log l, with logf.
+template <int D, bool EXTRA>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,   // boxes of 128 rows
+                     const __grid_constant__ CUtensorMap map_k,   // boxes of 64 rows
+                     const __grid_constant__ CUtensorMap map_v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Geom g) {
+  using C = WgCfg<D>;
+  constexpr int S = C::kStagesFwd, DP = C::DP;
+  extern __shared__ __align__(1024) unsigned char wg_buf[];
+  unsigned char* q_s = align1024(wg_buf);
+  unsigned char* ring = q_s + C::kRes;                   // S x (K, V)
+  int* win = reinterpret_cast<int*>(ring + 2 * S * C::kTileB);  // a probe window's key ids
+  StageInfo* info = reinterpret_cast<StageInfo*>(win + kWin);
+  uint64_t* full = reinterpret_cast<uint64_t*>(info + S);
+  uint64_t* empty = full + S;
+  uint64_t* res = empty + S;
+  uint64_t* win_bar = res + 1;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlk;   // heavy tiles first
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int kvh = h / (g.hq / g.hk);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 32);   // every producer lane; lane 0 with the bytes
+      mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    mbar_init(res, 1);
+    mbar_init(win_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(res, C::kRes);
+#pragma unroll
+        for (int b = 0; b < C::NB; ++b)
+          tma_load4(q_s + b * kBlk * 128, &map_q, 64 * b, h, q0, bi, res);
+      }
+      walk_keys<D, S>(&map_k, &map_v, ring, info, full, empty, g, q0, bi, kvh, lane, win,
+                      win_bar);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tc = threadIdx.x - 128;
+    const int c = tc >> 7;                     // rows [q0 + 64c, + 64)
+    const int warp = (tc >> 5) & 3, lane = tc & 31;
+    const int grp = lane >> 2, t4 = lane & 3;
+    const int qc0 = q0 + 64 * c, qw0 = qc0 + 16 * warp;
+    const bool has_seg = g.qseg != nullptr;
+    // ALiBi and dropout compile away from the EXTRA = false kernels
+    const bool has_alibi = EXTRA && g.alibi != nullptr;
+    const bool drop_on = EXTRA && g.drop_on;
+    // the plain path scales the raw dot inside the exponent, so that the
+    // row max of the raw dots is the max of the scores: scale > 0
+    const bool plain = !has_alibi && g.softcap == 0.f && g.scale > 0.f;
+    const float slope = has_alibi ? g.alibi[h] : 0.f;
+    // the factor that takes a score to log2 units: the raw dot on the
+    // plain path, the scaled, capped and biased score on the general one
+    const float to2 = plain ? g.scale * kLog2e : kLog2e;
+    // this thread's rows: qw0 + grp + 8 hh, the keys [kb.x, kb.y] each
+    // may see by the causal and window masks, and the warp's rows'
+    // segment ids (an interior tile of one id needs no segment mask)
+    int qseg_r[2];
+    int2 kb[2];
+    uint32_t drow[2];
+    int2 wsr = make_int2(INT_MAX, INT_MIN);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qw0 + grp + 8 * hh;
+      qseg_r[hh] = has_seg && qi < g.sq ? g.qseg[size_t(bi) * g.sq + qi] : 0;
+      if (qi < g.sq) {
+        wsr.x = min(wsr.x, qseg_r[hh]);
+        wsr.y = max(wsr.y, qseg_r[hh]);
+      }
+      kb[hh] = key_bounds(g, qi);
+      drow[hh] = drop_on ? drop_row(drop_base(g, bi, h), qi) : 0u;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      wsr.x = min(wsr.x, __shfl_xor_sync(0xffffffffu, wsr.x, off));
+      wsr.y = max(wsr.y, __shfl_xor_sync(0xffffffffu, wsr.y, off));
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(res, 0);
+
+    for (int it = 0;; ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const StageInfo& in = info[s];
+      const int k0 = in.pos;
+      if (k0 < 0) break;
+      if (!any_visible(g, qc0, qc0 + 64, k0, k0 + kStep) || (has_seg && !(in.meet >> c & 1))) {
+        release(&empty[s], lane);
+        continue;
+      }
+      // an edge for this warp's 16 rows: a mask cuts the tile, or its
+      // keys and the rows are not all of one segment
+      const bool edge = !all_visible(g, qw0, qw0 + 16, k0, k0 + kStep) ||
+                        (has_seg && !(in.seg_lo == in.seg_hi && wsr.x == wsr.y &&
+                                      in.seg_lo == wsr.x));
+      const unsigned char* ks = ring + s * 2 * C::kTileB;
+      const unsigned char* vs = ks + C::kTileB;
+
+      float sc[32];
+      wgmma_fence();
+      scores<DP>(sc, q_s + c * 64 * 128, kBlk * 128, ks, kStep * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      // register 4 j + 2 hh + e is row qw0 + grp + 8 hh, key
+      // k0 + 8 j + 2 t4 + e; a masked score becomes kNegInf
+      if (!plain) {                         // softcap, ALiBi: natural units
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int2 kseg = has_seg ? *reinterpret_cast<const int2*>(&in.seg[8 * j + 2 * t4])
+                                    : make_int2(0, 0);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hh + e;
+              const int kj = k0 + 8 * j + 2 * t4 + e;
+              float dcap;
+              sc[i] = cap_score(g, sc[i], has_alibi, slope, qw0 + grp + 8 * hh, kj, &dcap);
+              if (edge && !(kj >= kb[hh].x && kj <= kb[hh].y &&
+                            (!has_seg || qseg_r[hh] == (e ? kseg.y : kseg.x))))
+                sc[i] = kNegInf;
+            }
+        }
+      } else if (edge) {                    // an edge tile of the plain path
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int2 kseg = has_seg ? *reinterpret_cast<const int2*>(&in.seg[8 * j + 2 * t4])
+                                    : make_int2(0, 0);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hh + e;
+              const int kj = k0 + 8 * j + 2 * t4 + e;
+              if (!(kj >= kb[hh].x && kj <= kb[hh].y &&
+                    (!has_seg || qseg_r[hh] == (e ? kseg.y : kseg.x))))
+                sc[i] = kNegInf;
+            }
+        }
+      }
+      // the online softmax: the tile's row max over the quad, then
+      // P = 2^(score * to2 - m), 0 where masked, and O rescaled by alpha
+      // where a row's max moved (m = 0 stands in for the max of a row
+      // that has seen no key yet, so that 2^(-m) stays finite)
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m2[hh], mx[hh] == kNegInf ? kNegInf : mx[hh] * to2);
+        alpha[hh] = exp2_ftz(m2[hh] - m_new);
+        m2[hh] = m_new;
+        mu[hh] = m_new == kNegInf ? 0.f : m_new;
+        l[hh] *= alpha[hh];
+      }
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          sc[i] = sc[i] == kNegInf ? 0.f : exp2_ftz(fmaf(sc[i], to2, -mu[hh]));
+          l[hh] += sc[i];     // l and the LSE stay undropped
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          sc[i] = exp2_ftz(fmaf(sc[i], to2, -mu[hh]));
+          l[hh] += sc[i];
+        }
+      }
+      if (drop_on) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          const int kj = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          sc[i] *= drop_factor(g, drow[hh], drop_col(kj));
+        }
+      }
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      uint32_t hi[16], lo[16];
+      split_frags(sc, hi, lo);
+      wgmma_fence();
+      product_hilo<DP>(acc, hi, lo, vs);    // O += P V
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(hi);
+      fence_regs(lo);
+      release(&empty[s], lane);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qw0 + grp + 8 * hh;
+      if (qi >= g.sq) continue;
+      const float inv = l[hh] == 0.f ? 0.f : 1.f / l[hh];
+      __nv_bfloat16* row = o + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+      if (t4 == 0)
+        lse[(size_t(bi) * g.hq + h) * g.sq + qi] =
+            l[hh] == 0.f ? kNegInf : m2[hh] * kLn2 + logf(l[hh]);
+    }
+  }
+}
+
 // B2 on wgmma: one CTA per (batch, q head, 128 q rows), keys streamed 64
 // at a time
 template <int D, bool EXTRA>
@@ -1294,48 +1424,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           tma_load4(do_s + b * kBlk * 128, &map_do, 64 * b, h, q0, bi, res);
         }
       }
-      int2 qsr = make_int2(0, 0);
-      if (has_seg) {
-        int v[kBlk / 32];
-        qsr = warp_seg_span<kBlk / 32>(g.qseg + size_t(bi) * g.sq, q0, g.sq, lane, v);
-      }
-      const int2 kr = kv_span(g, q0, kBlk);
-      const int* kseg = has_seg ? g.kseg + size_t(bi) * g.sk : nullptr;
-      int it = 0;
-      for (int base = kr.x; base < kr.y; base += 32 * kStep) {
-        // the next 32 key tiles that share a segment with the CTA's rows
-        for (unsigned todo = tiles_meeting(kseg, base, kr.y, g.sk, qsr, has_seg, lane); todo;
-             todo &= todo - 1) {
-          const int k0 = base + (__ffs(todo) - 1) * kStep;
-          int seg[kStep / 32] = {0, 0};
-          int seg_edge = 0;
-          if (has_seg)
-            seg_edge = !seg_uniform(warp_seg_span<kStep / 32>(kseg, k0, g.sk, lane, seg), qsr);
-          const int s = it % S;
-          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);       // the first round passes
-          StageInfo& in = info[s];
-          in.seg[lane] = seg[0];
-          in.seg[lane + 32] = seg[1];
-          if (lane == 0) {
-            in.pos = k0;
-            in.seg_edge = seg_edge;
-            mbar_expect_tx(&full[s], 2 * C::kTileB);
-            unsigned char* ks = ring + s * 2 * C::kTileB;
-#pragma unroll
-            for (int b = 0; b < C::NB; ++b) {
-              tma_load4(ks + b * kStep * 128, &map_k, 64 * b, kvh, k0, bi, &full[s]);
-              tma_load4(ks + C::kTileB + b * kStep * 128, &map_v, 64 * b, kvh, k0, bi, &full[s]);
-            }
-          } else {
-            mbar_arrive(&full[s]);
-          }
-          ++it;
-        }
-      }
-      const int s = it % S;                              // no more tiles
-      mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
-      if (lane == 0) info[s].pos = -1;
-      mbar_arrive(&full[s]);
+      walk_keys<D, S>(&map_k, &map_v, ring, info, full, empty, g, q0, bi, kvh, lane);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -1767,7 +1856,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // ---------------------------------------------------------------------------
 
 template <typename T>
-constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 // the map of one head's rows of a BSHD bf16 tensor [b, s, h, d]: boxes
 // of 64 columns by `rows` rows of one head and batch, 128-byte swizzle,
@@ -1793,19 +1882,25 @@ int make_bshd_map(CUtensorMap* map, const void* base, int b, int s, int h, int d
 template <typename T, int D, bool EXTRA>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                const Geom& g, cudaStream_t st) {
-  const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
   static bool attr[kMaxDevices];
-  if constexpr (kMma<T>) {
-    constexpr size_t smem = fwd_mma_smem<D>();
-    const cudaError_t r = smem_attr_per_device(fwd_mma_kernel<D, EXTRA>, int(smem), attr);
+  if constexpr (kBf16<T>) {
+    constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesFwd, false, 1>() + 4 * kWin + 8;
+    const auto kernel = fwd_wgmma_kernel<D, EXTRA>;
+    const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
     if (r != cudaSuccess) return r;
-    fwd_mma_kernel<D, EXTRA><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), static_cast<float*>(lse), g);
+    CUtensorMap mq, mk, mv;
+    int e = make_bshd_map(&mq, q, b, g.sq, g.hq, D, kBlk);
+    if (e == 0) e = make_bshd_map(&mk, k, b, g.sk, g.hk, D, kStep);
+    if (e == 0) e = make_bshd_map(&mv, v, b, g.sk, g.hk, D, kStep);
+    if (e != 0) return e;
+    const dim3 grid((g.sq + kBlk - 1) / kBlk, g.hq, b);
+    kernel<<<grid, kWgThreads, smem, st>>>(mq, mk, mv, static_cast<T*>(o),
+                                           static_cast<float*>(lse), g);
   } else {
     constexpr size_t smem = fwd_smem<D>();
     const cudaError_t r = smem_attr_per_device(fwd_kernel<T, D, EXTRA>, int(smem), attr);
     if (r != cudaSuccess) return r;
+    const dim3 grid((g.sq + kTile - 1) / kTile, g.hq, b);
     fwd_kernel<T, D, EXTRA><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), g);
@@ -1817,7 +1912,7 @@ template <typename T, int D, bool EXTRA>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int b, const Geom& g, cudaStream_t st) {
   static bool attr[kMaxDevices];
-  if constexpr (kMma<T>) {
+  if constexpr (kBf16<T>) {
     constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDq, false>();
     const auto kernel = bwd_dq_wgmma_kernel<D, EXTRA>;
     const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
@@ -1849,7 +1944,7 @@ template <typename T, int D, bool EXTRA>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int b, const Geom& g, cudaStream_t st) {
   static bool attr[kMaxDevices];
-  if constexpr (kMma<T>) {
+  if constexpr (kBf16<T>) {
     constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDkv, true>();
     const auto kernel = bwd_dkv_wgmma_kernel<D, EXTRA>;
     const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
@@ -1902,7 +1997,7 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
 // scaled by drop_scale.  Each launches on `stream`, does not synchronise,
 // and returns 0 on success, else the cudaError_t of its launch, or
 // 100000 when the runtime does not reach cuTensorMapEncodeTiled, or
-// 200000 + its CUresult when it refuses a map (the bf16 backward).
+// 200000 + its CUresult when it refuses a map (the bf16 kernels).
 // ALiBi and dropout have kernels of their own (EXTRA), so that the
 // kernels of the plain training path carry none of their code
 #define FLASH_DISPATCH_D(LAUNCH, T, DD, ...)                               \

@@ -1,7 +1,7 @@
 /*
  * Hopper (sm_90a) PTX helpers shared by the kernels that feed wgmma
  * from TMA through mbarrier rings: quantized_matmul.cu (B5) and
- * flash_attention.cu (B2, B3).  Included by both sources, so each
+ * flash_attention.cu (B1, B2, B3).  Included by both sources, so each
  * library gets its own copy (anonymous namespace); ops/_build.py hashes
  * this header into every library's name, so an edit here rebuilds both.
  *
@@ -83,6 +83,23 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, int
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on an mbarrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's earlier generic-proxy accesses to shared memory
+// before its later async-proxy ones (a TMA or bulk write to the same place)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
