@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (torchacc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--layers 32] [--train-layers 8] [--train-steps 8]
-                          [--quant-steps 6] [--check-layers 2] [--reps 50]
+                          [--quant-steps 6] [--data-steps 16]
+                          [--fp16-steps 8] [--check-layers 2] [--reps 50]
                           [--seed 0] [--profile]
 
 Phases, each of which exits non-zero when it fails:
@@ -33,7 +34,11 @@ Phases, each of which exits non-zero when it fails:
    achieved TFLOP/s and share of that bound.  An ALiBi case
    and a dropout case (p = 0.1, a fixed seed) hold all three kernels to
    the same one-ulp tolerance (a wrong keep bit moves o by far more),
-   and the dropped fraction is read back within 3 sigma of p;
+   and the dropped fraction is read back within 3 sigma of p.  The
+   training shape again in float16 (the fp16 step's kernels) at two f16
+   ulps (atol 2e-4 + rtol 2e-3), with its times, bounds and SDPA's f16
+   time; its control, the bf16 kernels on the same inputs cast to bf16,
+   must read above that tolerance for o, dq, dk and dv;
 5. the quantized-matmul kernel phase: B5 (a quantize pass and a wgmma
    GEMM, 8-bit for int8 and f16 for fp8's e4m3 values) against its
    plain version on the same CUDA tensors, int8
@@ -81,6 +86,30 @@ Phases, each of which exits non-zero when it fails:
    must hold min(steps, 16) non-zero entries, the newest first; the step
    time, tokens/s and peak memory are printed beside the unquantized
    ones;
+8b. the data-fed training phase: accelerate(llama3-8b at full width,
+   --train-layers deep, PackedDataset(numpy-seeded Zipf documents of
+   256..2047 tokens, seq_len 4096, 4 rows), Config(grad_accum=2,
+   data=DataConfig(max_length=4096, prefetch=2))) -> Trainer.fit over
+   the AsyncLoader for --data-steps steps, bf16 shadow, save_attn_mlp,
+   adamw(warmup_cosine(3e-4, steps, 1)) as in phase 7.  Every batch the trainer received must equal, bitwise, the batch the
+   same PackedDataset yields on the host; the packer must be the native
+   one and the loader's tensors CUDA tensors; each flash kernel must
+   launch layers x steps x 2 times; every loss finite and the mean of
+   the last 2 below the first.  A witness, grad_accum=1 over the same
+   batches from the same weights, must give the same losses within a
+   limit set from readings.  Step ms (beside the hand-fed step's),
+   tokens/s, MFU, peak memory and the host's wait on the loader's queue
+   a step are printed;
+8c. the fp16 phase: the same model and depth with compute.dtype
+   float16 under the loss scaler and the 'offload_dots' remat policy,
+   fed by the AsyncLoader for --fp16-steps steps, one of which a custom
+   loss forces to overflow: that step must leave the masters, both
+   moments and the optimizer's count bitwise unchanged (digests of
+   every tensor's 32-bit words) and halve the scale, and training must
+   go on; 2 x tokens x hidden x 2 bytes a layer and step must go to host
+   memory and back; B1 launches 2 x layers x steps (the recompute) and
+   B2, B3 layers x steps, all in f16; peak memory beside 8b's, and the
+   host's wait a step for the skip flag's copy (the optimizer's count);
 9. the model-level check: --check-layers deep at full width, one
    forward + backward through the kernels and through
    attention_impl='torch' from the same weights and batch; the loss and
@@ -92,11 +121,22 @@ Phases, each of which exits non-zero when it fails:
    the plain version, so the loss and the first layer's gradients must
    agree exactly (every reading was 0), and a control (a per-tensor
    weight scale in place of the per-channel one) must not; fp8 likewise
-   within a limit set from readings.
+   within a limit set from readings.  Then gradient accumulation, in
+   f32 through the kernels: grad_accum=2 over two micro-batches whose
+   token counts differ against grad_accum=1 on the concatenated batch
+   (the loss, the first layer's q/k/v and the embedding gradients)
+   within a limit set from readings, with two controls that must
+   exceed it: the mean of the micro-batches' mean losses, and the
+   gradients summed in bf16.  Then 'offload_dots' against
+   'save_attn_mlp' on the same weights and batch, the fp16 step's loss
+   and gradients in f16, within a limit set from readings, with the
+   bytes moved counted; its control (the copies to host memory held back
+   and taken back without waiting for their events, so the backward
+   reads buffers they have not reached) must exceed it.
 
-No earlier phase was cut to make room: the whole run takes 105-140 s
-(30-45 s of it the build; stderr has each kernel's registers and
-spills from nvcc's -Xptxas -v).
+No earlier phase was cut to make room: on an H100 the whole run takes
+125-145 s (33-54 s of it the build; stderr has each kernel's registers
+and spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -104,15 +144,22 @@ non-zero with no result where torch.cuda.is_available() is false.
 """
 
 import argparse
+import gc
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); f16's
+# dense tensor-core rate is bf16's
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# the f16 flash kernels against the plain version: two f16 ulps (2^-10 of
+# the value each; both compute in f32 and round once to f16)
+F16_TOL = dict(atol=2e-4, rtol=2e-3)
 
 H, KH, D, BS = 32, 8, 128, 16           # Llama-3-8B attention geometry
 KERNEL = dict(name="paged_attention", route="cuda",
@@ -141,6 +188,10 @@ QMM = dict(route="cuda",
 QMM_SITES = {"q_o": (4096, 4096, 2), "k_v": (4096, 1024, 2),
              "gate_up": (4096, 14336, 2), "down": (14336, 4096, 1)}
 TRAIN_B, TRAIN_S = 2, 4096              # tokens per training step: 8192
+# cycles the offload check's control holds the copies to host memory
+# back: about a second at an H100's clock, longer than the check's
+# forward and backward
+LATE_COPY_CYCLES = 2_000_000_000
 
 
 def _fail(msg):
@@ -163,7 +214,7 @@ def _ptxas_report(log):
                 n, at = int(m2.group(1)), m2.end()
                 args = re.match(r"I(.*?)EE", mangled[at + n:])
                 fn = mangled[at:at + n] + (
-                    "<" + ", ".join(re.findall(r"L[ib](\d+)E", args.group(1) + "E"))
+                    "<" + ", ".join(_template_args(args.group(1) + "E"))
                     + ">" if args else "")
             spill = None
             continue
@@ -175,6 +226,30 @@ def _ptxas_report(log):
             seen.add(fn)
             out.append((fn, f"{line.strip().removeprefix('ptxas info    : ')}; "
                             f"{spill}"))
+    return out
+
+
+def _template_args(mangled):
+    """The template arguments of an Itanium-mangled argument list: types
+    by name (``6__half`` -> __half, ``f`` -> float), integers and bools
+    by value (``Li128E`` -> 128)."""
+    import re
+    out, i = [], 0
+    while i < len(mangled):
+        m = re.match(r"L[ib](\d+)E|(\d+)|f", mangled[i:])
+        if m is None:
+            break
+        if m.group(1) is not None:
+            out.append(m.group(1))
+            i += m.end()
+        elif m.group(2) is not None:
+            n = int(m.group(2))
+            start = i + m.end()
+            out.append(mangled[start:start + n])
+            i = start + n
+        else:
+            out.append("float")
+            i += 1
     return out
 
 
@@ -720,14 +795,18 @@ def _flash_phase(torch, args):
     # 1e-4, dk/dv sum group x s products in another order); worst
     # readings in PERF.md
     tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+           torch.float16: F16_TOL,
            torch.float32: dict(atol=1e-5, rtol=1e-5)}
     grad_tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+                torch.float16: F16_TOL,
                 torch.float32: dict(atol=1e-4, rtol=1e-4)}
     slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda",
                                          dtype=torch.float32) / H)
     cases = {   # b, sq, sk, dtype, segments, causal, window, softcap, more
         "train": (TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, True, True,
                   (-1, -1), 0.0, {}),
+        "train_f16": (TRAIN_B, TRAIN_S, TRAIN_S, torch.float16, True, True,
+                      (-1, -1), 0.0, {}),
         "window_softcap": (1, 2048, 2048, torch.bfloat16, False, True,
                            (1024, -1), 50.0, {}),
         "f32": (1, 1024, 1024, torch.float32, True, True, (-1, -1), 0.0, {}),
@@ -788,8 +867,11 @@ def _flash_phase(torch, args):
             f"{rec[key]['ref_max']:.3g}, worst/tol "
             f"{rec[key]['worst_over_tol']:.3g})"
             for key in ("o", "lse", "dq", "dk", "dv")), flush=True)
+        if name == "train_f16":
+            rec["control_bf16"] = _f16_control(torch, fa, q, k, v, do, kw,
+                                               ref)
         del got, ref
-        if name == "train":
+        if name in ("train", "train_f16"):
             rec.update(_flash_times(torch, F, fa, args, q, k, v, do, seg,
                                     scale, causal, window, cap))
         results[name] = rec
@@ -797,6 +879,29 @@ def _flash_phase(torch, args):
         torch.cuda.empty_cache()
     results["dropped_fraction"] = _dropped_fraction(torch, fa)
     return results
+
+
+def _f16_control(torch, fa, q, k, v, do, kw, ref):
+    """The f16 tolerance must tell f16 from bf16: the bf16 kernels on the
+    same inputs cast to bf16, against the f16 case's plain version, read
+    above it for each of o, dq, dk and dv."""
+    b16 = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    o, lse = fa.flash_attention(*b16[:3], impl="cuda", return_lse=True,
+                                **kw)
+    got = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd(
+        *b16[:3], o, lse, b16[3], impl="cuda", **kw)), o=o)
+    worst = {}
+    for key, a in got.items():
+        r = ref[key].float()
+        worst[key] = ((a.float() - r).abs() / (
+            F16_TOL["atol"] + F16_TOL["rtol"] * r.abs())).max().item()
+    print(f"flash train_f16 control (the bf16 kernels on the same inputs): "
+          f"worst/tol {json.dumps({k: float(f'{x:.4g}') for k, x in worst.items()})} "
+          f"(each must exceed 1)", flush=True)
+    if min(worst.values()) <= 1.0:
+        _fail(f"flash f16: the bf16 control stays within the f16 tolerance "
+              f"({worst}): it cannot tell f16 from bf16")
+    return worst
 
 
 def _dropped_fraction(torch, fa, p=0.1, seed=4321, s=2048):
@@ -878,7 +983,8 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         out[f"{kname}_tflops"] = flops[kname] / out[f"{kname}_ms"] / 1e9
         out[f"{kname}_bound_share"] = \
             out[f"{kname}_bound_ms"] / out[f"{kname}_ms"]
-    print(f"flash train shape: visible pairs/head {pairs}; kernel ms fwd "
+    dt = str(q.dtype).removeprefix("torch.")
+    print(f"flash train shape {dt}: visible pairs/head {pairs}; kernel ms fwd "
           f"{out['fwd_ms']:.3f} dq {out['bwd_dq_ms']:.3f} dkv "
           f"{out['bwd_dkv_ms']:.3f}; plain ms fwd {out['plain_fwd_ms']:.2f} "
           f"bwd {out['plain_bwd_ms']:.2f}; library (SDPA, dense mask) ms fwd "
@@ -887,10 +993,10 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
           f"{out['fwd_bound_ms']:.4f} dq {out['bwd_dq_bound_ms']:.4f} dkv "
           f"{out['bwd_dkv_bound_ms']:.4f} ({out['fwd_bound_by']})",
           flush=True)
-    print("flash train shape: achieved " + ", ".join(
+    print(f"flash train shape {dt}: achieved " + ", ".join(
         f"{kname} {out[f'{kname}_tflops']:.1f} TFLOP/s "
         f"({out[f'{kname}_tflops'] / (PEAK_BF16_FLOPS / 1e12):.3f} of the "
-        f"bf16 peak), {out[f'{kname}_bound_share']:.3f} of its bound"
+        f"{dt} peak), {out[f'{kname}_bound_share']:.3f} of its bound"
         for kname in FLASH) + f"; bwd_dq + bwd_dkv "
         f"{out['bwd_dq_ms'] + out['bwd_dkv_ms']:.3f} ms against SDPA's "
         f"backward {out.get('library_bwd_ms', float('nan')):.3f} ms",
@@ -1280,6 +1386,321 @@ def _profile_step(torch, trainer, batch, tag="training"):
 
 
 # ---------------------------------------------------------------------------
+# data-fed training and the fp16 step
+# ---------------------------------------------------------------------------
+
+def _zipf_docs(seed, n_tokens, vocab, lo=256, hi=2048):
+    """Documents of lengths in [lo, hi) made by numpy from ``seed``, their
+    tokens drawn from a Zipf law (exponent 1.2) over the vocabulary: a
+    low-entropy source, so that the loss on distinct batches falls."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    docs, total = [], 0
+    while total < n_tokens:
+        n = int(rng.integers(lo, hi))
+        docs.append((np.minimum(rng.zipf(1.2, size=n), vocab) - 1)
+                    .astype(np.int32))
+        total += n
+    return docs
+
+
+class _StepTap:
+    """Wraps ``trainer.step`` for a fit: a CUDA event before each step
+    (the device's time between two is the step as the feed delivers it),
+    the step's metrics kept on the device, and a hook before and after
+    each step."""
+
+    def __init__(self, torch, trainer, before=None, after=None):
+        self.torch, self.trainer = torch, trainer
+        self.inner = trainer.step
+        self.events, self.metrics = [], []
+        self.before, self.after = before, after
+        trainer.step = self
+
+    def __call__(self, batch):
+        torch = self.torch
+        if self.before is not None:
+            self.before(len(self.metrics), batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        m = self.inner(batch)
+        self.metrics.append(m)
+        if self.after is not None:
+            self.after(len(self.metrics) - 1, batch, m)
+        return m
+
+    def finish(self, warm):
+        """(step ms of every step, mean of the steps after ``warm``)."""
+        torch = self.torch
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        evs = self.events + [end]
+        ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(self.events))]
+        timed = ms[warm:]
+        del self.trainer.step            # the class's step again
+        return ms, sum(timed) / max(len(timed), 1)
+
+
+def _witness_limit():
+    """The data-fed run against its grad_accum=1 witness: the largest
+    relative difference allowed between their losses at any step.  Set
+    from readings (PERF.md; H100: 1.1e-3 to 1.4e-3 over 10 and 12 steps,
+    2.0e-2 over 16): the two differ by the bf16 rounding of the
+    micro-batches' gradients before their f32 sum, which the updates
+    carry forward and the loss spikes of a fresh model at lr 3e-4
+    amplify."""
+    return 0.05
+
+
+def _data_training_phase(torch, args, hand_fed):
+    """accelerate(cfg, PackedDataset(...), Config(grad_accum=2, data=...))
+    -> Trainer.fit(loader): llama3-8b at full width, --train-layers deep,
+    fed by the AsyncLoader from numpy-seeded Zipf documents."""
+    import numpy as np
+    import torchacc_tpu_torch.data.packing as packing
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, accelerate,
+                                    get_preset)
+    from torchacc_tpu_torch.train import adamw, warmup_cosine
+
+    layers, steps, warm, rows = args.train_layers, args.data_steps, 2, 4
+    tag = "data-fed training"
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  data=DataConfig(max_length=TRAIN_S, prefetch=2),
+                  grad_accum=2, seed=args.seed)
+    docs = _zipf_docs(args.seed + 5, (steps + 1) * rows * TRAIN_S,
+                      cfg.vocab_size)
+    make = lambda: PackedDataset(docs, seq_len=TRAIN_S, batch_rows=rows)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, loader = accelerate(cfg, make(), conf, optimizer=adamw(
+        warmup_cosine(3e-4, steps, warmup_steps=1)))
+    trainer.init()
+    received, waited = [], []
+
+    def keep(i, batch):
+        if not all(t.is_cuda for t in batch.values()):
+            _fail(f"{tag}: the loader gave the trainer host tensors")
+        received.append({k: v.clone() for k, v in batch.items()})
+        waited.append(loader.wait_s)     # the host's wait up to this batch
+    tap = _StepTap(torch, trainer, before=keep)
+    for key in fa.launch_counts:             # counts start here ...
+        fa.launch_counts[key] = 0
+    trainer.fit(loader, max_steps=steps, log_every=0)
+    step_ms, ms = tap.finish(warm)
+    launches = dict(fa.launch_counts)        # ... and are read here
+    losses = [m["loss"].item() for m in tap.metrics]
+    peak = torch.cuda.max_memory_allocated()
+    # the host's wait on the queue for each timed step's batch
+    wait_ms = (waited[-1] - waited[warm - 1]) * 1e3 / (steps - warm)
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    tokens = rows * TRAIN_S
+    flops_tok = 6.0 * n_params + 6.0 * layers * cfg.hidden_size * TRAIN_S
+    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+    host = list(itertools.islice(iter(make()), steps))
+    mismatched = [i for i, (got, want) in enumerate(zip(received, host))
+                  if sorted(got) != sorted(want) or not all(
+                      np.array_equal(got[k].cpu().numpy(), want[k])
+                      and got[k].dtype == getattr(torch, str(want[k].dtype))
+                      for k in want)]
+    print(f"{tag}: llama3-8b at full width, {layers} layers, grad_accum 2 "
+          f"over {rows} x {TRAIN_S} packed tokens a step; packer "
+          f"{packing.last_packer}; losses {_fmt(losses)}", flush=True)
+    print(f"{tag}: step ms {_fmt(step_ms)} (first {warm} warm-up); mean of "
+          f"the timed {ms:.1f} ms against the hand-fed step's "
+          f"{hand_fed['step_ms']:.1f} ms (2 x 4096 tokens, one micro-batch), "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, MFU {mfu:.4f} of the bf16 "
+          f"peak; peak allocated {peak / 2**30:.2f} GiB (with the f32 "
+          f"accumulators); host wait on the loader's queue "
+          f"{wait_ms:.3f} ms a timed step ({waited[warm - 1] * 1e3:.1f} ms "
+          f"for the first {warm}); flash launches {launches}", flush=True)
+    if packing.last_packer != "native":
+        _fail(f"{tag}: the sequence packer ran {packing.last_packer!r}, "
+              f"not the native one")
+    if len(received) != steps or mismatched:
+        _fail(f"{tag}: the batches the trainer received differ from the "
+              f"PackedDataset's on the host (steps {mismatched}, "
+              f"{len(received)} received)")
+    for key, n in launches.items():
+        if n != layers * steps * 2:
+            _fail(f"{tag}: flash {key} launches {n} != layers {layers} x "
+                  f"steps {steps} x 2 micro-batches")
+    del trainer, loader, received, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the witness: grad_accum=1 over the same batches from the same
+    # weights, so that the trajectory's shape is the optimizer's and not
+    # the accumulation's or the feed's
+    conf1 = Config(compute=ComputeConfig(bf16_compute_params=True),
+                   memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                   data=DataConfig(max_length=TRAIN_S, prefetch=2),
+                   grad_accum=1, seed=args.seed)
+    trainer, loader = accelerate(cfg, make(), conf1, optimizer=adamw(
+        warmup_cosine(3e-4, steps, warmup_steps=1)))
+    trainer.init()
+    tap = _StepTap(torch, trainer)
+    trainer.fit(loader, max_steps=steps, log_every=0)
+    tap.finish(warm)
+    one = [m["loss"].item() for m in tap.metrics]
+    apart = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+    limit = _witness_limit()
+    print(f"{tag}: witness grad_accum=1 on the same batches and weights: "
+          f"losses {_fmt(one)}; largest relative difference from grad_accum"
+          f"=2 {apart:.4g} (limit {limit:.3g})", flush=True)
+    del trainer, loader, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        _fail(f"{tag}: a loss is not finite: {losses}")
+    if not apart <= limit:
+        _fail(f"{tag}: grad_accum=2 parts from grad_accum=1 on the same "
+              f"batches by {apart:.4g} > {limit:.3g}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        _fail(f"{tag}: the loss did not fall on distinct batches: {losses}")
+    return {"launches": launches, "step_ms": ms, "tokens_per_s":
+            tokens / (ms / 1e3), "mfu": mfu, "peak_bytes": peak,
+            "wait_ms": wait_ms, "losses": losses, "steps": steps}
+
+
+def _digest(torch, tensors):
+    """A bitwise digest of each tensor: the sum of its 32-bit words."""
+    return torch.stack([t.view(torch.int32).sum(dtype=torch.int64)
+                        for t in tensors]).cpu()
+
+
+def _fp16_phase(torch, args, data_fed):
+    """The fp16 step: llama3-8b at full width, --train-layers deep, f16
+    compute over f32 masters with the loss scaler, 'offload_dots', fed
+    by the AsyncLoader; one step forced to overflow."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    import torchacc_tpu_torch.utils.remat as remat
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, accelerate,
+                                    get_preset)
+    from torchacc_tpu_torch.models.transformer import loss_sum_count
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_cosine
+
+    layers, steps, warm, rows = args.train_layers, args.fp16_steps, 2, 2
+    bomb_at = steps - 3
+    tag = "fp16 training"
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    conf = Config(compute=ComputeConfig(dtype=torch.float16),
+                  memory=MemoryConfig(gc=True, gc_policy="offload_dots"),
+                  data=DataConfig(max_length=TRAIN_S, prefetch=2),
+                  seed=args.seed)
+    docs = _zipf_docs(args.seed + 6, (steps + 1) * rows * TRAIN_S,
+                      cfg.vocab_size)
+
+    def batches():
+        # tests/test_amp.py's bomb: a batch field that makes the loss inf
+        for i, b in enumerate(PackedDataset(docs, TRAIN_S, rows)):
+            yield dict(b, bomb=np.full((rows, TRAIN_S), int(i == bomb_at),
+                                       np.int32))
+
+    def exploding_loss(logits, batch):
+        labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+        l_sum, count = loss_sum_count(logits, labels)
+        bomb = torch.where(batch["bomb"][0, 0] > 0, 3e38, 1.0)
+        return l_sum * bomb * bomb, count
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, loader = accelerate(cfg, batches(), conf, optimizer=adamw(
+        warmup_cosine(3e-4, steps, warmup_steps=1)), loss=exploding_loss)
+    state = trainer.init()
+    watch, flag_wait = {}, []
+
+    def before(i, batch):
+        # the host's time so far in the wait for the skip flag's copy
+        flag_wait.append(trainer.state.opt_state.flag_wait_s)
+        if i == bomb_at:
+            st = trainer.state
+            watch["before"] = (
+                _digest(torch, list(st.params.values())),
+                _digest(torch, list(st.opt_state.mu.values())),
+                _digest(torch, list(st.opt_state.nu.values())),
+                st.opt_state.count, st.scaler["scale"].item())
+
+    def after(i, batch, m):
+        if i == bomb_at:
+            st = trainer.state
+            watch["after"] = (
+                _digest(torch, list(st.params.values())),
+                _digest(torch, list(st.opt_state.mu.values())),
+                _digest(torch, list(st.opt_state.nu.values())),
+                st.opt_state.count, st.scaler["scale"].item())
+    tap = _StepTap(torch, trainer, before=before, after=after)
+    for key in fa.launch_counts:             # counts start here ...
+        fa.launch_counts[key] = 0
+    remat.offload_counts.update(to_host_bytes=0, to_device_bytes=0)
+    trainer.fit(loader, max_steps=steps, log_every=0)
+    step_ms, _ = tap.finish(warm)
+    launches = dict(fa.launch_counts)        # ... and are read here
+    moved = dict(remat.offload_counts)
+    flag_wait.append(trainer.state.opt_state.flag_wait_s)
+    losses = [m["loss"].item() for m in tap.metrics]
+    scales = [m["loss_scale"].item() for m in tap.metrics]
+    # the hooks around the overflow step wait for the card: the steps
+    # on either side of it are not timed
+    kept = [i for i in range(steps) if i >= warm and abs(i - bomb_at) > 1]
+    timed = [step_ms[i] for i in kept]
+    ms = sum(timed) / len(timed)
+    wait_ms = [(flag_wait[i + 1] - flag_wait[i]) * 1e3 for i in kept]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = rows * TRAIN_S
+    want = 2 * tokens * cfg.hidden_size * 2 * layers * steps
+    print(f"{tag}: llama3-8b at full width, {layers} layers, f16 compute "
+          f"over f32 masters, offload_dots, {rows} x {TRAIN_S} tokens a "
+          f"step; losses {_fmt(losses)}; loss scales {_fmt(scales)} (step "
+          f"{bomb_at} forced to overflow)", flush=True)
+    print(f"{tag}: step ms {_fmt(step_ms)}; mean {ms:.1f} ms "
+          f"({tokens / (ms / 1e3):.0f} tokens/s) over the steps after "
+          f"{warm} warm-up ones but the overflow step and its neighbours; "
+          f"peak allocated {peak / 2**30:.2f} GiB against the "
+          f"save_attn_mlp bf16 phase's {data_fed['peak_bytes'] / 2**30:.2f} "
+          f"GiB (f32 gradients, no bf16 shadow); offloaded {moved} (want "
+          f"2 x {tokens} tokens x {cfg.hidden_size} x 2 bytes x {layers} "
+          f"layers x {steps} steps = {want} each way); flash launches "
+          f"{launches}", flush=True)
+    print(f"{tag}: host wait for the skip flag's copy in the timed steps "
+          f"{_fmt(wait_ms)} ms (mean {sum(wait_ms) / len(wait_ms):.3f} ms "
+          f"a step)", flush=True)
+    b, a = watch["before"], watch["after"]
+    if not (torch.equal(b[0], a[0]) and torch.equal(b[1], a[1])
+            and torch.equal(b[2], a[2]) and b[3] == a[3]):
+        _fail(f"{tag}: the overflow step changed the masters, the moments "
+              f"or the optimizer's count (count {b[3]} -> {a[3]})")
+    if a[4] != b[4] / 2:
+        _fail(f"{tag}: the overflow step did not halve the scale: "
+              f"{b[4]} -> {a[4]}")
+    if np.isfinite(losses[bomb_at]) or not all(
+            np.isfinite(x) for i, x in enumerate(losses) if i != bomb_at):
+        _fail(f"{tag}: only the forced step may have a non-finite loss: "
+              f"{losses}")
+    if not trainer.state.opt_state.count > a[3]:
+        _fail(f"{tag}: training did not go on after the overflow step")
+    if moved != {"to_host_bytes": want, "to_device_bytes": want}:
+        _fail(f"{tag}: offload_dots moved {moved}, want {want} each way")
+    for key, n in launches.items():
+        per = 2 if key == "fwd" else 1       # the recompute re-runs B1
+        if n != per * layers * steps:
+            _fail(f"{tag}: flash {key} launches {n} != {per} x layers "
+                  f"{layers} x steps {steps}")
+    del trainer, loader, state, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": ms, "peak_bytes": peak,
+            "offloaded": moved, "losses": losses, "steps": steps,
+            "flag_wait_ms": sum(wait_ms) / len(wait_ms)}
+
+
+# ---------------------------------------------------------------------------
 # model-level kernel-vs-plain check
 # ---------------------------------------------------------------------------
 
@@ -1461,6 +1882,210 @@ def _quant_check_phase(torch, args):
     return out
 
 
+def _accum_limit():
+    """Gradient accumulation against the unsplit batch, f32 throughout:
+    the largest relative difference allowed (max |a - b| / max |b| over
+    the loss and the watched gradients).  Set from readings (PERF.md):
+    the two differ only by f32 summation order."""
+    return 1e-4
+
+
+def _accum_check_phase(torch, args):
+    """grad_accum=2 over two micro-batches whose token counts differ
+    against grad_accum=1 on the concatenated batch, through the kernels,
+    at --check-layers depth and full width, in f32: a bf16 rounding of
+    each micro-batch's gradient would be as large as what the bf16
+    control below adds, so only f32 arithmetic tells f32 accumulation
+    from bf16.  Controls: the mean of the micro-batches' mean losses in
+    place of their summed loss over summed count, and the gradients
+    summed in bf16 (accum_dtype bfloat16) in place of f32."""
+    import numpy as np
+    from torchacc_tpu_torch import (ComputeConfig, Config, MemoryConfig,
+                                    accelerate, get_preset)
+
+    layers, rows = args.check_layers, 4
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    conf = Config(compute=ComputeConfig(dtype=torch.float32),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  grad_accum=2, seed=args.seed)
+    trainer, _ = accelerate(cfg, None, conf)
+    trainer.init()
+    rng = np.random.default_rng(args.seed + 7)
+    halves = [_train_batch(torch, rng, cfg.vocab_size) for _ in range(2)]
+    batch = {k: torch.cat([h[k] for h in halves]) for k in halves[0]}
+    # the second micro-batch's rows are 3/4 padding: fewer tokens count
+    pad = batch["segment_ids"][rows // 2:, TRAIN_S // 4:]
+    pad.fill_(-1)
+    batch["positions"][rows // 2:, TRAIN_S // 4:] = 0
+    watched = ["embed_tokens.weight"] + [
+        f"layers.0.attn.{n}.weight" for n in ("q_proj", "k_proj", "v_proj")]
+
+    def pick(loss, grads):
+        out = {"loss": loss.detach().float().reshape(1)}
+        out.update({n: grads[n].float().clone() for n in watched})
+        for p in trainer.model.parameters():
+            p.grad = None
+        return out
+
+    def mean_of_means():
+        micro = [{k: v[i * 2:(i + 1) * 2] for k, v in batch.items()}
+                 for i in range(2)]
+        acc = {n: torch.zeros_like(p) for n, p in
+               trainer.model.named_parameters() if n in watched}
+        losses = []
+        for mb in micro:
+            l_sum, count, _ = trainer._forward_sum_count(mb)
+            loss = l_sum / count
+            loss.backward()
+            losses.append(loss.detach())
+            for n, p in trainer.model.named_parameters():
+                if n in watched:
+                    acc[n] += p.grad / 2
+                p.grad = None
+        return pick(sum(losses) / 2, acc)
+
+    ref = pick(*trainer._grads_one(batch, None)[:2])
+    runs = {"accumulated": pick(*trainer._grads_accumulated(batch, None)[:2]),
+            "mean_of_micro_means": mean_of_means()}
+    trainer.config.compute.accum_dtype = torch.bfloat16
+    runs["bf16_grad_sum"] = pick(*trainer._grads_accumulated(batch, None)[:2])
+    rel = {name: {n: ((got[n] - ref[n]).abs().max()
+                      / ref[n].abs().max()).item() for n in ref}
+           for name, got in runs.items()}
+    limit = _accum_limit()
+    show = lambda d: json.dumps({k: float(f"{v:.4g}") for k, v in d.items()})
+    counts = [int((batch["segment_ids"][i * 2:(i + 1) * 2] >= 0).sum())
+              for i in range(2)]
+    print(f"accumulation check ({layers} layers, f32, micro-batch tokens "
+          f"{counts}): loss {ref['loss'].item():.5f}; relative difference "
+          f"from grad_accum=1: accumulated {show(rel['accumulated'])}, "
+          f"control (mean of micro means) "
+          f"{show(rel['mean_of_micro_means'])}, control (bf16 sum) "
+          f"{show(rel['bf16_grad_sum'])}; limit {limit:.3g}", flush=True)
+    if max(rel["accumulated"].values()) > limit:
+        _fail(f"accumulation check: grad_accum=2 parts from grad_accum=1 by "
+              f"{max(rel['accumulated'].values()):.3g} > {limit:.3g}")
+    for name in ("mean_of_micro_means", "bf16_grad_sum"):
+        if max(rel[name].values()) <= limit:
+            _fail(f"accumulation check: the {name} control stays within "
+                  f"{limit:.3g}: the check cannot tell it apart")
+    del trainer, batch, runs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rel
+
+
+def _offload_limit():
+    """'offload_dots' against 'save_attn_mlp', f16 compute: the largest
+    relative difference allowed (max |a - b| / max |b| over the loss and
+    the watched gradients).  Set from readings (PERF.md; H100: 0, the
+    recompute reads the products' own bytes back, and the control
+    0.99-1.005): three orders below the control, above the f16 rounding
+    a change of GEMM algorithm between the two backward passes would
+    make."""
+    return 1e-3
+
+
+def _offload_check_phase(torch, args):
+    """'offload_dots' against 'save_attn_mlp' on the same weights and
+    batch: the fp16 step's loss and gradients (the loss times the
+    scaler's scale, f16 compute over f32 masters), at --check-layers
+    depth and full width, through the kernels.  Control: the copies to
+    host memory start late (the side stream first sleeps) and the
+    backward takes them back without waiting for their events, so the
+    recompute reads host buffers the copies have not reached: what a
+    missing wait reads under load."""
+    import dataclasses
+    import numpy as np
+    import torchacc_tpu_torch.utils.remat as remat
+    from torchacc_tpu_torch import (ComputeConfig, Config, MemoryConfig,
+                                    accelerate, get_preset)
+    from torchacc_tpu_torch.models.transformer import set_model_config
+
+    layers = args.check_layers
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    conf = Config(compute=ComputeConfig(dtype=torch.float16),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  seed=args.seed)
+    trainer, _ = accelerate(cfg, None, conf)
+    trainer.init()
+    if not trainer.model.cfg.remat:
+        _fail("offload check: the model does not rematerialise")
+    batch = _train_batch(torch, np.random.default_rng(args.seed + 8),
+                         cfg.vocab_size)
+    scale = trainer.state.scaler["scale"]
+    watched = ["embed_tokens.weight"] + [
+        f"layers.0.attn.{n}.weight" for n in ("q_proj", "k_proj", "v_proj")]
+
+    def run(policy):
+        set_model_config(trainer.model, dataclasses.replace(
+            trainer.model.cfg, remat_policy=policy))
+        loss, grads, _ = trainer._grads_one(batch, scale)
+        out = {"loss": loss.float().reshape(1)}
+        out.update({n: grads[n].float().clone() for n in watched})
+        for p in trainer.model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        return out
+
+    def late_copies():
+        save, bring_back = remat._Tape.save, remat._Tape.bring_back
+        slept = []
+
+        def late_save(tape, y):
+            if not slept:
+                with torch.cuda.stream(remat._offload_stream(y.device)):
+                    torch.cuda._sleep(LATE_COPY_CYCLES)
+                slept.append(True)
+            save(tape, y)
+
+        def no_wait(tape, device):
+            tape.recording = False
+            tape.back = [h.to(device, non_blocking=True)
+                         for h in reversed(tape.host)]
+            tape.host, tape.events = [], []
+        remat._Tape.save, remat._Tape.bring_back = late_save, no_wait
+        try:
+            return run("offload_dots")
+        finally:
+            remat._Tape.save, remat._Tape.bring_back = save, bring_back
+
+    def apart(got, ref):
+        return {n: (((got[n] - ref[n]).abs().max() / ref[n].abs().max())
+                    .item() if torch.isfinite(got[n]).all() else math.inf)
+                for n in ref}
+
+    ref = run("save_attn_mlp")
+    # the control first: the pinned blocks it reads then hold no copy of
+    # this batch's products
+    control = apart(late_copies(), ref)
+    remat.offload_counts.update(to_host_bytes=0, to_device_bytes=0)
+    got = apart(run("offload_dots"), ref)
+    moved = dict(remat.offload_counts)
+    want = 2 * TRAIN_B * TRAIN_S * cfg.hidden_size * 2 * layers
+    limit = _offload_limit()
+    show = lambda d: json.dumps({k: float(f"{v:.4g}") for k, v in d.items()})
+    print(f"offload check ({layers} layers, f16, loss scale "
+          f"{scale.item():.0f}): loss {ref['loss'].item():.5f}; relative "
+          f"difference from save_attn_mlp: offload_dots {show(got)}, "
+          f"control (copies late, no wait) {show(control)}; limit "
+          f"{limit:.3g}; offloaded {moved} (want {want} each way)",
+          flush=True)
+    if max(got.values()) > limit:
+        _fail(f"offload check: offload_dots parts from save_attn_mlp by "
+              f"{max(got.values()):.3g} > {limit:.3g}")
+    if max(control.values()) <= limit:
+        _fail(f"offload check: the late-copy control stays within "
+              f"{limit:.3g}: the check cannot tell a missing wait apart")
+    if moved != {"to_host_bytes": want, "to_device_bytes": want}:
+        _fail(f"offload check: offload_dots moved {moved}, want {want} "
+              f"each way")
+    del trainer, batch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"offload_dots": got, "control": control}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1473,6 +2098,12 @@ def main():
     ap.add_argument("--quant-steps", type=int, default=6,
                     help="training steps with compute.quant='int8' (the "
                          "first 2 are warm-up); 'fp8' takes 2 fewer")
+    ap.add_argument("--data-steps", type=int, default=16,
+                    help="steps of the data-fed training run (grad_accum 2; "
+                         "the first 2 are warm-up)")
+    ap.add_argument("--fp16-steps", type=int, default=8,
+                    help="steps of the fp16 run (the 3rd from last "
+                         "overflows on purpose)")
     ap.add_argument("--check-layers", type=int, default=2,
                     help="depth of the model-level kernel-vs-plain check")
     ap.add_argument("--reps", type=int, default=50,
@@ -1508,6 +2139,14 @@ def main():
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {sorted(logs) or 'cached'} in {build_s:.1f} s", flush=True)
+    # the sequence packer is host C++, built by g++ at first use: build it
+    # here, so that the data-fed phase's wait on its loader is the feed's
+    import numpy as np
+    import torchacc_tpu_torch.data.packing as packing
+    t0 = time.perf_counter()
+    packing.pack_sequences([np.arange(4, dtype=np.int32)], 8)
+    print(f"build: sequence packer ({packing.last_packer}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for fn, stats in _ptxas_report(log):
             print(f"build {name}: {fn}: {stats}", file=sys.stderr)
@@ -1515,7 +2154,8 @@ def main():
     if args.train_steps < 6:
         _fail("--train-steps must be at least 6")
     kern = _kernel_phase(torch, args, pa)
-    flash = _flash_phase(torch, args)["train"]
+    flash_all = _flash_phase(torch, args)
+    flash, flash16 = flash_all["train"], flash_all["train_f16"]
     qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
     train = _training_phase(torch, args)
@@ -1534,8 +2174,21 @@ def main():
               f"{r['mfu']:.4f} against {train['mfu']:.4f}, peak "
               f"{r['peak_bytes'] / 2**30:.2f} against "
               f"{train['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    if args.data_steps < 4 or args.fp16_steps < 6:
+        _fail("--data-steps must be at least 4 and --fp16-steps at least 6")
+    fed = _data_training_phase(torch, args, train)
+    fp16 = _fp16_phase(torch, args, fed)
+    print(f"data-fed step beside the hand-fed one: {fed['step_ms']:.1f} ms "
+          f"for 4 x 4096 tokens in 2 micro-batches against "
+          f"{train['step_ms']:.1f} ms for 2 x 4096 in one "
+          f"({fed['tokens_per_s']:.0f} against {train['tokens_per_s']:.0f} "
+          f"tokens/s); fp16 step {fp16['step_ms']:.1f} ms for 2 x 4096, "
+          f"the host waiting {fp16['flag_wait_ms']:.3f} ms a step for the "
+          f"skip flag", flush=True)
     _model_check_phase(torch, args)
     _quant_check_phase(torch, args)
+    _accum_check_phase(torch, args)
+    _offload_check_phase(torch, args)
 
     entries = []
     for shape in ("decode", "prefill"):
@@ -1565,6 +2218,24 @@ def main():
             library_ms=flash.get(f"library_{part}_ms"),
             tflops=flash[f"{name}_tflops"],
             bound_share=flash[f"{name}_bound_share"]))
+    for name, replaces in FLASH.items():
+        part = "fwd" if name == "fwd" else "bwd"
+        errs = ("o", "lse") if name == "fwd" else (
+            ("dq",) if name == "bwd_dq" else ("dk", "dv"))
+        entries.append(dict(
+            name=f"flash_attention[{name},f16]", route="cuda",
+            body=FLASH_BODY[name], source=FLASH_SOURCE, replaces=replaces,
+            launches=fp16["launches"][name],
+            launches_per_step=fp16["launches"][name] / fp16["steps"],
+            max_abs_err=max(flash16[e]["max_abs_err"] for e in errs),
+            ms=flash16[f"{name}_ms"], plain_ms=flash16[f"plain_{part}_ms"],
+            bound_ms=flash16[f"{name}_bound_ms"],
+            bound_by=flash16[f"{name}_bound_by"],
+            library_ms=flash16.get(f"library_{part}_ms"),
+            tflops=flash16[f"{name}_tflops"],
+            bound_share=flash16[f"{name}_bound_share"],
+            control_bf16_worst_over_tol=max(
+                flash16["control_bf16"][e] for e in errs if e != "lse")))
     for fmt in ("int8", "fp8"):
         q, run = qmm[fmt]["per_launch"], qtrain[fmt]
         entries.append(dict(

@@ -12,6 +12,8 @@ setup(
                                     "torchacc_tpu_torch",
                                     "torchacc_tpu_torch.*"]),
     package_data={"torchacc_tpu.data": ["_native/*.cc"],
+                  # the port's sequence packer, built with g++ at first use
+                  "torchacc_tpu_torch.data": ["_native/*.cc"],
                   # the PyTorch/CUDA port's kernels, built with nvcc at
                   # first use
                   "torchacc_tpu_torch": ["csrc/*.cu"]},

@@ -282,18 +282,19 @@ def test_mismatched_segment_ids_raise():
 CARD_BF16_GRAD_TOL = dict(atol=1e-3, rtol=1e-2)
 
 
-def _bf16(x):
-    return x.to(torch.bfloat16).float()
+def _bf16(x, dt=torch.bfloat16):
+    return x.to(dt).float()
 
 
 def _bwd_rounded(q, k, v, o, lse, do, split, *, causal=True, window=(-1, -1),
-                 q_segment_ids=None, kv_segment_ids=None):
+                 q_segment_ids=None, kv_segment_ids=None, dt=torch.bfloat16):
     """A mirror of the plain backward (``attention_reference_bwd``) that
     rounds P~ and dS to bf16 before the second products, as the bf16
     kernels feed them to the tensor cores: once (``split=False``, the JAX
     kernels' ``ds.astype(k.dtype)`` and ``p_tilde.astype(do.dtype)``) or
     as hi + lo, two bf16 values whose sum keeps ~16 bits (``split=True``,
-    what B2 and B3 do)."""
+    what B2 and B3 do).  ``dt``: the 16-bit type (bf16, or f16 for the
+    fp16 step)."""
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     scale = d ** -0.5
@@ -308,8 +309,8 @@ def _bwd_rounded(q, k, v, o, lse, do, split, *, causal=True, window=(-1, -1),
     ds = (p_tilde * dp - p * delta[..., None]) * dcap * scale
 
     def r(x):
-        hi = _bf16(x)
-        return hi + _bf16(x - hi) if split else hi
+        hi = _bf16(x, dt)
+        return hi + _bf16(x - hi, dt) if split else hi
 
     dq = torch.einsum("bhqk,bkhd->bqhd", r(ds), kr)
     dk = torch.einsum("bhqk,bqhd->bkhd", r(ds), qf)
@@ -325,12 +326,12 @@ def _worst_over_tol(a, b, tol):
     return ((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max().item()
 
 
-def _bf16_inputs(seed, b, s, hq, hk, d, lo, hi):
-    """bf16 q, k, v, dO from numpy and packed documents of lengths in
-    [lo, hi)."""
+def _bf16_inputs(seed, b, s, hq, hk, d, lo, hi, dt=torch.bfloat16):
+    """bf16 (or ``dt``) q, k, v, dO from numpy and packed documents of
+    lengths in [lo, hi)."""
     rng = np.random.default_rng(seed)
     f = lambda *shape: torch.from_numpy(
-        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+        rng.standard_normal(shape).astype(np.float32)).to(dt)
     q, k, v, do = f(b, s, hq, d), f(b, s, hk, d), f(b, s, hk, d), \
         f(b, s, hq, d)
     rows = []
@@ -415,7 +416,8 @@ CARD_BF16_FWD_TOL = dict(atol=1e-3, rtol=1e-2)
 
 
 def _fwd_rounded(q, k, v, split, *, block_k=64, causal=True,
-                 window=(-1, -1), q_segment_ids=None, kv_segment_ids=None):
+                 window=(-1, -1), q_segment_ids=None, kv_segment_ids=None,
+                 dt=torch.bfloat16):
     """A mirror of the plain forward (``attention_reference``) walked
     online over blocks of ``block_k`` keys, as the kernels walk them,
     that rounds P (taken against the running row max) to bf16 before
@@ -435,8 +437,8 @@ def _fwd_rounded(q, k, v, split, *, block_k=64, causal=True,
     acc = torch.zeros((b, hq, sq, d))
 
     def r(x):
-        hi = _bf16(x)
-        return hi + _bf16(x - hi) if split else hi
+        hi = _bf16(x, dt)
+        return hi + _bf16(x - hi, dt) if split else hi
 
     for k0 in range(0, sk, block_k):
         sb, mb = s[..., k0:k0 + block_k], mask[..., k0:k0 + block_k]
@@ -502,3 +504,33 @@ def test_bf16_rounding_of_p_against_the_f32_forward(geom):
                                **CARD_BF16_FWD_TOL)
     torch.testing.assert_close(split[1], ref_lse, atol=1e-5, rtol=1e-5)
     assert worst["once"] > 1.0
+
+
+# the card's tolerance for the f16 kernels against the f32 plain versions:
+# two f16 ulps (tests/test_torch_kernels_cuda.py TOL, chip_smoke.py)
+CARD_F16_TOL = dict(atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("geom", [(1, 1024, 8, 2, 128, 256, 2048),
+                                  (2, 512, 8, 1, 32, 3, 30)],
+                         ids=["s1024_gqa", "s512_d32_short_docs"])
+def test_f16_rounding_of_p_and_ds_against_the_f32_paths(geom):
+    """The f16 kernels feed P, P~ and dS as hi + lo, as in bf16: on f16
+    inputs at the card's two-ulp f16 tolerance hi + lo stays within it
+    on o, dq, dk and dv.  Rounding once, with f16's 3 more bits, is
+    printed beside it (not what the kernels do)."""
+    b, s, hq, hk, d, lo, hi = geom
+    q, k, v, do, seg = _bf16_inputs(25, b, s, hq, hk, d, lo, hi,
+                                    dt=torch.float16)
+    segs = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    ref_o, ref_lse = attention_reference(q, k, v, return_lse=True, **segs)
+    ref = attention_reference_bwd(q, k, v, ref_o, ref_lse, do, **segs)
+    worst = {}
+    for kind, split in (("hi + lo", True), ("once", False)):
+        o, _ = _fwd_rounded(q, k, v, split, dt=torch.float16, **segs)
+        grads = _bwd_rounded(q, k, v, ref_o, ref_lse, do, split,
+                             dt=torch.float16, **segs)
+        worst[kind] = [_worst_over_tol(a, r, CARD_F16_TOL)
+                       for a, r in zip((o,) + grads, (ref_o,) + ref)]
+    print(f"worst |err| / f16 tol of o, dq, dk, dv: {worst}")  # PERF.md
+    assert max(worst["hi + lo"]) <= 1.0

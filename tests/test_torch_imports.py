@@ -74,8 +74,13 @@ def test_package_imports_with_jax_blocked():
         "import torchacc_tpu_torch.train.schedules\n"
         "import torchacc_tpu_torch.train.state\n"
         "import torchacc_tpu_torch.train.trainer\n"
+        "import torchacc_tpu_torch.data.packing\n"
+        "import torchacc_tpu_torch.data.bucketing\n"
+        "import torchacc_tpu_torch.data.dataset\n"
+        "import torchacc_tpu_torch.data.async_loader\n"
         "from torchacc_tpu_torch import (Trainer, accelerate, "
-        "ComputeConfig, MemoryConfig, ConfigError)\n"
+        "ComputeConfig, MemoryConfig, ConfigError, DataConfig, "
+        "AsyncLoader, PackedDataset, pack_sequences)\n"
         "from torchacc_tpu_torch.ops.quantized_matmul import ("
         "QuantLinear, quantized_dot)\n"
         "from torchacc_tpu_torch.models.convert import quant_from_jax\n"

@@ -19,7 +19,12 @@ above, f32 atol = rtol = 1e-4 (dk and dv sum group x sk products of f32
 terms in another order than the plain einsums).  Gradients through each
 path's own forward: see ``_autograd_tol``.  The quantized matmul: int8
 bitwise (both sides sum exact integers and share every rounding); fp8
-see ``FP8_ATOL``.
+see ``FP8_ATOL``.  The flash kernels in f16: atol 2e-4 + rtol 2e-3, two
+f16 ulps (2^-10 of the value each); the same inputs through the bf16
+kernels read above it (chip_smoke.py's control).
+
+Also on the card: the ``AsyncLoader`` yields CUDA tensors equal to the
+host batches, and 'offload_dots' moves the bytes it counts.
 """
 
 import numpy as np
@@ -34,7 +39,8 @@ from torchacc_tpu_torch.ops._build import build_all
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
-       torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+       torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+       torch.float16: dict(atol=2e-4, rtol=2e-3)}
 
 
 @pytest.fixture
@@ -237,16 +243,19 @@ def test_engine_paths_on_card_match_plain_attention(card):
 # ---------------------------------------------------------------------------
 
 GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-            torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+            torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+            torch.float16: dict(atol=2e-4, rtol=2e-3)}
 
 
 def _autograd_tol(dtype, ref):
     """Gradients through each path's own forward: a one-ulp difference
     in a bf16 o moves delta = rowsum(dO * O) and so every dS of its row,
-    so bf16 adds 1% of the largest reference entry to one ulp."""
+    so bf16 adds 1% of the largest reference entry to one ulp (f16,
+    with 3 more bits, 0.2%)."""
     if dtype == torch.float32:
         return GRAD_TOL[dtype]
-    return dict(atol=1e-2 * ref.abs().max().item(), rtol=1e-2)
+    rel = 2e-3 if dtype == torch.float16 else 1e-2
+    return dict(atol=rel * ref.abs().max().item(), rtol=rel)
 
 
 FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
@@ -312,8 +321,8 @@ def _close(a, b, tol, name):
                                msg=lambda m: f"{name}: {m}")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("opt", sorted(FLASH_OPTS))
 @pytest.mark.parametrize("geom", sorted(FLASH_GEOMS))
 def test_flash_kernels_match_plain(card, geom, opt, dtype):
@@ -376,8 +385,8 @@ def test_flash_auto_launches_and_rejects(card):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q[..., :48], k[..., :48], v[..., :48],
                            impl="cuda")
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fa.flash_attention(q.half(), k.half(), v.half(), impl="cuda")
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        fa.flash_attention(q.double(), k.double(), v.double(), impl="cuda")
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q, k, v, q_offset=3)
     with pytest.raises(ValueError, match="alibi_slopes"):
@@ -713,3 +722,58 @@ def test_quantized_model_on_card_matches_plain_path(card):
     assert torch.equal(results["cuda"][0], results["torch"][0])
     for a, b in zip(results["cuda"][1], results["torch"][1]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the data feed and host offload on the card
+# ---------------------------------------------------------------------------
+
+def test_async_loader_on_the_card_yields_the_host_batches(card):
+    import torchacc_tpu_torch as tt
+    from torchacc_tpu_torch.data import AsyncLoader, PackedDataset
+    rng = np.random.default_rng(5)
+    docs = [rng.integers(0, 1000, size=int(rng.integers(5, 300)))
+            .astype(np.int32) for _ in range(200)]
+    host = list(PackedDataset(docs, 256, 4, buffer_docs=32))
+    loader = AsyncLoader(PackedDataset(docs, 256, 4, buffer_docs=32),
+                         tt.Config(data=tt.DataConfig(prefetch=2)))
+    got = []
+    for batch in loader:
+        assert all(t.device.type == "cuda" for t in batch.values())
+        # a step's worth of work on the consumer stream between batches
+        torch.cuda._sleep(1_000_000)
+        got.append({k: v.cpu().numpy() for k, v in batch.items()})
+    assert len(got) == len(host) > 5
+    for a, b in zip(got, host):
+        for k in b:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_offload_dots_moves_the_counted_bytes_and_matches(card):
+    """'offload_dots' on the card: two products a layer (attn_out and
+    mlp_out, tokens x hidden x 2 bytes each) go to pinned host memory
+    and back, and the gradients equal the no-remat ones."""
+    import dataclasses
+    import torchacc_tpu_torch.utils.remat as remat
+    from torchacc_tpu_torch.models import get_preset
+    from torchacc_tpu_torch.models.transformer import init_params, loss_fn
+    from torchacc_tpu_torch.train import shift_labels
+    cfg = get_preset("llama-tiny", num_layers=3, dtype=torch.bfloat16)
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 512))
+                           .astype(np.int32)).to(card)
+    labels = shift_labels(ids)
+    grads = {}
+    for policy in (None, "offload_dots"):
+        c = cfg if policy is None else dataclasses.replace(
+            cfg, remat=True, remat_policy=policy)
+        model = init_params(c, seed=0, device=card).requires_grad_(True)
+        remat.offload_counts.update(to_host_bytes=0, to_device_bytes=0)
+        loss_fn(model(ids), labels).backward()
+        grads[policy] = [p.grad for p in model.parameters()]
+    want = 2 * ids.numel() * cfg.hidden_size * 2 * cfg.num_layers
+    assert remat.offload_counts == {"to_host_bytes": want,
+                                    "to_device_bytes": want}
+    for a, b in zip(grads["offload_dots"], grads[None]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)

@@ -18,19 +18,30 @@ training: ``compute.quant`` = 'int8' | 'fp8' runs the forward product of
 the attention and MLP projections through the fused
 quantize-matmul-dequantize kernel (``ops.quantized_matmul``) with
 delayed scaling, its amax histories carried in ``TrainState.quant``.
+The data feed and the rest of the step: ``accelerate(model, dataloader,
+config)`` wraps the dataloader (``data.PackedDataset`` or any iterable
+of dict batches) in a ``data.AsyncLoader`` that uploads through pinned
+memory, and ``Trainer.fit`` runs gradient accumulation, fp16 with the
+loss scaler and every remat policy, host offload included.
 It imports
 torch, numpy and the standard library only — never jax, flax or
 torchacc_tpu.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from torchacc_tpu_torch.config import (  # noqa: E402
     ComputeConfig,
     Config,
     ConfigError,
+    DataConfig,
     MemoryConfig,
     ServeConfig,
+)
+from torchacc_tpu_torch.data import (  # noqa: E402
+    AsyncLoader,
+    PackedDataset,
+    pack_sequences,
 )
 from torchacc_tpu_torch.models import (  # noqa: E402
     ModelConfig,
@@ -47,7 +58,8 @@ from torchacc_tpu_torch.serve import (  # noqa: E402
 from torchacc_tpu_torch.train import Trainer, accelerate  # noqa: E402
 
 __all__ = [
-    "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig", "ModelConfig",
-    "TransformerLM", "get_preset", "init_params", "Request", "RequestResult",
-    "ServeEngine", "Trainer", "accelerate",
+    "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig",
+    "DataConfig", "AsyncLoader", "PackedDataset", "pack_sequences",
+    "ModelConfig", "TransformerLM", "get_preset", "init_params", "Request",
+    "RequestResult", "ServeEngine", "Trainer", "accelerate",
 ]

@@ -1,20 +1,21 @@
 """Configuration (torchacc_tpu/config.py): ``ServeConfig`` for the
-serving engine, ``ComputeConfig`` and ``MemoryConfig`` for training,
-and a ``Config`` that holds them.
+serving engine, ``ComputeConfig``, ``MemoryConfig`` and ``DataConfig``
+for training, and a ``Config`` that holds them.
 
 Only the fields the port implements are here.  The journal, deadline
-shedding, preemption and graceful drain of serving, and the dist, data,
-perf, resilience and obs blocks of training, are not ported yet
-(ROADMAP.md, queue A), so their switches are absent rather than
-silently ignored.  A field that is here but takes a value the port does
-not implement (fp16 with its loss scaler, the quantized vocab head,
-host offload, gradient accumulation) raises by name in ``validate``.
+shedding, preemption and graceful drain of serving, and the dist, perf,
+resilience and obs blocks of training, are not ported yet (ROADMAP.md,
+queue A), so their switches are absent rather than silently ignored.
+A field that is here but takes a value the port does not implement (the
+quantized vocab head; quantized matmuls under float16) raises by name
+in ``validate``.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -88,6 +89,9 @@ class ComputeConfig:
     dtype: torch.dtype = torch.bfloat16
     # master parameter dtype
     param_dtype: torch.dtype = torch.float32
+    # gradient-accumulation buffer dtype (grad_accum > 1): bfloat16 halves
+    # the accumulator memory at some summation precision cost
+    accum_dtype: torch.dtype = torch.float32
     # 'auto' (the CUDA kernels for CUDA tensors, the plain version for
     # CPU tensors) | 'cuda' | 'torch'; the JAX package's auto|pallas|xla
     attention_impl: str = "auto"
@@ -121,11 +125,12 @@ class ComputeConfig:
         _check(self.dtype in (torch.bfloat16, torch.float16, torch.float32),
                f"compute.dtype must be bfloat16|float16|float32, got "
                f"{self.dtype}")
-        _unported(self.dtype != torch.float16,
-                  "compute.dtype=float16 (the dynamic loss scaler)")
         _check(self.param_dtype in (torch.bfloat16, torch.float32),
                f"compute.param_dtype must be bfloat16|float32, got "
                f"{self.param_dtype}")
+        _check(self.accum_dtype in (torch.bfloat16, torch.float32),
+               f"compute.accum_dtype must be bfloat16|float32, got "
+               f"{self.accum_dtype}")
         _check(not self.bf16_compute_params
                or (self.dtype == torch.bfloat16
                    and self.param_dtype == torch.float32),
@@ -153,42 +158,90 @@ class ComputeConfig:
             _unported("head" not in self.quant_sites,
                       "compute.quant_sites containing 'head' (the "
                       "quantized vocab projection)")
+            _unported(self.dtype != torch.float16,
+                      "compute.quant with dtype=float16 (B4 and B5 in "
+                      "float16, ROADMAP B-3)")
 
 
 @dataclass
 class MemoryConfig:
-    """Rematerialisation policy (``MemoryConfig``): ``gc`` wraps each
-    decoder block in ``torch.utils.checkpoint`` with the selective save
-    policy ``gc_policy`` (utils/remat.py)."""
+    """Rematerialisation and offload policy (``MemoryConfig``): ``gc``
+    makes each decoder block (or, with ``gc_cls``, its attention or MLP)
+    a checkpoint region with the save policy ``gc_policy``
+    (utils/remat.py)."""
 
     gc: bool = False
-    # 'nothing' | 'save_attn' | 'save_attn_mlp' are ported; the JAX
-    # package's 'dots', 'dots_with_no_batch_dims' and 'offload_dots'
-    # raise by name
+    # layer class names to remat (None = the whole decoder Block):
+    # 'Block', 'Attention', 'Mlp', 'MoEMlp'
+    gc_cls: Optional[List[str]] = None
+    # remat only the first N layers (None = all)
+    gc_cnt: Optional[int] = None
+    # 'nothing' | 'dots' | 'dots_with_no_batch_dims' | 'save_attn' |
+    # 'save_attn_mlp' | 'offload_dots' (utils/remat.py remat_policy)
     gc_policy: str = "nothing"
+    # force the host-offload remat policy (overrides gc_policy, implies gc)
+    offload_activations: bool = False
 
+    _GC_CLS = ("Block", "Attention", "Mlp", "MoEMlp")
     _GC_POLICIES = ("nothing", "dots", "dots_with_no_batch_dims",
                     "save_attn", "save_attn_mlp", "offload_dots")
-    _PORTED = ("nothing", "save_attn", "save_attn_mlp")
 
     def validate(self) -> None:
         _check(self.gc_policy in self._GC_POLICIES,
                f"memory.gc_policy invalid: {self.gc_policy}")
-        _unported(self.gc_policy in self._PORTED,
-                  f"memory.gc_policy={self.gc_policy!r}")
+        if self.gc_cnt is not None:
+            _check(self.gc_cnt >= 0, "memory.gc_cnt must be >= 0")
+        if self.gc_cls:
+            for name in self.gc_cls:
+                _check(name in self._GC_CLS,
+                       f"memory.gc_cls entries must be in {self._GC_CLS}, "
+                       f"got {name!r}")
+
+
+@dataclass
+class DataConfig:
+    """Input pipeline (``DataConfig``): bucketing and the async
+    host -> device feed of ``data.AsyncLoader``."""
+
+    buckets: Optional[List[int]] = None  # explicit bucket lengths (sorted)
+    max_length: Optional[int] = None     # with num_buckets -> uniform buckets
+    num_buckets: int = 1
+    pad_value_dict: Optional[Dict[str, Any]] = None  # per-feature pad value
+    prefetch: int = 2                    # batches uploaded ahead of the step
+
+    def validate(self) -> None:
+        if self.buckets is not None:
+            _check(len(self.buckets) > 0, "data.buckets must be non-empty")
+            _check(list(self.buckets) == sorted(self.buckets),
+                   "data.buckets must be sorted ascending")
+        if self.max_length is not None:
+            _check(self.max_length > 0, "data.max_length must be positive")
+            _check(self.num_buckets >= 1, "data.num_buckets must be >= 1")
+        _check(self.prefetch >= 1, "data.prefetch must be >= 1")
+
+    def bucket_sizes(self) -> Optional[List[int]]:
+        """The bucket lengths: ``buckets``, or ``num_buckets`` uniform
+        ones up to ``max_length``, or None (no padding)."""
+        if self.buckets is not None:
+            return list(self.buckets)
+        if self.max_length is None:
+            return None
+        step = self.max_length / self.num_buckets
+        return [int(math.ceil(step * (i + 1)))
+                for i in range(self.num_buckets)]
 
 
 @dataclass
 class Config:
     """The framework config.  Serving reads ``serve``; training reads
-    ``compute``, ``memory``, ``grad_accum`` and ``seed``."""
+    ``compute``, ``memory``, ``data``, ``grad_accum`` and ``seed``."""
 
     serve: ServeConfig = field(default_factory=ServeConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
-    # micro-batches per optimizer step; only 1 is ported (gradient
-    # accumulation, which also threads the quant histories micro by
-    # micro, is still to port: ROADMAP.md)
+    data: DataConfig = field(default_factory=DataConfig)
+    # micro-batches per optimizer step (the global batch splits along
+    # dim 0; the quant histories chain micro by micro)
     grad_accum: int = 1
     # seed of the random weights Trainer.init() makes
     seed: int = 0
@@ -197,6 +250,5 @@ class Config:
         self.serve.validate()
         self.compute.validate()
         self.memory.validate()
+        self.data.validate()
         _check(self.grad_accum >= 1, "grad_accum must be >= 1")
-        _unported(self.grad_accum == 1,
-                  f"grad_accum={self.grad_accum} (gradient accumulation)")

@@ -46,11 +46,13 @@
  * too.  So the products belong on the tensor cores.
  *
  * Two implementations of each kernel, chosen by the input dtype:
- *  - bf16 (the training path), every product on the tensor cores:
- *    fwd_wgmma_kernel, bwd_dq_wgmma_kernel and bwd_dkv_wgmma_kernel on
- *    wgmma, fed by TMA through a ring of shared-memory stages by a
- *    producer warp, with two consumer warpgroups of 64 rows each (the
- *    section "B1, B2 and B3 in bf16");
+ *  - bf16 (the training path) and f16 (the fp16 step under the loss
+ *    scaler), every product on the tensor cores: fwd_wgmma_kernel,
+ *    bwd_dq_wgmma_kernel and bwd_dkv_wgmma_kernel on wgmma, templates
+ *    on the 16-bit type (wgmma .f32.bf16.bf16 or .f32.f16.f16, TMA maps
+ *    of that type), fed by TMA through a ring of shared-memory stages by
+ *    a producer warp, with two consumer warpgroups of 64 rows each (the
+ *    section "B1, B2 and B3 in bf16 and f16");
  *  - f32 (the exact comparison with the plain version, which the card
  *    cannot make in bf16): fwd_kernel, bwd_dq_kernel and bwd_dkv_kernel
  *    run the dots on CUDA cores in f32, 256 threads each computing a
@@ -84,6 +86,7 @@
  */
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -709,8 +712,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B1, B2 and B3 in bf16: wgmma fed by TMA through a ring of shared-memory
-// stages
+// B1, B2 and B3 in bf16 and f16: wgmma fed by TMA through a ring of
+// shared-memory stages
 // ---------------------------------------------------------------------------
 //
 // One CTA of three warpgroups.  Warp 0 is the producer: it walks the
@@ -729,17 +732,19 @@ __global__ void __launch_bounds__(kThreads)
 // online softmax).  setmaxnreg moves registers from the producer
 // warpgroup to the consumers.
 //
-// Tiles lie in shared memory as [rows][64] bf16 boxes of 128-byte rows
+// Tiles lie in shared memory as [rows][64] 16-bit boxes of 128-byte rows
 // under the 128-byte swizzle, one box a 64 columns of the head dim (a
 // head dim of 32 is read as one box of 64 whose upper half TMA fills
 // with zeros).  A rank-4 tensor map over [b, s, h, d] cuts a head's
 // rows out of the BSHD tensor; rows past s read as zeros.
 //
-// P, P~ and dS enter the second products as hi + lo, two bf16 values
-// each (split_bf16): rounding them once to bf16, as the JAX kernels do,
+// P, P~ and dS enter the second products as hi + lo, two values of the
+// input type each (split2): rounding them once to bf16, as the JAX kernels do,
 // leaves dq, dk and dv 2.7-13x and o 1.6-3.2x the one-ulp tolerance from
-// the f32 plain versions (tests/test_torch_flash_attention.py rehearses
-// both on the CPU), so each second product is two wgmma.
+// the f32 plain versions, and in f16, with 3 more bits, o, dq, dk and dv
+// still 1.6-5.5x the two-ulp f16 tolerance (hi + lo: 0.34-0.43x;
+// tests/test_torch_flash_attention.py rehearses both on the CPU), so each
+// second product is two wgmma.
 
 constexpr int kWgThreads = 384;    // the producer warpgroup and two consumer warpgroups
 constexpr int kBlk = 128;          // rows a CTA owns: 64 a consumer warpgroup
@@ -792,20 +797,40 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// two f32 -> one register of two bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// the 16-bit input types of the wgmma kernels: bf16 (the training
+// path) and f16 (the fp16 step under the loss scaler); both multiply on
+// the tensor cores with f32 sums, at the same dense rate
+template <typename T>
+constexpr bool kWg16 = std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
+
+// two f32 -> one register of two T, the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// x0, x1 as the sum of two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+// x0, x1 as the sum of two pairs of T: hi = T(x), lo = T(x - hi)
+template <typename T>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    const float2 hf = __half22float2(h);
+    const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -934,60 +959,78 @@ __device__ __forceinline__ bool seg_uniform(int2 a, int2 b) {
 }
 
 // S = A B^T over 16 of K, m64n64k16, both operands K-major in shared
-// memory; d = a b + (scale_d ? d : 0)
+// memory; d = a b + (scale_d ? d : 0).  T: bf16 or f16 operands
+#define WGMMA_SS(TY)                                                          \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" HP_R32      \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
+      : HP_D32("+f", 0)                                                       \
+      : "l"(a), "l"(b), "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HP_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HP_D32("+f", 0)
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    WGMMA_SS("f16");
+  else
+    WGMMA_SS("bf16");
 }
 
-// d += A B over 16 of K: A from registers (a bf16 fragment), B MN-major
+// d += A B over 16 of K: A from registers (a fragment of T), B MN-major
 // in shared memory (the transpose flag); N = 64 or 128
+#define WGMMA_RS32(TY)                                                        \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" HP_R32      \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                         \
+      : HP_D32("+f", 0)                                                       \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1))
+#define WGMMA_RS64(TY)                                                        \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" HP_R64     \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                         \
+      : HP_D64("+f", 0)                                                       \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HP_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HP_D32("+f", 0)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    WGMMA_RS32("f16");
+  else
+    WGMMA_RS32("bf16");
 }
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HP_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : HP_D64("+f", 0)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    WGMMA_RS64("f16");
+  else
+    WGMMA_RS64("bf16");
 }
 
 // acc (64 rows of this warpgroup) = A[rows] . B^T over DP columns: A the
 // 64 rows at `a` of a resident or streamed tile whose boxes are `a_box`
 // bytes apart, B the 64 rows at `b` of a tile with boxes `b_box` apart
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void scores(float (&acc)[32], const unsigned char* a, int a_box,
                                        const unsigned char* b, int b_box) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const int box = kk / 4, off = (kk % 4) * 32;   // 16 columns = 32 bytes
-    wgmma_ss(acc, smem_desc(a + box * a_box + off), smem_desc(b + box * b_box + off), kk > 0);
+    wgmma_ss<T>(acc, smem_desc(a + box * a_box + off), smem_desc(b + box * b_box + off), kk > 0);
   }
 }
 
 // acc += X . B over the tile's 64 rows of K: X as hi + lo bf16 fragments
 // (4 registers a k16 slice), B the [64][DP] tile at `b` (MN-major)
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void product_hilo(float (&acc)[DP / 2], const uint32_t (&hi)[16],
                                              const uint32_t (&lo)[16], const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < kStep / 16; ++kk) {
     const uint64_t desc = smem_desc_mn(b + kk * 16 * 128, kStep * 128);
-    wgmma_rs(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3], desc);
-    wgmma_rs(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3], desc);
+    wgmma_rs<T>(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3], desc);
+    wgmma_rs<T>(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3], desc);
   }
 }
 
@@ -995,10 +1038,11 @@ __device__ __forceinline__ void product_hilo(float (&acc)[DP / 2], const uint32_
 // register 4 kk + m holds the values of accumulator registers
 // 8 kk + 2 m and 8 kk + 2 m + 1 (the wgmma register layouts of the
 // accumulator and of A agree)
+template <typename T>
 __device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)[16],
                                             uint32_t (&lo)[16]) {
 #pragma unroll
-  for (int m = 0; m < 16; ++m) split_bf16(x[2 * m], x[2 * m + 1], hi[m], lo[m]);
+  for (int m = 0; m < 16; ++m) split2<T>(x[2 * m], x[2 * m + 1], hi[m], lo[m]);
 }
 
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
@@ -1141,12 +1185,12 @@ __device__ __forceinline__ void walk_keys(const CUtensorMap* map_k, const CUtens
 // Scores are taken as the raw dot and scaled inside the exponent's fma
 // (scale * log2 e, one ex2 a score); softcap and ALiBi take the general
 // loop in natural units.  The LSE is m ln 2 + log l, with logf.
-template <int D, bool EXTRA>
+template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kWgThreads, 1)
     fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,   // boxes of 128 rows
                      const __grid_constant__ CUtensorMap map_k,   // boxes of 64 rows
                      const __grid_constant__ CUtensorMap map_v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Geom g) {
+                     T* __restrict__ o, float* __restrict__ lse, Geom g) {
   using C = WgCfg<D>;
   constexpr int S = C::kStagesFwd, DP = C::DP;
   extern __shared__ __align__(1024) unsigned char wg_buf[];
@@ -1255,7 +1299,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
       float sc[32];
       wgmma_fence();
-      scores<DP>(sc, q_s + c * 64 * 128, kBlk * 128, ks, kStep * 128);
+      scores<T, DP>(sc, q_s + c * 64 * 128, kBlk * 128, ks, kStep * 128);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -1342,9 +1386,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       }
       uint32_t hi[16], lo[16];
-      split_frags(sc, hi, lo);
+      split_frags<T>(sc, hi, lo);
       wgmma_fence();
-      product_hilo<DP>(acc, hi, lo, vs);    // O += P V
+      product_hilo<T, DP>(acc, hi, lo, vs);    // O += P V
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1363,11 +1407,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int qi = qw0 + grp + 8 * hh;
       if (qi >= g.sq) continue;
       const float inv = l[hh] == 0.f ? 0.f : 1.f / l[hh];
-      __nv_bfloat16* row = o + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
+      T* row = o + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
-            pack_bf16(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+            pack2<T>(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
       if (t4 == 0)
         lse[(size_t(bi) * g.hq + h) * g.sq + qi] =
             l[hh] == 0.f ? kNegInf : m2[hh] * kLn2 + logf(l[hh]);
@@ -1377,14 +1421,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // B2 on wgmma: one CTA per (batch, q head, 128 q rows), keys streamed 64
 // at a time
-template <int D, bool EXTRA>
+template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kWgThreads, 1)
     bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,    // boxes of 128 rows
                         const __grid_constant__ CUtensorMap map_do,
                         const __grid_constant__ CUtensorMap map_k,    // boxes of 64 rows
                         const __grid_constant__ CUtensorMap map_v,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, Geom g) {
+                        T* __restrict__ dq, Geom g) {
   using C = WgCfg<D>;
   constexpr int S = C::kStagesDq, DP = C::DP;
   extern __shared__ __align__(1024) unsigned char wg_buf[];
@@ -1473,9 +1517,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
       float sc[32], dp[32];
       wgmma_fence();
-      scores<DP>(sc, q_s + c * 64 * 128, kBlk * 128, ks, kStep * 128);
+      scores<T, DP>(sc, q_s + c * 64 * 128, kBlk * 128, ks, kStep * 128);
       wgmma_commit();
-      scores<DP>(dp, do_s + c * 64 * 128, kBlk * 128, vs, kStep * 128);
+      scores<T, DP>(dp, do_s + c * 64 * 128, kBlk * 128, vs, kStep * 128);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -1547,9 +1591,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
       uint32_t hi[16], lo[16];
-      split_frags(dp, hi, lo);
+      split_frags<T>(dp, hi, lo);
       wgmma_fence();
-      product_hilo<DP>(acc, hi, lo, ks);     // dq += dS K
+      product_hilo<T, DP>(acc, hi, lo, ks);     // dq += dS K
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1562,25 +1606,25 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int hh = 0; hh < 2; ++hh) {
       const int qi = qc0 + 16 * warp + grp + 8 * hh;
       if (qi >= g.sq) continue;
-      __nv_bfloat16* row = dq + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
+      T* row = dq + ((size_t(bi) * g.sq + qi) * g.hq + h) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
-            pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+            pack2<T>(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
   }
 }
 
 // B3 on wgmma: one CTA per (batch, kv head, 128 keys), q rows of every
 // q head of the group streamed 64 at a time
-template <int D, bool EXTRA>
+template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kWgThreads, 1)
     bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,   // boxes of 128 rows
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_q,   // boxes of 64 rows
                          const __grid_constant__ CUtensorMap map_do,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         T* __restrict__ dk, T* __restrict__ dv,
                          Geom g) {
   using C = WgCfg<D>;
   constexpr int S = C::kStagesDkv, DP = C::DP;
@@ -1729,9 +1773,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // S^T = K Q^T and dP^T = V dO^T: rows keys, columns q rows
       float st[32], dpt[32];
       wgmma_fence();
-      scores<DP>(st, k_s + c * 64 * 128, kBlk * 128, qs, kStep * 128);
+      scores<T, DP>(st, k_s + c * 64 * 128, kBlk * 128, qs, kStep * 128);
       wgmma_commit();
-      scores<DP>(dpt, v_s + c * 64 * 128, kBlk * 128, dos, kStep * 128);
+      scores<T, DP>(dpt, v_s + c * 64 * 128, kBlk * 128, dos, kStep * 128);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
@@ -1816,14 +1860,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
       uint32_t ph[16], pl[16];
-      split_frags(st, ph, pl);
+      split_frags<T>(st, ph, pl);
       wgmma_fence();
-      product_hilo<DP>(dv_acc, ph, pl, dos);   // dv += P~^T dO
+      product_hilo<T, DP>(dv_acc, ph, pl, dos);   // dv += P~^T dO
       wgmma_commit();
       uint32_t dh[16], dl[16];
-      split_frags(dpt, dh, dl);
+      split_frags<T>(dpt, dh, dl);
       wgmma_fence();
-      product_hilo<DP>(dk_acc, dh, dl, qs);    // dk += dS^T Q
+      product_hilo<T, DP>(dk_acc, dh, dl, qs);    // dk += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -1843,9 +1887,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dk + base + 8 * j + 2 * t4) =
-            pack_bf16(dk_acc[4 * j + 2 * hh], dk_acc[4 * j + 2 * hh + 1]);
+            pack2<T>(dk_acc[4 * j + 2 * hh], dk_acc[4 * j + 2 * hh + 1]);
         *reinterpret_cast<uint32_t*>(dv + base + 8 * j + 2 * t4) =
-            pack_bf16(dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
+            pack2<T>(dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
       }
     }
   }
@@ -1855,12 +1899,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // launchers
 // ---------------------------------------------------------------------------
 
+// the map of one head's rows of a BSHD tensor [b, s, h, d] of T (bf16 or
+// f16): boxes of 64 columns by `rows` rows of one head and batch,
+// 128-byte swizzle, zeros out of range (rows past s, columns past d)
 template <typename T>
-constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// the map of one head's rows of a BSHD bf16 tensor [b, s, h, d]: boxes
-// of 64 columns by `rows` rows of one head and batch, 128-byte swizzle,
-// zeros out of range (rows past s, columns past d)
 int make_bshd_map(CUtensorMap* map, const void* base, int b, int s, int h, int d, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kErrNoEncoder;
@@ -1870,7 +1912,10 @@ int make_bshd_map(CUtensorMap* map, const void* base, int b, int s, int h, int d
   const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+      enc(map,
+          std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+          4, const_cast<void*>(base), dims, strides, box,
           elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + int(r);
@@ -1883,15 +1928,15 @@ template <typename T, int D, bool EXTRA>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                const Geom& g, cudaStream_t st) {
   static bool attr[kMaxDevices];
-  if constexpr (kBf16<T>) {
+  if constexpr (kWg16<T>) {
     constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesFwd, false, 1>() + 4 * kWin + 8;
-    const auto kernel = fwd_wgmma_kernel<D, EXTRA>;
+    const auto kernel = fwd_wgmma_kernel<T, D, EXTRA>;
     const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
     if (r != cudaSuccess) return r;
     CUtensorMap mq, mk, mv;
-    int e = make_bshd_map(&mq, q, b, g.sq, g.hq, D, kBlk);
-    if (e == 0) e = make_bshd_map(&mk, k, b, g.sk, g.hk, D, kStep);
-    if (e == 0) e = make_bshd_map(&mv, v, b, g.sk, g.hk, D, kStep);
+    int e = make_bshd_map<T>(&mq, q, b, g.sq, g.hq, D, kBlk);
+    if (e == 0) e = make_bshd_map<T>(&mk, k, b, g.sk, g.hk, D, kStep);
+    if (e == 0) e = make_bshd_map<T>(&mv, v, b, g.sk, g.hk, D, kStep);
     if (e != 0) return e;
     const dim3 grid((g.sq + kBlk - 1) / kBlk, g.hq, b);
     kernel<<<grid, kWgThreads, smem, st>>>(mq, mk, mv, static_cast<T*>(o),
@@ -1912,16 +1957,16 @@ template <typename T, int D, bool EXTRA>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int b, const Geom& g, cudaStream_t st) {
   static bool attr[kMaxDevices];
-  if constexpr (kBf16<T>) {
+  if constexpr (kWg16<T>) {
     constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDq, false>();
-    const auto kernel = bwd_dq_wgmma_kernel<D, EXTRA>;
+    const auto kernel = bwd_dq_wgmma_kernel<T, D, EXTRA>;
     const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
     if (r != cudaSuccess) return r;
     CUtensorMap mq, mdo, mk, mv;
-    int e = make_bshd_map(&mq, q, b, g.sq, g.hq, D, kBlk);
-    if (e == 0) e = make_bshd_map(&mdo, dout, b, g.sq, g.hq, D, kBlk);
-    if (e == 0) e = make_bshd_map(&mk, k, b, g.sk, g.hk, D, kStep);
-    if (e == 0) e = make_bshd_map(&mv, v, b, g.sk, g.hk, D, kStep);
+    int e = make_bshd_map<T>(&mq, q, b, g.sq, g.hq, D, kBlk);
+    if (e == 0) e = make_bshd_map<T>(&mdo, dout, b, g.sq, g.hq, D, kBlk);
+    if (e == 0) e = make_bshd_map<T>(&mk, k, b, g.sk, g.hk, D, kStep);
+    if (e == 0) e = make_bshd_map<T>(&mv, v, b, g.sk, g.hk, D, kStep);
     if (e != 0) return e;
     const dim3 grid((g.sq + kBlk - 1) / kBlk, g.hq, b);
     kernel<<<grid, kWgThreads, smem, st>>>(mq, mdo, mk, mv, static_cast<const float*>(lse),
@@ -1944,16 +1989,16 @@ template <typename T, int D, bool EXTRA>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int b, const Geom& g, cudaStream_t st) {
   static bool attr[kMaxDevices];
-  if constexpr (kBf16<T>) {
+  if constexpr (kWg16<T>) {
     constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDkv, true>();
-    const auto kernel = bwd_dkv_wgmma_kernel<D, EXTRA>;
+    const auto kernel = bwd_dkv_wgmma_kernel<T, D, EXTRA>;
     const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
     if (r != cudaSuccess) return r;
     CUtensorMap mk, mv, mq, mdo;
-    int e = make_bshd_map(&mk, k, b, g.sk, g.hk, D, kBlk);
-    if (e == 0) e = make_bshd_map(&mv, v, b, g.sk, g.hk, D, kBlk);
-    if (e == 0) e = make_bshd_map(&mq, q, b, g.sq, g.hq, D, kStep);
-    if (e == 0) e = make_bshd_map(&mdo, dout, b, g.sq, g.hq, D, kStep);
+    int e = make_bshd_map<T>(&mk, k, b, g.sk, g.hk, D, kBlk);
+    if (e == 0) e = make_bshd_map<T>(&mv, v, b, g.sk, g.hk, D, kBlk);
+    if (e == 0) e = make_bshd_map<T>(&mq, q, b, g.sq, g.hq, D, kStep);
+    if (e == 0) e = make_bshd_map<T>(&mdo, dout, b, g.sq, g.hq, D, kStep);
     if (e != 0) return e;
     const dim3 grid((g.sk + kBlk - 1) / kBlk, g.hk, b);
     kernel<<<grid, kWgThreads, smem, st>>>(mk, mv, mq, mdo, static_cast<const float*>(lse),
@@ -1990,14 +2035,14 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
 }  // namespace
 
 // The C interface.  q/k/v/dout/o/dq/dk/dv are BSHD and contiguous (16-byte
-// aligned), of dtype 0 = float32 or 1 = bfloat16; lse and delta are
+// aligned), of dtype 0 = float32, 1 = bfloat16 or 2 = float16; lse and delta are
 // [b, hq, sq] float32; qseg/kseg are [b, sq] / [b, sk] int32, or both
 // null; alibi is [hq] float32 slopes or null; with drop_on a pair is kept
 // when its hash (drop_seed) is >= drop_thresh and kept P entries are
 // scaled by drop_scale.  Each launches on `stream`, does not synchronise,
 // and returns 0 on success, else the cudaError_t of its launch, or
 // 100000 when the runtime does not reach cuTensorMapEncodeTiled, or
-// 200000 + its CUresult when it refuses a map (the bf16 kernels).
+// 200000 + its CUresult when it refuses a map (the bf16 and f16 kernels).
 // ALiBi and dropout have kernels of their own (EXTRA), so that the
 // kernels of the plain training path carry none of their code
 #define FLASH_DISPATCH_D(LAUNCH, T, DD, ...)                               \
@@ -2011,6 +2056,8 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
     if (dtype == 0 && d == 128) FLASH_DISPATCH_D(LAUNCH, float, 128, __VA_ARGS__); \
     if (dtype == 1 && d == 32) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 32, __VA_ARGS__); \
     if (dtype == 1 && d == 128) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 128, __VA_ARGS__); \
+    if (dtype == 2 && d == 32) FLASH_DISPATCH_D(LAUNCH, __half, 32, __VA_ARGS__); \
+    if (dtype == 2 && d == 128) FLASH_DISPATCH_D(LAUNCH, __half, 128, __VA_ARGS__); \
     return cudaErrorInvalidValue;                                          \
   } while (0)
 

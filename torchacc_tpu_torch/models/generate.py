@@ -54,8 +54,11 @@ def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
 
 def embed(cfg, model, ids: torch.Tensor) -> torch.Tensor:
     """Token embedding in the compute dtype (``_zoo_embed``; the Gemma
-    scale and learned positions are outside the serving surface)."""
-    return F.embedding(ids.long(), model.embed_tokens.weight).to(cfg.dtype)
+    scale and learned positions are outside the serving surface).  int32
+    ids (the packed batches' dtype) are read as they are."""
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.long()
+    return F.embedding(ids, model.embed_tokens.weight).to(cfg.dtype)
 
 
 def sample_slots(logits: torch.Tensor, temp: torch.Tensor,

@@ -54,7 +54,11 @@ from torchacc_tpu_torch.ops.quantized_matmul import (
     amax_history_init,
     quant_linear,
 )
-from torchacc_tpu_torch.utils.remat import checkpoint_block, checkpoint_name
+from torchacc_tpu_torch.utils.remat import (
+    checkpoint_block,
+    checkpoint_name,
+    offload_product,
+)
 
 
 @dataclass(frozen=True)
@@ -189,12 +193,14 @@ LLAMA_FIELDS = frozenset({
     "rope_scale", "norm_eps", "qkv_bias", "tie_embeddings",
     "attn_logit_softcap", "query_scale", "dtype", "param_dtype",
 })
-# the training forward also implements remat, the attention choice,
+# the training forward also implements remat (its policy, the
+# submodules and the number of layers it covers), the attention choice,
 # attention dropout and the quantized matmuls; every other field must
 # keep its default
 _TRAIN_FIELDS = LLAMA_FIELDS | {
-    "remat", "remat_policy", "attention_impl", "attn_dropout", "quant",
-    "quant_sites", "quant_amax_history_len", "quant_impl"}
+    "remat", "remat_policy", "remat_cls", "remat_cnt", "attention_impl",
+    "attn_dropout", "quant", "quant_sites", "quant_amax_history_len",
+    "quant_impl"}
 # fields that pick how the JAX package lays out or shards the step, or
 # knobs inert while their feature is off; none changes what one device
 # computes
@@ -303,11 +309,15 @@ def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
     ``Dense(dtype=cfg.dtype)``); ``.to`` is free when the weight already
     is (the bf16 shadow).  With ``quant`` the product is the quantized
     one of the site ``name`` (``_quant_dense`` of the JAX package); the
-    bias is added after it, in the compute dtype."""
-    if quant is not None:
-        return quant.linear(cfg, name, x, lin)
+    bias is added after it, in the compute dtype.  Under 'offload_dots'
+    the product of an offloaded site goes through
+    ``utils.remat.offload_product``."""
     dt = cfg.dtype
-    y = F.linear(x.to(dt), lin.weight.to(dt))
+    operands = lambda: (x.to(dt), lin.weight.to(dt))
+    if quant is not None:
+        return offload_product(operands,
+                               lambda: quant.linear(cfg, name, x, lin))
+    y = offload_product(operands, lambda: F.linear(*operands()))
     if lin.bias is not None:
         y = y + lin.bias.to(dt)
     return y
@@ -386,6 +396,21 @@ class Mlp(nn.Module):
                          f"{name}.down_proj")
 
 
+def _sub_remat(cfg: ModelConfig) -> bool:
+    """Remat covers the attention and/or the MLP inside each block
+    (``remat_cls`` without 'Block'), not the whole block."""
+    return bool(cfg.remat and cfg.remat_cls
+                and "Block" not in cfg.remat_cls)
+
+
+def _remat_layer(cfg: ModelConfig, i: int) -> bool:
+    """Layer ``i`` rematerialises: all layers, or the first
+    ``remat_cnt``."""
+    return cfg.remat and (cfg.remat_cnt is None
+                          or not 0 <= cfg.remat_cnt < cfg.num_layers
+                          or i < cfg.remat_cnt)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
@@ -396,13 +421,23 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg, **factory)
 
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
-                quant=None, name="block"):
-        """Pre-norm ``Block.__call__`` (:722)."""
+                quant=None, name="block", sub_remat=False):
+        """Pre-norm ``Block.__call__`` (:722).  ``sub_remat``: the
+        attention and/or MLP named by ``cfg.remat_cls`` are checkpoint
+        regions under ``cfg.remat_policy`` (the block itself is not)."""
         cfg = self.cfg
-        h = x + self.attn(rms_norm(cfg, x, self.ln1.weight), positions,
-                          segment_ids, dropout_seed, quant, f"{name}.attn")
-        return h + self.mlp(rms_norm(cfg, h, self.ln2.weight), quant,
-                            f"{name}.mlp")
+        remat_attn = sub_remat and "Attention" in cfg.remat_cls
+        remat_mlp = sub_remat and "Mlp" in cfg.remat_cls
+        attn = functools.partial(self.attn, dropout_seed=dropout_seed,
+                                 quant=quant, name=f"{name}.attn")
+        mlp = functools.partial(self.mlp, quant=quant, name=f"{name}.mlp")
+        a_in = rms_norm(cfg, x, self.ln1.weight)
+        h = x + (checkpoint_block(attn, cfg.remat_policy, a_in, positions,
+                                  segment_ids) if remat_attn
+                 else attn(a_in, positions, segment_ids))
+        m_in = rms_norm(cfg, h, self.ln2.weight)
+        return h + (checkpoint_block(mlp, cfg.remat_policy, m_in)
+                    if remat_mlp else mlp(m_in))
 
 
 class TransformerLM(nn.Module):
@@ -445,8 +480,10 @@ class TransformerLM(nn.Module):
         with ``return_hidden`` the final-normed hidden in the compute
         dtype (the fused CE head applies the vocab projection itself).
         ``positions`` default to ``arange``; ``segment_ids`` mark packed
-        documents.  Under ``cfg.remat`` each block is a checkpoint
-        region with the selective policy ``cfg.remat_policy``.
+        documents.  Under ``cfg.remat`` each block (or, with
+        ``remat_cls``, its attention and/or MLP) of the first
+        ``remat_cnt`` layers (all when None) is a checkpoint region with
+        the policy ``cfg.remat_policy``.
 
         ``dropout_seed``: attention dropout is on iff ``cfg.attn_dropout``
         is set and the caller gives a seed (a host int: train steps do,
@@ -470,12 +507,15 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
         x = embed(cfg, self, input_ids)
-        remat = cfg.remat and torch.is_grad_enabled()
+        grad = torch.is_grad_enabled()
+        sub = _sub_remat(cfg)
         drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
         for i, layer in enumerate(self.layers):
+            remat = grad and _remat_layer(cfg, i)
             kw = dict(dropout_seed=_layer_seed(dropout_seed, i) if drop
-                      else None, quant=scope, name=f"layers.{i}")
-            if remat:
+                      else None, quant=scope, name=f"layers.{i}",
+                      sub_remat=remat and sub)
+            if remat and not sub:
                 x = checkpoint_block(functools.partial(layer, **kw),
                                      cfg.remat_policy, x, positions,
                                      segment_ids)

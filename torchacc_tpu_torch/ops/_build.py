@@ -9,7 +9,9 @@ Libraries land in ``torchacc_tpu_torch/_build/`` (listed in
 and an unchanged one is loaded as it is.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
-for them together.  Nothing here runs at import time.
+for them together.  ``load_host()`` builds host C++ (the sequence
+packer, ``data/_native/pack.cc``) with ``g++`` into the same directory,
+named the same way.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -57,13 +59,21 @@ def _headers() -> List[str]:
     return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
 
 
-def _lib_path(name: str) -> str:
+def _hashed_path(name: str, sources: List[str], flags: List[str]) -> str:
+    """``_build/lib<name>-<hash>.so``, the hash over the sources' names
+    and contents and the flags."""
     h = hashlib.sha256()
-    for f in [f"{name}.cu"] + _headers():
-        with open(os.path.join(CSRC, f), "rb") as fh:
-            h.update(f.encode() + b"\0" + fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _lib_path(name: str) -> str:
+    return _hashed_path(name, [os.path.join(CSRC, f)
+                               for f in [f"{name}.cu"] + _headers()],
+                        NVCC_FLAGS)
 
 
 def _start(name: str, out: str) -> subprocess.Popen:
@@ -121,4 +131,38 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(path)
             _loaded[name] = lib
+    return lib
+
+
+HOST_FLAGS = ["-O3", "-shared", "-fPIC"]
+
+
+def load_host(src: str) -> ctypes.CDLL:
+    """The loaded library of the host C++ source ``src`` (a path),
+    compiled by ``g++`` into ``_build/`` at first use and named by a hash
+    of the source and the flags.  Raises where there is no ``g++`` or it
+    fails."""
+    name = os.path.splitext(os.path.basename(src))[0]
+    lib = _loaded.get(src)
+    if lib is not None:
+        return lib
+    out = _hashed_path(name, [src], HOST_FLAGS)
+    with _lock:
+        if not os.path.exists(out):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {src} is compiled at "
+                                   f"first use")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            res = subprocess.run([gxx, *HOST_FLAGS, "-o", tmp, src],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"g++ failed to build {src} (exit "
+                                   f"{res.returncode}):\n{res.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded.get(src)
+        if lib is None:
+            lib = ctypes.CDLL(out)
+            _loaded[src] = lib
     return lib

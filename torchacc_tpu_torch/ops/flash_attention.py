@@ -4,7 +4,8 @@ segment ids, GQA/MQA, score softcap, ALiBi, dropout on P @ V, and the
 per-row log-sum-exp.
 
 - The kernels (``csrc/flash_attention.cu``), built at first use and
-  bound with ctypes: B1 the forward, B2 dq and B3 dk/dv.  Each launch
+  bound with ctypes: B1 the forward, B2 dq and B3 dk/dv, for float32,
+  bfloat16 and float16 inputs.  Each launch
   adds one to :data:`launch_counts` under ``"fwd"``, ``"bwd_dq"`` or
   ``"bwd_dkv"``, where the kernel launches.
 - The plain versions (``ops/attention.py``): the CPU path, the tests,
@@ -50,7 +51,7 @@ from torchacc_tpu_torch.ops.attention import (
 launch_counts = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 _KERNEL_HEAD_DIMS = (32, 128)      # llama-tiny, llama3-8b
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def segment_ids_from_positions(positions: torch.Tensor) -> torch.Tensor:
@@ -98,7 +99,8 @@ def _check_kernel_args(tensors, segs) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"kernels take float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"kernels take float32, bfloat16 or float16, got "
+                         f"{q.dtype}")
     for name, t in tensors.items():
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} must match q {q.dtype}")

@@ -16,12 +16,25 @@ place, one parameter at a time, so that its transient memory is one
 parameter's f32 copy (the port may update in place where that saves
 memory).  Gradients are upcast to f32 per element before the moment
 math; optax multiplies a bf16 gradient by ``1 - b`` in bf16 first.
+
+Under the fp16 loss scaler an update may be skipped:
+``update_(..., keep=flag)`` takes a 0-dim bool device tensor and
+selects every write on it, so a skipped update leaves the masters and
+both moments bitwise as they were.  The count, a host integer that the
+schedule and the bias correction read, then advances only where the
+flag says the update applied.  So the host reads the flag, once a
+step: it is copied to pinned host memory as soon as it is known, and
+the next update (or a read of ``count``) waits for that copy's event.
+The wait lets the host run at most about one step ahead of the card;
+it does not drain the card's queue, which still holds the previous
+update and the next step's forward and backward.  ``AdamWState.
+flag_wait_s`` sums the host's time in it.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import time
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -65,12 +78,51 @@ def clip_by_global_norm_f32(grads, max_norm: float):
     return scale, norm
 
 
-@dataclass
 class AdamWState:
     """Adam moments per parameter name (f32) and the update count."""
-    mu: Dict[str, torch.Tensor]
-    nu: Dict[str, torch.Tensor]
-    count: int = 0
+
+    def __init__(self, mu: Dict[str, torch.Tensor],
+                 nu: Dict[str, torch.Tensor], count: int = 0):
+        self.mu, self.nu = mu, nu
+        self._count = count
+        # (host copy of the last update's keep flag, its copy's event)
+        self._pending = None
+        #: seconds the host has waited for a keep flag's copy
+        self.flag_wait_s = 0.0
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (reads a pending skip flag, waiting
+        for its copy to land)."""
+        if self._pending is not None:
+            flag, event = self._pending
+            if event is not None:
+                t0 = time.perf_counter()
+                event.synchronize()
+                self.flag_wait_s += time.perf_counter() - t0
+            self._pending = None
+            if not bool(flag):
+                self._count -= 1
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._pending = None
+        self._count = value
+
+
+def _host_flag(keep: torch.Tensor):
+    """(a host copy of ``keep``, the event after its copy): on the card
+    a non-blocking copy into pinned memory, read once the event is
+    done.  An update whose flag is false steps the count back when the
+    count is next read."""
+    if keep.is_cuda:
+        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        flag.copy_(keep, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return flag, event
+    return keep.clone(), None
 
 
 class GradientTransformation:
@@ -82,7 +134,10 @@ class GradientTransformation:
         raise NotImplementedError
 
     def update_(self, grads: Dict[str, torch.Tensor], state,
-                params: Dict[str, torch.Tensor]) -> torch.Tensor:
+                params: Dict[str, torch.Tensor],
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: a 0-dim bool device tensor; where false, nothing
+        changes (the fp16 scaler's skipped step)."""
         raise NotImplementedError
 
 
@@ -100,14 +155,18 @@ class AdamW(GradientTransformation):
                           nu={n: zeros(p) for n, p in params.items()})
 
     @torch.no_grad()
-    def update_(self, grads, state, params):
+    def update_(self, grads, state, params, keep=None):
         if self.grad_clip_norm:
             scale, norm = clip_by_global_norm_f32(grads.values(),
                                                   self.grad_clip_norm)
         else:
             scale, norm = None, global_norm_f32(grads.values())
-        lr = float(self.lr(state.count))
-        t = state.count + 1
+        count = state.count
+        # copied to the host before the update's work is queued, so that
+        # the next update finds it landed
+        pending = None if keep is None else _host_flag(keep)
+        lr = float(self.lr(count))
+        t = count + 1
         bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
         for name, p in params.items():
             g = grads[name]
@@ -116,13 +175,26 @@ class AdamW(GradientTransformation):
                 g = (g.float() * scale).to(g.dtype)
             g = g.float()
             mu, nu = state.mu[name], state.nu[name]
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            upd = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+            if keep is None:
+                mu_new, nu_new = mu, nu
+                mu_new.mul_(self.b1)
+                nu_new.mul_(self.b2)
+            else:
+                mu_new, nu_new = mu.mul(self.b1), nu.mul(self.b2)
+            mu_new.add_(g, alpha=1.0 - self.b1)
+            nu_new.addcmul_(g, g, value=1.0 - self.b2)
+            upd = (mu_new / bc1).div_((nu_new / bc2).sqrt_().add_(self.eps))
             if self.weight_decay:
                 upd.add_(p.float(), alpha=self.weight_decay)
-            p.add_(upd.mul_(-lr).to(p.dtype))
+            upd = upd.mul_(-lr).to(p.dtype)
+            if keep is None:
+                p.add_(upd)
+            else:
+                mu.copy_(torch.where(keep, mu_new, mu))
+                nu.copy_(torch.where(keep, nu_new, nu))
+                p.copy_(torch.where(keep, p + upd, p))
         state.count = t
+        state._pending = pending
         return norm
 
 

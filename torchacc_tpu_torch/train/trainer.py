@@ -1,6 +1,7 @@
 """The Trainer, core only (the port of torchacc_tpu/train/trainer.py):
-``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933),
-``eval_step`` and ``fit`` (:1272), on one device.
+``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933,
+the step of ``_build_train_step`` :563), ``eval_step`` and ``fit``
+(:1272), on one device.
 
 One step is forward -> loss (the fused linear + CE head by default) ->
 backward -> f32 global-norm clip -> AdamW on the f32 masters; with
@@ -10,20 +11,45 @@ Where JAX jits one donated step function, the port runs eagerly and
 updates the masters and moments in place.  ``step`` returns the loss
 and the gradient norm as device tensors and does not synchronise;
 ``fit`` reads the loss back only on its logging steps, as the JAX loop
-does.  With ``compute.quant`` on, the delayed-scaling amax histories
-ride ``TrainState.quant``: a step's forward reads them, the sites put
-the advanced histories aside, and the step commits those once, after
-the backward (a remat recompute reads the same histories the forward
-did and advances nothing twice); ``eval_step`` reads and records
-nothing.  With ``attn_dropout`` set, a train step passes its step
-number as the dropout seed; evaluation passes none.  The resilience, SDC, guard, telemetry, tiered-checkpoint and
-dispatch-ring hooks are not ported (ROADMAP A9, A13).
+does.
+
+With ``grad_accum`` = n > 1 the global batch splits into n micro-batches
+along dim 0 (a batch size not divisible by n raises).  Each
+micro-batch's loss *sum* (times the fp16 loss scale) is back-propagated,
+and post-accumulate-grad hooks move each gradient into a buffer of
+``compute.accum_dtype`` as it arrives (torch would otherwise add the
+next micro-batch's gradient into ``.grad`` in the parameter's dtype,
+bf16 under the shadow); the step's gradient is the sum over the
+micro-batches divided by their summed token count, and so is its loss.
+Micro-batch i draws attention dropout with the seed ``step * n + i``.
+
+With ``compute.quant`` on, the delayed-scaling amax histories ride
+``TrainState.quant``: each micro-batch's forward reads the histories the
+previous one left (the first reads the step's), the sites put the
+advanced histories aside, and the step commits the last micro-batch's
+once, after the backward (a remat recompute reads the same histories
+its forward did and advances nothing twice); ``eval_step`` reads and
+records nothing.
+
+With ``compute.dtype`` float16 the loss scaler of ``train/amp.py`` runs
+on the device: the backward sees the loss times ``scaler["scale"]``,
+the gradients are divided by it, and a non-finite gradient turns the
+update into a no-op by a device-side select (masters and moments stay
+bitwise as they were) while ``scaler_update`` halves the scale.
+``step`` then also returns ``loss_scale``.  The optimizer's count, a
+host integer, steps back for a skipped update: the next update waits
+for the flag's copy to the host (``schedules.AdamWState``), so under
+the scaler the host runs at most about one step ahead of the card.
+
+Not ported: the tiered checkpoints (ROADMAP A9), and the resilience,
+SDC, guard, telemetry and dispatch-ring hooks (A13).
 """
 
 from __future__ import annotations
 
 import itertools
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
@@ -41,7 +67,13 @@ from torchacc_tpu_torch.models.transformer import (
 )
 from torchacc_tpu_torch.ops._common import resolve_device
 from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
-from torchacc_tpu_torch.train.amp import bf16_param_shadow, shadow_params
+from torchacc_tpu_torch.train.amp import (
+    all_finite,
+    bf16_param_shadow,
+    scaler_init,
+    scaler_update,
+    shadow_params,
+)
 from torchacc_tpu_torch.train.schedules import GradientTransformation, adamw
 from torchacc_tpu_torch.train.state import TrainState
 from torchacc_tpu_torch.utils.logger import logger
@@ -110,6 +142,10 @@ class Trainer:
             # by name here, not at the first step
             check_training_supported(model.cfg)
         self.state: Optional[TrainState] = None
+        # the gradient accumulators of the micro-batch loop (name ->
+        # buffer in compute.accum_dtype), filled by the parameters'
+        # post-accumulate-grad hooks; None outside that loop
+        self._acc: Optional[Dict[str, torch.Tensor]] = None
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: Optional[int] = None) -> TrainState:
@@ -138,9 +174,16 @@ class Trainer:
                 _swap_param(self.model, name, shadow[name])
                 shadow[name] = self.model.get_parameter(name)
         self.model.requires_grad_(True).train()
+        if self.config.grad_accum > 1:
+            for name, p in self.model.named_parameters():
+                p.register_post_accumulate_grad_hook(
+                    self._accumulate_hook(name))
+        scaler = (scaler_init(device=self.device)
+                  if self.config.compute.dtype == torch.float16 else None)
         # zero histories: "no observation yet", so the first quantized
         # step falls back to just-in-time scales
         self.state = TrainState(step=0, params=masters, opt_state=opt_state,
+                                scaler=scaler,
                                 quant=init_quant_state(cfg, self.device))
         n = sum(p.numel() for p in masters.values())
         logger.info(f"initialised {n / 1e6:.1f}M params on {self.device}")
@@ -151,21 +194,25 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def _forward_sum_count(self, batch, train: bool = True):
-        """(loss_sum, token_count, new_quant) of one batch.  On a train
-        step the quantized sites' advanced histories come back as the
-        third element (None when quant is off, and in evaluation, which
-        reads the scales and records nothing) and attention dropout gets
-        the step as its seed."""
+    def _forward_sum_count(self, batch, train: bool = True,
+                           dropout_seed: Optional[int] = None, quant=None):
+        """(loss_sum, token_count, new_quant) of one batch.  ``quant``:
+        the histories this forward reads (default the state's).  On a
+        train step the quantized sites' advanced histories come back as
+        the third element (None when quant is off, and in evaluation,
+        which reads the scales and records nothing) and attention
+        dropout draws with ``dropout_seed`` (default the step)."""
         cfg = self.model.cfg
         kw = dict(positions=batch.get("positions"),
                   segment_ids=batch.get("segment_ids"))
         new_quant = None
         if self.state.quant is not None:
             new_quant = {} if train else None
-            kw.update(quant=self.state.quant, quant_out=new_quant)
+            kw.update(quant=self.state.quant if quant is None else quant,
+                      quant_out=new_quant)
         if train and cfg.attn_dropout > 0.0:
-            kw["dropout_seed"] = self.state.step
+            kw["dropout_seed"] = (self.state.step if dropout_seed is None
+                                  else dropout_seed)
         l_sum, count = self._loss_sum_count(batch, kw)
         return l_sum, count, new_quant
 
@@ -182,32 +229,108 @@ class Trainer:
             return res
         return res, torch.ones((), dtype=torch.float32, device=self.device)
 
+    def _accumulate_hook(self, name: str):
+        # a weak reference: the hook lives on the parameter, and a strong
+        # one would keep the trainer (and its optimizer state) alive in a
+        # cycle past the last reference to it
+        ref = weakref.ref(self)
+
+        def hook(p: torch.Tensor) -> None:
+            trainer = ref()
+            acc = None if trainer is None else trainer._acc
+            if acc is not None:
+                acc[name].add_(p.grad)
+                p.grad = None
+        return hook
+
+    def _check_quant(self, new_quant) -> None:
+        missing = set(quant_site_names(self.model.cfg)) - set(new_quant)
+        if missing:
+            raise RuntimeError(f"quantized sites that recorded no amax "
+                               f"this step: {sorted(missing)}")
+
+    def _grads_one(self, batch, scale):
+        """(loss, gradients, new_quant) of one unsplit batch: the
+        gradient of the mean loss (times ``scale``, then divided by
+        it)."""
+        l_sum, count, new_quant = self._forward_sum_count(batch)
+        loss = l_sum / torch.clamp(count, min=1.0)
+        (loss if scale is None else loss * scale).backward()
+        grads = {}
+        for n, p in self.model.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[n] = g if scale is None else g.div_(scale)
+        return loss.detach(), grads, new_quant
+
+    def _grads_accumulated(self, batch, scale):
+        """(loss, gradients, new_quant) over ``grad_accum`` micro-batches:
+        Σ loss_sum / Σ count and the gradients summed in
+        ``compute.accum_dtype``, divided by Σ count (and ``scale``) in
+        f32."""
+        accum = self.config.grad_accum
+        bsz = batch["input_ids"].shape[0]
+        if bsz % accum:
+            raise ValueError(f"batch size {bsz} not divisible by "
+                             f"grad_accum {accum}")
+        mb = bsz // accum
+        acc_dt = self.config.compute.accum_dtype
+        self._acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                     for n, p in self.model.named_parameters()}
+        l_tot = c_tot = None
+        quant = self.state.quant
+        try:
+            for i in range(accum):
+                micro = {k: v if v.ndim == 0 else v[i * mb:(i + 1) * mb]
+                         for k, v in batch.items()}
+                l_sum, count, new_quant = self._forward_sum_count(
+                    micro, dropout_seed=self.state.step * accum + i,
+                    quant=quant)
+                (l_sum if scale is None else l_sum * scale).backward()
+                l_sum, count = l_sum.detach().float(), count.detach()
+                l_tot = l_sum if l_tot is None else l_tot + l_sum
+                c_tot = count if c_tot is None else c_tot + count
+                if new_quant is not None:
+                    self._check_quant(new_quant)
+                    quant = new_quant
+            acc = self._acc
+        finally:
+            self._acc = None
+        c_tot = torch.clamp(c_tot, min=1.0)
+        denom = c_tot if scale is None else c_tot * scale
+        grads = {n: (a.div_(denom) if a.dtype == torch.float32
+                     else a.float().div_(denom)) for n, a in acc.items()}
+        return (l_tot / c_tot, grads,
+                quant if self.state.quant is not None else None)
+
     def step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One optimizer step.  Returns ``{"loss", "grad_norm"}`` as
-        device tensors, without synchronising."""
+        """One optimizer step.  Returns ``{"loss", "grad_norm"}`` (and
+        ``"loss_scale"`` under the fp16 scaler) as device tensors,
+        without synchronising."""
         if self.state is None:
             self.init()
         batch = self._batch(batch)
-        l_sum, count, new_quant = self._forward_sum_count(batch)
-        loss = l_sum / torch.clamp(count, min=1.0)
-        loss.backward()
+        scaler = self.state.scaler
+        scale = None if scaler is None else scaler["scale"]
+        if self.config.grad_accum > 1:
+            loss, grads, new_quant = self._grads_accumulated(batch, scale)
+        else:
+            loss, grads, new_quant = self._grads_one(batch, scale)
         if new_quant is not None:
             # committed once, after the backward: a recompute has read
-            # the histories this step started with
-            missing = set(quant_site_names(self.model.cfg)) - set(new_quant)
-            if missing:
-                raise RuntimeError(f"quantized sites that recorded no amax "
-                                   f"this step: {sorted(missing)}")
+            # the histories its micro-batch started with
+            self._check_quant(new_quant)
             self.state.quant = new_quant
-        named = list(self.model.named_parameters())
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in named}
+        finite = None if scaler is None else all_finite(grads.values())
         grad_norm = self.optimizer.update_(grads, self.state.opt_state,
-                                           self.state.params)
-        for _, p in named:
+                                           self.state.params, keep=finite)
+        for p in self.model.parameters():
             p.grad = None
         self.state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        out = {"loss": loss, "grad_norm": grad_norm}
+        if scaler is not None:
+            self.state.scaler = scaler_update(scaler, finite)
+            out["loss_scale"] = self.state.scaler["scale"]
+        return out
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
