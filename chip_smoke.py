@@ -132,7 +132,18 @@ Phases, each of which exits non-zero when it fails:
    and gradients in f16, within a limit set from readings, with the
    bytes moved counted; its control (the copies to host memory held back
    and taken back without waiting for their events, so the backward
-   reads buffers they have not reached) must exceed it.
+   reads buffers they have not reached) must exceed it;
+10. the mesh phase, run last: a world-1 NCCL process group as torchrun
+   starts one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and a free
+   MASTER_PORT) and accelerate() with Config(dist=DistConfig()), whose
+   trainer must hold FSDP2 blocks and DTensor masters on the card.
+   Phase 7's model, seed, batch and optimizer for --train-steps steps,
+   bf16 over f32 masters: every loss must equal phase 7's bitwise, and
+   a control (f32 param_dtype) must not; B1-B3 launch layers x steps
+   times; step ms, tokens/s, MFU, peak memory and the collective calls
+   a step are printed beside phase 7's.  Then int8 on the mesh: B5
+   launches 7 x layers x steps, and the first loss lies within 0.02 of
+   the bf16 mesh run's.
 
 No earlier phase was cut to make room: on an H100 the whole run takes
 125-145 s (33-54 s of it the build; stderr has each kernel's registers
@@ -2086,6 +2097,206 @@ def _offload_check_phase(torch, args):
     return {"offload_dots": got, "control": control}
 
 
+# ---------------------------------------------------------------------------
+# the training path on a mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_limit():
+    """The world-1 mesh against the one-device step, bf16 over f32
+    masters: the largest relative difference of the losses allowed, at
+    every step.  0: FSDP2's bf16 cast of the masters is the shadow's
+    rounding, its world-1 gather and reduce are copies, and the step
+    rounds the f32-reduced gradients to bf16, as the shadow's arrive, so
+    the two runs are one computation (PERF.md, the mesh phase).  The
+    control (f32 param_dtype) parts from step 2, the first after a real
+    update (lr is 0 at step 0)."""
+    return 0.0
+
+
+_COLLECTIVES = ("all_reduce", "all_gather_single", "reduce_scatter_single",
+                "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+class _CollectiveCount:
+    """Counts the calls into torch.distributed's collectives while it is
+    entered (FSDP2 and the port call them through the module)."""
+
+    def __init__(self, dist):
+        self.dist, self.counts, self._orig = dist, {}, {}
+
+    def __enter__(self):
+        for name in _COLLECTIVES:
+            fn = getattr(self.dist, name, None)
+            if fn is None:               # not in this torch
+                continue
+            self._orig[name] = fn
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.dist, name, fn)
+
+
+def _mesh_run(torch, args, tag, steps, **compute):
+    """``steps`` steps of phase 7's model, seed, batch and optimizer
+    through accelerate() under the process group: the trainer must be
+    on a CUDA mesh with FSDP2 blocks and DTensor masters."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    import torchacc_tpu_torch.ops.quantized_matmul as qm
+    from torchacc_tpu_torch import (ComputeConfig, Config, DistConfig,
+                                    MemoryConfig, accelerate, get_preset)
+    from torchacc_tpu_torch.train import adamw, warmup_cosine
+
+    layers, warm = args.train_layers, 2
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    conf = Config(compute=ComputeConfig(**compute),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  dist=DistConfig(), seed=args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, _ = accelerate(cfg, None, conf, optimizer=adamw(
+        warmup_cosine(3e-4, args.train_steps, warmup_steps=1)))
+    state = trainer.init()
+    mesh = trainer.mesh
+    sharded = [isinstance(m, FSDPModule)
+               for m in [trainer.model] + list(trainer.model.layers)]
+    on_card = [isinstance(p, DTensor) and p.device.type == "cuda"
+               for p in state.params.values()]
+    if mesh is None or mesh.device_type != "cuda" or not all(sharded) \
+            or not all(on_card):
+        _fail(f"{tag}: the trainer took another path than the mesh: mesh "
+              f"{mesh}, FSDP2 modules {sharded.count(True)}/{len(sharded)}, "
+              f"DTensor masters on the card {on_card.count(True)}/"
+              f"{len(on_card)}")
+    batch = _train_batch(torch, np.random.default_rng(args.seed + 2),
+                         cfg.vocab_size)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    for counts in (fa.launch_counts, qm.launch_counts):
+        for key in counts:               # counts start here ...
+            counts[key] = 0
+    with _CollectiveCount(dist) as coll:
+        ev[0].record()
+        for i in range(steps):
+            losses.append(trainer.step(batch)["loss"])
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)    # ... and are read here
+    qmm_launches = dict(qm.launch_counts)
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    losses = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    ms = sum(step_ms[warm:]) / len(step_ms[warm:])
+    n_params = sum(p.numel() for p in state.params.values())
+    tokens = TRAIN_B * TRAIN_S
+    flops_tok = 6.0 * n_params + 6.0 * layers * cfg.hidden_size * TRAIN_S
+    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+    per_step = {k: v / steps for k, v in sorted(coll.counts.items())}
+    print(f"{tag}: losses {_fmt(losses)}; step ms {_fmt(step_ms)} (first "
+          f"{warm} warm-up); mean of the timed {ms:.1f} ms, "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, MFU {mfu:.4f}; peak "
+          f"allocated {peak / 2**30:.2f} GiB; flash launches {launches}; "
+          f"quantized-matmul launches {qmm_launches}; collective calls a "
+          f"step {per_step}", flush=True)
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        _fail(f"{tag}: a loss is not finite: {losses}")
+    for key, n in launches.items():
+        if n != layers * steps:
+            _fail(f"{tag}: flash {key} launches {n} != layers {layers} x "
+                  f"steps {steps}")
+    return {"losses": losses, "step_ms": ms, "mfu": mfu, "peak_bytes": peak,
+            "tokens_per_s": tokens / (ms / 1e3), "launches": launches,
+            "qmm_launches": qmm_launches, "collectives": per_step}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_phase(torch, args, train):
+    """The training path on a mesh: a world-1 NCCL process group, as
+    torchrun would start it, and accelerate() with Config(dist=
+    DistConfig()) (every axis 1, dp inferred), so that the trainer shards
+    with FSDP2 and DTensor masters.  bf16 against phase 7's losses, its
+    control, and int8."""
+    import torch.distributed as dist
+    from torchacc_tpu_torch.parallel import initialize_distributed
+
+    tag = "mesh training"
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    initialize_distributed()
+    try:
+        if dist.get_backend() != "nccl":
+            _fail(f"{tag}: the process group's backend is "
+                  f"{dist.get_backend()}, not nccl")
+        steps = args.train_steps
+        bf16 = _mesh_run(torch, args, tag, steps, bf16_compute_params=True)
+        control = _mesh_run(torch, args, f"{tag}[control: f32 param_dtype]",
+                            steps)
+        int8 = _mesh_run(torch, args, f"{tag}[int8]", max(4, steps // 2),
+                         bf16_compute_params=True, quant="int8")
+    finally:
+        dist.destroy_process_group()
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip(bf16["losses"], train["losses"])]
+    c_rel = [abs(a - b) / abs(b)
+             for a, b in zip(control["losses"], train["losses"])]
+    limit = _mesh_limit()
+    apart, c_apart = max(rel), max(c_rel)
+    print(f"{tag}: relative difference from phase 7 a step {_fmt(rel)}; "
+          f"the control's {_fmt(c_rel)}", flush=True)
+    print(f"{tag} beside the one-device step (phase 7): "
+          f"{bf16['step_ms']:.1f} ms against {train['step_ms']:.1f} ms "
+          f"({bf16['step_ms'] / train['step_ms']:.3f}x), "
+          f"{bf16['tokens_per_s']:.0f} against {train['tokens_per_s']:.0f} "
+          f"tokens/s, MFU {bf16['mfu']:.4f} against {train['mfu']:.4f}, peak "
+          f"{bf16['peak_bytes'] / 2**30:.2f} against "
+          f"{train['peak_bytes'] / 2**30:.2f} GiB; losses "
+          f"{_fmt(bf16['losses'])} against {_fmt(train['losses'])}: "
+          f"largest relative difference {apart:.4g} (limit {limit:.3g}); "
+          f"the control (f32 param_dtype, no bf16 reads of the masters) "
+          f"{c_apart:.4g}", flush=True)
+    if not apart <= limit:
+        _fail(f"{tag}: the mesh's losses part from the one-device step's by "
+              f"{apart:.4g} > {limit:.3g}")
+    if not c_apart > limit:
+        _fail(f"{tag}: the control (f32 param_dtype) stays within the limit "
+              f"({c_apart:.4g} <= {limit:.3g}): the check cannot tell the "
+              f"bf16 policy from none")
+    want = 7 * args.train_layers * len(int8["losses"])
+    q_rel = abs(int8["losses"][0] - bf16["losses"][0]) / bf16["losses"][0]
+    print(f"{tag}[int8]: B5 launches {int8['qmm_launches']['int8']} (want "
+          f"{want}); first-step loss {int8['losses'][0]:.5f} against the bf16 "
+          f"mesh run's {bf16['losses'][0]:.5f}: relative difference "
+          f"{q_rel:.3g} (limit 0.02); step {int8['step_ms']:.1f} ms",
+          flush=True)
+    if int8["qmm_launches"]["int8"] != want:
+        _fail(f"{tag}[int8]: quantized-matmul launches "
+              f"{int8['qmm_launches']['int8']} != {want}")
+    if q_rel > 0.02:
+        _fail(f"{tag}[int8]: the first-step loss parts from the bf16 mesh "
+              f"run's by {q_rel:.3g} > 0.02")
+    return {"bf16": bf16, "control": control, "int8": int8, "apart": apart,
+            "control_apart": c_apart}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2189,6 +2400,7 @@ def main():
     _quant_check_phase(torch, args)
     _accum_check_phase(torch, args)
     _offload_check_phase(torch, args)
+    _mesh_phase(torch, args, train)
 
     entries = []
     for shape in ("decode", "prefill"):

@@ -24,7 +24,9 @@ f16 ulps (2^-10 of the value each); the same inputs through the bf16
 kernels read above it (chip_smoke.py's control).
 
 Also on the card: the ``AsyncLoader`` yields CUDA tensors equal to the
-host batches, and 'offload_dots' moves the bytes it counts.
+host batches, 'offload_dots' moves the bytes it counts, and the
+training step on a world-1 NCCL mesh (FSDP2, DTensor masters) equals
+the one-device step bitwise.
 """
 
 import numpy as np
@@ -777,3 +779,69 @@ def test_offload_dots_moves_the_counted_bytes_and_matches(card):
                                     "to_device_bytes": want}
     for a, b in zip(grads["offload_dots"], grads[None]):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the training step on a mesh
+# ---------------------------------------------------------------------------
+
+def test_world_of_one_nccl_mesh_step_equals_the_one_device_step(card,
+                                                               tmp_path):
+    """llama-tiny (2 layers) in bf16 over f32 masters, save_attn_mlp,
+    through the flash kernels: 3 steps under a world-1 NCCL group
+    (accelerate() shards with FSDP2; the masters are DTensors) against
+    the one-device step (the bf16 shadow) on the same weights and batch.
+    Bitwise: FSDP2's bf16 cast is the shadow's rounding, its world-1
+    gather and reduce are copies, and the step rounds the f32-reduced
+    gradients to bf16, as the shadow's arrive, so AdamW's global-norm
+    clip (which clips every step here) scales the same bf16 values.
+    4096 tokens a step, so that the embedding's backward takes torch's
+    sorted (deterministic) path."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+    from torchacc_tpu_torch import (ComputeConfig, Config, MemoryConfig,
+                                    accelerate, get_preset)
+    from torchacc_tpu_torch.ops.flash_attention import (
+        segment_ids_from_positions)
+    from torchacc_tpu_torch.parallel import initialize_distributed
+    from torchacc_tpu_torch.train import adamw
+
+    cfg = get_preset("llama-tiny", num_layers=2)
+    clip = 0.05
+    rng = np.random.default_rng(3)
+    pos = np.concatenate([np.arange(n) for n in rng.integers(
+        64, 512, size=40)])[:2 * 2048].reshape(2, 2048)
+    pos = torch.from_numpy(pos.astype(np.int32))
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, size=(2, 2048))).to(card),
+             "positions": pos.to(card),
+             "segment_ids": segment_ids_from_positions(pos).to(card)}
+
+    def run():
+        conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"))
+        trainer, _ = accelerate(cfg, None, conf, optimizer=adamw(
+            3e-3, grad_clip_norm=clip))
+        state = trainer.init()
+        out = [trainer.step(batch) for _ in range(3)]
+        assert all(m["grad_norm"].item() > clip for m in out)
+        losses = [m["loss"] for m in out]
+        masters = {n: (p.to_local() if isinstance(p, DTensor) else p).clone()
+                   for n, p in state.params.items()}
+        return trainer, torch.stack(losses), masters
+
+    _, one_losses, one_masters = run()
+    initialize_distributed(f"file://{tmp_path / 'pg'}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        trainer, losses, masters = run()
+        assert trainer.mesh is not None
+        assert all(isinstance(m, FSDPModule) for m in trainer.model.layers)
+        assert all(isinstance(p, DTensor) and p.is_cuda
+                   for p in trainer.state.params.values())
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(losses, one_losses), (losses, one_losses)
+    for n, m in masters.items():
+        assert torch.equal(m, one_masters[n]), n

@@ -23,6 +23,10 @@ config)`` wraps the dataloader (``data.PackedDataset`` or any iterable
 of dict batches) in a ``data.AsyncLoader`` that uploads through pinned
 memory, and ``Trainer.fit`` runs gradient accumulation, fp16 with the
 loss scaler and every remat policy, host offload included.
+Parallelism: with a process group up (``parallel.initialize_distributed``)
+``accelerate`` shards the model over the mesh of ``Config.dist``
+(``parallel``): data parallelism, FSDP2 over 'dp' x 'fsdp' and
+tensor parallelism over heads, MLP and vocab.
 It imports
 torch, numpy and the standard library only — never jax, flax or
 torchacc_tpu.
@@ -35,8 +39,15 @@ from torchacc_tpu_torch.config import (  # noqa: E402
     Config,
     ConfigError,
     DataConfig,
+    DistConfig,
+    DPConfig,
+    EPConfig,
+    FSDPConfig,
     MemoryConfig,
+    PPConfig,
     ServeConfig,
+    SPConfig,
+    TPConfig,
 )
 from torchacc_tpu_torch.data import (  # noqa: E402
     AsyncLoader,
@@ -59,7 +70,8 @@ from torchacc_tpu_torch.train import Trainer, accelerate  # noqa: E402
 
 __all__ = [
     "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig",
-    "DataConfig", "AsyncLoader", "PackedDataset", "pack_sequences",
-    "ModelConfig", "TransformerLM", "get_preset", "init_params", "Request",
-    "RequestResult", "ServeEngine", "Trainer", "accelerate",
+    "DataConfig", "DistConfig", "DPConfig", "TPConfig", "FSDPConfig",
+    "PPConfig", "SPConfig", "EPConfig", "AsyncLoader", "PackedDataset",
+    "pack_sequences", "ModelConfig", "TransformerLM", "get_preset",
+    "init_params", "Request", "RequestResult", "ServeEngine", "Trainer", "accelerate",
 ]

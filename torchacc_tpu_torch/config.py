@@ -1,14 +1,16 @@
 """Configuration (torchacc_tpu/config.py): ``ServeConfig`` for the
 serving engine, ``ComputeConfig``, ``MemoryConfig`` and ``DataConfig``
-for training, and a ``Config`` that holds them.
+for training, ``DistConfig`` for the parallel composition and its mesh,
+and a ``Config`` that holds them.
 
 Only the fields the port implements are here.  The journal, deadline
-shedding, preemption and graceful drain of serving, and the dist, perf,
+shedding, preemption and graceful drain of serving, and the perf,
 resilience and obs blocks of training, are not ported yet (ROADMAP.md,
 queue A), so their switches are absent rather than silently ignored.
 A field that is here but takes a value the port does not implement (the
-quantized vocab head; quantized matmuls under float16) raises by name
-in ``validate``.
+quantized vocab head; quantized matmuls under float16; a pipeline,
+sequence or expert axis above 1; quantized matmuls with tensor
+parallelism) raises by name in ``validate``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+# the mesh axes, in the JAX package's order: 'sp' is the outer (ring)
+# sequence axis, 'spu' the inner (Ulysses) one
+MESH_AXES: Tuple[str, ...] = ("dp", "pp", "fsdp", "sp", "spu", "ep", "tp")
+# the axes along which the batch is split
+DATA_AXES: Tuple[str, ...] = ("dp", "fsdp")
 
 
 class ConfigError(ValueError):
@@ -29,10 +37,11 @@ def _check(cond: bool, msg: str) -> None:
         raise ConfigError(msg)
 
 
-def _unported(cond: bool, msg: str) -> None:
+def _unported(cond: bool, msg: str, item: str = "") -> None:
     if not cond:
+        where = f"ROADMAP.md {item}" if item else "ROADMAP.md"
         raise NotImplementedError(msg + " is not ported to "
-                                  "torchacc_tpu_torch yet (ROADMAP.md)")
+                                  f"torchacc_tpu_torch yet ({where})")
 
 
 @dataclass
@@ -232,23 +241,166 @@ class DataConfig:
 
 
 @dataclass
+class DPConfig:
+    """Data parallelism: replicated parameters, the batch split.
+    ``size=-1`` (default) infers dp as world/(pp*fsdp*sp*ep*tp)."""
+    size: int = -1
+
+    def validate(self) -> None:
+        _check(self.size >= -1 and self.size != 0,
+               "dp.size must be -1 or >= 1")
+
+
+@dataclass
+class TPConfig:
+    """Tensor parallelism: Megatron heads and MLP, the vocab-parallel
+    embedding and head."""
+    size: int = 1
+
+    def validate(self) -> None:
+        _check(self.size >= 1, "tp.size must be >= 1")
+
+
+@dataclass
+class FSDPConfig:
+    """ZeRO-3 over the 'fsdp' axis: parameters, gradients and AdamW
+    state sharded.  ``shard_axis_rules`` is read as in the JAX package.
+    FSDP2 shards every parameter on its dim 0, small ones included
+    (ROADMAP.md C2), so ``min_weight_size`` keeps only its default,
+    under which the JAX package keeps small parameters replicated;
+    another value raises."""
+    size: int = 1
+    min_weight_size: int = 2 ** 12
+    shard_axis_rules: Optional[List[Tuple[str, Any]]] = None
+
+    def validate(self) -> None:
+        _check(self.size >= 1, "fsdp.size must be >= 1")
+        _unported(self.min_weight_size == 2 ** 12,
+                  "fsdp.min_weight_size other than 2 ** 12 (small "
+                  "parameters kept replicated)", "A8b")
+
+
+@dataclass
+class PPConfig:
+    """Pipeline parallelism: only size 1 is ported, so the schedule's
+    fields are absent (ROADMAP.md A12)."""
+    size: int = 1
+
+    def validate(self) -> None:
+        _check(self.size >= 1, "pp.size must be >= 1")
+
+
+@dataclass
+class SPConfig:
+    """Sequence (context) parallelism: only size 1 is ported, so the
+    mode's fields are absent (ROADMAP.md A12)."""
+    size: int = 1
+
+    def validate(self) -> None:
+        _check(self.size >= 1, "sp.size must be >= 1")
+
+
+@dataclass
+class EPConfig:
+    """Expert parallelism: only size 1 is ported, so the capacity factor
+    is absent (ROADMAP.md A10)."""
+    size: int = 1
+
+    def validate(self) -> None:
+        _check(self.size >= 1, "ep.size must be >= 1")
+
+
+@dataclass
+class DistConfig:
+    """The parallel composition and its topology.  ``topology`` orders
+    the mesh axes slowest network first (a permutation of
+    ``MESH_AXES``); ``build_mesh`` lays it onto rank-major order, so the
+    last axes join ranks of one node.  ``dp.size = -1`` is inferred as
+    world/(pp*fsdp*sp*ep*tp)."""
+    dp: DPConfig = field(default_factory=DPConfig)
+    tp: TPConfig = field(default_factory=TPConfig)
+    fsdp: FSDPConfig = field(default_factory=FSDPConfig)
+    pp: PPConfig = field(default_factory=PPConfig)
+    sp: SPConfig = field(default_factory=SPConfig)
+    ep: EPConfig = field(default_factory=EPConfig)
+    topology: Tuple[str, ...] = MESH_AXES
+    # DCN-connected slices; only the axis-order check is ported
+    num_slices: int = 1
+
+    def validate(self) -> None:
+        for sub in (self.dp, self.tp, self.fsdp, self.pp, self.sp, self.ep):
+            sub.validate()
+        _check(tuple(sorted(self.topology)) == tuple(sorted(MESH_AXES)),
+               f"dist.topology must be a permutation of {MESH_AXES}, got "
+               f"{self.topology}")
+        _check(self.num_slices >= 1, "dist.num_slices must be >= 1")
+        _unported(self.pp.size == 1, "dist.pp.size > 1 (pipeline "
+                  "parallelism)", "A12")
+        _unported(self.sp.size == 1, "dist.sp.size > 1 (the 'sp' and 'spu' "
+                  "sequence axes)", "A12")
+        _unported(self.ep.size == 1, "dist.ep.size > 1 (expert "
+                  "parallelism)", "A10")
+
+    def axis_sizes(self, world_size: int) -> Dict[str, int]:
+        """Every axis size, dp inferred when dp.size == -1."""
+        sizes = {
+            "tp": self.tp.size,
+            "fsdp": self.fsdp.size,
+            "pp": self.pp.size,
+            # the JAX package's default mode, 'ulysses', puts the whole
+            # sequence axis on 'spu'
+            "sp": 1,
+            "spu": self.sp.size,
+            "ep": self.ep.size,
+        }
+        fixed = math.prod(sizes.values())
+        if self.dp.size == -1:
+            _check(world_size % fixed == 0,
+                   f"world size {world_size} not divisible by "
+                   f"pp*fsdp*sp*ep*tp={fixed}")
+            sizes["dp"] = world_size // fixed
+        else:
+            sizes["dp"] = self.dp.size
+        total = math.prod(sizes.values())
+        _check(total == world_size,
+               f"product of parallel sizes {total} != device count "
+               f"{world_size} (sizes={sizes})")
+        return sizes
+
+
+@dataclass
 class Config:
     """The framework config.  Serving reads ``serve``; training reads
-    ``compute``, ``memory``, ``data``, ``grad_accum`` and ``seed``."""
+    ``compute``, ``memory``, ``data``, ``dist``, ``grad_accum`` and
+    ``seed``."""
 
     serve: ServeConfig = field(default_factory=ServeConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
     # micro-batches per optimizer step (the global batch splits along
     # dim 0; the quant histories chain micro by micro)
     grad_accum: int = 1
     # seed of the random weights Trainer.init() makes
     seed: int = 0
 
+    _mesh: Any = field(default=None, repr=False, compare=False)
+
     def validate(self) -> None:
         self.serve.validate()
         self.compute.validate()
         self.memory.validate()
         self.data.validate()
+        self.dist.validate()
         _check(self.grad_accum >= 1, "grad_accum must be >= 1")
+        _unported(self.compute.quant == "none" or self.dist.tp.size == 1,
+                  "compute.quant with dist.tp.size > 1", "A8b")
+
+    def get_mesh(self, device_type: str = "cuda"):
+        """The device mesh of ``dist`` over the process group, built at
+        the first call (``parallel.mesh.build_mesh``)."""
+        if self._mesh is None:
+            from torchacc_tpu_torch.parallel.mesh import build_mesh
+            self._mesh = build_mesh(self.dist, device_type)
+        return self._mesh

@@ -19,10 +19,17 @@ package's schema; ``skip_batches(n)`` fast-forwards the source without
 padding or uploading.  An early ``break`` in the consumer stops and
 joins the producer thread.
 
+On a mesh each rank runs its own loader over its own rows of every
+global batch (``PackedDataset(..., num_shards, shard_index)`` with
+``parallel.data_shard(mesh)``: the batch splits over 'dp' and 'fsdp',
+and the 'tp' ranks of one data group read the same rows), and every
+leaf lands on the rank's ``device``; where the JAX package puts each
+leaf on the mesh with ``_leaf_sharding`` (:247), a rank's rows are its
+shard.
+
 Not ported here (ROADMAP A13): the fetch and transfer retries, the
 chaos failpoints, the synchronous fallback, the stall deadline and the
-bad-batch quarantine.  The batch sharding over a device mesh waits for
-A8: with one device every leaf lands on ``device``.
+bad-batch quarantine.
 """
 
 from __future__ import annotations

@@ -16,6 +16,9 @@ leaves (``jax.tree.map(np.asarray, params)``)::
     lm_head.kernel                       [h, V]   (absent when tied)
 
 flax kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``.
+On a mesh, ``params_from_jax`` gives the full model that
+``Trainer.init`` then shards (``parallel/sharding.py``), and
+``params_to_jax`` gathers sharded parameters whole.
 
 ``quant_from_jax`` / ``quant_to_jax`` carry the delayed-scaling amax
 histories of the quantized matmul sites the same way: the flax
@@ -32,6 +35,7 @@ from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from torchacc_tpu_torch.models.transformer import (
     ModelConfig,
@@ -43,6 +47,10 @@ from torchacc_tpu_torch.ops._common import resolve_device
 
 def _t(a, device, dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 @torch.no_grad()
@@ -92,8 +100,10 @@ def params_to_jax(cfg: ModelConfig,
                   named: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`params_from_jax`: ``{port parameter name:
     tensor}`` (``model.named_parameters()``, or the same names mapped to
-    gradients) as a flax stacked-layout tree of f32 numpy arrays."""
-    t = lambda n: named[n].detach().float().cpu().numpy()
+    gradients) as a flax stacked-layout tree of f32 numpy arrays.  A
+    sharded ``DTensor`` is gathered whole (``full_tensor``, a collective:
+    every rank of its mesh calls this, in the same order)."""
+    t = lambda n: _full(named[n]).detach().float().cpu().numpy()
     h, d = cfg.hidden_size, cfg.head_size
     heads = {"q_proj": cfg.num_heads, "k_proj": cfg.kv_heads,
              "v_proj": cfg.kv_heads}

@@ -44,12 +44,17 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from torchacc_tpu_torch.models.generate import embed
-from torchacc_tpu_torch.ops._common import resolve_device
+from torchacc_tpu_torch.ops._common import resolve_device, to_local
 from torchacc_tpu_torch.ops.attn import attention
+from torchacc_tpu_torch.ops.fused import (
+    fused_linear_cross_entropy,
+    fused_linear_cross_entropy_tp,
+)
 from torchacc_tpu_torch.ops.quantized_matmul import (
     amax_history_init,
     quant_linear,
@@ -155,7 +160,7 @@ def rms_norm(cfg: ModelConfig, x: torch.Tensor,
     xf = x.float()
     y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True)
                          + cfg.norm_eps)
-    return (y * weight.float()).to(cfg.dtype)
+    return (y * to_local(weight).float()).to(cfg.dtype)
 
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
@@ -283,9 +288,12 @@ class QuantScope:
     the advanced one there.  With ``new`` None (evaluation) nothing is
     written."""
 
-    def __init__(self, histories, new=None):
+    def __init__(self, histories, new=None, amax_groups=()):
         self.histories = histories
         self.new = new
+        # the data axes' process groups (ops/quantized_matmul.py
+        # quant_linear): empty on one device
+        self.amax_groups = amax_groups
 
     def linear(self, cfg: ModelConfig, name: str, x: torch.Tensor,
                lin: nn.Linear) -> torch.Tensor:
@@ -296,7 +304,7 @@ class QuantScope:
         y, hist = quant_linear(
             x, lin.weight, lin.bias, self.histories[name], fmt=cfg.quant,
             impl=cfg.quant_impl, dtype=cfg.dtype,
-            update=self.new is not None)
+            update=self.new is not None, amax_groups=self.amax_groups)
         if self.new is not None:
             self.new[name] = hist
         return y
@@ -311,19 +319,67 @@ def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
     one of the site ``name`` (``_quant_dense`` of the JAX package); the
     bias is added after it, in the compute dtype.  Under 'offload_dots'
     the product of an offloaded site goes through
-    ``utils.remat.offload_product``."""
+    ``utils.remat.offload_product``.  A tensor-parallel weight (a
+    ``DTensor``) is read as this rank's shard: the product is this
+    rank's heads or MLP columns (column-parallel), or its partial sum
+    (row-parallel, which the caller reduces)."""
     dt = cfg.dtype
-    operands = lambda: (x.to(dt), lin.weight.to(dt))
+    operands = lambda: (x.to(dt), to_local(lin.weight).to(dt))
     if quant is not None:
         return offload_product(operands,
                                lambda: quant.linear(cfg, name, x, lin))
     y = offload_product(operands, lambda: F.linear(*operands()))
     if lin.bias is not None:
-        y = y + lin.bias.to(dt)
+        y = y + to_local(lin.bias).to(dt)
     return y
 
 
+class _TPCopy(torch.autograd.Function):
+    """Megatron's f: the identity forward into the column-parallel
+    projections; the backward sums the input's gradient over the 'tp'
+    ranks (each holds the part from its own heads or columns)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _TPSum(torch.autograd.Function):
+    """Megatron's g: the forward sums the row-parallel partial products
+    (and the vocab-parallel embedding's rows) over the 'tp' ranks; the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _tp_in(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _TPCopy.apply(x, group)
+
+
+def _tp_out(y: torch.Tensor, group) -> torch.Tensor:
+    return y if group is None else _TPSum.apply(y, group)
+
+
 class Attention(nn.Module):
+    # the 'tp' process group (parallel/sharding.py shard_model): the
+    # projections hold this rank's heads; None on one device
+    tp_group = None
+
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
         self.cfg = cfg
@@ -344,18 +400,21 @@ class Attention(nn.Module):
         names for the selective remat policies.  ``dropout_seed`` (this
         layer's) turns attention dropout on when ``cfg.attn_dropout`` is
         set; ``quant`` is the forward's :class:`QuantScope` and ``name``
-        this module's path, which prefixes its sites' names."""
+        this module's path, which prefixes its sites' names.  Under
+        tensor parallelism the heads are this rank's (``num_heads / tp``
+        and ``kv_heads / tp``; the GQA group is unchanged)."""
         cfg = self.cfg
         b, s = x.shape[:2]
         d = cfg.head_size
         qs = quant if quant_site_on(cfg, "attn") else None
+        x = _tp_in(x, self.tp_group)
         with checkpoint_name("qkv_proj"):
             q = dense(cfg, x, self.q_proj, qs, f"{name}.q_proj").view(
-                b, s, cfg.num_heads, d)
+                b, s, -1, d)
             k = dense(cfg, x, self.k_proj, qs, f"{name}.k_proj").view(
-                b, s, cfg.kv_heads, d)
+                b, s, -1, d)
             v = dense(cfg, x, self.v_proj, qs, f"{name}.v_proj").view(
-                b, s, cfg.kv_heads, d)
+                b, s, -1, d)
         rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
               else positions)
         q, k = rope(q, k, rp, cfg)
@@ -371,11 +430,15 @@ class Attention(nn.Module):
         with checkpoint_name("attn_out"):
             # the JAX o_proj contracts (heads, d); flattened it is the
             # same [M, K] @ [K, N]
-            return dense(cfg, out.reshape(b, s, -1), self.o_proj, qs,
-                         f"{name}.o_proj")
+            return _tp_out(dense(cfg, out.reshape(b, s, -1), self.o_proj,
+                                 qs, f"{name}.o_proj"), self.tp_group)
 
 
 class Mlp(nn.Module):
+    # the 'tp' process group: gate/up hold this rank's columns, down the
+    # matching rows; None on one device
+    tp_group = None
+
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
         self.cfg = cfg
@@ -388,12 +451,13 @@ class Mlp(nn.Module):
         """SwiGLU ``Mlp.__call__`` (:665)."""
         cfg = self.cfg
         qs = quant if quant_site_on(cfg, "mlp") else None
+        x = _tp_in(x, self.tp_group)
         with checkpoint_name("mlp_gate_up"):
             gate = dense(cfg, x, self.gate_proj, qs, f"{name}.gate_proj")
             up = dense(cfg, x, self.up_proj, qs, f"{name}.up_proj")
         with checkpoint_name("mlp_out"):
-            return dense(cfg, F.silu(gate) * up, self.down_proj, qs,
-                         f"{name}.down_proj")
+            return _tp_out(dense(cfg, F.silu(gate) * up, self.down_proj, qs,
+                                 f"{name}.down_proj"), self.tp_group)
 
 
 def _sub_remat(cfg: ModelConfig) -> bool:
@@ -448,7 +512,17 @@ class TransformerLM(nn.Module):
     The weights are made on ``device``: the card when it is ``None``
     (raising where there is none), ``"meta"`` for a model whose weights
     are made later (``init_params``, ``Trainer.init``).  Their values are
-    ``nn.Linear``'s default init; ``init_params`` gives the flax one."""
+    ``nn.Linear``'s default init; ``init_params`` gives the flax one.
+
+    On a mesh (``parallel.sharding.shard_model``) the parameters are
+    DTensors and ``tp_group``/``data_groups`` name the process groups of
+    the 'tp' axis and of the data axes; the embedding and the head are
+    then vocab-parallel."""
+
+    # the 'tp' process group (None on one device) and the process groups
+    # of the data axes above 1 (the quantized sites' amax reduce)
+    tp_group = None
+    data_groups = ()
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -475,10 +549,14 @@ class TransformerLM(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
                 dropout_seed: Optional[int] = None,
-                quant=None, quant_out=None) -> torch.Tensor:
+                quant=None, quant_out=None,
+                labels: Optional[torch.Tensor] = None):
         """``TransformerLM.__call__`` (:853): f32 logits ``[b, s, V]``, or
         with ``return_hidden`` the final-normed hidden in the compute
-        dtype (the fused CE head applies the vocab projection itself).
+        dtype, or with ``labels`` the fused linear + CE head's
+        ``(loss_sum, valid_count)`` (``ops/fused.py``; vocab-parallel
+        under tensor parallelism), computed inside the forward so that a
+        sharded head is read while FSDP2 holds it gathered.
         ``positions`` default to ``arange``; ``segment_ids`` mark packed
         documents.  Under ``cfg.remat`` each block (or, with
         ``remat_cls``, its attention and/or MLP) of the first
@@ -502,11 +580,11 @@ class TransformerLM(nn.Module):
                     "quant != 'none' but no amax histories were passed to "
                     "forward(): thread TrainState.quant through it "
                     "(init_quant_state(cfg) makes fresh ones)")
-            scope = QuantScope(quant, quant_out)
+            scope = QuantScope(quant, quant_out, self.data_groups)
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
-        x = embed(cfg, self, input_ids)
+        x = self._embed(input_ids)
         grad = torch.is_grad_enabled()
         sub = _sub_remat(cfg)
         drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
@@ -521,13 +599,42 @@ class TransformerLM(nn.Module):
                                      segment_ids)
             else:
                 x = layer(x, positions, segment_ids, **kw)
+        if return_hidden or labels is not None:
+            x = rms_norm(cfg, x, self.final_norm.weight)
+        if labels is not None:
+            w = to_local(head_weight(self)).t()
+            if self.tp_group is None:
+                return fused_linear_cross_entropy(
+                    x, w, labels, logit_softcap=cfg.logit_softcap)
+            return fused_linear_cross_entropy_tp(
+                x, w, labels, group=self.tp_group,
+                logit_softcap=cfg.logit_softcap)
         if return_hidden:
-            return rms_norm(cfg, x, self.final_norm.weight)
+            return x
+        if self.tp_group is not None:
+            raise NotImplementedError(
+                "full logits under tensor parallelism (the JAX package's "
+                "replicated head) are not ported to torchacc_tpu_torch "
+                "yet (ROADMAP.md A8b): pass labels for the vocab-parallel "
+                "fused CE")
         logits = head_logits(cfg, self, x)
         if cfg.logit_softcap > 0.0:
             logits = torch.tanh(logits / cfg.logit_softcap) \
                 * cfg.logit_softcap
         return logits
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding in the compute dtype; vocab-parallel under
+        tensor parallelism: each rank looks up the ids of its rows (the
+        rest read as zero) and the ranks sum."""
+        if self.tp_group is None:
+            return embed(self.cfg, self, ids)
+        w = to_local(self.embed_tokens.weight)
+        off = dist.get_rank(self.tp_group) * w.shape[0]
+        mine = (ids >= off) & (ids < off + w.shape[0])
+        x = F.embedding(torch.where(mine, ids - off, 0).long(), w)
+        x = torch.where(mine[..., None], x, 0.0)
+        return _tp_out(x, self.tp_group).to(self.cfg.dtype)
 
 
 def set_model_config(model: nn.Module, cfg: ModelConfig) -> None:
@@ -575,26 +682,39 @@ def head_logits(cfg: ModelConfig, model: TransformerLM,
                     ).float()
 
 
-@torch.no_grad()
+def materializer(seed: int, device: torch.device):
+    """``make(module, prefix)``: gives the ``meta`` parameters of
+    ``module`` (named ``prefix.<name>`` in the whole model) storage on
+    ``device`` and the flax initialisers' values, drawn from one
+    ``torch.Generator`` seeded with ``seed``: every matrix normal(0.02),
+    norm scales one, biases zero.  Called on the model's submodules in
+    the order of ``named_parameters``, it makes the weights
+    ``init_params`` makes, one module at a time."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    @torch.no_grad()
+    def make(module: nn.Module, prefix: str = "") -> None:
+        module.to_empty(device=device)
+        for name, p in module.named_parameters(prefix=prefix):
+            if name.endswith("ln1.weight") or name.endswith("ln2.weight") \
+                    or name == "final_norm.weight":
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return make
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: Optional[torch.dtype] = None) -> TransformerLM:
     """A ``TransformerLM`` with random weights made on ``device`` (the
-    card when ``None``) from a ``torch.Generator`` seeded with ``seed``:
-    every matrix normal(0.02), norm scales one, biases zero (the flax
-    initialisers).  ``dtype`` defaults to ``cfg.param_dtype``; serving
-    passes ``cfg.dtype``."""
+    card when ``None``) from a ``torch.Generator`` seeded with ``seed``
+    (:func:`materializer`).  ``dtype`` defaults to ``cfg.param_dtype``;
+    serving passes ``cfg.dtype``."""
     device = resolve_device(device)
     model = TransformerLM(cfg, device="meta", dtype=dtype)
-    model = model.to_empty(device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    for name, p in model.named_parameters():
-        if name.endswith("ln1.weight") or name.endswith("ln2.weight") \
-                or name == "final_norm.weight":
-            p.fill_(1.0)
-        elif name.endswith(".bias"):
-            p.zero_()
-        else:
-            p.normal_(0.0, 0.02, generator=gen)
+    materializer(seed, device)(model)
     return model.requires_grad_(False).eval()

@@ -1,11 +1,13 @@
-"""Shared op-layer helpers: constants, device resolution and the
-counter-based dropout hash."""
+"""Shared op-layer helpers: constants, device resolution, the line
+between sharded DTensors and the local tensors the kernels take, and
+the counter-based dropout hash."""
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 NEG_INF = -1e30
 
@@ -29,6 +31,26 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_local(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """This rank's shard of a ``DTensor`` (differentiable: its gradient
+    comes back with the same placements), any other tensor as it is.
+    The model calls it where it reads a parameter, so that the ops below
+    it see local tensors only."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def check_local(**tensors: Optional[torch.Tensor]) -> None:
+    """Raise on a ``DTensor``: the kernels take raw pointers to local
+    tensors, and a DTensor reaching them is a caller's bug, not
+    something a kernel wrapper converts silently."""
+    for name, t in tensors.items():
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{name} is a DTensor ({t.placements} on {t.device_mesh}); "
+                f"the kernels take local tensors: call .to_local() at the "
+                f"module boundary")
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from torchacc_tpu_torch.ops import _build
-from torchacc_tpu_torch.ops._common import dropout_threshold
+from torchacc_tpu_torch.ops._common import check_local, dropout_threshold
 from torchacc_tpu_torch.ops.attention import (
     attention_reference,
     attention_reference_bwd,
@@ -298,6 +298,8 @@ _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 def _prepare(q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes,
              dropout_p, dropout_seed, offsets, scale):
+    check_local(q=q, k=k, v=v, q_segment_ids=q_segment_ids,
+                kv_segment_ids=kv_segment_ids, alibi_slopes=alibi_slopes)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q [b, sq, hq, d], k/v [b, sk, hk, d] expected; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -1,5 +1,6 @@
 """Fused linear + cross entropy (the port of torchacc_tpu/ops/fused.py
-``fused_linear_cross_entropy``, :40).
+``fused_linear_cross_entropy``, :40, and its vocab-parallel form
+``fused_linear_cross_entropy_tp``, :140).
 
 The head matmul and the CE loss are computed one chunk of rows at a
 time, and the backward recomputes each chunk's logits instead of
@@ -19,9 +20,10 @@ dtype, as JAX's does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def _softcap(z: torch.Tensor, cap: float) -> torch.Tensor:
@@ -39,47 +41,69 @@ def _logits_f32(x, w):
     return x.float() @ w.float()
 
 
-def _chunk_loss(x, w, y, cap):
-    """f32 logits of one chunk (softcapped), their lse, the valid mask
-    and the chunk's loss sum."""
-    z = _softcap(_logits_f32(x, w), cap)
-    lse = torch.logsumexp(z, dim=-1)
-    valid = y != -100
-    safe = torch.where(valid, y, 0)
-    ll = z.gather(1, safe[:, None])[:, 0]
-    return z, lse, valid, torch.where(valid, lse - ll, 0.0).sum()
+def _all_reduce(t: torch.Tensor, op, group) -> None:
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
 
 
 class _FusedLinearCE(torch.autograd.Function):
+    """The chunk loop.  With ``group`` (the 'tp' process group) this rank
+    holds columns ``[off, off + V/tp)`` of the head: per chunk, the row
+    max is all-reduced (MAX) over ``group``, then the sum of ``exp(z -
+    max)`` and the label's logit (on the rank that holds it, 0
+    elsewhere) in one all-reduce (SUM), as in the JAX package; without
+    one (offset 0) the reductions are skipped.  The forward keeps each
+    row's lse, so the backward recomputes the chunk's logits only, and
+    under ``group`` needs one all-reduce: ``d(hidden)``'s partial sums
+    over the ranks, in f32 (the JAX version crosses its ``shard_map`` in
+    f32).  ``dW`` stays this rank's slice."""
 
     @staticmethod
-    def forward(ctx, x, w, y, chunk_rows, cap):
+    def forward(ctx, x, w, y, chunk_rows, cap, group):
+        vloc = w.shape[1]
+        off = 0 if group is None else dist.get_rank(group) * vloc
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         count = (y != -100).sum().float()
+        lses = []
         for i in range(0, x.shape[0], chunk_rows):
-            loss = loss + _chunk_loss(x[i:i + chunk_rows], w,
-                                      y[i:i + chunk_rows], cap)[3]
-        ctx.save_for_backward(x, w, y)
-        ctx.chunk_rows, ctx.cap = chunk_rows, cap
+            yi = y[i:i + chunk_rows]
+            z = _softcap(_logits_f32(x[i:i + chunk_rows], w), cap)
+            m = z.amax(dim=-1)
+            _all_reduce(m, dist.ReduceOp.MAX, group)
+            mine = (yi >= off) & (yi < off + vloc)
+            ll = z.gather(1, torch.clamp(yi - off, 0, vloc - 1)[:, None])[:, 0]
+            stats = torch.stack([torch.exp(z - m[:, None]).sum(dim=-1),
+                                 torch.where(mine, ll, 0.0)])
+            _all_reduce(stats, dist.ReduceOp.SUM, group)
+            lse = m + torch.log(stats[0])
+            lses.append(lse)
+            loss = loss + torch.where(yi != -100, lse - stats[1], 0.0).sum()
+        ctx.save_for_backward(x, w, y, torch.cat(lses))
+        ctx.chunk_rows, ctx.cap, ctx.group, ctx.off = (chunk_rows, cap,
+                                                       group, off)
         ctx.mark_non_differentiable(count)
         return loss, count
 
     @staticmethod
     def backward(ctx, g_loss, _g_count):
-        x, w, y = ctx.saved_tensors
-        cap, rows = ctx.cap, ctx.chunk_rows
+        x, w, y, lse = ctx.saved_tensors
+        cap, rows, off, group = ctx.cap, ctx.chunk_rows, ctx.off, ctx.group
         need_x, need_w = ctx.needs_input_grad[:2]
-        dx = torch.empty_like(x) if need_x else None
+        vloc = w.shape[1]
+        dx = torch.empty(x.shape, dtype=x.dtype if group is None
+                         else torch.float32, device=x.device) \
+            if need_x else None
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device) \
             if need_w else None
         for i in range(0, x.shape[0], rows):
             xi, yi = x[i:i + rows], y[i:i + rows]
-            z, lse, valid, _ = _chunk_loss(xi, w, yi, cap)
+            z = _softcap(_logits_f32(xi, w), cap)
             # d(lse - z[y]) / dz = softmax(z) - onehot(y), valid rows only
-            dz = torch.exp(z - lse[:, None])
+            dz = torch.exp(z - lse[i:i + rows, None])
+            mine = (yi >= off) & (yi < off + vloc)
             dz[torch.arange(len(yi), device=yi.device),
-               torch.where(valid, yi, 0)] -= 1.0
-            dz *= (valid.float() * g_loss)[:, None]
+               torch.clamp(yi - off, 0, vloc - 1)] -= mine.float()
+            dz *= ((yi != -100).float() * g_loss)[:, None]
             if cap > 0.0:
                 dz *= 1.0 - (z / cap) ** 2
             dz = dz.to(x.dtype)
@@ -87,7 +111,10 @@ class _FusedLinearCE(torch.autograd.Function):
                 dx[i:i + rows] = dz @ w.t()
             if need_w:
                 dw += (xi.t() @ dz).float()
-        return dx, (dw.to(w.dtype) if need_w else None), None, None, None
+        if need_x and group is not None:
+            dist.all_reduce(dx, group=group)
+        return (dx.to(x.dtype) if need_x else None,
+                dw.to(w.dtype) if need_w else None, None, None, None, None)
 
 
 def fused_linear_cross_entropy(
@@ -108,4 +135,28 @@ def fused_linear_cross_entropy(
     x = hidden.reshape(-1, h)
     y = labels.reshape(-1).long()
     return _FusedLinearCE.apply(x, w_head.to(x.dtype), y, int(chunk_rows),
-                                float(logit_softcap))
+                                float(logit_softcap), None)
+
+
+def fused_linear_cross_entropy_tp(
+    hidden: torch.Tensor,
+    w_head: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    group: Any,
+    chunk_rows: int = 2048,
+    logit_softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vocab-parallel ``(loss_sum, valid_count)``: every rank of the
+    process group ``group`` (the 'tp' axis) holds the same ``hidden
+    [batch, seq, H]`` and labels and its own ``[H, V/tp]`` slice of the
+    head (a local tensor: ``lm_head.weight``'s shard, transposed), rank r
+    the vocab ids ``[r V/tp, (r + 1) V/tp)``.  Every rank returns the
+    whole loss; ``d(hidden)`` comes back summed over the ranks and the
+    head's gradient as this rank's slice.  ``logit_softcap`` as in
+    :func:`fused_linear_cross_entropy`."""
+    h = hidden.shape[-1]
+    x = hidden.reshape(-1, h)
+    y = labels.reshape(-1).long()
+    return _FusedLinearCE.apply(x, w_head.to(x.dtype), y, int(chunk_rows),
+                                float(logit_softcap), group)

@@ -36,7 +36,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from torchacc_tpu_torch.ops import _build
-from torchacc_tpu_torch.ops._common import NEG_INF
+from torchacc_tpu_torch.ops._common import NEG_INF, check_local
 
 #: kernel launches so far by shape, counted where the kernel launches;
 #: chip_smoke.py sets both to 0 before the serving run and reads them after
@@ -273,6 +273,7 @@ def paged_attention(
 
     ``impl``: 'auto' (the kernel for CUDA tensors, the plain version for
     CPU tensors) | 'cuda' | 'torch'."""
+    check_local(q=q, k_pool=k_pool, v_pool=v_pool)
     if q.ndim != 4:
         raise ValueError(f"q must be [slots, t, heads, head_dim], got "
                          f"{tuple(q.shape)}")

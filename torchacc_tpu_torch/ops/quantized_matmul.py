@@ -55,13 +55,18 @@ its history and returns the new one (:class:`QuantLinear`,
 from __future__ import annotations
 
 import ctypes
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from torchacc_tpu_torch.ops import _build
-from torchacc_tpu_torch.ops._common import resolve_device, round_up
+from torchacc_tpu_torch.ops._common import (
+    check_local,
+    resolve_device,
+    round_up,
+)
 
 #: quantization formats: dtype + largest representable magnitude.  int8
 #: uses the symmetric [-127, 127] range; fp8 is e4m3 (max finite 448),
@@ -452,6 +457,7 @@ def quantized_dot(
     ``max|x|``.  Weights always use just-in-time per-channel scales.
     ``impl``: 'auto' (the kernel for CUDA tensors, the plain version for
     CPU tensors) | 'cuda' | 'torch'.  Returns ``x.dtype``."""
+    check_local(x=x, kernel=kernel, x_scale=x_scale)
     _fmt(fmt)
     _use_kernel(impl, x)                          # validate impl
     cd = int(contract_ndim)
@@ -511,7 +517,7 @@ def quant_linear(x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor], history: torch.Tensor, *,
                  fmt: str, impl: str = "auto",
                  dtype: torch.dtype = torch.float32,
-                 update: bool = True
+                 update: bool = True, amax_groups: Sequence[Any] = ()
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The quantized forward of a Linear site (``QuantDenseGeneral.
     __call__``, :410): ``x [..., K]`` and ``weight [N, K]`` go to the
@@ -520,11 +526,20 @@ def quant_linear(x: torch.Tensor, weight: torch.Tensor,
     quantized product, in the compute dtype.  Returns ``(y, history')``:
     the history with this call's amax recorded, or ``history`` itself
     when ``update`` is false (an evaluation reads the scales and changes
-    nothing).  The history is never changed in place."""
+    nothing).  The history is never changed in place.
+
+    ``amax_groups``: the process groups of the data axes.  Where the
+    batch is split over ranks, ``max|x|`` is all-reduced (MAX) over them
+    before it is used, as GSPMD takes the JAX package's amax over the
+    whole global batch; otherwise the ranks' scales and histories would
+    part.  The weight's amax needs no reduce: inside FSDP2's forward the
+    weight is the all-gathered one."""
     xc = x.to(dtype)
     wc = weight.to(dtype)
     with torch.no_grad():
         amax_now = _amax(xc)
+        for group in amax_groups:
+            dist.all_reduce(amax_now, op=dist.ReduceOp.MAX, group=group)
         sx = delayed_scale(history, amax_now, fmt)
         new_history = (update_amax_history(history, amax_now) if update
                        else history)

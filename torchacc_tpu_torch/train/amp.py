@@ -4,6 +4,15 @@ dynamic loss scaler (``scaler_init`` :23, ``all_finite`` :33,
 master weights (``shadow_cast`` :70, ``bf16_param_shadow`` :81,
 ``shadow_params`` :134, ``global_norm_f32`` :139).
 
+On a mesh the gradients are sharded ``DTensor``s.  ``global_norm_f32``
+then sums the squares of the local shards, each distinct shard on one
+rank only (a shard replicated over 'dp' or 'tp' is counted once), and
+all-reduces that one sum over every rank; ``all_finite`` all-reduces
+its flag (MIN), so that no rank applies an fp16 update another skips.
+The bf16 shadow is not used on a mesh: FSDP2's mixed-precision policy
+gives the blocks the same bf16 reads of the masters
+(``parallel/sharding.py`` ``mixed_precision``).
+
 The scaler lives on the device: its state is two 0-dim tensors, the
 finite check is a device tensor and ``scaler_update`` is made of
 ``torch.where``s (torch GradScaler's semantics: growth 2x every
@@ -23,9 +32,13 @@ place.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from torchacc_tpu_torch.ops._common import to_local
 
 
 def scaler_init(init_scale: float = 2.0 ** 15,
@@ -38,9 +51,30 @@ def scaler_init(init_scale: float = 2.0 ** 15,
                                         device=device)}
 
 
+def _sharded(tensors: List[torch.Tensor]) -> bool:
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def _counted_once(t: DTensor) -> bool:
+    """Whether this rank's shard of ``t`` is the copy a reduction over
+    every rank counts: its coordinate is 0 along each mesh dim ``t`` is
+    replicated over."""
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, t.placements)
+               if pl.is_replicate())
+
+
 def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """A 0-dim bool tensor: every element of every tensor is finite."""
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    """A 0-dim bool tensor: every element of every tensor is finite (of
+    every rank's shards, for DTensors)."""
+    tensors = list(tensors)
+    ok = torch.stack([torch.isfinite(to_local(t)).all()
+                      for t in tensors]).all()
+    if not _sharded(tensors):
+        return ok
+    flag = ok.to(torch.float32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return flag > 0.0
 
 
 def scaler_update(scaler: Dict[str, torch.Tensor], grads_finite,
@@ -74,8 +108,18 @@ def shadow_cast(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def global_norm_f32(tensors) -> torch.Tensor:
     """Global l2 norm with f32 accumulation whatever the leaf dtype (a
     0-dim tensor on the leaves' device; no host sync): a bf16 gradient
-    tree would otherwise accumulate its norm in bf16."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    tree would otherwise accumulate its norm in bf16.  Of DTensors: one
+    all-reduce of the local sums of squares (module docstring)."""
+    tensors = list(tensors)
+    if not _sharded(tensors):
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    sq = torch.zeros((), dtype=torch.float32,
+                     device=tensors[0].to_local().device)
+    for t in tensors:
+        if _counted_once(t):
+            sq = sq + t.to_local().float().square().sum()
+    dist.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 class _Shadowed:

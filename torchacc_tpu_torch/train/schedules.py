@@ -17,6 +17,12 @@ parameter's f32 copy (the port may update in place where that saves
 memory).  Gradients are upcast to f32 per element before the moment
 math; optax multiplies a bf16 gradient by ``1 - b`` in bf16 first.
 
+On a mesh the masters, gradients and moments are sharded ``DTensor``s
+with one placement each (the moments are made like their parameter);
+the update reads and writes their local shards in place, with the same
+arithmetic per element, and the global norm is reduced over the ranks
+(``amp.global_norm_f32``).
+
 Under the fp16 loss scaler an update may be skipped:
 ``update_(..., keep=flag)`` takes a 0-dim bool device tensor and
 selects every write on it, so a skipped update leaves the masters and
@@ -39,6 +45,7 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from torchacc_tpu_torch.ops._common import to_local
 from torchacc_tpu_torch.train.amp import global_norm_f32
 
 Schedule = Callable[[int], float]
@@ -169,12 +176,13 @@ class AdamW(GradientTransformation):
         t = count + 1
         bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
         for name, p in params.items():
-            g = grads[name]
+            g = to_local(grads[name])
+            p = to_local(p)
             if scale is not None:
                 # optax casts the clipped gradient back to its own dtype
                 g = (g.float() * scale).to(g.dtype)
             g = g.float()
-            mu, nu = state.mu[name], state.nu[name]
+            mu, nu = to_local(state.mu[name]), to_local(state.nu[name])
             if keep is None:
                 mu_new, nu_new = mu, nu
                 mu_new.mul_(self.b1)

@@ -1,7 +1,7 @@
 """The Trainer, core only (the port of torchacc_tpu/train/trainer.py):
 ``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933,
 the step of ``_build_train_step`` :563), ``eval_step`` and ``fit``
-(:1272), on one device.
+(:1272), on one device or on a mesh.
 
 One step is forward -> loss (the fused linear + CE head by default) ->
 backward -> f32 global-norm clip -> AdamW on the f32 masters; with
@@ -41,6 +41,27 @@ host integer, steps back for a skipped update: the next update waits
 for the flag's copy to the host (``schedules.AdamWState``), so under
 the scaler the host runs at most about one step ahead of the card.
 
+On a mesh (``mesh``: ``Config.get_mesh()``; ``accelerate`` passes it
+when a process group is up) ``init`` shards the model
+(``parallel/sharding.py``: tensor parallelism over 'tp', FSDP2 over
+'dp' x 'fsdp'), making a ``meta`` model's weights one block at a time
+from ``config.seed``, the same weights on every rank; the masters,
+gradients and AdamW moments are then sharded DTensors and the bf16
+shadow is FSDP2's mixed-precision policy; without ``grad_accum`` the
+step rounds its f32-reduced gradients to bf16, as the shadow's reach
+the optimizer (on one device and in JAX).  Each rank steps its own rows
+of the global batch (``parallel.mesh.data_shard``).  The loss is the
+global sum over the global valid-token count, as in JAX (trainer.py
+:667-670): each micro-batch's (sum, count) is all-reduced over the data
+axes, FSDP2 sums the gradients (divide factor 1), and the step divides
+by the global count.  Under ``grad_accum`` each micro-batch's gradients
+are reduce-scattered as its backward ends and the hooks add the local
+shards into ``accum_dtype`` buffers of the shard's shape.  With
+``grad_accum`` the micro-batches split each rank's rows, where JAX
+splits the global batch: the same sum, but quantized matmuls would see
+other rows per micro-batch, so that combination raises on more than one
+data shard (ROADMAP.md C2, A8b).  ``fit`` logs on rank 0 only.
+
 Not ported: the tiered checkpoints (ROADMAP A9), and the resilience,
 SDC, guard, telemetry and dispatch-ring hooks (A13).
 """
@@ -53,20 +74,24 @@ import weakref
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from torchacc_tpu_torch.config import Config
 from torchacc_tpu_torch.models.transformer import (
     TransformerLM,
     check_training_supported,
-    head_weight,
     init_params,
     init_quant_state,
     loss_sum_count,
+    materializer,
     quant_site_names,
 )
-from torchacc_tpu_torch.ops._common import resolve_device
-from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
+from torchacc_tpu_torch.ops._common import resolve_device, to_local
+from torchacc_tpu_torch.parallel.distributed import is_primary
+from torchacc_tpu_torch.parallel.mesh import describe_mesh
+from torchacc_tpu_torch.parallel.sharding import shard_model
 from torchacc_tpu_torch.train.amp import (
     all_finite,
     bf16_param_shadow,
@@ -102,7 +127,7 @@ def _swap_param(model: nn.Module, name: str, tensor: torch.Tensor) -> None:
 
 
 class Trainer:
-    """Trains a port ``TransformerLM`` on one device.
+    """Trains a port ``TransformerLM`` on one device or on a mesh.
 
     Parameters
     ----------
@@ -114,19 +139,26 @@ class Trainer:
     loss: ``loss(logits, batch)`` -> scalar mean or ``(sum, count)``;
         default next-token CE with -100 ignored
     device: where a ``meta`` model is made (None = the card)
+    mesh: the ``DeviceMesh`` to shard over (``Config.get_mesh()``), or
+        None for one device
     """
 
     def __init__(self, model: TransformerLM, config: Config,
                  optimizer: Optional[GradientTransformation] = None,
                  loss: Optional[Callable] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         config.validate()
         self.model = model
         self.config = config
+        self.mesh = mesh
         self.optimizer = optimizer or adamw(
             1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4,
             grad_clip_norm=None)
-        self._shadow_on = config.compute.bf16_compute_params
+        # on a mesh FSDP2's mixed-precision policy takes the shadow's place
+        self._shadow_on = config.compute.bf16_compute_params and mesh is None
+        self._bf16_reduced = (config.compute.bf16_compute_params
+                              and mesh is not None)
         if self._shadow_on:
             self.optimizer = bf16_param_shadow(self.optimizer)
         self.loss = loss or (lambda logits, batch: loss_sum_count(
@@ -137,6 +169,14 @@ class Trainer:
                               and not model.cfg.head_bias)
         self.device = (resolve_device(device) if model.device.type == "meta"
                        else model.device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the model "
+                             f"on {self.device}")
+        # the batch rows of one step are split over this many ranks
+        self._data_shards = 1
+        if mesh is not None:
+            sizes = describe_mesh(mesh)
+            self._data_shards = sizes["dp"] * sizes["fsdp"]
         if isinstance(model, TransformerLM):
             # an unported composition (the 'head' quant site, ...) raises
             # by name here, not at the first step
@@ -154,17 +194,20 @@ class Trainer:
         own weights, as f32 masters; the optimizer state; step 0."""
         cfg = self.model.cfg
         pdt = self.config.compute.param_dtype
-        if self.model.device.type == "meta":
-            self.model = init_params(
-                cfg, seed=self.config.seed if seed is None else seed,
-                device=self.device, dtype=pdt)
-        masters = {}
-        for name, p in list(self.model.named_parameters()):
-            m = p.detach().to(pdt)
-            masters[name] = m
-            if not self._shadow_on:
-                _swap_param(self.model, name, nn.Parameter(m))
-                masters[name] = self.model.get_parameter(name)
+        seed = self.config.seed if seed is None else seed
+        if self.mesh is not None:
+            masters = self._shard(seed, pdt)
+        else:
+            if self.model.device.type == "meta":
+                self.model = init_params(cfg, seed=seed, device=self.device,
+                                         dtype=pdt)
+            masters = {}
+            for name, p in list(self.model.named_parameters()):
+                m = p.detach().to(pdt)
+                masters[name] = m
+                if not self._shadow_on:
+                    _swap_param(self.model, name, nn.Parameter(m))
+                    masters[name] = self.model.get_parameter(name)
         opt_state = self.optimizer.init(masters)
         if self._shadow_on:
             # the shadow IS the model's parameters: one bf16 copy, which
@@ -188,6 +231,21 @@ class Trainer:
         n = sum(p.numel() for p in masters.values())
         logger.info(f"initialised {n / 1e6:.1f}M params on {self.device}")
         return self.state
+
+    def _shard(self, seed: int, pdt: torch.dtype) -> Dict[str, torch.Tensor]:
+        """Shard the model over the mesh (a ``meta`` model's weights made
+        block by block from ``seed``, the same on every rank); the
+        masters are the sharded parameters themselves."""
+        make = None
+        if self.model.device.type == "meta":
+            make = materializer(seed, self.device)
+        else:
+            for name, p in list(self.model.named_parameters()):
+                if p.dtype != pdt:
+                    _swap_param(self.model, name,
+                                nn.Parameter(p.detach().to(pdt)))
+        shard_model(self.model, self.mesh, self.config, make)
+        return dict(self.model.named_parameters())
 
     # -- train step -----------------------------------------------------------
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -218,12 +276,9 @@ class Trainer:
 
     def _loss_sum_count(self, batch, kw):
         if self._use_fused_ce:
-            hidden = self.model(batch["input_ids"], return_hidden=True, **kw)
             labels = batch.get("labels", shift_labels(
                 batch["input_ids"], batch.get("segment_ids")))
-            return fused_linear_cross_entropy(
-                hidden, head_weight(self.model).t(), labels,
-                logit_softcap=self.model.cfg.logit_softcap)
+            return self.model(batch["input_ids"], labels=labels, **kw)
         res = self.loss(self.model(batch["input_ids"], **kw), batch)
         if isinstance(res, tuple):
             return res
@@ -239,9 +294,17 @@ class Trainer:
             trainer = ref()
             acc = None if trainer is None else trainer._acc
             if acc is not None:
-                acc[name].add_(p.grad)
+                acc[name].add_(to_local(p.grad))
                 p.grad = None
         return hook
+
+    def _global(self, l_sum: torch.Tensor, count: torch.Tensor):
+        """``(loss_sum, count)`` summed over the data axes' ranks: the
+        global batch's (as they are on one device)."""
+        tot = torch.stack([l_sum.detach().float(), count.float()])
+        for group in getattr(self.model, "data_groups", ()):
+            dist.all_reduce(tot, group=group)
+        return tot[0], tot[1]
 
     def _check_quant(self, new_quant) -> None:
         missing = set(quant_site_names(self.model.cfg)) - set(new_quant)
@@ -254,13 +317,21 @@ class Trainer:
         gradient of the mean loss (times ``scale``, then divided by
         it)."""
         l_sum, count, new_quant = self._forward_sum_count(batch)
-        loss = l_sum / torch.clamp(count, min=1.0)
+        g_sum, g_count = self._global(l_sum, count)
+        denom = torch.clamp(g_count, min=1.0)
+        loss = l_sum / denom
         (loss if scale is None else loss * scale).backward()
         grads = {}
         for n, p in self.model.named_parameters():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads[n] = g if scale is None else g.div_(scale)
-        return loss.detach(), grads, new_quant
+            if self._bf16_reduced:
+                # FSDP2 reduces in f32; the shadow's gradients reach the
+                # optimizer in bf16
+                g, p.grad = g.to(torch.bfloat16), None
+            if scale is not None:
+                to_local(g).div_(scale)
+            grads[n] = g
+        return g_sum / denom, grads, new_quant
 
     def _grads_accumulated(self, batch, scale):
         """(loss, gradients, new_quant) over ``grad_accum`` micro-batches:
@@ -274,8 +345,10 @@ class Trainer:
                              f"grad_accum {accum}")
         mb = bsz // accum
         acc_dt = self.config.compute.accum_dtype
-        self._acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                     for n, p in self.model.named_parameters()}
+        params = dict(self.model.named_parameters())
+        self._acc = {n: torch.zeros(to_local(p).shape, dtype=acc_dt,
+                                    device=self.device)
+                     for n, p in params.items()}
         l_tot = c_tot = None
         quant = self.state.quant
         try:
@@ -295,10 +368,17 @@ class Trainer:
             acc = self._acc
         finally:
             self._acc = None
+        l_tot, c_tot = self._global(l_tot, c_tot)
         c_tot = torch.clamp(c_tot, min=1.0)
         denom = c_tot if scale is None else c_tot * scale
-        grads = {n: (a.div_(denom) if a.dtype == torch.float32
-                     else a.float().div_(denom)) for n, a in acc.items()}
+        grads = {}
+        for n, a in acc.items():
+            g = (a.div_(denom) if a.dtype == torch.float32
+                 else a.float().div_(denom))
+            p = params[n]
+            grads[n] = g if not isinstance(p, DTensor) else DTensor.from_local(
+                g, p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride())
         return (l_tot / c_tot, grads,
                 quant if self.state.quant is not None else None)
 
@@ -346,6 +426,7 @@ class Trainer:
                                                       train=False)
         finally:
             self.model.train(was_training)
+        l_sum, count = self._global(l_sum, count)
         return {"loss": l_sum / torch.clamp(count, min=1.0)}
 
     # -- loop -----------------------------------------------------------------
@@ -354,7 +435,9 @@ class Trainer:
         """Run ``step`` over ``loader`` (at most ``max_steps`` batches).
         Returns a ``{step, loss, time_s, steps_per_sec,
         tokens_per_sec}`` record for every ``log_every``-th step; only
-        those steps read the loss back to the host."""
+        those steps read the loss back to the host.  On a mesh
+        ``loader`` yields this rank's rows, ``tokens_per_sec`` counts the
+        global batch's and only rank 0 logs."""
         if self.state is None:
             self.init()
         history = []
@@ -373,8 +456,10 @@ class Trainer:
                     (r - s_prev) / max(now - t_prev, 1e-9), 3)
                 ids = batch["input_ids"]
                 rec["tokens_per_sec"] = round(
-                    rec["steps_per_sec"] * ids.shape[0] * ids.shape[1], 1)
+                    rec["steps_per_sec"] * ids.shape[0] * ids.shape[1]
+                    * self._data_shards, 1)
             t_prev, s_prev = now, r
             history.append(rec)
-            logger.info(f"step {r}: loss {loss:.4f}")
+            if is_primary():
+                logger.info(f"step {r}: loss {loss:.4f}")
         return history
