@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--layers 32] [--train-layers 8] [--train-steps 8]
                           [--quant-steps 6] [--data-steps 16]
-                          [--fp16-steps 8] [--check-layers 2] [--reps 50]
-                          [--seed 0] [--profile]
+                          [--fp16-steps 8] [--check-layers 2]
+                          [--ckpt-layers 1] [--reps 50] [--seed 0]
+                          [--profile]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -133,7 +134,29 @@ Phases, each of which exits non-zero when it fails:
    bytes moved counted; its control (the copies to host memory held back
    and taken back without waiting for their events, so the backward
    reads buffers they have not reached) must exceed it;
-10. the mesh phase, run last: a world-1 NCCL process group as torchrun
+10. the checkpoint phase: phase 8b's configuration at --ckpt-layers
+   (1) deep, each checkpoint the state's 12 bytes a parameter (15.2 GB
+   at one layer, 1.27 B parameters, most of them the embedding and the
+   head; the phases write 3 checkpoints in all, which keeps a run's
+   disk writes under 45 GiB).  Run A: fit(checkpoint_dir,
+   checkpoint_every=6) for 6 steps, which saves steps 1 (the empty
+   directory's first save) and 6; step 6's writer dies after part of
+   its payload (injected), as a crash in its save would leave it: the
+   close must report it, and step 6 have no step directory and no
+   marker.  Run B, a new accelerate() made from another seed, runs
+   fit(resume='auto'): it must restore step 1 from loader_state.json
+   (no replay), receive run A's batches 1-5 and give its losses at
+   steps 1-5 bitwise, save and mark step 6 again, and B1-B3 must launch
+   layers x 5 x 2 times.  Two controls must part from run A's step-1
+   loss: the same resume with the bf16 shadow not made again (run B's
+   trainer, before run B), and step 1's state with the loader not
+   repositioned.  The free disk and host memory are read first (too
+   little fails the phase, naming the bytes); the directory is removed
+   however the phases end.  Printed: the bytes a checkpoint, save()
+   host ms and the device memory it adds, the device's stall on a save
+   step against a plain step, the restore's ms and GB/s, the peak
+   memory;
+11. the mesh phase: a world-1 NCCL process group as torchrun
    starts one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and a free
    MASTER_PORT) and accelerate() with Config(dist=DistConfig()), whose
    trainer must hold FSDP2 blocks and DTensor masters on the card.
@@ -143,11 +166,20 @@ Phases, each of which exits non-zero when it fails:
    times; step ms, tokens/s, MFU, peak memory and the collective calls
    a step are printed beside phase 7's.  Then int8 on the mesh: B5
    launches 7 x layers x steps, and the first loss lies within 0.02 of
-   the bf16 mesh run's.
+   the bf16 mesh run's;
+12. checkpoints across the mesh, run last: phase 7's configuration
+   and batch at --ckpt-layers, run B's step 6 restored into a
+   one-device trainer and into a new world-1 NCCL mesh trainer's
+   DTensor masters (timed), each bitwise run B's saved state (step,
+   count and a digest of every tensor's words) and the mesh's next loss
+   bitwise the one device's; then the mesh trainer's state saved
+   (blocking, timed) and restored into a one-device trainer (timed),
+   bitwise, its next loss bitwise the mesh's.
 
 No earlier phase was cut to make room: on an H100 the whole run takes
-125-145 s (33-54 s of it the build; stderr has each kernel's registers
-and spills from nvcc's -Xptxas -v).
+about 330 s (33-54 s of it the build, about 150 s the checkpoint
+phases, bound by the disk; stderr has each kernel's registers and
+spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -160,6 +192,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2098,6 +2131,406 @@ def _offload_check_phase(torch, args):
 
 
 # ---------------------------------------------------------------------------
+# checkpoints and resume
+# ---------------------------------------------------------------------------
+
+CKPT_ROOT = "chip_smoke_ckpt"           # under the checkout; git-ignored
+
+
+def _ckpt_root():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        CKPT_ROOT)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _mem_available():
+    """The host memory available (bytes), from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _state_digest(torch, state):
+    """(step, AdamW count, a bitwise digest of every other leaf of the
+    checkpointed state: the sum of each tensor's 32-bit words)."""
+    from torchacc_tpu_torch.ops._common import to_local
+    from torchacc_tpu_torch.train.state import flat_state
+    flat = flat_state(state)
+    step, count = int(flat.pop("step")), int(flat.pop("opt_state/count"))
+    return step, count, _digest(torch, [to_local(t) for t in flat.values()])
+
+
+def _same_state(a, b):
+    return a[:2] == b[:2] and bool((a[2] == b[2]).all())
+
+
+def _ckpt_config(seed, data=True, dist_cfg=None):
+    """Phase 8b's configuration (``data``) or phase 7's, seeded."""
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig)
+    kw = dict(data=DataConfig(max_length=TRAIN_S, prefetch=2),
+              grad_accum=2) if data else {}
+    if dist_cfg is not None:
+        kw["dist"] = dist_cfg
+    return Config(compute=ComputeConfig(bf16_compute_params=True),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  seed=seed, **kw)
+
+
+class _SaveTap:
+    """While entered, wraps ``CheckpointManager.save``: for each call that
+    writes, the step, the host ms of the call and the device memory
+    allocated by it."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from torchacc_tpu_torch.checkpoint import io
+        self.io, self.orig = io, io.CheckpointManager.save
+        torch, tap = self.torch, self
+
+        def save(mgr, step, state, **kw):
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            wrote = tap.orig(mgr, step, state, **kw)
+            if wrote:
+                tap.calls.append((step, (time.perf_counter() - t0) * 1e3,
+                                  torch.cuda.memory_allocated() - before))
+            return wrote
+        io.CheckpointManager.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self.io.CheckpointManager.save = self.orig
+
+
+class _CrashStep:
+    """While entered, the checkpoint write of ``step`` dies after part of
+    its payload is on disk, as a process killed while writing it would:
+    the step stays unmarked, and with no step directory."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def __enter__(self):
+        from torchacc_tpu_torch.checkpoint import io
+        self.io, self.orig = io, io._write
+        tmp = f"{self.step}{io.TMP_SUFFIX}"
+
+        def write(host, path, group):
+            if os.path.basename(os.path.dirname(path)) == tmp:
+                os.makedirs(path, exist_ok=True)
+                with open(os.path.join(path, "__0_0.distcp"), "wb") as f:
+                    f.write(b"part of a payload")
+                raise OSError(f"injected: the writer of {path} died")
+            return self.orig(host, path, group)
+        io._write = write
+        return self
+
+    def __exit__(self, *exc):
+        self.io._write = self.orig
+
+
+def _marked(root):
+    from torchacc_tpu_torch.checkpoint.io import MANIFEST
+    return sorted(int(n) for n in os.listdir(root) if n.isdigit()
+                  and os.path.exists(os.path.join(root, n, MANIFEST)))
+
+
+def _checkpoint_phase(torch, args, root):
+    """Checkpoints and resume on the data-fed path: run A saves through
+    fit(checkpoint_dir, checkpoint_every=6) for 6 steps (step 1, the
+    empty directory's first save, and step 6, whose write dies,
+    injected); run B, made from another seed, resumes with
+    resume='auto', must take run A's batches and losses at steps 1-5
+    bitwise, and saves and marks step 6; two controls (the bf16 shadow
+    not made again, the loader not repositioned) must part from them."""
+    import shutil
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (PackedDataset, TransformerLM,
+                                    accelerate, get_preset)
+    from torchacc_tpu_torch.checkpoint.io import PAYLOAD, TMP_SUFFIX
+    from torchacc_tpu_torch.data import AsyncLoader
+    from torchacc_tpu_torch.errors import CheckpointError
+    from torchacc_tpu_torch.train import adamw, warmup_cosine
+    from torchacc_tpu_torch.utils.metrics import counters
+
+    tag = "checkpoint"
+    layers, steps, rows = args.ckpt_layers, 6, 4
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    n_params = sum(p.numel() for p in
+                   TransformerLM(cfg, device="meta").parameters())
+    ckpt_bytes = 12 * n_params          # f32 masters, mu and nu
+    free, ram = shutil.disk_usage(root).free, _mem_available()
+    print(f"{tag}: {layers} layers at full width, {n_params / 1e9:.3f}B "
+          f"params: {ckpt_bytes} bytes a checkpoint, 3 written in all "
+          f"(run A's step 1, run B's step 6, the mesh trainer's); free disk "
+          f"{free} bytes at {root}, host memory available {ram} bytes; "
+          f"card: {_card()}", flush=True)
+    if free < 3.2 * ckpt_bytes:
+        _fail(f"{tag}: 3 checkpoints of {ckpt_bytes} bytes need "
+              f"{int(3.2 * ckpt_bytes)} bytes of disk with room; {free} "
+              f"are free at {root} (pass a smaller --ckpt-layers)")
+    if ram < 1.5 * ckpt_bytes:
+        _fail(f"{tag}: staging a checkpoint of {ckpt_bytes} bytes needs "
+              f"{int(1.5 * ckpt_bytes)} bytes of host memory with room; "
+              f"{ram} are available (pass a smaller --ckpt-layers)")
+    docs = _zipf_docs(args.seed + 9, (steps + 2) * rows * TRAIN_S,
+                      cfg.vocab_size)
+    make = lambda: PackedDataset(docs, seq_len=TRAIN_S, batch_rows=rows)
+    opt = lambda: adamw(warmup_cosine(3e-4, steps, warmup_steps=1))
+    fit_kw = dict(log_every=0, checkpoint_dir=root, checkpoint_every=steps)
+    keep = lambda into: (lambda i, b: into.append(
+        {k: v.clone() for k, v in b.items()}))
+
+    def payload_bytes(step):
+        n = _dir_bytes(os.path.join(root, str(step), PAYLOAD))
+        if not ckpt_bytes <= n <= 1.01 * ckpt_bytes + 2**20:
+            _fail(f"{tag}: step {step}'s payload holds {n} bytes, not the "
+                  f"state's {ckpt_bytes} (and DCP's metadata)")
+        return n
+
+    # run A: 6 steps; saves at 1 (the empty directory's first) and 6,
+    # whose writer dies: the close reports it, and step 6 stays unmarked
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = _ckpt_config(args.seed)
+    conf.resilience.ckpt_retries = 0    # the injected death is final
+    trainer, loader = accelerate(cfg, make(), conf, optimizer=opt())
+    trainer.init()
+    got_a = []
+    tap = _StepTap(torch, trainer, before=keep(got_a))
+    crashed = None
+    with _SaveTap(torch) as saves, _CrashStep(steps):
+        try:
+            trainer.fit(loader, max_steps=steps, **fit_kw)
+        except CheckpointError as e:
+            crashed = e
+    step_ms, _ = tap.finish(1)
+    losses_a = [m["loss"].item() for m in tap.metrics]
+    peak_a = torch.cuda.max_memory_allocated()
+    marked = _marked(root)
+    left = sorted(os.listdir(root))
+    del trainer, loader, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = step_ms[1:steps - 1]
+    stall = step_ms[steps - 1] - sum(plain) / len(plain)
+    print(f"{tag}[run A]: losses {_fmt(losses_a)}; marked steps {marked}, "
+          f"in the directory {left}; step 6's write died: {crashed!r}; "
+          f"step ms {_fmt(step_ms)} (saves after steps 0 and 5); the save "
+          f"step 5 {step_ms[steps - 1]:.1f} ms against the plain steps' "
+          f"{sum(plain) / len(plain):.1f}: stall {stall:.1f} ms; save() "
+          f"host ms and device bytes added "
+          f"{[(s, round(ms, 1), b) for s, ms, b in saves.calls]}; peak "
+          f"allocated {peak_a / 2**30:.2f} GiB", flush=True)
+    if crashed is None or "[6]" not in str(crashed):
+        _fail(f"{tag}[run A]: the injected death of step 6's write did not "
+              f"surface at the close: {crashed!r}")
+    if marked != [1] or len(got_a) != steps or str(steps) in left \
+            or f"{steps}{TMP_SUFFIX}" not in left:
+        _fail(f"{tag}[run A]: marked steps {marked} != [1], {len(got_a)} "
+              f"batches != {steps}, or not only the dead write's "
+              f"leftovers for step 6: {left}")
+    written = payload_bytes(1)
+
+    # run B: a new trainer from another seed.  First control 1 on it: the
+    # resume with the bf16 shadow not made again reads its own seed's
+    # weights at step 1
+    replayed = counters.get("resume_replayed_batches")
+    trainer, loader = accelerate(cfg, make(), _ckpt_config(args.seed + 1),
+                                 optimizer=opt())
+    trainer.init()
+    trainer._after_restore = lambda: None
+    got_c = []
+    tap = _StepTap(torch, trainer, before=keep(got_c))
+    trainer.fit(AsyncLoader(make(), _ckpt_config(args.seed),
+                            device=trainer.device),
+                max_steps=2, resume="auto", **fit_kw)
+    tap.finish(0)
+    stale = tap.metrics[0]["loss"].item()
+    del trainer._after_restore
+    # run B proper: resumes from step 1 past the dead step 6 and saves it
+    restore_s = []
+    inner = trainer._resume
+
+    def timed(mgr):
+        t0 = time.perf_counter()
+        out = inner(mgr)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        return out
+    trainer._resume = timed
+    got_b = []
+    tap = _StepTap(torch, trainer, before=keep(got_b))
+    for key in fa.launch_counts:                 # counts start here ...
+        fa.launch_counts[key] = 0
+    with _SaveTap(torch) as saves_b:
+        trainer.fit(loader, max_steps=steps, resume="auto", **fit_kw)
+    launches = dict(fa.launch_counts)            # ... and are read here
+    del trainer._resume
+    tap.finish(0)
+    losses_b = [m["loss"].item() for m in tap.metrics]
+    digest = _state_digest(torch, trainer.state)     # the state saved as 6
+    marked, left = _marked(root), sorted(os.listdir(root))
+    batches_same = len(got_b) == steps - 1 and all(
+        torch.equal(got_b[i][k], got_a[1 + i][k])
+        for i in range(len(got_b)) for k in got_a[1 + i])
+    print(f"{tag}[run B]: resumed from step "
+          f"{trainer.state.step - len(got_b)} in {restore_s[0] * 1e3:.1f} "
+          f"ms ({written / restore_s[0] / 1e9:.2f} GB/s; the read into host "
+          f"buffers and the copy to the card); losses at steps 1-5 "
+          f"{_fmt(losses_b)} against run A's {_fmt(losses_a[1:])}; "
+          f"batches bitwise {batches_same}; flash launches {launches}; "
+          f"saved {[s for s, _, _ in saves_b.calls]}, marked steps "
+          f"{marked}, in the directory {left}", flush=True)
+    if trainer.state.step != steps or losses_b != losses_a[1:] \
+            or not batches_same:
+        _fail(f"{tag}[run B]: the resumed run is not run A's: losses "
+              f"{losses_b} against {losses_a[1:]}, batches bitwise "
+              f"{batches_same}, step {trainer.state.step}")
+    if counters.get("resume_replayed_batches") != replayed:
+        _fail(f"{tag}[run B]: the loader was replayed, not restored from "
+              f"loader_state.json")
+    for key, n in launches.items():
+        if n != layers * (steps - 1) * 2:
+            _fail(f"{tag}[run B]: flash {key} launches {n} != layers "
+                  f"{layers} x steps {steps - 1} x 2 micro-batches")
+    if [s for s, _, _ in saves_b.calls] != [steps] or marked != [1, steps] \
+            or left != ["1", str(steps)]:
+        _fail(f"{tag}[run B]: step {steps}, whose write died in run A, was "
+              f"not saved and marked again: saved "
+              f"{[s for s, _, _ in saves_b.calls]}, marked {marked}, in the "
+              f"directory {left}")
+    payload_bytes(steps)
+
+    # control 2: step 1's state, the loader not repositioned
+    trainer.restore(os.path.join(root, "1", PAYLOAD))
+    fresh = AsyncLoader(make(), _ckpt_config(args.seed),
+                        device=trainer.device)
+    got_d = []
+    tap = _StepTap(torch, trainer, before=keep(got_d))
+    trainer.fit(fresh, max_steps=1, log_every=0)
+    tap.finish(0)
+    unaligned = tap.metrics[0]["loss"].item()
+    first = all(torch.equal(got_d[0][k], got_a[0][k]) for k in got_a[0])
+    same_c = all(torch.equal(got_c[0][k], got_a[1][k]) for k in got_a[1])
+    del trainer, loader, fresh, tap, got_c, got_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag}[controls]: the shadow not made again: step 1 loss "
+          f"{stale:.6g} (its batch run A's: {same_c}); the loader not "
+          f"repositioned: {unaligned:.6g} (on batch 0: {first}); run A's "
+          f"{losses_a[1]:.6g}", flush=True)
+    if stale == losses_a[1] or unaligned == losses_a[1] \
+            or not same_c or not first:
+        _fail(f"{tag}[controls]: a control did not part from run A (shadow "
+              f"{stale}, loader {unaligned}, run A {losses_a[1]})")
+    return {"launches": launches, "losses": losses_a, "stall_ms": stall,
+            "step_ms": step_ms, "saves": saves.calls + saves_b.calls,
+            "bytes": written, "restore_ms": restore_s[0] * 1e3,
+            "peak_bytes": peak_a, "free_disk": free, "host_ram": ram,
+            "digest": digest}
+
+
+def _checkpoint_mesh_phase(torch, args, root, digest):
+    """Checkpoints across the world-1 NCCL mesh (phase 11's setup) and
+    one device, on phase 7's configuration and batch at --ckpt-layers:
+    run B's step 6 restored into a one-device trainer and into a mesh
+    trainer's DTensor masters, each bitwise the saved state, the mesh's
+    next loss bitwise the one device's; then the mesh trainer's state
+    saved and restored into a one-device trainer, bitwise, and its next
+    loss bitwise the mesh's."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torchacc_tpu_torch import DistConfig, accelerate, get_preset
+    from torchacc_tpu_torch.checkpoint.io import PAYLOAD
+    from torchacc_tpu_torch.parallel import initialize_distributed
+    from torchacc_tpu_torch.train import adamw, warmup_cosine
+
+    tag = "checkpoint[mesh]"
+    cfg = get_preset("llama3-8b", num_layers=args.ckpt_layers)
+    batch = _train_batch(torch, np.random.default_rng(args.seed + 2),
+                         cfg.vocab_size)
+    step6 = os.path.join(root, "6", PAYLOAD)
+    mesh_dir = os.path.join(root, "mesh")
+
+    def trainer_of(seed, dist_cfg=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t, _ = accelerate(cfg, None, _ckpt_config(seed, False, dist_cfg),
+                          optimizer=adamw(warmup_cosine(
+                              3e-4, args.train_steps, warmup_steps=1)))
+        t.init()
+        return t
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t1 = trainer_of(args.seed + 3)
+    t1.restore(step6)
+    d1 = _state_digest(torch, t1.state)
+    l1 = t1.step(batch)["loss"].item()
+    del t1
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    initialize_distributed()
+    try:
+        tm = trainer_of(args.seed + 4, DistConfig())
+        if tm.mesh is None or not all(isinstance(p, DTensor) and p.is_cuda
+                                      for p in tm.state.params.values()):
+            _fail(f"{tag}: the trainer is not on the mesh")
+        restore_ms = timed(lambda: tm.restore(step6))
+        dm1 = _state_digest(torch, tm.state)
+        lm = tm.step(batch)["loss"].item()
+        dm = _state_digest(torch, tm.state)
+        save_ms = timed(lambda: tm.save(mesh_dir))
+        lm2 = tm.step(batch)["loss"].item()
+        del tm
+    finally:
+        dist.destroy_process_group()
+    nbytes = _dir_bytes(mesh_dir)
+    t2 = trainer_of(args.seed + 5)
+    restore2_ms = timed(lambda: t2.restore(mesh_dir))
+    d2 = _state_digest(torch, t2.state)
+    l2 = t2.step(batch)["loss"].item()
+    del t2
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = [_same_state(d1, digest), _same_state(dm1, digest),
+          _same_state(d2, dm)]
+    print(f"{tag}: run B's step 6 into one device and into the mesh: "
+          f"states bitwise {ok[:2]} (step {dm1[0]}, count {dm1[1]}), next "
+          f"loss on the mesh {lm:.6g} against one device's {l1:.6g}; the "
+          f"mesh's state into one device: bitwise {ok[2]}, next loss "
+          f"{l2:.6g} against the mesh's {lm2:.6g}", flush=True)
+    print(f"{tag}: blocking save from the mesh {save_ms:.1f} ms for "
+          f"{nbytes} bytes ({nbytes / save_ms / 1e6:.2f} GB/s); restore "
+          f"into the mesh {restore_ms:.1f} ms "
+          f"({nbytes / restore_ms / 1e6:.2f} GB/s), into one device "
+          f"{restore2_ms:.1f} ms ({nbytes / restore2_ms / 1e6:.2f} GB/s); "
+          f"card: {_card()}", flush=True)
+    if not (all(ok) and lm == l1 and l2 == lm2):
+        _fail(f"{tag}: a restore across the mesh is not bitwise: states "
+              f"{ok}, losses {lm}/{l1}, {l2}/{lm2}")
+    return {"save_ms": save_ms, "bytes": nbytes, "restore_ms": restore_ms,
+            "restore_one_ms": restore2_ms}
+
+
+# ---------------------------------------------------------------------------
 # the training path on a mesh
 # ---------------------------------------------------------------------------
 
@@ -2317,6 +2750,9 @@ def main():
                          "overflows on purpose)")
     ap.add_argument("--check-layers", type=int, default=2,
                     help="depth of the model-level kernel-vs-plain check")
+    ap.add_argument("--ckpt-layers", type=int, default=1,
+                    help="depth of the checkpoint phases' llama3-8b (width "
+                         "is full): 3 checkpoints of it are written")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed kernel launches per shape")
     ap.add_argument("--seed", type=int, default=0)
@@ -2400,7 +2836,30 @@ def main():
     _quant_check_phase(torch, args)
     _accum_check_phase(torch, args)
     _offload_check_phase(torch, args)
-    _mesh_phase(torch, args, train)
+    root = _ckpt_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        ckpt = _checkpoint_phase(torch, args, root)
+        _mesh_phase(torch, args, train)
+        ckpt_mesh = _checkpoint_mesh_phase(torch, args, root,
+                                           ckpt["digest"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    saves = ckpt["saves"]
+    print(f"checkpoint: {ckpt['bytes']} bytes a checkpoint at "
+          f"{args.ckpt_layers} layers; blocking save "
+          f"{ckpt_mesh['save_ms']:.1f} ms ({ckpt_mesh['bytes'] / ckpt_mesh['save_ms'] / 1e6:.2f} "
+          f"GB/s); fit's save steps: host ms in save() "
+          f"{[round(ms, 1) for _, ms, _ in saves]} (the first allocates the "
+          f"pinned staging), device bytes added "
+          f"{[b for _, _, b in saves]}, stall on the device {ckpt['stall_ms']:.1f} "
+          f"ms against a plain step; restore {ckpt['restore_ms']:.1f} ms in "
+          f"fit ({ckpt['bytes'] / ckpt['restore_ms'] / 1e6:.2f} GB/s), "
+          f"{ckpt_mesh['restore_ms']:.1f} ms into the mesh; peak allocated "
+          f"{ckpt['peak_bytes'] / 2**30:.2f} GiB; free disk "
+          f"{ckpt['free_disk']} bytes, host memory available "
+          f"{ckpt['host_ram']} bytes; card: {card}", flush=True)
 
     entries = []
     for shape in ("decode", "prefill"):
@@ -2423,6 +2882,7 @@ def main():
             body=FLASH_BODY[name], source=FLASH_SOURCE, replaces=replaces,
             launches=train["launches"][name],
             launches_per_step=train["launches"][name] / args.train_steps,
+            launches_resume=ckpt["launches"][name],
             max_abs_err=max(flash[e]["max_abs_err"] for e in errs),
             ms=flash[f"{name}_ms"], plain_ms=flash[f"plain_{part}_ms"],
             bound_ms=flash[f"{name}_bound_ms"],

@@ -78,12 +78,20 @@ def test_package_imports_with_jax_blocked():
         "import torchacc_tpu_torch.data.bucketing\n"
         "import torchacc_tpu_torch.data.dataset\n"
         "import torchacc_tpu_torch.data.async_loader\n"
+        "import torchacc_tpu_torch.checkpoint\n"
+        "import torchacc_tpu_torch.checkpoint.cli\n"
+        "import torchacc_tpu_torch.checkpoint.io\n"
+        "import torchacc_tpu_torch.checkpoint.reshard\n"
+        "import torchacc_tpu_torch.checkpoint.schema\n"
+        "import torchacc_tpu_torch.utils.retry\n"
+        "import torchacc_tpu_torch.errors\n"
         "from torchacc_tpu_torch import (Trainer, accelerate, "
         "ComputeConfig, MemoryConfig, ConfigError, DataConfig, "
         "AsyncLoader, PackedDataset, pack_sequences)\n"
         "from torchacc_tpu_torch.ops.quantized_matmul import ("
         "QuantLinear, quantized_dot)\n"
-        "from torchacc_tpu_torch.models.convert import quant_from_jax\n"
+        "from torchacc_tpu_torch.models.convert import (quant_from_jax, "
+        "state_from_jax, state_to_jax)\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax') and "
         "sys.modules[m] is not None for m in sys.modules)\n"
         "print('ok')\n")

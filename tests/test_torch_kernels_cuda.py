@@ -24,9 +24,14 @@ f16 ulps (2^-10 of the value each); the same inputs through the bf16
 kernels read above it (chip_smoke.py's control).
 
 Also on the card: the ``AsyncLoader`` yields CUDA tensors equal to the
-host batches, 'offload_dots' moves the bytes it counts, and the
+host batches, 'offload_dots' moves the bytes it counts, the
 training step on a world-1 NCCL mesh (FSDP2, DTensor masters) equals
-the one-device step bitwise.
+the one-device step bitwise, and checkpoints: a state saved and
+restored keeps its device and its bits (an asynchronous save holds the
+values of its step while the next step updates in place), and a step
+after a restore through B1-B3 (with the bf16 shadow, on a world-1 NCCL
+mesh, and with int8 histories through B5) equals the uninterrupted one
+bitwise.
 """
 
 import numpy as np
@@ -845,3 +850,134 @@ def test_world_of_one_nccl_mesh_step_equals_the_one_device_step(card,
     assert torch.equal(losses, one_losses), (losses, one_losses)
     for n, m in masters.items():
         assert torch.equal(m, one_masters[n]), n
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def _ckpt_batch(card, vocab):
+    from torchacc_tpu_torch.ops.flash_attention import (
+        segment_ids_from_positions)
+    rng = np.random.default_rng(5)
+    pos = np.concatenate([np.arange(n) for n in rng.integers(
+        64, 512, size=40)])[:2 * 2048].reshape(2, 2048)
+    pos = torch.from_numpy(pos.astype(np.int32))
+    return {"input_ids": torch.from_numpy(rng.integers(
+                0, vocab, size=(2, 2048))).to(card),
+            "positions": pos.to(card),
+            "segment_ids": segment_ids_from_positions(pos).to(card)}
+
+
+def _ckpt_trainer(seed, **compute):
+    """llama-tiny (2 layers), bf16 over f32 masters, save_attn_mlp,
+    made from ``seed``: on the mesh when a process group is up."""
+    from torchacc_tpu_torch import (ComputeConfig, Config, MemoryConfig,
+                                    accelerate, get_preset)
+    from torchacc_tpu_torch.train import adamw, warmup_cosine
+    conf = Config(compute=ComputeConfig(bf16_compute_params=True, **compute),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  seed=seed)
+    trainer, _ = accelerate(get_preset("llama-tiny", num_layers=2), None,
+                            conf, optimizer=adamw(warmup_cosine(3e-3, 10, 1)))
+    trainer.init()
+    return trainer
+
+
+def _flat_copy(state):
+    from torchacc_tpu_torch.ops._common import to_local
+    from torchacc_tpu_torch.train.state import flat_state
+    return {k: to_local(v).clone() for k, v in flat_state(state).items()}
+
+
+def _assert_flat_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].device == w.device and got[k].dtype == w.dtype, k
+        assert torch.equal(got[k], w), k
+
+
+def test_checkpoint_round_trip_on_the_card_keeps_device_and_bits(card,
+                                                                 tmp_path):
+    """A trainer's state after 2 steps, saved and restored into a
+    trainer made from another seed: every leaf (masters, moments, the
+    count, the step) bitwise, on the card; an asynchronous save followed
+    by a step that updates in place still holds its own step's values."""
+    a = _ckpt_trainer(0)
+    batch = _ckpt_batch(card, a.model.cfg.vocab_size)
+    for _ in range(2):
+        a.step(batch)
+    want = _flat_copy(a.state)
+    assert all(v.is_cuda for k, v in want.items()
+               if k not in ("step", "opt_state/count"))
+    a.save(str(tmp_path / "sync"))
+    handle = a.save(str(tmp_path / "async"), blocking=False)
+    a.step(batch)                        # in place, behind the staging
+    handle.wait()
+    for name in ("sync", "async"):
+        b = _ckpt_trainer(1)
+        b.restore(str(tmp_path / name))
+        _assert_flat_equal(_flat_copy(b.state), want)
+        for n, p in b.model.named_parameters():   # the shadow, made again
+            assert torch.equal(p, b.state.params[n].to(torch.bfloat16)), n
+
+
+def _resumed_step(card, tmp_path, **compute):
+    """(the uninterrupted run's third loss and state, the resumed run's,
+    launches of the resumed step): run A takes 2 steps, saves, takes a
+    third; run B, made from another seed, restores and takes the third."""
+    a = _ckpt_trainer(0, **compute)
+    batch = _ckpt_batch(card, a.model.cfg.vocab_size)
+    for _ in range(2):
+        a.step(batch)
+    a.save(str(tmp_path / "ckpt"))
+    want_loss = a.step(batch)["loss"]
+    want = _flat_copy(a.state)
+    del a
+    b = _ckpt_trainer(1, **compute)
+    b.restore(str(tmp_path / "ckpt"))
+    counts = (fa.launch_counts, qm.launch_counts)
+    for c in counts:
+        for key in c:
+            c[key] = 0
+    loss = b.step(batch)["loss"]
+    torch.cuda.synchronize()
+    launches = {**fa.launch_counts, **qm.launch_counts}
+    return want_loss, want, loss, _flat_copy(b.state), launches
+
+
+@pytest.mark.parametrize("on_mesh", [False, True],
+                         ids=["one_device_shadow", "world_of_one_nccl_mesh"])
+def test_resumed_step_through_the_kernels_is_bitwise(card, tmp_path,
+                                                     on_mesh):
+    """The step after a restore, through B1-B3, equals the step of the
+    run that never stopped, bitwise (loss and every leaf after it): with
+    the bf16 shadow made again from the restored masters, and on a
+    world-1 NCCL mesh, where the load lands in the DTensor masters."""
+    import torch.distributed as dist
+    from torchacc_tpu_torch.parallel import initialize_distributed
+    if on_mesh:
+        initialize_distributed(f"file://{tmp_path / 'pg'}", 1, 0)
+    try:
+        want_loss, want, loss, got, launches = _resumed_step(card, tmp_path)
+        if on_mesh:
+            assert dist.get_backend() == "nccl"
+    finally:
+        if on_mesh:
+            dist.destroy_process_group()
+    assert torch.equal(loss, want_loss), (loss, want_loss)
+    _assert_flat_equal(got, want)
+    for key in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert launches[key] == 2, launches      # 2 layers, one step
+
+
+def test_int8_run_resumed_with_its_histories_is_bitwise(card, tmp_path):
+    """int8 through B5: the amax histories ride the checkpoint, so the
+    resumed step's loss, histories and every other leaf equal the
+    uninterrupted run's bitwise."""
+    want_loss, want, loss, got, launches = _resumed_step(
+        card, tmp_path, quant="int8")
+    assert torch.equal(loss, want_loss), (loss, want_loss)
+    _assert_flat_equal(got, want)
+    assert any(k.startswith("quant/") for k in want)
+    assert launches["int8"] == 7 * 2, launches

@@ -9,7 +9,10 @@ rank joins the group through a file in SPEC's directory, trains
 ``accelerate()`` -> ``Trainer.step`` on its rows of each global batch
 (``parallel.data_shard``), and rank 0 pickles the losses, the whole
 final parameters (gathered by ``params_to_jax``) and the quant
-histories to OUT.  Only torch, numpy and the port are imported.
+histories to OUT.  For tests/test_torch_checkpoint_ranks.py it saves
+checkpoints on the mesh and resumes them by consensus
+(``ckpt_save``), or restores one into another layout
+(``ckpt_restore``).  Only torch, numpy and the port are imported.
 """
 
 import os
@@ -130,13 +133,117 @@ def fused_ce_tp(spec):
             "dx": x.grad.numpy(), "dw": np.concatenate(dws, axis=1)}
 
 
+def _ckpt_trainer(spec, params, **resilience):
+    """An f32 llama-tiny trainer on ``spec["dist"]``'s mesh, from
+    ``params`` (JAX weights)."""
+    cfg = get_preset("llama-tiny", dtype=torch.float32, **spec["model"])
+    model = params_from_jax(cfg, params, device="cpu", trainable=True)
+    d = spec["dist"]
+    conf = tt.Config(
+        compute=tt.ComputeConfig(dtype=torch.float32),
+        dist=tt.DistConfig(dp=tt.DPConfig(d.get("dp", -1)),
+                           fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
+                           tp=tt.TPConfig(d.get("tp", 1))),
+        resilience=tt.ResilienceConfig(**resilience))
+    trainer, _ = accelerate(model, None, conf,
+                            optimizer=adamw(warmup_cosine(*spec["schedule"]),
+                                            **spec["opt"]))
+    trainer.init()
+    return trainer
+
+
+def _full_state(trainer):
+    """Every leaf of the checkpointed state, whole, as numpy (a
+    collective: every rank calls it)."""
+    from torch.distributed.tensor import DTensor
+    from torchacc_tpu_torch.train.state import flat_state
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+            .detach().numpy().copy()
+            for k, v in flat_state(trainer.state).items()}
+
+
+def _gathered(obj):
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def ckpt_save(spec):
+    """Two steps on the mesh, each saved by a CheckpointManager (the
+    markers counted on each rank), then a resume by consensus in which
+    rank 1 alone finds the newest step unreadable."""
+    import torchacc_tpu_torch.checkpoint.io as cio
+    from torchacc_tpu_torch.checkpoint import CheckpointManager
+    trainer = _ckpt_trainer(spec, spec["params"])
+    n, i = data_shard(trainer.mesh)
+    markers = []
+    write_json = cio._write_json
+
+    def spy(path, obj):
+        if os.path.basename(path) == cio.MANIFEST:
+            markers.append(path)
+        return write_json(path, obj)
+    cio._write_json = spy
+    mgr = CheckpointManager(spec["dir"])
+    full = {}
+    for step, b in enumerate(spec["batches"], start=1):
+        rows = b["input_ids"].shape[0] // n
+        trainer.step({k: v[i * rows:(i + 1) * rows] for k, v in b.items()})
+        assert mgr.save(step, trainer.state)
+        full[step] = _full_state(trainer)
+    mgr.close()
+    cio._write_json = write_json
+    out = {"full": full, "markers": _gathered(len(markers))}
+    # the resume: rank 1's probe finds step 2 unreadable
+    mgr = CheckpointManager(spec["dir"])
+    if dist.get_rank() == 1:
+        probe = mgr._probe_step
+        mgr._probe_step = lambda s: ("injected: unreadable here" if s == 2
+                                     else probe(s))
+    other = _ckpt_trainer(spec, spec["params_other"])
+    _, chosen = mgr.restore_latest_valid(other.state)
+    mgr.close()
+    out["chosen"] = _gathered(chosen)
+    out["restored"] = _full_state(other)
+    out["dirs"] = sorted(os.listdir(spec["dir"]))
+    if "restore_dist" in spec:
+        # the same processes on another layout of the same world
+        out["restore"] = ckpt_restore(dict(spec, dist=spec["restore_dist"]))
+    return out
+
+
+def ckpt_restore(spec):
+    """Step 1 of a checkpoint saved under another layout restored into
+    this mesh's trainer, with elastic resume off and on: the outcome
+    (the whole restored state, or the error's type and axes) and the
+    schema the check judged."""
+    from torchacc_tpu_torch.checkpoint import CheckpointManager
+    from torchacc_tpu_torch.checkpoint.schema import state_schema
+    from torchacc_tpu_torch.train.state import flat_state
+    out = {}
+    for elastic in (False, True):
+        trainer = _ckpt_trainer(spec, spec["params_other"],
+                                elastic_resume=elastic)
+        out["schema"] = state_schema(flat_state(trainer.state))
+        mgr = CheckpointManager(spec["dir"], elastic_resume=elastic)
+        try:
+            mgr.restore(trainer.state, step=1)
+            out[elastic] = ("ok", _full_state(trainer))
+        except Exception as e:  # noqa: BLE001 - the outcome is compared
+            out[elastic] = (type(e).__name__, getattr(e, "axes", None))
+        mgr.close()
+    return out
+
+
 def main(spec_path, out_path):
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
     store = os.path.join(os.path.dirname(spec_path), "pg_store")
     initialize_distributed(f"file://{store}", device="cpu")
     try:
-        out = (fused_ce_tp if spec["kind"] == "fused_ce" else train)(spec)
+        out = {"fused_ce": fused_ce_tp, "train": train,
+               "ckpt_save": ckpt_save,
+               "ckpt_restore": ckpt_restore}[spec["kind"]](spec)
         if dist.get_rank() == 0:
             with open(out_path, "wb") as f:
                 pickle.dump(out, f)

@@ -27,6 +27,9 @@ Parallelism: with a process group up (``parallel.initialize_distributed``)
 ``accelerate`` shards the model over the mesh of ``Config.dist``
 (``parallel``): data parallelism, FSDP2 over 'dp' x 'fsdp' and
 tensor parallelism over heads, MLP and vocab.
+Checkpoints: ``checkpoint`` saves and restores the train state on
+``torch.distributed.checkpoint`` with the JAX package's commit protocol,
+and ``Trainer.fit(checkpoint_dir=..., resume='auto')`` resumes a run.
 It imports
 torch, numpy and the standard library only — never jax, flax or
 torchacc_tpu.
@@ -45,6 +48,7 @@ from torchacc_tpu_torch.config import (  # noqa: E402
     FSDPConfig,
     MemoryConfig,
     PPConfig,
+    ResilienceConfig,
     ServeConfig,
     SPConfig,
     TPConfig,
@@ -71,7 +75,7 @@ from torchacc_tpu_torch.train import Trainer, accelerate  # noqa: E402
 __all__ = [
     "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig",
     "DataConfig", "DistConfig", "DPConfig", "TPConfig", "FSDPConfig",
-    "PPConfig", "SPConfig", "EPConfig", "AsyncLoader", "PackedDataset",
+    "PPConfig", "SPConfig", "EPConfig", "ResilienceConfig", "AsyncLoader", "PackedDataset",
     "pack_sequences", "ModelConfig", "TransformerLM", "get_preset",
     "init_params", "Request", "RequestResult", "ServeEngine", "Trainer", "accelerate",
 ]

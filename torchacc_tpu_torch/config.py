@@ -4,9 +4,10 @@ for training, ``DistConfig`` for the parallel composition and its mesh,
 and a ``Config`` that holds them.
 
 Only the fields the port implements are here.  The journal, deadline
-shedding, preemption and graceful drain of serving, and the perf,
-resilience and obs blocks of training, are not ported yet (ROADMAP.md,
-queue A), so their switches are absent rather than silently ignored.
+shedding, preemption and graceful drain of serving, the perf and obs
+blocks of training, and every resilience field but the checkpoint
+path's (``ResilienceConfig``) are not ported yet (ROADMAP.md, queue A),
+so their switches are absent rather than silently ignored.
 A field that is here but takes a value the port does not implement (the
 quantized vocab head; quantized matmuls under float16; a pipeline,
 sequence or expert axis above 1; quantized matmuls with tensor
@@ -369,16 +370,67 @@ class DistConfig:
 
 
 @dataclass
+class ResilienceConfig:
+    """The checkpoint path's part of the JAX package's
+    ``ResilienceConfig`` (torchacc_tpu/config.py:641-822), with its
+    defaults and validation messages: the I/O retries and their backoff,
+    the coordination timeout of the multi-rank resume consensus, and
+    elastic resume.  The guards, SDC defense, watchdog, loader retries,
+    batch validation and the preemption handler's emergency save come
+    with ROADMAP A13 and are absent: the port makes no emergency save on
+    SIGTERM.  ``tiered_checkpointing`` is here only to raise by name."""
+
+    # checkpoint save/restore I/O retries (jittered exponential backoff)
+    ckpt_retries: int = 3
+    retry_base_delay_s: float = 0.5
+    retry_max_delay_s: float = 8.0
+    retry_deadline_s: Optional[float] = None   # total wall-clock budget
+    # timeout of the resume consensus' collectives (more than one rank)
+    coord_timeout_s: float = 120.0
+    # allow fit(resume='auto') to restore a checkpoint saved under
+    # another data-parallel layout or process count (dp/fsdp/hosts);
+    # tp/pp/sp/spu/ep changes always raise TopologyMismatchError
+    elastic_resume: bool = False
+    # zero-stall tiered checkpoints (checkpoint/tiered.py): not ported
+    tiered_checkpointing: bool = False
+
+    def validate(self) -> None:
+        _check(self.ckpt_retries >= 0, "resilience.ckpt_retries must be >= 0")
+        _check(self.retry_base_delay_s >= 0,
+               "resilience.retry_base_delay_s must be >= 0")
+        _check(self.retry_max_delay_s >= self.retry_base_delay_s,
+               "resilience.retry_max_delay_s must be >= retry_base_delay_s")
+        if self.retry_deadline_s is not None:
+            _check(self.retry_deadline_s > 0,
+                   "resilience.retry_deadline_s must be positive")
+        _check(self.coord_timeout_s > 0,
+               "resilience.coord_timeout_s must be positive")
+        _unported(not self.tiered_checkpointing,
+                  "resilience.tiered_checkpointing (tiered zero-stall "
+                  "checkpoints)", "A13")
+
+    def retry_policy(self, max_retries: int):
+        """The ``utils.retry.RetryPolicy`` of the delay and deadline
+        fields."""
+        from torchacc_tpu_torch.utils.retry import RetryPolicy
+        return RetryPolicy(max_retries=max_retries,
+                           base_delay_s=self.retry_base_delay_s,
+                           max_delay_s=self.retry_max_delay_s,
+                           deadline_s=self.retry_deadline_s)
+
+
+@dataclass
 class Config:
     """The framework config.  Serving reads ``serve``; training reads
-    ``compute``, ``memory``, ``data``, ``dist``, ``grad_accum`` and
-    ``seed``."""
+    ``compute``, ``memory``, ``data``, ``dist``, ``resilience``,
+    ``grad_accum`` and ``seed``."""
 
     serve: ServeConfig = field(default_factory=ServeConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     data: DataConfig = field(default_factory=DataConfig)
     dist: DistConfig = field(default_factory=DistConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     # micro-batches per optimizer step (the global batch splits along
     # dim 0; the quant histories chain micro by micro)
     grad_accum: int = 1
@@ -393,6 +445,7 @@ class Config:
         self.memory.validate()
         self.data.validate()
         self.dist.validate()
+        self.resilience.validate()
         _check(self.grad_accum >= 1, "grad_accum must be >= 1")
         _unported(self.compute.quant == "none" or self.dist.tp.size == 1,
                   "compute.quant with dist.tp.size > 1", "A8b")

@@ -27,11 +27,18 @@ layers whether or not it scans them
 (``layers.block.<attn|mlp>.<linear>.amax_history [L, len]``), against the
 port's ``TrainState.quant`` (``layers.<i>.<attn|mlp>.<linear>`` ->
 ``[len]``).
+
+``state_from_jax`` / ``state_to_jax`` carry a whole JAX ``TrainState``
+(numpy leaves, as the JAX package restores a checkpoint host-side) into
+the port's ``TrainState`` and back: the step, the f32 masters, the
+AdamW moments and count out of optax's chain state, the fp16 scaler and
+the amax histories.  So a JAX run's state can be saved by the port and
+resumed by its Trainer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -170,3 +177,85 @@ def quant_to_jax(cfg: ModelConfig,
         site: {lin: {"amax_history": np.stack(rows)}
                for lin, rows in lins.items()}
         for site, lins in blk.items()}}}
+
+
+def _field(node: Any, key: str) -> Any:
+    return node[key] if isinstance(node, Mapping) else getattr(node, key)
+
+
+def _find_adam(node: Any) -> Optional[Any]:
+    """The node of optax's chain state that holds ``mu`` and ``nu``
+    (``ScaleByAdamState``, or the dict a host-side restore makes of
+    it)."""
+    if isinstance(node, Mapping):
+        if "mu" in node and "nu" in node:
+            return node
+        children = node.values()
+    elif hasattr(node, "mu") and hasattr(node, "nu"):
+        return node
+    elif isinstance(node, (list, tuple)):
+        children = node
+    else:
+        return None
+    for child in children:
+        found = _find_adam(child)
+        if found is not None:
+            return found
+    return None
+
+
+def state_from_jax(cfg: ModelConfig, tree: Any,
+                   device: Optional[Union[str, torch.device]] = None):
+    """The port's ``TrainState`` of a JAX ``TrainState`` ``tree`` with
+    numpy leaves (a host-side restore of a JAX checkpoint, or
+    ``jax.device_get`` of a live state), on the card unless ``device``
+    says otherwise: f32 masters and moments by the port's parameter
+    names, the AdamW count, the step, the fp16 scaler and the amax
+    histories."""
+    from torchacc_tpu_torch.train.schedules import AdamWState
+    from torchacc_tpu_torch.train.state import TrainState
+    device = resolve_device(device)
+
+    def named(params):
+        model = params_from_jax(cfg, params, device=device,
+                                dtype=torch.float32)
+        return {n: p.detach() for n, p in model.named_parameters()}
+
+    adam = _find_adam(_field(tree, "opt_state"))
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no Adam moments "
+                         "(mu, nu): the port's optimizer is AdamW")
+    scaler = _field(tree, "scaler")
+    if scaler is not None:
+        scaler = {"scale": _t(_field(scaler, "scale"), device, torch.float32),
+                  "growth_count": _t(_field(scaler, "growth_count"), device,
+                                     torch.int32)}
+    quant = _field(tree, "quant")
+    return TrainState(
+        step=int(np.asarray(_field(tree, "step"))),
+        params=named(_field(tree, "params")),
+        opt_state=AdamWState(mu=named(_field(adam, "mu")),
+                             nu=named(_field(adam, "nu")),
+                             count=int(np.asarray(_field(adam, "count")))),
+        scaler=scaler,
+        quant=None if quant is None else quant_from_jax(cfg, quant, device))
+
+
+def state_to_jax(cfg: ModelConfig, state) -> Dict:
+    """The inverse of :func:`state_from_jax`, for comparing leaf by leaf:
+    ``{step, params, opt_state: {count, mu, nu}, scaler, quant}`` with
+    the flax stacked layout and numpy leaves."""
+    from torchacc_tpu_torch.train.state import adam_state
+    opt = adam_state(state.opt_state)
+    scaler = state.scaler
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "params": params_to_jax(cfg, state.params),
+        "opt_state": {"count": np.asarray(opt.count, np.int32),
+                      "mu": params_to_jax(cfg, opt.mu),
+                      "nu": params_to_jax(cfg, opt.nu)},
+        "scaler": None if scaler is None else {
+            k: v.detach().cpu().numpy() for k, v in scaler.items()},
+        "quant": (None if state.quant is None
+                  else quant_to_jax(cfg, state.quant)),
+    }

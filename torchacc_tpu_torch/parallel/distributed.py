@@ -14,8 +14,6 @@ arguments win over both.  Nothing here reads a cluster scheduler.
 from __future__ import annotations
 
 import os
-import random
-import time
 from typing import Optional, Union
 
 import torch
@@ -24,6 +22,7 @@ import torch.distributed as dist
 from torchacc_tpu_torch.errors import CoordinationError
 from torchacc_tpu_torch.ops._common import resolve_device
 from torchacc_tpu_torch.utils.logger import logger
+from torchacc_tpu_torch.utils.retry import RetryPolicy, retry_call
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -67,8 +66,9 @@ def initialize_distributed(
     ``init_process_group`` URL; ``num_processes``/``process_id`` are
     the world size and this rank.
 
-    The join is retried ``init_retries`` times with the JAX package's
-    jittered exponential backoff (``retry_base_delay_s`` doubling up to
+    The join is retried ``init_retries`` times by ``utils.retry``, with
+    the JAX package's jittered exponential backoff
+    (``retry_base_delay_s`` doubling up to
     ``retry_max_delay_s``, times a uniform jitter in [0.5, 1.5]): at
     bring-up the coordinator often comes up
     after the workers.  When every attempt fails it raises a
@@ -95,26 +95,22 @@ def initialize_distributed(
         torch.cuda.set_device(dev)
     url = _init_method(coordinator_address)
     attempts = max(init_retries, 0) + 1
-    for attempt in range(attempts):
-        try:
-            dist.init_process_group(backend, init_method=url,
-                                    world_size=num_processes,
-                                    rank=process_id)
-            break
-        except (RuntimeError, ValueError) as e:
-            if attempt + 1 == attempts:
-                raise CoordinationError(
-                    f"could not join the {backend} process group at "
-                    f"coordinator {url} (process {process_id}/"
-                    f"{num_processes}) after {attempts} attempt(s): {e!r}. "
-                    f"Check that the coordinator is up, its address is "
-                    f"reachable from this host, and every process was "
-                    f"started with the same world size.",
-                    primitive="initialize") from e
-            delay = min(retry_max_delay_s, retry_base_delay_s * 2 ** attempt)
-            logger.warning(f"init_process_group failed ({e!r}); retry "
-                           f"{attempt + 1}/{attempts - 1} in {delay:.1f} s")
-            time.sleep(delay * random.uniform(0.5, 1.5))
+    policy = RetryPolicy(max_retries=attempts - 1,
+                         base_delay_s=retry_base_delay_s,
+                         max_delay_s=retry_max_delay_s)
+    try:
+        retry_call(lambda: dist.init_process_group(
+            backend, init_method=url, world_size=num_processes,
+            rank=process_id), policy, "init_process_group")
+    except (RuntimeError, ValueError) as e:
+        raise CoordinationError(
+            f"could not join the {backend} process group at "
+            f"coordinator {url} (process {process_id}/"
+            f"{num_processes}) after {attempts} attempt(s): {e!r}. "
+            f"Check that the coordinator is up, its address is "
+            f"reachable from this host, and every process was "
+            f"started with the same world size.",
+            primitive="initialize") from e
     logger.info(f"distributed initialised: rank {dist.get_rank()}/"
                 f"{dist.get_world_size()} over {backend}")
 

@@ -3,14 +3,24 @@
 the fp16 loss scaler (``train/amp.py``), and the delayed-scaling amax
 histories of the quantized matmul sites.  The step is a host
 integer: the JAX trainer mirrors its device step on the host too
-(``_host_step``), and the port never needs it on the device."""
+(``_host_step``), and the port never needs it on the device.
+
+``flat_state`` is the named view a checkpoint holds
+(``checkpoint/io.py``): one tensor per leaf, the state's own tensors
+(DTensors where the state is sharded), with the step and the AdamW count
+as 0-dim int64 host tensors.  The bf16 shadow of ``amp.bf16_param_shadow``
+is not a leaf: it is the bf16 cast of the masters, and the trainer makes
+it again after a restore.  ``set_scalars`` writes a loaded step and
+count back into the state."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+from torchacc_tpu_torch.train.schedules import AdamWState
 
 
 @dataclass
@@ -27,3 +37,42 @@ class TrainState:
     # [quant_amax_history_len] f32; None when compute.quant == 'none',
     # so the state without quantization is what it was
     quant: Optional[Dict[str, torch.Tensor]] = None
+
+
+def adam_state(opt_state: Any) -> AdamWState:
+    """The ``AdamWState`` of an optimizer state: itself, or the inner
+    state of ``amp.bf16_param_shadow``'s ``(inner, shadow)``."""
+    if isinstance(opt_state, tuple):
+        opt_state = opt_state[0]
+    if not isinstance(opt_state, AdamWState):
+        raise TypeError(
+            f"checkpoints hold the port's AdamW state; got an optimizer "
+            f"state of type {type(opt_state).__name__}")
+    return opt_state
+
+
+def flat_state(state: TrainState) -> Dict[str, torch.Tensor]:
+    """``{leaf name: tensor}`` of ``state``: ``step``, ``params/<name>``,
+    ``opt_state/{count,mu/<name>,nu/<name>}``, ``scaler/<key>`` and
+    ``quant/<site>``.  Tensors are the state's own (detached views, so a
+    load into them writes the state); the step and the count are new
+    host tensors, and reading the count waits for a pending fp16 skip
+    flag (``schedules.AdamWState.count``), so a skipped update is never
+    saved as applied."""
+    opt = adam_state(state.opt_state)
+    out = {"step": torch.tensor(int(state.step), dtype=torch.int64)}
+    out.update({f"params/{n}": p.detach() for n, p in state.params.items()})
+    out["opt_state/count"] = torch.tensor(opt.count, dtype=torch.int64)
+    out.update({f"opt_state/mu/{n}": t for n, t in opt.mu.items()})
+    out.update({f"opt_state/nu/{n}": t for n, t in opt.nu.items()})
+    for part in ("scaler", "quant"):
+        tensors = getattr(state, part)
+        if tensors is not None:
+            out.update({f"{part}/{k}": t for k, t in tensors.items()})
+    return out
+
+
+def set_scalars(state: TrainState, flat: Mapping[str, torch.Tensor]) -> None:
+    """Write the step and the AdamW count of ``flat`` into ``state``."""
+    state.step = int(flat["step"])
+    adam_state(state.opt_state).count = int(flat["opt_state/count"])

@@ -1,7 +1,8 @@
 """The Trainer, core only (the port of torchacc_tpu/train/trainer.py):
 ``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933,
-the step of ``_build_train_step`` :563), ``eval_step`` and ``fit``
-(:1272), on one device or on a mesh.
+the step of ``_build_train_step`` :563), ``eval_step``, ``save`` and
+``restore`` (:1114, :1147) and ``fit`` (:1272-1515, with its checkpoint
+saves :1805-1845), on one device or on a mesh.
 
 One step is forward -> loss (the fused linear + CE head by default) ->
 backward -> f32 global-norm clip -> AdamW on the f32 masters; with
@@ -62,8 +63,16 @@ splits the global batch: the same sum, but quantized matmuls would see
 other rows per micro-batch, so that combination raises on more than one
 data shard (ROADMAP.md C2, A8b).  ``fit`` logs on rank 0 only.
 
-Not ported: the tiered checkpoints (ROADMAP A9), and the resilience,
-SDC, guard, telemetry and dispatch-ring hooks (A13).
+Checkpoints (``checkpoint/``): ``save``/``restore`` write and read the
+whole state (masters, AdamW moments and count, the fp16 scaler, the
+amax histories, the step); ``fit(checkpoint_dir=...)`` saves through a
+``CheckpointManager`` and resumes with ``resume='auto'``.  A restore
+writes the masters in place, so it makes the bf16 shadow again (on a
+mesh FSDP2 casts the masters at every forward by itself).
+
+Not ported: the tiered checkpoints, the emergency save on a preemption
+signal, and the resilience, SDC, guard, telemetry and dispatch-ring
+hooks (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -78,7 +87,17 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from torchacc_tpu_torch.checkpoint.io import (
+    CheckpointManager,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from torchacc_tpu_torch.config import Config
+from torchacc_tpu_torch.errors import (
+    CheckpointCorruptionError,
+    CheckpointNotFoundError,
+    TrainerStateError,
+)
 from torchacc_tpu_torch.models.transformer import (
     TransformerLM,
     check_training_supported,
@@ -102,6 +121,7 @@ from torchacc_tpu_torch.train.amp import (
 from torchacc_tpu_torch.train.schedules import GradientTransformation, adamw
 from torchacc_tpu_torch.train.state import TrainState
 from torchacc_tpu_torch.utils.logger import logger
+from torchacc_tpu_torch.utils.metrics import counters
 
 
 def shift_labels(input_ids: torch.Tensor,
@@ -429,37 +449,173 @@ class Trainer:
         l_sum, count = self._global(l_sum, count)
         return {"loss": l_sum / torch.clamp(count, min=1.0)}
 
-    # -- loop -----------------------------------------------------------------
-    def fit(self, loader, *, max_steps: Optional[int] = None,
-            log_every: int = 50) -> List[Dict[str, Any]]:
-        """Run ``step`` over ``loader`` (at most ``max_steps`` batches).
-        Returns a ``{step, loss, time_s, steps_per_sec,
-        tokens_per_sec}`` record for every ``log_every``-th step; only
-        those steps read the loss back to the host.  On a mesh
-        ``loader`` yields this rank's rows, ``tokens_per_sec`` counts the
-        global batch's and only rank 0 logs."""
+    # -- checkpoints ----------------------------------------------------------
+    def save(self, path: str, blocking: bool = True):
+        """A sharded checkpoint of the whole train state at ``path``
+        (``checkpoint.save_checkpoint``).  ``blocking=False`` stages the
+        state to host memory and writes in the background; call
+        ``.wait()`` on the returned handle before relying on it."""
+        if self.state is None:
+            raise TrainerStateError(
+                "nothing to save — call init() (or step) first")
+        return save_checkpoint(path, self.state, blocking=blocking)
+
+    def restore(self, path: str) -> TrainState:
+        """Load the checkpoint at ``path`` into the train state, in place
+        (its devices and layout; ``init`` first makes the state to load
+        into when there is none), and make the bf16 shadow again."""
         if self.state is None:
             self.init()
-        history = []
-        t0 = time.perf_counter()
-        t_prev, s_prev = t0, self.state.step
-        for batch in itertools.islice(loader, max_steps):
-            r = self.state.step
-            m = self.step(batch)
-            if not (log_every and r % log_every == 0):
-                continue
-            loss = float(m["loss"])
-            now = time.perf_counter()
-            rec = {"step": r, "loss": loss, "time_s": round(now - t0, 2)}
-            if r > s_prev:
-                rec["steps_per_sec"] = round(
-                    (r - s_prev) / max(now - t_prev, 1e-9), 3)
-                ids = batch["input_ids"]
-                rec["tokens_per_sec"] = round(
-                    rec["steps_per_sec"] * ids.shape[0] * ids.shape[1]
-                    * self._data_shards, 1)
-            t_prev, s_prev = now, r
-            history.append(rec)
-            if is_primary():
-                logger.info(f"step {r}: loss {loss:.4f}")
-        return history
+        restore_checkpoint(path, self.state)
+        self._after_restore()
+        return self.state
+
+    @torch.no_grad()
+    def _after_restore(self) -> None:
+        """The bf16 shadow is the cast of the masters: after a load into
+        the masters, the forward must not read the old one."""
+        if self._shadow_on:
+            shadow = shadow_params(self.state.opt_state)
+            for name, m in self.state.params.items():
+                shadow[name].copy_(m)
+
+    def _manager(self, checkpoint_dir: str,
+                 checkpoint_every: int) -> CheckpointManager:
+        res = self.config.resilience
+        return CheckpointManager(
+            checkpoint_dir, save_interval_steps=checkpoint_every,
+            retry_policy=res.retry_policy(res.ckpt_retries),
+            coord_timeout_s=res.coord_timeout_s,
+            elastic_resume=res.elastic_resume)
+
+    def _resume(self, mgr: CheckpointManager) -> int:
+        """``fit(resume='auto')``'s restore: the step restored, or 0 when
+        the directory holds nothing restorable."""
+        try:
+            _, step = mgr.restore_latest_valid(self.state)
+        except CheckpointNotFoundError:
+            logger.info("resume='auto': no checkpoint yet — starting fresh")
+            return 0
+        except CheckpointCorruptionError as e:
+            # every step is unreadable (the run died in its very first
+            # save): the restart must still start the run.  A failed
+            # read leaves the state as it was (checkpoint/io.py).
+            logger.warning(f"resume='auto': no restorable checkpoint ({e}); "
+                           "starting fresh")
+            return 0
+        self._after_restore()
+        counters.inc("resumes")
+        return step
+
+    # -- loop -----------------------------------------------------------------
+    def fit(self, loader, *, max_steps: Optional[int] = None,
+            log_every: int = 50, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 1000,
+            resume: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Run ``step`` over ``loader`` until ``max_steps`` steps have been
+        taken, counting the steps a resume restored.  Returns a ``{step,
+        loss, time_s, steps_per_sec, tokens_per_sec}`` record for every
+        ``log_every``-th step; only those steps read the loss back to
+        the host.  On a mesh ``loader`` yields this rank's rows,
+        ``tokens_per_sec`` counts the global batch's and only rank 0
+        logs.
+
+        ``checkpoint_dir``: a ``CheckpointManager`` there saves the state
+        after the steps ``should_save`` picks (each a multiple of
+        ``checkpoint_every``, and the first when the directory is empty),
+        labelled with the number of steps taken, with the loader's
+        ``state_dict()`` beside it; it is closed (the last save's marker
+        committed) on every exit.  ``resume='auto'`` (needs
+        ``checkpoint_dir``) restores the newest valid step (commit-marked,
+        digest matching this state, payload readable; falling back a step
+        on corruption) and continues from there: the loader is
+        repositioned from the step's ``loader_state.json`` through its
+        ``load_state_dict``, else by ``skip_batches`` (or by consuming
+        the batches).  An empty directory, or one whose every step is
+        corrupt (with a warning), starts fresh; a state that drifted
+        from the checkpoint's raises.  The port makes no emergency save
+        on a preemption signal (ROADMAP A13)."""
+        if self.state is None:
+            self.init()
+        if resume is not None and resume != "auto":
+            raise ValueError(f"resume must be None or 'auto', got {resume!r}")
+        if resume is not None and checkpoint_dir is None:
+            raise TrainerStateError(
+                "fit(resume='auto') requires checkpoint_dir")
+        mgr = (None if checkpoint_dir is None
+               else self._manager(checkpoint_dir, checkpoint_every))
+        data_it = None
+        try:
+            start_step = 0 if resume is None else self._resume(mgr)
+            data_it, bounded = self._data(loader, mgr, start_step, max_steps)
+            loader_state = getattr(loader, "state_dict", None)
+            history = []
+            t0 = time.perf_counter()
+            t_prev, s_prev = t0, self.state.step
+            for step_idx, batch in enumerate(bounded, start=start_step):
+                r = self.state.step
+                m = self.step(batch)
+                if mgr is not None:
+                    mgr.save(step_idx + 1, self.state,
+                             loader_state=loader_state)
+                if not (log_every and r % log_every == 0):
+                    continue
+                loss = float(m["loss"])
+                now = time.perf_counter()
+                rec = {"step": r, "loss": loss,
+                       "time_s": round(now - t0, 2)}
+                if r > s_prev:
+                    rec["steps_per_sec"] = round(
+                        (r - s_prev) / max(now - t_prev, 1e-9), 3)
+                    ids = batch["input_ids"]
+                    rec["tokens_per_sec"] = round(
+                        rec["steps_per_sec"] * ids.shape[0] * ids.shape[1]
+                        * self._data_shards, 1)
+                t_prev, s_prev = now, r
+                history.append(rec)
+                if is_primary():
+                    logger.info(f"step {r}: loss {loss:.4f}")
+            return history
+        finally:
+            # an early exit must stop the loader's producer thread now
+            close = getattr(data_it, "close", None)
+            if close is not None:
+                close()
+            if mgr is not None:
+                mgr.close()
+
+    def _data(self, loader, mgr, start_step: int, max_steps: Optional[int]):
+        """(the loader's iterator, the batches this fit steps over): after
+        a resume the loader is repositioned past the ``start_step``
+        batches the restored state consumed."""
+        left = None if max_steps is None else max(max_steps - start_step, 0)
+        load = getattr(loader, "load_state_dict", None)
+        loader_state = (mgr.read_loader_state(start_step)
+                        if start_step and load is not None else None)
+        skip = getattr(loader, "skip_batches", None)
+        prefix = 0
+        if loader_state is not None:
+            # O(1): the loader seeks from its durable state
+            load(loader_state)
+            data_it = iter(loader)
+        elif start_step and skip is not None:
+            counters.inc("resume_replayed_batches", start_step)
+            logger.warning(
+                f"resume='auto': no durable loader state at step "
+                f"{start_step} — replaying {start_step} consumed batches "
+                "(skip-replay)")
+            data_it = skip(start_step)
+        else:
+            data_it = iter(loader)
+            if start_step:
+                # no durable state and no skip support: the consumed
+                # prefix is read and dropped
+                counters.inc("resume_replayed_batches", start_step)
+                prefix = start_step
+        if start_step:
+            logger.info(f"resume='auto': restored step {start_step}; "
+                        + ("restoring durable loader state"
+                           if loader_state is not None else
+                           f"skipping {start_step} consumed batches"))
+        stop = None if left is None else prefix + left
+        return data_it, itertools.islice(data_it, prefix, stop)

@@ -1,4 +1,5 @@
-"""The parts of torchacc_tpu/utils/metrics.py the serving engine uses:
+"""The parts of torchacc_tpu/utils/metrics.py the serving engine and the
+checkpoints use:
 the host-blocked meter, the process-wide counters and a JSONL metrics
 writer (one JSON object per logged record; single process, so no
 per-host file split and no TensorBoard sink)."""
@@ -45,7 +46,9 @@ class BlockedMeter:
 class Counters:
     """Process-wide monotonic counters (serving: ``prefix_hits``,
     ``prefix_blocks_reused``, ``prefix_evictions``, ``cow_copies``,
-    ``serve_requests_*``, ``serve_tokens_generated``)."""
+    ``serve_requests_*``, ``serve_tokens_generated``; checkpoints:
+    ``ckpt_retries``, ``resumes``, ``elastic_reshards``,
+    ``resume_replayed_batches``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -55,6 +58,10 @@ class Counters:
         with self._lock:
             self._c[name] = self._c.get(name, 0) + n
             return self._c[name]
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._c.get(name, 0)
 
 
 #: The process-wide instance every subsystem shares.
