@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--layers 32] [--train-layers 8] [--train-steps 8]
                           [--quant-steps 6] [--data-steps 16]
                           [--fp16-steps 8] [--check-layers 2]
-                          [--ckpt-layers 1] [--reps 50] [--seed 0]
-                          [--profile]
+                          [--ckpt-layers 1] [--hf-layers 16] [--hf-steps 8]
+                          [--reps 50] [--seed 0] [--profile]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -23,7 +23,8 @@ Phases, each of which exits non-zero when it fails:
    version's, one library call on pre-gathered K/V
    (F.scaled_dot_product_attention, a yardstick the port never calls),
    the least time the card could take and the host's time to issue a
-   call;
+   call; then the same decode, prefill and long-decode cases with heads
+   of 64 (Llama-3.2-1B's attention, 32/8 heads), checked and timed;
 4. the flash-attention kernel phase: B1 (forward), B2 (dq) and B3
    (dk/dv) against the plain version on the same CUDA tensors — the
    training shape b=2 s=4096 H=32 KH=8 D=128 bf16, causal, packed
@@ -39,7 +40,9 @@ Phases, each of which exits non-zero when it fails:
    training shape again in float16 (the fp16 step's kernels) at two f16
    ulps (atol 2e-4 + rtol 2e-3), with its times, bounds and SDPA's f16
    time; its control, the bf16 kernels on the same inputs cast to bf16,
-   must read above that tolerance for o, dq, dk and dv;
+   must read above that tolerance for o, dq, dk and dv.  Then heads of
+   64: the training shape in bf16 (checked and timed), the f32 case and
+   the sq != sk case;
 5. the quantized-matmul kernel phase: B5 (a quantize pass and a wgmma
    GEMM, 8-bit for int8 and f16 for fp8's e4m3 values) against its
    plain version on the same CUDA tensors, int8
@@ -174,12 +177,36 @@ Phases, each of which exits non-zero when it fails:
    count and a digest of every tensor's words) and the mesh's next loss
    bitwise the one device's; then the mesh trainer's state saved
    (blocking, timed) and restored into a one-device trainer (timed),
-   bitwise, its next loss bitwise the mesh's.
+   bitwise, its next loss bitwise the mesh's;
+13. the Hugging Face phase (run before the checkpoint phases):
+   meta-llama/Llama-3.2-1B's published config.json (vocab 128256,
+   hidden 2048, 32/8 heads of 64, ffn 8192, llama3 rope, tied
+   embeddings) at --hf-layers (its 16) and its weights in HF's tensor
+   names, bf16, normal(0.02) from numpy generators seeded from --seed,
+   written by this script's own safetensors writer as 4 shards and an
+   index under /dev/shm (or the git-ignored chip_smoke_hf/ where
+   /dev/shm lacks room; removed after the load).  accelerate(that
+   directory, PackedDataset(Zipf documents, 4096, 2 rows), Config(bf16
+   shadow, save_attn_mlp)) streams it into the f32 masters, which must
+   equal the written weights bitwise; the loaded model's loss and
+   first-layer gradients through B1-B3 lie within _grad_limit of the
+   plain attention's, and the segments-ignored control must not; fit
+   for --hf-steps steps with an eval_loader pass after the last:
+   every loss finite, the last two below the first, B2/B3 at d = 64
+   launching layers x steps times and B1 layers x (steps + evaluation
+   batches).  ServeEngine.from_train_state(trainer) serves 4 greedy
+   requests (prompts 64..1000, 16 new tokens) in bf16: B4 at d = 64
+   launches layers x dispatches, the last-prompt logits lie within
+   _logits_limit of the plain path and its two controls must not, the
+   first divergence from generate() is printed; in f32 compute the
+   served greedy streams must equal generate()'s on the same weights.
+   Printed: the load time and GB/s, step ms, tokens/s, MFU, peak
+   memory, serving tokens/s and TTFT.
 
 No earlier phase was cut to make room: on an H100 the whole run takes
-about 330 s (33-54 s of it the build, about 150 s the checkpoint
-phases, bound by the disk; stderr has each kernel's registers and
-spills from nvcc's -Xptxas -v).
+about 425 s (75 s of it the build, about 45 s the Hugging Face phase,
+about 150 s the checkpoint phases, bound by the disk; stderr has each
+kernel's registers and spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -311,11 +338,11 @@ def _card():
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None):
+def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None, d=D):
     """Per-layer pools with random contents and per-slot shuffled block
     tables (different per layer, so timing loops do not re-read one
-    layer's pages out of L2).  Each slot's first query row sits at
-    ctx - t unless ``q_start`` says otherwise."""
+    layer's pages out of L2), heads of ``d``.  Each slot's first query
+    row sits at ctx - t unless ``q_start`` says otherwise."""
     import numpy as np
     s = len(ctx)
     mb = max(1, -(-max(ctx) // BS))
@@ -327,11 +354,11 @@ def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None):
             n = -(-c // BS)
             tables[l, i, :n] = [perm.pop() for _ in range(n)]
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
-    k = torch.randn((layers, nb, BS, KH, D), generator=gen, device="cuda",
+    k = torch.randn((layers, nb, BS, KH, d), generator=gen, device="cuda",
                     dtype=dtype)
-    v = torch.randn((layers, nb, BS, KH, D), generator=gen, device="cuda",
+    v = torch.randn((layers, nb, BS, KH, d), generator=gen, device="cuda",
                     dtype=dtype)
-    q = torch.randn((s, t, H, D), generator=gen, device="cuda", dtype=dtype)
+    q = torch.randn((s, t, H, d), generator=gen, device="cuda", dtype=dtype)
     q_start = np.asarray(q_start if q_start is not None
                          else [max(c - t, 0) for c in ctx], np.int32)
     cuda_i32 = lambda a: torch.from_numpy(a).cuda()
@@ -339,10 +366,10 @@ def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None):
             cuda_i32(q_start))
 
 
-def _work(ctx, q_start, t, window, elem):
+def _work(ctx, q_start, t, window, elem, d=D):
     """(bytes, flops) the function needs for these inputs: each input
     read once (only the K/V rows some query row can see, the block-table
-    entries that name them), each output written once; 4*D flops per
+    entries that name them), each output written once; 4*d flops per
     visible (row, key) pair and head."""
     left, right = window
     s = len(ctx)
@@ -360,10 +387,10 @@ def _work(ctx, q_start, t, window, elem):
         if lo_all is not None:
             keys += hi_all - lo_all + 1
             entries += hi_all // BS - lo_all // BS + 1
-    nbytes = (2 * s * t * H * D * elem          # q in, out
-              + keys * KH * D * 2 * elem        # k and v rows
+    nbytes = (2 * s * t * H * d * elem          # q in, out
+              + keys * KH * d * 2 * elem        # k and v rows
               + entries * 4 + 2 * s * 4)        # table entries, ctx, q_start
-    return nbytes, 4 * D * H * pairs
+    return nbytes, 4 * d * H * pairs
 
 
 def _host_ms(torch, fn, iters=20):
@@ -397,7 +424,10 @@ def _time_ms(torch, fn, iters, warm=3):
     return a.elapsed_time(b) / iters
 
 
-def _kernel_phase(torch, args, pa):
+def _kernel_phase(torch, args, pa, d=D, only=None):
+    """B4 against its plain version at heads of ``d`` (``only``: the
+    cases to run, default all), with times of the decode and prefill
+    shapes."""
     import numpy as np
     import torch.nn.functional as F
     rng = np.random.default_rng(args.seed)
@@ -412,7 +442,7 @@ def _kernel_phase(torch, args, pa):
     # cut of a slot's keys into the plan's parts changes (the 128-key
     # minimum part; parts of two 64-key stages)
     parts = pa._paged_plan(
-        (8, 1, H, D), (8 * 512 + 1, BS, KH, D), 8192 // BS, torch.bfloat16,
+        (8, 1, H, d), (8 * 512 + 1, BS, KH, d), 8192 // BS, torch.bfloat16,
         torch.cuda.get_device_properties(0).multi_processor_count).splits
     long_ctx = [1, 127, 128, 129, 128 * parts, 128 * parts + 1, 6000, 8192]
     cases = {   # name: (contexts, T, window, softcap, q_start or None)
@@ -427,10 +457,13 @@ def _kernel_phase(torch, args, pa):
                             [0, 700, 1500]),
     }
     timed = ("decode", "prefill", "decode_long")
+    tag = "kernel" if d == D else f"kernel[d{d}]"
     results = {}
     for name, (ctx, t, window, cap, q0s) in cases.items():
+        if only is not None and name not in only:
+            continue
         q, k, v, tables, lens, q_start = _paged_case(
-            torch, rng, ctx, t, layers, torch.bfloat16, q0s)
+            torch, rng, ctx, t, layers, torch.bfloat16, q0s, d)
         kw = dict(window=window, logit_softcap=cap)
         out = pa.paged_attention(q, k[0], v[0], tables[0], lens, q_start,
                                  impl="cuda", **kw)
@@ -439,14 +472,14 @@ def _kernel_phase(torch, args, pa):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.isfinite(out).all():
-            _fail(f"kernel case {name}: non-finite output")
+            _fail(f"{tag} case {name}: non-finite output")
         if any(c == 0 and out[i].abs().max().item() != 0.0
                for i, c in enumerate(ctx)):
-            _fail(f"kernel case {name}: a ctx=0 slot is not zero")
+            _fail(f"{tag} case {name}: a ctx=0 slot is not zero")
         try:
             torch.testing.assert_close(out.float(), ref.float(), **tol)
         except AssertionError as e:
-            _fail(f"kernel case {name} disagrees with the plain version: "
+            _fail(f"{tag} case {name} disagrees with the plain version: "
                   f"{e}")
         rec = {"max_abs_err": err, "tolerance": tol, "ctx": ctx, "t": t,
                "window": list(window), "softcap": cap}
@@ -463,7 +496,7 @@ def _kernel_phase(torch, args, pa):
             # the yardstick: one SDPA call on K/V gathered beforehand
             mb = tables.shape[-1]
             def gather(pool, tt):      # [S, H, MB*BS, D], heads expanded
-                return (pool[tt].reshape(len(ctx), mb * BS, KH, D)
+                return (pool[tt].reshape(len(ctx), mb * BS, KH, d)
                         .repeat_interleave(H // KH, dim=2).transpose(1, 2)
                         .contiguous())
             dense = [(gather(k[l], tables[l].long()),
@@ -479,13 +512,13 @@ def _kernel_phase(torch, args, pa):
                     attn_mask=mask), iters)
             del dense
             q0 = q_start.cpu().tolist()
-            nbytes, flops = _work(ctx, q0, t, window, 2)
+            nbytes, flops = _work(ctx, q0, t, window, 2, d)
             tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
             rec.update(bytes=nbytes, flops=flops,
                        bound_ms=max(tb, tf) * 1e3,
                        bound_by="bytes" if tb >= tf else "operations")
         results[name] = rec
-        print(f"kernel {name}: max_abs_err {err:.3g} (atol {tol['atol']}, "
+        print(f"{tag} {name}: max_abs_err {err:.3g} (atol {tol['atol']}, "
               f"rtol {tol['rtol']})"
               + (f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
                  f" ms, library {rec['library_ms']:.4f} ms, bound "
@@ -790,14 +823,14 @@ def _packed_positions(rng, b, s, lo, hi):
     return np.asarray(rows, np.int32)
 
 
-def _flash_inputs(torch, rng, b, sq, sk, dtype, segments):
+def _flash_inputs(torch, rng, b, sq, sk, dtype, segments, d=D):
     from torchacc_tpu_torch.ops.flash_attention import (
         segment_ids_from_positions)
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda",
                                      dtype=dtype)
-    q, k, v, do = rnd(b, sq, H, D), rnd(b, sk, KH, D), rnd(b, sk, KH, D), \
-        rnd(b, sq, H, D)
+    q, k, v, do = rnd(b, sq, H, d), rnd(b, sk, KH, d), rnd(b, sk, KH, d), \
+        rnd(b, sq, H, d)
     seg = None
     if segments:
         assert sq == sk
@@ -826,8 +859,9 @@ def _flash_work(torch, q, k, seg, causal, window):
     return pairs, {"fwd": fwd, "bwd_dq": dq, "bwd_dkv": dkv}, mask
 
 
-def _flash_phase(torch, args):
-    """B1-B3 against the plain version; times at the training shape."""
+def _flash_phase(torch, args, d=D, only=None):
+    """B1-B3 against the plain version at heads of ``d`` (``only``: the
+    cases to run, default all); times at the training shape."""
     import numpy as np
     import torch.nn.functional as F
     import torchacc_tpu_torch.ops.flash_attention as fa
@@ -866,11 +900,14 @@ def _flash_phase(torch, args):
                                    alibi_slopes=slopes)),
     }
     results = {}
+    tag = "flash" if d == D else f"flash[d{d}]"
     for name, (b, sq, sk, dtype, segments, causal, window, cap,
                more) in cases.items():
+        if only is not None and name not in only:
+            continue
         q, k, v, do, seg = _flash_inputs(torch, rng, b, sq, sk, dtype,
-                                         segments)
-        scale = D ** -0.5
+                                         segments, d)
+        scale = d ** -0.5
         kw = dict(causal=causal, window=window, logit_softcap=cap,
                   q_segment_ids=seg, kv_segment_ids=seg, **more)
         got, ref = {}, {}
@@ -886,7 +923,7 @@ def _flash_phase(torch, args):
         for key in ("o", "lse", "dq", "dk", "dv"):
             a, r = got[key].float(), ref[key].float()
             if not torch.isfinite(a).all():
-                _fail(f"flash case {name}: non-finite {key}")
+                _fail(f"{tag} case {name}: non-finite {key}")
             t = (dict(atol=1e-5, rtol=1e-5) if key == "lse" else
                  tol[dtype] if key == "o" else grad_tol[dtype])
             err = (a - r).abs()
@@ -897,7 +934,7 @@ def _flash_phase(torch, args):
             try:
                 torch.testing.assert_close(a, r, **t)
             except AssertionError as e:
-                _fail(f"flash case {name}: {key} disagrees with the plain "
+                _fail(f"{tag} case {name}: {key} disagrees with the plain "
                       f"version: {e}")
         if name == "sq_ne_sk_empty_rows":
             blind = sq - sk                     # query i sits at i + sk - sq
@@ -906,7 +943,7 @@ def _flash_phase(torch, args):
                     or got["dq"][:, :blind].abs().max().item() != 0.0):
                 _fail("flash: rows that see no key must give o = 0, "
                       "lse = NEG_INF and dq = 0")
-        print(f"flash {name}: " + ", ".join(
+        print(f"{tag} {name}: " + ", ".join(
             f"{key} err {rec[key]['max_abs_err']:.3g} (ref max "
             f"{rec[key]['ref_max']:.3g}, worst/tol "
             f"{rec[key]['worst_over_tol']:.3g})"
@@ -921,7 +958,8 @@ def _flash_phase(torch, args):
         results[name] = rec
         del q, k, v, do, seg
         torch.cuda.empty_cache()
-    results["dropped_fraction"] = _dropped_fraction(torch, fa)
+    if only is None:
+        results["dropped_fraction"] = _dropped_fraction(torch, fa)
     return results
 
 
@@ -1013,8 +1051,9 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         out["library_fwd_ms"] = lib_fwd
         out["library_bwd_ms"] = lib_all - lib_fwd
         del qt, kt, vt, dot, qg, kg, vg
-    flops = {"fwd": 4 * D * pairs * H, "bwd_dq": 6 * D * pairs * H,
-             "bwd_dkv": 8 * D * pairs * H}
+    d = q.shape[-1]
+    flops = {"fwd": 4 * d * pairs * H, "bwd_dq": 6 * d * pairs * H,
+             "bwd_dkv": 8 * d * pairs * H}
     out["visible_pairs_per_head"] = pairs
     for kname in FLASH:
         tb = nbytes[kname] / PEAK_BYTES_PER_S
@@ -1027,7 +1066,8 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         out[f"{kname}_tflops"] = flops[kname] / out[f"{kname}_ms"] / 1e9
         out[f"{kname}_bound_share"] = \
             out[f"{kname}_bound_ms"] / out[f"{kname}_ms"]
-    dt = str(q.dtype).removeprefix("torch.")
+    dt = str(q.dtype).removeprefix("torch.") + ("" if d == D else
+                                                 f", d {d}")
     print(f"flash train shape {dt}: visible pairs/head {pairs}; kernel ms fwd "
           f"{out['fwd_ms']:.3f} dq {out['bwd_dq_ms']:.3f} dkv "
           f"{out['bwd_dkv_ms']:.3f}; plain ms fwd {out['plain_fwd_ms']:.2f} "
@@ -1756,13 +1796,8 @@ def _grad_limit(layers):
 
 
 def _model_check_phase(torch, args):
-    import dataclasses
     import numpy as np
     from torchacc_tpu_torch import get_preset, init_params
-    from torchacc_tpu_torch.models.transformer import (head_weight,
-                                                      set_model_config)
-    from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
-    from torchacc_tpu_torch.train import shift_labels
 
     layers = args.check_layers
     cfg = get_preset("llama3-8b", num_layers=layers, remat=True,
@@ -1771,6 +1806,29 @@ def _model_check_phase(torch, args):
                         dtype=torch.bfloat16).requires_grad_(True).train()
     batch = _train_batch(torch, np.random.default_rng(args.seed + 3),
                          cfg.vocab_size)
+    rel = _kernels_vs_plain(torch, model, batch, f"model check ({layers} "
+                            f"layers)")
+    del model
+    torch.cuda.empty_cache()
+    return rel
+
+
+def _kernels_vs_plain(torch, model, batch, tag):
+    """One forward + backward of ``model`` (weights that take gradients)
+    on ``batch`` through the flash kernels, through attention_impl=
+    'torch', and through the control (plain attention with the segment
+    mask ignored): the loss and the first layer's q/k/v-projection and
+    the embedding gradients must agree within ``_grad_limit`` between
+    the first two, and the control must part from the plain run by
+    more.  The model's config is left as it was."""
+    import dataclasses
+    from torchacc_tpu_torch.models.transformer import (head_weight,
+                                                      set_model_config)
+    from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
+    from torchacc_tpu_torch.train import shift_labels
+
+    cfg = model.cfg
+    layers = cfg.num_layers
     labels = shift_labels(batch["input_ids"], batch["segment_ids"])
     watched = {"embed": model.embed_tokens.weight,
                **{f"layer0.{n}": getattr(model.layers[0].attn, n).weight
@@ -1797,11 +1855,12 @@ def _model_check_phase(torch, args):
                                  ("ignore_segments", "torch", False)):
         got = run(impl, segments)
         if not all(torch.isfinite(t).all() for t in got.values()):
-            _fail(f"model check ({name}): non-finite loss or gradient")
+            _fail(f"{tag} ({name}): non-finite loss or gradient")
         rel[name] = {n: ((got[n] - ref[n]).abs().max()
                          / ref[n].abs().max()).item() for n in ref}
+    set_model_config(model, cfg)
     limit = _grad_limit(layers)
-    print(f"model check ({layers} layers): loss {ref['loss'].item():.5f}; "
+    print(f"{tag}: loss {ref['loss'].item():.5f}; "
           f"relative difference from plain attention: kernel "
           f"{json.dumps({k: float(f'{v:.4g}') for k, v in rel['kernel'].items()})}, "
           f"control (segments ignored) "
@@ -1809,13 +1868,12 @@ def _model_check_phase(torch, args):
           f"limit {limit:.3g}", flush=True)
     worst = max(rel["kernel"].values())
     if worst > limit:
-        _fail(f"model check: the kernels part from the plain attention by "
+        _fail(f"{tag}: the kernels part from the plain attention by "
               f"{worst:.3g} > {limit:.3g}")
     if max(rel["ignore_segments"].values()) <= limit:
-        _fail(f"model check: the segments-ignored control stays within "
+        _fail(f"{tag}: the segments-ignored control stays within "
               f"{limit:.3g}: the check cannot tell a wrong mask apart")
-    del model, watched
-    torch.cuda.empty_cache()
+    del watched
     return rel
 
 
@@ -2128,6 +2186,358 @@ def _offload_check_phase(torch, args):
     gc.collect()
     torch.cuda.empty_cache()
     return {"offload_dots": got, "control": control}
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face checkpoint
+# ---------------------------------------------------------------------------
+
+# meta-llama/Llama-3.2-1B's published config.json (the source system's
+# loss-parity model): 1.236 B parameters, heads of 64
+LLAMA32_1B = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64,
+    "max_position_embeddings": 131072, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "rms_norm_eps": 1e-05, "tie_word_embeddings": True,
+    "attention_bias": False, "mlp_bias": False, "hidden_act": "silu",
+    "initializer_range": 0.02, "torch_dtype": "bfloat16",
+    "bos_token_id": 128000, "eos_token_id": 128001,
+}
+HF_DIR = "chip_smoke_hf"                # under the checkout; git-ignored
+HF_SHARDS = 4
+
+
+def _hf_tensors(cfg, layers):
+    """HF tensor name -> shape of a Llama checkpoint of ``cfg`` (tied:
+    no lm_head), in the order the shards hold them."""
+    h, f, d = cfg["hidden_size"], cfg["intermediate_size"], cfg["head_dim"]
+    q, kv = cfg["num_attention_heads"] * d, cfg["num_key_value_heads"] * d
+    out = {"model.embed_tokens.weight": (cfg["vocab_size"], h),
+           "model.norm.weight": (h,)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        out.update({
+            p + "input_layernorm.weight": (h,),
+            p + "self_attn.q_proj.weight": (q, h),
+            p + "self_attn.k_proj.weight": (kv, h),
+            p + "self_attn.v_proj.weight": (kv, h),
+            p + "self_attn.o_proj.weight": (h, q),
+            p + "post_attention_layernorm.weight": (h,),
+            p + "mlp.gate_proj.weight": (f, h),
+            p + "mlp.up_proj.weight": (f, h),
+            p + "mlp.down_proj.weight": (h, f)})
+    return out
+
+
+def _write_safetensors(torch, path, tensors):
+    """The safetensors format, written by this script: an 8-byte
+    little-endian header length, the JSON header (dtype, shape and
+    data_offsets of each tensor, padded with spaces to 8 bytes), the
+    tensors' bytes in the header's order."""
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(raw) + off
+
+
+def _write_hf_checkpoint(torch, root, seed, layers):
+    """Llama-3.2-1B's config.json (``layers`` deep) and its weights in
+    HF's tensor names, bf16, in HF_SHARDS safetensors files named by an
+    index: matrices normal(0, initializer_range) from numpy generators
+    spawned from ``seed`` (one a tensor, drawn on 8 threads), norm
+    scales one.  Returns (the HF tensors by name, bytes written)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    cfg = dict(LLAMA32_1B, num_hidden_layers=layers)
+    os.makedirs(root)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    shapes = _hf_tensors(cfg, layers)
+    names = list(shapes)
+    gens = dict(zip(names, np.random.SeedSequence(seed).spawn(len(names))))
+    std = cfg["initializer_range"]
+
+    def make(name):
+        shape = shapes[name]
+        if name.endswith("norm.weight"):
+            return torch.ones(shape, dtype=torch.bfloat16)
+        x = np.random.default_rng(gens[name]).standard_normal(
+            int(np.prod(shape)), dtype=np.float32)
+        return torch.from_numpy(x).mul_(std).to(torch.bfloat16).view(shape)
+
+    # embedding and final norm first, then the layers in equal groups
+    per = -(-layers // (HF_SHARDS - 1))
+    groups = [names[:2]] + [
+        [n for n in names[2:] if int(n.split(".")[2]) // per == g]
+        for g in range(HF_SHARDS - 1)]
+    written, nbytes, weight_map = {}, 0, {}
+    with ThreadPoolExecutor(8) as ex:
+        for g, group in enumerate(groups):
+            part = dict(zip(group, ex.map(make, group)))
+            fname = f"model-{g + 1:05d}-of-{len(groups):05d}.safetensors"
+            nbytes += _write_safetensors(torch, os.path.join(root, fname),
+                                         part)
+            weight_map.update((n, fname) for n in part)
+            written.update(part)
+    with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": sum(
+            t.numel() * 2 for t in written.values())},
+            "weight_map": weight_map}, f, indent=2)
+    return written, nbytes
+
+
+def _hf_root(nbytes):
+    """/dev/shm when it has room for twice the checkpoint (so that the
+    run's disk writes stay with the checkpoint phases), else HF_DIR in
+    the checkout."""
+    try:
+        if shutil.disk_usage("/dev/shm").free > 2 * nbytes:
+            return os.path.join("/dev/shm", HF_DIR)
+    except OSError:
+        pass
+    return os.path.abspath(HF_DIR)
+
+
+def _hf_phase(torch, args, pa):
+    """A Llama-3.2-1B checkpoint in HF's layout through accelerate() ->
+    Trainer.fit, then ServeEngine.from_train_state."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, ServeConfig,
+                                    accelerate)
+    from torchacc_tpu_torch.models.hf_stream import ingestion_plan
+    from torchacc_tpu_torch.train import adamw, warmup_linear
+
+    tag, layers, steps, warm, rows = ("hf", args.hf_layers, args.hf_steps,
+                                      2, 2)
+    if layers != LLAMA32_1B["num_hidden_layers"]:
+        print(f"{tag}: depth cut to {layers} of "
+              f"{LLAMA32_1B['num_hidden_layers']} layers (full width kept)",
+              flush=True)
+    est = 2 * (LLAMA32_1B["vocab_size"] * 2048 + layers * 60_821_504)
+    root = _hf_root(est)
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        written, nbytes = _write_hf_checkpoint(torch, root, args.seed + 11,
+                                               layers)
+        print(f"{tag}: wrote Llama-3.2-1B's config.json and {nbytes} bytes "
+              f"of bf16 safetensors in {HF_SHARDS} shards with an index to "
+              f"{root} in {time.perf_counter() - t0:.1f} s", flush=True)
+        conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                      data=DataConfig(max_length=TRAIN_S, prefetch=2),
+                      serve=ServeConfig(block_size=BS, num_blocks=1024,
+                                        max_slots=8, prefill_chunk=256,
+                                        decode_depth=2),
+                      seed=args.seed)
+        docs = _zipf_docs(args.seed + 12, (steps + 1) * rows * TRAIN_S,
+                          LLAMA32_1B["vocab_size"])
+        eval_docs = _zipf_docs(args.seed + 13, 3 * rows * TRAIN_S,
+                               LLAMA32_1B["vocab_size"])
+        evals = list(itertools.islice(iter(PackedDataset(
+            eval_docs, seq_len=TRAIN_S, batch_rows=rows)), 2))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer, loader = accelerate(
+            root, PackedDataset(docs, seq_len=TRAIN_S, batch_rows=rows), conf,
+            optimizer=adamw(warmup_linear(1e-4, steps, 1)))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = trainer.model.cfg
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    print(f"{tag}: accelerate({root}) in {load_s:.2f} s ({nbytes / load_s / 1e9:.3f} "
+          f"GB/s of checkpoint: config, model, optimizer state and every "
+          f"tensor streamed into the f32 masters); {n_params} params, "
+          f"{cfg.num_layers} layers, heads {cfg.num_heads}/{cfg.kv_heads} "
+          f"of {cfg.head_size}, rope_llama3 {cfg.rope_llama3}, tied "
+          f"{cfg.tie_embeddings}", flush=True)
+    if cfg.head_size != 64 or not cfg.tie_embeddings \
+            or cfg.rope_llama3 != (32.0, 1.0, 4.0, 8192.0):
+        _fail(f"{tag}: config_from_hf gave {cfg}")
+    plan = ingestion_plan(cfg)
+    differ = [n for n, t in written.items()
+              if not torch.equal(trainer.state.params[plan[n[6:]][0]],
+                                 t.cuda().float())]
+    if len(written) != len(trainer.state.params) or differ:
+        _fail(f"{tag}: the loaded masters differ from the written weights "
+              f"({differ[:5]})")
+    print(f"{tag}: the {len(written)} loaded masters equal the written "
+          f"bf16 weights bitwise", flush=True)
+    del written
+    batch = {k: torch.as_tensor(v).cuda() for k, v in evals[0].items()}
+    check = _kernels_vs_plain(torch, trainer.model, batch,
+                              f"{tag} check ({cfg.num_layers} layers, the "
+                              f"loaded model)")
+
+    tap = _StepTap(torch, trainer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launch_counts:             # counts start here ...
+        fa.launch_counts[key] = 0
+    hist = trainer.fit(loader, max_steps=steps, eval_loader=evals,
+                       eval_every=steps - 1, log_every=0)
+    step_ms, _ = tap.finish(warm)
+    launches = dict(fa.launch_counts)        # ... and are read here
+    losses = [m["loss"].item() for m in tap.metrics]
+    peak = torch.cuda.max_memory_allocated()
+    # the last interval holds the evaluation pass too
+    timed = step_ms[warm:-1]
+    ms = sum(timed) / len(timed)
+    tokens = rows * TRAIN_S
+    flops_tok = 6.0 * n_params + 6.0 * layers * cfg.hidden_size * TRAIN_S
+    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+    eval_loss = [r["eval_loss"] for r in hist if "eval_loss" in r]
+    want = {"fwd": layers * (steps + len(evals)), "bwd_dq": layers * steps,
+            "bwd_dkv": layers * steps}
+    print(f"{tag}: fit over {rows} x {TRAIN_S} packed tokens a step: losses "
+          f"{_fmt(losses)}, eval_loss {_fmt(eval_loss)} ({len(evals)} "
+          f"batches after step {steps - 1}); step ms {_fmt(step_ms)} (first "
+          f"{warm} warm-up, the last holds the evaluation); mean of the timed "
+          f"{ms:.1f} ms, {tokens / (ms / 1e3):.0f} tokens/s, MFU {mfu:.4f} "
+          f"of the bf16 peak (6N + 6*L*h*s per token, N = {n_params}); peak "
+          f"allocated {peak / 2**30:.2f} GiB; flash launches {launches} "
+          f"(expected {want}: the evaluation runs the forward)", flush=True)
+    if not all(np.isfinite(losses + eval_loss)) or len(eval_loss) != 1:
+        _fail(f"{tag}: losses {losses}, eval_loss {eval_loss}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        _fail(f"{tag}: the loss did not fall on distinct batches: {losses}")
+    if launches != want:
+        _fail(f"{tag}: flash launches {launches} != {want} (layers x steps, "
+              f"the forward also layers x evaluation batches)")
+    if args.profile:
+        _profile_step(torch, trainer, batch, "training[hf]")
+    del tap, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serving = _hf_serving(torch, args, pa, trainer, tag)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "step_ms": ms, "mfu": mfu,
+            "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak,
+            "load_s": load_s, "bytes": nbytes, "check": check, **serving}
+
+
+def _hf_serving(torch, args, pa, trainer, tag):
+    """ServeEngine.from_train_state(trainer): greedy requests through B4
+    (bf16), counted and held against the plain path's logits with its
+    controls; then f32 serving token for token against generate()."""
+    import dataclasses
+    import numpy as np
+    from torchacc_tpu_torch import Request, ServeEngine, TransformerLM
+    from torchacc_tpu_torch.models.generate import generate
+
+    rng = np.random.default_rng(args.seed + 14)
+    vocab = trainer.model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (64, 300, 700,
+                                                             1000)]
+    max_new = 16
+    eng = ServeEngine.from_train_state(trainer)
+    model, cfg = eng.scheduler.decoder.model, eng.cfg
+    eng.generate([Request(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+    eng.reset_stats()
+    sched = eng.scheduler
+    dec0, pre0 = sched.decode_dispatches, sched.prefill_dispatches
+    for shape in pa.launch_counts:           # counts start here ...
+        pa.launch_counts[shape] = 0
+    res = eng.generate([Request(prompt_ids=p, max_new_tokens=max_new)
+                        for p in prompts])
+    torch.cuda.synchronize()
+    launches = dict(pa.launch_counts)        # ... and are read here
+    dispatches = {"decode": sched.decode_dispatches - dec0,
+                  "prefill": sched.prefill_dispatches - pre0}
+    stats = eng.stats()
+    eng.close()
+    for shape, n in dispatches.items():
+        if n == 0 or launches[shape] != cfg.num_layers * n:
+            _fail(f"{tag} serving: {shape} kernel launches {launches[shape]} "
+                  f"!= layers {cfg.num_layers} x dispatches {n}")
+    streams = [r.tokens for r in res]
+    if any(len(s) != max_new for s in streams):
+        _fail(f"{tag} serving: streams of {[len(s) for s in streams]} tokens")
+    ref = _prompt_logits(torch, model, cfg, prompts, "torch")
+    rel = {}
+    for name, attend in (("kernel", None), ("wrong_gqa", _wrong_gqa),
+                         ("drop_own_key", _drop_own_key)):
+        got = _prompt_logits(torch, model, cfg, prompts,
+                             "cuda" if attend is None else "torch", attend)
+        if not all(torch.isfinite(a).all() for a in got):
+            _fail(f"{tag} serving: non-finite logits ({name})")
+        rel[name] = [((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(got, ref)]
+    limit = _logits_limit(cfg.num_layers)
+    gen = [generate(model, torch.tensor([p], device="cuda"),
+                    max_new_tokens=max_new)[0, len(p):].tolist()
+           for p in prompts]
+    firsts = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+              for a, b in zip(streams, gen)]
+    print(f"{tag} serving: {len(prompts)} greedy requests (prompts "
+          f"{[len(p) for p in prompts]}, {max_new} new tokens) from the "
+          f"trainer's weights in bf16: {stats['tokens_per_sec']:.1f} tokens/s, "
+          f"TTFT p50 {stats['ttft_s_p50'] * 1e3:.1f} ms, per-token p50 "
+          f"{stats['per_token_s_p50'] * 1e3:.2f} ms; B4 launches {launches} = "
+          f"{cfg.num_layers} x {dispatches}; last-prompt logits vs plain "
+          f"attention: kernel {_fmt(rel['kernel'])} (limit {limit:.3g}), "
+          f"controls wrong_gqa {_fmt(rel['wrong_gqa'])}, drop_own_key "
+          f"{_fmt(rel['drop_own_key'])}; first greedy divergence from "
+          f"generate() in bf16 (None = identical) {firsts}", flush=True)
+    if max(rel["kernel"]) > limit:
+        _fail(f"{tag} serving: logits through B4 part from the plain path by "
+              f"{max(rel['kernel']):.3g} > {limit:.3g}")
+    for name in ("wrong_gqa", "drop_own_key"):
+        if max(rel[name]) <= limit:
+            _fail(f"{tag} serving: the {name} control stays within "
+                  f"{limit:.3g}")
+    del eng, model
+    torch.cuda.empty_cache()
+    # f32 compute: B4's and B1's f32 bodies at heads of 64, whose sums
+    # differ in the last bits only, so that no greedy choice flips
+    # between serving and generate()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = TransformerLM(cfg32, device="meta", dtype=torch.float32)
+    model32 = model32.to_empty(device="cuda").requires_grad_(False).eval()
+    with torch.no_grad():
+        for n, p in model32.named_parameters():
+            p.copy_(trainer.state.params[n])
+    eng = ServeEngine(model32, trainer.config)
+    res = eng.generate([Request(prompt_ids=p, max_new_tokens=8)
+                        for p in prompts[:2]])
+    gen = [generate(model32, torch.tensor([p], device="cuda"),
+                    max_new_tokens=8)[0, len(p):].tolist()
+           for p in prompts[:2]]
+    eng.close()
+    print(f"{tag} serving f32: streams {[r.tokens for r in res]}, "
+          f"generate() {gen}", flush=True)
+    if [r.tokens for r in res] != gen:
+        _fail(f"{tag} serving f32: the served greedy streams differ from "
+              f"generate() on the same weights")
+    del eng, model32
+    return {"paged_launches": launches, "paged_dispatches": dispatches,
+            "serve_tokens_per_s": stats["tokens_per_sec"],
+            "logits_rel": rel["kernel"], "first_divergence_bf16": firsts}
 
 
 # ---------------------------------------------------------------------------
@@ -2753,6 +3163,13 @@ def main():
     ap.add_argument("--ckpt-layers", type=int, default=1,
                     help="depth of the checkpoint phases' llama3-8b (width "
                          "is full): 3 checkpoints of it are written")
+    ap.add_argument("--hf-layers", type=int, default=16,
+                    help="depth of the Hugging Face Llama-3.2-1B checkpoint "
+                         "(width is full; 16 is its published depth)")
+    ap.add_argument("--hf-steps", type=int, default=8,
+                    help="fit steps on the Hugging Face checkpoint (the "
+                         "first 2 are warm-up, the last holds the "
+                         "evaluation)")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed kernel launches per shape")
     ap.add_argument("--seed", type=int, default=0)
@@ -2800,9 +3217,16 @@ def main():
 
     if args.train_steps < 6:
         _fail("--train-steps must be at least 6")
+    if args.hf_steps < 5:
+        _fail("--hf-steps must be at least 5")
     kern = _kernel_phase(torch, args, pa)
+    # heads of 64 (Llama-3.2-1B, the Hugging Face phase's model)
+    kern64 = _kernel_phase(torch, args, pa, d=64,
+                           only=("decode", "prefill", "decode_long"))
     flash_all = _flash_phase(torch, args)
     flash, flash16 = flash_all["train"], flash_all["train_f16"]
+    flash64 = _flash_phase(torch, args, d=64,
+                           only=("train", "f32", "sq_ne_sk_empty_rows"))
     qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
     train = _training_phase(torch, args)
@@ -2836,6 +3260,7 @@ def main():
     _quant_check_phase(torch, args)
     _accum_check_phase(torch, args)
     _offload_check_phase(torch, args)
+    hf = _hf_phase(torch, args, pa)
     root = _ckpt_root()
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -2890,6 +3315,36 @@ def main():
             library_ms=flash.get(f"library_{part}_ms"),
             tflops=flash[f"{name}_tflops"],
             bound_share=flash[f"{name}_bound_share"]))
+    for shape in ("decode", "prefill"):
+        k = kern64[shape]
+        entries.append(dict(
+            KERNEL, name=f"{KERNEL['name']}[{shape},d64]",
+            launches=hf["paged_launches"][shape],
+            launches_per_dispatch=(hf["paged_launches"][shape]
+                                   / hf["paged_dispatches"][shape]),
+            max_abs_err=max(kern64[c]["max_abs_err"] for c in kern64
+                            if (kern64[c]["t"] == 1) == (shape == "decode")),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            host_ms=k["host_ms"]))
+    f64 = flash64["train"]
+    for name, replaces in FLASH.items():
+        part = "fwd" if name == "fwd" else "bwd"
+        errs = ("o", "lse") if name == "fwd" else (
+            ("dq",) if name == "bwd_dq" else ("dk", "dv"))
+        entries.append(dict(
+            name=f"flash_attention[{name},d64]", route="cuda",
+            body=FLASH_BODY[name], source=FLASH_SOURCE, replaces=replaces,
+            launches=hf["launches"][name],
+            launches_per_step=hf["launches"][name] / hf["steps"],
+            max_abs_err=max(flash64[c][e]["max_abs_err"] for c in flash64
+                            for e in errs),
+            ms=f64[f"{name}_ms"], plain_ms=f64[f"plain_{part}_ms"],
+            bound_ms=f64[f"{name}_bound_ms"],
+            bound_by=f64[f"{name}_bound_by"],
+            library_ms=f64.get(f"library_{part}_ms"),
+            tflops=f64[f"{name}_tflops"],
+            bound_share=f64[f"{name}_bound_share"]))
     for name, replaces in FLASH.items():
         part = "fwd" if name == "fwd" else "bwd"
         errs = ("o", "lse") if name == "fwd" else (

@@ -6,7 +6,7 @@ against another version of that source, in turns, on one NVIDIA card.
     git show <rev>:torchacc_tpu_torch/csrc/flash_attention.cu > other.cu
     python3 scripts/torch_flash_turns.py --other other.cu \
         [--kernels fwd|bwd|all] [--mask docs|causal|full] [--reps 50] \
-        [--train-layers 8] [--train-steps 4] [--seed 0]
+        [--head-dim 128] [--train-layers 8] [--train-steps 4] [--seed 0]
 
 The other source must have the same C interface.  It is compiled by
 nvcc (sm_90a, the port's flags) into a library of its own name; the
@@ -17,7 +17,7 @@ wrappers, this source's other kernels and the same inputs.  Phases,
 every measurement in turns (other, this, this, other):
 
 1. kernels: chip_smoke.py's flash training shape (b 2, s 4096, 32 q /
-   8 kv heads of 128, bf16) under --mask: docs, causal over packed
+   8 kv heads of --head-dim, 128 or 64, bf16) under --mask: docs, causal over packed
    documents from the same seed (the training step's mask); causal,
    one document; full, no mask; each side's swapped kernels against the plain version at the
    card's tolerances (o one bf16 ulp, lse 1e-5; dq, dk, dv one bf16 ulp
@@ -108,6 +108,9 @@ def main():
     ap.add_argument("--mask", choices=sorted(MASKS), default="docs",
                     help="the kernels' mask at the training shape")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--head-dim", type=int, default=128, choices=(64, 128),
+                    help="the heads' dim at the training shape (64: "
+                         "Llama-3.2-1B's)")
     ap.add_argument("--train-layers", type=int, default=8)
     ap.add_argument("--train-steps", type=int, default=4,
                     help="timed steps a turn (0: no training phase)")
@@ -145,10 +148,12 @@ def main():
     segments, causal = MASKS[args.mask]
     rng = np.random.default_rng(args.seed + 1)
     q, k, v, do, seg = cs._flash_inputs(torch, rng, cs.TRAIN_B, cs.TRAIN_S,
-                                        cs.TRAIN_S, torch.bfloat16, segments)
+                                        cs.TRAIN_S, torch.bfloat16, segments,
+                                        args.head_dim)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
     result = {"card": card, "other": args.other, "kernels_swapped":
-              args.kernels, "mask": args.mask, "kernels": {},
+              args.kernels, "mask": args.mask, "head_dim": args.head_dim,
+              "kernels": {},
               "agreement": {}}
     ref_fwd = fa.flash_attention(q, k, v, return_lse=True, impl="torch", **kw)
     use("this")
@@ -180,7 +185,7 @@ def main():
     for i, side in enumerate(turns):
         use(side)
         t = cs._flash_times(torch, F, fa, args, q, k, v, do, seg,
-                            cs.D ** -0.5, causal, (-1, -1), 0.0)
+                            args.head_dim ** -0.5, causal, (-1, -1), 0.0)
         keep = {key: t[key] for key in keys}
         result["kernels"][f"{i}_{side}"] = keep
         line = []

@@ -13,20 +13,37 @@ same schema dicts (a dp and process-count change loads only with
 ``elastic_resume``; a tp change always raises
 ``TopologyMismatchError``), and every state that loads is the saved one
 bitwise (f32, gathered whole).
+
+The same launch then trains a Hugging Face checkpoint directory (head
+dim 64, o and mlp biases, bf16 safetensors) through ``accelerate(path)``
+on ``tp=2``, each tensor streamed into the rank's shard, against JAX's
+``accelerate(path)`` on 2 devices: the losses rtol 1e-5 and the final
+parameters within 1e-5 of each leaf's largest entry, as the f32 cases
+of ``tests/test_torch_parallel_ranks.py`` (with AdamW's eps 1e-2, see ``HF_OPT``).  Under tensor
+parallelism the
+o_proj and down_proj biases are added once, after the sum over the
+ranks.
 """
 
 import json
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from test_torch_hf import hf_model, saved as hf_saved
 from test_torch_parallel_ranks import OPT, SCHEDULE, SMALL, _batch, _launch, \
     _params
+import torchacc_tpu as ta
 from torchacc_tpu.checkpoint.schema import (
     check_compatibility as jax_check_compatibility,
 )
+from torchacc_tpu.parallel.mesh import build_mesh
+from torchacc_tpu.train import accelerate as jax_accelerate
+from torchacc_tpu.train import schedules as jax_sched
 import torchacc_tpu_torch as tt
 from torchacc_tpu_torch.checkpoint import CheckpointManager
 from torchacc_tpu_torch.models import get_preset, params_from_jax
@@ -43,15 +60,36 @@ def _assert_bitwise(got, want):
         assert got[k].dtype == w.dtype, k
 
 
+HF_CASE = "llama_o_mlp_bias_d64"
+HF_SCHEDULE = (3e-3, 10, 1)
+# AdamW's eps 1e-2: the k_proj bias adds one constant to each query's
+# scores, so its gradient is zero but for rounding, and with eps 1e-8 the
+# update is lr * sign(that noise), which differs between the packages
+# (read 1.0e-5 against a leaf whose largest entry is 0.14)
+HF_OPT = dict(OPT, eps=1e-2)
+
+
+def _hf_batch(seed):
+    return dict(_batch(seed), input_ids=np.random.default_rng(seed).integers(
+        0, 256, (4, 32)).astype(np.int32))
+
+
 @pytest.fixture(scope="module")
 def saved(tmp_path_factory):
     """The fsdp=2 run's directory and its worker's output."""
     d = tmp_path_factory.mktemp("fsdp2_run")
+    hf_path = hf_saved(hf_model(HF_CASE, seed=5), d / "hf", torch.bfloat16,
+                       shard="300KB")
     spec = dict(kind="ckpt_save", params=_params(0), params_other=_params(1),
                 model=SMALL, dist=dict(fsdp=2), schedule=SCHEDULE, opt=OPT,
                 batches=[_batch(20 + i) for i in range(2)],
-                dir=str(d / "run"), restore_dist=dict(tp=2))
-    return d / "run", _launch(d, 2, spec)()
+                dir=str(d / "run"), restore_dist=dict(tp=2),
+                hf=dict(path=hf_path, dist=dict(tp=2), schedule=HF_SCHEDULE,
+                        opt=HF_OPT, batches=[_hf_batch(40 + i)
+                                          for i in range(2)]))
+    out = _launch(d, 2, spec)()
+    out["hf_spec"] = spec["hf"]
+    return d / "run", out
 
 
 def test_fsdp2_markers_on_rank_0_and_the_consensus_falls_back_together(
@@ -116,3 +154,28 @@ def test_fsdp2_checkpoint_into_another_layout(saved, tmp_path, case):
     else:
         assert got[False] == ("TopologyMismatchError", ["dp", "hosts"])
         assert got[True][0] == "ok"
+
+
+def test_hf_checkpoint_on_tp2_follows_jax(saved):
+    _, out = saved
+    spec, got = out["hf_spec"], out["hf"]
+    jconf = ta.Config(
+        compute=ta.ComputeConfig(dtype="float32", param_dtype="float32",
+                                 attention_impl="xla"),
+        memory=ta.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+        dist=ta.DistConfig(tp=ta.TPConfig(2)))
+    jt, _ = jax_accelerate(
+        spec["path"], None, jconf,
+        optimizer=jax_sched.adamw(jax_sched.warmup_linear(*spec["schedule"]),
+                                  **spec["opt"]),
+        mesh=build_mesh(jconf.dist, devices=jax.devices()[:2]))
+    jlosses = [float(jt.step({k: jnp.asarray(v) for k, v in b.items()})
+                     ["loss"]) for b in spec["batches"]]
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
+    want = jax.tree.map(np.asarray, jax.device_get(jt.state.params))
+    flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]
+    assert [p for p, _ in flat(got["params"])] == [p for p, _ in flat(want)]
+    for (path, a), (_, w) in zip(flat(got["params"]), flat(want)):
+        np.testing.assert_allclose(
+            a, w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
+            err_msg=jax.tree_util.keystr(path))

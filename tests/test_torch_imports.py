@@ -1,7 +1,8 @@
 """The port stands alone: no file of torchacc_tpu_torch/ and no line of
-chip_smoke.py or of the port's timing script imports jax, flax or the
-JAX package, and the package imports in a process where jax cannot be
-imported."""
+chip_smoke.py or of the port's timing script imports jax, flax, the JAX
+package, transformers or safetensors (the port reads Hugging Face
+checkpoints itself), and the package imports in a process where none of
+them can be imported."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "torchacc_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "torchacc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "torchacc_tpu",
+             "transformers", "safetensors")
 
 
 def _sources():
@@ -54,7 +56,8 @@ def test_no_jax_or_reference_import(path):
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'torchacc_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'torchacc_tpu', "
+        "'transformers', 'safetensors'):\n"
         "    sys.modules[m] = None\n"
         "import torchacc_tpu_torch\n"
         "import torchacc_tpu_torch.ops.paged_attention\n"
@@ -85,6 +88,12 @@ def test_package_imports_with_jax_blocked():
         "import torchacc_tpu_torch.checkpoint.schema\n"
         "import torchacc_tpu_torch.utils.retry\n"
         "import torchacc_tpu_torch.errors\n"
+        "import torchacc_tpu_torch.models.hf\n"
+        "import torchacc_tpu_torch.models.hf_stream\n"
+        "import torchacc_tpu_torch.models.generate\n"
+        "import torchacc_tpu_torch.train.hf_trainer\n"
+        "from torchacc_tpu_torch import (load_hf_model, config_from_hf, "
+        "HFTrainerAdapter)\n"
         "from torchacc_tpu_torch import (Trainer, accelerate, "
         "ComputeConfig, MemoryConfig, ConfigError, DataConfig, "
         "AsyncLoader, PackedDataset, pack_sequences)\n"
@@ -92,7 +101,8 @@ def test_package_imports_with_jax_blocked():
         "QuantLinear, quantized_dot)\n"
         "from torchacc_tpu_torch.models.convert import (quant_from_jax, "
         "state_from_jax, state_to_jax)\n"
-        "assert not any(m.split('.')[0] in ('jax', 'flax') and "
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'transformers', "
+        "'safetensors') and "
         "sys.modules[m] is not None for m in sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

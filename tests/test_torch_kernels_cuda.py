@@ -127,6 +127,13 @@ GEOMS = {
                                 q_starts=[0, 700, 1500]),
     "chunk_gqa_d32": dict(slots=2, heads=8, kv_heads=2, d=32, bs=16, t=70,
                           ctx_lens=[70, 300]),
+    # Llama-3.2-1B's attention: 32 q heads over 8 kv heads of 64
+    "decode_gqa_d64": dict(slots=5, heads=32, kv_heads=8, d=64, bs=16,
+                           t=1, ctx_lens=[0, 1, 16, 17, 300]),
+    "chunk_gqa_d64": dict(slots=2, heads=32, kv_heads=8, d=64, bs=16, t=70,
+                          ctx_lens=[70, 300]),
+    "decode_long_d64": dict(slots=8, heads=32, kv_heads=8, d=64, bs=16,
+                            t=1, ctx_lens=_around_split),
 }
 OPTS = {"plain": {}, "softcap": dict(logit_softcap=30.0),
         "window": dict(window=(20, -1)),
@@ -271,6 +278,9 @@ FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
     "mqa_d32_sk_gt_sq": (2, 70, 150, 4, 1, 32),
     "sq_gt_sk_d128": (1, 100, 40, 4, 2, 128),      # leading rows see no key
     "mqa_group8_d128": (1, 200, 200, 8, 1, 128),   # one kv head for 8 q heads
+    "gqa_d64": (2, 200, 200, 8, 2, 64),            # Llama-3.2-1B's head dim
+    "sq_gt_sk_d64": (1, 100, 40, 4, 2, 64),
+    "mqa_d64_sk_gt_sq": (2, 70, 150, 4, 1, 64),
 }
 FLASH_OPTS = {
     "alibi": dict(alibi=True),
@@ -447,7 +457,7 @@ def _bwd_pair(q, k, v, do, segs, **kw):
                                    **kw) for impl in ("cuda", "torch")]
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -498,7 +508,7 @@ def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])

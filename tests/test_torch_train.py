@@ -482,7 +482,8 @@ def test_unported_settings_raise():
     with pytest.raises(NotImplementedError, match="qk_norm=True"):
         accelerate(dataclasses.replace(mc, qk_norm=True), None, tt.Config(),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="model-breadth"):
+    # a Hugging Face checkpoint is read from a local directory only
+    with pytest.raises(FileNotFoundError, match="local directories"):
         accelerate("meta-llama/Llama-3-8B", None, tt.Config(), device="cpu")
     model = TransformerLM(dataclasses.replace(mc, norm="layernorm"),
                           device="cpu")

@@ -12,7 +12,10 @@ final parameters (gathered by ``params_to_jax``) and the quant
 histories to OUT.  For tests/test_torch_checkpoint_ranks.py it saves
 checkpoints on the mesh and resumes them by consensus
 (``ckpt_save``), or restores one into another layout
-(``ckpt_restore``).  Only torch, numpy and the port are imported.
+(``ckpt_restore``); the ``ckpt_save`` launch also trains a Hugging Face
+checkpoint directory through ``accelerate(path)`` on another layout of
+the same processes (``hf_train``).  Only torch, numpy and the port are
+imported.
 """
 
 import os
@@ -46,6 +49,7 @@ from torchacc_tpu_torch.train import (  # noqa: E402
     adamw,
     shift_labels,
     warmup_cosine,
+    warmup_linear,
 )
 
 
@@ -209,7 +213,35 @@ def ckpt_save(spec):
     if "restore_dist" in spec:
         # the same processes on another layout of the same world
         out["restore"] = ckpt_restore(dict(spec, dist=spec["restore_dist"]))
+    if "hf" in spec:
+        out["hf"] = hf_train(spec["hf"])
     return out
+
+
+def hf_train(spec):
+    """accelerate(a Hugging Face checkpoint directory) on ``spec["dist"]``'s
+    mesh, each checkpoint tensor streamed into this rank's shard, then
+    steps over this rank's rows: the losses and the whole final
+    parameters (flax layout)."""
+    d = spec["dist"]
+    conf = tt.Config(
+        compute=tt.ComputeConfig(dtype=torch.float32),
+        memory=tt.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+        dist=tt.DistConfig(dp=tt.DPConfig(d.get("dp", -1)),
+                           fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
+                           tp=tt.TPConfig(d.get("tp", 1))))
+    trainer, _ = accelerate(
+        spec["path"], None, conf, device="cpu",
+        optimizer=adamw(warmup_linear(*spec["schedule"]), **spec["opt"]))
+    n, i = data_shard(trainer.mesh)
+    losses = []
+    for b in spec["batches"]:
+        rows = b["input_ids"].shape[0] // n
+        losses.append(trainer.step(
+            {k: v[i * rows:(i + 1) * rows] for k, v in b.items()})
+            ["loss"].item())
+    return {"losses": losses, "params": params_to_jax(
+        trainer.model.cfg, dict(trainer.model.named_parameters()))}
 
 
 def ckpt_restore(spec):

@@ -30,9 +30,14 @@ tensor parallelism over heads, MLP and vocab.
 Checkpoints: ``checkpoint`` saves and restores the train state on
 ``torch.distributed.checkpoint`` with the JAX package's commit protocol,
 and ``Trainer.fit(checkpoint_dir=..., resume='auto')`` resumes a run.
+Hugging Face models: ``accelerate`` takes an HF Llama/Qwen2 model or a
+local checkpoint directory (``models.hf``, ``models.hf_stream``: the
+port reads ``config.json`` and safetensors itself),
+``HFTrainerAdapter`` stands in for ``transformers.Trainer``, and
+``ServeEngine.from_train_state`` serves the trained weights.
 It imports
-torch, numpy and the standard library only — never jax, flax or
-torchacc_tpu.
+torch, numpy and the standard library only — never jax, flax,
+torchacc_tpu, transformers or safetensors.
 """
 
 __version__ = "0.4.0"
@@ -61,8 +66,10 @@ from torchacc_tpu_torch.data import (  # noqa: E402
 from torchacc_tpu_torch.models import (  # noqa: E402
     ModelConfig,
     TransformerLM,
+    config_from_hf,
     get_preset,
     init_params,
+    load_hf_model,
 )
 from torchacc_tpu_torch.serve import (  # noqa: E402
     Request,
@@ -70,7 +77,11 @@ from torchacc_tpu_torch.serve import (  # noqa: E402
     ServeEngine,
 )
 
-from torchacc_tpu_torch.train import Trainer, accelerate  # noqa: E402
+from torchacc_tpu_torch.train import (  # noqa: E402
+    HFTrainerAdapter,
+    Trainer,
+    accelerate,
+)
 
 __all__ = [
     "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig",
@@ -78,4 +89,5 @@ __all__ = [
     "PPConfig", "SPConfig", "EPConfig", "ResilienceConfig", "AsyncLoader", "PackedDataset",
     "pack_sequences", "ModelConfig", "TransformerLM", "get_preset",
     "init_params", "Request", "RequestResult", "ServeEngine", "Trainer", "accelerate",
+    "load_hf_model", "config_from_hf", "HFTrainerAdapter",
 ]

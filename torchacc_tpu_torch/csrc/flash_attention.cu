@@ -733,9 +733,10 @@ __global__ void __launch_bounds__(kThreads)
 // warpgroup to the consumers.
 //
 // Tiles lie in shared memory as [rows][64] 16-bit boxes of 128-byte rows
-// under the 128-byte swizzle, one box a 64 columns of the head dim (a
-// head dim of 32 is read as one box of 64 whose upper half TMA fills
-// with zeros).  A rank-4 tensor map over [b, s, h, d] cuts a head's
+// under the 128-byte swizzle, one box a 64 columns of the head dim (the
+// head dims built are 32, 64 and 128: 64 is one box, 128 two, and 32 is
+// read as one box of 64 whose upper half TMA fills with zeros, so 32 and
+// 64 share shared-memory sizes).  A rank-4 tensor map over [b, s, h, d] cuts a head's
 // rows out of the BSHD tensor; rows past s read as zeros.
 //
 // P, P~ and dS enter the second products as hi + lo, two values of the
@@ -758,7 +759,9 @@ struct WgCfg {
   static constexpr int NB = DP / 64;            // 128-byte boxes a row spans
   static constexpr int kRes = kBlk * DP * 2;    // a resident [128][DP] tile, bytes
   static constexpr int kTileB = kStep * DP * 2; // a streamed [64][DP] tile, bytes
-  // ring stages, chosen on an H100: B3 ran 3-6% faster on 2 than on 3
+  // ring stages, chosen on an H100: B3 ran 3-6% faster on 2 than on 3 at
+  // heads of 128; at 64, B2 and B3 on 3 and 2 stages ran no faster than
+  // on 4 (B3 1.5% slower), so 64 keeps 32's 4
   static constexpr int kStagesFwd = 4;
   static constexpr int kStagesDq = D == 128 ? 3 : 4;
   static constexpr int kStagesDkv = D == 128 ? 2 : 4;
@@ -2053,10 +2056,13 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
 #define FLASH_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                     \
     if (dtype == 0 && d == 32) FLASH_DISPATCH_D(LAUNCH, float, 32, __VA_ARGS__); \
+    if (dtype == 0 && d == 64) FLASH_DISPATCH_D(LAUNCH, float, 64, __VA_ARGS__); \
     if (dtype == 0 && d == 128) FLASH_DISPATCH_D(LAUNCH, float, 128, __VA_ARGS__); \
     if (dtype == 1 && d == 32) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 32, __VA_ARGS__); \
+    if (dtype == 1 && d == 64) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 64, __VA_ARGS__); \
     if (dtype == 1 && d == 128) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 128, __VA_ARGS__); \
     if (dtype == 2 && d == 32) FLASH_DISPATCH_D(LAUNCH, __half, 32, __VA_ARGS__); \
+    if (dtype == 2 && d == 64) FLASH_DISPATCH_D(LAUNCH, __half, 64, __VA_ARGS__); \
     if (dtype == 2 && d == 128) FLASH_DISPATCH_D(LAUNCH, __half, 128, __VA_ARGS__); \
     return cudaErrorInvalidValue;                                          \
   } while (0)

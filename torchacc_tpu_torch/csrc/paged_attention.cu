@@ -823,6 +823,7 @@ extern "C" int paged_attention_fwd(
                scale, softcap, win_left, win_right, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 32: return launch_body<32>(body, a);     // llama-tiny
+    case 64: return launch_body<64>(body, a);     // Llama-3.2-1B, Qwen2-0.5B
     case 128: return launch_body<128>(body, a);   // llama3-8b
     default: return cudaErrorInvalidValue;
   }

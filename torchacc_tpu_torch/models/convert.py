@@ -9,9 +9,9 @@ leaves (``jax.tree.map(np.asarray, params)``)::
     embed_tokens.embedding               [V, h]
     layers.block.{ln1,ln2}.scale         [L, h]
     layers.block.attn.{q,k,v}_proj.kernel [L, h, heads, d]  (+ bias [L, heads, d])
-    layers.block.attn.o_proj.kernel      [L, heads, d, h]
-    layers.block.mlp.{gate,up}_proj.kernel [L, h, F]
-    layers.block.mlp.down_proj.kernel    [L, F, h]
+    layers.block.attn.o_proj.kernel      [L, heads, d, h]  (+ bias [L, h])
+    layers.block.mlp.{gate,up}_proj.kernel [L, h, F]       (+ bias [L, F])
+    layers.block.mlp.down_proj.kernel    [L, F, h]         (+ bias [L, h])
     final_norm.scale                     [h]
     lm_head.kernel                       [h, V]   (absent when tied)
 
@@ -92,9 +92,15 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
                                   .reshape(-1), device, dtype))
         o = np.asarray(attn["o_proj"]["kernel"][i])          # [heads, d, h]
         layer.attn.o_proj.weight.copy_(_t(o.reshape(-1, h).T, device, dtype))
+        if layer.attn.o_proj.bias is not None:
+            layer.attn.o_proj.bias.copy_(
+                _t(attn["o_proj"]["bias"][i], device, dtype))
         for name in ("gate_proj", "up_proj", "down_proj"):
-            getattr(layer.mlp, name).weight.copy_(
+            lin = getattr(layer.mlp, name)
+            lin.weight.copy_(
                 _t(np.asarray(mlp[name]["kernel"][i]).T, device, dtype))
+            if lin.bias is not None:
+                lin.bias.copy_(_t(mlp[name]["bias"][i], device, dtype))
     model.final_norm.weight.copy_(
         _t(tree["final_norm"]["scale"], device, dtype))
     if model.lm_head is not None:
@@ -125,8 +131,15 @@ def params_to_jax(cfg: ModelConfig,
                 f"layers.{i}.attn.{name}.bias").reshape(nh, d))
     attn["o_proj"] = {"kernel": stack(lambda i: t(
         f"layers.{i}.attn.o_proj.weight").T.reshape(cfg.num_heads, d, h))}
+    if cfg.o_bias:
+        attn["o_proj"]["bias"] = stack(
+            lambda i: t(f"layers.{i}.attn.o_proj.bias"))
     mlp = {name: {"kernel": stack(lambda i: t(f"layers.{i}.mlp.{name}.weight").T)}
            for name in ("gate_proj", "up_proj", "down_proj")}
+    if cfg.mlp_bias:
+        for name in mlp:
+            mlp[name]["bias"] = stack(
+                lambda i: t(f"layers.{i}.mlp.{name}.bias"))
     tree = {
         "embed_tokens": {"embedding": t("embed_tokens.weight")},
         "layers": {"block": {

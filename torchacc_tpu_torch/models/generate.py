@@ -1,6 +1,15 @@
-"""Token embedding and the sampling rules of the serving path (the port
-of torchacc_tpu/models/generate.py ``_zoo_embed`` and ``_sample``, in
-the per-slot form of ``serve/scheduler.py::_sample_slots``).
+"""Token embedding, the sampling rules of the serving path and
+``generate`` (the port of torchacc_tpu/models/generate.py ``_zoo_embed``,
+``_sample``, in the per-slot form of ``serve/scheduler.py::
+_sample_slots``, and ``generate`` :135).
+
+``generate`` decodes over a dense KV cache, ``[b, prompt + new, kv
+heads, d]`` a layer: one forward over the prompt banks every layer's
+rotated k and raw v, then one loop takes a token at a time.  It shares
+no code with the paged serving path (``serve/scheduler.py``), so it is
+the port's own request-level reference for serving.  Prompts of one
+call have one length (JAX's left-padded ragged batches, ``prompt_mask``,
+are not ported).
 
 Greedy decoding (temperature <= 0) is ``argmax`` — the first maximum,
 as in JAX — and token-identical to the JAX package given the same
@@ -12,6 +21,8 @@ never of its batch-mates or of the slot it landed in.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -88,3 +99,91 @@ def sample_slots(logits: torch.Tensor, temp: torch.Tensor,
     l = torch.where((l < pth) & (top_p[:, None] < 1.0), -torch.inf, l)
     sampled = (l + gumbel_noise(seeds, counters, v)).argmax(dim=-1)
     return torch.where(temp <= 0, greedy, sampled).to(torch.int32)
+
+
+def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
+                    impl: str) -> torch.Tensor:
+    """The hidden after every layer of the tokens ``ids [b, t]`` at
+    positions ``start..start + t``; each layer's k/v are written into
+    its cache at those positions and attention reads the cache up to
+    them (causal, aligned to the cache's end)."""
+    from torchacc_tpu_torch.models.transformer import dense, rms_norm, rope
+    from torchacc_tpu_torch.ops.attn import attention
+    cfg = model.cfg
+    b, t = ids.shape
+    d, end = cfg.head_size, start + t
+    pos = torch.arange(start, end, device=ids.device).expand(b, t)
+    rp = pos.float() / cfg.rope_scale if cfg.rope_scale != 1.0 else pos
+    x = embed(cfg, model, ids)
+    for i, layer in enumerate(model.layers):
+        h = rms_norm(cfg, x, layer.ln1.weight)
+        a = layer.attn
+        q = dense(cfg, h, a.q_proj).view(b, t, -1, d)
+        k = dense(cfg, h, a.k_proj).view(b, t, -1, d)
+        v = dense(cfg, h, a.v_proj).view(b, t, -1, d)
+        q, k = rope(q, k, rp, cfg)
+        cache_k[i][:, start:end] = k
+        cache_v[i][:, start:end] = v
+        out = attention(q, cache_k[i][:, :end].contiguous(),
+                        cache_v[i][:, :end].contiguous(), causal=True,
+                        window=cfg.window, scale=cfg.query_scale,
+                        logit_softcap=cfg.attn_logit_softcap, impl=impl)
+        x = x + dense(cfg, out.reshape(b, t, -1), a.o_proj)
+        h2 = rms_norm(cfg, x, layer.ln2.weight)
+        m = layer.mlp
+        x = x + dense(cfg, F.silu(dense(cfg, h2, m.gate_proj))
+                      * dense(cfg, h2, m.up_proj), m.down_proj)
+    return x
+
+
+@torch.no_grad()
+def generate(model, prompt_ids, *, max_new_tokens: int = 32,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+             eos_id: Optional[int] = None, seed: int = 0,
+             attention_impl: Optional[str] = None) -> torch.Tensor:
+    """Decode ``max_new_tokens`` after ``prompt_ids [b, p]`` with a port
+    ``TransformerLM`` (its weights as they are, computing in
+    ``cfg.dtype``); returns ``[b, p + max_new_tokens]`` on the model's
+    device.  Temperature 0 is greedy (the first maximum, as JAX's
+    ``argmax``); otherwise each token is drawn as the serving path draws
+    it (``sample_slots``: top-k, top-p, the counter hash of ``(seed,
+    position)``), so a row's tokens depend on its seed and prompt only.
+    After ``eos_id`` a row repeats it.  ``attention_impl`` defaults to
+    the model config's."""
+    from torchacc_tpu_torch.models.transformer import head_logits
+    cfg = model.cfg
+    dev = model.device
+    ids = torch.as_tensor(prompt_ids, device=dev).long()
+    if ids.ndim != 2 or ids.shape[1] < 1:
+        raise ValueError(f"prompt_ids must be [b, p] with p >= 1, got "
+                         f"{tuple(ids.shape)}")
+    if max_new_tokens <= 0:
+        return ids
+    b, p = ids.shape
+    impl = attention_impl or cfg.attention_impl
+    shape = (cfg.num_layers, b, p + max_new_tokens, cfg.kv_heads,
+             cfg.head_size)
+    cache_k = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    cache_v = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    vec = lambda x, dt: torch.full((b,), x, dtype=dt, device=dev)
+    knobs = (vec(temperature, torch.float32), vec(top_k, torch.int32),
+             vec(top_p, torch.float32), vec(seed, torch.int64))
+
+    def pick(x, pos):
+        logits = head_logits(cfg, model, x[:, -1:])[:, 0]
+        if temperature <= 0:
+            return logits.argmax(dim=-1)
+        return sample_slots(logits, *knobs, vec(pos, torch.int64)).long()
+
+    tok = pick(_cached_forward(model, ids, 0, cache_k, cache_v, impl), p)
+    done = (tok == eos_id) if eos_id is not None else None
+    out = [tok]
+    for pos in range(p, p + max_new_tokens - 1):
+        x = _cached_forward(model, tok[:, None], pos, cache_k, cache_v, impl)
+        nxt = pick(x, pos + 1)
+        if done is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done = done | (nxt == eos_id)
+        tok = nxt
+        out.append(tok)
+    return torch.cat([ids, torch.stack(out, dim=1)], dim=1)

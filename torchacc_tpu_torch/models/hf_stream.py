@@ -1,0 +1,273 @@
+"""Hugging Face checkpoints read from disk (the port of torchacc_tpu/
+models/hf_stream.py: ``resolve_checkpoint_files`` :292,
+``checkpoint_tensor_names`` :307, ``stream_params`` :370), with the
+port's own readers of the two files a checkpoint directory holds.
+
+The JAX package reads ``config.json`` through ``transformers`` and the
+weights through ``safetensors``; the port imports neither (ROADMAP.md
+C2):
+
+- ``read_hf_config`` reads ``config.json`` into an attribute namespace,
+  which ``models.hf.config_from_hf`` reads with ``getattr`` as it reads
+  a ``PretrainedConfig``;
+- ``SafetensorsFile`` reads the safetensors format: an 8-byte
+  little-endian header length, a JSON header naming each tensor's
+  dtype, shape and ``data_offsets`` (from the end of the header), then
+  the raw little-endian bytes.  The file is memory-mapped (copy on
+  write, so a tensor over it is writable and the file is never
+  written), and a tensor is a view of its bytes until it is copied.
+  BF16, F16 and F32 are read; any other dtype raises by name.
+
+HF's tensors are ``nn.Linear``'s ``[out, in]``, the port's layout, so
+the plan (``ingestion_plan``) is a renaming with shape checks.
+``stream_params`` copies one checkpoint tensor at a time straight into
+the tensor the trainer made for it: the parameter itself on one device,
+or this rank's shard of it on a mesh (``parallel/sharding.py``'s plan;
+each rank reads only its slice).  Host memory stays bounded by the
+page cache of the mapped files, not by the model.
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import re
+import struct
+import types
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor
+
+from torchacc_tpu_torch.models.transformer import ModelConfig
+
+#: safetensors dtype names the port reads
+DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
+
+# non-parameter buffers some exporters leave in state dicts
+_IGNORE = re.compile(
+    r"(rotary_emb\.inv_freq|masked_bias|attn\.bias|\.num_batches_tracked)$")
+
+
+def read_hf_config(path: str) -> types.SimpleNamespace:
+    """``<path>/config.json`` as an attribute namespace (nested objects,
+    such as ``rope_scaling``, stay dicts)."""
+    with open(os.path.join(path, "config.json")) as f:
+        return types.SimpleNamespace(**json.load(f))
+
+
+class SafetensorsFile:
+    """One ``.safetensors`` file, memory-mapped: ``keys()`` in the
+    header's order, ``shape(name)`` from the header, ``view(name)``
+    a tensor over the mapped bytes (valid until :meth:`close`; copy it
+    to keep it) and ``get_tensor(name)`` an owned copy."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as f:
+            head = f.read(8)
+            if len(head) != 8:
+                raise ValueError(f"{path}: not a safetensors file (no "
+                                 f"header length)")
+            (n,) = struct.unpack("<Q", head)
+            size = os.fstat(f.fileno()).st_size
+            if n > size - 8:
+                raise ValueError(f"{path}: header length {n} exceeds the "
+                                 f"file ({size} bytes)")
+            header = json.loads(f.read(n))
+            self._mm = (mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+                        if size > 8 + n else None)
+        self._base = 8 + n
+        header.pop("__metadata__", None)
+        self._entries: Dict[str, Tuple[torch.dtype, Tuple[int, ...], int,
+                                       int]] = {}
+        for name, e in header.items():
+            if e["dtype"] not in DTYPES:
+                raise ValueError(
+                    f"{path}: tensor {name!r} has dtype {e['dtype']}; "
+                    f"torchacc_tpu_torch reads {sorted(DTYPES)}")
+            dtype = DTYPES[e["dtype"]]
+            shape = tuple(int(s) for s in e["shape"])
+            begin, end = (int(o) for o in e["data_offsets"])
+            numel = 1
+            for s in shape:
+                numel *= s
+            if end - begin != numel * dtype.itemsize or begin < 0 \
+                    or self._base + end > size:
+                raise ValueError(
+                    f"{path}: tensor {name!r} ({e['dtype']} {list(shape)}) "
+                    f"has data_offsets {[begin, end]} that do not fit it or "
+                    f"the file")
+            self._entries[name] = (dtype, shape, begin, numel)
+
+    def keys(self) -> List[str]:
+        return list(self._entries)
+
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return self._entries[name][1]
+
+    def view(self, name: str) -> torch.Tensor:
+        dtype, shape, begin, numel = self._entries[name]
+        if numel == 0:
+            return torch.empty(shape, dtype=dtype)
+        return torch.frombuffer(self._mm, dtype=dtype, count=numel,
+                                offset=self._base + begin).view(shape)
+
+    def get_tensor(self, name: str) -> torch.Tensor:
+        return self.view(name).clone()
+
+    def close(self) -> None:
+        if self._mm is not None:
+            self._mm.close()
+            self._mm = None
+
+    def __enter__(self) -> "SafetensorsFile":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def resolve_checkpoint_files(path: str) -> Optional[List[str]]:
+    """The safetensors files under ``path`` (the shards an index names,
+    or ``model.safetensors``), or None when it holds none."""
+    idx = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(idx):
+        with open(idx) as f:
+            weight_map = json.load(f)["weight_map"]
+        return sorted({os.path.join(path, v) for v in weight_map.values()})
+    single = os.path.join(path, "model.safetensors")
+    if os.path.exists(single):
+        return [single]
+    return None
+
+
+def checkpoint_tensor_names(path: str) -> Optional[List[str]]:
+    """Every tensor name of the checkpoint: the index's ``weight_map``
+    keys when there is one, else the files' headers."""
+    idx = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(idx):
+        with open(idx) as f:
+            return sorted(json.load(f)["weight_map"])
+    files = resolve_checkpoint_files(path)
+    if files is None:
+        return None
+    names: List[str] = []
+    for fpath in files:
+        with SafetensorsFile(fpath) as f:
+            names.extend(f.keys())
+    return names
+
+
+def ingestion_plan(cfg: ModelConfig
+                   ) -> Dict[str, Tuple[Optional[str], Tuple[int, ...]]]:
+    """HF tensor name (without the ``model.`` prefix) -> (the port's
+    parameter name, or None for a tensor read and dropped; the shape in
+    the checkpoint) for the Llama and Qwen2 layouts.  A tied model's
+    ``lm_head.weight``, which some exporters ship as a copy, is
+    dropped."""
+    h, L = cfg.hidden_size, cfg.num_layers
+    nh, nk, d = cfg.num_heads, cfg.kv_heads, cfg.head_size
+    f, v = cfg.ffn_size, cfg.vocab_size
+    plan: Dict[str, Tuple[Optional[str], Tuple[int, ...]]] = {
+        "embed_tokens.weight": ("embed_tokens.weight", (v, h)),
+        "norm.weight": ("final_norm.weight", (h,)),
+        "lm_head.weight": (None if cfg.tie_embeddings else "lm_head.weight",
+                           (v, h)),
+    }
+    for i in range(L):
+        p = f"layers.{i}."                 # the same prefix in both names
+        plan[p + "input_layernorm.weight"] = (p + "ln1.weight", (h,))
+        plan[p + "post_attention_layernorm.weight"] = (p + "ln2.weight",
+                                                       (h,))
+        attn = [("q_proj", nh * d, h), ("k_proj", nk * d, h),
+                ("v_proj", nk * d, h), ("o_proj", h, nh * d)]
+        for name, rows, cols in attn:
+            plan[f"{p}self_attn.{name}.weight"] = (
+                f"{p}attn.{name}.weight", (rows, cols))
+            if cfg.o_bias if name == "o_proj" else cfg.qkv_bias:
+                plan[f"{p}self_attn.{name}.bias"] = (
+                    f"{p}attn.{name}.bias", (rows,))
+        for name, rows, cols in (("gate_proj", f, h), ("up_proj", f, h),
+                                 ("down_proj", h, f)):
+            plan[f"{p}mlp.{name}.weight"] = (f"{p}mlp.{name}.weight",
+                                             (rows, cols))
+            if cfg.mlp_bias:
+                plan[f"{p}mlp.{name}.bias"] = (f"{p}mlp.{name}.bias", (rows,))
+    return plan
+
+
+def plan_entry(plan, name: str):
+    """(base name, plan entry) of a checkpoint tensor name, or (base,
+    None) for a buffer that is skipped; an unmapped name raises."""
+    base = name[6:] if name.startswith("model.") else name
+    if _IGNORE.search(base):
+        return base, None
+    if base not in plan:
+        raise KeyError(
+            f"checkpoint tensor {name!r} has no place in this ModelConfig "
+            f"(a family or layout torchacc_tpu_torch does not convert)")
+    return base, plan[base]
+
+
+def missing_tensors(plan, seen) -> List[str]:
+    """The plan's tensors a checkpoint did not give (a tied model's
+    ``lm_head.weight`` is never missing)."""
+    return sorted(n for n, (dst, _) in plan.items()
+                  if n not in seen and dst is not None)
+
+
+@torch.no_grad()
+def copy_full(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write the full tensor ``src`` into ``dst``: a plain tensor takes
+    all of it, a ``DTensor`` its local shard (the slice DCP would read
+    for it), converted to ``dst``'s dtype and device."""
+    if isinstance(dst, DTensor):
+        chunks = dst.__create_chunk_list__()
+        if len(chunks) != 1:
+            raise NotImplementedError(
+                f"a DTensor whose shard is not one box ({len(chunks)} "
+                f"chunks) cannot be filled from a full tensor")
+        box = tuple(slice(o, o + n) for o, n in
+                    zip(chunks[0].offsets, chunks[0].sizes))
+        dst.to_local().copy_(src[box])
+        return
+    dst.copy_(src)
+
+
+def stream_params(files: List[str], cfg: ModelConfig,
+                  dest: Mapping[str, torch.Tensor]
+                  ) -> Mapping[str, torch.Tensor]:
+    """Fill ``dest`` (the port's parameter name -> the trainer's tensor,
+    a ``DTensor`` on a mesh) from the safetensors ``files``, one tensor
+    at a time in the files' order, each copied from the mapped file
+    straight into its place (a shard reads only its slice).  Every
+    checkpoint tensor must have a place in the plan of ``cfg`` and the
+    shape it names, appear once, and every place must be filled.
+    Returns ``dest``."""
+    plan = ingestion_plan(cfg)
+    seen = set()
+    for fpath in files:
+        with SafetensorsFile(fpath) as f:
+            for name in f.keys():
+                base, ent = plan_entry(plan, name)
+                if ent is None:
+                    continue
+                if base in seen:
+                    raise ValueError(f"duplicate tensor {name!r}")
+                seen.add(base)
+                if f.shape(name) != ent[1]:
+                    raise ValueError(
+                        f"{name}: checkpoint shape {list(f.shape(name))} != "
+                        f"expected {list(ent[1])}")
+                if ent[0] is None:
+                    continue
+                view = f.view(name)
+                copy_full(dest[ent[0]], view)
+                del view
+    missing = missing_tensors(plan, seen)
+    if missing:
+        raise ValueError(f"checkpoint is missing {len(missing)} expected "
+                         f"tensors, first: {missing[:5]}")
+    return dest

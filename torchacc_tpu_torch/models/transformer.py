@@ -3,10 +3,12 @@ transformer.py, Llama subset).
 
 ``ModelConfig`` is a copy of the JAX package's config with torch dtypes:
 every field is there, so a JAX config maps onto it field by field, but
-the port implements only the Llama family — rmsnorm, swiglu, plain RoPE
-(``rope_theta``, ``rope_scale``), GQA, ``qkv_bias``, ``tie_embeddings``
-and ``attn_logit_softcap`` — plus, in the training forward, attention
-dropout (``attn_dropout``) and quantized forward matmuls (``quant``,
+the port implements only the Llama family — rmsnorm, swiglu, RoPE
+(``rope_theta``, ``rope_scale`` and Llama-3.1's ``rope_llama3``
+banding), GQA, ``qkv_bias``, ``o_bias``, ``mlp_bias``,
+``tie_embeddings`` and ``attn_logit_softcap`` — plus, in the training
+forward, attention dropout (``attn_dropout``) and quantized forward
+matmuls (``quant``,
 ``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
 ``quant_impl``).  The serving forward (serve/scheduler.py) and the
 training forward here both reject the rest by name.
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Union
 
@@ -165,12 +168,25 @@ def rms_norm(cfg: ModelConfig, x: torch.Tensor,
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_rope`` for plain RoPE: llama half-split convention, angles in
-    f32, outputs cast back to the inputs' dtype.  ``positions`` [S, T]
-    (already divided by ``rope_scale`` by the caller when it is not 1)."""
+    """``_rope`` without partial rotary: llama half-split convention,
+    angles in f32, outputs cast back to the inputs' dtype.  ``positions``
+    [S, T] (already divided by ``rope_scale`` by the caller when it is
+    not 1).  Under ``rope_llama3`` the frequencies take Llama-3.1's
+    banding, in f32 as the JAX package computes it: long wavelengths
+    divided by ``factor``, short ones kept, the band between
+    interpolated."""
     d = q.shape[-1]
     freqs = 1.0 / (cfg.rope_theta ** (
         torch.arange(0, d, 2, dtype=torch.float32, device=q.device) / d))
+    if cfg.rope_llama3 is not None:
+        factor, lo, hi, old_len = cfg.rope_llama3
+        wavelen = 2.0 * math.pi / freqs
+        low_wl, high_wl = old_len / lo, old_len / hi
+        smooth = (old_len / wavelen - lo) / (hi - lo)
+        scaled = torch.where(wavelen > low_wl, freqs / factor, freqs)
+        smoothed = ((1.0 - smooth) / factor + smooth) * freqs
+        freqs = torch.where((wavelen >= high_wl) & (wavelen <= low_wl),
+                            smoothed, scaled)
     angles = positions[..., None].float() * freqs            # [S, T, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -195,9 +211,14 @@ class RMSNorm(nn.Module):
 LLAMA_FIELDS = frozenset({
     "vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
     "head_dim", "intermediate_size", "max_seq_len", "rope_theta",
-    "rope_scale", "norm_eps", "qkv_bias", "tie_embeddings",
-    "attn_logit_softcap", "query_scale", "dtype", "param_dtype",
+    "rope_scale", "rope_llama3", "norm_eps", "qkv_bias", "o_bias",
+    "mlp_bias", "tie_embeddings", "attn_logit_softcap", "query_scale",
+    "dtype", "param_dtype",
 })
+# what those fields are, for the messages that reject the others
+LLAMA_SURFACE = ("rmsnorm, swiglu, RoPE (plain, linear and llama3 "
+                 "scaling), GQA, qkv/o/mlp biases, tie_embeddings and "
+                 "attn_logit_softcap")
 # the training forward also implements remat (its policy, the
 # submodules and the number of layers it covers), the attention choice,
 # attention dropout and the quantized matmuls; every other field must
@@ -228,8 +249,7 @@ def check_training_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             "the training forward of torchacc_tpu_torch does not support "
-            + ", ".join(bad) + " (it implements rmsnorm, swiglu, plain "
-            "RoPE, GQA, qkv_bias, tie_embeddings and attn_logit_softcap)")
+            + ", ".join(bad) + f" (it implements {LLAMA_SURFACE})")
     if cfg.quant != "none" and "head" in cfg.quant_sites:
         raise NotImplementedError(
             "quant_sites includes 'head': the quantized vocab projection "
@@ -296,13 +316,14 @@ class QuantScope:
         self.amax_groups = amax_groups
 
     def linear(self, cfg: ModelConfig, name: str, x: torch.Tensor,
-               lin: nn.Linear) -> torch.Tensor:
+               lin: nn.Linear, bias: bool = True) -> torch.Tensor:
         if name not in self.histories:
             raise KeyError(
                 f"no amax history for the quantized site {name!r}: pass "
                 f"the TrainState.quant of this model config")
         y, hist = quant_linear(
-            x, lin.weight, lin.bias, self.histories[name], fmt=cfg.quant,
+            x, lin.weight, lin.bias if bias else None, self.histories[name],
+            fmt=cfg.quant,
             impl=cfg.quant_impl, dtype=cfg.dtype,
             update=self.new is not None, amax_groups=self.amax_groups)
         if self.new is not None:
@@ -312,7 +333,7 @@ class QuantScope:
 
 def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
           quant: Optional[QuantScope] = None,
-          name: Optional[str] = None) -> torch.Tensor:
+          name: Optional[str] = None, bias: bool = True) -> torch.Tensor:
     """A projection with both operands in the compute dtype (flax
     ``Dense(dtype=cfg.dtype)``); ``.to`` is free when the weight already
     is (the bf16 shadow).  With ``quant`` the product is the quantized
@@ -322,15 +343,30 @@ def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
     ``utils.remat.offload_product``.  A tensor-parallel weight (a
     ``DTensor``) is read as this rank's shard: the product is this
     rank's heads or MLP columns (column-parallel), or its partial sum
-    (row-parallel, which the caller reduces)."""
+    (row-parallel, which the caller reduces and then adds the bias to:
+    ``bias=False`` leaves it out here, see :func:`row_parallel`)."""
     dt = cfg.dtype
     operands = lambda: (x.to(dt), to_local(lin.weight).to(dt))
     if quant is not None:
-        return offload_product(operands,
-                               lambda: quant.linear(cfg, name, x, lin))
+        return offload_product(
+            operands, lambda: quant.linear(cfg, name, x, lin, bias))
     y = offload_product(operands, lambda: F.linear(*operands()))
-    if lin.bias is not None:
+    if bias and lin.bias is not None:
         y = y + to_local(lin.bias).to(dt)
+    return y
+
+
+def row_parallel(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
+                 group, quant: Optional[QuantScope] = None,
+                 name: Optional[str] = None) -> torch.Tensor:
+    """An output projection (o_proj, down_proj): under tensor
+    parallelism each rank's partial product is summed over the 'tp'
+    ranks and the bias, replicated, is added once after the sum."""
+    if group is None:
+        return dense(cfg, x, lin, quant, name)
+    y = _tp_out(dense(cfg, x, lin, quant, name, bias=False), group)
+    if lin.bias is not None:
+        y = y + to_local(lin.bias).to(cfg.dtype)
     return y
 
 
@@ -390,7 +426,8 @@ class Attention(nn.Module):
                                 **factory)
         self.v_proj = nn.Linear(h, cfg.kv_heads * d, bias=cfg.qkv_bias,
                                 **factory)
-        self.o_proj = nn.Linear(cfg.num_heads * d, h, bias=False, **factory)
+        self.o_proj = nn.Linear(cfg.num_heads * d, h, bias=cfg.o_bias,
+                                **factory)
 
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
                 quant=None, name="attn"):
@@ -430,8 +467,8 @@ class Attention(nn.Module):
         with checkpoint_name("attn_out"):
             # the JAX o_proj contracts (heads, d); flattened it is the
             # same [M, K] @ [K, N]
-            return _tp_out(dense(cfg, out.reshape(b, s, -1), self.o_proj,
-                                 qs, f"{name}.o_proj"), self.tp_group)
+            return row_parallel(cfg, out.reshape(b, s, -1), self.o_proj,
+                                self.tp_group, qs, f"{name}.o_proj")
 
 
 class Mlp(nn.Module):
@@ -443,9 +480,9 @@ class Mlp(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, f = cfg.hidden_size, cfg.ffn_size
-        self.gate_proj = nn.Linear(h, f, bias=False, **factory)
-        self.up_proj = nn.Linear(h, f, bias=False, **factory)
-        self.down_proj = nn.Linear(f, h, bias=False, **factory)
+        self.gate_proj = nn.Linear(h, f, bias=cfg.mlp_bias, **factory)
+        self.up_proj = nn.Linear(h, f, bias=cfg.mlp_bias, **factory)
+        self.down_proj = nn.Linear(f, h, bias=cfg.mlp_bias, **factory)
 
     def forward(self, x, quant=None, name="mlp"):
         """SwiGLU ``Mlp.__call__`` (:665)."""
@@ -456,8 +493,8 @@ class Mlp(nn.Module):
             gate = dense(cfg, x, self.gate_proj, qs, f"{name}.gate_proj")
             up = dense(cfg, x, self.up_proj, qs, f"{name}.up_proj")
         with checkpoint_name("mlp_out"):
-            return _tp_out(dense(cfg, F.silu(gate) * up, self.down_proj, qs,
-                                 f"{name}.down_proj"), self.tp_group)
+            return row_parallel(cfg, F.silu(gate) * up, self.down_proj,
+                                self.tp_group, qs, f"{name}.down_proj")
 
 
 def _sub_remat(cfg: ModelConfig) -> bool:

@@ -42,7 +42,8 @@ from torchacc_tpu_torch.ops._common import NEG_INF, check_local
 #: chip_smoke.py sets both to 0 before the serving run and reads them after
 launch_counts = {"decode": 0, "prefill": 0}
 
-_KERNEL_HEAD_DIMS = (32, 128)      # llama-tiny, llama3-8b
+# llama-tiny; Llama-3.2-1B and Qwen2-0.5B; llama3-8b
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the kernel bodies (paged_attention_fwd's ``body``)
 _BODY_CODE = {"f32": 0, "prefill_mma": 1, "decode_split": 2}

@@ -16,9 +16,14 @@ pool has room for its whole reservation (prompt + max_new + in-flight
 overhang), so an admitted request can always finish.  Until then it
 waits in the queue (``serve.policy``: 'fcfs', 'sjf' or 'priority').
 
+Live weights: ``from_train_state(trainer)`` serves a one-device
+``Trainer``'s masters cast to the serving dtype, and ``load_params``
+swaps an idle engine's weights in place, keeping its pools.
+
 Left out of this slice (ROADMAP.md): the request journal and
-``recover``, deadline shedding and preemption, graceful drain,
-``from_train_state``/``load_params`` and the telemetry session.
+``recover``, deadline shedding and preemption, graceful drain, the
+train-to-serve resharding of a mesh trainer (A2b) and the telemetry
+session.
 """
 
 from __future__ import annotations
@@ -26,12 +31,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence as Seq
+from typing import Any, Dict, List, Optional, Sequence as Seq
 
 import numpy as np
 import torch
 
 from torchacc_tpu_torch.config import Config
+from torchacc_tpu_torch.models.transformer import TransformerLM
 from torchacc_tpu_torch.ops._common import resolve_device
 from torchacc_tpu_torch.serve.scheduler import Scheduler, Sequence, priority_key
 from torchacc_tpu_torch.utils.logger import logger
@@ -116,6 +122,81 @@ class ServeEngine:
                 "requests": 0, "t0": None, "t1": None,
                 "prefix_hits": 0, "cached_tokens": 0, "shared_blocks": 0,
                 "cow": 0, "deadline_total": 0, "deadline_miss": 0}
+
+    # -- live weights (train -> serve handoff) ------------------------------
+
+    @classmethod
+    def from_train_state(cls, trainer, config: Optional[Config] = None, *,
+                         dtype: Any = "auto",
+                         metrics_dir: Optional[str] = None) -> "ServeEngine":
+        """An engine over a live one-device ``Trainer``'s weights
+        (``from_train_state`` of the JAX package, :249): a new model on
+        the trainer's device holding the f32 masters cast to ``dtype``
+        ('auto': the model's compute dtype; None keeps the masters'),
+        with the quantized matmuls off (serving decodes in the compute
+        dtype).  The trainer is left as it was.  A trainer on a mesh
+        raises: resharding its state into the serving layout is
+        ``parallel/transfer.py``, not ported yet (ROADMAP A2b)."""
+        config = config or trainer.config
+        # a bad ServeConfig fails before the weights are copied
+        config.serve.validate()
+        if trainer.mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine.from_train_state of a Trainer on a mesh needs "
+                "the train-to-serve resharding (parallel/transfer.py), "
+                "which is not ported to torchacc_tpu_torch yet (ROADMAP "
+                "A2b); save a checkpoint and serve it on one card")
+        if trainer.state is None:
+            raise RuntimeError("nothing to hand off: call init() (or "
+                               "init_from_params / restore) first")
+        cfg = dataclasses.replace(trainer.model.cfg, quant="none")
+        dt = cfg.dtype if dtype == "auto" else dtype
+        model = TransformerLM(cfg, device="meta", dtype=dt)
+        model = model.to_empty(device=trainer.device)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(trainer.state.params[name])
+        model.requires_grad_(False).eval()
+        return cls(model, config, device=trainer.device,
+                   metrics_dir=metrics_dir)
+
+    def load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Swap the weights in place (``load_params`` of the JAX
+        package, :272): ``params`` (the port's parameter names, e.g. a
+        ``Trainer``'s ``state.params``) are copied into the engine's
+        model, cast to its dtype; the pools, tables and decode carry are
+        kept.  The engine must be idle (queued requests may wait): a
+        swap under sequences mid-decode would splice two models' logits
+        into one stream, so it raises.  In-flight ring entries resolve
+        first, and the prefix cache is flushed (its k/v were computed
+        under the old weights)."""
+        with torch.inference_mode():
+            self.scheduler.drain()
+        self._drain_events()
+        if self.scheduler.busy():
+            busy = [s.sid for s in self.scheduler.slot_seq if s is not None]
+            raise RuntimeError(
+                f"cannot swap weights while sequences {busy} occupy decode "
+                f"slots: run() the engine to completion first")
+        model = self.scheduler.decoder.model
+        named = dict(model.named_parameters())
+        if set(named) != set(params):
+            raise ValueError(
+                f"load_params: the names do not match the model's: missing "
+                f"{sorted(set(named) - set(params))[:5]}, unexpected "
+                f"{sorted(set(params) - set(named))[:5]}")
+        for name, p in named.items():
+            if tuple(params[name].shape) != tuple(p.shape):
+                raise ValueError(f"load_params: {name} has shape "
+                                 f"{list(params[name].shape)}, the model "
+                                 f"{list(p.shape)}")
+        flushed = self.scheduler.flush_prefix_cache()
+        if flushed:
+            logger.info(f"prefix cache flushed on weight swap ({flushed} "
+                        f"cached blocks dropped)")
+        with torch.no_grad():
+            for name, p in named.items():
+                p.copy_(params[name])
 
     # -- submission ---------------------------------------------------------
 

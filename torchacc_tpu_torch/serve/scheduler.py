@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torchacc_tpu_torch.models.generate import embed, sample_slots
 from torchacc_tpu_torch.models.transformer import (
     LLAMA_FIELDS,
+    LLAMA_SURFACE,
     ModelConfig,
     dense,
     head_logits,
@@ -90,10 +91,9 @@ _INERT_FIELDS = frozenset({
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The serving surface of this slice, as an allow-list: rmsnorm,
-    swiglu, plain RoPE, GQA, qkv_bias, tied embeddings and the attention
-    softcap.  Every other field must keep its default; one that does not
-    raises NotImplementedError naming it."""
+    """The serving surface of this slice, as an allow-list
+    (``LLAMA_SURFACE``).  Every other field must keep its default; one
+    that does not raises NotImplementedError naming it."""
     bad = []
     for f in dataclasses.fields(cfg):
         if f.name in _SUPPORTED_FIELDS or f.name in _INERT_FIELDS:
@@ -104,8 +104,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             "the serving engine of torchacc_tpu_torch does not support "
-            + ", ".join(bad) + " (it implements rmsnorm, swiglu, plain "
-            "RoPE, GQA, qkv_bias, tie_embeddings and attn_logit_softcap)")
+            + ", ".join(bad) + f" (it implements {LLAMA_SURFACE})")
 
 
 class PagedDecoder:
@@ -665,3 +664,12 @@ class Scheduler:
     def busy(self) -> bool:
         return (any(s is not None for s in self.slot_seq)
                 or bool(self._ring))
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every cached prefix block and its index entries; returns
+        the block count (the weight swap of ``engine.load_params``: k/v
+        banked under old weights must never serve new ones).  The caller
+        guarantees no live sequences."""
+        if self.prefix is None:
+            return 0
+        return self.pool.flush_cached()

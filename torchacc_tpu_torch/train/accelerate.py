@@ -12,14 +12,23 @@ model over it; the dataloader then yields this rank's rows
 shards raises.  Without one the trainer runs on one
 device, and a ``dist`` that asks for more than one rank raises.  It
 takes a ``ModelConfig`` (the model is made by ``Trainer.init`` from
-``config.seed``) or a port ``TransformerLM`` (its weights are
-trained).  Hugging Face models and
-checkpoints wait for the model-breadth slice (ROADMAP A10) and raise.
+``config.seed``), a port ``TransformerLM`` (its weights are trained),
+or a Hugging Face Llama/Qwen2 model (``models/hf.py``): an object with
+``.config`` and ``.state_dict()``, or a local checkpoint directory.
+The HF config becomes the model config (``config_from_hf``, with
+``dtype``/``param_dtype`` from ``config.compute``), the model is made on
+``meta`` and the trainer comes back initialised from the HF weights
+(``Trainer.init_from_params``): a directory's safetensors are copied
+one tensor at a time from the mapped files into the masters, or this
+rank's shards of them (``hf_stream.stream_params``, :79-153 of the JAX
+file); ``pytorch_model*.bin`` files are read with ``torch.load``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Any, Iterable, Optional, Tuple, Union
 
 import torch
@@ -28,6 +37,17 @@ import torch.distributed as dist
 from torchacc_tpu_torch.config import Config, ConfigError
 from torchacc_tpu_torch.data.async_loader import AsyncLoader
 from torchacc_tpu_torch.data.dataset import PackedDataset
+from torchacc_tpu_torch.models.hf import (
+    check_local_dir,
+    config_from_hf,
+    params_from_hf_state_dict,
+    read_state_dict,
+)
+from torchacc_tpu_torch.models.hf_stream import (
+    read_hf_config,
+    resolve_checkpoint_files,
+    stream_params,
+)
 from torchacc_tpu_torch.models.transformer import (
     ModelConfig,
     TransformerLM,
@@ -75,9 +95,9 @@ def accelerate(
     """Returns ``(trainer, loader)``: ``loader`` is ``dataloader`` (any
     iterable of dict batches, e.g. a ``PackedDataset``) wrapped in an
     ``AsyncLoader`` that uploads to the trainer's device, or None
-    without one; give it to ``trainer.fit``.  A ``ModelConfig``'s model
-    is made on ``device`` (None = the card); a ``TransformerLM`` trains
-    where it lies."""
+    without one; give it to ``trainer.fit``.  A ``ModelConfig``'s model,
+    and a Hugging Face model's, is made on ``device`` (None = the card);
+    a ``TransformerLM`` trains where it lies."""
     config = config or Config()
     config.validate()
     d = config.dist
@@ -89,17 +109,21 @@ def accelerate(
             "parallel.initialize_distributed() first (ROADMAP.md A8)")
     if config.compute.matmul_precision != "default":
         torch.set_float32_matmul_precision(config.compute.matmul_precision)
+    hf_params = None
+    if isinstance(model, (str, os.PathLike)) or (
+            hasattr(model, "state_dict")
+            and not isinstance(model, TransformerLM)):
+        model, hf_params = _hf_source(model, config)
     if isinstance(model, ModelConfig):
         model = TransformerLM(apply_config_to_model(model, config),
                               device="meta")
     elif isinstance(model, TransformerLM):
         set_model_config(model, apply_config_to_model(model.cfg, config))
     else:
-        raise NotImplementedError(
-            f"accelerate() takes a ModelConfig or a torchacc_tpu_torch "
-            f"TransformerLM; {type(model).__name__} (Hugging Face models "
-            f"and checkpoints) waits for the model-breadth slice "
-            f"(ROADMAP A10)")
+        raise TypeError(
+            f"accelerate() takes a ModelConfig, a torchacc_tpu_torch "
+            f"TransformerLM, a Hugging Face model or a local Hugging Face "
+            f"checkpoint directory; got {type(model).__name__}")
     mesh = None
     if dist.is_initialized():
         dev = (resolve_device(device) if model.device.type == "meta"
@@ -116,6 +140,26 @@ def accelerate(
                     f"parallel.data_shard(mesh) (ROADMAP.md A8)")
     trainer = Trainer(model, config, optimizer=optimizer, device=device,
                       mesh=mesh, **trainer_kwargs)
+    if hf_params is not None:
+        trainer.init_from_params(hf_params)
     loader = (None if dataloader is None else
               AsyncLoader(dataloader, config, device=trainer.device))
     return trainer, loader
+
+
+def _hf_source(model: Any, config: Config):
+    """(the ``ModelConfig`` of a Hugging Face model or checkpoint
+    directory, what ``Trainer.init_from_params`` takes for its
+    weights)."""
+    dtypes = dict(dtype=config.compute.dtype,
+                  param_dtype=config.compute.param_dtype)
+    if not isinstance(model, (str, os.PathLike)):
+        mc = config_from_hf(model.config, **dtypes)
+        return mc, params_from_hf_state_dict(model.state_dict(), mc)
+    path = os.fspath(model)
+    check_local_dir(path)
+    mc = config_from_hf(read_hf_config(path), **dtypes)
+    files = resolve_checkpoint_files(path)
+    if files is None:
+        return mc, params_from_hf_state_dict(read_state_dict(path), mc)
+    return mc, functools.partial(stream_params, files, mc)

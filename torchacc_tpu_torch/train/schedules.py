@@ -1,7 +1,7 @@
 """Learning-rate schedules and the optimizer (the port of
 torchacc_tpu/train/schedules.py): ``warmup_cosine`` (:18),
-``clip_by_global_norm_f32`` (:40) and ``adamw`` (:66), on plain torch
-tensors with no optax.
+``warmup_linear`` (:30), ``clip_by_global_norm_f32`` (:40) and ``adamw``
+(:66), on plain torch tensors with no optax.
 
 ``adamw`` computes exactly optax's ``chain(clip_by_global_norm_f32,
 adamw(lr, b1, b2, eps, weight_decay))``: the global norm accumulated in
@@ -73,6 +73,26 @@ def warmup_cosine(peak_lr: float, total_steps: int, warmup_steps: int = 0,
             frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
             return -peak_lr * frac + peak_lr
         return cosine(count - warmup_steps, peak_lr, decay_steps, alpha)
+    return schedule
+
+
+def warmup_linear(peak_lr: float, total_steps: int,
+                  warmup_steps: int = 0) -> Schedule:
+    """Linear warmup from 0 to ``peak_lr`` over ``warmup_steps``, then
+    linear decay to 0 at ``total_steps`` (optax ``linear_schedule``s
+    joined at ``warmup_steps``)."""
+    def linear(count: int, init: float, end: float, steps: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    decay_steps = max(total_steps - warmup_steps, 1)
+    if warmup_steps <= 0:
+        return lambda count: linear(count, peak_lr, 0.0, decay_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return linear(count, 0.0, peak_lr, warmup_steps)
+        return linear(count - warmup_steps, peak_lr, 0.0, decay_steps)
     return schedule
 
 

@@ -1,8 +1,9 @@
 """The Trainer, core only (the port of torchacc_tpu/train/trainer.py):
 ``shift_labels`` (:50), ``Trainer.__init__``/``init``/``step`` (:933,
-the step of ``_build_train_step`` :563), ``eval_step``, ``save`` and
-``restore`` (:1114, :1147) and ``fit`` (:1272-1515, with its checkpoint
-saves :1805-1845), on one device or on a mesh.
+the step of ``_build_train_step`` :563), ``init_from_params`` and
+``swap_params`` (:296, :333), ``eval_step``, ``save`` and ``restore``
+(:1114, :1147) and ``fit`` (:1272-1515, with its evaluation :1629-1660
+and its checkpoint saves :1805-1845), on one device or on a mesh.
 
 One step is forward -> loss (the fused linear + CE head by default) ->
 backward -> f32 global-norm clip -> AdamW on the f32 masters; with
@@ -98,6 +99,7 @@ from torchacc_tpu_torch.errors import (
     CheckpointNotFoundError,
     TrainerStateError,
 )
+from torchacc_tpu_torch.models.hf_stream import copy_full
 from torchacc_tpu_torch.models.transformer import (
     TransformerLM,
     check_training_supported,
@@ -137,6 +139,23 @@ def shift_labels(input_ids: torch.Tensor,
         valid = (next_seg == segment_ids) & (segment_ids >= 0)
         labels = torch.where(valid, labels, -100)
     return labels
+
+
+def _copy_named(dest: Dict[str, torch.Tensor],
+                params: Dict[str, torch.Tensor]) -> None:
+    """Write the full tensors ``params`` into ``dest`` by name (this
+    rank's shards of DTensors).  The names and shapes must be the same;
+    they are checked before anything is written."""
+    bad = [f"{n}: shape {list(t.shape)}, the model's "
+           f"{list(dest[n].shape)}" for n, t in params.items()
+           if n in dest and tuple(t.shape) != tuple(dest[n].shape)]
+    if set(dest) != set(params) or bad:
+        raise TrainerStateError(
+            f"the parameters do not match the model's: missing "
+            f"{sorted(set(dest) - set(params))[:5]}, unexpected "
+            f"{sorted(set(params) - set(dest))[:5]}; " + "; ".join(bad[:8]))
+    for name, t in params.items():
+        copy_full(dest[name], t)
 
 
 def _swap_param(model: nn.Module, name: str, tensor: torch.Tensor) -> None:
@@ -212,15 +231,38 @@ class Trainer:
         """The train state: weights made from ``seed`` (default
         ``config.seed``) when the model is on ``meta``, else the model's
         own weights, as f32 masters; the optimizer state; step 0."""
+        return self._init(self.config.seed if seed is None else seed)
+
+    def init_from_params(self, params) -> TrainState:
+        """The train state from given weights (``init_from_params`` of
+        the JAX Trainer, :296): a ``meta`` model gets storage without a
+        random init first, the weights are written into the masters
+        (this rank's shards on a mesh), the optimizer state starts fresh
+        and the step at 0, and the bf16 shadow is made from them.
+
+        ``params``: the full tensors by the port's parameter names, on
+        any device (``models.hf.load_hf_model``), or a function that
+        fills, in place, the masters it is given by name
+        (``models.hf_stream.stream_params`` over a checkpoint's files,
+        one tensor at a time)."""
+        fill = params if callable(params) else (
+            lambda dest: _copy_named(dest, params))
+        return self._init(None, fill)
+
+    def _init(self, seed: Optional[int], fill=None) -> TrainState:
+        """``init`` from ``seed``, or with ``fill`` writing the weights
+        into masters made without values."""
         cfg = self.model.cfg
         pdt = self.config.compute.param_dtype
-        seed = self.config.seed if seed is None else seed
         if self.mesh is not None:
-            masters = self._shard(seed, pdt)
+            masters = self._shard(seed, pdt, empty=fill is not None)
         else:
             if self.model.device.type == "meta":
-                self.model = init_params(cfg, seed=seed, device=self.device,
-                                         dtype=pdt)
+                self.model = (
+                    init_params(cfg, seed=seed, device=self.device,
+                                dtype=pdt) if fill is None
+                    else TransformerLM(cfg, device="meta", dtype=pdt)
+                    .to_empty(device=self.device).requires_grad_(False))
             masters = {}
             for name, p in list(self.model.named_parameters()):
                 m = p.detach().to(pdt)
@@ -228,6 +270,9 @@ class Trainer:
                 if not self._shadow_on:
                     _swap_param(self.model, name, nn.Parameter(m))
                     masters[name] = self.model.get_parameter(name)
+        if fill is not None:
+            with torch.no_grad():
+                fill(masters)
         opt_state = self.optimizer.init(masters)
         if self._shadow_on:
             # the shadow IS the model's parameters: one bf16 copy, which
@@ -252,13 +297,17 @@ class Trainer:
         logger.info(f"initialised {n / 1e6:.1f}M params on {self.device}")
         return self.state
 
-    def _shard(self, seed: int, pdt: torch.dtype) -> Dict[str, torch.Tensor]:
+    def _shard(self, seed: Optional[int], pdt: torch.dtype,
+               empty: bool = False) -> Dict[str, torch.Tensor]:
         """Shard the model over the mesh (a ``meta`` model's weights made
-        block by block from ``seed``, the same on every rank); the
-        masters are the sharded parameters themselves."""
+        block by block from ``seed``, the same on every rank, or, with
+        ``empty``, given storage only); the masters are the sharded
+        parameters themselves."""
         make = None
         if self.model.device.type == "meta":
-            make = materializer(seed, self.device)
+            make = (materializer(seed, self.device) if not empty else
+                    lambda module, prefix: module.to_empty(
+                        device=self.device))
         else:
             for name, p in list(self.model.named_parameters()):
                 if p.dtype != pdt:
@@ -470,6 +519,59 @@ class Trainer:
         self._after_restore()
         return self.state
 
+    def swap_params(self, params: Dict[str, torch.Tensor], *,
+                    reinit_opt: bool = True,
+                    verify_shadow: bool = False) -> TrainState:
+        """Replace the weights of an initialised trainer and everything
+        made from them (``swap_params`` of the JAX Trainer, :333): the
+        only safe way to load new weights.  Writing into
+        ``state.params`` by hand leaves the bf16 shadow, which the
+        forward reads, holding the old weights.
+
+        ``params``: full tensors by the port's parameter names, of the
+        masters' shapes and dtypes, written in place (this rank's shards
+        on a mesh).  ``reinit_opt=True`` starts the optimizer state
+        afresh (moments and count zero); ``False`` keeps it.  Either way
+        the shadow is made again from the new masters, as ``restore``
+        does.  ``verify_shadow=True`` then checks every shadow tensor
+        against the cast of its master, bitwise, and raises if one
+        differs.  The step, the fp16 scaler and the amax histories are
+        kept."""
+        if self.state is None:
+            raise TrainerStateError(
+                "swap_params needs an initialised trainer: call init(), "
+                "init_from_params() or restore() first")
+        live = self.state.params
+        bad = [f"{n}: {params[n].dtype}, live {live[n].dtype}"
+               for n in live
+               if n in params and params[n].dtype != live[n].dtype]
+        if bad:
+            raise TrainerStateError(
+                "swap_params: the new parameters' dtypes are not the live "
+                "state's: " + "; ".join(bad[:8]))
+        with torch.no_grad():
+            _copy_named(live, params)
+        if reinit_opt:
+            if self._shadow_on:
+                self.state.opt_state = (self.optimizer.inner.init(live),
+                                        shadow_params(self.state.opt_state))
+            else:
+                self.state.opt_state = self.optimizer.init(live)
+        self._after_restore()
+        if verify_shadow and not self._shadow_consistent():
+            raise AssertionError(
+                "bf16 shadow != cast(params) after swap_params")
+        return self.state
+
+    def _shadow_consistent(self) -> bool:
+        """Every shadow tensor equals the bf16 cast of its master,
+        bitwise (true when there is no shadow)."""
+        if not self._shadow_on or self.state is None:
+            return True
+        shadow = shadow_params(self.state.opt_state)
+        return all(torch.equal(shadow[n], m.to(shadow[n].dtype))
+                   for n, m in self.state.params.items())
+
     @torch.no_grad()
     def _after_restore(self) -> None:
         """The bf16 shadow is the cast of the masters: after a load into
@@ -509,8 +611,9 @@ class Trainer:
 
     # -- loop -----------------------------------------------------------------
     def fit(self, loader, *, max_steps: Optional[int] = None,
+            eval_loader=None, eval_every: Optional[int] = None,
             log_every: int = 50, checkpoint_dir: Optional[str] = None,
-            checkpoint_every: int = 1000,
+            checkpoint_every: int = 1000, metrics_step_offset: int = 0,
             resume: Optional[str] = None) -> List[Dict[str, Any]]:
         """Run ``step`` over ``loader`` until ``max_steps`` steps have been
         taken, counting the steps a resume restored.  Returns a ``{step,
@@ -519,6 +622,16 @@ class Trainer:
         the host.  On a mesh ``loader`` yields this rank's rows,
         ``tokens_per_sec`` counts the global batch's and only rank 0
         logs.
+
+        ``eval_loader`` (re-iterable) with ``eval_every``: after every
+        ``eval_every``-th step but the first, ``eval_step`` runs over
+        all of it and the step's record (made for that step if it is
+        not a logging one) gets ``eval_loss``, the mean of its batches'
+        losses; the next interval's rates leave the evaluation's time
+        out.  ``metrics_step_offset`` shifts the step the log lines
+        name (a caller that runs ``fit`` once per epoch passes its
+        global step; the JAX package also shifts its metrics files,
+        which the port does not write, ROADMAP A13).
 
         ``checkpoint_dir``: a ``CheckpointManager`` there saves the state
         after the steps ``should_save`` picks (each a multiple of
@@ -558,7 +671,9 @@ class Trainer:
                 if mgr is not None:
                     mgr.save(step_idx + 1, self.state,
                              loader_state=loader_state)
-                if not (log_every and r % log_every == 0):
+                do_eval = bool(eval_loader is not None and eval_every
+                               and r and r % eval_every == 0)
+                if not (log_every and r % log_every == 0) and not do_eval:
                     continue
                 loss = float(m["loss"])
                 now = time.perf_counter()
@@ -571,10 +686,18 @@ class Trainer:
                     rec["tokens_per_sec"] = round(
                         rec["steps_per_sec"] * ids.shape[0] * ids.shape[1]
                         * self._data_shards, 1)
-                t_prev, s_prev = now, r
+                if do_eval:
+                    # every batch queued first, then one read-back each
+                    evs = [self.eval_step(eb)["loss"] for eb in eval_loader]
+                    rec["eval_loss"] = (sum(float(v) for v in evs)
+                                        / max(len(evs), 1))
+                t_prev, s_prev = time.perf_counter(), r
                 history.append(rec)
                 if is_primary():
-                    logger.info(f"step {r}: loss {loss:.4f}")
+                    logger.info(
+                        f"step {metrics_step_offset + r}: loss {loss:.4f}"
+                        + (f", eval_loss {rec['eval_loss']:.4f}"
+                           if do_eval else ""))
             return history
         finally:
             # an early exit must stop the loader's producer thread now
