@@ -184,8 +184,9 @@ Phases, each of which exits non-zero when it fails:
    embeddings) at --hf-layers (its 16) and its weights in HF's tensor
    names, bf16, normal(0.02) from numpy generators seeded from --seed,
    written by this script's own safetensors writer as 4 shards and an
-   index under /dev/shm (or the git-ignored chip_smoke_hf/ where
-   /dev/shm lacks room; removed after the load).  accelerate(that
+   index in a directory of the run's own under /dev/shm (or the
+   git-ignored chip_smoke_hf/ beside this script where /dev/shm lacks
+   room; removed after the load).  accelerate(that
    directory, PackedDataset(Zipf documents, 4096, 2 rows), Config(bf16
    shadow, save_attn_mlp)) streams it into the f32 masters, which must
    equal the written weights bitwise; the loaded model's loss and
@@ -222,6 +223,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); f16's
@@ -2257,15 +2259,14 @@ def _write_safetensors(torch, path, tensors):
 
 
 def _write_hf_checkpoint(torch, root, seed, layers):
-    """Llama-3.2-1B's config.json (``layers`` deep) and its weights in
-    HF's tensor names, bf16, in HF_SHARDS safetensors files named by an
-    index: matrices normal(0, initializer_range) from numpy generators
-    spawned from ``seed`` (one a tensor, drawn on 8 threads), norm
-    scales one.  Returns (the HF tensors by name, bytes written)."""
+    """Into the empty directory ``root``: Llama-3.2-1B's config.json
+    (``layers`` deep) and its weights in HF's tensor names, bf16, in
+    HF_SHARDS safetensors files named by an index: matrices
+    normal(0, initializer_range) from numpy generators spawned from
+    ``seed`` (one a tensor, drawn on 8 threads), norm scales one.  Returns (the HF tensors by name, bytes written)."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
     cfg = dict(LLAMA32_1B, num_hidden_layers=layers)
-    os.makedirs(root)
     with open(os.path.join(root, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)
     shapes = _hf_tensors(cfg, layers)
@@ -2303,15 +2304,20 @@ def _write_hf_checkpoint(torch, root, seed, layers):
 
 
 def _hf_root(nbytes):
-    """/dev/shm when it has room for twice the checkpoint (so that the
-    run's disk writes stay with the checkpoint phases), else HF_DIR in
-    the checkout."""
+    """A new empty directory of this run's own under /dev/shm when that
+    has room for twice the checkpoint (so that the run's disk writes
+    stay with the checkpoint phases, and two runs on one machine never
+    share it), else HF_DIR beside this script, in the checkout, made
+    anew."""
     try:
         if shutil.disk_usage("/dev/shm").free > 2 * nbytes:
-            return os.path.join("/dev/shm", HF_DIR)
+            return tempfile.mkdtemp(prefix=HF_DIR + "_", dir="/dev/shm")
     except OSError:
         pass
-    return os.path.abspath(HF_DIR)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), HF_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
 
 
 def _hf_phase(torch, args, pa):
@@ -2333,7 +2339,7 @@ def _hf_phase(torch, args, pa):
               flush=True)
     est = 2 * (LLAMA32_1B["vocab_size"] * 2048 + layers * 60_821_504)
     root = _hf_root(est)
-    shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag}: the checkpoint goes to {root}", flush=True)
     try:
         t0 = time.perf_counter()
         written, nbytes = _write_hf_checkpoint(torch, root, args.seed + 11,

@@ -10,6 +10,8 @@ plain attention.  Losses agree within rtol 1e-4, as the port's other
 trajectories against the JAX Trainer (tests/test_torch_train.py).
 """
 
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from torchacc_tpu_torch.ops.flash_attention import segment_ids_from_positions
 from torchacc_tpu_torch.train import accelerate, adamw
 from torchacc_tpu_torch.train import schedules as port_sched
 from torchacc_tpu_torch.train.amp import shadow_params
+from torchacc_tpu_torch.utils.logger import logger as port_logger
 from test_torch_hf import hf_model, saved
 
 CASE = "llama_o_mlp_bias_d64"
@@ -130,7 +133,9 @@ def test_accelerate_a_checkpoint_and_a_model_follow_jax(ckpt):
 def test_fit_eval_records_match_jax(ckpt):
     """fit(eval_loader, eval_every=2, log_every=3) over 5 steps: the
     same records as JAX's _fit_inner (logging steps 0 and 3, evaluation
-    steps 2 and 4), their losses and eval losses within rtol 1e-4."""
+    steps 2 and 4), their losses and eval losses within rtol 1e-4; the
+    log lines name the records' steps, metrics_step_offset aside, as
+    JAX's do."""
     model, path = ckpt
     batches = [_batch(30 + i) for i in range(5)]
     evals = [_batch(90 + i) for i in range(2)]
@@ -138,9 +143,21 @@ def test_fit_eval_records_match_jax(ckpt):
     jhist = jt.fit(iter([_jb(b) for b in batches]), max_steps=5,
                    eval_loader=[_jb(b) for b in evals], eval_every=2,
                    log_every=3)
-    hist = _port_trainer(path).fit(iter(batches), max_steps=5,
-                                   eval_loader=evals, eval_every=2,
-                                   log_every=3, metrics_step_offset=7)
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    level = port_logger.level
+    port_logger.addHandler(handler)
+    port_logger.setLevel(logging.INFO)
+    try:
+        hist = _port_trainer(path).fit(iter(batches), max_steps=5,
+                                       eval_loader=evals, eval_every=2,
+                                       log_every=3, metrics_step_offset=7)
+    finally:
+        port_logger.removeHandler(handler)
+        port_logger.setLevel(level)
+    assert [int(m.split(":")[0][5:]) for m in lines
+            if m.startswith("step ")] == [0, 2, 3, 4]
     assert [r["step"] for r in hist] == [r["step"] for r in jhist] \
         == [0, 2, 3, 4]
     for r, j in zip(hist, jhist):

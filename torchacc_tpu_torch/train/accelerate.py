@@ -40,8 +40,7 @@ from torchacc_tpu_torch.data.dataset import PackedDataset
 from torchacc_tpu_torch.models.hf import (
     check_local_dir,
     config_from_hf,
-    params_from_hf_state_dict,
-    read_state_dict,
+    load_hf_model,
 )
 from torchacc_tpu_torch.models.hf_stream import (
     read_hf_config,
@@ -150,16 +149,15 @@ def accelerate(
 def _hf_source(model: Any, config: Config):
     """(the ``ModelConfig`` of a Hugging Face model or checkpoint
     directory, what ``Trainer.init_from_params`` takes for its
-    weights)."""
+    weights): a directory's safetensors are streamed, every other
+    input is converted by ``load_hf_model``."""
     dtypes = dict(dtype=config.compute.dtype,
                   param_dtype=config.compute.param_dtype)
-    if not isinstance(model, (str, os.PathLike)):
-        mc = config_from_hf(model.config, **dtypes)
-        return mc, params_from_hf_state_dict(model.state_dict(), mc)
-    path = os.fspath(model)
-    check_local_dir(path)
-    mc = config_from_hf(read_hf_config(path), **dtypes)
-    files = resolve_checkpoint_files(path)
-    if files is None:
-        return mc, params_from_hf_state_dict(read_state_dict(path), mc)
-    return mc, functools.partial(stream_params, files, mc)
+    if isinstance(model, (str, os.PathLike)):
+        path = os.fspath(model)
+        check_local_dir(path)
+        files = resolve_checkpoint_files(path)
+        if files is not None:
+            mc = config_from_hf(read_hf_config(path), **dtypes)
+            return mc, functools.partial(stream_params, files, mc)
+    return load_hf_model(model, **dtypes)

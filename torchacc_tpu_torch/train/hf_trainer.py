@@ -8,10 +8,10 @@ for
     trainer = torchacc_tpu_torch.HFTrainerAdapter(model=model, args=args,
                                                   config=tt.Config(...))
 
-and keeps its dataset, collator and arguments.  The HF model is
-converted once (``models.hf.load_hf_model``) and trained by the port's
-``Trainer``.  ``TrainingArguments`` is read by attribute, so
-``transformers`` is not imported.
+and keeps its dataset, collator and arguments.  ``accelerate`` converts
+the HF model once (``models.hf.load_hf_model``) into the port's
+``Trainer``, which trains it.  ``TrainingArguments`` is read by
+attribute, so ``transformers`` is not imported.
 
 Mapped arguments: per_device_train_batch_size (times the mesh's data
 extent), learning_rate, weight_decay, adam betas and epsilon,
@@ -58,7 +58,6 @@ class HFTrainerAdapter:
         if ignored:
             logger.info(f"HFTrainerAdapter ignoring kwargs: "
                         f"{sorted(ignored)}")
-        from torchacc_tpu_torch.models.hf import load_hf_model
         from torchacc_tpu_torch.parallel.mesh import describe_mesh
         from torchacc_tpu_torch.train.accelerate import accelerate
         from torchacc_tpu_torch.train.schedules import (
@@ -81,9 +80,6 @@ class HFTrainerAdapter:
         accum = int(getattr(args, "gradient_accumulation_steps", 1) or 1)
         config.grad_accum = max(config.grad_accum, accum)
 
-        mc, params = load_hf_model(
-            model, dtype=config.compute.dtype,
-            param_dtype=config.compute.param_dtype)
         self._hf_config = model.config
 
         # the mesh first: the schedule's horizon needs the global batch
@@ -116,12 +112,11 @@ class HFTrainerAdapter:
                 or None)
 
         self.config = config
-        self.trainer, _ = accelerate(mc, None, config, optimizer=optimizer,
-                                     device=device)
         # the converted weights go straight into the masters (no random
         # init first), and the optimizer state starts from them
-        self.trainer.init_from_params(params)
-        self.model_config = mc
+        self.trainer, _ = accelerate(model, None, config,
+                                     optimizer=optimizer, device=device)
+        self.model_config = self.trainer.model.cfg
         self._history = []
 
     # -- data ---------------------------------------------------------------

@@ -628,10 +628,10 @@ class Trainer:
         all of it and the step's record (made for that step if it is
         not a logging one) gets ``eval_loss``, the mean of its batches'
         losses; the next interval's rates leave the evaluation's time
-        out.  ``metrics_step_offset`` shifts the step the log lines
-        name (a caller that runs ``fit`` once per epoch passes its
-        global step; the JAX package also shifts its metrics files,
-        which the port does not write, ROADMAP A13).
+        out.  ``metrics_step_offset`` is taken and has no effect: the
+        JAX package shifts only its metrics files' steps by it, and the
+        port writes no metrics files yet (ROADMAP A13).  The log lines
+        name ``state.step``, as JAX's do.
 
         ``checkpoint_dir``: a ``CheckpointManager`` there saves the state
         after the steps ``should_save`` picks (each a multiple of
@@ -695,7 +695,7 @@ class Trainer:
                 history.append(rec)
                 if is_primary():
                     logger.info(
-                        f"step {metrics_step_offset + r}: loss {loss:.4f}"
+                        f"step {r}: loss {loss:.4f}"
                         + (f", eval_loss {rec['eval_loss']:.4f}"
                            if do_eval else ""))
             return history
