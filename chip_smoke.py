@@ -43,6 +43,24 @@ Phases, each of which exits non-zero when it fails:
    must read above that tolerance for o, dq, dk and dv.  Then heads of
    64: the training shape in bf16 (checked and timed), the f32 case and
    the sq != sk case;
+4b. the context-parallelism phase, on one card: B1-B3 at the global
+   q/k/h/b offsets of a context-parallel step (B-1) against the plain
+   versions at the same offsets, bf16, heads of 128 and 64, with packed
+   segment ids, a sliding window, ALiBi and dropout (every EXTRA
+   instantiation at an offset), a step whose shift is large and positive
+   (every key visible) and one whose shift is negative under a window
+   (rows that see no key: o = 0, lse = NEG_INF); the worst error beside
+   the one-ulp limit, and a control, the kernels at zero offsets, that
+   must exceed it.  Then Llama-3-8B's attention (32/8 heads of 128,
+   bf16, b 1) over 32768 tokens of packed documents with dropout: the
+   ring's schedule over 4 virtual ranks (chunks of 8192), through
+   ring.py's own step, skip and merge functions (virtual_cp_attention),
+   Ulysses over 2 head groups, and 2D (the ring within each group),
+   each against one whole B1/B2/B3 call at 32768 (o, lse, dq, dk, dv;
+   the same seed draws the same masks), B1-B3 launching exactly on the
+   steps step_should_run keeps (10 of 16 causal steps a head group); the
+   ring again against the plain version at 4096 split in 4; the ring's
+   device time beside the whole call's;
 5. the quantized-matmul kernel phase: B5 (a quantize pass and a wgmma
    GEMM, 8-bit for int8 and f16 for fp8's e4m3 values) against its
    plain version on the same CUDA tensors, int8
@@ -205,9 +223,10 @@ Phases, each of which exits non-zero when it fails:
    memory, serving tokens/s and TTFT.
 
 No earlier phase was cut to make room: on an H100 the whole run takes
-about 425 s (75 s of it the build, about 45 s the Hugging Face phase,
-about 150 s the checkpoint phases, bound by the disk; stderr has each
-kernel's registers and spills from nvcc's -Xptxas -v).
+about 440 s (75-91 s of it the build, about 45 s the Hugging Face
+phase, about 150 s the checkpoint phases, bound by the disk, a few
+seconds the context-parallelism phase; stderr has each kernel's
+registers and spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -1088,6 +1107,247 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         f"backward {out.get('library_bwd_ms', float('nan')):.3f} ms",
         flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# context parallelism on one card
+# ---------------------------------------------------------------------------
+
+# the B-1 cases: a q chunk and a kv chunk of 2048 rows of a whole
+# sequence of 8192, at their offsets.  name: (q_off, k_off, h_off, b_off,
+# options)
+CP_OFFSET_CASES = {
+    # below the diagonal: every key visible (a large positive shift)
+    "every_key_visible": (6144, 2048, 0, 0, {}),
+    # documents that began in the kv chunk, an earlier one
+    "segments_earlier_chunk": (4096, 2048, 0, 0, dict(segments=True)),
+    # a windowed, non-causal step with a negative shift: the first rows
+    # of the chunk see no key
+    "negative_shift_window": (0, 2048, 0, 0,
+                              dict(causal=False, window=(512, 512))),
+    "alibi_window": (4096, 2048, 0, 0, dict(alibi=True, window=(3000, -1))),
+    "dropout_segments": (4096, 2048, 8, 1,
+                         dict(dropout_p=0.1, dropout_seed=77, segments=True)),
+    "dropout_alibi_window": (6144, 4096, 16, 3,
+                             dict(dropout_p=0.1, dropout_seed=5, alibi=True,
+                                  window=(3000, -1))),
+}
+CP_CHUNK, CP_WHOLE = 2048, 8192
+# the ring at full width: Llama-3-8B's attention over 32768 tokens of
+# packed documents, in 4 chunks of 8192
+CP_S, CP_RING = 32768, 4
+# the virtual-rank schedules against one whole call through the same
+# kernels (and against the plain version at 4096), bf16.  o: one bf16
+# ulp plus the rounding of the steps' bf16 partials before their f32
+# merge (atol 2e-3 + rtol 2e-2; read <= 0.40 of it on an H100, PERF.md).
+# dq, dk, dv come through each side's own forward, and dk/dv sum the
+# steps' bf16 partials, which can cancel: 1% of the largest reference
+# entry plus rtol 1e-2, the card tests' tolerance for gradients through
+# each path's own forward (_autograd_tol in tests/test_torch_kernels_
+# cuda.py; read <= 0.33 of it, and 1.11 of the o limit).  lse f32
+# (atol 1e-4, rtol 1e-5)
+CP_TOL = dict(atol=2e-3, rtol=2e-2)
+CP_LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def _cp_grad_tol(ref):
+    return dict(atol=1e-2 * ref.float().abs().max().item(), rtol=1e-2)
+
+
+def _worst(torch, a, r, tol):
+    a, r = a.float(), r.float()
+    err = (a - r).abs()
+    return err.max().item(), (err / (tol["atol"] + tol["rtol"]
+                                     * r.abs())).max().item()
+
+
+def _cp_offsets(torch, fa, rng, d):
+    """B1-B3 at the B-1 offsets against the plain versions at the same
+    offsets, bf16, heads of ``d``; and the control, the kernels at zero
+    offsets, which must part from them."""
+    from torchacc_tpu_torch.ops.flash_attention import (
+        segment_ids_from_positions)
+    tol = dict(atol=1e-3, rtol=1e-2)          # one bf16 ulp (flash phase)
+    worst, errs, controls = 0.0, 0.0, []
+    # documents long enough to span the chunks' distance
+    seg_all = segment_ids_from_positions(torch.from_numpy(
+        _packed_positions(rng, 1, CP_WHOLE, 1024, 8192))).cuda()
+    slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda",
+                                         dtype=torch.float32) / H)
+    for name, (q_off, k_off, h_off, b_off, opts) in CP_OFFSET_CASES.items():
+        opts = dict(opts)
+        q, k, v, do, _ = _flash_inputs(torch, rng, 1, CP_CHUNK, CP_CHUNK,
+                                       torch.bfloat16, False, d)
+        kw = dict(opts, q_offset=q_off, k_offset=k_off, h_offset=h_off,
+                  b_offset=b_off)
+        if kw.pop("segments", False):
+            kw.update(q_segment_ids=seg_all[:, q_off:q_off + CP_CHUNK]
+                      .contiguous(),
+                      kv_segment_ids=seg_all[:, k_off:k_off + CP_CHUNK]
+                      .contiguous())
+        if kw.pop("alibi", False):
+            kw["alibi_slopes"] = slopes
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
+                                    **kw)
+        ro, rlse = fa.flash_attention(q, k, v, return_lse=True,
+                                      impl="torch", **kw)
+        got = (o, lse) + fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                impl="cuda", **kw)
+        ref = (ro, rlse) + fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  impl="torch", **kw)
+        torch.cuda.synchronize()
+        line, bad = [], []
+        for key, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(a).all():
+                _fail(f"cp offsets {name} d{d}: non-finite {key}")
+            e, w = _worst(torch, a, r, dict(atol=1e-5, rtol=1e-5)
+                          if key == "lse" else tol)
+            errs, worst = max(errs, e), max(worst, w)
+            line.append(f"{key} {e:.3g} ({w:.3g} of the limit)")
+            if w > 1.0:
+                bad.append(key)
+        zero = dict(kw, q_offset=0, k_offset=0, h_offset=0, b_offset=0)
+        o0 = fa.flash_attention(q, k, v, impl="cuda", **zero)
+        c = _worst(torch, o0, ro, tol)[1]
+        controls.append(c)
+        print(f"cp offsets {name} d{d}: " + ", ".join(line)
+              + f"; control at zero offsets {c:.3g} of the limit (must "
+              f"exceed 1)", flush=True)
+        if bad:
+            _fail(f"cp offsets {name} d{d}: {bad} disagree with the plain "
+                  f"version at the same offsets")
+        empty = lse <= -1e29
+        if name == "negative_shift_window":
+            if not empty[:, :, :CP_CHUNK // 2].all() or \
+                    o[:, :CP_CHUNK // 2].abs().max().item() != 0.0:
+                _fail("cp offsets: the rows of a negative shift that see "
+                      "no key must give o = 0 and lse = NEG_INF")
+        if c <= 1.0:
+            _fail(f"cp offsets {name} d{d}: the kernels at zero offsets "
+                  f"stay within the limit ({c}): the check cannot see the "
+                  f"offsets")
+        del q, k, v, do, o, lse, ro, rlse, got, ref, o0
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "worst_over_tol": worst,
+            "control_min_over_tol": min(controls)}
+
+
+def _cp_schedules(torch, fa, cp, rng):
+    """The ring (4 virtual ranks), Ulysses (2 head groups) and 2D (both)
+    schedules of ``cp_attention`` through the package's own step, skip
+    and merge functions on B1-B3, at full width and 32768 tokens, against
+    one whole call at 32768; the ring again against the plain version at
+    4096.  Dropout on: the same seed draws the same masks in both."""
+    from torchacc_tpu_torch.ops.flash_attention import (
+        segment_ids_from_positions)
+    q, k, v, do, _ = _flash_inputs(torch, rng, 1, CP_S, CP_S,
+                                   torch.bfloat16, False)
+    seg = segment_ids_from_positions(torch.from_numpy(
+        _packed_positions(rng, 1, CP_S, 256, 4096))).cuda()
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+              dropout_p=0.1, dropout_seed=2024)
+    whole = fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **kw)
+    whole = whole + fa.flash_attention_bwd(q, k, v, *whole, do, impl="cuda",
+                                           **kw)
+    s = CP_S // CP_RING
+    kept = sum(cp.step_should_run(me, (me - i) % CP_RING, s, True, (-1, -1))
+               for me in range(CP_RING) for i in range(CP_RING))
+    out = {"kept_steps": kept, "steps": CP_RING * CP_RING}
+    for tag, ring_n, ul_n in (("ring", CP_RING, 1), ("ulysses", 1, 2),
+                              ("2d", CP_RING, 2)):
+        for name in fa.launch_counts:
+            fa.launch_counts[name] = 0
+        got = cp.virtual_cp_attention(q, k, v, do, ring_n=ring_n, ul_n=ul_n,
+                                      impl="cuda", **kw)
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        want = (kept if ring_n > 1 else 1) * ul_n
+        if launches != {"fwd": want, "bwd_dq": want, "bwd_dkv": want}:
+            _fail(f"cp {tag}: launches {launches}, want {want} of each "
+                  f"(the steps step_should_run keeps x head groups)")
+        rec = {"launches": launches}
+        rec.update(_cp_compare(torch, got, whole, f"cp {tag} ({ring_n} ring "
+                               f"x {ul_n} ulysses virtual ranks, s {CP_S}; "
+                               f"launches {launches}) against the whole "
+                               f"call"))
+        out[tag] = rec
+        del got
+    # device times: the ring's forward and forward + backward beside the
+    # whole call's
+    reps = 3
+    out["whole_fwd_ms"] = _time_ms(torch, lambda i: fa.flash_attention(
+        q, k, v, return_lse=True, impl="cuda", **kw), reps, warm=1)
+    out["ring_fwd_ms"] = _time_ms(torch, lambda i: cp.virtual_cp_attention(
+        q, k, v, ring_n=CP_RING, impl="cuda", **kw), reps, warm=1)
+    out["whole_fwd_bwd_ms"] = _time_ms(torch, lambda i: fa.flash_attention_bwd(
+        q, k, v, *fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
+                                     **kw), do, impl="cuda", **kw),
+        reps, warm=1)
+    out["ring_fwd_bwd_ms"] = _time_ms(
+        torch, lambda i: cp.virtual_cp_attention(
+            q, k, v, do, ring_n=CP_RING, impl="cuda", **kw), reps, warm=1)
+    pairs = _flash_work(torch, q, k, seg, True, (-1, -1))[0]
+    out["visible_pairs_per_head"] = pairs
+    out["fwd_bound_ms"] = 4 * D * pairs * H / PEAK_BF16_FLOPS * 1e3
+    print(f"cp ring at s {CP_S}: device ms forward {out['ring_fwd_ms']:.2f} "
+          f"against the whole call's {out['whole_fwd_ms']:.2f} "
+          f"({out['ring_fwd_ms'] / out['whole_fwd_ms']:.3f}x); forward + "
+          f"backward {out['ring_fwd_bwd_ms']:.2f} against "
+          f"{out['whole_fwd_bwd_ms']:.2f} "
+          f"({out['ring_fwd_bwd_ms'] / out['whole_fwd_bwd_ms']:.3f}x); "
+          f"visible pairs/head {pairs}, B1's bound "
+          f"{out['fwd_bound_ms']:.2f} ms", flush=True)
+    del q, k, v, do, seg, whole
+    torch.cuda.empty_cache()
+    # the ring against the plain version, at 4096 split in 4
+    q, k, v, do, seg = _flash_inputs(torch, rng, 1, 4096, 4096,
+                                     torch.bfloat16, True)
+    kw.update(q_segment_ids=seg, kv_segment_ids=seg)
+    ref = fa.attention_reference(q, k, v, return_lse=True, **kw)
+    ref = ref + fa.attention_reference_bwd(q, k, v, *ref, do, **kw)
+    got = cp.virtual_cp_attention(q, k, v, do, ring_n=CP_RING, impl="cuda",
+                                  **kw)
+    torch.cuda.synchronize()
+    out["ring_vs_plain_4096"] = _cp_compare(
+        torch, got, ref, "cp ring at s 4096 against the plain version")
+    del q, k, v, do, seg, ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_compare(torch, got, ref, what):
+    """``{key: {max_abs_err, ref_max, worst_over_tol}}`` of (o, lse, dq, dk,
+    dv) against ``ref``, printed; fails past the limits."""
+    rec, line = {}, []
+    for key, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        if not torch.isfinite(a).all():
+            _fail(f"{what}: non-finite {key}")
+        e, w = _worst(torch, a, r, CP_LSE_TOL if key == "lse" else
+                      CP_TOL if key == "o" else _cp_grad_tol(r))
+        rec[key] = {"max_abs_err": e, "ref_max": r.float().abs().max().item(),
+                    "worst_over_tol": w}
+        line.append(f"{key} {e:.3g} (ref max {rec[key]['ref_max']:.3g}; "
+                    f"{w:.3g} of the limit)")
+    print(f"{what}: " + ", ".join(line), flush=True)
+    bad = [key for key in rec if rec[key]["worst_over_tol"] > 1.0]
+    if bad:
+        _fail(f"{what}: {bad} past the limit")
+    return rec
+
+
+def _cp_phase(torch, args):
+    """Context parallelism on one card: B-1 at heads of 128 and 64, then
+    the ring, Ulysses and 2D schedules over virtual ranks."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.context_parallel as cp
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 12)
+    res = {"offsets": {d: _cp_offsets(torch, fa, rng, d) for d in (D, 64)}}
+    res.update(_cp_schedules(torch, fa, cp, rng))
+    res["seconds"] = time.perf_counter() - t0
+    print(f"cp phase: {res['seconds']:.1f} s", flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3233,6 +3493,7 @@ def main():
     flash, flash16 = flash_all["train"], flash_all["train_f16"]
     flash64 = _flash_phase(torch, args, d=64,
                            only=("train", "f32", "sq_ne_sk_empty_rows"))
+    cp_res = _cp_phase(torch, args)
     qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
     train = _training_phase(torch, args)
@@ -3320,7 +3581,18 @@ def main():
             bound_by=flash[f"{name}_bound_by"],
             library_ms=flash.get(f"library_{part}_ms"),
             tflops=flash[f"{name}_tflops"],
-            bound_share=flash[f"{name}_bound_share"]))
+            bound_share=flash[f"{name}_bound_share"],
+            # context parallelism (B-1): the kernels at global offsets
+            # against the plain versions (heads of 128 and 64), and the
+            # ring's virtual ranks at s 32768 against one whole call
+            cp_offsets_max_abs_err=max(
+                r["max_abs_err"] for r in cp_res["offsets"].values()),
+            cp_offsets_worst_over_tol=max(
+                r["worst_over_tol"] for r in cp_res["offsets"].values()),
+            cp_ring_max_abs_err=max(cp_res["ring"][e]["max_abs_err"]
+                                    for e in errs),
+            launches_cp_ring=cp_res["ring"]["launches"][name],
+            launches_cp_2d=cp_res["2d"]["launches"][name]))
     for shape in ("decode", "prefill"):
         k = kern64[shape]
         entries.append(dict(

@@ -6,9 +6,13 @@ against another version of that source, in turns, on one NVIDIA card.
     git show <rev>:torchacc_tpu_torch/csrc/flash_attention.cu > other.cu
     python3 scripts/torch_flash_turns.py --other other.cu \
         [--kernels fwd|bwd|all] [--mask docs|causal|full] [--reps 50] \
-        [--head-dim 128] [--train-layers 8] [--train-steps 4] [--seed 0]
+        [--head-dim 128] [--train-layers 8] [--train-steps 4] [--seed 0] \
+        [--other-without-offsets]
 
-The other source must have the same C interface.  It is compiled by
+The other source must have the same C interface, or, with
+--other-without-offsets, the interface before the global q/k/h/b
+offsets (four ints before the dtype): its entry points are then called
+without them, and only at offsets 0, which is all this script runs.  It is compiled by
 nvcc (sm_90a, the port's flags) into a library of its own name; the
 entry points that --kernels names (fwd: flash_attention_fwd; bwd:
 flash_attention_bwd_dq and flash_attention_bwd_dkv; all: the three) are
@@ -57,21 +61,33 @@ KEYS = {"fwd": ("fwd_ms", "library_fwd_ms", "fwd_tflops", "fwd_bound_ms",
                 "bwd_dkv_bound_share")}
 
 
-def _bind(lib):
+def _bind(lib, offsets=True):
     """The entry points of a flash-attention library (forward, dq,
-    dk/dv), typed as ops/flash_attention.py types them."""
+    dk/dv), typed as ops/flash_attention.py types them.  ``offsets``
+    False: a library without the four offset ints, called through
+    wrappers that drop them (they must be 0)."""
     fns = (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
            lib.flash_attention_bwd_dkv)
     tail = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
             + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+            + [ctypes.c_int] * (4 if offsets else 0)
             + [ctypes.c_int, ctypes.c_void_p])
     for fn, n in zip(fns, (8, 10, 11)):
         fn.argtypes = [ctypes.c_void_p] * n + tail
         fn.restype = ctypes.c_int
-    return fns
+    if offsets:
+        return fns
+
+    def without_offsets(fn):
+        def call(*a):
+            if any(a[-6:-2]):
+                sys.exit("the other source takes no offsets")
+            return fn(*a[:-6], *a[-2:])
+        return call
+    return tuple(without_offsets(fn) for fn in fns)
 
 
-def _build_other(path):
+def _build_other(path, offsets=True):
     from torchacc_tpu_torch.ops import _build
     with open(path, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
@@ -86,7 +102,7 @@ def _build_other(path):
             sys.exit(f"nvcc failed on {path}:\n{res.stdout}{res.stderr}")
         print(f"built {path} in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    return _bind(ctypes.CDLL(out))
+    return _bind(ctypes.CDLL(out), offsets)
 
 
 def _worst(torch, got, ref, tols):
@@ -115,6 +131,9 @@ def main():
     ap.add_argument("--train-steps", type=int, default=4,
                     help="timed steps a turn (0: no training phase)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--other-without-offsets", action="store_true",
+                    help="the other source's entry points lack the four "
+                         "offset ints")
     args = ap.parse_args()
 
     import numpy as np
@@ -132,7 +151,7 @@ def main():
     print(f"card: {card}", flush=True)
     build_all()
     this = fa._kernel_fns()
-    other = _build_other(args.other)
+    other = _build_other(args.other, not args.other_without_offsets)
     swapped = SWAPPED[args.kernels]
     sides = {"this": this,
              "other": tuple(other[i] if i in swapped else this[i]

@@ -192,9 +192,21 @@ def test_dispatcher_routes_cpu_tensors_to_the_plain_path():
     dict(q_offset=8), dict(k_offset=2), dict(h_offset=1), dict(b_offset=1)],
     ids=["q_offset", "k_offset", "h_offset", "b_offset"])
 def test_unported_features_raise(kw):
+    """The global offsets are ported (B-1): a host int reaches the plain
+    version (``tests/test_torch_context_parallel.py`` holds it against
+    JAX's kernels); what still raises is an offset that is not a host int
+    (JAX also takes traced ints) or that int32 does not hold."""
     q, k, v, _, _ = _inputs(4, 1, 16, 16, 4, 2, 32, False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    args = tuple(map(torch.from_numpy, (q, k, v)))
+    (name, off), = kw.items()
+    drop = dict(dropout_p=0.1, dropout_seed=3)
+    out = flash_attention(*args, **kw, **drop)
+    assert torch.equal(out, attention_reference(*args, **kw, **drop))
+    assert not torch.equal(out, flash_attention(*args, **drop))
+    with pytest.raises(TypeError, match="host int"):
+        flash_attention(*args, **{name: torch.tensor(off)})
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention(*args, **{name: 2 ** 31})
 
 
 def test_alibi_and_dropout_arguments_are_checked():

@@ -23,6 +23,11 @@ see ``FP8_ATOL``.  The flash kernels in f16: atol 2e-4 + rtol 2e-3, two
 f16 ulps (2^-10 of the value each); the same inputs through the bf16
 kernels read above it (chip_smoke.py's control).
 
+B1-B3 at the context-parallel global offsets (B-1) against the plain
+versions at the same offsets, at heads of 64 and 128, in f32 and bf16,
+with a control at zero offsets that must part; the ring and Ulysses
+schedules over virtual ranks on the kernels against one whole call.
+
 Also on the card: the ``AsyncLoader`` yields CUDA tensors equal to the
 host batches, 'offload_dots' moves the bytes it counts, the
 training step on a world-1 NCCL mesh (FSDP2, DTensor masters) equals
@@ -404,8 +409,8 @@ def test_flash_auto_launches_and_rejects(card):
                            impl="cuda")
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         fa.flash_attention(q.double(), k.double(), v.double(), impl="cuda")
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, q_offset=3)
+    with pytest.raises(TypeError, match="host int"):
+        fa.flash_attention(q, k, v, q_offset=torch.tensor(3))
     with pytest.raises(ValueError, match="alibi_slopes"):
         fa.flash_attention(q, k, v, alibi_slopes=torch.ones(3, device=card))
 
@@ -556,6 +561,121 @@ def test_flash_fwd_kernel_repeats_bit_for_bit(card, dtype):
     for run in runs[1:]:
         for a, b in zip(runs[0], run):
             assert torch.equal(a, b)
+
+
+# the global offsets (B-1): q chunk and kv chunk of a whole sequence of
+# 1024 rows at their offsets, head and batch offsets for dropout.
+# name: (sq, sk, q_off, k_off, h_off, b_off, options)
+FLASH_OFFSET_CASES = {
+    # below the diagonal: every key of the chunk visible
+    "causal_every_key_visible": (256, 256, 768, 256, 0, 0, {}),
+    "causal_diagonal_segments": (256, 256, 512, 512, 0, 0,
+                                 dict(segments=True)),
+    # documents that began in an earlier chunk
+    "causal_segments_below_diagonal": (256, 256, 768, 384, 0, 0,
+                                       dict(segments=True)),
+    # a windowed non-causal step with a negative shift: rows see no key
+    "window_negative_shift": (256, 256, 0, 256, 0, 0,
+                              dict(causal=False, window=(64, 64))),
+    "window_positive_shift": (256, 256, 512, 256, 0, 0,
+                              dict(window=(300, -1))),
+    "alibi_softcap": (256, 256, 768, 512, 0, 0,
+                      dict(alibi=True, logit_softcap=10.0)),
+    "dropout_all_offsets": (256, 256, 512, 256, 8, 3,
+                            dict(dropout_p=0.1, dropout_seed=21)),
+    "dropout_alibi_segments_window": (256, 200, 768, 640, 4, 1,
+                                      dict(dropout_p=0.2, dropout_seed=9,
+                                           alibi=True, segments=True,
+                                           window=(200, -1))),
+}
+
+
+def _offset_case(card, name, dtype, d):
+    sq, sk, q_off, k_off, h_off, b_off, opts = FLASH_OFFSET_CASES[name]
+    b, hq, hk = 2, 8, 2
+    rng = np.random.default_rng(sorted(FLASH_OFFSET_CASES).index(name))
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(card, dtype)
+    q, k, v, do = f(b, sq, hq, d), f(b, sk, hk, d), f(b, sk, hk, d), \
+        f(b, sq, hq, d)
+    kw = dict(opts, q_offset=q_off, k_offset=k_off, h_offset=h_off,
+              b_offset=b_off)
+    if kw.pop("segments", False):
+        ids = []
+        while len(ids) < 1024:
+            ids += [len(set(ids))] * int(rng.integers(100, 700))
+        seg = torch.tensor(ids[:1024], dtype=torch.int32,
+                           device=card).repeat(b, 1)
+        kw.update(q_segment_ids=seg[:, q_off:q_off + sq].contiguous(),
+                  kv_segment_ids=seg[:, k_off:k_off + sk].contiguous())
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = 2.0 ** (-8.0 * torch.arange(
+            1, hq + 1, device=card, dtype=torch.float32) / hq)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FLASH_OFFSET_CASES))
+def test_flash_kernels_at_offsets_match_plain(card, name, dtype, d):
+    """B1-B3 at non-zero q/k/h/b offsets against the plain versions at
+    the same offsets (every instantiation: f32 on CUDA cores, bf16 on
+    wgmma, with and without the ALiBi/dropout EXTRA), and a control at
+    zero offsets that must part from them."""
+    q, k, v, do, kw = _offset_case(card, name, dtype, d)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **kw)
+    ref = fa.flash_attention(q, k, v, return_lse=True, impl="torch", **kw)
+    _close(o, ref[0], TOL[dtype], "o")
+    _close(lse, ref[1], TOL[torch.float32], "lse")
+    bwd = [fa.flash_attention_bwd(q, k, v, o, lse, do, impl=impl, **kw)
+           for impl in ("cuda", "torch")]
+    for gname, a, b in zip(("dq", "dk", "dv"), *bwd):
+        _close(a, b, GRAD_TOL[dtype], gname)
+    empty = lse <= -1e29
+    if empty.any():
+        rows = empty.transpose(1, 2)
+        assert (o[rows] == 0).all() and (bwd[0][0][rows] == 0).all()
+    if name == "window_negative_shift":
+        assert empty[:, :, :128].all()
+    if kw["q_offset"] != kw["k_offset"] or kw.get("dropout_p"):
+        zero = dict(kw, q_offset=0, k_offset=0, h_offset=0, b_offset=0)
+        o0 = fa.flash_attention(q, k, v, impl="cuda", **zero)
+        with pytest.raises(AssertionError):
+            _close(o0, ref[0], TOL[dtype], "control o")
+
+
+@pytest.mark.parametrize("ring_n,ul_n", [(4, 1), (2, 2)])
+def test_virtual_ring_on_the_kernels_matches_one_call(card, ring_n, ul_n):
+    """The context-parallel schedule over virtual ranks (ring steps at
+    global offsets, skips, LSE merges; head groups at their offsets),
+    through B1-B3, against one whole call, dropout included: the merge
+    adds f32 rounding only, so one bf16 ulp holds, and B1 launches on
+    exactly the steps step_should_run keeps."""
+    from torchacc_tpu_torch.ops.context_parallel import (
+        step_should_run, virtual_cp_attention)
+    q, k, v, do, kw = _offset_case(card, "dropout_all_offsets",
+                                   torch.bfloat16, 128)
+    kw.update(q_offset=0, k_offset=0, window=(300, -1))
+    seq = torch.arange(4 * 64, device=card).div(64, rounding_mode="floor")
+    seg = seq.to(torch.int32).repeat(q.shape[0], 1)
+    kw.update(q_segment_ids=seg, kv_segment_ids=seg)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **kw)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, impl="cuda", **kw)
+    kw = {n: x for n, x in kw.items() if n not in ("q_offset", "k_offset")}
+    before = dict(fa.launch_counts)
+    got = virtual_cp_attention(q, k, v, do, ring_n=ring_n, ul_n=ul_n,
+                               impl="cuda", **kw)
+    torch.cuda.synchronize()
+    s = q.shape[1] // ring_n
+    kept = sum(step_should_run(me, src, s, True, kw["window"])
+               for me in range(ring_n) for src in range(ring_n))
+    assert fa.launch_counts["fwd"] - before["fwd"] == kept * ul_n
+    assert fa.launch_counts["bwd_dq"] - before["bwd_dq"] == kept * ul_n
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got,
+                          (o, lse) + grads):
+        _close(a, b, TOL[torch.float32] if name == "lse"
+               else GRAD_TOL[torch.bfloat16], name)
 
 
 # ---------------------------------------------------------------------------

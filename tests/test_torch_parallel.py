@@ -90,8 +90,9 @@ AXIS_CASES = [   # (dist fields, world)
 @pytest.mark.parametrize("fields,world", AXIS_CASES)
 def test_axis_sizes_and_validation_match_jax(fields, world):
     """``axis_sizes`` (dp inferred) and the config errors, message for
-    message; pp/sp/ep above 1 validate in JAX and raise by name in the
-    port.  The port's sp is JAX's default mode, 'ulysses'."""
+    message; pp/ep above 1 validate in JAX and raise by name in the
+    port; sp above 1 (JAX's default mode, 'ulysses': all of it on 'spu')
+    validates in both."""
     def run(pkg):
         try:
             d = _dist(pkg, **fields)
@@ -102,11 +103,14 @@ def test_axis_sizes_and_validation_match_jax(fields, world):
             return f"{type(e).__name__}: {e}"
     got = run(tt)
     assert got == run(ta)
-    unported = {"pp": "A12", "sp": "A12", "ep": "A10"}
+    unported = {"pp": "A12b", "ep": "A10"}
     for axis, item in unported.items():
         if isinstance(got, dict) and fields.get(axis, 1) > 1:
             with pytest.raises(NotImplementedError, match=item):
                 _dist(tt, **fields).validate()
+    if isinstance(got, dict) and fields.get("sp", 1) > 1:
+        _dist(tt, **fields).validate()
+        assert (got["sp"], got["spu"]) == (1, fields["sp"])
 
 
 MESH_CASES = [   # (dist fields, world)
@@ -259,9 +263,19 @@ def test_unported_compositions_raise_by_name():
                                      if field == "num_heads" else {}))
         with pytest.raises(NotImplementedError, match="A8b"):
             _check_plan(bad, rules, sizes)
-    with pytest.raises(NotImplementedError, match="B-1"):
-        _check_plan(dataclasses.replace(mc, attn_dropout=0.1), rules,
-                    dict(sizes, tp=1, dp=2))
+    # attention dropout on a data mesh runs (the batch offsets, B-1), but
+    # not with grad_accum on more than one data shard
+    dropout = dataclasses.replace(mc, attn_dropout=0.1)
+    _check_plan(dropout, rules, dict(sizes, tp=1, dp=2))
+    with pytest.raises(NotImplementedError, match="dropout.*A8b"):
+        _check_plan(dropout, rules, dict(sizes, tp=1, dp=2), grad_accum=2)
+    # the sequence axes need a context-parallel model whose heads split
+    with pytest.raises(ValueError, match="context_parallel=True"):
+        _check_plan(mc, rules, dict(sizes, tp=1, sp=2))
+    cp = dataclasses.replace(mc, context_parallel=True)
+    _check_plan(cp, rules, dict(sizes, tp=1, sp=2, spu=2))
+    with pytest.raises(ValueError, match="ulysses degree 8"):
+        _check_plan(cp, rules, dict(sizes, tp=1, spu=8))
     with pytest.raises(NotImplementedError, match="rule table"):
         _check_plan(mc, (("mlp", None),) + tuple(rules), sizes)
     _check_plan(mc, rules, sizes)

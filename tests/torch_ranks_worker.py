@@ -14,8 +14,11 @@ checkpoints on the mesh and resumes them by consensus
 (``ckpt_save``), or restores one into another layout
 (``ckpt_restore``); the ``ckpt_save`` launch also trains a Hugging Face
 checkpoint directory through ``accelerate(path)`` on another layout of
-the same processes (``hf_train``).  Only torch, numpy and the port are
-imported.
+the same processes (``hf_train``).  For tests/test_torch_cp_ranks.py one
+launch runs several cases in turn (``cases``): ``cp_attention`` on its
+chunk of seeded inputs (``cp_attn``), and context-parallel training
+(``train`` with ``dist["sp"]``), which also counts the ring's forward
+steps.  Only torch, numpy and the port are imported.
 """
 
 import os
@@ -66,18 +69,39 @@ def _local_digest(trainer):
     return [p.to_local().clone() for p in trainer.state.params.values()]
 
 
+def _dist_config(d):
+    return tt.DistConfig(dp=tt.DPConfig(d.get("dp", -1)),
+                         fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
+                         tp=tt.TPConfig(d.get("tp", 1)),
+                         sp=tt.SPConfig(**d.get("sp", {})))
+
+
+class _RingSteps:
+    """Counts the flash forward calls of the ring's steps."""
+
+    def __init__(self):
+        import torchacc_tpu_torch.ops.context_parallel.ring as ring
+        self.ring, self.calls = ring, 0
+        self.inner = ring.flash_attention
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.inner(*a, **kw)
+        ring.flash_attention = counted
+
+    def close(self):
+        self.ring.flash_attention = self.inner
+
+
 def train(spec):
     dtype = spec["dtype"]
     cfg = get_preset("llama-tiny", dtype=dtype, **spec["model"])
     model = params_from_jax(cfg, spec["params"], device="cpu",
                             trainable=True)
-    d = spec["dist"]
     conf = tt.Config(
         compute=tt.ComputeConfig(dtype=dtype, **spec["compute"]),
         memory=tt.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
-        dist=tt.DistConfig(dp=tt.DPConfig(d.get("dp", -1)),
-                           fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
-                           tp=tt.TPConfig(d.get("tp", 1))),
+        dist=_dist_config(spec["dist"]),
         grad_accum=spec["grad_accum"])
     n, i = data_shard(conf.get_mesh("cpu"))
     dataset = None
@@ -91,6 +115,7 @@ def train(spec):
         loss=bomb_loss if spec.get("bomb") else None)
     trainer.init()
     out = {"losses": [], "norms": [], "scales": [], "skipped": []}
+    steps = _RingSteps()
     if loader is not None:
         hist = trainer.fit(loader, max_steps=spec["steps"], log_every=1)
         out["losses"] = [r["loss"] for r in hist]
@@ -109,6 +134,8 @@ def train(spec):
         flags = [None] * dist.get_world_size()
         dist.all_gather_object(flags, unchanged)
         out["skipped"].append(flags)
+    steps.close()
+    out["ring_fwd_calls"] = _gathered(steps.calls)
     out["data_shard"] = (n, i)
     out["count"] = trainer.state.opt_state.count
     out["params"] = params_to_jax(trainer.model.cfg,
@@ -135,6 +162,47 @@ def fused_ce_tp(spec):
     dist.all_gather_object(dws, w.grad.numpy())
     return {"loss": loss.item(), "count": count.item(),
             "dx": x.grad.numpy(), "dw": np.concatenate(dws, axis=1)}
+
+
+def cp_attn(spec):
+    """``cp_attention`` of this rank's chunk (batch over the data axes,
+    sequence over ('sp', 'spu'), heads over 'tp') of the seeded whole
+    inputs, forward and backward; rank 0 assembles the whole output and
+    gradients from every rank's chunk."""
+    from torchacc_tpu_torch.ops.context_parallel import cp_attention
+    from torchacc_tpu_torch.parallel import seq_shard
+    mesh = tt.Config(dist=_dist_config(spec["dist"])).get_mesh("cpu")
+    nd, di = data_shard(mesh)
+    nc, c = seq_shard(mesh)
+    q, k, v, do = (torch.from_numpy(spec[x]) for x in ("q", "k", "v", "do"))
+    bl, w = q.shape[0] // nd, q.shape[1] // nc
+    part = lambda t: t[di * bl:(di + 1) * bl, c * w:(c + 1) * w].contiguous()
+    q_, k_, v_ = (part(t).requires_grad_() for t in (q, k, v))
+    kw = dict(spec["kw"])
+    if "seg" in spec:
+        seg = part(torch.from_numpy(spec["seg"]))
+        kw.update(q_segment_ids=seg, kv_segment_ids=seg)
+    if "slopes" in spec:
+        kw["alibi_slopes"] = torch.from_numpy(spec["slopes"])
+    out = cp_attention(q_, k_, v_, mesh=mesh, impl="torch", **kw)
+    out.backward(part(do))
+    mine = (di, c, [t.detach().numpy() for t in
+                    (out, q_.grad, k_.grad, v_.grad)])
+    full = {}
+    for di_, c_, arrs in _gathered(mine):
+        for name, a, ref in zip(("o", "dq", "dk", "dv"), arrs,
+                                (q, q, k, v)):
+            full.setdefault(name, np.zeros(ref.shape, np.float32))[
+                di_ * bl:(di_ + 1) * bl, c_ * w:(c_ + 1) * w] = a
+    return full
+
+
+def cases(spec):
+    """Every case of ``spec["cases"]`` in turn, on meshes of the same
+    processes: name -> the case's output."""
+    run = {"cp_attn": cp_attn, "train": train}
+    return {name: run[case["kind"]](dict(spec, **case))
+            for name, case in spec["cases"].items()}
 
 
 def _ckpt_trainer(spec, params, **resilience):
@@ -274,8 +342,8 @@ def main(spec_path, out_path):
     initialize_distributed(f"file://{store}", device="cpu")
     try:
         out = {"fused_ce": fused_ce_tp, "train": train,
-               "ckpt_save": ckpt_save,
-               "ckpt_restore": ckpt_restore}[spec["kind"]](spec)
+               "ckpt_save": ckpt_save, "ckpt_restore": ckpt_restore,
+               "cases": cases}[spec["kind"]](spec)
         if dist.get_rank() == 0:
             with open(out_path, "wb") as f:
                 pickle.dump(out, f)

@@ -284,7 +284,7 @@ class FSDPConfig:
 @dataclass
 class PPConfig:
     """Pipeline parallelism: only size 1 is ported, so the schedule's
-    fields are absent (ROADMAP.md A12)."""
+    fields are absent (ROADMAP.md A12b)."""
     size: int = 1
 
     def validate(self) -> None:
@@ -293,12 +293,39 @@ class PPConfig:
 
 @dataclass
 class SPConfig:
-    """Sequence (context) parallelism: only size 1 is ported, so the
-    mode's fields are absent (ROADMAP.md A12)."""
+    """Sequence (context) parallelism (``ops/context_parallel``).
+    ``mode`` picks Ulysses (all-to-all on heads over 'spu'), the ring (kv
+    chunks rotating over 'sp'), or their 2D composition, with
+    ``intra_size`` the Ulysses degree and ``size / intra_size`` the
+    ring's; fields, validation and degrees as in the JAX package
+    (torchacc_tpu/config.py:308-342)."""
     size: int = 1
+    mode: str = "ulysses"             # 'ulysses' | 'ring' | '2d'
+    intra_size: Optional[int] = None  # 2D: Ulysses degree; ring = size/intra
 
     def validate(self) -> None:
         _check(self.size >= 1, "sp.size must be >= 1")
+        _check(self.mode in ("ulysses", "ring", "2d"),
+               f"sp.mode invalid: {self.mode}")
+        if self.mode == "2d":
+            _check(self.intra_size is not None and self.intra_size >= 1,
+                   "sp.intra_size required for 2d mode")
+            _check(self.size % self.intra_size == 0,
+                   "sp.size must be divisible by sp.intra_size")
+
+    @property
+    def ulysses_degree(self) -> int:
+        """Extent of the 'spu' (all-to-all) mesh axis."""
+        if self.mode == "ulysses":
+            return self.size
+        if self.mode == "2d":
+            return self.intra_size or 1
+        return 1
+
+    @property
+    def ring_degree(self) -> int:
+        """Extent of the 'sp' (ring) mesh axis."""
+        return self.size // self.ulysses_degree
 
 
 @dataclass
@@ -336,9 +363,7 @@ class DistConfig:
                f"{self.topology}")
         _check(self.num_slices >= 1, "dist.num_slices must be >= 1")
         _unported(self.pp.size == 1, "dist.pp.size > 1 (pipeline "
-                  "parallelism)", "A12")
-        _unported(self.sp.size == 1, "dist.sp.size > 1 (the 'sp' and 'spu' "
-                  "sequence axes)", "A12")
+                  "parallelism)", "A12b")
         _unported(self.ep.size == 1, "dist.ep.size > 1 (expert "
                   "parallelism)", "A10")
 
@@ -348,10 +373,8 @@ class DistConfig:
             "tp": self.tp.size,
             "fsdp": self.fsdp.size,
             "pp": self.pp.size,
-            # the JAX package's default mode, 'ulysses', puts the whole
-            # sequence axis on 'spu'
-            "sp": 1,
-            "spu": self.sp.size,
+            "sp": self.sp.ring_degree,
+            "spu": self.sp.ulysses_degree,
             "ep": self.ep.size,
         }
         fixed = math.prod(sizes.values())

@@ -34,8 +34,17 @@
  * group, not the kv head (:494).  Both are compiled into kernels of
  * their own (the EXTRA template flag), so the kernels of the plain
  * training path carry none of their code or registers: with the code
- * inline, B1 ran 28% slower on an H100 (chip_smoke.py).  The context-parallel offsets are not
- * ported; the wrapper refuses them.
+ * inline, B1 ran 28% slower on an H100 (chip_smoke.py).
+ *
+ * The global offsets (B-1, the q/k/h/b entries of JAX's meta operand,
+ * _make_meta :734) place the local tensors in the whole call's: every
+ * mask, skip and ALiBi test reads Geom::shift = sk - sq + q_off - k_off
+ * (JAX :198), and the dropout hash takes (b_off + b, h_off + h,
+ * q_off + i, k_off + j) in drop_base/drop_row/drop_col (JAX :247), so
+ * that a context-parallel ring step, a head shard or a batch shard draws
+ * the masks of the whole call.  The walks bound their ranges by the
+ * shift alone, so a large positive shift (every key of a chunk visible)
+ * and a negative one (rows that see no key) take the same code.
  *
  * What bounds them on an H100 (3.35 TB/s; 989 TFLOP/s bf16 on tensor
  * cores, 67 TFLOP/s f32 on CUDA cores): at the training shape
@@ -112,11 +121,13 @@ struct Geom {
   int drop_on;          // dropout on P.V
   uint32_t drop_seed, drop_thresh;   // keep where hash >= thresh
   float drop_scale;     // 1 / (1 - p)
+  int q_off, k_off, h_off, b_off;    // global offsets the hash adds
 };
 
 // murmur3 finalizer, and the dropout hash of ops/_common.py: a pair is
 // kept when mix32(mix32(base ^ q) ^ mix32(k * K')) >= thresh, with
-// base = mix32(seed + batch * B' + q head)
+// base = mix32(seed + batch * B' + q head), at the global coordinates
+// (the offsets added to the local ones, in uint32 as JAX's)
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
@@ -126,13 +137,13 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 __device__ __forceinline__ uint32_t drop_base(const Geom& g, int bi, int h) {
-  return mix32(g.drop_seed + uint32_t(bi) * 0x85EBCA6Bu + uint32_t(h));
+  return mix32(g.drop_seed + uint32_t(g.b_off + bi) * 0x85EBCA6Bu + uint32_t(g.h_off + h));
 }
-__device__ __forceinline__ uint32_t drop_row(uint32_t base, int qi) {
-  return mix32(base ^ uint32_t(qi));
+__device__ __forceinline__ uint32_t drop_row(const Geom& g, uint32_t base, int qi) {
+  return mix32(base ^ uint32_t(g.q_off + qi));
 }
-__device__ __forceinline__ uint32_t drop_col(int kj) {
-  return mix32(uint32_t(kj) * 0x9E3779B9u);
+__device__ __forceinline__ uint32_t drop_col(const Geom& g, int kj) {
+  return mix32(uint32_t(g.k_off + kj) * 0x9E3779B9u);
 }
 // the factor on a kept / dropped P entry: 1 / (1 - p) or 0
 __device__ __forceinline__ float drop_factor(const Geom& g, uint32_t row, uint32_t col) {
@@ -401,7 +412,7 @@ __global__ void __launch_bounds__(kThreads)
   if (drop_on) {
     const uint32_t base = drop_base(g, bi, h);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) drow[i] = drop_row(base, q0 + ty * 4 + i);
+    for (int i = 0; i < 4; ++i) drow[i] = drop_row(g, base, q0 + ty * 4 + i);
   }
 
   load_tile<T, D>(q_s, q, bi, q0, g.sq, g.hq, h);
@@ -458,7 +469,7 @@ __global__ void __launch_bounds__(kThreads)
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         psum += p;      // l and the LSE stay undropped
         p_s[r * kLdP + tx + 16 * j] =
-            drop_on ? p * drop_factor(g, drow[i], drop_col(k0 + tx + 16 * j)) : p;
+            drop_on ? p * drop_factor(g, drow[i], drop_col(g, k0 + tx + 16 * j)) : p;
       }
       l[i] = alpha * l[i] + row_sum(psum);
       m[i] = m_new;
@@ -520,7 +531,7 @@ __global__ void __launch_bounds__(kThreads)
   if (drop_on) {
     const uint32_t base = drop_base(g, bi, h);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) drow[i] = drop_row(base, q0 + ty * 4 + i);
+    for (int i = 0; i < 4; ++i) drow[i] = drop_row(g, base, q0 + ty * 4 + i);
   }
 
   load_tile<T, D>(q_s, q, bi, q0, g.sq, g.hq, h);
@@ -573,7 +584,7 @@ __global__ void __launch_bounds__(kThreads)
         const bool ok = visible(g, q0 + r, k0 + c) &&
                         (!has_seg || qseg_s[r] == kseg_s[c]);
         const float p = ok ? expf(x - lse_r[i]) : 0.f;
-        const float f = drop_on ? drop_factor(g, drow[i], drop_col(k0 + c)) : 1.f;
+        const float f = drop_on ? drop_factor(g, drow[i], drop_col(g, k0 + c)) : 1.f;
         ds_s[r * kLdP + c] = ds_core(drop_on, p, f, dp[i][j], delta_r[i]) * dcap * g.scale;
       }
     }
@@ -646,7 +657,7 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t dcol[4] = {0u, 0u, 0u, 0u};   // this thread's keys
   if (drop_on) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dcol[i] = drop_col(k0 + ty * 4 + i);
+    for (int i = 0; i < 4; ++i) dcol[i] = drop_col(g, k0 + ty * 4 + i);
   }
   for (int gi = 0; gi < group; ++gi) {
     const int h = kvh * group + gi;       // ALiBi and dropout go by q head
@@ -685,7 +696,7 @@ __global__ void __launch_bounds__(kThreads)
                           (!has_seg || qseg_s[c] == kseg_s[r]);
           const float p = ok ? expf(x - lse_s[c]) : 0.f;
           const float f =
-              drop_on ? drop_factor(g, drop_row(dbase, q0 + c), dcol[i]) : 1.f;
+              drop_on ? drop_factor(g, drop_row(g, dbase, q0 + c), dcol[i]) : 1.f;
           pt_s[r * kLdP + c] = p * f;      // dV takes the dropped P
           dst_s[r * kLdP + c] = ds_core(drop_on, p, f, dp[i][j], delta_s[c]) * dcap * g.scale;
         }
@@ -1269,7 +1280,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         wsr.y = max(wsr.y, qseg_r[hh]);
       }
       kb[hh] = key_bounds(g, qi);
-      drow[hh] = drop_on ? drop_row(drop_base(g, bi, h), qi) : 0u;
+      drow[hh] = drop_on ? drop_row(g, drop_base(g, bi, h), qi) : 0u;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -1381,7 +1392,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int i = 0; i < 32; ++i) {
           const int hh = (i >> 1) & 1;
           const int kj = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          sc[i] *= drop_factor(g, drow[hh], drop_col(kj));
+          sc[i] *= drop_factor(g, drow[hh], drop_col(g, kj));
         }
       }
       if (alpha[0] != 1.f || alpha[1] != 1.f) {
@@ -1497,7 +1508,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       lse2[hh] = qi < g.sq ? lse[at] * kLog2e : 0.f;
       delta_r[hh] = qi < g.sq ? delta[at] : 0.f;
       qseg_r[hh] = has_seg && qi < g.sq ? g.qseg[size_t(bi) * g.sq + qi] : 0;
-      drow[hh] = drop_on ? drop_row(drop_base(g, bi, h), qi) : 0u;
+      drow[hh] = drop_on ? drop_row(g, drop_base(g, bi, h), qi) : 0u;
     }
     float acc[DP / 2];
 #pragma unroll
@@ -1587,7 +1598,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                 if (edge && !(cj >= klo[hh] && cj <= khi[hh] &&
                               (!has_seg || qseg_r[hh] == (e ? ks.y : ks.x))))
                   p = 0.f;
-                const float f = drop_on ? drop_factor(g, drow[hh], drop_col(k0 + cj)) : 1.f;
+                const float f = drop_on ? drop_factor(g, drow[hh], drop_col(g, k0 + cj)) : 1.f;
                 dp[i] = ds_core(drop_on, p, f, dp[i], delta_r[hh]) * dcap * g.scale;
               }
           }
@@ -1748,7 +1759,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int hh = 0; hh < 2; ++hh) {
       const int kj = kc0 + 16 * warp + grp + 8 * hh;
       kseg_r[hh] = has_seg && kj < g.sk ? g.kseg[size_t(bi) * g.sk + kj] : 0;
-      dcol[hh] = drop_on ? drop_col(kj) : 0u;
+      dcol[hh] = drop_on ? drop_col(g, kj) : 0u;
     }
     float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
@@ -1855,7 +1866,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                               (!has_seg || kseg_r[hh] == (e ? qs.y : qs.x))))
                   p = 0.f;
                 const float f =
-                    drop_on ? drop_factor(g, drop_row(dbase, q0 + cq), dcol[hh]) : 1.f;
+                    drop_on ? drop_factor(g, drop_row(g, dbase, q0 + cq), dcol[hh]) : 1.f;
                 dpt[i] = ds_core(drop_on, p, f, dpt[i], e ? dl.y : dl.x) * dcap * g.scale;
                 st[i] = p * f;                 // dV takes the dropped P
               }
@@ -2022,16 +2033,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, int sk,
                int hq, int hk, int causal, int wl, int wr, float scale, float softcap,
-               int drop_on, unsigned drop_seed, unsigned drop_thresh, float drop_scale) {
+               int drop_on, unsigned drop_seed, unsigned drop_thresh, float drop_scale,
+               int q_off, int k_off, int h_off, int b_off) {
   Geom g;
   g.qseg = static_cast<const int*>(qseg);
   g.kseg = static_cast<const int*>(kseg);
   g.alibi = static_cast<const float*>(alibi);
   g.sq = sq; g.sk = sk; g.hq = hq; g.hk = hk;
-  g.causal = causal; g.wl = wl; g.wr = wr; g.shift = sk - sq;
+  g.causal = causal; g.wl = wl; g.wr = wr; g.shift = sk - sq + q_off - k_off;
   g.scale = scale; g.softcap = softcap;
   g.drop_on = drop_on; g.drop_seed = drop_seed; g.drop_thresh = drop_thresh;
   g.drop_scale = drop_scale;
+  g.q_off = q_off; g.k_off = k_off; g.h_off = h_off; g.b_off = b_off;
   return g;
 }
 
@@ -2042,7 +2055,8 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
 // [b, hq, sq] float32; qseg/kseg are [b, sq] / [b, sk] int32, or both
 // null; alibi is [hq] float32 slopes or null; with drop_on a pair is kept
 // when its hash (drop_seed) is >= drop_thresh and kept P entries are
-// scaled by drop_scale.  Each launches on `stream`, does not synchronise,
+// scaled by drop_scale; q_off/k_off/h_off/b_off are the global position
+// of the local q and kv rows, head 0 and batch row 0 (0 for a whole call).  Each launches on `stream`, does not synchronise,
 // and returns 0 on success, else the cudaError_t of its launch, or
 // 100000 when the runtime does not reach cuTensorMapEncodeTiled, or
 // 200000 + its CUresult when it refuses a map (the bf16 and f16 kernels).
@@ -2072,10 +2086,11 @@ extern "C" int flash_attention_fwd(
     const void* kseg, const void* alibi, void* o, void* lse, int b, int sq, int sk,
     int hq, int hk, int d, int causal, int wl, int wr, float scale, float softcap,
     int drop_on, unsigned drop_seed, unsigned drop_thresh, float drop_scale,
-    int dtype, void* stream) {
+    int q_off, int k_off, int h_off, int b_off, int dtype, void* stream) {
   if (b == 0 || sq == 0) return 0;
   const Geom g = make_geom(qseg, kseg, alibi, sq, sk, hq, hk, causal, wl, wr, scale,
-                           softcap, drop_on, drop_seed, drop_thresh, drop_scale);
+                           softcap, drop_on, drop_seed, drop_thresh, drop_scale, q_off,
+                           k_off, h_off, b_off);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, b, g, st);
 }
@@ -2085,11 +2100,12 @@ extern "C" int flash_attention_bwd_dq(
     const void* kseg, const void* alibi, const void* dout, const void* lse,
     const void* delta, void* dq, int b, int sq, int sk, int hq, int hk, int d,
     int causal, int wl, int wr, float scale, float softcap, int drop_on,
-    unsigned drop_seed, unsigned drop_thresh, float drop_scale, int dtype,
-    void* stream) {
+    unsigned drop_seed, unsigned drop_thresh, float drop_scale, int q_off,
+    int k_off, int h_off, int b_off, int dtype, void* stream) {
   if (b == 0 || sq == 0) return 0;
   const Geom g = make_geom(qseg, kseg, alibi, sq, sk, hq, hk, causal, wl, wr, scale,
-                           softcap, drop_on, drop_seed, drop_thresh, drop_scale);
+                           softcap, drop_on, drop_seed, drop_thresh, drop_scale, q_off,
+                           k_off, h_off, b_off);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, b, g, st);
 }
@@ -2099,11 +2115,12 @@ extern "C" int flash_attention_bwd_dkv(
     const void* kseg, const void* alibi, const void* dout, const void* lse,
     const void* delta, void* dk, void* dv, int b, int sq, int sk, int hq, int hk,
     int d, int causal, int wl, int wr, float scale, float softcap, int drop_on,
-    unsigned drop_seed, unsigned drop_thresh, float drop_scale, int dtype,
-    void* stream) {
+    unsigned drop_seed, unsigned drop_thresh, float drop_scale, int q_off,
+    int k_off, int h_off, int b_off, int dtype, void* stream) {
   if (b == 0 || sk == 0) return 0;
   const Geom g = make_geom(qseg, kseg, alibi, sq, sk, hq, hk, causal, wl, wr, scale,
-                           softcap, drop_on, drop_seed, drop_thresh, drop_scale);
+                           softcap, drop_on, drop_seed, drop_thresh, drop_scale, q_off,
+                           k_off, h_off, b_off);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, b, g, st);
 }

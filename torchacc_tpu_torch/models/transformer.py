@@ -54,6 +54,7 @@ from torch import nn
 from torchacc_tpu_torch.models.generate import embed
 from torchacc_tpu_torch.ops._common import resolve_device, to_local
 from torchacc_tpu_torch.ops.attn import attention
+from torchacc_tpu_torch.ops.context_parallel import cp_attention
 from torchacc_tpu_torch.ops.fused import (
     fused_linear_cross_entropy,
     fused_linear_cross_entropy_tp,
@@ -226,7 +227,7 @@ LLAMA_SURFACE = ("rmsnorm, swiglu, RoPE (plain, linear and llama3 "
 _TRAIN_FIELDS = LLAMA_FIELDS | {
     "remat", "remat_policy", "remat_cls", "remat_cnt", "attention_impl",
     "attn_dropout", "quant", "quant_sites", "quant_amax_history_len",
-    "quant_impl"}
+    "quant_impl", "context_parallel"}
 # fields that pick how the JAX package lays out or shards the step, or
 # knobs inert while their feature is off; none changes what one device
 # computes
@@ -415,6 +416,10 @@ class Attention(nn.Module):
     # the 'tp' process group (parallel/sharding.py shard_model): the
     # projections hold this rank's heads; None on one device
     tp_group = None
+    # this rank's place on the mesh (ops/context_parallel CPLayout): the
+    # sequence groups and chunk, the batch and head offsets; None on one
+    # device
+    layout = None
 
     def __init__(self, cfg: ModelConfig, **factory):
         super().__init__()
@@ -439,7 +444,12 @@ class Attention(nn.Module):
         set; ``quant`` is the forward's :class:`QuantScope` and ``name``
         this module's path, which prefixes its sites' names.  Under
         tensor parallelism the heads are this rank's (``num_heads / tp``
-        and ``kv_heads / tp``; the GQA group is unchanged)."""
+        and ``kv_heads / tp``; the GQA group is unchanged).  On a mesh
+        attention goes through ``cp_attention`` with this rank's
+        ``layout`` (JAX :629-644): the ring and Ulysses under
+        ``context_parallel``, x and ``positions`` then being this rank's
+        chunk of the sequence, and on any mesh the global batch and head
+        offsets, so that dropout draws the one-device masks."""
         cfg = self.cfg
         b, s = x.shape[:2]
         d = cfg.head_size
@@ -458,12 +468,13 @@ class Attention(nn.Module):
         dropout_p, seed = 0.0, None
         if cfg.attn_dropout > 0.0 and dropout_seed is not None:
             dropout_p, seed = cfg.attn_dropout, dropout_seed
-        out = attention(q, k, v, causal=True, window=cfg.window,
-                        scale=cfg.query_scale, q_segment_ids=segment_ids,
-                        kv_segment_ids=segment_ids, dropout_p=dropout_p,
-                        dropout_seed=seed,
-                        logit_softcap=cfg.attn_logit_softcap,
-                        impl=cfg.attention_impl)
+        kw = dict(causal=True, window=cfg.window, scale=cfg.query_scale,
+                  q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                  dropout_p=dropout_p, dropout_seed=seed,
+                  logit_softcap=cfg.attn_logit_softcap,
+                  impl=cfg.attention_impl)
+        out = (attention(q, k, v, **kw) if self.layout is None
+               else cp_attention(q, k, v, mesh=self.layout, **kw))
         with checkpoint_name("attn_out"):
             # the JAX o_proj contracts (heads, d); flattened it is the
             # same [M, K] @ [K, N]
@@ -556,10 +567,14 @@ class TransformerLM(nn.Module):
     the 'tp' axis and of the data axes; the embedding and the head are
     then vocab-parallel."""
 
-    # the 'tp' process group (None on one device) and the process groups
-    # of the data axes above 1 (the quantized sites' amax reduce)
+    # the 'tp' process group (None on one device), the process groups
+    # of the data and sequence axes above 1 (the quantized sites' amax
+    # reduce), those of the sequence axes alone (the gradients' sum), and
+    # this rank's CPLayout
     tp_group = None
     data_groups = ()
+    seq_groups = ()
+    layout = None
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -594,8 +609,9 @@ class TransformerLM(nn.Module):
         ``(loss_sum, valid_count)`` (``ops/fused.py``; vocab-parallel
         under tensor parallelism), computed inside the forward so that a
         sharded head is read while FSDP2 holds it gathered.
-        ``positions`` default to ``arange``; ``segment_ids`` mark packed
-        documents.  Under ``cfg.remat`` each block (or, with
+        ``positions`` default to ``arange`` (of this rank's chunk of the
+        whole sequence under context parallelism); ``segment_ids`` mark
+        packed documents.  Under ``cfg.remat`` each block (or, with
         ``remat_cls``, its attention and/or MLP) of the first
         ``remat_cnt`` layers (all when None) is a checkpoint region with
         the policy ``cfg.remat_policy``.
@@ -620,7 +636,9 @@ class TransformerLM(nn.Module):
             scope = QuantScope(quant, quant_out, self.data_groups)
         b, s = input_ids.shape
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+            start = 0 if self.layout is None else self.layout.seq_index * s
+            positions = torch.arange(start, start + s,
+                                     device=input_ids.device).expand(b, s)
         x = self._embed(input_ids)
         grad = torch.is_grad_enabled()
         sub = _sub_remat(cfg)

@@ -18,8 +18,15 @@ the inputs' dtype.  ALiBi adds ``-slope[h] * |i + (sk - sq) - j|`` after
 the scale and the softcap; dropout keeps a pair by the coordinate hash
 of ``ops/_common.py`` (bit for bit the JAX package's) and scales the
 kept probabilities by ``1 / (1 - p)`` for the P @ V product only, so the
-LSE stays that of the undropped softmax.  The context-parallel offsets
-are not ported (ROADMAP.md, A12).
+LSE stays that of the undropped softmax.
+
+The context-parallel offsets (host ints, JAX's ``q_offset``,
+``k_offset``, ``h_offset`` and ``b_offset``) place the local tensors in
+the global ones: the mask and ALiBi see query ``i`` at ``q_offset + i +
+(sk - sq)`` and key ``j`` at ``k_offset + j``, and dropout hashes the
+global coordinates ``(b_offset + b, h_offset + h, q_offset + i,
+k_offset + j)``, so that a ring step or a shard draws the masks of the
+whole call.
 """
 
 from __future__ import annotations
@@ -63,18 +70,24 @@ def make_attention_mask(q_len: int, kv_len: int, causal: bool = True,
     return mask
 
 
-def _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids):
+def _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids,
+           shift=None):
+    """The mask of :func:`make_attention_mask` with query ``i`` at ``i +
+    shift`` (default ``sk - sq``), as ``[b|1, 1?, q, k]``."""
     sq, sk = q.shape[1], k.shape[1]
+    if shift is None:
+        shift = sk - sq
     mask = make_attention_mask(sq, sk, causal, window, q_segment_ids,
-                               kv_segment_ids, q_offset=sk - sq,
+                               kv_segment_ids, q_offset=shift,
                                device=q.device)
     return mask[:, None] if mask.ndim == 3 else mask     # [b|1, 1?, q, k]
 
 
-def _scores(q, k, scale, logit_softcap, alibi_slopes=None):
+def _scores(q, k, scale, logit_softcap, alibi_slopes=None, shift=None):
     """f32 ``[b, h, q, k]`` scores after the scale, the softcap and the
-    ALiBi bias, and the softcap's chain factor ``1 - (s / c)^2`` (1.0
-    when off), taken before the bias lands."""
+    ALiBi bias (query ``i`` at ``i + shift``, default ``sk - sq``), and the softcap's chain
+    factor ``1 - (s / c)^2`` (1.0 when off), taken before the bias
+    lands."""
     kr = _repeat_kv(k, q.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
     dcap = 1.0
@@ -84,26 +97,34 @@ def _scores(q, k, scale, logit_softcap, alibi_slopes=None):
     if alibi_slopes is not None:
         sq, sk = q.shape[1], k.shape[1]
         q_pos = torch.arange(sq, dtype=torch.float32, device=q.device) \
-            + (sk - sq)
+            + (sk - sq if shift is None else shift)
         k_pos = torch.arange(sk, dtype=torch.float32, device=q.device)
         dist = (q_pos[:, None] - k_pos[None, :]).abs()
         s = s + (-alibi_slopes.detach().float()[:, None, None] * dist[None])
     return s, dcap
 
 
-def _dropped(p, dropout_p, dropout_seed):
+def _shift(q, k, offsets):
+    """Query ``i``'s position less key ``j``'s, at ``i = j = 0``: the
+    bottom-right alignment ``sk - sq`` plus ``q_offset - k_offset``."""
+    return offsets[0] - offsets[1] + k.shape[1] - q.shape[1]
+
+
+def _dropped(p, dropout_p, dropout_seed, offsets=(0, 0, 0, 0)):
     """``p [b, h, q, k]`` with dropout applied: kept entries scaled by
-    ``1 / (1 - p)``, the rest zero (``p`` itself when dropout is off)."""
+    ``1 / (1 - p)``, the rest zero (``p`` itself when dropout is off).
+    ``offsets``: ``(q, k, h, b)`` offsets of the hashed coordinates."""
     if dropout_p <= 0.0:
         return p
     b, h, sq, sk = p.shape
+    q_off, k_off, h_off, b_off = offsets
     dev = p.device
     keep = dropout_keep(
         0 if dropout_seed is None else dropout_seed,
-        torch.arange(b, device=dev)[:, None, None],
-        torch.arange(h, device=dev)[None, :, None],
-        torch.arange(sq, device=dev), torch.arange(sk, device=dev),
-        dropout_p)
+        torch.arange(b, device=dev)[:, None, None] + b_off,
+        torch.arange(h, device=dev)[None, :, None] + h_off,
+        torch.arange(sq, device=dev) + q_off,
+        torch.arange(sk, device=dev) + k_off, dropout_p)
     return torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_p))
 
 
@@ -120,6 +141,10 @@ def attention_reference(
     alibi_slopes: Optional[torch.Tensor] = None,
     dropout_p: float = 0.0,
     dropout_seed=None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    h_offset: int = 0,
+    b_offset: int = 0,
     return_lse: bool = False,
     logit_softcap: float = 0.0,
 ):
@@ -127,12 +152,15 @@ def attention_reference(
     b, sq, hq, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    s, _ = _scores(q, k, scale, logit_softcap, alibi_slopes)
-    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
+    offsets = (q_offset, k_offset, h_offset, b_offset)
+    shift = _shift(q, k, offsets)
+    s, _ = _scores(q, k, scale, logit_softcap, alibi_slopes, shift)
+    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids,
+                  shift)
     s = torch.where(mask, s, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)                       # [b, h, q]
     probs = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    probs = _dropped(probs, dropout_p, dropout_seed)
+    probs = _dropped(probs, dropout_p, dropout_seed, offsets)
     vr = _repeat_kv(v, hq)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vr.float()).to(q.dtype)
     if return_lse:
@@ -160,6 +188,10 @@ def attention_reference_bwd(
     alibi_slopes: Optional[torch.Tensor] = None,
     dropout_p: float = 0.0,
     dropout_seed=None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    h_offset: int = 0,
+    b_offset: int = 0,
     logit_softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain flash-style backward from saved ``(o, lse)``: ``(dq, dk,
@@ -171,10 +203,13 @@ def attention_reference_bwd(
     if scale is None:
         scale = d ** -0.5
     group = hq // hk
-    s, dcap = _scores(q, k, scale, logit_softcap, alibi_slopes)
-    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids)
+    offsets = (q_offset, k_offset, h_offset, b_offset)
+    shift = _shift(q, k, offsets)
+    s, dcap = _scores(q, k, scale, logit_softcap, alibi_slopes, shift)
+    mask = _mask4(q, k, causal, window, q_segment_ids, kv_segment_ids,
+                  shift)
     p = torch.where(mask, torch.exp(s - lse[..., None].float()), 0.0)
-    p_tilde = _dropped(p, dropout_p, dropout_seed)
+    p_tilde = _dropped(p, dropout_p, dropout_seed, offsets)
     kr = _repeat_kv(k, hq).float()
     vr = _repeat_kv(v, hq).float()
     qf, dof = q.float(), do.float()

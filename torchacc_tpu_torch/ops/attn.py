@@ -38,11 +38,18 @@ def attention(
     impl: str = "auto",
     return_lse: bool = False,
     logit_softcap: float = 0.0,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    h_offset: int = 0,
+    b_offset: int = 0,
 ):
-    """``[b, s, h, d]`` attention with optional LSE output."""
+    """``[b, s, h, d]`` attention with optional LSE output; the offsets
+    are the global position of the local rows, heads and batch rows
+    (``ops.flash_attention``)."""
     return flash_attention(
         q, k, v, causal=causal, window=window, scale=scale,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         alibi_slopes=alibi_slopes, dropout_p=dropout_p,
-        dropout_seed=dropout_seed, return_lse=return_lse,
+        dropout_seed=dropout_seed, q_offset=q_offset, k_offset=k_offset,
+        h_offset=h_offset, b_offset=b_offset, return_lse=return_lse,
         logit_softcap=logit_softcap, impl=impl)

@@ -29,9 +29,15 @@ ALiBi slopes are hyperparameters and get no gradient.  Dropout keeps a
 pair by the stateless coordinate hash of ``ops/_common.py`` (seed,
 batch, q head, q position, k position), the same bits in the forward,
 both backward kernels, the plain version and the JAX package; it scales
-P for P @ V only, so the LSE is the undropped one.  The context-parallel
-offsets (the q/k/h/b entries of the JAX ``meta`` operand, ``:734``) are
-not ported: they raise (ROADMAP.md, A12, their only caller).
+P for P @ V only, so the LSE is the undropped one.
+
+The global offsets (the q/k/h/b entries of the JAX ``meta`` operand,
+``_make_meta`` ``:734``) are host ints: ``q_offset``/``k_offset`` move
+the mask and ALiBi geometry to ``shift = sk - sq + q_offset -
+k_offset`` (a context-parallel ring step sees its chunks where they lie
+in the whole sequence), and dropout hashes ``(b_offset + b, h_offset +
+h, q_offset + i, k_offset + j)``, so that a ring step, a head shard or
+a batch shard draws the masks of the whole call.
 """
 
 import ctypes
@@ -73,10 +79,12 @@ def _kernel_fns():
                     lib.flash_attention_bwd_dkv)
     if fwd.argtypes is None:
         # b, sq, sk, hq, hk, d, causal, left, right; scale, softcap;
-        # dropout on, seed, threshold, 1 / (1 - p); dtype, stream
+        # dropout on, seed, threshold, 1 / (1 - p); the q, k, h and b
+        # offsets; dtype, stream
         tail = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
                 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                   ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
+                   ctypes.c_float] + [ctypes.c_int] * 4
+                + [ctypes.c_int, ctypes.c_void_p])
         fwd.argtypes = [ctypes.c_void_p] * 8 + tail
         dq.argtypes = [ctypes.c_void_p] * 10 + tail
         dkv.argtypes = [ctypes.c_void_p] * 11 + tail
@@ -119,14 +127,16 @@ def _check_kernel_args(tensors, segs) -> None:
             raise ValueError(f"{name} must be {want}, got {t.dtype}")
 
 
-def _geom(q, k, causal, window, scale, softcap, dropout_p, dropout_seed):
+def _geom(q, k, causal, window, scale, softcap, dropout_p, dropout_seed,
+          offsets=(0, 0, 0, 0)):
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     return [b, sq, sk, hq, hk, d, int(causal), int(window[0]),
             int(window[1]), float(scale), float(softcap),
             int(dropout_p > 0.0), int(dropout_seed) & 0xFFFFFFFF,
             dropout_threshold(dropout_p),
-            1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0]
+            1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0,
+            *(int(x) for x in offsets)]
 
 
 def _ptr(t):
@@ -143,7 +153,8 @@ def _raise_on(err, name, q):
 
 
 def _fwd_cuda(q, k, v, qseg, kseg, causal, window, scale, softcap,
-              alibi=None, dropout_p=0.0, dropout_seed=0):
+              alibi=None, dropout_p=0.0, dropout_seed=0,
+              offsets=(0, 0, 0, 0)):
     _check_kernel_args({"q": q, "k": k, "v": v},
                        {"q_segment_ids": qseg, "kv_segment_ids": kseg,
                         "alibi_slopes": alibi})
@@ -155,7 +166,7 @@ def _fwd_cuda(q, k, v, qseg, kseg, causal, window, scale, softcap,
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg),
               _ptr(kseg), _ptr(alibi), o.data_ptr(), lse.data_ptr(),
               *_geom(q, k, causal, window, scale, softcap, dropout_p,
-                     dropout_seed),
+                     dropout_seed, offsets),
               _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, "forward", q)
     launch_counts["fwd"] += 1
@@ -175,14 +186,15 @@ def _bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi):
 
 
 def _dq_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
-             softcap, alibi=None, dropout_p=0.0, dropout_seed=0):
+             softcap, alibi=None, dropout_p=0.0, dropout_seed=0,
+             offsets=(0, 0, 0, 0)):
     """B2: dq from the saved lse and delta (one launch)."""
     _, dq_fn, _ = _kernel_fns()
     dq = torch.empty_like(q)
     err = dq_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi),
                 dq.data_ptr(),
                 *_geom(q, k, causal, window, scale, softcap, dropout_p,
-                       dropout_seed),
+                       dropout_seed, offsets),
                 _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "dq", q)
@@ -191,14 +203,15 @@ def _dq_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
 
 
 def _dkv_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
-              softcap, alibi=None, dropout_p=0.0, dropout_seed=0):
+              softcap, alibi=None, dropout_p=0.0, dropout_seed=0,
+              offsets=(0, 0, 0, 0)):
     """B3: dk and dv from the saved lse and delta (one launch)."""
     _, _, dkv_fn = _kernel_fns()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = dkv_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi),
                  dk.data_ptr(), dv.data_ptr(),
                  *_geom(q, k, causal, window, scale, softcap, dropout_p,
-                        dropout_seed),
+                        dropout_seed, offsets),
                  _DTYPE_CODE[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "dk/dv", q)
@@ -207,14 +220,15 @@ def _dkv_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
 
 
 def _bwd_cuda(q, k, v, o, lse, do, qseg, kseg, causal, window, scale,
-              softcap, alibi=None, dropout_p=0.0, dropout_seed=0):
+              softcap, alibi=None, dropout_p=0.0, dropout_seed=0,
+              offsets=(0, 0, 0, 0)):
     _check_kernel_args({"q": q, "k": k, "v": v, "o": o, "do": do},
                        {"q_segment_ids": qseg, "kv_segment_ids": kseg,
                         "alibi_slopes": alibi})
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32 [b, hq, sq]")
     args = (q, k, v, do, lse, _bwd_delta(o, do), qseg, kseg, causal,
-            window, scale, softcap, alibi, dropout_p, dropout_seed)
+            window, scale, softcap, alibi, dropout_p, dropout_seed, offsets)
     return (_dq_cuda(*args),) + _dkv_cuda(*args)
 
 
@@ -237,17 +251,21 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   alibi_slopes: Optional[torch.Tensor], causal: bool,
                   window_left: int, window_right: int, scale: float,
                   logit_softcap: float, dropout_p: float, dropout_seed: int,
+                  q_offset: int, k_offset: int, h_offset: int,
+                  b_offset: int,
                   impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     window = (window_left, window_right)
+    offsets = (q_offset, k_offset, h_offset, b_offset)
     if _use_kernel(impl, q):
         return _fwd_cuda(q, k, v, q_segment_ids, kv_segment_ids, causal,
                          window, scale, logit_softcap, alibi_slopes,
-                         dropout_p, dropout_seed)
+                         dropout_p, dropout_seed, offsets)
     o, lse = attention_reference(
         q, k, v, causal=causal, window=window, scale=scale,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         alibi_slopes=alibi_slopes, dropout_p=dropout_p,
-        dropout_seed=dropout_seed, return_lse=True,
+        dropout_seed=dropout_seed, q_offset=q_offset, k_offset=k_offset,
+        h_offset=h_offset, b_offset=b_offset, return_lse=True,
         logit_softcap=logit_softcap)
     return o, lse.contiguous()
 
@@ -260,18 +278,21 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   alibi_slopes: Optional[torch.Tensor], causal: bool,
                   window_left: int, window_right: int, scale: float,
                   logit_softcap: float, dropout_p: float, dropout_seed: int,
-                  impl: str
+                  q_offset: int, k_offset: int, h_offset: int,
+                  b_offset: int, impl: str
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     window = (window_left, window_right)
+    offsets = (q_offset, k_offset, h_offset, b_offset)
     if _use_kernel(impl, q):
         return _bwd_cuda(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids,
                          causal, window, scale, logit_softcap, alibi_slopes,
-                         dropout_p, dropout_seed)
+                         dropout_p, dropout_seed, offsets)
     return attention_reference_bwd(
         q, k, v, o, lse, do, causal=causal, window=window, scale=scale,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         alibi_slopes=alibi_slopes, dropout_p=dropout_p,
-        dropout_seed=dropout_seed, logit_softcap=logit_softcap)
+        dropout_seed=dropout_seed, q_offset=q_offset, k_offset=k_offset,
+        h_offset=h_offset, b_offset=b_offset, logit_softcap=logit_softcap)
 
 
 def _setup_context(ctx, inputs, output):
@@ -287,7 +308,7 @@ def _backward(ctx, do, _dlse):
     dq, dk, dv = _flash_bwd_op(q, k, v, o, lse, do.contiguous(), qseg, kseg,
                                alibi, *ctx.params)
     # the slopes are hyperparameters: no gradient (JAX :803)
-    return (dq, dk, dv) + (None,) * 11
+    return (dq, dk, dv) + (None,) * 15
 
 
 _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
@@ -324,17 +345,21 @@ def _prepare(q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes,
         raise TypeError(
             f"dropout_seed must be a host int (the train step), got "
             f"{type(dropout_seed).__name__}")
-    if any(not isinstance(x, int) or x != 0 for x in offsets):
-        raise NotImplementedError(
-            "flash_attention: non-zero q/k/h/b offsets (the context-"
-            "parallel meta) are not ported yet (ROADMAP.md, A12)")
+    for name, x in zip(("q_offset", "k_offset", "h_offset", "b_offset"),
+                       offsets):
+        if not isinstance(x, int) or isinstance(x, bool):
+            raise TypeError(f"{name} must be a host int, got "
+                            f"{type(x).__name__}")
+        if not -2 ** 31 <= x < 2 ** 31:
+            raise ValueError(f"{name} {x} does not fit in int32")
     segs = [None if s is None else s.to(torch.int32).contiguous()
             for s in (q_segment_ids, kv_segment_ids)]
     if scale is None:
         scale = q.shape[-1] ** -0.5
     seed = 0 if dropout_seed is None else int(dropout_seed)
     return (q.contiguous(), k.contiguous(), v.contiguous(), segs,
-            alibi_slopes, float(dropout_p), seed, float(scale))
+            alibi_slopes, float(dropout_p), seed, float(scale),
+            tuple(offsets))
 
 
 def flash_attention(
@@ -364,13 +389,16 @@ def flash_attention(
     path of the context-parallel ring).  ``alibi_slopes``: ``[hq]`` f32
     per-head slopes.  ``dropout_p`` / ``dropout_seed``: dropout on the
     post-softmax probabilities; the seed is a host int (None = 0), and
-    the same seed gives the same mask on every path."""
-    q, k, v, (qseg, kseg), alibi, dropout_p, seed, scale = _prepare(
+    the same seed gives the same mask on every path.  ``q_offset``,
+    ``k_offset``, ``h_offset``, ``b_offset``: host ints, the global
+    position of the local q and kv rows, of head 0 and of batch row 0
+    (the context-parallel ring's chunks; a head or batch shard)."""
+    q, k, v, (qseg, kseg), alibi, dropout_p, seed, scale, offs = _prepare(
         q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes, dropout_p,
         dropout_seed, (q_offset, k_offset, h_offset, b_offset), scale)
     args = (q, k, v, qseg, kseg, alibi, bool(causal), int(window[0]),
             int(window[1]), scale, float(logit_softcap), dropout_p, seed,
-            impl)
+            *offs, impl)
     if return_lse:
         with torch.no_grad():
             return _flash_fwd_op(*args)
@@ -401,12 +429,13 @@ def flash_attention_bwd(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Standalone backward: ``(dq, dk, dv)`` from saved ``(o, lse)``,
-    BSHD in and out, lse ``[b, h, sq]`` f32."""
-    q, k, v, (qseg, kseg), alibi, dropout_p, seed, scale = _prepare(
+    BSHD in and out, lse ``[b, h, sq]`` f32, at the same offsets as the
+    forward."""
+    q, k, v, (qseg, kseg), alibi, dropout_p, seed, scale, offs = _prepare(
         q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes, dropout_p,
         dropout_seed, (q_offset, k_offset, h_offset, b_offset), scale)
     return _flash_bwd_op(q, k, v, o.contiguous(),
                          lse.to(torch.float32).contiguous(),
                          do.contiguous(), qseg, kseg, alibi, bool(causal),
                          int(window[0]), int(window[1]), scale,
-                         float(logit_softcap), dropout_p, seed, impl)
+                         float(logit_softcap), dropout_p, seed, *offs, impl)

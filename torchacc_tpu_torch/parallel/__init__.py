@@ -1,8 +1,9 @@
 """Parallelism (the port of torchacc_tpu/parallel): joining the process
 group, the device mesh, and the sharding rules and plan that compose
-data parallelism, FSDP and tensor parallelism on the training path.
+data parallelism, FSDP, tensor parallelism and context parallelism
+('sp' x 'spu', ``ops/context_parallel``) on the training path.
 Pipeline parallelism, the serving layouts and ``transfer`` are not
-ported yet (ROADMAP.md A12, A2b)."""
+ported yet (ROADMAP.md A12b, A2b)."""
 
 from torchacc_tpu_torch.parallel.distributed import (
     initialize_distributed,
@@ -13,6 +14,7 @@ from torchacc_tpu_torch.parallel.mesh import (
     data_shard,
     describe_mesh,
     mesh_axis_size,
+    seq_shard,
 )
 from torchacc_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
@@ -29,6 +31,7 @@ __all__ = [
     "describe_mesh",
     "mesh_axis_size",
     "data_shard",
+    "seq_shard",
     "DEFAULT_RULES",
     "batch_spec",
     "make_rules",

@@ -18,6 +18,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from torchacc_tpu_torch.config import DATA_AXES, DistConfig
+from torchacc_tpu_torch.ops.context_parallel import CPLayout
 
 
 def build_mesh(dist_cfg: DistConfig, device_type: str = "cuda") -> DeviceMesh:
@@ -108,3 +109,16 @@ def data_shard(mesh: DeviceMesh) -> Tuple[int, int]:
     return (sizes["dp"] * sizes["fsdp"],
             mesh.get_local_rank("dp") * sizes["fsdp"]
             + mesh.get_local_rank("fsdp"))
+
+
+def seq_shard(mesh: DeviceMesh) -> Tuple[int, int]:
+    """``(num_chunks, chunk_index)`` of this rank's part of each row's
+    sequence under context parallelism: the sequence splits in
+    contiguous chunks over 'sp' (major) and 'spu' (minor), as the JAX
+    package's ``seq`` spec ``("sp", "spu")`` splits it, so that the
+    ring's chunk ``sp_idx`` covers the 'spu' ranks' chunks after the
+    all-to-all.  The sequence ranks of one data shard read the same
+    rows (:func:`data_shard`) and each keeps its chunk
+    (``ops.context_parallel.CPLayout.seq_index``)."""
+    layout = CPLayout.from_mesh(mesh)
+    return layout.seq_n, layout.seq_index

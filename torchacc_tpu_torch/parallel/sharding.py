@@ -25,6 +25,19 @@ torch placements:
 
 Gradients are reduced as sums (divide factor 1): the Trainer divides by
 the global token count, as the JAX Trainer does.
+
+Context parallelism ('sp' x 'spu', ``ops/context_parallel``): the
+parameters are replicated over the sequence axes, as JAX's rules keep
+them (``embed`` on 'fsdp' only), and each sequence rank's gradient is
+a partial sum over its own chunk of the tokens.  FSDP2 shards and
+reduces over the data axes only; the Trainer then all-reduces the local
+gradient shards over each sequence axis above 1 (:func:`seq_groups`).
+FSDP2 with the sequence axes in its replicate dim would need one mesh
+dim over 'dp', 'sp' and 'spu', which are not contiguous in
+``MESH_AXES``, and would change the data mesh (HSDP) that the
+checkpoints and the one-device equality rest on.  Every attention layer
+gets this rank's :class:`CPLayout` (its groups, its chunk, its batch and
+head offsets), so that dropout draws the global masks on any mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from torchacc_tpu_torch.config import DATA_AXES, Config
 from torchacc_tpu_torch.models.axes import param_axes
+from torchacc_tpu_torch.ops.context_parallel import CPLayout
 from torchacc_tpu_torch.parallel.mesh import data_mesh, describe_mesh
 
 # a rule maps a logical axis to a mesh axis, a tuple of mesh axes, or
@@ -153,13 +167,27 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
                     f"package replicates such a dim (and the head falls "
                     f"back to a replicated one); the port does not "
                     f"(ROADMAP.md A8b)")
-    if cfg.attn_dropout > 0.0 and (tp > 1 or sizes["dp"] * sizes["fsdp"]
-                                   > 1):
+    seq = sizes["sp"] * sizes["spu"]
+    if seq > 1:
+        if not cfg.context_parallel:
+            raise ValueError(
+                "a mesh with 'sp' x 'spu' > 1 needs a model with "
+                "context_parallel=True (accelerate() sets it from "
+                "dist.sp.size)")
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("num_kv_heads", cfg.kv_heads)):
+            if (n // tp) % sizes["spu"]:
+                raise ValueError(
+                    f"{what} {n} over tp {tp} is not divisible by the "
+                    f"ulysses degree {sizes['spu']}")
+    if cfg.attn_dropout > 0.0 and grad_accum > 1 \
+            and sizes["dp"] * sizes["fsdp"] > 1:
         raise NotImplementedError(
-            "attention dropout on a mesh needs the flash kernels' batch and "
-            "head offsets, so that a shard draws the masks of its global "
-            "coordinates; they are not ported to torchacc_tpu_torch yet "
-            "(ROADMAP.md B-1)")
+            "attention dropout with grad_accum > 1 on more than one data "
+            "shard is not ported to torchacc_tpu_torch yet (ROADMAP.md "
+            "A8b): each rank splits its own rows into micro-batches, where "
+            "the JAX package splits the global batch, so a row would draw "
+            "the masks of another batch coordinate than JAX's")
     if cfg.quant != "none" and grad_accum > 1 \
             and sizes["dp"] * sizes["fsdp"] > 1:
         raise NotImplementedError(
@@ -242,15 +270,31 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
         mod.set_gradient_divide_factor(1.0)
         mod.set_force_sum_reduction_for_comms(True)
     group = None if tp_mesh is None else tp_mesh.get_group()
+    layout = CPLayout.from_mesh(mesh)
     for mod in model.modules():
         if hasattr(type(mod), "tp_group"):
             mod.tp_group = group
+        if hasattr(type(mod), "layout"):
+            mod.layout = layout
     model.data_groups = data_groups(mesh)
+    model.seq_groups = seq_groups(mesh)
     return model
 
 
-def data_groups(mesh: DeviceMesh) -> Tuple[Any, ...]:
-    """The process groups of the data axes above 1: a sum or max over the
-    global batch is an all-reduce over each."""
+SEQ_AXES = ("sp", "spu")
+
+
+def seq_groups(mesh: DeviceMesh) -> Tuple[Any, ...]:
+    """The process groups of the sequence axes above 1: a gradient summed
+    over the sequence ranks is an all-reduce over each."""
     sizes = describe_mesh(mesh)
-    return tuple(mesh.get_group(a) for a in DATA_AXES if sizes[a] > 1)
+    return tuple(mesh.get_group(a) for a in SEQ_AXES if sizes[a] > 1)
+
+
+def data_groups(mesh: DeviceMesh) -> Tuple[Any, ...]:
+    """The process groups of the data axes and the sequence axes above 1,
+    over which a step's tokens are split: a sum or max over the global
+    batch is an all-reduce over each."""
+    sizes = describe_mesh(mesh)
+    return tuple(mesh.get_group(a) for a in DATA_AXES if sizes[a] > 1) \
+        + seq_groups(mesh)

@@ -63,7 +63,8 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
     """Fold the framework's compute and memory settings into the model
     config (the fields this port implements): ``offload_activations``
     forces the host-offload remat policy, ``gc_cls``/``gc_cnt`` pick the
-    submodules and the number of layers that remat."""
+    submodules and the number of layers that remat, and ``dist.sp.size``
+    above 1 turns on ``context_parallel``."""
     mem = config.memory
     return dataclasses.replace(
         mc,
@@ -79,6 +80,7 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
         quant_sites=tuple(config.compute.quant_sites),
         quant_amax_history_len=config.compute.quant_amax_history_len,
         quant_impl=config.compute.quant_impl,
+        context_parallel=config.dist.sp.size > 1,
     )
 
 
@@ -101,7 +103,7 @@ def accelerate(
     config.validate()
     d = config.dist
     if not dist.is_initialized() and max(d.dp.size, 1) * d.tp.size \
-            * d.fsdp.size > 1:
+            * d.fsdp.size * d.sp.size > 1:
         raise ConfigError(
             "config.dist asks for more than one rank but no "
             "torch.distributed process group is up: call "

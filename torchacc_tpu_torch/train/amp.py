@@ -7,8 +7,12 @@ master weights (``shadow_cast`` :70, ``bf16_param_shadow`` :81,
 On a mesh the gradients are sharded ``DTensor``s.  ``global_norm_f32``
 then sums the squares of the local shards, each distinct shard on one
 rank only (a shard replicated over 'dp' or 'tp' is counted once), and
-all-reduces that one sum over every rank; ``all_finite`` all-reduces
-its flag (MIN), so that no rank applies an fp16 update another skips.
+all-reduces that one sum over every rank; under context parallelism the
+sequence ranks hold the same all-reduced gradients outside the
+DTensors' meshes, and only the first chunk's rank counts them
+(:func:`norm_counted`, which the Trainer sets around the update).
+``all_finite`` all-reduces its flag (MIN), so that no rank applies an
+fp16 update another skips.
 The bf16 shadow is not used on a mesh: FSDP2's mixed-precision policy
 gives the blocks the same bf16 reads of the masters
 (``parallel/sharding.py`` ``mixed_precision``).
@@ -32,6 +36,8 @@ place.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Iterable, List
 
 import torch
@@ -105,6 +111,22 @@ def shadow_cast(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for n, p in params.items()}
 
 
+_norm = threading.local()
+
+
+@contextlib.contextmanager
+def norm_counted(counted: bool):
+    """Within, whether this rank's gradients count in the global norm at
+    all: False on a rank whose gradients are a copy of another rank's
+    beyond their DTensor placements (a sequence rank but the first)."""
+    prev = getattr(_norm, "counted", True)
+    _norm.counted = counted
+    try:
+        yield
+    finally:
+        _norm.counted = prev
+
+
 def global_norm_f32(tensors) -> torch.Tensor:
     """Global l2 norm with f32 accumulation whatever the leaf dtype (a
     0-dim tensor on the leaves' device; no host sync): a bf16 gradient
@@ -115,9 +137,10 @@ def global_norm_f32(tensors) -> torch.Tensor:
         return torch.sqrt(sum(t.float().square().sum() for t in tensors))
     sq = torch.zeros((), dtype=torch.float32,
                      device=tensors[0].to_local().device)
-    for t in tensors:
-        if _counted_once(t):
-            sq = sq + t.to_local().float().square().sum()
+    if getattr(_norm, "counted", True):
+        for t in tensors:
+            if _counted_once(t):
+                sq = sq + t.to_local().float().square().sum()
     dist.all_reduce(sq)
     return torch.sqrt(sq)
 

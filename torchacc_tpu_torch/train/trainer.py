@@ -64,6 +64,17 @@ splits the global batch: the same sum, but quantized matmuls would see
 other rows per micro-batch, so that combination raises on more than one
 data shard (ROADMAP.md C2, A8b).  ``fit`` logs on rank 0 only.
 
+Under context parallelism ('sp' x 'spu' above 1) the sequence ranks of
+one data shard take the same rows; ``step`` and ``eval_step`` compute
+the labels (``shift_labels``), the default positions and the segment
+ids on those whole rows, then keep this rank's chunk of the sequence
+(``parallel.mesh.seq_shard``): the label of a chunk's last token, the
+documents and RoPE are the whole row's.  The loss's (sum, count) is
+summed over the sequence ranks as over the data ranks, and so are the
+quantized sites' amax reductions; the gradients, partial sums over each
+rank's tokens, are all-reduced over the sequence axes
+(``parallel.sharding.seq_groups``) before the optimizer reads them.
+
 Checkpoints (``checkpoint/``): ``save``/``restore`` write and read the
 whole state (masters, AdamW moments and count, the fp16 scaler, the
 amax histories, the step); ``fit(checkpoint_dir=...)`` saves through a
@@ -111,11 +122,12 @@ from torchacc_tpu_torch.models.transformer import (
 )
 from torchacc_tpu_torch.ops._common import resolve_device, to_local
 from torchacc_tpu_torch.parallel.distributed import is_primary
-from torchacc_tpu_torch.parallel.mesh import describe_mesh
+from torchacc_tpu_torch.parallel.mesh import describe_mesh, seq_shard
 from torchacc_tpu_torch.parallel.sharding import shard_model
 from torchacc_tpu_torch.train.amp import (
     all_finite,
     bf16_param_shadow,
+    norm_counted,
     scaler_init,
     scaler_update,
     shadow_params,
@@ -124,6 +136,10 @@ from torchacc_tpu_torch.train.schedules import GradientTransformation, adamw
 from torchacc_tpu_torch.train.state import TrainState
 from torchacc_tpu_torch.utils.logger import logger
 from torchacc_tpu_torch.utils.metrics import counters
+
+
+# elements of one all-reduce of the gradients over the sequence ranks
+_SEQ_BUCKET = 1 << 26
 
 
 def shift_labels(input_ids: torch.Tensor,
@@ -211,11 +227,14 @@ class Trainer:
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(f"the mesh is on {mesh.device_type}, the model "
                              f"on {self.device}")
-        # the batch rows of one step are split over this many ranks
+        # the batch rows of one step are split over this many ranks, and
+        # each row's sequence in (chunks, this rank's chunk)
         self._data_shards = 1
+        self._seq = (1, 0)
         if mesh is not None:
             sizes = describe_mesh(mesh)
             self._data_shards = sizes["dp"] * sizes["fsdp"]
+            self._seq = seq_shard(mesh)
         if isinstance(model, TransformerLM):
             # an unported composition (the 'head' quant site, ...) raises
             # by name here, not at the first step
@@ -318,7 +337,30 @@ class Trainer:
 
     # -- train step -----------------------------------------------------------
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+        batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                 for k, v in batch.items()}
+        return self._seq_chunk(batch) if self._seq[0] > 1 else batch
+
+    def _seq_chunk(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """This rank's chunk of the sequence of every ``[b, s, ...]``
+        field, with the labels and positions made on the whole rows
+        first."""
+        n, c = self._seq
+        ids = batch["input_ids"]
+        b, s = ids.shape[:2]
+        if s % n:
+            raise ValueError(f"sequence length {s} is not divisible by the "
+                             f"{n} sequence ranks (dist.sp.size)")
+        batch = dict(batch)
+        if "labels" not in batch:
+            batch["labels"] = shift_labels(ids, batch.get("segment_ids"))
+        if "positions" not in batch:
+            batch["positions"] = torch.arange(
+                s, device=ids.device).expand(b, s)
+        w = s // n
+        return {k: v[:, c * w:(c + 1) * w].contiguous()
+                if v.ndim >= 2 and v.shape[1] == s else v
                 for k, v in batch.items()}
 
     def _forward_sum_count(self, batch, train: bool = True,
@@ -368,12 +410,36 @@ class Trainer:
         return hook
 
     def _global(self, l_sum: torch.Tensor, count: torch.Tensor):
-        """``(loss_sum, count)`` summed over the data axes' ranks: the
-        global batch's (as they are on one device)."""
+        """``(loss_sum, count)`` summed over the data and sequence axes'
+        ranks: the global batch's (as they are on one device)."""
         tot = torch.stack([l_sum.detach().float(), count.float()])
         for group in getattr(self.model, "data_groups", ()):
             dist.all_reduce(tot, group=group)
         return tot[0], tot[1]
+
+    def _reduce_seq(self, grads: List[torch.Tensor]) -> None:
+        """Sum the gradients' local tensors over the sequence ranks, in
+        place: the tensors of one dtype flattened into buckets of at
+        most ``_SEQ_BUCKET`` elements, one all-reduce a bucket and
+        sequence axis, in the same order on every rank."""
+        groups = getattr(self.model, "seq_groups", ())
+        if not groups:
+            return
+        buckets: List[List[torch.Tensor]] = []
+        size = 0
+        for t in (to_local(g) for g in grads):
+            if (not buckets or buckets[-1][0].dtype != t.dtype
+                    or size + t.numel() > _SEQ_BUCKET):
+                buckets.append([])
+                size = 0
+            buckets[-1].append(t)
+            size += t.numel()
+        for same in buckets:
+            flat = torch.cat([t.reshape(-1) for t in same])
+            for group in groups:
+                dist.all_reduce(flat, group=group)
+            for t, part in zip(same, flat.split([t.numel() for t in same])):
+                t.copy_(part.view_as(t))
 
     def _check_quant(self, new_quant) -> None:
         missing = set(quant_site_names(self.model.cfg)) - set(new_quant)
@@ -390,9 +456,14 @@ class Trainer:
         denom = torch.clamp(g_count, min=1.0)
         loss = l_sum / denom
         (loss if scale is None else loss * scale).backward()
+        params = dict(self.model.named_parameters())
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._reduce_seq([p.grad for p in params.values()])
         grads = {}
-        for n, p in self.model.named_parameters():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+        for n, p in params.items():
+            g = p.grad
             if self._bf16_reduced:
                 # FSDP2 reduces in f32; the shadow's gradients reach the
                 # optimizer in bf16
@@ -438,6 +509,7 @@ class Trainer:
         finally:
             self._acc = None
         l_tot, c_tot = self._global(l_tot, c_tot)
+        self._reduce_seq(list(acc.values()))
         c_tot = torch.clamp(c_tot, min=1.0)
         denom = c_tot if scale is None else c_tot * scale
         grads = {}
@@ -470,8 +542,10 @@ class Trainer:
             self._check_quant(new_quant)
             self.state.quant = new_quant
         finite = None if scaler is None else all_finite(grads.values())
-        grad_norm = self.optimizer.update_(grads, self.state.opt_state,
-                                           self.state.params, keep=finite)
+        # the sequence ranks hold the same gradients: one counts them
+        with norm_counted(self._seq[1] == 0):
+            grad_norm = self.optimizer.update_(grads, self.state.opt_state,
+                                               self.state.params, keep=finite)
         for p in self.model.parameters():
             p.grad = None
         self.state.step += 1

@@ -12,7 +12,8 @@ projections in :func:`checkpoint_name`, and a policy saves the matmul
 outputs made inside the named sites (a quantized site's matmul is the
 quantized-matmul forward op, so its kernel does not re-run), plus the
 flash-attention forward op whole (``o`` and ``lse``, JAX's
-``attn_ctx``/``attn_lse``):
+``attn_ctx``/``attn_lse``; under context parallelism the ``cp_fwd`` op,
+so that a recompute never walks the ring again):
 
 =========================  ==================================================
 'nothing'                  save nothing: the region's whole forward re-runs,
@@ -66,6 +67,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+import torchacc_tpu_torch.ops.context_parallel  # noqa: F401  (the op below)
 import torchacc_tpu_torch.ops.flash_attention  # noqa: F401  (the op below)
 import torchacc_tpu_torch.ops.quantized_matmul  # noqa: F401  (the op below)
 
@@ -79,6 +81,8 @@ _DOTS_NO_BATCH = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
                   torch.ops.torchacc_tpu_torch.qmm_fwd.default}
 _MATMULS = _DOTS_NO_BATCH | {torch.ops.aten.bmm.default}
 _FLASH_FWD = torch.ops.torchacc_tpu_torch.flash_fwd.default
+# the context-parallel attention (ring and all-to-alls) is one op too
+_CP_FWD = torch.ops.torchacc_tpu_torch.cp_fwd.default
 # the sites whose products 'offload_dots' moves to host memory
 _OFFLOADED = ("attn_out", "mlp_out")
 
@@ -132,7 +136,7 @@ def remat_policy(name: str = "nothing") -> Optional[Callable]:
     saved = frozenset(_POLICY_NAMES[name])
 
     def policy(ctx, op, *args, **kwargs):
-        if op is _FLASH_FWD or (op in _MATMULS and getattr(
+        if op in (_FLASH_FWD, _CP_FWD) or (op in _MATMULS and getattr(
                 _local, "site", None) in saved):
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
