@@ -54,7 +54,8 @@ Phases, each of which exits non-zero when it fails:
    must exceed it.  Then Llama-3-8B's attention (32/8 heads of 128,
    bf16, b 1) over 32768 tokens of packed documents with dropout: the
    ring's schedule over 4 virtual ranks (chunks of 8192), through
-   ring.py's own step, skip and merge functions (virtual_cp_attention),
+   ring.py's own step, skip and merge functions and the offsets of
+   cp_attention's CPLayout (tests/torch_cp_virtual.py),
    Ulysses over 2 head groups, and 2D (the ring within each group),
    each against one whole B1/B2/B3 call at 32768 (o, lse, dq, dk, dv;
    the same seed draws the same masks), B1-B3 launching exactly on the
@@ -1240,6 +1241,9 @@ def _cp_schedules(torch, fa, cp, rng):
     4096.  Dropout on: the same seed draws the same masks in both."""
     from torchacc_tpu_torch.ops.flash_attention import (
         segment_ids_from_positions)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_cp_virtual import virtual_cp_attention
     q, k, v, do, _ = _flash_inputs(torch, rng, 1, CP_S, CP_S,
                                    torch.bfloat16, False)
     seg = segment_ids_from_positions(torch.from_numpy(
@@ -1257,7 +1261,7 @@ def _cp_schedules(torch, fa, cp, rng):
                               ("2d", CP_RING, 2)):
         for name in fa.launch_counts:
             fa.launch_counts[name] = 0
-        got = cp.virtual_cp_attention(q, k, v, do, ring_n=ring_n, ul_n=ul_n,
+        got = virtual_cp_attention(q, k, v, do, ring_n=ring_n, ul_n=ul_n,
                                       impl="cuda", **kw)
         torch.cuda.synchronize()
         launches = dict(fa.launch_counts)
@@ -1277,14 +1281,14 @@ def _cp_schedules(torch, fa, cp, rng):
     reps = 3
     out["whole_fwd_ms"] = _time_ms(torch, lambda i: fa.flash_attention(
         q, k, v, return_lse=True, impl="cuda", **kw), reps, warm=1)
-    out["ring_fwd_ms"] = _time_ms(torch, lambda i: cp.virtual_cp_attention(
+    out["ring_fwd_ms"] = _time_ms(torch, lambda i: virtual_cp_attention(
         q, k, v, ring_n=CP_RING, impl="cuda", **kw), reps, warm=1)
     out["whole_fwd_bwd_ms"] = _time_ms(torch, lambda i: fa.flash_attention_bwd(
         q, k, v, *fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
                                      **kw), do, impl="cuda", **kw),
         reps, warm=1)
     out["ring_fwd_bwd_ms"] = _time_ms(
-        torch, lambda i: cp.virtual_cp_attention(
+        torch, lambda i: virtual_cp_attention(
             q, k, v, do, ring_n=CP_RING, impl="cuda", **kw), reps, warm=1)
     pairs = _flash_work(torch, q, k, seg, True, (-1, -1))[0]
     out["visible_pairs_per_head"] = pairs
@@ -1305,7 +1309,7 @@ def _cp_schedules(torch, fa, cp, rng):
     kw.update(q_segment_ids=seg, kv_segment_ids=seg)
     ref = fa.attention_reference(q, k, v, return_lse=True, **kw)
     ref = ref + fa.attention_reference_bwd(q, k, v, *ref, do, **kw)
-    got = cp.virtual_cp_attention(q, k, v, do, ring_n=CP_RING, impl="cuda",
+    got = virtual_cp_attention(q, k, v, do, ring_n=CP_RING, impl="cuda",
                                   **kw)
     torch.cuda.synchronize()
     out["ring_vs_plain_4096"] = _cp_compare(

@@ -12,9 +12,9 @@ Pallas kernels B1-B3 in interpret mode at the same offsets, as
 atol = rtol = 2e-5, the standalone backward's dq/dk/dv atol = rtol =
 1e-4 (read <= 1.9e-6 and 3.9e-6).  The dropout keep masks at offsets
 are compared bitwise.  ``merge_attention`` against JAX's: atol = rtol =
-1e-6 (read 2.4e-7).  The virtual-rank schedules (the package's own
-``virtual_cp_attention``: ring steps, skips and merges, head groups at
-their offsets) against JAX's ``cp_attention`` (``impl='xla'``) on 4
+1e-6 (read 2.4e-7).  The virtual-rank schedules
+(``tests/torch_cp_virtual.py``: the package's ring steps, skips and
+merges, and its head groups' offsets) against JAX's ``cp_attention`` (``impl='xla'``) on 4
 devices: the output and the gradients within 1e-5 of each one's
 largest entry (read <= 3.2e-7), dropout included.
 """
@@ -46,7 +46,6 @@ from torchacc_tpu_torch.ops.attention import _dropped
 from torchacc_tpu_torch.ops.context_parallel import (
     merge_attention,
     step_should_run,
-    virtual_cp_attention,
 )
 from torchacc_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -54,6 +53,7 @@ from torchacc_tpu_torch.ops.flash_attention import (
     segment_ids_from_positions,
 )
 from torchacc_tpu_torch.serve.scheduler import _check_supported
+from torch_cp_virtual import virtual_cp_attention
 
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -6,18 +6,20 @@ of 2 ranks and one of 4, each run every case of their world in turn on
 meshes of the same processes, as ``tests/test_torch_checkpoint_ranks.py``
 shares its launch; each subprocess has a timeout of its own.
 
-- ``cp_attention`` itself (ring, Ulysses, 2D with an intra size of 2)
-  on each rank's chunk of seeded inputs, with packed segment ids, a
-  window, GQA, dropout and ALiBi or a softcap, forward and gradients,
+- ``cp_attention`` itself (ring, Ulysses, 2D with an intra size of 2,
+  and Ulysses and the ring beside tp 2, whose ranks hold half the heads
+  at their global head offset with their slopes) on each rank's chunk
+  of seeded inputs, with packed segment ids, a window, GQA, dropout and
+  ALiBi or a softcap, forward and gradients,
   against JAX's ``cp_attention`` (``impl='xla'``) on the mesh.  Both
   sides hash dropout at the global coordinates, so the masks are the
   same: the output and the gradients within 1e-5 of each one's largest
   entry, f32 (read <= 4.3e-7).
 - ``accelerate()`` -> 3 ``Trainer.step`` s with ``dist.sp`` (ring 2, in
   f32 and with int8 quantized matmuls; 2D 4 with intra 2; Ulysses 2
-  beside dp 2 with attention dropout; Ulysses 2 beside tp 2) and one
-  case without CP, dp 2 with attention dropout, which the batch offsets
-  unblock, against the JAX Trainer on a mesh of the same shape from the
+  beside dp 2 and beside tp 2, both with attention dropout) and two
+  cases without CP, dp 2 and tp 2 with attention dropout, which the
+  batch and head offsets unblock, against the JAX Trainer on a mesh of the same shape from the
   same JAX weights.  f32: the losses rtol 1e-5 and every final
   parameter within 1e-5 of its leaf's largest entry, the tolerances of
   ``tests/test_torch_parallel_ranks.py`` (read <= 2.0e-7 and 4.3e-6).
@@ -54,18 +56,24 @@ pytestmark = pytest.mark.distributed
 STEPS = 3
 # the tp x sp case needs kv heads that split over both
 WIDE = dict(SMALL, num_heads=8, num_kv_heads=4)
-ATTN_CASES = {   # name: (world, sp config, options)
-    "ring_2": (2, dict(size=2, mode="ring"),
+ATTN_CASES = {   # name: (world, dist, options)
+    "ring_2": (2, dict(sp=dict(size=2, mode="ring")),
                dict(window=(20, -1), dropout_p=0.1, alibi=True)),
-    "ulysses_2": (2, dict(size=2, mode="ulysses"),
+    "ulysses_2": (2, dict(sp=dict(size=2, mode="ulysses")),
                   dict(dropout_p=0.2, logit_softcap=5.0)),
-    "ring_4": (4, dict(size=4, mode="ring"),
+    "ring_4": (4, dict(sp=dict(size=4, mode="ring")),
                dict(window=(40, -1), dropout_p=0.1, alibi=True)),
-    "ulysses_4": (4, dict(size=4, mode="ulysses"),
+    "ulysses_4": (4, dict(sp=dict(size=4, mode="ulysses")),
                   dict(dropout_p=0.1, alibi=True)),
-    "2d_4_intra_2": (4, dict(size=4, mode="2d", intra_size=2),
+    "2d_4_intra_2": (4, dict(sp=dict(size=4, mode="2d", intra_size=2)),
                      dict(window=(24, -1), dropout_p=0.1,
                           logit_softcap=5.0)),
+    # the 'tp' rank's head offset and its heads' slopes, under Ulysses
+    # (then the inner head groups' on top) and the ring
+    "tp2_ulysses_2": (4, dict(tp=2, sp=dict(size=2, mode="ulysses")),
+                      dict(dropout_p=0.1, alibi=True)),
+    "tp2_ring_2": (4, dict(tp=2, sp=dict(size=2, mode="ring")),
+                   dict(window=(20, -1), dropout_p=0.1, alibi=True)),
 }
 INT8 = dict(quant="int8", quant_amax_history_len=4)
 TRAIN_CASES = {  # name: (world, dist, model fields, compute)
@@ -76,7 +84,9 @@ TRAIN_CASES = {  # name: (world, dist, model fields, compute)
                        SMALL, {}),
     "dp2_sp2_ulysses_dropout": (4, dict(dp=2, sp=dict(size=2)),
                                 dict(SMALL, attn_dropout=0.1), {}),
-    "tp2_sp2_ulysses": (4, dict(tp=2, sp=dict(size=2)), WIDE, {}),
+    "tp2_sp2_ulysses": (4, dict(tp=2, sp=dict(size=2)),
+                        dict(WIDE, attn_dropout=0.1), {}),
+    "tp2_dropout_no_cp": (2, dict(tp=2), dict(WIDE, attn_dropout=0.1), {}),
 }
 B, S, H, KH, D = 2, 64, 8, 4, 16
 
@@ -117,11 +127,11 @@ def _attn_inputs(name, opts):
 
 def _specs(world):
     cases = {}
-    for name, (w, sp, opts) in ATTN_CASES.items():
+    for name, (w, d, opts) in ATTN_CASES.items():
         if w == world:
             inputs, kw = _attn_inputs(name, opts)
-            cases[f"attn_{name}"] = dict(kind="cp_attn", dist=dict(sp=sp),
-                                         kw=kw, **inputs)
+            cases[f"attn_{name}"] = dict(kind="cp_attn", dist=d, kw=kw,
+                                         **inputs)
     for name, (w, d, fields, compute) in TRAIN_CASES.items():
         if w == world:
             cases[f"train_{name}"] = dict(
@@ -156,9 +166,10 @@ def _close(a, want, what, tol=1e-5):
 
 @pytest.mark.parametrize("name", sorted(ATTN_CASES))
 def test_cp_attention_matches_jax_on_the_mesh(ranks, name):
-    world, sp, opts = ATTN_CASES[name]
+    world, d, opts = ATTN_CASES[name]
     spec, kw = _attn_inputs(name, opts)
-    mesh = build_mesh(ta.DistConfig(sp=ta.SPConfig(**sp)),
+    mesh = build_mesh(ta.DistConfig(tp=ta.TPConfig(d.get("tp", 1)),
+                                    sp=ta.SPConfig(**d["sp"])),
                       devices=jax.devices()[:world])
     qkv = NamedSharding(mesh, P(("dp", "fsdp"), ("sp", "spu"), "tp", None))
     segs = NamedSharding(mesh, P(("dp", "fsdp"), ("sp", "spu")))

@@ -652,20 +652,22 @@ def test_virtual_ring_on_the_kernels_matches_one_call(card, ring_n, ul_n):
     through B1-B3, against one whole call, dropout included: the merge
     adds f32 rounding only, so one bf16 ulp holds, and B1 launches on
     exactly the steps step_should_run keeps."""
-    from torchacc_tpu_torch.ops.context_parallel import (
-        step_should_run, virtual_cp_attention)
+    from torchacc_tpu_torch.ops.context_parallel import step_should_run
+    from torch_cp_virtual import virtual_cp_attention
     q, k, v, do, kw = _offset_case(card, "dropout_all_offsets",
                                    torch.bfloat16, 128)
-    kw.update(q_offset=0, k_offset=0, window=(300, -1))
+    # the heads of 'tp' rank 1 and the rows of data shard 2
+    kw.update(q_offset=0, k_offset=0, window=(300, -1),
+              h_offset=q.shape[2], b_offset=2 * q.shape[0])
     seq = torch.arange(4 * 64, device=card).div(64, rounding_mode="floor")
     seg = seq.to(torch.int32).repeat(q.shape[0], 1)
     kw.update(q_segment_ids=seg, kv_segment_ids=seg)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda", **kw)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, impl="cuda", **kw)
-    kw = {n: x for n, x in kw.items() if n not in ("q_offset", "k_offset")}
+    kw = {n: x for n, x in kw.items() if not n.endswith("_offset")}
     before = dict(fa.launch_counts)
     got = virtual_cp_attention(q, k, v, do, ring_n=ring_n, ul_n=ul_n,
-                               impl="cuda", **kw)
+                               tp_rank=1, data_pos=2, impl="cuda", **kw)
     torch.cuda.synchronize()
     s = q.shape[1] // ring_n
     kept = sum(step_should_run(me, src, s, True, kw["window"])

@@ -170,30 +170,43 @@ def cp_attn(spec):
     inputs, forward and backward; rank 0 assembles the whole output and
     gradients from every rank's chunk."""
     from torchacc_tpu_torch.ops.context_parallel import cp_attention
-    from torchacc_tpu_torch.parallel import seq_shard
+    from torchacc_tpu_torch.parallel import describe_mesh, seq_shard
     mesh = tt.Config(dist=_dist_config(spec["dist"])).get_mesh("cpu")
     nd, di = data_shard(mesh)
     nc, c = seq_shard(mesh)
+    nt, ti = describe_mesh(mesh)["tp"], mesh.get_local_rank("tp")
     q, k, v, do = (torch.from_numpy(spec[x]) for x in ("q", "k", "v", "do"))
     bl, w = q.shape[0] // nd, q.shape[1] // nc
-    part = lambda t: t[di * bl:(di + 1) * bl, c * w:(c + 1) * w].contiguous()
-    q_, k_, v_ = (part(t).requires_grad_() for t in (q, k, v))
+
+    def part(t, di=di, c=c, ti=ti):
+        """The rows, chunk and (of a [b, s, h, d] tensor) heads of rank
+        (di, c, ti)."""
+        t = t[di * bl:(di + 1) * bl, c * w:(c + 1) * w]
+        if t.ndim == 4:
+            hl = t.shape[2] // nt
+            t = t[:, :, ti * hl:(ti + 1) * hl]
+        return t
+    q_, k_, v_ = (part(t).contiguous().requires_grad_() for t in (q, k, v))
     kw = dict(spec["kw"])
     if "seg" in spec:
-        seg = part(torch.from_numpy(spec["seg"]))
+        seg = part(torch.from_numpy(spec["seg"])).contiguous()
         kw.update(q_segment_ids=seg, kv_segment_ids=seg)
     if "slopes" in spec:
-        kw["alibi_slopes"] = torch.from_numpy(spec["slopes"])
+        # this rank's heads' slopes
+        hl = q.shape[2] // nt
+        kw["alibi_slopes"] = torch.from_numpy(
+            spec["slopes"][ti * hl:(ti + 1) * hl])
     out = cp_attention(q_, k_, v_, mesh=mesh, impl="torch", **kw)
-    out.backward(part(do))
-    mine = (di, c, [t.detach().numpy() for t in
-                    (out, q_.grad, k_.grad, v_.grad)])
+    out.backward(part(do).contiguous())
+    mine = (di, c, ti, [t.detach().numpy() for t in
+                        (out, q_.grad, k_.grad, v_.grad)])
     full = {}
-    for di_, c_, arrs in _gathered(mine):
+    for di_, c_, ti_, arrs in _gathered(mine):
         for name, a, ref in zip(("o", "dq", "dk", "dv"), arrs,
                                 (q, q, k, v)):
-            full.setdefault(name, np.zeros(ref.shape, np.float32))[
-                di_ * bl:(di_ + 1) * bl, c_ * w:(c_ + 1) * w] = a
+            whole = full.setdefault(name, np.zeros(ref.shape, np.float32))
+            part(torch.from_numpy(whole), di_, c_, ti_).copy_(
+                torch.from_numpy(a))
     return full
 
 

@@ -568,12 +568,12 @@ class TransformerLM(nn.Module):
     then vocab-parallel."""
 
     # the 'tp' process group (None on one device), the process groups
-    # of the data and sequence axes above 1 (the quantized sites' amax
-    # reduce), those of the sequence axes alone (the gradients' sum), and
-    # this rank's CPLayout
+    # of the data axes above 1 and of the sequence ranks (the quantized
+    # sites' amax reduce), the sequence ranks' alone (the gradients' sum;
+    # None without context parallelism), and this rank's CPLayout
     tp_group = None
     data_groups = ()
-    seq_groups = ()
+    seq_group = None
     layout = None
 
     def __init__(self, cfg: ModelConfig,

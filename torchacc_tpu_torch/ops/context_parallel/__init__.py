@@ -4,7 +4,6 @@ port of torchacc_tpu/ops/context_parallel)."""
 from torchacc_tpu_torch.ops.context_parallel.dispatch import (
     CPLayout,
     cp_attention,
-    virtual_cp_attention,
 )
 from torchacc_tpu_torch.ops.context_parallel.merge import merge_attention
 from torchacc_tpu_torch.ops.context_parallel.ring import (
@@ -34,5 +33,4 @@ __all__ = [
     "ring_step_fwd",
     "step_should_run",
     "ulysses_attention",
-    "virtual_cp_attention",
 ]

@@ -43,11 +43,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from torchacc_tpu_torch.ops.attn import attention
 from torchacc_tpu_torch.ops.context_parallel.ring import (
-    VirtualRing,
     ring_attention_bwd,
     ring_attention_fwd,
-    ring_bwd,
-    ring_fwd,
 )
 from torchacc_tpu_torch.ops.context_parallel.ulysses import (
     check_heads,
@@ -290,63 +287,3 @@ def cp_attention(
         0 if dropout_seed is None else int(dropout_seed), impl)
     return out
 
-
-def virtual_cp_attention(q, k, v, do=None, *, ring_n: int, ul_n: int = 1,
-                         q_segment_ids=None, kv_segment_ids=None,
-                         alibi_slopes=None, causal: bool = True,
-                         window=(-1, -1), scale=None,
-                         logit_softcap: float = 0.0, dropout_p: float = 0.0,
-                         dropout_seed=None, h_offset: int = 0,
-                         b_offset: int = 0, impl: str = "auto"):
-    """The schedule of ``cp_attention`` on ``ring_n`` x ``ul_n`` ranks,
-    run rank after rank on one device, from the whole ``[b, s, h, d]``
-    q/k/v: Ulysses rank ``j`` holds head group ``j`` (at ``h_offset + j
-    * h / ul_n``, with its slopes), as the all-to-all would leave it,
-    and ring rank ``me`` the sequence chunk ``me`` of ``s / ring_n``,
-    with the kv chunks a ring would hand it (:class:`VirtualRing`),
-    each step through ``ring_fwd``/``ring_bwd``, their step and skip
-    functions and ``merge_attention``.  Returns the whole ``(o, lse)``
-    and, given ``do``, ``(o, lse, dq, dk, dv)`` (dk/dv summed into each
-    source chunk's buffer).  ``chip_smoke.py`` and the tests hold it
-    against one whole call."""
-    b, s, hq, _ = q.shape
-    hk = k.shape[2]
-    check_heads(hq, hk, ul_n)
-    if s % ring_n:
-        raise ValueError(f"sequence {s} is not divisible by ring {ring_n}")
-    hqi, hki, w = hq // ul_n, hk // ul_n, s // ring_n
-    o = torch.empty_like(q)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    grads = None if do is None else (torch.empty_like(q),
-                                     torch.empty_like(k),
-                                     torch.empty_like(v))
-    seg = lambda t, me: None if t is None else \
-        t[:, me * w:(me + 1) * w].contiguous()
-    for j in range(ul_n):
-        hs, ks = slice(j * hqi, (j + 1) * hqi), slice(j * hki, (j + 1) * hki)
-        kw = dict(causal=causal, window=window, scale=scale,
-                  logit_softcap=logit_softcap, dropout_p=dropout_p,
-                  dropout_seed=dropout_seed, h_offset=h_offset + j * hqi,
-                  b_offset=b_offset, impl=impl,
-                  alibi_slopes=None if alibi_slopes is None
-                  else alibi_slopes[hs])
-        ring = VirtualRing(k[:, :, ks], v[:, :, ks], kv_segment_ids, ring_n,
-                           grads=do is not None)
-        for me in range(ring_n):
-            rows = slice(me * w, (me + 1) * w)
-            oc, lc = ring_fwd(q[:, rows, hs].contiguous(),
-                              seg(q_segment_ids, me), ring.rank(me)[0],
-                              me=me, n=ring_n, **kw)
-            o[:, rows, hs], lse[:, hs, rows] = oc, lc
-        if do is None:
-            continue
-        for me in range(ring_n):
-            rows = slice(me * w, (me + 1) * w)
-            kv_at, grad_to = ring.rank(me)
-            grads[0][:, rows, hs] = ring_bwd(
-                q[:, rows, hs].contiguous(), seg(q_segment_ids, me),
-                o[:, rows, hs].contiguous(), lse[:, hs, rows].contiguous(),
-                do[:, rows, hs].contiguous(), kv_at, grad_to, me=me,
-                n=ring_n, **kw)
-        grads[1][:, :, ks], grads[2][:, :, ks] = ring.dk, ring.dv
-    return (o, lse) if do is None else (o, lse) + grads

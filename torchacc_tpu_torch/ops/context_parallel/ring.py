@@ -27,8 +27,9 @@ them over a process group (``batch_isend_irecv`` to rank + 1 and from
 rank - 1, each rotation posted before the step's kernel, so that the
 copy overlaps it); :class:`VirtualRing` indexes the chunks of one
 tensor where a rank would receive them, and adds each step's dk/dv into
-its source chunk's buffer (``chip_smoke.py`` drives n ranks on one card
-with it, and the tests on the CPU).
+its source chunk's buffer (``tests/torch_cp_virtual.py`` drives
+``cp_attention``'s schedule over n ranks on one device with it, for
+``chip_smoke.py`` on the card and the tests on the CPU).
 """
 
 from __future__ import annotations
@@ -221,18 +222,18 @@ class RingTransport:
 
 class VirtualRing:
     """``n`` ranks of a ring emulated on one device: chunk ``r`` of the
-    whole ``k``/``v``/segment ids (contiguous, along dim 1) is rank
-    ``r``'s.  :meth:`rank` gives rank ``me``'s ``kv_at`` (the chunk it
-    would receive at each step, indexed where it lies) and ``grad_to``
-    (each step's dk/dv added into its source chunk's f32 buffer,
-    :attr:`dk`/:attr:`dv`)."""
+    whole ``k``/``v``/segment ids (along dim 1) is rank ``r``'s, copied
+    once here into a contiguous tensor of its own, as a rank holds it.
+    :meth:`rank` gives rank ``me``'s ``kv_at`` (the chunk it would
+    receive at each step, indexed where it lies, with no copy) and
+    ``grad_to`` (each step's dk/dv added into its source chunk's f32
+    buffer, :attr:`dk`/:attr:`dv`)."""
 
     def __init__(self, k, v, kv_segment_ids, n: int, grads: bool = False):
         self.n = n
-        self.k = k.chunk(n, dim=1)
-        self.v = v.chunk(n, dim=1)
-        self.seg = (None if kv_segment_ids is None
-                    else kv_segment_ids.chunk(n, dim=1))
+        chunks = lambda t: (None if t is None else
+                            [c.contiguous() for c in t.chunk(n, dim=1)])
+        self.k, self.v, self.seg = (chunks(t) for t in (k, v, kv_segment_ids))
         if grads:
             self.dk = torch.zeros(k.shape, dtype=torch.float32,
                                   device=k.device)
@@ -244,9 +245,8 @@ class VirtualRing:
     def rank(self, me: int):
         def kv_at(i: int) -> KV:
             src = self._src(me, i)
-            return (self.k[src].contiguous(), self.v[src].contiguous(),
-                    None if self.seg is None
-                    else self.seg[src].contiguous())
+            return (self.k[src], self.v[src],
+                    None if self.seg is None else self.seg[src])
 
         def grad_to(i: int, grads) -> None:
             if grads is None:

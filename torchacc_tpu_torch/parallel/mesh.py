@@ -18,7 +18,6 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from torchacc_tpu_torch.config import DATA_AXES, DistConfig
-from torchacc_tpu_torch.ops.context_parallel import CPLayout
 
 
 def build_mesh(dist_cfg: DistConfig, device_type: str = "cuda") -> DeviceMesh:
@@ -118,7 +117,8 @@ def seq_shard(mesh: DeviceMesh) -> Tuple[int, int]:
     package's ``seq`` spec ``("sp", "spu")`` splits it, so that the
     ring's chunk ``sp_idx`` covers the 'spu' ranks' chunks after the
     all-to-all.  The sequence ranks of one data shard read the same
-    rows (:func:`data_shard`) and each keeps its chunk
-    (``ops.context_parallel.CPLayout.seq_index``)."""
-    layout = CPLayout.from_mesh(mesh)
-    return layout.seq_n, layout.seq_index
+    rows (:func:`data_shard`) and each keeps its chunk."""
+    sizes = describe_mesh(mesh)
+    return (sizes["sp"] * sizes["spu"],
+            mesh.get_local_rank("sp") * sizes["spu"]
+            + mesh.get_local_rank("spu"))

@@ -31,7 +31,8 @@ parameters are replicated over the sequence axes, as JAX's rules keep
 them (``embed`` on 'fsdp' only), and each sequence rank's gradient is
 a partial sum over its own chunk of the tokens.  FSDP2 shards and
 reduces over the data axes only; the Trainer then all-reduces the local
-gradient shards over each sequence axis above 1 (:func:`seq_groups`).
+gradient shards over the sequence ranks of this rank's data shard, one
+group over 'sp' x 'spu' (:func:`seq_group`).
 FSDP2 with the sequence axes in its replicate dim would need one mesh
 dim over 'dp', 'sp' and 'spu', which are not contiguous in
 ``MESH_AXES``, and would change the data mesh (HSDP) that the
@@ -45,6 +46,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
@@ -276,25 +278,38 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
             mod.tp_group = group
         if hasattr(type(mod), "layout"):
             mod.layout = layout
-    model.data_groups = data_groups(mesh)
-    model.seq_groups = seq_groups(mesh)
+    model.seq_group = seq_group(mesh)
+    model.data_groups = data_groups(mesh, model.seq_group)
     return model
 
 
 SEQ_AXES = ("sp", "spu")
 
 
-def seq_groups(mesh: DeviceMesh) -> Tuple[Any, ...]:
-    """The process groups of the sequence axes above 1: a gradient summed
-    over the sequence ranks is an all-reduce over each."""
+def seq_group(mesh: DeviceMesh) -> Any:
+    """The process group of this rank's sequence ranks, 'sp' x 'spu'
+    (None where both are 1): a gradient summed over them is one
+    all-reduce.  Where both axes are above 1 the group is made here over
+    the two axes flattened, which is a collective: every rank calls this
+    with the same mesh."""
     sizes = describe_mesh(mesh)
-    return tuple(mesh.get_group(a) for a in SEQ_AXES if sizes[a] > 1)
+    axes = [a for a in SEQ_AXES if sizes[a] > 1]
+    if len(axes) < 2:
+        return mesh.get_group(axes[0]) if axes else None
+    names = list(mesh.mesh_dim_names)
+    order = [i for i, a in enumerate(names) if a not in SEQ_AXES] \
+        + [names.index(a) for a in SEQ_AXES]
+    ranks = mesh.mesh.permute(order).reshape(
+        -1, sizes["sp"] * sizes["spu"]).tolist()
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return group
 
 
-def data_groups(mesh: DeviceMesh) -> Tuple[Any, ...]:
-    """The process groups of the data axes and the sequence axes above 1,
-    over which a step's tokens are split: a sum or max over the global
-    batch is an all-reduce over each."""
+def data_groups(mesh: DeviceMesh, seq: Any = None) -> Tuple[Any, ...]:
+    """The process groups of the data axes above 1 and ``seq``, the
+    sequence ranks' group (:func:`seq_group`), over which a step's
+    tokens are split: a sum or max over the global batch is an
+    all-reduce over each."""
     sizes = describe_mesh(mesh)
     return tuple(mesh.get_group(a) for a in DATA_AXES if sizes[a] > 1) \
-        + seq_groups(mesh)
+        + (() if seq is None else (seq,))

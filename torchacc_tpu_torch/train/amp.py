@@ -9,8 +9,9 @@ then sums the squares of the local shards, each distinct shard on one
 rank only (a shard replicated over 'dp' or 'tp' is counted once), and
 all-reduces that one sum over every rank; under context parallelism the
 sequence ranks hold the same all-reduced gradients outside the
-DTensors' meshes, and only the first chunk's rank counts them
-(:func:`norm_counted`, which the Trainer sets around the update).
+DTensors' meshes, and only the first chunk's rank counts them (its
+``counted`` argument, which the Trainer passes down through the
+optimizer's ``update_(norm_counted=...)``).
 ``all_finite`` all-reduces its flag (MIN), so that no rank applies an
 fp16 update another skips.
 The bf16 shadow is not used on a mesh: FSDP2's mixed-precision policy
@@ -36,8 +37,6 @@ place.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Dict, Iterable, List
 
 import torch
@@ -111,33 +110,20 @@ def shadow_cast(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for n, p in params.items()}
 
 
-_norm = threading.local()
-
-
-@contextlib.contextmanager
-def norm_counted(counted: bool):
-    """Within, whether this rank's gradients count in the global norm at
-    all: False on a rank whose gradients are a copy of another rank's
-    beyond their DTensor placements (a sequence rank but the first)."""
-    prev = getattr(_norm, "counted", True)
-    _norm.counted = counted
-    try:
-        yield
-    finally:
-        _norm.counted = prev
-
-
-def global_norm_f32(tensors) -> torch.Tensor:
+def global_norm_f32(tensors, counted: bool = True) -> torch.Tensor:
     """Global l2 norm with f32 accumulation whatever the leaf dtype (a
     0-dim tensor on the leaves' device; no host sync): a bf16 gradient
     tree would otherwise accumulate its norm in bf16.  Of DTensors: one
-    all-reduce of the local sums of squares (module docstring)."""
+    all-reduce of the local sums of squares (module docstring), to which
+    this rank adds nothing where ``counted`` is false (its gradients are
+    a copy of another rank's beyond their DTensor placements: a
+    sequence rank but the first)."""
     tensors = list(tensors)
     if not _sharded(tensors):
         return torch.sqrt(sum(t.float().square().sum() for t in tensors))
     sq = torch.zeros((), dtype=torch.float32,
                      device=tensors[0].to_local().device)
-    if getattr(_norm, "counted", True):
+    if counted:
         for t in tensors:
             if _counted_once(t):
                 sq = sq + t.to_local().float().square().sum()
@@ -156,9 +142,10 @@ class _Shadowed:
         return (self.inner.init(params), shadow_cast(params))
 
     @torch.no_grad()
-    def update_(self, grads, state, params, keep=None):
+    def update_(self, grads, state, params, keep=None, norm_counted=True):
         inner_state, shadow = state
-        norm = self.inner.update_(grads, inner_state, params, keep=keep)
+        norm = self.inner.update_(grads, inner_state, params, keep=keep,
+                                  norm_counted=norm_counted)
         for name, p in params.items():
             shadow[name].copy_(p)
         return norm

@@ -96,11 +96,12 @@ def warmup_linear(peak_lr: float, total_steps: int,
     return schedule
 
 
-def clip_by_global_norm_f32(grads, max_norm: float):
+def clip_by_global_norm_f32(grads, max_norm: float, counted: bool = True):
     """``(scale, norm)``: the factor ``min(1, max_norm / max(norm,
     1e-16))`` by which every gradient is multiplied, and the f32 global
-    norm, both 0-dim tensors on the device."""
-    norm = global_norm_f32(grads)
+    norm, both 0-dim tensors on the device (``counted``: as
+    ``amp.global_norm_f32`` takes it)."""
+    norm = global_norm_f32(grads, counted)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-16), max=1.0)
     return scale, norm
 
@@ -162,9 +163,12 @@ class GradientTransformation:
 
     def update_(self, grads: Dict[str, torch.Tensor], state,
                 params: Dict[str, torch.Tensor],
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None,
+                norm_counted: bool = True) -> torch.Tensor:
         """``keep``: a 0-dim bool device tensor; where false, nothing
-        changes (the fp16 scaler's skipped step)."""
+        changes (the fp16 scaler's skipped step).  ``norm_counted``:
+        whether this rank's gradients count in the global norm
+        (``amp.global_norm_f32``'s ``counted``)."""
         raise NotImplementedError
 
 
@@ -182,12 +186,12 @@ class AdamW(GradientTransformation):
                           nu={n: zeros(p) for n, p in params.items()})
 
     @torch.no_grad()
-    def update_(self, grads, state, params, keep=None):
+    def update_(self, grads, state, params, keep=None, norm_counted=True):
         if self.grad_clip_norm:
-            scale, norm = clip_by_global_norm_f32(grads.values(),
-                                                  self.grad_clip_norm)
+            scale, norm = clip_by_global_norm_f32(
+                grads.values(), self.grad_clip_norm, norm_counted)
         else:
-            scale, norm = None, global_norm_f32(grads.values())
+            scale, norm = None, global_norm_f32(grads.values(), norm_counted)
         count = state.count
         # copied to the host before the update's work is queued, so that
         # the next update finds it landed

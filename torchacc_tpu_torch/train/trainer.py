@@ -72,8 +72,10 @@ ids on those whole rows, then keep this rank's chunk of the sequence
 documents and RoPE are the whole row's.  The loss's (sum, count) is
 summed over the sequence ranks as over the data ranks, and so are the
 quantized sites' amax reductions; the gradients, partial sums over each
-rank's tokens, are all-reduced over the sequence axes
-(``parallel.sharding.seq_groups``) before the optimizer reads them.
+rank's tokens, are all-reduced over the sequence ranks, one group over
+'sp' x 'spu' (``parallel.sharding.seq_group``), after the backward and
+before the optimizer reads them; only the first chunk's rank counts
+them in the global norm.
 
 Checkpoints (``checkpoint/``): ``save``/``restore`` write and read the
 whole state (masters, AdamW moments and count, the fp16 scaler, the
@@ -127,7 +129,6 @@ from torchacc_tpu_torch.parallel.sharding import shard_model
 from torchacc_tpu_torch.train.amp import (
     all_finite,
     bf16_param_shadow,
-    norm_counted,
     scaler_init,
     scaler_update,
     shadow_params,
@@ -420,10 +421,10 @@ class Trainer:
     def _reduce_seq(self, grads: List[torch.Tensor]) -> None:
         """Sum the gradients' local tensors over the sequence ranks, in
         place: the tensors of one dtype flattened into buckets of at
-        most ``_SEQ_BUCKET`` elements, one all-reduce a bucket and
-        sequence axis, in the same order on every rank."""
-        groups = getattr(self.model, "seq_groups", ())
-        if not groups:
+        most ``_SEQ_BUCKET`` elements, one all-reduce a bucket over the
+        sequence ranks, in the same order on every rank."""
+        group = getattr(self.model, "seq_group", None)
+        if group is None:
             return
         buckets: List[List[torch.Tensor]] = []
         size = 0
@@ -436,8 +437,7 @@ class Trainer:
             size += t.numel()
         for same in buckets:
             flat = torch.cat([t.reshape(-1) for t in same])
-            for group in groups:
-                dist.all_reduce(flat, group=group)
+            dist.all_reduce(flat, group=group)
             for t, part in zip(same, flat.split([t.numel() for t in same])):
                 t.copy_(part.view_as(t))
 
@@ -543,9 +543,9 @@ class Trainer:
             self.state.quant = new_quant
         finite = None if scaler is None else all_finite(grads.values())
         # the sequence ranks hold the same gradients: one counts them
-        with norm_counted(self._seq[1] == 0):
-            grad_norm = self.optimizer.update_(grads, self.state.opt_state,
-                                               self.state.params, keep=finite)
+        grad_norm = self.optimizer.update_(
+            grads, self.state.opt_state, self.state.params, keep=finite,
+            norm_counted=self._seq[1] == 0)
         for p in self.model.parameters():
             p.grad = None
         self.state.step += 1
