@@ -133,6 +133,24 @@ Phases, each of which exits non-zero when it fails:
    memory and back; B1 launches 2 x layers x steps (the recompute) and
    B2, B3 layers x steps, all in f16; peak memory beside 8b's, and the
    host's wait a step for the skip flag's copy (the optimizer's count);
+8d. the pipeline phase, on one card: parallel/pp.py's own schedule over
+   every virtual stage (tests/torch_pp_virtual.py), each stage calling
+   the model's chunks, llama3-8b at full width and --train-layers deep,
+   bf16 over f32 masters, save_attn_mlp, 4 x 4096 packed tokens: GPipe
+   on 4 stages, 1F1B on 4, interleaved 1F1B on 2 stages of 2 chunks,
+   and 1F1B on 4 with attention dropout 0.1, each with 4 micro-batches.
+   The loss and every gradient of one step's gradient pass must lie
+   within a relative 1e-3 of the unpipelined Trainer's (grad_accum 4 on
+   the same weights and rows; for the dropout case each micro-batch
+   drawing the 1F1B seed); controls that must exceed it: 1F1B with stage
+   2 handed the previous micro-batch's activation, and the dropout case
+   with GPipe's seeds; the dropout case runs twice, bitwise alike.
+   B1/B2/B3 launch L x M times (GPipe), and B1 M x (2L - L/(PV)) under
+   1F1B, whose backward tick re-runs the chunk; the live micro-batches a
+   stage holds stay within min(2(P-1-d)+1, M).  Printed: each
+   schedule's gradient-pass ms beside the unpipelined one's (one card
+   runs every stage: no bubble and no transfer can be read), the peak
+   memory and the live micro-batches by stage;
 9. the model-level check: --check-layers deep at full width, one
    forward + backward through the kernels and through
    attention_impl='torch' from the same weights and batch; the loss and
@@ -2051,6 +2069,265 @@ def _fp16_phase(torch, args, data_fed):
 
 
 # ---------------------------------------------------------------------------
+# pipeline parallelism over virtual stages on one card
+# ---------------------------------------------------------------------------
+
+# the pipeline cases: name -> (stages, micro-batches, schedule, chunks a
+# stage, attention dropout)
+PP_CASES = {
+    "gpipe_p4": (4, 4, "gpipe", 1, 0.0),
+    "1f1b_p4": (4, 4, "1f1b", 1, 0.0),
+    "1f1b_p2_v2": (2, 4, "1f1b", 2, 0.0),
+    "1f1b_p4_dropout": (4, 4, "1f1b", 1, 0.1),
+}
+PP_ROWS = 4                             # rows of 4096 tokens a step
+
+
+def _pp_limit():
+    """The pipelined step against the unpipelined one (grad_accum = M,
+    the same micro-batch rows), bf16 compute over f32 masters: the
+    largest relative difference allowed (max |a - b| / max |b| over the
+    loss and every gradient).  Both run the same bf16 arithmetic on the
+    same rows; the chunks hand on the activations and their cotangents
+    in the dtype the one graph holds them in, so only the f32
+    accumulation order of the gradients may differ (GPipe backs its
+    micro-batches out in reverse).  Set before the first reading."""
+    return 1e-3
+
+
+class _GradsOnly:
+    """An optimizer with no state (the ``GradientTransformation``
+    protocol): the phase compares and times the step's gradients, and
+    never updates, so AdamW's moments would only take 22 GB."""
+
+    def init(self, params):
+        return None
+
+    def update_(self, *args, **kwargs):
+        raise RuntimeError("the pipeline phase takes no optimizer step")
+
+
+def _pp_trainer(torch, args, micro, pp=None, dropout=0.0):
+    """llama3-8b at full width and --train-layers deep, bf16 shadow over
+    f32 masters, save_attn_mlp, from --seed: unpipelined with grad_accum
+    = ``micro``, or over ``pp`` = (stages, micro, schedule, chunks) on
+    every virtual stage of this card."""
+    from torch_pp_virtual import virtual_pipeline
+    from torchacc_tpu_torch import (ComputeConfig, Config, DistConfig,
+                                    MemoryConfig, PPConfig, accelerate,
+                                    get_preset)
+    cfg = get_preset("llama3-8b", num_layers=args.train_layers,
+                     attn_dropout=dropout)
+    kw, dist_cfg, accum = {}, DistConfig(), micro
+    if pp is not None:
+        size, m, schedule, v = pp
+        dist_cfg = DistConfig(pp=PPConfig(size=size, num_micro_batches=m,
+                                          schedule=schedule,
+                                          virtual_stages=v))
+        kw["pipeline"], accum = virtual_pipeline(size, m, schedule, v), 1
+    conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  dist=dist_cfg, grad_accum=accum, seed=args.seed)
+    trainer, _ = accelerate(cfg, None, conf, optimizer=_GradsOnly(), **kw)
+    trainer.init()
+    return trainer
+
+
+def _pp_grads(torch, trainer, batch, timed=2):
+    """(loss, gradients by name, f32 on the card) of one step's
+    gradient pass (``Trainer``'s micro-batch loop: the pipeline's
+    schedule, or the unpipelined grad_accum loop), the flash launches of
+    that first pass, and the mean ms of ``timed`` more passes."""
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    for key in fa.launch_counts:
+        fa.launch_counts[key] = 0
+    loss, grads, _ = trainer._grads_accumulated(batch, None)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    grads = {n: g.float() for n, g in grads.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(timed):
+        trainer._grads_accumulated(batch, None)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / timed if timed else None
+    return loss.float(), grads, launches, ms
+
+
+def _pp_rel(torch, loss, grads, ref_loss, ref_grads):
+    """max |a - b| / max |b| over the loss and every gradient, and the
+    gradient where it is largest."""
+    rel = {"loss": ((loss - ref_loss).abs() / ref_loss.abs()).item()}
+    for n, g in grads.items():
+        r = ref_grads[n]
+        rel[n] = ((g - r).abs().max() / r.abs().max().clamp_min(
+            1e-30)).item()
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def _pp_phase(torch, args, card):
+    """Pipeline parallelism on one card: each case of PP_CASES runs
+    parallel/pp.py's own schedule over every virtual stage
+    (tests/torch_pp_virtual.py), each stage calling the model's chunks
+    (``TransformerLM.forward`` with ``layers``), llama3-8b at full width
+    and --train-layers deep on PP_ROWS x 4096 packed tokens, bf16 over
+    f32 masters.  The loss and every gradient must lie within
+    ``_pp_limit`` of the unpipelined Trainer's (grad_accum = M on the
+    same weights and rows; for the dropout case each micro-batch drawing
+    the 1F1B seed ``_micro_seed(step, m)``, the masks the schedule
+    draws), and two controls must exceed it: 1F1B with stage 2 handed
+    the previous micro-batch's activation (StaleTransport), and the
+    dropout case with GPipe's seeds (every micro-batch the step's).  The
+    dropout case runs twice, bitwise alike.
+
+    Launches a step, L layers and M micro-batches (save_attn_mlp keeps
+    the attention output, so no remat recompute re-runs B1): GPipe and
+    the unpipelined step B1 = B2 = B3 = L x M; 1F1B re-runs every chunk
+    but the last virtual stage's in its backward tick, so B1 = M x (2L -
+    L / (P x V)), B2 = B3 = L x M.  One card runs every stage, so no
+    bubble and no transfer can be read: the step ms beside the
+    unpipelined step's is the recompute and the hand-offs."""
+    import numpy as np
+    import torchacc_tpu_torch.models.transformer as tm
+    from torchacc_tpu_torch import get_preset
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_pp_virtual import StaleTransport, virtual_pipeline
+
+    layers = args.train_layers
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 11)
+    vocab = get_preset("llama3-8b").vocab_size
+    rows = [_train_batch(torch, rng, vocab) for _ in range(PP_ROWS // 2)]
+    batch = {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+    limit = _pp_limit()
+    refs, out = {}, {}
+
+    def reference(dropout, micro, seed_of=None):
+        key = (dropout, micro)
+        if key not in refs:
+            # one reference's 11.2 GB of f32 gradients on the card at once
+            refs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            trainer = _pp_trainer(torch, args, micro, dropout=dropout)
+            if seed_of is not None:
+                # each micro-batch draws the 1F1B schedule's seed
+                inner = trainer._forward_sum_count
+
+                def seeded(mb, train=True, dropout_seed=None, quant=None):
+                    i = dropout_seed - trainer.state.step * micro
+                    return inner(mb, train, seed_of(trainer.state.step, i),
+                                 quant)
+                trainer._forward_sum_count = seeded
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads, launches, ms = _pp_grads(torch, trainer, batch)
+            refs[key] = dict(loss=loss, grads=grads, launches=launches,
+                             ms=ms,
+                             peak=torch.cuda.max_memory_allocated() - base)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        return refs[key]
+
+    for name, (size, micro, schedule, v, dropout) in PP_CASES.items():
+        ref = reference(dropout, micro,
+                        tm._micro_seed if dropout else None)
+        base = torch.cuda.memory_allocated()
+        trainer = _pp_trainer(torch, args, micro, (size, micro, schedule, v),
+                              dropout)
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads, launches, ms = _pp_grads(torch, trainer, batch)
+        peak = torch.cuda.max_memory_allocated() - base
+        live = {d: st.max_live
+                for d, st in trainer._pipeline.last_run.items()}
+        worst, where = _pp_rel(torch, loss, grads, ref["loss"],
+                               ref["grads"])
+        res = dict(loss=loss.item(), rel=worst, where=where, ms=ms,
+                   peak=peak, live=live, launches=launches,
+                   ref_ms=ref["ms"], ref_peak=ref["peak"])
+        want_b1 = micro * (2 * layers - layers // (size * v)) \
+            if schedule == "1f1b" else layers * micro
+        want = {"fwd": want_b1, "bwd_dq": layers * micro,
+                "bwd_dkv": layers * micro}
+        if launches != want:
+            _fail(f"pipeline {name}: flash launches {launches} != {want}")
+        if ref["launches"] != {k: layers * micro for k in want}:
+            _fail(f"pipeline {name}: the unpipelined step's launches "
+                  f"{ref['launches']} != layers x micro-batches")
+        if not np.isfinite(res["loss"]) or worst > limit:
+            _fail(f"pipeline {name}: loss {res['loss']} parts from the "
+                  f"unpipelined step by {worst:.3g} ({where}) > {limit:.3g}")
+        bound = {d: min(2 * (size - 1 - d) + 1, micro) for d in live} \
+            if schedule == "1f1b" and v == 1 else None
+        if bound is not None and any(live[d] > bound[d] for d in live):
+            _fail(f"pipeline {name}: live micro-batches {live} above the "
+                  f"1F1B bound {bound}")
+        if dropout:
+            # the same step again: bitwise the same loss and gradients
+            names = sorted(grads)
+            first = _digest(torch, [grads[n] for n in names])
+            grads = None
+            again, grads2, _, _ = _pp_grads(torch, trainer, batch, timed=0)
+            second = _digest(torch, [grads2[n] for n in names])
+            res["bitwise_again"] = bool(torch.equal(first, second)
+                                        and torch.equal(again, loss))
+            del grads2
+            if not res["bitwise_again"]:
+                _fail(f"pipeline {name}: a second run of the step differs")
+            # control: GPipe's seeds (every micro-batch the step's)
+            seed_fn = tm._micro_seed
+            tm._micro_seed = lambda base, m: base
+            try:
+                c_loss, c_grads, _, _ = _pp_grads(torch, trainer, batch,
+                                                  timed=0)
+            finally:
+                tm._micro_seed = seed_fn
+            res["control_gpipe_seeds"], _ = _pp_rel(
+                torch, c_loss, c_grads, ref["loss"], ref["grads"])
+            del c_grads
+            if res["control_gpipe_seeds"] <= limit:
+                _fail(f"pipeline {name}: the GPipe-seed control stays "
+                      f"within {limit:.3g}")
+        if name == "1f1b_p4":
+            # control: stage 2 handed the previous micro-batch's input
+            trainer._pipeline = virtual_pipeline(
+                size, micro, schedule, v, transport=StaleTransport(2))
+            c_loss, c_grads, _, _ = _pp_grads(torch, trainer, batch, timed=0)
+            res["control_stale_input"], _ = _pp_rel(
+                torch, c_loss, c_grads, ref["loss"], ref["grads"])
+            del c_grads
+            if res["control_stale_input"] <= limit:
+                _fail(f"pipeline {name}: the stale-input control stays "
+                      f"within {limit:.3g}")
+        out[name] = res
+        print(f"pipeline {name}: P {size} x V {v}, M {micro}, {schedule}"
+              f"{', dropout 0.1' if dropout else ''}: loss {res['loss']:.5f}"
+              f", worst relative difference from the unpipelined step "
+              f"{worst:.3g} ({where}; limit {limit:.3g})"
+              + "".join(f", {k} {res[k]:.3g}" for k in
+                        ("control_stale_input", "control_gpipe_seeds")
+                        if k in res)
+              + f"; gradient pass {ms:.1f} ms against {ref['ms']:.1f} ms "
+              f"unpipelined ({ms / ref['ms']:.3f}x); peak allocated above "
+              f"what the phase held before the trainer {peak / 2**30:.2f} "
+              f"GiB against {ref['peak'] / 2**30:.2f}; "
+              f"live micro-batches by stage {live}; flash launches "
+              f"{launches}; card: {card}", flush=True)
+        del trainer, grads, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"pipeline: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # model-level kernel-vs-plain check
 # ---------------------------------------------------------------------------
 
@@ -3527,6 +3804,7 @@ def main():
           f"tokens/s); fp16 step {fp16['step_ms']:.1f} ms for 2 x 4096, "
           f"the host waiting {fp16['flag_wait_ms']:.3f} ms a step for the "
           f"skip flag", flush=True)
+    pp = _pp_phase(torch, args, card)
     _model_check_phase(torch, args)
     _quant_check_phase(torch, args)
     _accum_check_phase(torch, args)
@@ -3596,7 +3874,11 @@ def main():
             cp_ring_max_abs_err=max(cp_res["ring"][e]["max_abs_err"]
                                     for e in errs),
             launches_cp_ring=cp_res["ring"]["launches"][name],
-            launches_cp_2d=cp_res["2d"]["launches"][name]))
+            launches_cp_2d=cp_res["2d"]["launches"][name],
+            # pipeline parallelism over virtual stages: one step's
+            # gradient pass of each schedule
+            **{f"launches_pp_{case}": r["launches"][name]
+               for case, r in pp.items()}))
     for shape in ("decode", "prefill"):
         k = kern64[shape]
         entries.append(dict(

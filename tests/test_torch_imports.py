@@ -1,5 +1,5 @@
 """The port stands alone: no file of torchacc_tpu_torch/ and no line of
-chip_smoke.py or of the port's timing script imports jax, flax, the JAX
+chip_smoke.py or of the port's scripts imports jax, flax, the JAX
 package, transformers or safetensors (the port reads Hugging Face
 checkpoints itself), and the package imports in a process where none of
 them can be imported."""
@@ -19,7 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "torchacc_tpu",
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_flash_turns.py")]
+           os.path.join(ROOT, "scripts", "torch_flash_turns.py"),
+           os.path.join(ROOT, "scripts", "torch_cp_ring_profile.py"),
+           os.path.join(ROOT, "scripts", "torch_pp_cards.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -36,7 +36,9 @@ restored keeps its device and its bits (an asynchronous save holds the
 values of its step while the next step updates in place), and a step
 after a restore through B1-B3 (with the bf16 shadow, on a world-1 NCCL
 mesh, and with int8 histories through B5) equals the uninterrupted one
-bitwise.
+bitwise.  The pipeline's schedule over virtual stages on the kernels
+against the unpipelined step (1F1B bitwise, GPipe within its f32
+summation order).
 """
 
 import numpy as np
@@ -1113,3 +1115,61 @@ def test_int8_run_resumed_with_its_histories_is_bitwise(card, tmp_path):
     _assert_flat_equal(got, want)
     assert any(k.startswith("quant/") for k in want)
     assert launches["int8"] == 7 * 2, launches
+
+
+def _pp_grads(card, batch, pp=None):
+    """(loss, f32 gradients, flash launches) of one step's gradient pass
+    of llama-tiny (4 layers), bf16 over f32 masters, save_attn_mlp:
+    unpipelined with grad_accum 2, or over ``pp`` = (stages, schedule)
+    with 2 micro-batches on every virtual stage of the card."""
+    from torch_pp_virtual import virtual_pipeline
+    from torchacc_tpu_torch import (ComputeConfig, Config, DistConfig,
+                                    MemoryConfig, PPConfig, accelerate,
+                                    get_preset)
+    kw, dist_cfg, accum = {}, DistConfig(), 2
+    if pp is not None:
+        dist_cfg = DistConfig(pp=PPConfig(size=pp[0], num_micro_batches=2,
+                                          schedule=pp[1]))
+        kw["pipeline"], accum = virtual_pipeline(pp[0], 2, pp[1]), 1
+    conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  dist=dist_cfg, grad_accum=accum, seed=3)
+    trainer, _ = accelerate(get_preset("llama-tiny", num_layers=4), None,
+                            conf, **kw)
+    trainer.init()
+    for key in fa.launch_counts:
+        fa.launch_counts[key] = 0
+    loss, grads, _ = trainer._grads_accumulated(batch, None)
+    torch.cuda.synchronize()
+    return loss, {n: g.float() for n, g in grads.items()}, dict(
+        fa.launch_counts)
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipeline_over_virtual_stages_on_the_kernels(card, schedule):
+    """parallel/pp.py's schedule over 2 virtual stages on the card
+    (tests/torch_pp_virtual.py) against the unpipelined grad_accum step
+    on the same rows: 1F1B bitwise (the same bf16 arithmetic, the
+    gradients summed in the same micro-batch order), GPipe within a
+    relative 1e-6 of each gradient's largest entry (its backward takes
+    the micro-batches in reverse, so the f32 sums reorder); B2/B3 launch
+    layers x micro-batches, and B1 as often under GPipe and 2 x 4 x 2 -
+    2 x 2 under 1F1B (every chunk but the last re-run in its backward
+    tick)."""
+    from torchacc_tpu_torch import get_preset
+    batch = _ckpt_batch(card, get_preset("llama-tiny").vocab_size)
+    ref_loss, ref, ref_launch = _pp_grads(card, batch)
+    loss, grads, launches = _pp_grads(card, batch, (2, schedule))
+    assert ref_launch == {"fwd": 8, "bwd_dq": 8, "bwd_dkv": 8}
+    assert launches == {"fwd": 8 if schedule == "gpipe" else 12,
+                        "bwd_dq": 8, "bwd_dkv": 8}
+    assert sorted(grads) == sorted(ref)
+    if schedule == "1f1b":
+        assert torch.equal(loss, ref_loss)
+        for n in ref:
+            assert torch.equal(grads[n], ref[n]), n
+        return
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=0)
+    for n in ref:
+        err = ((grads[n] - ref[n]).abs().max() / ref[n].abs().max()).item()
+        assert err <= 1e-6, (n, err)

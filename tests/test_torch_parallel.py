@@ -71,8 +71,7 @@ def _dist(pkg, dp=-1, fsdp=1, tp=1, pp=1, sp=1, ep=1, topology=MESH_AXES,
           num_slices=1):
     return pkg.DistConfig(
         dp=pkg.DPConfig(dp), fsdp=pkg.FSDPConfig(fsdp), tp=pkg.TPConfig(tp),
-        pp=(pkg.PPConfig(pp) if pkg is tt else
-            pkg.PPConfig(pp, num_micro_batches=pp)),
+        pp=pkg.PPConfig(pp, num_micro_batches=pp),
         sp=pkg.SPConfig(sp),
         ep=pkg.EPConfig(ep), topology=topology, num_slices=num_slices)
 
@@ -90,9 +89,9 @@ AXIS_CASES = [   # (dist fields, world)
 @pytest.mark.parametrize("fields,world", AXIS_CASES)
 def test_axis_sizes_and_validation_match_jax(fields, world):
     """``axis_sizes`` (dp inferred) and the config errors, message for
-    message; pp/ep above 1 validate in JAX and raise by name in the
-    port; sp above 1 (JAX's default mode, 'ulysses': all of it on 'spu')
-    validates in both."""
+    message; ep above 1 validates in JAX and raises by name in the
+    port; pp and sp above 1 (sp in JAX's default mode, 'ulysses': all of
+    it on 'spu') validate in both."""
     def run(pkg):
         try:
             d = _dist(pkg, **fields)
@@ -103,11 +102,14 @@ def test_axis_sizes_and_validation_match_jax(fields, world):
             return f"{type(e).__name__}: {e}"
     got = run(tt)
     assert got == run(ta)
-    unported = {"pp": "A12b", "ep": "A10"}
+    unported = {"ep": "A10"}
     for axis, item in unported.items():
         if isinstance(got, dict) and fields.get(axis, 1) > 1:
             with pytest.raises(NotImplementedError, match=item):
                 _dist(tt, **fields).validate()
+    if isinstance(got, dict) and fields.get("pp", 1) > 1:
+        _dist(tt, **fields).validate()
+        _dist(ta, **fields).validate()
     if isinstance(got, dict) and fields.get("sp", 1) > 1:
         _dist(tt, **fields).validate()
         assert (got["sp"], got["spu"]) == (1, fields["sp"])

@@ -18,7 +18,13 @@ the same processes (``hf_train``).  For tests/test_torch_cp_ranks.py one
 launch runs several cases in turn (``cases``): ``cp_attention`` on its
 chunk of seeded inputs (``cp_attn``), and context-parallel training
 (``train`` with ``dist["sp"]``), which also counts the ring's forward
-steps.  Only torch, numpy and the port are imported.
+steps.  For tests/test_torch_pp_ranks.py the same ``cases`` launch
+trains under 'pp' (``train`` with ``dist["pp"]``; the stages' blocks
+put together for the result; ``eval_batch`` for an ``eval_step``),
+saves and resumes a pipelined run (``train`` with ``ckpt``),
+streams a Hugging Face directory into the stages (``hf_train``) and
+notes which blocks a stage makes while it shards (``pp_init``).  Only torch, numpy and the port are
+imported.
 """
 
 import os
@@ -73,7 +79,8 @@ def _dist_config(d):
     return tt.DistConfig(dp=tt.DPConfig(d.get("dp", -1)),
                          fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
                          tp=tt.TPConfig(d.get("tp", 1)),
-                         sp=tt.SPConfig(**d.get("sp", {})))
+                         sp=tt.SPConfig(**d.get("sp", {})),
+                         pp=tt.PPConfig(**d.get("pp", {})))
 
 
 class _RingSteps:
@@ -114,6 +121,8 @@ def train(spec):
         optimizer=adamw(warmup_cosine(*spec["schedule"]), **spec["opt"]),
         loss=bomb_loss if spec.get("bomb") else None)
     trainer.init()
+    if "ckpt" in spec:
+        return pp_ckpt(spec, trainer, n, i)
     out = {"losses": [], "norms": [], "scales": [], "skipped": []}
     steps = _RingSteps()
     if loader is not None:
@@ -134,15 +143,85 @@ def train(spec):
         flags = [None] * dist.get_world_size()
         dist.all_gather_object(flags, unchanged)
         out["skipped"].append(flags)
+    if "eval_batch" in spec:
+        b = spec["eval_batch"]
+        rows = b["input_ids"].shape[0] // n
+        out["eval"] = trainer.eval_step(
+            {k: v[i * rows:(i + 1) * rows] for k, v in b.items()}
+        )["loss"].item()
     steps.close()
     out["ring_fwd_calls"] = _gathered(steps.calls)
     out["data_shard"] = (n, i)
     out["count"] = trainer.state.opt_state.count
-    out["params"] = params_to_jax(trainer.model.cfg,
-                                  dict(trainer.model.named_parameters()))
+    out["params"] = _all_params(trainer)
     if trainer.state.quant is not None:
         out["quant"] = quant_to_jax(trainer.model.cfg, trainer.state.quant)
     return out
+
+
+def _all_params(trainer):
+    """The whole model's parameters in the flax layout: each rank's
+    whole tensors (``full_tensor`` over its stage's data and 'tp'
+    ranks), the pipeline stages' blocks put together (a collective)."""
+    from torch.distributed.tensor import DTensor
+    named = {n: (p.full_tensor() if isinstance(p, DTensor) else p)
+             .detach().clone()
+             for n, p in trainer.model.named_parameters()}
+    if trainer.config.dist.pp.size > 1:
+        merged = {}
+        for part in _gathered(named):
+            merged.update(part)
+        named = merged
+    return params_to_jax(trainer.model.cfg, named)
+
+
+def pp_ckpt(spec, trainer, n, i):
+    """Under 'pp': 3 steps with the state saved after step 2 by a
+    CheckpointManager, then a trainer made from other weights restores
+    step 2 and takes step 3, which must give the same bits; the same
+    processes without 'pp' must refuse the checkpoint."""
+    from torchacc_tpu_torch.checkpoint import CheckpointManager
+    rows = lambda b: {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+                      for k, v in b.items()}
+    mgr = CheckpointManager(spec["ckpt"])
+    losses = []
+    for step, b in enumerate(spec["batches"], start=1):
+        losses.append(trainer.step(rows(b))["loss"].item())
+        if step == 2:
+            assert mgr.save(step, trainer.state)
+            mgr.wait_until_finished()
+    mgr.close()
+    whole = _full_state(trainer)
+    other = train_like(spec, spec["params_other"], spec["dist"])
+    mgr = CheckpointManager(spec["ckpt"])
+    mgr.restore(other.state, step=2)
+    resumed = other.step(rows(spec["batches"][2]))["loss"].item()
+    same = (resumed == losses[2] and all(
+        np.array_equal(a, whole[k]) for k, a in _full_state(other).items()))
+    out = {"losses": losses, "resumed_equal": _gathered(same)}
+    flat = train_like(spec, spec["params"], spec["other_dist"])
+    try:
+        CheckpointManager(spec["ckpt"]).restore(flat.state, step=2)
+        out["other_layout"] = "restored"
+    except Exception as e:  # noqa: BLE001 - the outcome is compared
+        out["other_layout"] = (type(e).__name__, getattr(e, "axes", None))
+    return out
+
+
+def train_like(spec, params, d):
+    """A trainer of ``spec``'s model, config and optimizer on the layout
+    ``d``, from ``params``."""
+    cfg = get_preset("llama-tiny", dtype=spec["dtype"], **spec["model"])
+    conf = tt.Config(
+        compute=tt.ComputeConfig(dtype=spec["dtype"], **spec["compute"]),
+        memory=tt.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+        dist=_dist_config(d), grad_accum=spec["grad_accum"])
+    trainer, _ = accelerate(
+        params_from_jax(cfg, params, device="cpu", trainable=True), None,
+        conf, optimizer=adamw(warmup_cosine(*spec["schedule"]),
+                              **spec["opt"]))
+    trainer.init()
+    return trainer
 
 
 def fused_ce_tp(spec):
@@ -210,10 +289,65 @@ def cp_attn(spec):
     return full
 
 
+def pp_init(spec):
+    """``shard_model`` of a ``meta`` model on ``spec["dist"]``'s mesh,
+    with a materializer that notes, at each call, its prefix and how
+    many other stages' blocks hold storage; once drawing the seeded
+    weights (``draws``) and once giving storage only, as a checkpoint's
+    load does.  By rank: the stage, the prefixes made, the most other
+    blocks alive before a call, those alive after, and (seeded) whether
+    this stage's blocks equal the one-device ``init_params``' bitwise."""
+    from torch.distributed.tensor import DTensor
+    from torchacc_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+        materializer,
+    )
+    from torchacc_tpu_torch.parallel.mesh import pp_stage
+    from torchacc_tpu_torch.parallel.pp import stage_layers
+    from torchacc_tpu_torch.parallel.sharding import shard_model
+    from torchacc_tpu_torch.train.accelerate import apply_config_to_model
+    conf = tt.Config(compute=tt.ComputeConfig(dtype=torch.float32),
+                     dist=_dist_config(spec["dist"]))
+    cfg = apply_config_to_model(
+        get_preset("llama-tiny", dtype=torch.float32, **spec["model"]),
+        conf)
+    mesh = conf.get_mesh("cpu")
+    n_pp, stage = pp_stage(mesh)
+    owned = {i for r in stage_layers(cfg.num_layers, n_pp, cfg.pp_virtual,
+                                     stage) for i in r}
+    cpu = torch.device("cpu")
+    out = {"stage": stage}
+    for draws in (True, False):
+        model = TransformerLM(cfg, device="meta", dtype=torch.float32)
+        blocks = list(model.layers)
+        live = lambda: sum(1 for i, b in enumerate(blocks) if i not in owned
+                           and not next(b.parameters()).is_meta)
+        inner = (materializer(0, cpu) if draws else
+                 lambda module, prefix: module.to_empty(device=cpu))
+        made, most = [], [0]
+
+        def make(module, prefix, inner=inner, made=made, most=most):
+            most[0] = max(most[0], live())
+            made.append(prefix)
+            inner(module, prefix)
+        shard_model(model, mesh, conf, make, draws=draws)
+        got = {"made": made, "most_before": most[0], "after": live()}
+        if draws:
+            ref = dict(init_params(cfg, seed=0, device=cpu,
+                                   dtype=torch.float32).named_parameters())
+            got["equal"] = all(torch.equal(
+                p.full_tensor() if isinstance(p, DTensor) else p, ref[n])
+                for n, p in model.named_parameters())
+        out[draws] = got
+    return _gathered(out)
+
+
 def cases(spec):
     """Every case of ``spec["cases"]`` in turn, on meshes of the same
     processes: name -> the case's output."""
-    run = {"cp_attn": cp_attn, "train": train}
+    run = {"cp_attn": cp_attn, "train": train, "hf_train": hf_train,
+           "pp_init": pp_init}
     return {name: run[case["kind"]](dict(spec, **case))
             for name, case in spec["cases"].items()}
 
@@ -304,13 +438,10 @@ def hf_train(spec):
     mesh, each checkpoint tensor streamed into this rank's shard, then
     steps over this rank's rows: the losses and the whole final
     parameters (flax layout)."""
-    d = spec["dist"]
     conf = tt.Config(
         compute=tt.ComputeConfig(dtype=torch.float32),
         memory=tt.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
-        dist=tt.DistConfig(dp=tt.DPConfig(d.get("dp", -1)),
-                           fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
-                           tp=tt.TPConfig(d.get("tp", 1))))
+        dist=_dist_config(spec["dist"]))
     trainer, _ = accelerate(
         spec["path"], None, conf, device="cpu",
         optimizer=adamw(warmup_linear(*spec["schedule"]), **spec["opt"]))
@@ -321,8 +452,7 @@ def hf_train(spec):
         losses.append(trainer.step(
             {k: v[i * rows:(i + 1) * rows] for k, v in b.items()})
             ["loss"].item())
-    return {"losses": losses, "params": params_to_jax(
-        trainer.model.cfg, dict(trainer.model.named_parameters()))}
+    return {"losses": losses, "params": _all_params(trainer)}
 
 
 def ckpt_restore(spec):

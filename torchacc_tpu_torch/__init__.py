@@ -52,6 +52,7 @@ from torchacc_tpu_torch.config import (  # noqa: E402
     EPConfig,
     FSDPConfig,
     MemoryConfig,
+    PerfConfig,
     PPConfig,
     ResilienceConfig,
     ServeConfig,
@@ -86,7 +87,8 @@ from torchacc_tpu_torch.train import (  # noqa: E402
 __all__ = [
     "Config", "ConfigError", "ServeConfig", "ComputeConfig", "MemoryConfig",
     "DataConfig", "DistConfig", "DPConfig", "TPConfig", "FSDPConfig",
-    "PPConfig", "SPConfig", "EPConfig", "ResilienceConfig", "AsyncLoader", "PackedDataset",
+    "PPConfig", "SPConfig", "EPConfig", "ResilienceConfig", "PerfConfig",
+    "AsyncLoader", "PackedDataset",
     "pack_sequences", "ModelConfig", "TransformerLM", "get_preset",
     "init_params", "Request", "RequestResult", "ServeEngine", "Trainer", "accelerate",
     "load_hf_model", "config_from_hf", "HFTrainerAdapter",

@@ -52,9 +52,14 @@ def _dtype_name(t: Any) -> str:
 
 def _leaf_specs(flat: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
     """``{path: {"shape": [...], "dtype": str}}`` for every leaf (global
-    shapes)."""
-    return {p: {"shape": [int(s) for s in getattr(x, "shape", ())],
-                "dtype": _dtype_name(x)} for p, x in flat.items()}
+    shapes), the other pipeline stages' too (``FlatState.other_leaves``):
+    the whole model's on every rank."""
+    out = {p: {"shape": [int(s) for s in getattr(x, "shape", ())],
+               "dtype": _dtype_name(x)} for p, x in flat.items()}
+    for p, (shape, dtype) in getattr(flat, "other_leaves", {}).items():
+        out[p] = {"shape": [int(s) for s in shape],
+                  "dtype": str(dtype).replace("torch.", "")}
+    return out
 
 
 def tree_digest(flat: Mapping[str, Any]) -> Dict[str, Any]:
@@ -76,6 +81,9 @@ def mesh_axes(flat: Mapping[str, Any]) -> Optional[Dict[str, int]]:
         if isinstance(x, DTensor):
             mesh = x.device_mesh
             axes.update(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    if axes and getattr(flat, "pp_size", 1) > 1:
+        # the stages over 'pp' (no DTensor spans them)
+        axes["pp"] = flat.pp_size
     return {str(k): int(v) for k, v in axes.items()} or None
 
 
@@ -210,9 +218,15 @@ def as_flat(state: Any) -> Dict[str, torch.Tensor]:
     """A state as the flat mapping a checkpoint holds: a
     ``train.state.TrainState`` through ``flat_state``, a mapping of
     tensors as it is."""
+    from torchacc_tpu_torch.train.state import (
+        FlatState,
+        TrainState,
+        flat_state,
+    )
+    if isinstance(state, FlatState):
+        return state
     if isinstance(state, Mapping):
         return dict(state)
-    from torchacc_tpu_torch.train.state import TrainState, flat_state
     if isinstance(state, TrainState):
         return flat_state(state)
     raise TypeError(f"a checkpoint holds a TrainState or a mapping of "

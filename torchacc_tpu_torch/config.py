@@ -9,9 +9,10 @@ blocks of training, and every resilience field but the checkpoint
 path's (``ResilienceConfig``) are not ported yet (ROADMAP.md, queue A),
 so their switches are absent rather than silently ignored.
 A field that is here but takes a value the port does not implement (the
-quantized vocab head; quantized matmuls under float16; a pipeline,
-sequence or expert axis above 1; quantized matmuls with tensor
-parallelism) raises by name in ``validate``.
+quantized vocab head; quantized matmuls under float16; an expert axis
+above 1; quantized matmuls with tensor parallelism) raises by name in
+``validate``; ``perf.overlap_fsdp`` is folded into the model config and
+refused with the model's other unported fields.
 """
 
 from __future__ import annotations
@@ -283,12 +284,30 @@ class FSDPConfig:
 
 @dataclass
 class PPConfig:
-    """Pipeline parallelism: only size 1 is ported, so the schedule's
-    fields are absent (ROADMAP.md A12b)."""
+    """Pipeline parallelism over the 'pp' axis (``parallel/pp.py``):
+    the blocks split into ``size`` stages (``virtual_stages`` chunks a
+    stage, the interleaved schedule), ``num_micro_batches`` micro-batches
+    a step passed between the stages' ranks, under ``schedule`` 'gpipe'
+    (every forward, then every backward) or '1f1b' (PipeDreamFlush: each
+    micro-batch's backward as soon as its forward ends, the stage re-run
+    from its banked input).  Fields, defaults and validation as in the
+    JAX package (torchacc_tpu/config.py:261-304)."""
     size: int = 1
+    num_micro_batches: int = 1
+    # 'gpipe' | '1f1b'
+    schedule: str = "gpipe"
+    # interleaved (Megatron virtual-pipeline) chunks a stage
+    virtual_stages: int = 1
 
     def validate(self) -> None:
         _check(self.size >= 1, "pp.size must be >= 1")
+        _check(self.num_micro_batches >= 1, "pp.num_micro_batches must be >= 1")
+        _check(self.schedule in ("gpipe", "1f1b"),
+               f"pp.schedule must be gpipe|1f1b, got {self.schedule}")
+        _check(self.virtual_stages >= 1, "pp.virtual_stages must be >= 1")
+        if self.size > 1:
+            _check(self.num_micro_batches % self.size == 0,
+                   "pp.num_micro_batches must be a multiple of pp.size")
 
 
 @dataclass
@@ -362,8 +381,6 @@ class DistConfig:
                f"dist.topology must be a permutation of {MESH_AXES}, got "
                f"{self.topology}")
         _check(self.num_slices >= 1, "dist.num_slices must be >= 1")
-        _unported(self.pp.size == 1, "dist.pp.size > 1 (pipeline "
-                  "parallelism)", "A12b")
         _unported(self.ep.size == 1, "dist.ep.size > 1 (expert "
                   "parallelism)", "A10")
 
@@ -390,6 +407,17 @@ class DistConfig:
                f"product of parallel sizes {total} != device count "
                f"{world_size} (sizes={sizes})")
         return sizes
+
+
+@dataclass
+class PerfConfig:
+    """The hot loop's policy: only ``overlap_fsdp`` is here, for the
+    JAX package's refusal of it under pipeline parallelism.
+    ``accelerate()`` folds it into the model config, as the JAX package
+    does, where the training check refuses it as it refuses the model's
+    own ``overlap_fsdp`` (the overlap is not ported, ROADMAP.md A8b)."""
+    # FSDP all-gather / compute overlap of the JAX package's unrolled loop
+    overlap_fsdp: bool = False
 
 
 @dataclass
@@ -446,7 +474,7 @@ class ResilienceConfig:
 class Config:
     """The framework config.  Serving reads ``serve``; training reads
     ``compute``, ``memory``, ``data``, ``dist``, ``resilience``,
-    ``grad_accum`` and ``seed``."""
+    ``perf``, ``grad_accum`` and ``seed``."""
 
     serve: ServeConfig = field(default_factory=ServeConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
@@ -454,6 +482,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     dist: DistConfig = field(default_factory=DistConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    perf: PerfConfig = field(default_factory=PerfConfig)
     # micro-batches per optimizer step (the global batch splits along
     # dim 0; the quant histories chain micro by micro)
     grad_accum: int = 1
@@ -470,6 +499,15 @@ class Config:
         self.dist.validate()
         self.resilience.validate()
         _check(self.grad_accum >= 1, "grad_accum must be >= 1")
+        # JAX's two refusals under pipeline parallelism, with its messages
+        # (torchacc_tpu/config.py:915-921)
+        _check(self.compute.quant == "none" or self.dist.pp.size == 1,
+               "compute.quant does not compose with pipeline "
+               "parallelism (pp.size > 1) — the pipeline regions do "
+               "not thread the delayed-scaling state")
+        _check(not self.perf.overlap_fsdp or self.dist.pp.size == 1,
+               "perf.overlap_fsdp does not compose with pipeline "
+               "parallelism (the pp schedules own their layer loop)")
         _unported(self.compute.quant == "none" or self.dist.tp.size == 1,
                   "compute.quant with dist.tp.size > 1", "A8b")
 

@@ -244,8 +244,10 @@ def stream_params(files: List[str], cfg: ModelConfig,
     at a time in the files' order, each copied from the mapped file
     straight into its place (a shard reads only its slice).  Every
     checkpoint tensor must have a place in the plan of ``cfg`` and the
-    shape it names, appear once, and every place must be filled.
-    Returns ``dest``."""
+    shape it names, appear once, and every place must be filled.  Under
+    pipeline parallelism ``dest`` holds this stage's blocks and the
+    parameters every stage holds; the other blocks' tensors are checked
+    and skipped.  Returns ``dest``."""
     plan = ingestion_plan(cfg)
     seen = set()
     for fpath in files:
@@ -261,7 +263,9 @@ def stream_params(files: List[str], cfg: ModelConfig,
                     raise ValueError(
                         f"{name}: checkpoint shape {list(f.shape(name))} != "
                         f"expected {list(ent[1])}")
-                if ent[0] is None:
+                if ent[0] is None or (ent[0] not in dest
+                                      and ent[0].startswith("layers.")):
+                    # dropped, or a block another pipeline stage holds
                     continue
                 view = f.view(name)
                 copy_full(dest[ent[0]], view)

@@ -44,7 +44,7 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -227,13 +227,13 @@ LLAMA_SURFACE = ("rmsnorm, swiglu, RoPE (plain, linear and llama3 "
 _TRAIN_FIELDS = LLAMA_FIELDS | {
     "remat", "remat_policy", "remat_cls", "remat_cnt", "attention_impl",
     "attn_dropout", "quant", "quant_sites", "quant_amax_history_len",
-    "quant_impl", "context_parallel"}
+    "quant_impl", "context_parallel", "pp_size", "pp_num_micro",
+    "pp_virtual"}
 # fields that pick how the JAX package lays out or shards the step, or
 # knobs inert while their feature is off; none changes what one device
 # computes
 _TRAIN_INERT = frozenset({
-    "scan_layers", "cache_len", "pp_num_micro", "pp_virtual",
-    "logical_axis_rules",
+    "scan_layers", "cache_len", "logical_axis_rules",
     "tp_vocab_head", "num_experts_per_tok", "router_aux_weight",
     "moe_dispatch", "moe_renorm_topk", "moe_capacity_factor",
     "parallel_block_shared_norm", "norm_bias",
@@ -242,7 +242,11 @@ _TRAIN_INERT = frozenset({
 
 def check_training_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming every field the training forward
-    of this port does not implement."""
+    of this port does not implement (under pipeline parallelism, the
+    layer patterns and the mixtures of experts by the ROADMAP items that
+    bring them: ``pp_block_appliers``)."""
+    if cfg.pp_size > 1:
+        pp_block_appliers(cfg)
     bad = [f"{f.name}={getattr(cfg, f.name)!r}"
            for f in dataclasses.fields(cfg)
            if f.name not in _TRAIN_FIELDS and f.name not in _TRAIN_INERT
@@ -267,6 +271,13 @@ def _layer_seed(dropout_seed: int, layer_idx: int) -> int:
     """Decorrelate dropout across layers: mix the layer index into the
     seed on uint32 arithmetic (``_layer_seed`` of the JAX package)."""
     return ((int(dropout_seed) & _M32) + layer_idx * 0x9E3779B9) & _M32
+
+
+def _micro_seed(base: int, micro_idx: int) -> int:
+    """Decorrelate dropout across pipeline micro-batches under 1F1B
+    (``_micro_seed`` of the JAX package, :1347): another odd constant
+    than :func:`_layer_seed`'s, on uint32 arithmetic."""
+    return ((int(base) & _M32) + micro_idx * 0x85EBCA6B) & _M32
 
 
 def quant_site_on(cfg: ModelConfig, site: str) -> bool:
@@ -552,6 +563,26 @@ class Block(nn.Module):
                     if remat_mlp else mlp(m_in))
 
 
+class StageLayers(nn.ModuleDict):
+    """The blocks one pipeline stage holds (``parallel/sharding.py``
+    ``shard_model`` under 'pp'), keyed by their global index, so that
+    their parameters keep the names ``layers.{i}.*`` of the whole model
+    (checkpoints, ``models/convert.py``, Hugging Face streaming).
+    ``stage[i]`` is block i; iteration yields the blocks in order."""
+
+    def __init__(self, blocks):
+        super().__init__({str(i): b for i, b in sorted(blocks.items())})
+
+    def __getitem__(self, i):
+        return super().__getitem__(str(i))
+
+    def __iter__(self):
+        return iter(self.values())
+
+    def items(self):
+        return [(int(k), b) for k, b in super().items()]
+
+
 class TransformerLM(nn.Module):
     """A Llama-family decoder: ``embed_tokens``,
     ``layers[i].{ln1, attn.{q,k,v,o}_proj, ln2, mlp.{gate,up,down}_proj}``,
@@ -570,11 +601,14 @@ class TransformerLM(nn.Module):
     # the 'tp' process group (None on one device), the process groups
     # of the data axes above 1 and of the sequence ranks (the quantized
     # sites' amax reduce), the sequence ranks' alone (the gradients' sum;
-    # None without context parallelism), and this rank's CPLayout
+    # None without context parallelism), this rank's CPLayout, and the
+    # 'pp' group (the replicated parameters' gradients and the loss are
+    # summed over it; None without pipeline parallelism)
     tp_group = None
     data_groups = ()
     seq_group = None
     layout = None
+    pp_group = None
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -596,13 +630,16 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
-    def forward(self, input_ids: torch.Tensor,
+    def forward(self, input_ids: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
                 dropout_seed: Optional[int] = None,
                 quant=None, quant_out=None,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None,
+                hidden: Optional[torch.Tensor] = None,
+                layers: Optional[range] = None,
+                head_loss: Optional[Callable] = None):
         """``TransformerLM.__call__`` (:853): f32 logits ``[b, s, V]``, or
         with ``return_hidden`` the final-normed hidden in the compute
         dtype, or with ``labels`` the fused linear + CE head's
@@ -623,9 +660,21 @@ class TransformerLM(nn.Module):
         (``TrainState.quant``, ``init_quant_state``); they are read, never
         changed.  ``quant_out``: a dict that receives each site's
         advanced history (a train step; the flax mutable collection);
-        None reads the scales and records nothing (evaluation)."""
+        None reads the scales and records nothing (evaluation).
+
+        ``layers`` (a pipeline chunk, ``pp_forward_sum_count``): only
+        those blocks run, on ``hidden`` (or on the embedding of
+        ``input_ids`` where ``hidden`` is None), and the result is the
+        chunk's output, or with ``labels`` the final norm, the head and
+        the loss's ``(loss_sum, count)``: the fused CE, or
+        ``head_loss(hidden, labels)``.
+        Called through the module, so that FSDP2 gathers the embedding
+        and the head for it."""
         cfg = self.cfg
         check_training_supported(cfg)
+        if layers is not None:
+            return self._chunk(input_ids, hidden, positions, segment_ids,
+                               dropout_seed, layers, labels, head_loss)
         scope = None
         if quant_site_names(cfg):
             if quant is None:
@@ -634,36 +683,19 @@ class TransformerLM(nn.Module):
                     "forward(): thread TrainState.quant through it "
                     "(init_quant_state(cfg) makes fresh ones)")
             scope = QuantScope(quant, quant_out, self.data_groups)
-        b, s = input_ids.shape
-        if positions is None:
-            start = 0 if self.layout is None else self.layout.seq_index * s
-            positions = torch.arange(start, start + s,
-                                     device=input_ids.device).expand(b, s)
+        if isinstance(self.layers, StageLayers):
+            raise RuntimeError(
+                "this model holds one pipeline stage's blocks: run it "
+                "through the pipeline (Trainer.step, "
+                "models.transformer.pp_forward_sum_count)")
+        positions = self._positions(input_ids, positions)
         x = self._embed(input_ids)
-        grad = torch.is_grad_enabled()
-        sub = _sub_remat(cfg)
-        drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
-        for i, layer in enumerate(self.layers):
-            remat = grad and _remat_layer(cfg, i)
-            kw = dict(dropout_seed=_layer_seed(dropout_seed, i) if drop
-                      else None, quant=scope, name=f"layers.{i}",
-                      sub_remat=remat and sub)
-            if remat and not sub:
-                x = checkpoint_block(functools.partial(layer, **kw),
-                                     cfg.remat_policy, x, positions,
-                                     segment_ids)
-            else:
-                x = layer(x, positions, segment_ids, **kw)
+        x = self._blocks(x, positions, segment_ids, dropout_seed, scope,
+                         range(cfg.num_layers))
         if return_hidden or labels is not None:
             x = rms_norm(cfg, x, self.final_norm.weight)
         if labels is not None:
-            w = to_local(head_weight(self)).t()
-            if self.tp_group is None:
-                return fused_linear_cross_entropy(
-                    x, w, labels, logit_softcap=cfg.logit_softcap)
-            return fused_linear_cross_entropy_tp(
-                x, w, labels, group=self.tp_group,
-                logit_softcap=cfg.logit_softcap)
+            return self._fused_ce(x, labels)
         if return_hidden:
             return x
         if self.tp_group is not None:
@@ -677,6 +709,62 @@ class TransformerLM(nn.Module):
             logits = torch.tanh(logits / cfg.logit_softcap) \
                 * cfg.logit_softcap
         return logits
+
+    def _positions(self, ids: torch.Tensor,
+                   positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """``positions``, or ``arange`` over this rank's chunk of the
+        sequence."""
+        if positions is not None:
+            return positions
+        b, s = ids.shape
+        start = 0 if self.layout is None else self.layout.seq_index * s
+        return torch.arange(start, start + s, device=ids.device).expand(b, s)
+
+    def _blocks(self, x, positions, segment_ids, dropout_seed, scope,
+                indices) -> torch.Tensor:
+        """Blocks ``indices`` (global layer numbers) applied in turn, each
+        under remat as ``cfg`` asks, with its layer's dropout seed."""
+        cfg = self.cfg
+        grad = torch.is_grad_enabled()
+        sub = _sub_remat(cfg)
+        drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
+        for i in indices:
+            layer = self.layers[i]
+            remat = grad and _remat_layer(cfg, i)
+            kw = dict(dropout_seed=_layer_seed(dropout_seed, i) if drop
+                      else None, quant=scope, name=f"layers.{i}",
+                      sub_remat=remat and sub)
+            if remat and not sub:
+                x = checkpoint_block(functools.partial(layer, **kw),
+                                     cfg.remat_policy, x, positions,
+                                     segment_ids)
+            else:
+                x = layer(x, positions, segment_ids, **kw)
+        return x
+
+    def _fused_ce(self, x: torch.Tensor, labels: torch.Tensor):
+        """The fused linear + CE head on the final-normed ``x``."""
+        w = to_local(head_weight(self)).t()
+        if self.tp_group is None:
+            return fused_linear_cross_entropy(
+                x, w, labels, logit_softcap=self.cfg.logit_softcap)
+        return fused_linear_cross_entropy_tp(
+            x, w, labels, group=self.tp_group,
+            logit_softcap=self.cfg.logit_softcap)
+
+    def _chunk(self, input_ids, hidden, positions, segment_ids,
+               dropout_seed, layers, labels, head_loss):
+        """One pipeline chunk (``forward``'s ``layers``)."""
+        ref = input_ids if hidden is None else hidden[..., 0]
+        x = self._embed(input_ids) if hidden is None else hidden
+        x = self._blocks(x, self._positions(ref, positions), segment_ids,
+                         dropout_seed, None, layers)
+        if labels is None:
+            return x
+        if head_loss is not None:
+            return head_loss(x, labels)
+        return self._fused_ce(rms_norm(self.cfg, x, self.final_norm.weight),
+                              labels)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The token embedding in the compute dtype; vocab-parallel under
@@ -773,3 +861,127 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     model = TransformerLM(cfg, device="meta", dtype=dtype)
     materializer(seed, device)(model)
     return model.requires_grad_(False).eval()
+
+
+def pp_block_appliers(cfg: ModelConfig):
+    """The layers of each pipeline chunk, ``[stage][chunk] -> range``
+    (``pp_block_appliers`` of the JAX package, :796, whose appliers are
+    the model's own blocks here: a chunk is ``TransformerLM.forward``
+    with ``layers``).  A ``layer_pattern`` (JAX's per-slot appliers) and
+    a mixture of experts (its aux-loss rider) raise by name."""
+    if cfg.layer_pattern:
+        raise NotImplementedError(
+            "layer_pattern under pipeline parallelism (the per-slot "
+            "appliers of each stage chunk) is not ported to "
+            "torchacc_tpu_torch yet (ROADMAP.md A10b)")
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "a mixture of experts under pipeline parallelism (the router "
+            "aux loss riding each micro-batch through the stages) is not "
+            "ported to torchacc_tpu_torch yet (ROADMAP.md A10c)")
+    from torchacc_tpu_torch.parallel.pp import stage_layers
+    return [stage_layers(cfg.num_layers, cfg.pp_size, cfg.pp_virtual, d)
+            for d in range(cfg.pp_size)]
+
+
+class _MicroBatchView(dict):
+    """The batch a custom Trainer loss sees in the last stage under 1F1B
+    (``_MicroBatchView`` of the JAX package, :1365): the micro-batch's
+    labels only, and an actionable error for any other key, through
+    ``[]`` and ``get`` alike (``in`` stays plain membership)."""
+
+    def __missing__(self, key):
+        raise KeyError(
+            f"batch[{key!r}] is not available inside the 1f1b pipeline "
+            "region: a custom loss under pp.schedule='1f1b' runs in the "
+            "last stage and sees {'labels': ...} only.  Losses needing "
+            "other batch leaves should use pp.schedule='gpipe', whose "
+            "loss runs outside the region.")
+
+    def get(self, key, default=None):
+        if not dict.__contains__(self, key):
+            self.__missing__(key)
+        return dict.get(self, key, default)
+
+
+def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
+                         labels: torch.Tensor, *,
+                         dropout_seed: Optional[int] = None,
+                         use_fused_ce: bool = True,
+                         custom_loss: Optional[Callable] = None,
+                         train: bool = True,
+                         scale: Optional[torch.Tensor] = None):
+    """``(loss_sum, count)`` of ``batch`` through ``pipeline``
+    (``parallel.pp.Pipeline``) over ``model``'s chunks: the GPipe path of
+    ``TransformerLM.__call__`` (:1002-1076) and
+    ``pp_1f1b_forward_sum_count`` (:1389-1560).  With ``train`` the
+    gradients of ``loss_sum * scale`` land on the parameters.
+
+    The batch splits into the pipeline's micro-batches along dim 0; each
+    stage reads its micro-batch's ids, positions, segment ids and labels
+    from ``batch``, so only the activation travels.  The last virtual
+    stage runs the final norm, the head and the loss: the fused CE
+    (vocab-parallel under tensor parallelism) when ``use_fused_ce``,
+    else the logits (projected in f32 under 1F1B, as JAX's last stage
+    does) into ``custom_loss(logits, batch)`` (a micro-batch's slice of
+    the batch; under 1F1B training a ``_MicroBatchView`` of its labels,
+    as in JAX) or the plain CE.  Attention dropout (``dropout_seed``
+    and ``cfg.attn_dropout``): GPipe draws every micro-batch with the
+    layer seeds of ``dropout_seed`` alone, 1F1B mixes the micro index in
+    first (``_micro_seed``), the JAX package's two conventions; the
+    kernels hash each row's place in its micro-batch."""
+    cfg = model.cfg
+    chunks = pp_block_appliers(cfg)
+    ids = batch["input_ids"]
+    b, M = ids.shape[0], pipeline.num_micro
+    if b % M:
+        raise ValueError(f"batch {b} not divisible by num_micro_batches {M}")
+    mb = b // M
+    drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
+    one_f = train and pipeline.schedule == "1f1b"
+
+    def part(t, m):
+        return None if t is None or t.ndim == 0 else t[m * mb:(m + 1) * mb]
+
+    def head_for(m):
+        if use_fused_ce and custom_loss is None:
+            return None
+
+        def head(x, lab):
+            if model.tp_group is not None:
+                raise NotImplementedError(
+                    "full logits under tensor parallelism (a custom loss "
+                    "or compute.fused_kernels=False) are not ported to "
+                    "torchacc_tpu_torch yet (ROADMAP.md A8b)")
+            if one_f:
+                # JAX's 1F1B head projects in f32
+                logits = F.linear(
+                    rms_norm(cfg, x, model.final_norm.weight).float(),
+                    to_local(head_weight(model)).float())
+            else:
+                logits = head_logits(cfg, model, x)
+            if cfg.logit_softcap > 0.0:
+                logits = torch.tanh(logits / cfg.logit_softcap) \
+                    * cfg.logit_softcap
+            if custom_loss is None:
+                return loss_sum_count(logits, lab)
+            view = (_MicroBatchView(labels=lab) if one_f else
+                    {k: part(v, m) if torch.is_tensor(v) else v
+                     for k, v in batch.items()})
+            res = custom_loss(logits, view)
+            if isinstance(res, tuple):
+                return res
+            return res, torch.ones((), dtype=torch.float32,
+                                   device=logits.device)
+        return head
+
+    def call(d, c, m, x, last):
+        seed = None
+        if drop:
+            seed = _micro_seed(dropout_seed, m) if one_f else dropout_seed
+        return model(part(ids, m), positions=part(batch.get("positions"), m),
+                     segment_ids=part(batch.get("segment_ids"), m),
+                     dropout_seed=seed, hidden=x, layers=chunks[d][c],
+                     labels=part(labels, m) if last else None,
+                     head_loss=head_for(m) if last else None)
+    return pipeline.run(call, train=train, scale=scale)

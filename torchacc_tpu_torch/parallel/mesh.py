@@ -12,7 +12,7 @@ network) join consecutive ranks, which torchrun puts on one node.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -94,7 +94,9 @@ def describe_mesh(mesh: DeviceMesh) -> Dict[str, int]:
 def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """FSDP2's mesh: ('dp', 'fsdp'), over which it replicates on 'dp'
     and shards on 'fsdp' (HSDP), or 'fsdp' alone where 'dp' is 1, so that
-    no unit all-reduces over a replicate group of one rank."""
+    no unit all-reduces over a replicate group of one rank.  'pp' between
+    them in ``MESH_AXES`` is left out: the two dims of the sub-mesh are
+    this rank's stage's data ranks."""
     return mesh["fsdp"] if describe_mesh(mesh)["dp"] == 1 else \
         mesh[DATA_AXES]
 
@@ -108,6 +110,24 @@ def data_shard(mesh: DeviceMesh) -> Tuple[int, int]:
     return (sizes["dp"] * sizes["fsdp"],
             mesh.get_local_rank("dp") * sizes["fsdp"]
             + mesh.get_local_rank("fsdp"))
+
+
+def pp_stage(mesh: DeviceMesh) -> Tuple[int, int]:
+    """``(num_stages, stage_index)`` of this rank over 'pp'
+    (``parallel/pp.py``): the ranks of one data shard and sequence chunk
+    at every stage take the same rows (:func:`data_shard` leaves 'pp'
+    out), and each holds its stage's blocks."""
+    sizes = describe_mesh(mesh)
+    n = sizes.get("pp", 1)
+    return n, (mesh.get_local_rank("pp") if n > 1 else 0)
+
+
+def pp_ranks(mesh: DeviceMesh) -> List[int]:
+    """The global rank of each stage of this rank's pipeline, the other
+    coordinates this rank's: stage d's previous stage is ``(d - 1) % P``
+    and its next ``(d + 1) % P`` (a ring: the interleaved schedule laps
+    from the last stage to the first)."""
+    return mesh["pp"].mesh.tolist()
 
 
 def seq_shard(mesh: DeviceMesh) -> Tuple[int, int]:

@@ -55,7 +55,7 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torchacc_tpu_torch.config import DATA_AXES, Config
 from torchacc_tpu_torch.models.axes import param_axes
 from torchacc_tpu_torch.ops.context_parallel import CPLayout
-from torchacc_tpu_torch.parallel.mesh import data_mesh, describe_mesh
+from torchacc_tpu_torch.parallel.mesh import data_mesh, describe_mesh, pp_stage
 
 # a rule maps a logical axis to a mesh axis, a tuple of mesh axes, or
 # None (replicated)
@@ -83,10 +83,15 @@ _TP_AXES = ("heads", "mlp", "vocab")
 
 def make_rules(config: Optional[Config] = None) -> LogicalRules:
     """The rule table of ``config``: ``fsdp.shard_axis_rules`` first
-    (first match wins), then the defaults."""
+    (first match wins), then under pipeline parallelism JAX's
+    ``("layers", "pp")``, then the defaults."""
     rules: List[Tuple[str, Any]] = []
     if config is not None and config.dist.fsdp.shard_axis_rules:
         rules.extend(config.dist.fsdp.shard_axis_rules)
+    if config is not None and config.dist.pp.size > 1:
+        # JAX's stacking dim becomes the stage dim; here each stage holds
+        # its own blocks (shard_model), the same placement
+        rules.append(("layers", "pp"))
     rules.extend(DEFAULT_RULES)
     return tuple(rules)
 
@@ -198,6 +203,24 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
             "each rank splits its own rows into micro-batches, where the "
             "JAX package splits the global batch, so micro-batch i's "
             "activation amax would cover other rows than JAX's")
+    pp = sizes.get("pp", 1)
+    if pp > 1:
+        if cfg.pp_size != pp:
+            raise ValueError(
+                f"a mesh with 'pp' {pp} needs a model with pp_size {pp} "
+                f"(accelerate() sets it from dist.pp), got {cfg.pp_size}")
+        if cfg.num_layers % (pp * cfg.pp_virtual):
+            raise ValueError(
+                f"num_layers {cfg.num_layers} not divisible by pp size {pp} "
+                f"x virtual_stages {cfg.pp_virtual}")
+        if cfg.attn_dropout > 0.0 and sizes["dp"] * sizes["fsdp"] > 1:
+            raise NotImplementedError(
+                "attention dropout under pipeline parallelism on more than "
+                "one data shard is not ported to torchacc_tpu_torch yet "
+                "(ROADMAP.md A8b): each rank splits its own rows into "
+                "micro-batches, where the JAX package splits the global "
+                "batch, so a row would draw the masks of another "
+                "micro-batch than JAX's")
     if sizes["fsdp"] > 1 and table.get("embed") != "fsdp":
         raise NotImplementedError(
             "a rule table that does not shard 'embed' over 'fsdp' is not "
@@ -240,13 +263,23 @@ def mixed_precision(config: Config) -> MixedPrecisionPolicy:
 
 def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
                 materialize: Optional[Callable[[nn.Module, str], None]]
-                = None) -> nn.Module:
+                = None, draws: bool = True) -> nn.Module:
     """Shard a port ``TransformerLM`` over ``mesh`` in place (the plan
-    above) and hand its modules their 'tp' group.  ``materialize(module,
+    above) and hand its modules their 'tp' group.  Over 'pp' the model
+    keeps only this rank's stage's blocks (``parallel.pp.stage_layers``:
+    under ``pp_virtual`` the chunks d, d+P, ...), in a ``StageLayers``
+    under their global names; the embedding, the final norm and the
+    head stay on every stage, and the Trainer sums their gradients over
+    the 'pp' group (``model.pp_group``).  ``materialize(module,
     prefix)``: makes the weights of a module on ``meta``, in the order
     of ``named_parameters`` (``models.transformer.materializer``); the
     blocks are made and sharded one at a time, so that no rank holds
-    more than one block unsharded."""
+    more than one block unsharded.  Another stage's block is made only
+    where ``materialize`` ``draws`` from a random stream (so that the
+    blocks after it draw the one-device model's values), and released
+    at once: a stage holds its own blocks and at most one other.  Where
+    ``materialize`` gives storage only (``draws`` false: the weights
+    come from a checkpoint next) it is never made."""
     sizes = describe_mesh(mesh)
     rules = make_rules(config)
     _check_plan(model.cfg, rules, sizes, config.grad_accum)
@@ -260,9 +293,29 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
             _place_tp(module, prefix, tp_mesh, rules)
 
     prepare(model.embed_tokens, "embed_tokens")
+    n_pp, stage = pp_stage(mesh)
+    owned = set(range(model.cfg.num_layers))
+    if n_pp > 1:
+        from torchacc_tpu_torch.models.transformer import StageLayers
+        from torchacc_tpu_torch.parallel.pp import stage_layers
+        owned = {i for chunk in stage_layers(model.cfg.num_layers, n_pp,
+                                             model.cfg.pp_virtual, stage)
+                 for i in chunk}
+    kept = {}
     for i, block in enumerate(model.layers):
+        if i not in owned:
+            # another stage's block: its draws made (so that the random
+            # stream of the blocks after it is the one-device model's),
+            # then its storage released before the next block is made
+            if materialize is not None and draws:
+                materialize(block, f"layers.{i}")
+            block.to_empty(device="meta")
+            continue
         prepare(block, f"layers.{i}")
         fully_shard(block, **fsdp_kw)
+        kept[i] = block
+    if n_pp > 1:
+        model.layers = StageLayers(kept)
     prepare(model.final_norm, "final_norm")
     if model.lm_head is not None:
         prepare(model.lm_head, "lm_head")
@@ -280,6 +333,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
             mod.layout = layout
     model.seq_group = seq_group(mesh)
     model.data_groups = data_groups(mesh, model.seq_group)
+    model.pp_group = mesh.get_group("pp") if n_pp > 1 else None
     return model
 
 

@@ -63,8 +63,11 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
     """Fold the framework's compute and memory settings into the model
     config (the fields this port implements): ``offload_activations``
     forces the host-offload remat policy, ``gc_cls``/``gc_cnt`` pick the
-    submodules and the number of layers that remat, and ``dist.sp.size``
-    above 1 turns on ``context_parallel``."""
+    submodules and the number of layers that remat, ``dist.sp.size``
+    above 1 turns on ``context_parallel``, ``dist.pp`` gives the
+    pipeline's stages, micro-batches and chunks, and
+    ``perf.overlap_fsdp`` sets ``overlap_fsdp`` (which the training
+    check refuses, ROADMAP.md A8b)."""
     mem = config.memory
     return dataclasses.replace(
         mc,
@@ -81,6 +84,10 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
         quant_amax_history_len=config.compute.quant_amax_history_len,
         quant_impl=config.compute.quant_impl,
         context_parallel=config.dist.sp.size > 1,
+        pp_size=config.dist.pp.size,
+        pp_num_micro=config.dist.pp.num_micro_batches,
+        pp_virtual=config.dist.pp.virtual_stages,
+        overlap_fsdp=mc.overlap_fsdp or config.perf.overlap_fsdp,
     )
 
 
@@ -102,8 +109,11 @@ def accelerate(
     config = config or Config()
     config.validate()
     d = config.dist
+    # a given pipeline (every stage in this process) needs no group
+    pp_ranks = 1 if trainer_kwargs.get("pipeline") is not None \
+        else d.pp.size
     if not dist.is_initialized() and max(d.dp.size, 1) * d.tp.size \
-            * d.fsdp.size * d.sp.size > 1:
+            * d.fsdp.size * d.sp.size * pp_ranks > 1:
         raise ConfigError(
             "config.dist asks for more than one rank but no "
             "torch.distributed process group is up: call "

@@ -117,16 +117,19 @@ def global_norm_f32(tensors, counted: bool = True) -> torch.Tensor:
     all-reduce of the local sums of squares (module docstring), to which
     this rank adds nothing where ``counted`` is false (its gradients are
     a copy of another rank's beyond their DTensor placements: a
-    sequence rank but the first)."""
+    sequence rank but the first).  ``counted`` may also be one flag a
+    tensor: under pipeline parallelism the parameters every stage holds
+    count on the first stage only."""
     tensors = list(tensors)
     if not _sharded(tensors):
         return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    flags = (list(counted) if isinstance(counted, (list, tuple))
+             else [counted] * len(tensors))
     sq = torch.zeros((), dtype=torch.float32,
                      device=tensors[0].to_local().device)
-    if counted:
-        for t in tensors:
-            if _counted_once(t):
-                sq = sq + t.to_local().float().square().sum()
+    for t, c in zip(tensors, flags):
+        if c and _counted_once(t):
+            sq = sq + t.to_local().float().square().sum()
     dist.all_reduce(sq)
     return torch.sqrt(sq)
 

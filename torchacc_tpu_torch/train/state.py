@@ -15,6 +15,7 @@ count back into the state."""
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional
 
@@ -37,6 +38,20 @@ class TrainState:
     # [quant_amax_history_len] f32; None when compute.quant == 'none',
     # so the state without quantization is what it was
     quant: Optional[Dict[str, torch.Tensor]] = None
+    # the pipeline stages over 'pp' and the model's blocks: above one
+    # stage, ``params`` (and the moments) hold this rank's blocks only
+    pp_size: int = 1
+    num_layers: int = 0
+
+
+class FlatState(dict):
+    """``flat_state``'s mapping.  Under pipeline parallelism it also
+    names the 'pp' size and ``other_leaves``: ``{name: (shape, dtype)}``
+    of the leaves the other stages hold (their blocks' masters and
+    moments), so that a checkpoint's schema is the whole model's on
+    every rank (``checkpoint/schema.py``)."""
+    pp_size = 1
+    other_leaves: Dict[str, Any] = {}
 
 
 def adam_state(opt_state: Any) -> AdamWState:
@@ -60,7 +75,7 @@ def flat_state(state: TrainState) -> Dict[str, torch.Tensor]:
     flag (``schedules.AdamWState.count``), so a skipped update is never
     saved as applied."""
     opt = adam_state(state.opt_state)
-    out = {"step": torch.tensor(int(state.step), dtype=torch.int64)}
+    out = FlatState(step=torch.tensor(int(state.step), dtype=torch.int64))
     out.update({f"params/{n}": p.detach() for n, p in state.params.items()})
     out["opt_state/count"] = torch.tensor(opt.count, dtype=torch.int64)
     out.update({f"opt_state/mu/{n}": t for n, t in opt.mu.items()})
@@ -69,7 +84,31 @@ def flat_state(state: TrainState) -> Dict[str, torch.Tensor]:
         tensors = getattr(state, part)
         if tensors is not None:
             out.update({f"{part}/{k}": t for k, t in tensors.items()})
+    if state.pp_size > 1:
+        out.pp_size = state.pp_size
+        out.other_leaves = _other_stages(out, state.num_layers)
     return out
+
+
+_BLOCK_LEAF = re.compile(r"^(params|opt_state/mu|opt_state/nu)/layers\.(\d+)\.(.*)$")
+
+
+def _other_stages(flat: Mapping[str, torch.Tensor], num_layers: int):
+    """The leaves of the blocks this stage does not hold, by the shapes
+    and dtypes of one it holds (every block is alike)."""
+    mine: Dict[int, Dict[str, torch.Tensor]] = {}
+    for name, t in flat.items():
+        m = _BLOCK_LEAF.match(name)
+        if m:
+            mine.setdefault(int(m.group(2)), {})[
+                f"{m.group(1)}|{m.group(3)}"] = t
+    if not mine:
+        return {}
+    like = mine[min(mine)]
+    return {f"{key.split('|')[0]}/layers.{i}.{key.split('|')[1]}":
+            (tuple(t.shape), t.dtype)
+            for i in range(num_layers) if i not in mine
+            for key, t in like.items()}
 
 
 def set_scalars(state: TrainState, flat: Mapping[str, torch.Tensor]) -> None:

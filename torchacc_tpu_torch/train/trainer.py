@@ -77,6 +77,20 @@ rank's tokens, are all-reduced over the sequence ranks, one group over
 before the optimizer reads them; only the first chunk's rank counts
 them in the global norm.
 
+Under pipeline parallelism (``dist.pp``, ``parallel/pp.py``) each rank
+is one stage and holds its stage's blocks; the step's micro-batch loop
+(``grad_accum`` an outer loop, as in JAX) runs the schedule on each
+``grad_accum`` micro-batch: ``pp.num_micro_batches`` pipeline
+micro-batches, the backward driven stage by stage as the schedule goes
+(``models.transformer.pp_forward_sum_count``), the gradients reaching
+the accumulators through the same hooks.  The loss and count live on
+the last stage and are summed over 'pp' with the data axes; the
+gradients of the embedding, the final norm and the head (every stage
+holds them) are summed over 'pp'; the global norm counts each stage's
+blocks once and the replicated parameters on the first stage only.
+``eval_step`` runs the forward ticks alone.  ``pipeline`` replaces the
+mesh's stage and transport, e.g. with every stage in one process.
+
 Checkpoints (``checkpoint/``): ``save``/``restore`` write and read the
 whole state (masters, AdamW moments and count, the fp16 scaler, the
 amax histories, the step); ``fit(checkpoint_dir=...)`` saves through a
@@ -120,11 +134,18 @@ from torchacc_tpu_torch.models.transformer import (
     init_quant_state,
     loss_sum_count,
     materializer,
+    pp_forward_sum_count,
     quant_site_names,
 )
 from torchacc_tpu_torch.ops._common import resolve_device, to_local
 from torchacc_tpu_torch.parallel.distributed import is_primary
-from torchacc_tpu_torch.parallel.mesh import describe_mesh, seq_shard
+from torchacc_tpu_torch.parallel.mesh import (
+    describe_mesh,
+    pp_ranks,
+    pp_stage,
+    seq_shard,
+)
+from torchacc_tpu_torch.parallel.pp import Pipeline, ProcessGroupTransport
 from torchacc_tpu_torch.parallel.sharding import shard_model
 from torchacc_tpu_torch.train.amp import (
     all_finite,
@@ -159,10 +180,16 @@ def shift_labels(input_ids: torch.Tensor,
 
 
 def _copy_named(dest: Dict[str, torch.Tensor],
-                params: Dict[str, torch.Tensor]) -> None:
+                params: Dict[str, torch.Tensor],
+                stage_only: bool = False) -> None:
     """Write the full tensors ``params`` into ``dest`` by name (this
     rank's shards of DTensors).  The names and shapes must be the same;
-    they are checked before anything is written."""
+    they are checked before anything is written.  ``stage_only``: the
+    blocks ``dest`` lacks are another pipeline stage's, and are left
+    out."""
+    if stage_only:
+        params = {n: t for n, t in params.items()
+                  if n in dest or not n.startswith("layers.")}
     bad = [f"{n}: shape {list(t.shape)}, the model's "
            f"{list(dest[n].shape)}" for n, t in params.items()
            if n in dest and tuple(t.shape) != tuple(dest[n].shape)]
@@ -197,17 +224,23 @@ class Trainer:
     device: where a ``meta`` model is made (None = the card)
     mesh: the ``DeviceMesh`` to shard over (``Config.get_mesh()``), or
         None for one device
+    pipeline: under ``dist.pp``, the ``parallel.pp.Pipeline`` the step
+        runs (its stages and transport); default: this rank's stage of
+        the mesh over a process-group transport.  A pipeline of every
+        stage in one process (``tests/torch_pp_virtual.py``) runs the
+        schedule on one device.
     """
 
     def __init__(self, model: TransformerLM, config: Config,
                  optimizer: Optional[GradientTransformation] = None,
                  loss: Optional[Callable] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 mesh=None):
+                 mesh=None, pipeline: Optional[Pipeline] = None):
         config.validate()
         self.model = model
         self.config = config
         self.mesh = mesh
+        self._custom_loss = loss
         self.optimizer = optimizer or adamw(
             1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4,
             grad_clip_norm=None)
@@ -240,11 +273,40 @@ class Trainer:
             # an unported composition (the 'head' quant site, ...) raises
             # by name here, not at the first step
             check_training_supported(model.cfg)
+        self._pipeline = pipeline
+        # this rank's (stages, stage) over 'pp', and whether its
+        # process-group transport has made its first exchange
+        self._pp_rank = (1, 0) if mesh is None else pp_stage(mesh)
+        self._pp_warm = False
+        pp = config.dist.pp
+        self._pp_on = pp.size > 1
+        if self._pp_on:
+            self._check_pipeline(pp, pipeline)
         self.state: Optional[TrainState] = None
         # the gradient accumulators of the micro-batch loop (name ->
         # buffer in compute.accum_dtype), filled by the parameters'
         # post-accumulate-grad hooks; None outside that loop
         self._acc: Optional[Dict[str, torch.Tensor]] = None
+
+    def _check_pipeline(self, pp, pipeline) -> None:
+        cfg = getattr(self.model, "cfg", None)
+        if cfg is None or (cfg.pp_size, cfg.pp_num_micro, cfg.pp_virtual) \
+                != (pp.size, pp.num_micro_batches, pp.virtual_stages):
+            raise ValueError(
+                "dist.pp needs a TransformerLM whose pp_size, pp_num_micro "
+                "and pp_virtual are dist.pp's size, num_micro_batches and "
+                "virtual_stages (accelerate() sets them)")
+        if pipeline is None and self._pp_rank[0] != pp.size:
+            raise ValueError(
+                f"dist.pp.size {pp.size} needs a mesh with 'pp' "
+                f"{pp.size} over a process group (accelerate() builds it) "
+                "or a pipeline")
+        if pipeline is not None and (
+                pipeline.pp_size, pipeline.num_micro, pipeline.schedule,
+                pipeline.virtual) != (pp.size, pp.num_micro_batches,
+                                      pp.schedule, pp.virtual_stages):
+            raise ValueError("the pipeline's stages, micro-batches, "
+                             "schedule and chunks are not dist.pp's")
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: Optional[int] = None) -> TrainState:
@@ -266,7 +328,7 @@ class Trainer:
         (``models.hf_stream.stream_params`` over a checkpoint's files,
         one tensor at a time)."""
         fill = params if callable(params) else (
-            lambda dest: _copy_named(dest, params))
+            lambda dest: _copy_named(dest, params, self._pp_rank[0] > 1))
         return self._init(None, fill)
 
     def _init(self, seed: Optional[int], fill=None) -> TrainState:
@@ -302,7 +364,7 @@ class Trainer:
                 _swap_param(self.model, name, shadow[name])
                 shadow[name] = self.model.get_parameter(name)
         self.model.requires_grad_(True).train()
-        if self.config.grad_accum > 1:
+        if self.config.grad_accum > 1 or self._pp_on:
             for name, p in self.model.named_parameters():
                 p.register_post_accumulate_grad_hook(
                     self._accumulate_hook(name))
@@ -312,7 +374,9 @@ class Trainer:
         # step falls back to just-in-time scales
         self.state = TrainState(step=0, params=masters, opt_state=opt_state,
                                 scaler=scaler,
-                                quant=init_quant_state(cfg, self.device))
+                                quant=init_quant_state(cfg, self.device),
+                                pp_size=self._pp_rank[0],
+                                num_layers=cfg.num_layers)
         n = sum(p.numel() for p in masters.values())
         logger.info(f"initialised {n / 1e6:.1f}M params on {self.device}")
         return self.state
@@ -333,7 +397,8 @@ class Trainer:
                 if p.dtype != pdt:
                     _swap_param(self.model, name,
                                 nn.Parameter(p.detach().to(pdt)))
-        shard_model(self.model, self.mesh, self.config, make)
+        shard_model(self.model, self.mesh, self.config, make,
+                    draws=not empty)
         return dict(self.model.named_parameters())
 
     # -- train step -----------------------------------------------------------
@@ -373,6 +438,11 @@ class Trainer:
         which reads the scales and records nothing) and attention
         dropout draws with ``dropout_seed`` (default the step)."""
         cfg = self.model.cfg
+        if self._pp_on:
+            l_sum, count = self._pp_sum_count(
+                batch, train, self.state.step if dropout_seed is None
+                else dropout_seed)
+            return l_sum, count, None
         kw = dict(positions=batch.get("positions"),
                   segment_ids=batch.get("segment_ids"))
         new_quant = None
@@ -396,6 +466,65 @@ class Trainer:
             return res
         return res, torch.ones((), dtype=torch.float32, device=self.device)
 
+    def _pp_sum_count(self, batch, train: bool, dropout_seed: int,
+                      scale: Optional[torch.Tensor] = None):
+        """``(loss_sum, count)`` of ``batch`` through the pipeline (the
+        last stage's; zeros on the others), and on a train step the
+        gradients of ``loss_sum * scale`` on the parameters, attention
+        dropout drawing with ``dropout_seed``."""
+        labels = batch.get("labels", shift_labels(
+            batch["input_ids"], batch.get("segment_ids")))
+        l_sum, count = pp_forward_sum_count(
+            self.model, self._pipeline_for(batch), batch, labels,
+            dropout_seed=dropout_seed if train else None,
+            use_fused_ce=self._use_fused_ce, custom_loss=self._custom_loss,
+            train=train, scale=scale)
+        as_t = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                         device=self.device)
+        return as_t(l_sum), as_t(count)
+
+    def _pipeline_for(self, batch) -> Pipeline:
+        """The given pipeline, or this rank's stage of the mesh's over a
+        process-group transport for ``batch``'s micro-batch shape."""
+        if self._pipeline is not None:
+            return self._pipeline
+        pp, cfg = self.config.dist.pp, self.model.cfg
+        b, s = batch["input_ids"].shape[:2]
+        like = torch.empty((max(b // pp.num_micro_batches, 1), s,
+                            cfg.hidden_size), dtype=cfg.dtype,
+                           device=self.device)
+        stage = self._pp_rank[1]
+        transport = ProcessGroupTransport(pp_ranks(self.mesh), stage, like)
+        if not self._pp_warm:
+            transport.warm()
+            self._pp_warm = True
+        return Pipeline(pp.size, pp.num_micro_batches, pp.schedule,
+                        pp.virtual_stages, stages=[stage],
+                        transport=transport)
+
+    def _pp_reduce(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Sum the gradients of the parameters every stage holds (the
+        embedding, the final norm, the head) over the 'pp' ranks, in
+        place: the first stage's embedding and the last stage's head
+        (both, under tied embeddings) meet there."""
+        group = getattr(self.model, "pp_group", None)
+        if group is None:
+            return
+        for name in sorted(grads):
+            if not name.startswith("layers."):
+                dist.all_reduce(to_local(grads[name]), group=group)
+
+    def _norm_counted(self, grads: Dict[str, torch.Tensor]):
+        """``update_``'s ``norm_counted``: the first sequence chunk's rank
+        counts its gradients; over 'pp' each stage counts its blocks and
+        the first stage the parameters every stage holds."""
+        counted = self._seq[1] == 0
+        if getattr(self.model, "pp_group", None) is None:
+            return counted
+        first = self._pp_rank[1] == 0
+        return [counted and (first or n.startswith("layers."))
+                for n in grads]
+
     def _accumulate_hook(self, name: str):
         # a weak reference: the hook lives on the parameter, and a strong
         # one would keep the trainer (and its optimizer state) alive in a
@@ -411,10 +540,12 @@ class Trainer:
         return hook
 
     def _global(self, l_sum: torch.Tensor, count: torch.Tensor):
-        """``(loss_sum, count)`` summed over the data and sequence axes'
-        ranks: the global batch's (as they are on one device)."""
+        """``(loss_sum, count)`` summed over the 'pp', data and sequence
+        axes' ranks: the global batch's (as they are on one device)."""
         tot = torch.stack([l_sum.detach().float(), count.float()])
-        for group in getattr(self.model, "data_groups", ()):
+        pp_group = getattr(self.model, "pp_group", None)
+        for group in ((() if pp_group is None else (pp_group,))
+                      + tuple(getattr(self.model, "data_groups", ()))):
             dist.all_reduce(tot, group=group)
         return tot[0], tot[1]
 
@@ -495,10 +626,16 @@ class Trainer:
             for i in range(accum):
                 micro = {k: v if v.ndim == 0 else v[i * mb:(i + 1) * mb]
                          for k, v in batch.items()}
-                l_sum, count, new_quant = self._forward_sum_count(
-                    micro, dropout_seed=self.state.step * accum + i,
-                    quant=quant)
-                (l_sum if scale is None else l_sum * scale).backward()
+                seed = self.state.step * accum + i
+                if self._pp_on:
+                    # the schedule back-propagates as it goes
+                    l_sum, count = self._pp_sum_count(micro, True, seed,
+                                                      scale)
+                    new_quant = None
+                else:
+                    l_sum, count, new_quant = self._forward_sum_count(
+                        micro, dropout_seed=seed, quant=quant)
+                    (l_sum if scale is None else l_sum * scale).backward()
                 l_sum, count = l_sum.detach().float(), count.detach()
                 l_tot = l_sum if l_tot is None else l_tot + l_sum
                 c_tot = count if c_tot is None else c_tot + count
@@ -509,6 +646,7 @@ class Trainer:
         finally:
             self._acc = None
         l_tot, c_tot = self._global(l_tot, c_tot)
+        self._pp_reduce(acc)
         self._reduce_seq(list(acc.values()))
         c_tot = torch.clamp(c_tot, min=1.0)
         denom = c_tot if scale is None else c_tot * scale
@@ -532,7 +670,7 @@ class Trainer:
         batch = self._batch(batch)
         scaler = self.state.scaler
         scale = None if scaler is None else scaler["scale"]
-        if self.config.grad_accum > 1:
+        if self.config.grad_accum > 1 or self._pp_on:
             loss, grads, new_quant = self._grads_accumulated(batch, scale)
         else:
             loss, grads, new_quant = self._grads_one(batch, scale)
@@ -545,7 +683,7 @@ class Trainer:
         # the sequence ranks hold the same gradients: one counts them
         grad_norm = self.optimizer.update_(
             grads, self.state.opt_state, self.state.params, keep=finite,
-            norm_counted=self._seq[1] == 0)
+            norm_counted=self._norm_counted(grads))
         for p in self.model.parameters():
             p.grad = None
         self.state.step += 1
@@ -624,7 +762,7 @@ class Trainer:
                 "swap_params: the new parameters' dtypes are not the live "
                 "state's: " + "; ".join(bad[:8]))
         with torch.no_grad():
-            _copy_named(live, params)
+            _copy_named(live, params, self._pp_rank[0] > 1)
         if reinit_opt:
             if self._shadow_on:
                 self.state.opt_state = (self.optimizer.inner.init(live),
