@@ -5,7 +5,8 @@
                           [--quant-steps 6] [--data-steps 16]
                           [--fp16-steps 8] [--check-layers 2]
                           [--ckpt-layers 1] [--hf-layers 16] [--hf-steps 8]
-                          [--reps 50] [--seed 0] [--profile]
+                          [--gemma-layers 8] [--reps 50] [--seed 0]
+                          [--profile]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -62,6 +63,20 @@ Phases, each of which exits non-zero when it fails:
    steps step_should_run keeps (10 of 16 causal steps a head group); the
    ring again against the plain version at 4096 split in 4; the ring's
    device time beside the whole call's;
+4c. heads of 256 (the Gemma family, B-2): B4 at gemma-2b's heads (8 q
+   heads over one kv head: decode, prefill, softcap 50, a window
+   (128, -1) and the long decode), checked and timed; B1-B3 at
+   gemma2-2b's (8/4 heads) at its training shape, one 8192-token row in
+   bf16, as a sliding layer (window (4095, -1)) and a global one, both
+   with the score softcap 50, checked and timed beside compiled
+   flex_attention (the one PyTorch call with a softcap), and the
+   sliding one again without the cap, timed beside SDPA; f16 with a
+   window, the softcap and packed documents, f32 the same, and the
+   sq != sk case with empty rows, checked.  Wherever the cap is on
+   (here and in 4's window_softcap) q is 8x, so that the scores the
+   softmax picks reach the cap's bend, and a control must fail: the
+   kernels' dq and dk against a plain backward that drops the cap's
+   derivative;
 5. the quantized-matmul kernel phase: B5 (a quantize pass and a wgmma
    GEMM, 8-bit for int8 and f16 for fp8's e4m3 values) against its
    plain version on the same CUDA tensors, int8
@@ -239,13 +254,43 @@ Phases, each of which exits non-zero when it fails:
    first divergence from generate() is printed; in f32 compute the
    served greedy streams must equal generate()'s on the same weights.
    Printed: the load time and GB/s, step ms, tokens/s, MFU, peak
-   memory, serving tokens/s and TTFT.
+   memory, serving tokens/s and TTFT;
+13b. the Gemma2 training phase: google/gemma-2-2b's published
+   config.json (vocab 256000, hidden 2304, 8/4 heads of 256, ffn 9216,
+   window 4096 on every other layer, softcaps 50 and 30, tied) at
+   --gemma-layers (8, a multiple of the period 2) with seeded bf16
+   weights in HF's names (zero norms: Gemma's 1 + w), written by this
+   script's writer and read by accelerate(path) -> Trainer.fit on rows
+   of one 8192-token Zipf document each, so that the sliding layers'
+   window masks.  The first batch's loss through B1 lies within 1e-4
+   (relative) of the plain attention's, and the control (every window
+   lifted) must not; every loss finite, the last two below the first;
+   B1/B2/B3 at d 256 launch layers x steps times.  Printed: the losses,
+   step ms, tokens/s, MFU and peak memory;
+13c. the generate() phase: gemma3-1b at full width and one pattern
+   period (6 layers: 5 sliding with a 512-key window and the local rope
+   base, 1 global), bf16 from init_params(seed), 2 prompts of 1024
+   tokens and 16 new: B1 launches layers x 16, the bf16 tokens' first
+   divergence from the plain attention is printed, the f32 model's
+   greedy tokens equal the plain attention's, and the prompts' last
+   logits lie within _logits_limit of the plain path's while the
+   window-lifted control does not;
+13d. the Gemma serving phase: gemma-2b at full width and depth (18
+   layers, MQA 8/1 of 256) from init_params(seed), bf16, through
+   ServeEngine with 4 greedy requests (prompts 64..1000, 16 new
+   tokens), the first layer's q projection tied to its kv head's so
+   that a row attends to its own key there: B4 at d 256 launches
+   layers x dispatches, and the last-prompt logits lie within
+   _logits_limit of the plain path while two controls must not (a
+   64-key window; the last row not seeing its own key).
 
 No earlier phase was cut to make room: on an H100 the whole run takes
-about 440 s (75-91 s of it the build, about 45 s the Hugging Face
-phase, about 150 s the checkpoint phases, bound by the disk, a few
-seconds the context-parallelism phase; stderr has each kernel's
-registers and spills from nvcc's -Xptxas -v).
+about 440 s before the Gemma phases, which add about 80 s with
+flex_attention's compiles (the build takes 112-114 s, the nvcc of
+flash_attention.cu, with its four head dims, the longest;
+about 45 s the Hugging Face phase, about 150 s the checkpoint phases,
+bound by the disk, a few seconds the context-parallelism phase; stderr
+has each kernel's registers and spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
 and the ``{"ok": true, "device": ...}`` object.  Needs one card; exits
@@ -271,6 +316,12 @@ PEAK_BF16_FLOPS = 989e12
 # the f16 flash kernels against the plain version: two f16 ulps (2^-10 of
 # the value each; both compute in f32 and round once to f16)
 F16_TOL = dict(atol=2e-4, rtol=2e-3)
+# q's factor in the flash cases with a softcap of 50: with q, k ~ N(0, 1)
+# and the scale d^-0.5 the scores are ~N(0, 1), where tanh(s / 50) is
+# linear to 4e-4 and a B2/B3 that dropped the cap's derivative would
+# pass; at 8x the scores the softmax picks reach 25-35, where
+# 1 - tanh^2(s / 50) is 0.6-0.8 (a power of two: exact in every dtype)
+SOFTCAP_Q_MUL = 8.0
 
 H, KH, D, BS = 32, 8, 128, 16           # Llama-3-8B attention geometry
 KERNEL = dict(name="paged_attention", route="cuda",
@@ -378,11 +429,13 @@ def _card():
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None, d=D):
+def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None, d=D,
+                heads=(H, KH)):
     """Per-layer pools with random contents and per-slot shuffled block
     tables (different per layer, so timing loops do not re-read one
-    layer's pages out of L2), heads of ``d``.  Each slot's first query
-    row sits at ctx - t unless ``q_start`` says otherwise."""
+    layer's pages out of L2), ``heads`` (q, kv) of ``d``.  Each slot's
+    first query row sits at ctx - t unless ``q_start`` says otherwise."""
+    H, KH = heads
     import numpy as np
     s = len(ctx)
     mb = max(1, -(-max(ctx) // BS))
@@ -406,11 +459,12 @@ def _paged_case(torch, rng, ctx, t, layers, dtype, q_start=None, d=D):
             cuda_i32(q_start))
 
 
-def _work(ctx, q_start, t, window, elem, d=D):
+def _work(ctx, q_start, t, window, elem, d=D, heads=(H, KH)):
     """(bytes, flops) the function needs for these inputs: each input
     read once (only the K/V rows some query row can see, the block-table
     entries that name them), each output written once; 4*d flops per
     visible (row, key) pair and head."""
+    H, KH = heads
     left, right = window
     s = len(ctx)
     pairs, keys, entries = 0, 0, 0
@@ -464,10 +518,11 @@ def _time_ms(torch, fn, iters, warm=3):
     return a.elapsed_time(b) / iters
 
 
-def _kernel_phase(torch, args, pa, d=D, only=None):
-    """B4 against its plain version at heads of ``d`` (``only``: the
-    cases to run, default all), with times of the decode and prefill
-    shapes."""
+def _kernel_phase(torch, args, pa, d=D, only=None, heads=(H, KH)):
+    """B4 against its plain version at ``heads`` (q, kv) of ``d``
+    (``only``: the cases to run, default all), with times of the decode
+    and prefill shapes."""
+    H, KH = heads
     import numpy as np
     import torch.nn.functional as F
     rng = np.random.default_rng(args.seed)
@@ -503,7 +558,7 @@ def _kernel_phase(torch, args, pa, d=D, only=None):
         if only is not None and name not in only:
             continue
         q, k, v, tables, lens, q_start = _paged_case(
-            torch, rng, ctx, t, layers, torch.bfloat16, q0s, d)
+            torch, rng, ctx, t, layers, torch.bfloat16, q0s, d, heads)
         kw = dict(window=window, logit_softcap=cap)
         out = pa.paged_attention(q, k[0], v[0], tables[0], lens, q_start,
                                  impl="cuda", **kw)
@@ -552,7 +607,7 @@ def _kernel_phase(torch, args, pa, d=D, only=None):
                     attn_mask=mask), iters)
             del dense
             q0 = q_start.cpu().tolist()
-            nbytes, flops = _work(ctx, q0, t, window, 2, d)
+            nbytes, flops = _work(ctx, q0, t, window, 2, d, heads)
             tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
             rec.update(bytes=nbytes, flops=flops,
                        bound_ms=max(tb, tf) * 1e3,
@@ -863,9 +918,11 @@ def _packed_positions(rng, b, s, lo, hi):
     return np.asarray(rows, np.int32)
 
 
-def _flash_inputs(torch, rng, b, sq, sk, dtype, segments, d=D):
+def _flash_inputs(torch, rng, b, sq, sk, dtype, segments, d=D,
+                  heads=(H, KH)):
     from torchacc_tpu_torch.ops.flash_attention import (
         segment_ids_from_positions)
+    H, KH = heads
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2**31)))
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda",
                                      dtype=dtype)
@@ -884,7 +941,7 @@ def _flash_work(torch, q, k, seg, causal, window):
     dkv) for these inputs: every input read once, every output written
     once, only the pairs the mask lets through counted."""
     from torchacc_tpu_torch.ops.attention import make_attention_mask
-    b, sq, _, _ = q.shape
+    b, sq, H, _ = q.shape
     sk = k.shape[1]
     mask = make_attention_mask(sq, sk, causal, window, seg, seg,
                                q_offset=sk - sq, device=q.device)
@@ -899,9 +956,12 @@ def _flash_work(torch, q, k, seg, causal, window):
     return pairs, {"fwd": fwd, "bwd_dq": dq, "bwd_dkv": dkv}, mask
 
 
-def _flash_phase(torch, args, d=D, only=None):
-    """B1-B3 against the plain version at heads of ``d`` (``only``: the
-    cases to run, default all); times at the training shape."""
+def _flash_phase(torch, args, d=D, only=None, heads=(H, KH), cases=None,
+                 timed=("train", "train_f16")):
+    """B1-B3 against the plain version at ``heads`` (q, kv) of ``d``
+    (``only``: the cases to run, default all; ``cases``: other cases in
+    place of these); times at the ``timed`` shapes."""
+    H, KH = heads
     import numpy as np
     import torch.nn.functional as F
     import torchacc_tpu_torch.ops.flash_attention as fa
@@ -920,13 +980,14 @@ def _flash_phase(torch, args, d=D, only=None):
                 torch.float32: dict(atol=1e-4, rtol=1e-4)}
     slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda",
                                          dtype=torch.float32) / H)
-    cases = {   # b, sq, sk, dtype, segments, causal, window, softcap, more
+    # b, sq, sk, dtype, segments, causal, window, softcap, more
+    cases = cases or {
         "train": (TRAIN_B, TRAIN_S, TRAIN_S, torch.bfloat16, True, True,
                   (-1, -1), 0.0, {}),
         "train_f16": (TRAIN_B, TRAIN_S, TRAIN_S, torch.float16, True, True,
                       (-1, -1), 0.0, {}),
         "window_softcap": (1, 2048, 2048, torch.bfloat16, False, True,
-                           (1024, -1), 50.0, {}),
+                           (1024, -1), 50.0, dict(q_mul=SOFTCAP_Q_MUL)),
         "f32": (1, 1024, 1024, torch.float32, True, True, (-1, -1), 0.0, {}),
         "sq_ne_sk_empty_rows": (1, 1536, 512, torch.bfloat16, False, True,
                                 (-1, -1), 0.0, {}),
@@ -945,8 +1006,11 @@ def _flash_phase(torch, args, d=D, only=None):
                more) in cases.items():
         if only is not None and name not in only:
             continue
+        more = dict(more)
+        q_mul = more.pop("q_mul", 1.0)
         q, k, v, do, seg = _flash_inputs(torch, rng, b, sq, sk, dtype,
-                                         segments, d)
+                                         segments, d, heads)
+        q *= q_mul
         scale = d ** -0.5
         kw = dict(causal=causal, window=window, logit_softcap=cap,
                   q_segment_ids=seg, kv_segment_ids=seg, **more)
@@ -959,7 +1023,8 @@ def _flash_phase(torch, args, d=D, only=None):
                 q, k, v, got["o"], got["lse"], do, impl=impl, **kw)
         torch.cuda.synchronize()
         rec = {"b": b, "sq": sq, "sk": sk, "dtype": str(dtype),
-               "segments": segments, "window": list(window), "softcap": cap}
+               "segments": segments, "window": list(window), "softcap": cap,
+               "q_mul": q_mul}
         for key in ("o", "lse", "dq", "dk", "dv"):
             a, r = got[key].float(), ref[key].float()
             if not torch.isfinite(a).all():
@@ -991,14 +1056,17 @@ def _flash_phase(torch, args, d=D, only=None):
         if name == "train_f16":
             rec["control_bf16"] = _f16_control(torch, fa, q, k, v, do, kw,
                                                ref)
+        if cap > 0.0:
+            rec["control_no_dcap"] = _softcap_control(
+                torch, fa, q, k, v, do, kw, got, grad_tol[dtype], tag, name)
         del got, ref
-        if name in ("train", "train_f16"):
+        if name in timed:
             rec.update(_flash_times(torch, F, fa, args, q, k, v, do, seg,
                                     scale, causal, window, cap))
         results[name] = rec
         del q, k, v, do, seg
         torch.cuda.empty_cache()
-    if only is None:
+    if only is None and d == D:
         results["dropped_fraction"] = _dropped_fraction(torch, fa)
     return results
 
@@ -1023,6 +1091,37 @@ def _f16_control(torch, fa, q, k, v, do, kw, ref):
     if min(worst.values()) <= 1.0:
         _fail(f"flash f16: the bf16 control stays within the f16 tolerance "
               f"({worst}): it cannot tell f16 from bf16")
+    return worst
+
+
+def _softcap_control(torch, fa, q, k, v, do, kw, got, tol, tag, name):
+    """The gradient check must see the softcap's derivative: the
+    kernels' dq and dk against a plain backward that applies the cap to
+    the scores but drops its chain factor 1 - tanh^2 (a B2 or B3 with
+    that fault) read above the tolerance, each."""
+    import torchacc_tpu_torch.ops.attention as attn
+    scores = attn._scores
+
+    def no_dcap(*a, **k2):
+        return scores(*a, **k2)[0], 1.0
+    attn._scores = no_dcap
+    try:
+        bad = dict(zip(("dq", "dk"), fa.flash_attention_bwd(
+            q, k, v, got["o"], got["lse"], do, impl="torch", **kw)))
+    finally:
+        attn._scores = scores
+    worst = {}
+    for key, r in bad.items():
+        r = r.float()
+        worst[key] = ((got[key].float() - r).abs() / (
+            tol["atol"] + tol["rtol"] * r.abs())).max().item()
+    print(f"{tag} {name} control (the plain backward without the softcap's "
+          f"derivative): worst/tol {_fmt(worst.values())} for dq, dk (each "
+          f"must exceed 1)", flush=True)
+    if min(worst.values()) <= 1.0:
+        _fail(f"{tag} {name}: the kernels' gradients stay within the "
+              f"tolerance of a backward without the softcap's derivative "
+              f"({worst}): the check cannot see that factor")
     return worst
 
 
@@ -1074,6 +1173,7 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
     # yardstick: SDPA with the same dense mask on BHSD copies with the kv
     # heads expanded (forward; forward+backward minus forward)
     pairs, nbytes, mask = _flash_work(torch, q, k, seg, causal, window)
+    H = q.shape[2]
     if cap == 0.0:
         bh = lambda t: t.repeat_interleave(H // t.shape[2], dim=2) \
             .transpose(1, 2).contiguous()
@@ -1091,7 +1191,11 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         out["library_fwd_ms"] = lib_fwd
         out["library_bwd_ms"] = lib_all - lib_fwd
         del qt, kt, vt, dot, qg, kg, vg
+    else:
+        out.update(_flex_times(torch, q, k, v, do, seg, causal, window, cap,
+                               scale, o, reps))
     d = q.shape[-1]
+    lib_name = "SDPA, dense mask" if cap == 0.0 else "flex_attention"
     flops = {"fwd": 4 * d * pairs * H, "bwd_dq": 6 * d * pairs * H,
              "bwd_dkv": 8 * d * pairs * H}
     out["visible_pairs_per_head"] = pairs
@@ -1111,7 +1215,7 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
     print(f"flash train shape {dt}: visible pairs/head {pairs}; kernel ms fwd "
           f"{out['fwd_ms']:.3f} dq {out['bwd_dq_ms']:.3f} dkv "
           f"{out['bwd_dkv_ms']:.3f}; plain ms fwd {out['plain_fwd_ms']:.2f} "
-          f"bwd {out['plain_bwd_ms']:.2f}; library (SDPA, dense mask) ms fwd "
+          f"bwd {out['plain_bwd_ms']:.2f}; library ({lib_name}) ms fwd "
           f"{out.get('library_fwd_ms', float('nan')):.3f} bwd "
           f"{out.get('library_bwd_ms', float('nan')):.3f}; bound ms fwd "
           f"{out['fwd_bound_ms']:.4f} dq {out['bwd_dq_bound_ms']:.4f} dkv "
@@ -1122,9 +1226,72 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         f"({out[f'{kname}_tflops'] / (PEAK_BF16_FLOPS / 1e12):.3f} of the "
         f"{dt} peak), {out[f'{kname}_bound_share']:.3f} of its bound"
         for kname in FLASH) + f"; bwd_dq + bwd_dkv "
-        f"{out['bwd_dq_ms'] + out['bwd_dkv_ms']:.3f} ms against SDPA's "
+        f"{out['bwd_dq_ms'] + out['bwd_dkv_ms']:.3f} ms against {lib_name}'s "
         f"backward {out.get('library_bwd_ms', float('nan')):.3f} ms",
         flush=True)
+    return out
+
+
+def _flex_times(torch, q, k, v, do, seg, causal, window, cap, scale, o,
+                reps):
+    """The library's time for a softcapped attention, which SDPA cannot
+    compute: compiled flex_attention with the cap as its score_mod, the
+    causal window and the documents as its block mask and the kv heads
+    shared (enable_gqa), on [b, h, s, d] copies.  Forward; forward +
+    backward less forward.  Its output is held against the kernel's
+    ``o``; where flex_attention cannot run these shapes or disagrees,
+    the times are left out and the reason printed (a yardstick only:
+    the port never calls it)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    b, sq, _, _ = q.shape
+    sk = k.shape[1]
+    left, right = window
+
+    def mask_mod(bi, hi, qi, ki):
+        qp = qi + (sk - sq)                 # bottom-right aligned
+        ok = qp >= ki if causal else qp >= 0
+        if left >= 0:
+            ok = ok & (qp - ki <= left)
+        if right >= 0:
+            ok = ok & (ki - qp <= right)
+        if seg is not None:
+            ok = ok & (seg[bi, qi] == seg[bi, ki])
+        return ok
+
+    def score_mod(s, bi, hi, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    out = {}
+    try:
+        bm = create_block_mask(mask_mod, None if seg is None else b, None,
+                               sq, sk, device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        bh = lambda t: t.transpose(1, 2).contiguous()
+        qt, kt, vt, dot = bh(q), bh(k), bh(v), bh(do)
+
+        def run(qq, kk, vv):
+            return flex(qq, kk, vv, score_mod=score_mod, block_mask=bm,
+                        scale=scale, enable_gqa=True)
+        got = run(qt, kt, vt).transpose(1, 2).float()
+        err = (got - o.float()).abs().max().item()
+        out["library_max_abs_err"] = err
+        if not torch.allclose(got, o.float(), atol=1e-2, rtol=5e-2):
+            raise ValueError(f"it computes another function here: max "
+                             f"|flex - kernel| {err:.3g}")
+        lib_fwd = _time_ms(torch, lambda i: run(qt, kt, vt), reps)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+
+        def fwd_bwd(i):
+            torch.autograd.grad(run(qg, kg, vg), (qg, kg, vg), dot)
+        lib_all = _time_ms(torch, fwd_bwd, reps)
+        out["library_fwd_ms"] = lib_fwd
+        out["library_bwd_ms"] = lib_all - lib_fwd
+    except Exception as e:                  # the yardstick, not the port
+        out["library_error"] = f"{type(e).__name__}: {e}"[:600]
+        print(f"flash library yardstick: flex_attention at {list(q.shape)}, "
+              f"window {list(window)}, softcap {cap} did not run: "
+              f"{out['library_error']}", flush=True)
     return out
 
 
@@ -2757,12 +2924,14 @@ HF_SHARDS = 4
 
 
 def _hf_tensors(cfg, layers):
-    """HF tensor name -> shape of a Llama checkpoint of ``cfg`` (tied:
-    no lm_head), in the order the shards hold them."""
+    """HF tensor name -> shape of a Llama or Gemma2 checkpoint of ``cfg``
+    (tied: no lm_head; Gemma2's pre- and post-feedforward norms), in the
+    order the shards hold them."""
     h, f, d = cfg["hidden_size"], cfg["intermediate_size"], cfg["head_dim"]
     q, kv = cfg["num_attention_heads"] * d, cfg["num_key_value_heads"] * d
     out = {"model.embed_tokens.weight": (cfg["vocab_size"], h),
            "model.norm.weight": (h,)}
+    sandwich = cfg["model_type"] == "gemma2"
     for i in range(layers):
         p = f"model.layers.{i}."
         out.update({
@@ -2772,6 +2941,9 @@ def _hf_tensors(cfg, layers):
             p + "self_attn.v_proj.weight": (kv, h),
             p + "self_attn.o_proj.weight": (h, q),
             p + "post_attention_layernorm.weight": (h,),
+            **({p + "pre_feedforward_layernorm.weight": (h,),
+                p + "post_feedforward_layernorm.weight": (h,)}
+               if sandwich else {}),
             p + "mlp.gate_proj.weight": (f, h),
             p + "mlp.up_proj.weight": (f, h),
             p + "mlp.down_proj.weight": (h, f)})
@@ -2799,15 +2971,18 @@ def _write_safetensors(torch, path, tensors):
     return 8 + len(raw) + off
 
 
-def _write_hf_checkpoint(torch, root, seed, layers):
-    """Into the empty directory ``root``: Llama-3.2-1B's config.json
-    (``layers`` deep) and its weights in HF's tensor names, bf16, in
-    HF_SHARDS safetensors files named by an index: matrices
-    normal(0, initializer_range) from numpy generators spawned from
-    ``seed`` (one a tensor, drawn on 8 threads), norm scales one.  Returns (the HF tensors by name, bytes written)."""
+def _write_hf_checkpoint(torch, root, seed, layers, published=None):
+    """Into the empty directory ``root``: a published config.json
+    (``published``, default Llama-3.2-1B's; ``layers`` deep) and its
+    weights in HF's tensor names, bf16, in HF_SHARDS safetensors files
+    named by an index: matrices normal(0, initializer_range) from numpy
+    generators spawned from ``seed`` (one a tensor, drawn on 8 threads),
+    norm scales their init (one; zero for Gemma's 1 + w norms).  Returns
+    (the HF tensors by name, bytes written)."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
-    cfg = dict(LLAMA32_1B, num_hidden_layers=layers)
+    cfg = dict(published or LLAMA32_1B, num_hidden_layers=layers)
+    norm_init = 0.0 if cfg["model_type"].startswith("gemma") else 1.0
     with open(os.path.join(root, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)
     shapes = _hf_tensors(cfg, layers)
@@ -2818,7 +2993,7 @@ def _write_hf_checkpoint(torch, root, seed, layers):
     def make(name):
         shape = shapes[name]
         if name.endswith("norm.weight"):
-            return torch.ones(shape, dtype=torch.bfloat16)
+            return torch.full(shape, norm_init, dtype=torch.bfloat16)
         x = np.random.default_rng(gens[name]).standard_normal(
             int(np.prod(shape)), dtype=np.float32)
         return torch.from_numpy(x).mul_(std).to(torch.bfloat16).view(shape)
@@ -3085,6 +3260,397 @@ def _hf_serving(torch, args, pa, trainer, tag):
     return {"paged_launches": launches, "paged_dispatches": dispatches,
             "serve_tokens_per_s": stats["tokens_per_sec"],
             "logits_rel": rel["kernel"], "first_divergence_bf16": firsts}
+
+
+# ---------------------------------------------------------------------------
+# the Gemma family: heads of 256 (B-2)
+# ---------------------------------------------------------------------------
+
+# google/gemma-2-2b's published config.json: 2.6 B parameters, 8/4 heads
+# of 256, a 4096-key window on every other layer, softcaps 50 and 30
+GEMMA2_2B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 2304, "intermediate_size": 9216,
+    "num_hidden_layers": 26, "num_attention_heads": 8,
+    "num_key_value_heads": 4, "head_dim": 256,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-06, "query_pre_attn_scalar": 256,
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+    "attention_bias": False, "attention_dropout": 0.0,
+    "initializer_range": 0.02, "torch_dtype": "float32",
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+    "cache_implementation": "hybrid",
+}
+GEMMA2_S = 8192                  # tokens a training row, one document
+GEMMA2_STEPS = 6                 # fit steps (the first 2 are warm-up)
+# the first-batch loss through B1 against the plain attention's, relative:
+# read 1.8e-5 at 8 layers on an H100 (PERF.md), and 4.5e-4 for its
+# control, the plain attention with every window lifted
+GEMMA2_LOSS_LIMIT = 1e-4
+# the served gemma-2b's first layers whose q heads project as their kv
+# head does, so that a row attends to its own key (_gemma_serving_phase).
+# Over seeds 0-2 on an H100 with 1 (2, 3) such layers the kernel read
+# <= 0.023 (0.015, 0.015) of the logits, the 64-key window's largest
+# reading a seed >= 0.26 (0.18, 0.155), the own key's >= 0.98 (1.09,
+# 1.08), against the limit 0.127: more tied layers leave fewer whose
+# near-uniform attention the window moves
+GEMMA_TIED_LAYERS = 1
+# the kernels' heads at 256 on this slice's paths: gemma2-2b's 8/4
+# (training, B1-B3) and gemma-2b's 8 over 1 (serving, B4)
+GEMMA_FLASH_HEADS, GEMMA_PAGED_HEADS = (8, 4), (8, 1)
+
+
+def _gemma_kernel_phase(torch, args, pa):
+    """B4 and B1-B3 at heads of 256 against their plain versions: B4 at
+    gemma-2b's heads (decode, prefill, softcap, window, long decode),
+    B1-B3 at gemma2-2b's in bf16 at the training shape of both layer
+    kinds (a sliding layer's 4095-key window and a global layer, softcap
+    50, one 8192-token row), timed beside compiled flex_attention, and
+    again without the softcap beside SDPA; f16 and f32 cases with the
+    window, the softcap and packed documents; rows that see no key.  q
+    is scaled by SOFTCAP_Q_MUL wherever the cap is on, so that the cap
+    bends the scores that carry the softmax."""
+    kern = _kernel_phase(torch, args, pa, d=256, heads=GEMMA_PAGED_HEADS,
+                         only=("decode", "prefill", "decode_softcap",
+                               "prefill_window", "decode_long"))
+    bf, win = torch.bfloat16, (GEMMA2_2B["sliding_window"] - 1, -1)
+    big = dict(q_mul=SOFTCAP_Q_MUL)
+    cases = {   # b, sq, sk, dtype, segments, causal, window, softcap, more
+        "sliding": (1, GEMMA2_S, GEMMA2_S, bf, False, True, win, 50.0, big),
+        "global": (1, GEMMA2_S, GEMMA2_S, bf, False, True, (-1, -1), 50.0,
+                   big),
+        "sliding_no_cap": (1, GEMMA2_S, GEMMA2_S, bf, False, True, win, 0.0,
+                           {}),
+        "f16_window_softcap": (1, 2048, 2048, torch.float16, True, True,
+                               (1023, -1), 50.0, big),
+        "f32_window_softcap": (1, 1024, 1024, torch.float32, True, True,
+                               (255, -1), 50.0, big),
+        "sq_ne_sk_empty_rows": (1, 1536, 512, bf, False, True, (-1, -1), 0.0,
+                                {}),
+    }
+    flash = _flash_phase(torch, args, d=256, heads=GEMMA_FLASH_HEADS,
+                         cases=cases,
+                         timed=("sliding", "global", "sliding_no_cap"))
+    return kern, flash
+
+
+def _gemma2_training_phase(torch, args):
+    """google/gemma-2-2b's config.json at --gemma-layers with seeded bf16
+    weights in HF's layout through accelerate(path) -> Trainer.fit on
+    rows of one 8192-token document, so that the sliding layers' window
+    masks: the first batch's loss through B1-B3 against the plain
+    attention's, then the run's losses, step time, MFU and launches."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, accelerate)
+    from torchacc_tpu_torch.models.transformer import (head_weight,
+                                                      set_model_config)
+    from torchacc_tpu_torch.ops.fused import fused_linear_cross_entropy
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
+    import dataclasses
+
+    tag, layers, steps, warm = ("gemma2", args.gemma_layers, GEMMA2_STEPS,
+                                2)
+    if layers % 2 or layers < 2:
+        _fail(f"--gemma-layers must be a positive multiple of the pattern's "
+              f"period 2, got {layers}")
+    print(f"{tag}: depth cut to {layers} of "
+          f"{GEMMA2_2B['num_hidden_layers']} layers (full width kept)",
+          flush=True)
+    per_layer = 2 * 2304 * 2048 + 2 * 2304 * 1024 + 3 * 2304 * 9216
+    root = _hf_root(2 * (256000 * 2304 + layers * per_layer))
+    try:
+        t0 = time.perf_counter()
+        _, nbytes = _write_hf_checkpoint(torch, root, args.seed + 21, layers,
+                                         GEMMA2_2B)
+        print(f"{tag}: wrote gemma-2-2b's config.json and {nbytes} bytes of "
+              f"bf16 safetensors to {root} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                      data=DataConfig(max_length=GEMMA2_S, prefetch=2),
+                      seed=args.seed)
+        docs = _zipf_docs(args.seed + 22, (steps + 1) * GEMMA2_S,
+                          GEMMA2_2B["vocab_size"], lo=GEMMA2_S,
+                          hi=GEMMA2_S + 1)
+        first = next(iter(PackedDataset(docs, seq_len=GEMMA2_S,
+                                        batch_rows=1)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, loader = accelerate(
+            root, PackedDataset(docs, seq_len=GEMMA2_S, batch_rows=1), conf,
+            optimizer=adamw(warmup_linear(1e-4, steps, 1)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = trainer.model.cfg
+    if (cfg.head_size, cfg.layer_pattern, cfg.window, cfg.attn_logit_softcap,
+            cfg.logit_softcap, cfg.norm) != (256, ("sliding", "global"),
+                                             (4095, -1), 50.0, 30.0,
+                                             "rmsnorm1p"):
+        _fail(f"{tag}: config_from_hf gave {cfg}")
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+
+    # the first batch's loss through the kernels and through the plain
+    # attention, from the same weights; a control lifts every window
+    batch = {k: torch.as_tensor(v).cuda() for k, v in first.items()}
+    labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+    model = trainer.model
+
+    @torch.no_grad()
+    def loss(**fields):
+        set_model_config(model, dataclasses.replace(cfg, **fields))
+        hidden = model(batch["input_ids"], batch["positions"],
+                       batch["segment_ids"], return_hidden=True)
+        l_sum, count = fused_linear_cross_entropy(
+            hidden, head_weight(model).t(), labels,
+            logit_softcap=cfg.logit_softcap)
+        return (l_sum / count).item()
+    for key in fa.launch_counts:
+        fa.launch_counts[key] = 0
+    got = loss(attention_impl="cuda")
+    if fa.launch_counts["fwd"] != layers:
+        _fail(f"{tag}: the check's forward launched B1 "
+              f"{fa.launch_counts['fwd']} times, not {layers}")
+    ref = loss(attention_impl="torch")
+    no_window = loss(attention_impl="torch", window=(-1, -1))
+    set_model_config(model, cfg)
+    rel = abs(got - ref) / abs(ref)
+    rel_control = abs(no_window - ref) / abs(ref)
+    limit = GEMMA2_LOSS_LIMIT
+    print(f"{tag} check: first-batch loss through B1 {got:.6f}, plain "
+          f"attention {ref:.6f}, relative {rel:.3g} (limit {limit:.3g}); "
+          f"control, plain with every window lifted, {no_window:.6f} "
+          f"(relative {rel_control:.3g}, must exceed the limit)", flush=True)
+    if not math.isfinite(got) or rel > limit:
+        _fail(f"{tag}: the first-batch loss through the kernels parts from "
+              f"the plain attention's by {rel:.3g} > {limit:.3g}")
+    if rel_control <= limit:
+        _fail(f"{tag}: the window-lifted control stays within {limit:.3g}: "
+              f"the check cannot tell whether the window bites")
+
+    tap = _StepTap(torch, trainer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launch_counts:             # counts start here ...
+        fa.launch_counts[key] = 0
+    trainer.fit(loader, max_steps=steps, log_every=0)
+    step_ms, ms = tap.finish(warm)
+    launches = dict(fa.launch_counts)        # ... and are read here
+    losses = [m["loss"].item() for m in tap.metrics]
+    peak = torch.cuda.max_memory_allocated()
+    attn = cfg.num_heads * cfg.head_size
+    flops_tok = 6.0 * n_params + 6.0 * layers * attn * GEMMA2_S
+    mfu = flops_tok * GEMMA2_S / (ms / 1e3) / PEAK_BF16_FLOPS
+    want = {k: layers * steps for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(f"{tag}: fit over 1 x {GEMMA2_S} tokens a step (one document a "
+          f"row: the 4095-key window masks on the {layers // 2} sliding "
+          f"layers): losses {_fmt(losses)}; step ms {_fmt(step_ms)} (first "
+          f"{warm} warm-up), mean {ms:.1f} ms, {GEMMA2_S / (ms / 1e3):.0f} "
+          f"tokens/s, MFU {mfu:.4f} of the bf16 peak (6N + 6*L*heads*d*s "
+          f"per token, N = {n_params}, causal pairs counted whole); peak "
+          f"allocated {peak / 2**30:.2f} GiB; B1/B2/B3 launches at d 256 "
+          f"{launches} (expected {want}: layers x steps)", flush=True)
+    if not all(np.isfinite(losses)):
+        _fail(f"{tag}: losses {losses}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        _fail(f"{tag}: the loss did not fall on distinct batches: {losses}")
+    if launches != want:
+        _fail(f"{tag}: flash launches {launches} != {want}")
+    del tap, loader, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "layers": layers,
+            "step_ms": ms, "mfu": mfu, "tokens_per_s": GEMMA2_S / (ms / 1e3),
+            "peak_bytes": peak, "losses": losses, "check_rel": rel}
+
+
+def _gemma3_generate_phase(torch, args):
+    """gemma3-1b at full width and one pattern period (5 sliding layers
+    with a 512-key window and the local rope base, 1 global) through
+    generate() on prompts of 1024 tokens, so that the window bites:
+    bf16 through B1 (counted) beside the plain attention, then f32
+    token for token against the plain attention."""
+    import dataclasses
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import get_preset, init_params
+    from torchacc_tpu_torch.models.generate import generate
+
+    tag, layers, max_new = "gemma3 generate", 6, 16
+    cfg = get_preset("gemma3-1b", dtype=torch.bfloat16, num_layers=layers)
+    model = init_params(cfg, seed=args.seed + 31, device="cuda",
+                        dtype=torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(args.seed + 32).integers(
+        0, cfg.vocab_size, (2, 1024))).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{tag}: gemma3-1b x{layers} layers of 26 (one pattern period, "
+          f"full width), {n_params / 1e9:.3f}B params bf16; 2 prompts of "
+          f"1024 tokens, window {cfg.window}", flush=True)
+    generate(model, prompts[:, :64], max_new_tokens=2)   # warm-up
+    out, ms = {}, {}
+    for impl in ("cuda", "torch"):
+        for key in fa.launch_counts:         # counts start here ...
+            fa.launch_counts[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[impl] = generate(model, prompts, max_new_tokens=max_new,
+                             attention_impl=impl)
+        torch.cuda.synchronize()
+        ms[impl] = (time.perf_counter() - t0) * 1e3
+        if impl == "cuda":
+            launches = dict(fa.launch_counts)    # ... and are read here
+    want = {"fwd": layers * max_new, "bwd_dq": 0, "bwd_dkv": 0}
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(out["cuda"][:, 1024:].tolist(),
+                             out["torch"][:, 1024:].tolist())]
+    print(f"{tag}: bf16 {max_new} new tokens x 2 rows in {ms['cuda']:.1f} ms "
+          f"through B1 ({ms['torch']:.1f} ms plain); B1 launches {launches} "
+          f"(expected {want}: layers x (the prefill + {max_new - 1} decode "
+          f"steps)); first greedy divergence from the plain path in bf16 "
+          f"(None = identical) {first}", flush=True)
+    if launches != want:
+        _fail(f"{tag}: launches {launches} != {want}")
+    # f32 compute: B1's f32 body, whose sums differ from the plain
+    # version's in the last bits only, so no greedy choice may flip
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    from torchacc_tpu_torch import TransformerLM
+    model32 = TransformerLM(cfg32, device="meta", dtype=torch.float32)
+    model32 = model32.to_empty(device="cuda").requires_grad_(False).eval()
+    with torch.no_grad():
+        for (_, p32), (_, p) in zip(model32.named_parameters(),
+                                    model.named_parameters()):
+            p32.copy_(p)
+    toks = {impl: generate(model32, prompts, max_new_tokens=max_new,
+                           attention_impl=impl)[:, 1024:].tolist()
+            for impl in ("cuda", "torch")}
+    print(f"{tag} f32: through B1 {toks['cuda']}, plain {toks['torch']}",
+          flush=True)
+    if toks["cuda"] != toks["torch"]:
+        _fail(f"{tag} f32: the greedy tokens through B1 differ from the "
+              f"plain attention's")
+    # the prompts' last-position logits (bf16) through B1 against the
+    # plain attention, and a control with every window lifted: the 512-key
+    # window must move them by more than the kernel does
+    from torchacc_tpu_torch.models.transformer import (head_logits,
+                                                      set_model_config)
+
+    @torch.no_grad()
+    def last_logits(**fields):
+        set_model_config(model, dataclasses.replace(cfg, **fields))
+        hidden = model(prompts, return_hidden=True)
+        set_model_config(model, cfg)
+        return head_logits(cfg, model, hidden[:, -1:])[:, 0]
+    ref = last_logits(attention_impl="torch")
+    rel = {name: ((got - ref).abs().max() / ref.abs().max()).item()
+           for name, got in (
+               ("kernel", last_logits(attention_impl="cuda")),
+               ("no_window", last_logits(attention_impl="torch",
+                                         window=(-1, -1))))}
+    limit = _logits_limit(layers)
+    print(f"{tag}: last-prompt logits vs plain attention: kernel "
+          f"{rel['kernel']:.4g} (limit {limit:.3g}), control with every "
+          f"window lifted {rel['no_window']:.4g}", flush=True)
+    if rel["kernel"] > limit or rel["no_window"] <= limit:
+        _fail(f"{tag}: logits {rel} against the limit {limit:.3g}")
+    del model, model32
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms["cuda"], "plain_ms": ms["torch"],
+            "first_divergence_bf16": first}
+
+
+def _gemma_serving_phase(torch, args, pa):
+    """gemma-2b at full width and depth (18 layers, MQA: 8 q heads over
+    one kv head of 256) from init_params(seed), bf16, served through
+    ServeEngine: B4 at d 256 launches layers x dispatches, and the
+    last-prompt logits lie within _logits_limit of the plain attention
+    while two controls do not: a 64-key window the model does not have,
+    and the last row not seeing its own key.  Random weights attend
+    near-uniformly over hundreds of keys, where one key dropped moves
+    the output too little to read; so in the first GEMMA_TIED_LAYERS
+    layers each q head's projection is its kv head's (q_i . k_i =
+    |k_i|^2, about 13 after the scale, against others' ~N(0, 0.8^2)),
+    and there a row attends to its own key.  The other layers keep
+    their near-uniform attention, which the window control reads.  With
+    one kv head a wrong GQA map cannot show."""
+    import numpy as np
+    from torchacc_tpu_torch import (Config, Request, ServeConfig, ServeEngine,
+                                    get_preset, init_params)
+
+    tag, max_new = "gemma serving", 16
+    cfg = get_preset("gemma-2b", dtype=torch.bfloat16)
+    model = init_params(cfg, seed=args.seed + 41, device="cuda",
+                        dtype=torch.bfloat16)
+    group = cfg.num_heads // cfg.kv_heads
+    for layer in model.layers[:GEMMA_TIED_LAYERS]:
+        wk = layer.attn.k_proj.weight               # [kv heads x d, hidden]
+        layer.attn.q_proj.weight.copy_(wk.view(cfg.kv_heads, -1, wk.shape[1])
+                                       .repeat_interleave(group, dim=0)
+                                       .reshape_as(layer.attn.q_proj.weight))
+    rng = np.random.default_rng(args.seed + 42)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (64, 300, 700, 1000)]
+    eng = ServeEngine(model, Config(serve=ServeConfig(
+        block_size=BS, num_blocks=1024, max_slots=8, prefill_chunk=256,
+        decode_depth=2)))
+    eng.generate([Request(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+    eng.reset_stats()
+    sched = eng.scheduler
+    dec0, pre0 = sched.decode_dispatches, sched.prefill_dispatches
+    for shape in pa.launch_counts:           # counts start here ...
+        pa.launch_counts[shape] = 0
+    res = eng.generate([Request(prompt_ids=p, max_new_tokens=max_new)
+                        for p in prompts])
+    torch.cuda.synchronize()
+    launches = dict(pa.launch_counts)        # ... and are read here
+    dispatches = {"decode": sched.decode_dispatches - dec0,
+                  "prefill": sched.prefill_dispatches - pre0}
+    stats = eng.stats()
+    eng.close()
+    for shape, n in dispatches.items():
+        if n == 0 or launches[shape] != cfg.num_layers * n:
+            _fail(f"{tag}: {shape} launches {launches[shape]} != layers "
+                  f"{cfg.num_layers} x dispatches {n}")
+    if any(len(r.tokens) != max_new for r in res):
+        _fail(f"{tag}: streams of {[len(r.tokens) for r in res]} tokens")
+    ref = _prompt_logits(torch, model, cfg, prompts, "torch")
+    rel = {}
+    def narrow_window(*a, **kw):
+        from torchacc_tpu_torch.ops.paged_attention import paged_attention
+        return paged_attention(*a, **dict(kw, window=(63, -1)))
+    for name, attend in (("kernel", None), ("narrow_window", narrow_window),
+                         ("drop_own_key", _drop_own_key)):
+        got = _prompt_logits(torch, model, cfg, prompts,
+                             "cuda" if attend is None else "torch", attend)
+        if not all(torch.isfinite(a).all() for a in got):
+            _fail(f"{tag}: non-finite logits ({name})")
+        rel[name] = [((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(got, ref)]
+    limit = _logits_limit(cfg.num_layers)
+    print(f"{tag}: gemma-2b x{cfg.num_layers} (full depth and width), "
+          f"{len(prompts)} greedy requests (prompts "
+          f"{[len(p) for p in prompts]}, {max_new} new tokens) in bf16: "
+          f"{stats['tokens_per_sec']:.1f} tokens/s, TTFT p50 "
+          f"{stats['ttft_s_p50'] * 1e3:.1f} ms, per-token p50 "
+          f"{stats['per_token_s_p50'] * 1e3:.2f} ms; B4 launches at d 256 "
+          f"{launches} = {cfg.num_layers} x {dispatches}; last-prompt logits "
+          f"vs plain attention: kernel {_fmt(rel['kernel'])} (limit "
+          f"{limit:.3g}), controls narrow_window "
+          f"{_fmt(rel['narrow_window'])}, drop_own_key "
+          f"{_fmt(rel['drop_own_key'])}", flush=True)
+    if max(rel["kernel"]) > limit:
+        _fail(f"{tag}: logits through B4 part from the plain path by "
+              f"{max(rel['kernel']):.3g} > {limit:.3g}")
+    for name in ("narrow_window", "drop_own_key"):
+        if max(rel[name]) <= limit:
+            _fail(f"{tag}: the {name} control stays within {limit:.3g}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches,
+            "tokens_per_s": stats["tokens_per_sec"],
+            "logits_rel": rel["kernel"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3717,6 +4283,10 @@ def main():
                     help="fit steps on the Hugging Face checkpoint (the "
                          "first 2 are warm-up, the last holds the "
                          "evaluation)")
+    ap.add_argument("--gemma-layers", type=int, default=8,
+                    help="depth of the trained Hugging Face gemma-2-2b "
+                         "checkpoint (width is full; a multiple of its "
+                         "pattern's period 2)")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed kernel launches per shape")
     ap.add_argument("--seed", type=int, default=0)
@@ -3774,6 +4344,8 @@ def main():
     flash, flash16 = flash_all["train"], flash_all["train_f16"]
     flash64 = _flash_phase(torch, args, d=64,
                            only=("train", "f32", "sq_ne_sk_empty_rows"))
+    # heads of 256 (the Gemma family)
+    kern256, flash256 = _gemma_kernel_phase(torch, args, pa)
     cp_res = _cp_phase(torch, args)
     qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
@@ -3810,6 +4382,9 @@ def main():
     _accum_check_phase(torch, args)
     _offload_check_phase(torch, args)
     hf = _hf_phase(torch, args, pa)
+    gemma2 = _gemma2_training_phase(torch, args)
+    gen3 = _gemma3_generate_phase(torch, args)
+    gserve = _gemma_serving_phase(torch, args, pa)
     root = _ckpt_root()
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -3927,6 +4502,56 @@ def main():
             bound_share=flash16[f"{name}_bound_share"],
             control_bf16_worst_over_tol=max(
                 flash16["control_bf16"][e] for e in errs if e != "lse")))
+    for shape in ("decode", "prefill"):
+        k = kern256[shape]
+        entries.append(dict(
+            KERNEL, name=f"{KERNEL['name']}[{shape},d256]",
+            launches=gserve["launches"][shape],
+            launches_per_dispatch=(gserve["launches"][shape]
+                                   / gserve["dispatches"][shape]),
+            max_abs_err=max(kern256[c]["max_abs_err"] for c in kern256
+                            if (kern256[c]["t"] == 1) == (shape == "decode")),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            host_ms=k["host_ms"]))
+    kinds = ("sliding", "global")           # half the layers each
+    for name, replaces in FLASH.items():
+        part = "fwd" if name == "fwd" else "bwd"
+        errs = ("o", "lse") if name == "fwd" else (
+            ("dq",) if name == "bwd_dq" else ("dk", "dv"))
+        mean = lambda key: sum(flash256[c][key] for c in kinds) / 2
+        lib = [flash256[c].get(f"library_{part}_ms") for c in kinds]
+        nocap = flash256["sliding_no_cap"]
+        entries.append(dict(
+            name=f"flash_attention[{name},d256]", route="cuda",
+            body=FLASH_BODY[name], source=FLASH_SOURCE,
+            replaces=replaces, launches=gemma2["launches"][name],
+            launches_per_step=gemma2["launches"][name] / gemma2["steps"],
+            launches_generate=gen3["launches"][name],
+            max_abs_err=max(flash256[c][e]["max_abs_err"] for c in flash256
+                            for e in errs),
+            # the mean over a sliding and a global layer of gemma2's
+            # training shape, softcap 50; the library is compiled
+            # flex_attention (null, with its error, where it did not
+            # run); SDPA's time at the sliding shape without the cap
+            # beside the kernel's there
+            ms=mean(f"{name}_ms"), plain_ms=mean(f"plain_{part}_ms"),
+            bound_ms=mean(f"{name}_bound_ms"),
+            bound_by=flash256["sliding"][f"{name}_bound_by"],
+            library_ms=None if None in lib else sum(lib) / 2,
+            library="flex_attention (compiled)",
+            library_error={c: flash256[c]["library_error"] for c in kinds
+                           if "library_error" in flash256[c]} or None,
+            library_sliding_ms=lib[0], library_global_ms=lib[1],
+            control_no_dcap_worst_over_tol=min(
+                min(flash256[c]["control_no_dcap"].values())
+                for c in flash256 if "control_no_dcap" in flash256[c]),
+            ms_sliding=flash256["sliding"][f"{name}_ms"],
+            ms_global=flash256["global"][f"{name}_ms"],
+            ms_no_cap=nocap[f"{name}_ms"],
+            library_no_cap_ms=nocap.get(f"library_{part}_ms"),
+            tflops=mean(f"{name}_tflops"),
+            bound_share=mean(f"{name}_bound_share")))
     for fmt in ("int8", "fp8"):
         q, run = qmm[fmt]["per_launch"], qtrain[fmt]
         entries.append(dict(

@@ -145,21 +145,24 @@ def test_config_from_hf_matches_jax_field_for_field(case, tmp_path):
 def test_unsupported_families_and_rope_types_raise_by_name():
     small = dict(vocab_size=64, hidden_size=64, intermediate_size=128,
                  num_hidden_layers=1, num_attention_heads=2)
-    with pytest.raises(NotImplementedError, match="'mistral'.*A10b"):
-        config_from_hf(transformers.MistralConfig(**small))
+    with pytest.raises(NotImplementedError, match="'phi3'.*A10b-2"):
+        config_from_hf(transformers.Phi3Config(**small))
     with pytest.raises(NotImplementedError, match="'mixtral'.*A10c"):
         config_from_hf(transformers.MixtralConfig(**small))
-    with pytest.raises(NotImplementedError, match="'gemma'.*A10b"):
-        config_from_hf(transformers.GemmaConfig(**small))
+    with pytest.raises(NotImplementedError, match="'gpt2'.*A10b-2"):
+        config_from_hf(transformers.GPT2Config(n_embd=64, n_layer=1,
+                                               n_head=2))
     yarn = transformers.LlamaConfig(**small, rope_scaling=dict(
         rope_type="yarn", factor=4.0, original_max_position_embeddings=64))
     jax_config_from_hf(yarn)        # JAX converts it; the port does not yet
-    with pytest.raises(NotImplementedError, match="'yarn'.*A10b"):
+    with pytest.raises(NotImplementedError, match="'yarn'.*A10b-2"):
         config_from_hf(yarn)
+    # a sliding window converts now, as JAX converts it: sliding_window
+    # keys, so a left window of one less
     sliding = transformers.Qwen2Config(**small, use_sliding_window=True,
                                        sliding_window=32)
-    with pytest.raises(NotImplementedError, match="use_sliding_window"):
-        config_from_hf(sliding)
+    assert config_from_hf(sliding).window == (31, -1) == \
+        jax_config_from_hf(sliding).window
 
 
 def _safe_open_tensors(path):

@@ -23,8 +23,12 @@ see ``FP8_ATOL``.  The flash kernels in f16: atol 2e-4 + rtol 2e-3, two
 f16 ulps (2^-10 of the value each); the same inputs through the bf16
 kernels read above it (chip_smoke.py's control).
 
+B1-B4 at the Gemma family's head dim 256 (B-2) as at the others: B1-B3
+in f32, bf16 and f16 (with a window, the softcap and segment ids), B4
+decode with a group of 8 and prefill, in f32 and bf16.
+
 B1-B3 at the context-parallel global offsets (B-1) against the plain
-versions at the same offsets, at heads of 64 and 128, in f32 and bf16,
+versions at the same offsets, at heads of 64, 128 and 256, in f32 and bf16,
 with a control at zero offsets that must part; the ring and Ulysses
 schedules over virtual ranks on the kernels against one whole call.
 
@@ -141,6 +145,16 @@ GEOMS = {
                           ctx_lens=[70, 300]),
     "decode_long_d64": dict(slots=8, heads=32, kv_heads=8, d=64, bs=16,
                             t=1, ctx_lens=_around_split),
+    # the Gemma family's heads of 256: gemma-2b's MQA (group 8) and
+    # gemma2-2b's 8 q heads over 4 kv heads
+    "decode_mqa_g8_d256": dict(slots=5, heads=8, kv_heads=1, d=256, bs=16,
+                               t=1, ctx_lens=[0, 1, 16, 17, 300]),
+    "chunk_mqa_g8_d256": dict(slots=2, heads=8, kv_heads=1, d=256, bs=16,
+                              t=70, ctx_lens=[70, 300]),
+    "decode_long_d256": dict(slots=8, heads=8, kv_heads=1, d=256, bs=16,
+                             t=1, ctx_lens=_around_split),
+    "chunk_gqa_d256": dict(slots=2, heads=8, kv_heads=4, d=256, bs=16,
+                           t=37, ctx_lens=[37, 200]),
 }
 OPTS = {"plain": {}, "softcap": dict(logit_softcap=30.0),
         "window": dict(window=(20, -1)),
@@ -288,6 +302,9 @@ FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
     "gqa_d64": (2, 200, 200, 8, 2, 64),            # Llama-3.2-1B's head dim
     "sq_gt_sk_d64": (1, 100, 40, 4, 2, 64),
     "mqa_d64_sk_gt_sq": (2, 70, 150, 4, 1, 64),
+    "gqa_d256": (2, 200, 200, 8, 4, 256),          # gemma2-2b's heads
+    "mqa_group8_d256": (1, 200, 200, 8, 1, 256),   # gemma-2b's heads
+    "sq_gt_sk_d256": (1, 100, 40, 4, 2, 256),
 }
 FLASH_OPTS = {
     "alibi": dict(alibi=True),
@@ -464,7 +481,7 @@ def _bwd_pair(q, k, v, do, segs, **kw):
                                    **kw) for impl in ("cuda", "torch")]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -476,6 +493,33 @@ def test_flash_bwd_kernels_at_tile_edges(card, sq, sk, opt, d):
     got, ref = _bwd_pair(q, k, v, do, segs, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         _close(a, b, GRAD_TOL[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+def test_flash_kernels_gemma2_sliding_layer_d256(card, dtype):
+    """A Gemma2 sliding layer at heads of 256: 8 q heads over 4 kv
+    heads, a 1023-key window that masks inside 2048-token rows, the
+    score softcap 50 and packed documents, forward and both backward
+    kernels against the plain versions.  q is 8x, so that the scores the
+    softmax picks reach the cap's bend (1 - tanh^2 well below 1) and a
+    backward without the cap's derivative would not pass."""
+    q, k, v, do, segs = _flash_case(16, card, dtype, 1, 2048, 2048, 8, 4,
+                                    256, segments=True)
+    q = q * 8
+    kw = dict(window=(1023, -1), logit_softcap=50.0,
+              scale=256 ** -0.5)
+    before = dict(fa.launch_counts)
+    got = _flash_run(q, k, v, do, segs, "cuda", **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["bwd_dkv"] == before["bwd_dkv"] + 1
+    ref = _flash_run(q, k, v, do, segs, "torch", **kw)
+    _close(got[1], ref[1], TOL[dtype], "o")
+    _close(got[2], ref[2], TOL[torch.float32], "lse")
+    bwd = [fa.flash_attention_bwd(q, k, v, got[1], got[2], do, impl=impl,
+                                  **segs, **kw) for impl in ("cuda", "torch")]
+    for name, a, b in zip(("dq", "dk", "dv"), *bwd):
+        _close(a, b, GRAD_TOL[dtype], name)
 
 
 def test_flash_bwd_kernels_4096_packed_documents_group8(card):
@@ -498,12 +542,13 @@ def test_flash_bwd_kernels_4096_packed_documents_group8(card):
         _close(a, b_, GRAD_TOL[torch.bfloat16], name)
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype):
+def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype, d):
     """Each CTA owns its output and writes it once (no atomics): B2 and
     B3 give the same bits on every call."""
-    q, k, v, do, segs = _flash_case(13, card, dtype, 2, 700, 700, 8, 2, 128,
+    q, k, v, do, segs = _flash_case(13, card, dtype, 2, 700, 700, 8, 2, d,
                                     segments=True)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, impl="cuda",
                                 **segs)
@@ -515,7 +560,7 @@ def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -616,7 +661,7 @@ def _offset_case(card, name, dtype, d):
     return q, k, v, do, kw
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", sorted(FLASH_OFFSET_CASES))

@@ -154,7 +154,9 @@ def test_prefill_chunk_logits_match_jax(qkv_bias, t0, n_valid):
 def test_unsupported_fields_rejected_by_name():
     for bad in (dict(num_experts=4), dict(norm="layernorm"),
                 dict(window=(16, -1)), dict(activation="gelu"),
-                dict(qk_norm=True)):
+                dict(qk_norm_proj=True, qk_norm=True),
+                dict(sandwich_norms=True),
+                dict(layer_pattern=("sliding", "global"))):
         cfg = get_preset("llama-tiny", dtype=torch.float32, **TINY, **bad)
         model = init_params(cfg, seed=0, device="cpu")
         with pytest.raises(NotImplementedError, match=next(iter(bad))):

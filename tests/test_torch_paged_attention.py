@@ -158,6 +158,10 @@ PLAN_GEOMS = {
     "mha_d32": (3, 4, 4, 32, 8, 20, 132),
     "bs64_group16": (4, 64, 4, 128, 64, 300, 132),
     "small_card": (1, 8, 2, 128, 16, 64, 16),
+    # the Gemma family's heads of 256: gemma-2b's MQA group of 8 and
+    # gemma2-2b's 8 q heads over 4 kv heads
+    "gemma_mqa_d256": (8, 8, 1, 256, 16, 513, 132),
+    "gemma2_gqa_d256": (4, 8, 4, 256, 16, 300, 132),
 }
 
 
@@ -181,10 +185,12 @@ def test_decode_plan_grid_from_shapes(geom):
     assert plan.body == "decode_split"
     assert plan.grid == (plan.splits, kh, s)
     assert plan.rows == pa_mod._DECODE_ROWS >= h // kh
-    # about _CTAS_PER_SM CTAs an SM, unless a full table could not fill
-    # that many parts
+    # about _CTAS_PER_SM CTAs an SM (one at head dim 256), unless a full
+    # table could not fill that many parts
     full = min(pa_mod._MAX_SPLITS, -(-mb * bs // pa_mod._MIN_SPLIT_KEYS))
-    assert plan.splits == min(full, -(-pa_mod._CTAS_PER_SM * sms // (s * kh)))
+    per_sm = 1 if d == 256 else pa_mod._CTAS_PER_SM
+    assert pa_mod._ctas_per_sm(True, d) == per_sm
+    assert plan.splits == min(full, -(-per_sm * sms // (s * kh)))
     assert plan.splits >= 1
 
 
@@ -233,6 +239,24 @@ def test_plan_prefill_and_f32_row_tiles(t, dtype, body, rows, splits):
     assert plan.grid == (tiles * splits, 8, 3)
     # prefill parts only fill the two CTAs an SM the tiles leave idle
     assert tiles * splits * 8 * 3 <= max(2 * 132, tiles * 8 * 3)
+
+
+@pytest.mark.parametrize("t,splits", [
+    (256, 1),    # 32 tiles x 3 slots = 96 CTAs: 132 // 96 = 1 part
+    (64, 5),     # 8 x 3 = 24 CTAs: 132 // 24 = 5 parts (11 at d 128)
+    (16, 22)])   # 2 x 3 = 6 CTAs: 22 parts (44, capped at 25, at d 128)
+def test_plan_prefill_at_head_dim_256_fills_one_cta_an_sm(t, splits):
+    """At 256 the prefill body's 165 KB of shared memory leaves one CTA
+    an SM: the parts fill that one, where at 128 they fill two (group
+    8 over one kv head, a 3200-key table: at most 25 parts)."""
+    plan = pa_mod._paged_plan((3, t, 8, 256), (700, 16, 1, 256), 200,
+                              torch.bfloat16, 132)
+    tiles = -(-8 * t // 64)                          # group 8 x T rows
+    assert (plan.body, plan.rows, plan.splits) == ("prefill_mma", 64, splits)
+    assert plan.grid == (tiles * splits, 1, 3)
+    d128 = pa_mod._paged_plan((3, t, 8, 128), (700, 16, 1, 128), 200,
+                              torch.bfloat16, 132)
+    assert d128.splits == min(25, max(1, 264 // (3 * tiles)))
 
 
 def test_plan_refuses_what_the_decode_kernel_does_not_take():

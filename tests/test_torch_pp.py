@@ -440,13 +440,16 @@ def test_pp_rules_match_jax():
     assert spec_for(("layers", "embed"), make_rules(conf)) == ("pp", "fsdp")
 
 
-@pytest.mark.parametrize("fields,item", [
-    (dict(layer_pattern=("sliding", "global")), "A10b"),
-    (dict(num_experts=2), "A10c")])
-def test_pp_patterns_and_experts_raise_by_name(fields, item):
+@pytest.mark.parametrize("fields,exc,item", [
+    # a pattern runs under 'pp' (tests/test_torch_gemma.py) when its
+    # period divides a stage's chunk of layers, as JAX requires
+    (dict(layer_pattern=("sliding", "sliding", "global")), ValueError,
+     "does not divide the per-stage chunk"),
+    (dict(num_experts=2), NotImplementedError, "A10c")])
+def test_pp_patterns_and_experts_raise_by_name(fields, exc, item):
     cfg = get_preset("llama-tiny", dtype=torch.float32, pp_size=2,
                      pp_num_micro=2, **dict(SMALL, num_layers=4), **fields)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         tt.TransformerLM(cfg, device="cpu")(torch.zeros(
             (2, 8), dtype=torch.long))
 

@@ -479,9 +479,9 @@ def test_unported_settings_raise():
         with pytest.raises(NotImplementedError, match=match):
             accelerate(mc, None, conf, device="cpu")
     # a model field still outside the training forward raises by name
-    with pytest.raises(NotImplementedError, match="qk_norm=True"):
-        accelerate(dataclasses.replace(mc, qk_norm=True), None, tt.Config(),
-                   device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel_block=True"):
+        accelerate(dataclasses.replace(mc, parallel_block=True), None,
+                   tt.Config(), device="cpu")
     # a Hugging Face checkpoint is read from a local directory only
     with pytest.raises(FileNotFoundError, match="local directories"):
         accelerate("meta-llama/Llama-3-8B", None, tt.Config(), device="cpu")

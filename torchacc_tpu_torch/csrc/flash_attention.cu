@@ -69,6 +69,11 @@
  *    64 FMAs), rows padded to d + 4 floats so the 16 column threads hit
  *    distinct banks.
  *
+ * Head dims 32, 64, 128 and 256 (Gemma) are built.  At 256 the f32 B2
+ * and B3 keep three tiles in shared memory where they kept four
+ * (kReloadF32), and the wgmma kernels take fewer stages and, in B3,
+ * half the head dim a consumer warpgroup (WgCfg).
+ *
  * What the design does about it, in both:
  *  - grid order: the TPU's kv axis (B1, B2) and (group, q) axes (B3)
  *    were sequential grid axes carrying VMEM scratch.  Here each CTA
@@ -363,6 +368,15 @@ __device__ __forceinline__ float cap_score(const Geom& g, float dot, bool has_al
   return x;
 }
 
+// B2 and B3 in f32 at head dims past 128 keep three [64][D + kPad] tiles
+// resident, not four: at 256 four are 266 KB, past the 227 KB a CTA may
+// have.  B2 loads V into K's place for dP and K again for dS K; B3 loads
+// dO into Q's place for dP and dV, and Q again for dS^T Q, and keeps one
+// score tile (P~^T, then dS^T) where it kept two.  A third load of a tile
+// from L2 costs less than the CTAs a larger block would leave idle.
+template <int D>
+constexpr bool kReloadF32 = D > 128;
+
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * size_t(kTile) * (D + kPad) + size_t(kTile) * kLdP) +
@@ -370,13 +384,14 @@ constexpr size_t fwd_smem() {
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * size_t(kTile) * (D + kPad) + size_t(kTile) * kLdP) +
+  return sizeof(float) * ((kReloadF32<D> ? 3 : 4) * size_t(kTile) * (D + kPad) +
+                          size_t(kTile) * kLdP) +
          sizeof(int) * 2 * kTile;
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * size_t(kTile) * (D + kPad) + 2 * size_t(kTile) * kLdP +
-                          2 * kTile) +
+  return sizeof(float) * ((kReloadF32<D> ? 3 : 4) * size_t(kTile) * (D + kPad) +
+                          (kReloadF32<D> ? 1 : 2) * size_t(kTile) * kLdP + 2 * kTile) +
          sizeof(int) * 2 * kTile;
 }
 
@@ -510,10 +525,11 @@ __global__ void __launch_bounds__(kThreads)
   using C = Cols<D>;
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) float smem[];
+  constexpr bool kReload = kReloadF32<D>;
   float* q_s = smem;
   float* do_s = q_s + kTile * LD;
   float* k_s = do_s + kTile * LD;
-  float* v_s = k_s + kTile * LD;
+  float* v_s = kReload ? k_s : k_s + kTile * LD;   // with kReload V takes K's place
   float* ds_s = v_s + kTile * LD;
   int* qseg_s = reinterpret_cast<int*>(ds_s + kTile * kLdP);
   int* kseg_s = qseg_s + kTile;
@@ -567,11 +583,16 @@ __global__ void __launch_bounds__(kThreads)
       if (ksr.y < qsr.x || ksr.x > qsr.y) continue;
     }
     load_tile<T, D>(k_s, k, bi, k0, g.sk, g.hk, kvh);
-    load_tile<T, D>(v_s, v, bi, k0, g.sk, g.hk, kvh);
+    if constexpr (!kReload) load_tile<T, D>(v_s, v, bi, k0, g.sk, g.hk, kvh);
     __syncthreads();
 
     float s[4][4], dp[4][4];
     dot_tile<D>(s, q_s, k_s, ty, tx);
+    if constexpr (kReload) {
+      __syncthreads();   // every thread is done with K
+      load_tile<T, D>(v_s, v, bi, k0, g.sk, g.hk, kvh);
+      __syncthreads();
+    }
     dot_tile<D>(dp, do_s, v_s, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -587,6 +608,10 @@ __global__ void __launch_bounds__(kThreads)
         const float f = drop_on ? drop_factor(g, drow[i], drop_col(g, k0 + c)) : 1.f;
         ds_s[r * kLdP + c] = ds_core(drop_on, p, f, dp[i][j], delta_r[i]) * dcap * g.scale;
       }
+    }
+    if constexpr (kReload) {
+      __syncthreads();   // every thread is done with V: K again for dS K
+      load_tile<T, D>(k_s, k, bi, k0, g.sk, g.hk, kvh);
     }
     __syncthreads();
     pv_tile<D>(acc, ds_s, k_s, ty, tx);
@@ -618,12 +643,13 @@ __global__ void __launch_bounds__(kThreads)
   using C = Cols<D>;
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) float smem[];
+  constexpr bool kReload = kReloadF32<D>;
   float* k_s = smem;
   float* v_s = k_s + kTile * LD;
   float* q_s = v_s + kTile * LD;
-  float* do_s = q_s + kTile * LD;
+  float* do_s = kReload ? q_s : q_s + kTile * LD;   // with kReload dO takes Q's place
   float* pt_s = do_s + kTile * LD;       // P^T  [key][q row]
-  float* dst_s = pt_s + kTile * kLdP;    // dS^T [key][q row]
+  float* dst_s = kReload ? pt_s : pt_s + kTile * kLdP;   // dS^T [key][q row]
   float* lse_s = dst_s + kTile * kLdP;
   float* delta_s = lse_s + kTile;
   int* kseg_s = reinterpret_cast<int*>(delta_s + kTile);
@@ -678,12 +704,18 @@ __global__ void __launch_bounds__(kThreads)
         delta_s[threadIdx.x] = qi < g.sq ? delta[at] : 0.f;
       }
       load_tile<T, D>(q_s, q, bi, q0, g.sq, g.hq, h);
-      load_tile<T, D>(do_s, dout, bi, q0, g.sq, g.hq, h);
+      if constexpr (!kReload) load_tile<T, D>(do_s, dout, bi, q0, g.sq, g.hq, h);
       __syncthreads();
 
       float s[4][4], dp[4][4];
       dot_tile<D>(s, k_s, q_s, ty, tx);     // rows: keys, columns: q rows
+      if constexpr (kReload) {
+        __syncthreads();   // every thread is done with Q
+        load_tile<T, D>(do_s, dout, bi, q0, g.sq, g.hq, h);
+        __syncthreads();
+      }
       dot_tile<D>(dp, v_s, do_s, ty, tx);
+      // P~^T into s, dS^T into dp
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
@@ -697,12 +729,26 @@ __global__ void __launch_bounds__(kThreads)
           const float p = ok ? expf(x - lse_s[c]) : 0.f;
           const float f =
               drop_on ? drop_factor(g, drop_row(g, dbase, q0 + c), dcol[i]) : 1.f;
-          pt_s[r * kLdP + c] = p * f;      // dV takes the dropped P
-          dst_s[r * kLdP + c] = ds_core(drop_on, p, f, dp[i][j], delta_s[c]) * dcap * g.scale;
+          s[i][j] = p * f;                 // dV takes the dropped P
+          dp[i][j] = ds_core(drop_on, p, f, dp[i][j], delta_s[c]) * dcap * g.scale;
         }
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pt_s[(ty * 4 + i) * kLdP + tx + 16 * j] = s[i][j];
+      if constexpr (kReload) {
+        __syncthreads();
+        pv_tile<D>(dv_acc, pt_s, do_s, ty, tx);
+        __syncthreads();   // every thread is done with P~^T and dO: dS^T, and Q again
+        load_tile<T, D>(q_s, q, bi, q0, g.sq, g.hq, h);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst_s[(ty * 4 + i) * kLdP + tx + 16 * j] = dp[i][j];
       __syncthreads();
-      pv_tile<D>(dv_acc, pt_s, do_s, ty, tx);
+      if constexpr (!kReload) pv_tile<D>(dv_acc, pt_s, do_s, ty, tx);
       pv_tile<D>(dk_acc, dst_s, q_s, ty, tx);
     }
   }
@@ -745,9 +791,11 @@ __global__ void __launch_bounds__(kThreads)
 //
 // Tiles lie in shared memory as [rows][64] 16-bit boxes of 128-byte rows
 // under the 128-byte swizzle, one box a 64 columns of the head dim (the
-// head dims built are 32, 64 and 128: 64 is one box, 128 two, and 32 is
-// read as one box of 64 whose upper half TMA fills with zeros, so 32 and
-// 64 share shared-memory sizes).  A rank-4 tensor map over [b, s, h, d] cuts a head's
+// head dims built are 32, 64, 128 and 256: 64 is one box, 128 two, 256
+// four, and 32 is read as one box of 64 whose upper half TMA fills with
+// zeros, so 32 and 64 share shared-memory sizes).  At 256 (Gemma) the
+// second products are m64n256 and the shared memory holds fewer stages
+// (WgCfg), and B3 splits the head dim between its consumer warpgroups.  A rank-4 tensor map over [b, s, h, d] cuts a head's
 // rows out of the BSHD tensor; rows past s read as zeros.
 //
 // P, P~ and dS enter the second products as hi + lo, two values of the
@@ -772,10 +820,17 @@ struct WgCfg {
   static constexpr int kTileB = kStep * DP * 2; // a streamed [64][DP] tile, bytes
   // ring stages, chosen on an H100: B3 ran 3-6% faster on 2 than on 3 at
   // heads of 128; at 64, B2 and B3 on 3 and 2 stages ran no faster than
-  // on 4 (B3 1.5% slower), so 64 keeps 32's 4
-  static constexpr int kStagesFwd = 4;
-  static constexpr int kStagesDq = D == 128 ? 3 : 4;
-  static constexpr int kStagesDkv = D == 128 ? 2 : 4;
+  // on 4 (B3 1.5% slower), so 64 keeps 32's 4.  At 256 a stage is 64 KB:
+  // B1 takes 2 beside its 64 KB of Q, B2 1 beside its 128 KB of Q and dO
+  // (227 KB a CTA)
+  static constexpr int kStagesFwd = D == 256 ? 2 : 4;
+  static constexpr int kStagesDq = D == 256 ? 1 : D == 128 ? 3 : 4;
+  static constexpr int kStagesDkv = D == 128 || D == 256 ? 2 : 4;
+  // B3 past 128: dk and dv of 64 keys are 2 x 128 f32 a consumer thread,
+  // past the 255 registers a thread has, so a CTA takes 64 keys and each
+  // consumer warpgroup half of the head dim of both (kHalf)
+  static constexpr bool kHalf = DP > 128;
+  static constexpr int kBlkDkv = kHalf ? 64 : kBlk;   // keys a B3 CTA
 };
 
 // what the producer leaves beside a stage's tiles
@@ -794,13 +849,13 @@ struct RowStats {
   float delta[kStep];
 };
 
-// RES resident tiles, two streamed tiles a stage, the stage notes (and
-// for B3 the row statistics), 2 barriers a stage and one, and 1 KB to
-// align to the swizzle period
-template <int D, int S, bool STATS, int RES = 2>
+// RES resident tiles of RROWS rows, two streamed tiles a stage, the stage
+// notes (and for B3 the row statistics), 2 barriers a stage and one, and
+// 1 KB to align to the swizzle period
+template <int D, int S, bool STATS, int RES = 2, int RROWS = kBlk>
 constexpr size_t wg_smem() {
   using C = WgCfg<D>;
-  return RES * size_t(C::kRes) + 2 * size_t(C::kTileB) * S +
+  return RES * size_t(RROWS) * C::DP * 2 + 2 * size_t(C::kTileB) * S +
          (sizeof(StageInfo) + (STATS ? sizeof(RowStats) : 0)) * S + 8 * (2 * S + 1) + 1024;
 }
 
@@ -990,7 +1045,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
 }
 
 // d += A B over 16 of K: A from registers (a fragment of T), B MN-major
-// in shared memory (the transpose flag); N = 64 or 128
+// in shared memory (the transpose flag); N = 64, 128 or 256
 #define WGMMA_RS32(TY)                                                        \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
@@ -1004,6 +1059,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" HP_R64     \
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                         \
       : HP_D64("+f", 0)                                                       \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1))
+#define WGMMA_RS128(TY)                                                       \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" HP_R128    \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                    \
+      : HP_D64("+f", 0), HP_D64("+f", 64)                                     \
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1))
 template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -1020,6 +1082,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
     WGMMA_RS64("f16");
   else
     WGMMA_RS64("bf16");
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  if constexpr (std::is_same<T, __half>::value)
+    WGMMA_RS128("f16");
+  else
+    WGMMA_RS128("bf16");
 }
 
 // acc (64 rows of this warpgroup) = A[rows] . B^T over DP columns: A the
@@ -1630,7 +1700,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // B3 on wgmma: one CTA per (batch, kv head, 128 keys), q rows of every
-// q head of the group streamed 64 at a time
+// q head of the group streamed 64 at a time.  Past head dim 128 (kHalf)
+// a CTA takes 64 keys, and consumer warpgroup c holds columns
+// [DA c, DA c + DA) of their dk and dv: both warpgroups take the whole
+// S^T and dP^T (the scores cost a third more products), each its half of
+// the second products, so a thread holds 2 x 64 f32 of dk and dv.
 template <typename T, int D, bool EXTRA>
 __global__ void __launch_bounds__(kWgThreads, 1)
     bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,   // boxes of 128 rows
@@ -1642,17 +1716,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                          Geom g) {
   using C = WgCfg<D>;
   constexpr int S = C::kStagesDkv, DP = C::DP;
+  constexpr bool kHalf = C::kHalf;
+  constexpr int KB = C::kBlkDkv;                         // keys of the CTA
+  constexpr int DA = kHalf ? DP / 2 : DP;                // dk, dv columns a warpgroup holds
   extern __shared__ __align__(1024) unsigned char wg_buf[];
   unsigned char* k_s = align1024(wg_buf);
-  unsigned char* v_s = k_s + C::kRes;
-  unsigned char* ring = v_s + C::kRes;                   // S x (Q, dO)
+  unsigned char* v_s = k_s + KB * DP * 2;
+  unsigned char* ring = v_s + KB * DP * 2;               // S x (Q, dO)
   StageInfo* info = reinterpret_cast<StageInfo*>(ring + 2 * S * C::kTileB);
   RowStats* stats = reinterpret_cast<RowStats*>(info + S);
   uint64_t* full = reinterpret_cast<uint64_t*>(stats + S);
   uint64_t* empty = full + S;
   uint64_t* res = empty + S;
 
-  const int k0 = blockIdx.x * kBlk;          // the first kv tiles see the most
+  const int k0 = blockIdx.x * KB;            // the first kv tiles see the most
   const int kvh = blockIdx.y, bi = blockIdx.z;
   const int group = g.hq / g.hk;
   const bool has_seg = g.qseg != nullptr;
@@ -1673,19 +1750,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
-        mbar_expect_tx(res, 2 * C::kRes);
+        mbar_expect_tx(res, 2 * KB * DP * 2);
 #pragma unroll
         for (int b = 0; b < C::NB; ++b) {
-          tma_load4(k_s + b * kBlk * 128, &map_k, 64 * b, kvh, k0, bi, res);
-          tma_load4(v_s + b * kBlk * 128, &map_v, 64 * b, kvh, k0, bi, res);
+          tma_load4(k_s + b * KB * 128, &map_k, 64 * b, kvh, k0, bi, res);
+          tma_load4(v_s + b * KB * 128, &map_v, 64 * b, kvh, k0, bi, res);
         }
       }
       int2 ksr = make_int2(0, 0);
       if (has_seg) {
-        int v[kBlk / 32];
-        ksr = warp_seg_span<kBlk / 32>(g.kseg + size_t(bi) * g.sk, k0, g.sk, lane, v);
+        int v[KB / 32];
+        ksr = warp_seg_span<KB / 32>(g.kseg + size_t(bi) * g.sk, k0, g.sk, lane, v);
       }
-      const int2 qr = q_span(g, k0, kBlk);
+      const int2 qr = q_span(g, k0, KB);
       const int* qseg = has_seg ? g.qseg + size_t(bi) * g.sq : nullptr;
       int it = 0;
       for (int base = qr.x; base < qr.y; base += 32 * kStep) {
@@ -1744,10 +1821,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tc = threadIdx.x - 128;
-    const int c = tc >> 7;                   // keys [k0 + 64c, + 64)
+    // keys [k0 + 64c, + 64); with kHalf keys [k0, + 64), columns [DA c, + DA)
+    const int c = tc >> 7;
     const int warp = (tc >> 5) & 3, lane = tc & 31;
     const int grp = lane >> 2, t4 = lane & 3;
-    const int kc0 = k0 + 64 * c;
+    const int kc0 = kHalf ? k0 : k0 + 64 * c;
+    const unsigned char* kw_s = k_s + (kHalf ? 0 : c * 64 * 128);   // the warpgroup's keys
+    const unsigned char* vw_s = v_s + (kHalf ? 0 : c * 64 * 128);
+    const int col_box = kHalf ? c * (DA / 64) * kStep * 128 : 0;   // its columns of Q, dO
     const bool has_alibi = EXTRA && g.alibi != nullptr;
     const bool drop_on = EXTRA && g.drop_on;
     const bool plain = !has_alibi && g.softcap == 0.f;
@@ -1761,9 +1842,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       kseg_r[hh] = has_seg && kj < g.sk ? g.kseg[size_t(bi) * g.sk + kj] : 0;
       dcol[hh] = drop_on ? drop_col(g, kj) : 0u;
     }
-    float dk_acc[DP / 2], dv_acc[DP / 2];
+    float dk_acc[DA / 2], dv_acc[DA / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DA / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     mbar_wait(res, 0);
 
     for (int it = 0;; ++it) {
@@ -1787,9 +1868,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // S^T = K Q^T and dP^T = V dO^T: rows keys, columns q rows
       float st[32], dpt[32];
       wgmma_fence();
-      scores<T, DP>(st, k_s + c * 64 * 128, kBlk * 128, qs, kStep * 128);
+      scores<T, DP>(st, kw_s, KB * 128, qs, kStep * 128);
       wgmma_commit();
-      scores<T, DP>(dpt, v_s + c * 64 * 128, kBlk * 128, dos, kStep * 128);
+      scores<T, DP>(dpt, vw_s, KB * 128, dos, kStep * 128);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
@@ -1876,12 +1957,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       uint32_t ph[16], pl[16];
       split_frags<T>(st, ph, pl);
       wgmma_fence();
-      product_hilo<T, DP>(dv_acc, ph, pl, dos);   // dv += P~^T dO
+      product_hilo<T, DA>(dv_acc, ph, pl, dos + col_box);   // dv += P~^T dO
       wgmma_commit();
       uint32_t dh[16], dl[16];
       split_frags<T>(dpt, dh, dl);
       wgmma_fence();
-      product_hilo<T, DP>(dk_acc, dh, dl, qs);    // dk += dS^T Q
+      product_hilo<T, DA>(dk_acc, dh, dl, qs + col_box);    // dk += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -1897,9 +1978,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int hh = 0; hh < 2; ++hh) {
       const int kj = kc0 + 16 * warp + grp + 8 * hh;
       if (kj >= g.sk) continue;
-      const size_t base = ((size_t(bi) * g.sk + kj) * g.hk + kvh) * D;
+      const size_t base = ((size_t(bi) * g.sk + kj) * g.hk + kvh) * D + (kHalf ? DA * c : 0);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < (kHalf ? DA : D) / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dk + base + 8 * j + 2 * t4) =
             pack2<T>(dk_acc[4 * j + 2 * hh], dk_acc[4 * j + 2 * hh + 1]);
         *reinterpret_cast<uint32_t*>(dv + base + 8 * j + 2 * t4) =
@@ -2004,17 +2085,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                const void* delta, void* dk, void* dv, int b, const Geom& g, cudaStream_t st) {
   static bool attr[kMaxDevices];
   if constexpr (kWg16<T>) {
-    constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDkv, true>();
+    constexpr int KB = WgCfg<D>::kBlkDkv;
+    constexpr size_t smem = wg_smem<D, WgCfg<D>::kStagesDkv, true, 2, KB>();
     const auto kernel = bwd_dkv_wgmma_kernel<T, D, EXTRA>;
     const cudaError_t r = smem_attr_per_device(kernel, int(smem), attr);
     if (r != cudaSuccess) return r;
     CUtensorMap mk, mv, mq, mdo;
-    int e = make_bshd_map<T>(&mk, k, b, g.sk, g.hk, D, kBlk);
-    if (e == 0) e = make_bshd_map<T>(&mv, v, b, g.sk, g.hk, D, kBlk);
+    int e = make_bshd_map<T>(&mk, k, b, g.sk, g.hk, D, KB);
+    if (e == 0) e = make_bshd_map<T>(&mv, v, b, g.sk, g.hk, D, KB);
     if (e == 0) e = make_bshd_map<T>(&mq, q, b, g.sq, g.hq, D, kStep);
     if (e == 0) e = make_bshd_map<T>(&mdo, dout, b, g.sq, g.hq, D, kStep);
     if (e != 0) return e;
-    const dim3 grid((g.sk + kBlk - 1) / kBlk, g.hk, b);
+    const dim3 grid((g.sk + KB - 1) / KB, g.hk, b);
     kernel<<<grid, kWgThreads, smem, st>>>(mk, mv, mq, mdo, static_cast<const float*>(lse),
                                            static_cast<const float*>(delta),
                                            static_cast<T*>(dk), static_cast<T*>(dv), g);
@@ -2067,17 +2149,18 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
     if (g.alibi != nullptr || g.drop_on) return LAUNCH<T, DD, true>(__VA_ARGS__); \
     return LAUNCH<T, DD, false>(__VA_ARGS__);                              \
   } while (0)
+#define FLASH_DISPATCH_T(LAUNCH, DD, ...)                                  \
+  do {                                                                     \
+    if (dtype == 0) FLASH_DISPATCH_D(LAUNCH, float, DD, __VA_ARGS__);       \
+    if (dtype == 1) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, DD, __VA_ARGS__); \
+    if (dtype == 2) FLASH_DISPATCH_D(LAUNCH, __half, DD, __VA_ARGS__);      \
+  } while (0)
 #define FLASH_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                     \
-    if (dtype == 0 && d == 32) FLASH_DISPATCH_D(LAUNCH, float, 32, __VA_ARGS__); \
-    if (dtype == 0 && d == 64) FLASH_DISPATCH_D(LAUNCH, float, 64, __VA_ARGS__); \
-    if (dtype == 0 && d == 128) FLASH_DISPATCH_D(LAUNCH, float, 128, __VA_ARGS__); \
-    if (dtype == 1 && d == 32) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 32, __VA_ARGS__); \
-    if (dtype == 1 && d == 64) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 64, __VA_ARGS__); \
-    if (dtype == 1 && d == 128) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, 128, __VA_ARGS__); \
-    if (dtype == 2 && d == 32) FLASH_DISPATCH_D(LAUNCH, __half, 32, __VA_ARGS__); \
-    if (dtype == 2 && d == 64) FLASH_DISPATCH_D(LAUNCH, __half, 64, __VA_ARGS__); \
-    if (dtype == 2 && d == 128) FLASH_DISPATCH_D(LAUNCH, __half, 128, __VA_ARGS__); \
+    if (d == 32) FLASH_DISPATCH_T(LAUNCH, 32, __VA_ARGS__);                 \
+    if (d == 64) FLASH_DISPATCH_T(LAUNCH, 64, __VA_ARGS__);                 \
+    if (d == 128) FLASH_DISPATCH_T(LAUNCH, 128, __VA_ARGS__);               \
+    if (d == 256) FLASH_DISPATCH_T(LAUNCH, 256, __VA_ARGS__);               \
     return cudaErrorInvalidValue;                                          \
   } while (0)
 

@@ -63,7 +63,8 @@
  *    version to about one bf16 ulp.
  *  - Stages: K and V pages stream through a ring of 2 stages of 64 keys
  *    (34 KB at D = 128: 87 KB of shared memory for a prefill CTA, 74 KB
- *    for a decode CTA), bf16, never widened; rows padded by 8 elements
+ *    for a decode CTA; 66 KB at D = 256: 165 KB and 140 KB, one CTA an
+ *    SM), bf16, never widened; rows padded by 8 elements
  *    so that the fragment loads of a warp and the 16-byte copies spread
  *    over all 32 banks, as a swizzle would.  cp.async copies one
  *    16-byte chunk per thread and chunk of a page row (D * 2 bytes at
@@ -272,8 +273,12 @@ template <int D, int WR, int WK>
 struct MmaCfg {
   static constexpr int kThreads = 32 * WR * WK;
   // CTAs an SM the registers must allow: 2 prefill CTAs of 8 warps, 3
-  // decode CTAs of 4 (shared memory allows as many)
-  static constexpr int kMinBlocks = WR == 1 ? 3 : 2;
+  // decode CTAs of 4 (shared memory allows as many).  At D = 256 the
+  // ring alone is 132 KB, so shared memory holds one CTA an SM (165 KB
+  // prefill, 140 KB decode), and a thread's 128 f32 of O need more than
+  // the 128 or 170 registers those counts leave: the registers are not
+  // held (ops/paged_attention.py::_ctas_per_sm plans for one)
+  static constexpr int kMinBlocks = D >= 256 ? 1 : WR == 1 ? 3 : 2;
   static constexpr int kRows = 16 * WR;
   static constexpr int kKeysPerWarp = kKeys / WK;
   static constexpr int LD = D + 8;
@@ -825,6 +830,7 @@ extern "C" int paged_attention_fwd(
     case 32: return launch_body<32>(body, a);     // llama-tiny
     case 64: return launch_body<64>(body, a);     // Llama-3.2-1B, Qwen2-0.5B
     case 128: return launch_body<128>(body, a);   // llama3-8b
+    case 256: return launch_body<256>(body, a);   // the Gemma family
     default: return cudaErrorInvalidValue;
   }
 }

@@ -37,7 +37,8 @@ TRANSFORMER_AXES: Tuple[AxesRule, ...] = (
     (r"(gate_proj|up_proj)\.bias$", ("mlp",)),
     (r"down_proj\.weight$", ("embed", "mlp")),
     (r"down_proj\.bias$", ("embed",)),
-    (r"(ln1|ln2|final_norm)\.(weight|bias)$", ("norm",)),
+    (r"(ln1|ln2|ln1_post|ln2_post|final_norm|q_norm|k_norm)\.(weight|bias)$",
+     ("norm",)),
     (r"lm_head\.weight$", ("vocab", "embed")),
     (r"lm_head\.bias$", ("vocab",)),
 )

@@ -8,6 +8,8 @@ leaves (``jax.tree.map(np.asarray, params)``)::
 
     embed_tokens.embedding               [V, h]
     layers.block.{ln1,ln2}.scale         [L, h]
+    layers.block.{ln1_post,ln2_post}.scale [L, h]          (sandwich_norms)
+    layers.block.attn.{q,k}_norm.scale   [L, d]            (qk_norm)
     layers.block.attn.{q,k,v}_proj.kernel [L, h, heads, d]  (+ bias [L, heads, d])
     layers.block.attn.o_proj.kernel      [L, heads, d, h]  (+ bias [L, h])
     layers.block.mlp.{gate,up}_proj.kernel [L, h, F]       (+ bias [L, F])
@@ -81,8 +83,12 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
     model.embed_tokens.weight.copy_(
         _t(tree["embed_tokens"]["embedding"], device, dtype))
     for i, layer in enumerate(model.layers):
-        layer.ln1.weight.copy_(_t(blk["ln1"]["scale"][i], device, dtype))
-        layer.ln2.weight.copy_(_t(blk["ln2"]["scale"][i], device, dtype))
+        for name in _block_norms(cfg):
+            layer.get_submodule(name).weight.copy_(
+                _t(blk[name]["scale"][i], device, dtype))
+        for name in _attn_norms(cfg):
+            getattr(layer.attn, name).weight.copy_(
+                _t(attn[name]["scale"][i], device, dtype))
         for name in ("q_proj", "k_proj", "v_proj"):
             lin = getattr(layer.attn, name)
             kern = np.asarray(attn[name]["kernel"][i])       # [h, heads, d]
@@ -109,6 +115,17 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
     return model.requires_grad_(trainable).train(trainable)
 
 
+def _block_norms(cfg: ModelConfig):
+    """The norms of a block: Gemma2/3's sandwich adds two."""
+    return ("ln1", "ln2") + (("ln1_post", "ln2_post") if cfg.sandwich_norms
+                             else ())
+
+
+def _attn_norms(cfg: ModelConfig):
+    """The attention's per-head q and k norms (Qwen3, Gemma3)."""
+    return ("q_norm", "k_norm") if cfg.qk_norm else ()
+
+
 def params_to_jax(cfg: ModelConfig,
                   named: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`params_from_jax`: ``{port parameter name:
@@ -131,6 +148,9 @@ def params_to_jax(cfg: ModelConfig,
                 f"layers.{i}.attn.{name}.bias").reshape(nh, d))
     attn["o_proj"] = {"kernel": stack(lambda i: t(
         f"layers.{i}.attn.o_proj.weight").T.reshape(cfg.num_heads, d, h))}
+    for name in _attn_norms(cfg):
+        attn[name] = {"scale": stack(
+            lambda i: t(f"layers.{i}.attn.{name}.weight"))}
     if cfg.o_bias:
         attn["o_proj"]["bias"] = stack(
             lambda i: t(f"layers.{i}.attn.o_proj.bias"))
@@ -143,8 +163,9 @@ def params_to_jax(cfg: ModelConfig,
     tree = {
         "embed_tokens": {"embedding": t("embed_tokens.weight")},
         "layers": {"block": {
-            "ln1": {"scale": stack(lambda i: t(f"layers.{i}.ln1.weight"))},
-            "ln2": {"scale": stack(lambda i: t(f"layers.{i}.ln2.weight"))},
+            **{name: {"scale": stack(
+                lambda i: t(f"layers.{i}.{name}.weight"))}
+               for name in _block_norms(cfg)},
             "attn": attn, "mlp": mlp}},
         "final_norm": {"scale": t("final_norm.weight")},
     }

@@ -5,7 +5,10 @@ _sample_slots``, and ``generate`` :135).
 
 ``generate`` decodes over a dense KV cache, ``[b, prompt + new, kv
 heads, d]`` a layer: one forward over the prompt banks every layer's
-rotated k and raw v, then one loop takes a token at a time.  It shares
+rotated k and raw v, then one loop takes a token at a time.  Each layer
+takes its own window and rope base under a ``layer_pattern`` (JAX's
+``_generate_cached_pattern``, :431), so Gemma2/3's sliding and global
+layers decode through the cache on the attention kernels.  It shares
 no code with the paged serving path (``serve/scheduler.py``), so it is
 the port's own request-level reference for serving.  Prompts of one
 call have one length (JAX's left-padded ragged batches, ``prompt_mask``,
@@ -63,13 +66,25 @@ def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
     return -torch.log(-torch.log(u))
 
 
+def embed_extras(cfg, x: torch.Tensor) -> torch.Tensor:
+    """``_embed_extras`` on the embedding ``x`` in the compute dtype:
+    under Gemma's ``embed_scale`` times sqrt(hidden), rounded to the
+    compute dtype first, as JAX and HF do (learned positions are outside
+    this slice)."""
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
+                             device=x.device)
+    return x
+
+
 def embed(cfg, model, ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding in the compute dtype (``_zoo_embed``; the Gemma
-    scale and learned positions are outside the serving surface).  int32
-    ids (the packed batches' dtype) are read as they are."""
+    """Token embedding in the compute dtype with :func:`embed_extras`
+    (``_zoo_embed``).  int32 ids (the packed batches' dtype) are read as
+    they are."""
     if ids.dtype not in (torch.int32, torch.int64):
         ids = ids.long()
-    return F.embedding(ids, model.embed_tokens.weight).to(cfg.dtype)
+    return embed_extras(
+        cfg, F.embedding(ids, model.embed_tokens.weight).to(cfg.dtype))
 
 
 def sample_slots(logits: torch.Tensor, temp: torch.Tensor,
@@ -106,33 +121,47 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
     """The hidden after every layer of the tokens ``ids [b, t]`` at
     positions ``start..start + t``; each layer's k/v are written into
     its cache at those positions and attention reads the cache up to
-    them (causal, aligned to the cache's end)."""
-    from torchacc_tpu_torch.models.transformer import dense, rms_norm, rope
+    them (causal, aligned to the cache's end).  Each layer runs with its
+    own config (``pattern_cfg``: its window and rope base), as JAX's
+    ``_pattern_layers_with_cache`` does."""
+    from torchacc_tpu_torch.models.transformer import (
+        dense,
+        mlp_act,
+        pattern_cfg,
+        qk_rope,
+        rms_norm,
+    )
     from torchacc_tpu_torch.ops.attn import attention
-    cfg = model.cfg
+    base = model.cfg
     b, t = ids.shape
-    d, end = cfg.head_size, start + t
+    d, end = base.head_size, start + t
     pos = torch.arange(start, end, device=ids.device).expand(b, t)
-    rp = pos.float() / cfg.rope_scale if cfg.rope_scale != 1.0 else pos
-    x = embed(cfg, model, ids)
+    x = embed(base, model, ids)
     for i, layer in enumerate(model.layers):
+        cfg = pattern_cfg(base, i)
         h = rms_norm(cfg, x, layer.ln1.weight)
         a = layer.attn
         q = dense(cfg, h, a.q_proj).view(b, t, -1, d)
         k = dense(cfg, h, a.k_proj).view(b, t, -1, d)
         v = dense(cfg, h, a.v_proj).view(b, t, -1, d)
-        q, k = rope(q, k, rp, cfg)
+        q, k = qk_rope(cfg, a, q, k, pos)
         cache_k[i][:, start:end] = k
         cache_v[i][:, start:end] = v
         out = attention(q, cache_k[i][:, :end].contiguous(),
                         cache_v[i][:, :end].contiguous(), causal=True,
                         window=cfg.window, scale=cfg.query_scale,
                         logit_softcap=cfg.attn_logit_softcap, impl=impl)
-        x = x + dense(cfg, out.reshape(b, t, -1), a.o_proj)
+        o = dense(cfg, out.reshape(b, t, -1), a.o_proj)
+        if cfg.sandwich_norms:
+            o = rms_norm(cfg, o, layer.ln1_post.weight)
+        x = x + o
         h2 = rms_norm(cfg, x, layer.ln2.weight)
         m = layer.mlp
-        x = x + dense(cfg, F.silu(dense(cfg, h2, m.gate_proj))
-                      * dense(cfg, h2, m.up_proj), m.down_proj)
+        f = dense(cfg, mlp_act(cfg, dense(cfg, h2, m.gate_proj),
+                               dense(cfg, h2, m.up_proj)), m.down_proj)
+        if cfg.sandwich_norms:
+            f = rms_norm(cfg, f, layer.ln2_post.weight)
+        x = x + f
     return x
 
 

@@ -2,11 +2,15 @@
 hf.py: ``config_from_hf`` :37, ``params_from_hf_state_dict`` :515 and
 ``load_hf_model`` :723), for the families whose forward the port runs:
 Llama 1/2/3/3.1/3.2 (with ``attention_bias``, ``mlp_bias`` and the
-``llama3`` and ``linear`` rope scalings) and Qwen2 (qkv bias).
+``llama3`` and ``linear`` rope scalings), Qwen2 (qkv bias), Qwen3
+(per-head qk-norm), Mistral (a sliding window), Gemma v1 (1 + w
+RMSNorm, GeGLU, scaled embeddings), Gemma2 (sandwich norms, the
+sliding/global pattern, softcaps) and Gemma3 (qk-norm, the 5:1 pattern
+with a local rope base, linear scaling on the global layers).
 
 Every other ``model_type`` and rope scaling raises
 ``NotImplementedError`` naming it and the ROADMAP item that brings it
-(A10b: the rest of the dense forward; A10c: mixture of experts), so
+(A10b-2: the rest of the dense forward; A10c: mixture of experts), so
 nothing converts silently wrong.  HF's weights are ``[out, in]``, the
 port's layout: the conversion renames and checks shapes
 (``hf_stream.ingestion_plan``) and never goes through the JAX package's
@@ -35,8 +39,10 @@ from torchacc_tpu_torch.models.hf_stream import (
 from torchacc_tpu_torch.models.transformer import ModelConfig
 
 #: model types whose forward the port runs
-SUPPORTED = ("llama", "qwen2")
-# mixture-of-experts families wait for A10c, every other family for A10b
+SUPPORTED = ("llama", "qwen2", "qwen3", "mistral", "gemma", "gemma2",
+             "gemma3", "gemma3_text")
+# mixture-of-experts families wait for A10c, every other family for
+# A10b-2
 _MOE_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "deepseek_v2",
               "deepseek_v3", "dbrx", "olmoe", "jamba")
 
@@ -44,8 +50,8 @@ _MOE_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "deepseek_v2",
 def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     """``ModelConfig`` from a transformers ``PretrainedConfig`` or the
     namespace ``hf_stream.read_hf_config`` makes of ``config.json``
-    (Llama and Qwen2); ``overrides`` (``dtype``, ``param_dtype``, ...)
-    are applied last."""
+    (``SUPPORTED``), field for field as JAX's (:37); ``overrides``
+    (``dtype``, ``param_dtype``, ...) are applied last."""
     get = lambda n, d=None: getattr(hf_config, n, d)
     mt = get("model_type")
     if mt in _MOE_TYPES:
@@ -56,7 +62,7 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     if mt not in SUPPORTED:
         raise NotImplementedError(
             f"Hugging Face model_type {mt!r} is not ported to "
-            f"torchacc_tpu_torch yet (ROADMAP A10b); it converts "
+            f"torchacc_tpu_torch yet (ROADMAP A10b-2); it converts "
             f"{', '.join(SUPPORTED)}")
     kw = dict(
         vocab_size=get("vocab_size"),
@@ -74,12 +80,48 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         # bias does not); mlp_bias is llama's own switch
         o_bias=bool(get("attention_bias", False)),
         mlp_bias=bool(get("mlp_bias", False)),
-        tie_embeddings=bool(get("tie_word_embeddings", False)),
+        # config.json leaves tie_word_embeddings out where it is
+        # transformers' own default, True, as Gemma's configs are
+        tie_embeddings=bool(get("tie_word_embeddings",
+                                mt.startswith("gemma"))),
     )
+    gemma = dict(norm="rmsnorm1p", activation="geglu", embed_scale=True)
+    # gemma2/3: query_pre_attn_scalar ** -0.5, not head_dim ** -0.5
+    query_scale = lambda: float(get("query_pre_attn_scalar",
+                                    kw.get("head_dim") or 256)) ** -0.5
+    if mt == "gemma":
+        kw.update(gemma)
+    elif mt == "gemma2":
+        # sandwich norms, sliding/global alternation (HF: even layers
+        # slide), attention-score softcap
+        kw.update(gemma, sandwich_norms=True,
+                  layer_pattern=("sliding", "global"),
+                  attn_logit_softcap=float(
+                      get("attn_logit_softcapping") or 0.0),
+                  query_scale=query_scale())
+    elif mt in ("gemma3", "gemma3_text"):
+        # gemma2's norms, the layer_types pattern with the local rope base
+        # on its sliding layers, qk-norm, no score softcap
+        kw.update(gemma, sandwich_norms=True, qk_norm=True,
+                  layer_pattern=_pattern_from_layer_types(
+                      get("layer_types"),
+                      sliding_window_pattern=get("sliding_window_pattern")),
+                  rope_local_theta=float(get("rope_local_base_freq",
+                                             10000.0)),
+                  query_scale=query_scale())
+    elif mt == "qwen3":
+        # per-head RMSNorm on q and k before rope (cfg.norm stays rmsnorm)
+        kw.update(qk_norm=True)
     rs = get("rope_scaling")
     if rs:
         rt = rs.get("rope_type", rs.get("type", "default"))
+        if mt in ("gemma3", "gemma3_text") and rt != "linear":
+            raise NotImplementedError(
+                f"gemma3 rope_scaling type {rt!r} is not implemented "
+                f"(linear is)")
         if rt == "linear":
+            # gemma3: the global layers' only (pattern_cfg sets the
+            # sliding layers' back to 1)
             kw["rope_scale"] = float(rs["factor"])
         elif rt == "llama3":
             kw["rope_llama3"] = (
@@ -89,17 +131,36 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         elif rt != "default":
             raise NotImplementedError(
                 f"rope_scaling type {rt!r} is not ported to "
-                f"torchacc_tpu_torch yet (ROADMAP A10b); it implements "
+                f"torchacc_tpu_torch yet (ROADMAP A10b-2); it implements "
                 f"linear and llama3")
     if get("final_logit_softcapping"):
         kw["logit_softcap"] = float(get("final_logit_softcapping"))
     if get("sliding_window") and get("use_sliding_window", True):
-        raise NotImplementedError(
-            f"{mt} with use_sliding_window=True (sliding_window "
-            f"{get('sliding_window')}) is not ported to torchacc_tpu_torch "
-            f"yet (ROADMAP A10b)")
+        # HF attends kv > q - sliding_window (sliding_window keys); the
+        # window (left, right) attends kv >= q - left: left is one less
+        kw["window"] = (int(get("sliding_window")) - 1, -1)
     kw.update(overrides)
     return ModelConfig(**kw)
+
+
+def _pattern_from_layer_types(layer_types, sliding_window_pattern=None
+                              ) -> Tuple[str, ...]:
+    """The shortest cyclic ``layer_pattern`` that gives HF's per-layer
+    ``layer_types`` (gemma3: 5 sliding and 1 full); configs of
+    transformers before 4.53 give ``sliding_window_pattern=p`` (every
+    p-th layer global) instead (JAX :327)."""
+    if not layer_types:
+        if sliding_window_pattern:
+            p = int(sliding_window_pattern)
+            return ("sliding",) * (p - 1) + ("global",)
+        raise ValueError("layer_types missing from the HF config")
+    kinds = tuple("sliding" if t == "sliding_attention" else "global"
+                  for t in layer_types)
+    n = len(kinds)
+    for period in range(1, n):
+        if n % period == 0 and kinds == kinds[:period] * (n // period):
+            return kinds[:period]
+    return kinds
 
 
 def params_from_hf_state_dict(state_dict: Mapping[str, torch.Tensor],

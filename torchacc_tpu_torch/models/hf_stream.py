@@ -164,9 +164,13 @@ def ingestion_plan(cfg: ModelConfig
                    ) -> Dict[str, Tuple[Optional[str], Tuple[int, ...]]]:
     """HF tensor name (without the ``model.`` prefix) -> (the port's
     parameter name, or None for a tensor read and dropped; the shape in
-    the checkpoint) for the Llama and Qwen2 layouts.  A tied model's
-    ``lm_head.weight``, which some exporters ship as a copy, is
-    dropped."""
+    the checkpoint) for the Llama, Qwen2/3, Mistral and Gemma layouts:
+    Qwen3's and Gemma3's per-head ``q_norm``/``k_norm``, and under
+    Gemma2/3's sandwich norms ``post_attention_layernorm`` as the
+    post-attention norm (``ln1_post``), ``pre_feedforward_layernorm``
+    as ``ln2`` and ``post_feedforward_layernorm`` as ``ln2_post``.  A
+    tied model's ``lm_head.weight``, which some exporters ship as a
+    copy, is dropped."""
     h, L = cfg.hidden_size, cfg.num_layers
     nh, nk, d = cfg.num_heads, cfg.kv_heads, cfg.head_size
     f, v = cfg.ffn_size, cfg.vocab_size
@@ -179,8 +183,20 @@ def ingestion_plan(cfg: ModelConfig
     for i in range(L):
         p = f"layers.{i}."                 # the same prefix in both names
         plan[p + "input_layernorm.weight"] = (p + "ln1.weight", (h,))
-        plan[p + "post_attention_layernorm.weight"] = (p + "ln2.weight",
-                                                       (h,))
+        if cfg.sandwich_norms:
+            plan[p + "post_attention_layernorm.weight"] = (
+                p + "ln1_post.weight", (h,))
+            plan[p + "pre_feedforward_layernorm.weight"] = (p + "ln2.weight",
+                                                            (h,))
+            plan[p + "post_feedforward_layernorm.weight"] = (
+                p + "ln2_post.weight", (h,))
+        else:
+            plan[p + "post_attention_layernorm.weight"] = (p + "ln2.weight",
+                                                           (h,))
+        if cfg.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                plan[f"{p}self_attn.{name}.weight"] = (
+                    f"{p}attn.{name}.weight", (d,))
         attn = [("q_proj", nh * d, h), ("k_proj", nk * d, h),
                 ("v_proj", nk * d, h), ("o_proj", h, nh * d)]
         for name, rows, cols in attn:

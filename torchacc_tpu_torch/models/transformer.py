@@ -3,13 +3,17 @@ transformer.py, Llama subset).
 
 ``ModelConfig`` is a copy of the JAX package's config with torch dtypes:
 every field is there, so a JAX config maps onto it field by field, but
-the port implements only the Llama family — rmsnorm, swiglu, RoPE
+the port implements the Llama family — rmsnorm, swiglu, RoPE
 (``rope_theta``, ``rope_scale`` and Llama-3.1's ``rope_llama3``
 banding), GQA, ``qkv_bias``, ``o_bias``, ``mlp_bias``,
-``tie_embeddings`` and ``attn_logit_softcap`` — plus, in the training
-forward, attention dropout (``attn_dropout``) and quantized forward
-matmuls (``quant``,
-``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
+``tie_embeddings`` and ``attn_logit_softcap`` — and what the Gemma,
+Mistral and Qwen3 families add: ``norm='rmsnorm1p'`` (scale 1 + w),
+``activation='geglu'``, ``embed_scale``, per-head ``qk_norm`` and the
+final ``logit_softcap``, and in training and ``generate`` also
+``sandwich_norms``, a uniform ``window`` and ``layer_pattern`` with
+``rope_local_theta`` (``pattern_cfg``).  The training forward adds
+attention dropout (``attn_dropout``) and quantized forward matmuls
+(``quant``, ``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
 ``quant_impl``).  The serving forward (serve/scheduler.py) and the
 training forward here both reject the rest by name.
 
@@ -51,7 +55,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from torchacc_tpu_torch.models.generate import embed
+from torchacc_tpu_torch.models.generate import embed, embed_extras
 from torchacc_tpu_torch.ops._common import resolve_device, to_local
 from torchacc_tpu_torch.ops.attn import attention
 from torchacc_tpu_torch.ops.context_parallel import cp_attention
@@ -159,12 +163,61 @@ class ModelConfig:
 
 def rms_norm(cfg: ModelConfig, x: torch.Tensor,
              weight: torch.Tensor) -> torch.Tensor:
-    """``Norm`` with ``norm='rmsnorm'``: computed in f32, cast back to
-    the compute dtype."""
+    """``Norm`` with ``norm`` 'rmsnorm' or 'rmsnorm1p' (Gemma: the
+    stored w scales by 1 + w): computed in f32, cast back to the
+    compute dtype."""
     xf = x.float()
     y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True)
                          + cfg.norm_eps)
-    return (y * to_local(weight).float()).to(cfg.dtype)
+    scale = to_local(weight).float()
+    if cfg.norm == "rmsnorm1p":
+        scale = 1.0 + scale
+    return (y * scale).to(cfg.dtype)
+
+
+def pattern_cfg(cfg: ModelConfig, i: int) -> ModelConfig:
+    """The config of layer ``i`` under ``cfg.layer_pattern``
+    (``pattern_cfg`` of the JAX package, :1308): the layer takes
+    ``pattern[i % len]``; 'sliding' keeps ``cfg.window`` and, with
+    ``rope_local_theta``, takes that base unscaled (Gemma3's local
+    rope), 'global' lifts the window.  ``cfg`` itself without a
+    pattern."""
+    if not cfg.layer_pattern:
+        return cfg
+    kind = cfg.layer_pattern[i % len(cfg.layer_pattern)]
+    if kind == "sliding":
+        if cfg.rope_local_theta is not None:
+            return dataclasses.replace(cfg, rope_theta=cfg.rope_local_theta,
+                                       rope_scale=1.0)
+        return cfg
+    if kind == "global":
+        return dataclasses.replace(cfg, window=(-1, -1))
+    raise ValueError(f"layer_pattern entries must be 'sliding' | 'global', "
+                     f"got {kind!r}")
+
+
+def mlp_act(cfg: ModelConfig, gate: torch.Tensor,
+            up: torch.Tensor) -> torch.Tensor:
+    """The gated MLP's hidden: SiLU(gate) * up, or under 'geglu' flax's
+    ``nn.gelu`` (the tanh approximation, HF's gelu_pytorch_tanh)."""
+    if cfg.activation == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    return F.silu(gate) * up
+
+
+def qk_rope(cfg: ModelConfig, attn: "Attention", q: torch.Tensor,
+            k: torch.Tensor, positions: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k ``[b, s, heads, d]`` after the per-head ``qk_norm``
+    (Gemma3, Qwen3: before RoPE, by ``cfg.norm``) and RoPE at
+    ``positions`` (divided by ``rope_scale`` when it is not 1).  ``cfg``
+    is the layer's (``pattern_cfg``)."""
+    if cfg.qk_norm:
+        q = rms_norm(cfg, q, attn.q_norm.weight)
+        k = rms_norm(cfg, k, attn.k_norm.weight)
+    rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
+          else positions)
+    return rope(q, k, rp, cfg)
 
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
@@ -202,29 +255,42 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, size: int, **factory):
+    """A norm's scale, initialised to ``fill``: one, or zero for
+    rmsnorm1p, whose stored w scales by 1 + w (flax's zeros init)."""
+
+    def __init__(self, cfg: ModelConfig, size: int, **factory):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(size, **factory))
+        self.fill = 0.0 if cfg.norm == "rmsnorm1p" else 1.0
+        self.weight = nn.Parameter(torch.full((size,), self.fill, **factory))
 
 
-# ModelConfig fields of the Llama family, which the serving and the
-# training forward implement for any value
-LLAMA_FIELDS = frozenset({
+# ModelConfig fields of the Llama family and of what Gemma v1 and Qwen3
+# add, which the serving and the training forward implement (``norm``
+# and ``activation`` for the values of MODEL_VALUES)
+MODEL_FIELDS = frozenset({
     "vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
     "head_dim", "intermediate_size", "max_seq_len", "rope_theta",
     "rope_scale", "rope_llama3", "norm_eps", "qkv_bias", "o_bias",
     "mlp_bias", "tie_embeddings", "attn_logit_softcap", "query_scale",
-    "dtype", "param_dtype",
+    "dtype", "param_dtype", "norm", "activation", "embed_scale",
+    "logit_softcap", "qk_norm",
 })
+MODEL_VALUES = {"norm": ("rmsnorm", "rmsnorm1p"),
+                "activation": ("swiglu", "geglu")}
 # what those fields are, for the messages that reject the others
-LLAMA_SURFACE = ("rmsnorm, swiglu, RoPE (plain, linear and llama3 "
-                 "scaling), GQA, qkv/o/mlp biases, tie_embeddings and "
-                 "attn_logit_softcap")
-# the training forward also implements remat (its policy, the
-# submodules and the number of layers it covers), the attention choice,
-# attention dropout and the quantized matmuls; every other field must
-# keep its default
-_TRAIN_FIELDS = LLAMA_FIELDS | {
+MODEL_SURFACE = ("rmsnorm and rmsnorm1p, swiglu and geglu, RoPE (plain, "
+                 "linear and llama3 scaling), GQA, qkv/o/mlp biases, "
+                 "tie_embeddings, embed_scale, per-head qk_norm, "
+                 "attn_logit_softcap and logit_softcap")
+# the rest of the forward waits for these ROADMAP items
+MODEL_PENDING = "ROADMAP.md A10b-2 (A10c for the mixtures of experts)"
+# the training forward also implements Gemma2/3's sandwich norms, the
+# sliding window and the sliding/global layer pattern with its local
+# rope base; remat (its policy, the submodules and the number of layers
+# it covers), the attention choice, attention dropout and the quantized
+# matmuls; every other field must keep its default
+_TRAIN_FIELDS = MODEL_FIELDS | {
+    "sandwich_norms", "window", "layer_pattern", "rope_local_theta",
     "remat", "remat_policy", "remat_cls", "remat_cnt", "attention_impl",
     "attn_dropout", "quant", "quant_sites", "quant_amax_history_len",
     "quant_impl", "context_parallel", "pp_size", "pp_num_micro",
@@ -240,21 +306,43 @@ _TRAIN_INERT = frozenset({
 })
 
 
-def check_training_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming every field the training forward
-    of this port does not implement (under pipeline parallelism, the
-    layer patterns and the mixtures of experts by the ROADMAP items that
-    bring them: ``pp_block_appliers``)."""
-    if cfg.pp_size > 1:
-        pp_block_appliers(cfg)
+def unsupported_fields(cfg: ModelConfig, fields, inert) -> list:
+    """``name=value`` of every field of ``cfg`` outside ``fields`` and
+    ``inert`` that is not at its default, and of ``norm``/``activation``
+    at a value outside MODEL_VALUES."""
     bad = [f"{f.name}={getattr(cfg, f.name)!r}"
            for f in dataclasses.fields(cfg)
-           if f.name not in _TRAIN_FIELDS and f.name not in _TRAIN_INERT
+           if f.name not in fields and f.name not in inert
            and getattr(cfg, f.name) != f.default]
+    return bad + [f"{name}={getattr(cfg, name)!r}"
+                  for name, ok in MODEL_VALUES.items()
+                  if getattr(cfg, name) not in ok]
+
+
+def check_training_supported(cfg: ModelConfig) -> None:
+    """Raise naming every field the training forward of this port does
+    not implement, and the compositions JAX rejects: a layer pattern
+    with quantized matmuls (JAX :929) or with ``overlap_fsdp`` (:953),
+    and under pipeline parallelism a pattern period that does not divide
+    a stage chunk (``pp_block_appliers``)."""
+    if cfg.layer_pattern:
+        if cfg.quant != "none":
+            raise NotImplementedError(
+                "quant != 'none' does not compose with layer_pattern "
+                "models yet")
+        if cfg.overlap_fsdp:
+            raise NotImplementedError(
+                "perf.overlap_fsdp does not compose with layer_pattern "
+                "models (the pattern's per-layer loop does not take the "
+                "overlap path) — disable one of the two")
+    if cfg.pp_size > 1:
+        pp_block_appliers(cfg)
+    bad = unsupported_fields(cfg, _TRAIN_FIELDS, _TRAIN_INERT)
     if bad:
         raise NotImplementedError(
             "the training forward of torchacc_tpu_torch does not support "
-            + ", ".join(bad) + f" (it implements {LLAMA_SURFACE})")
+            + ", ".join(bad) + f" (it implements {MODEL_SURFACE}; the "
+            f"rest waits for {MODEL_PENDING})")
     if cfg.quant != "none" and "head" in cfg.quant_sites:
         raise NotImplementedError(
             "quant_sites includes 'head': the quantized vocab projection "
@@ -432,10 +520,14 @@ class Attention(nn.Module):
     # device
     layout = None
 
-    def __init__(self, cfg: ModelConfig, **factory):
+    def __init__(self, cfg: ModelConfig, layer: int = 0, **factory):
         super().__init__()
         self.cfg = cfg
+        self.layer = layer          # its index: the layer pattern's slot
         h, d = cfg.hidden_size, cfg.head_size
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(cfg, d, **factory)
+            self.k_norm = RMSNorm(cfg, d, **factory)
         self.q_proj = nn.Linear(h, cfg.num_heads * d, bias=cfg.qkv_bias,
                                 **factory)
         self.k_proj = nn.Linear(h, cfg.kv_heads * d, bias=cfg.qkv_bias,
@@ -448,9 +540,11 @@ class Attention(nn.Module):
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
                 quant=None, name="attn"):
         """``Attention.__call__`` (:480) without the KV cache: q/k/v
-        projections, RoPE, causal attention over ``segment_ids``, o
-        projection.  The ``checkpoint_name`` sites are the JAX package's
-        names for the selective remat policies.  ``dropout_seed`` (this
+        projections, the per-head qk norms, RoPE, causal attention over
+        ``segment_ids``, o projection, each with this layer's config
+        (``pattern_cfg``: its window and rope base).  The
+        ``checkpoint_name`` sites are the JAX package's names for the
+        selective remat policies.  ``dropout_seed`` (this
         layer's) turns attention dropout on when ``cfg.attn_dropout`` is
         set; ``quant`` is the forward's :class:`QuantScope` and ``name``
         this module's path, which prefixes its sites' names.  Under
@@ -461,7 +555,7 @@ class Attention(nn.Module):
         ``context_parallel``, x and ``positions`` then being this rank's
         chunk of the sequence, and on any mesh the global batch and head
         offsets, so that dropout draws the one-device masks."""
-        cfg = self.cfg
+        cfg = pattern_cfg(self.cfg, self.layer)
         b, s = x.shape[:2]
         d = cfg.head_size
         qs = quant if quant_site_on(cfg, "attn") else None
@@ -473,9 +567,7 @@ class Attention(nn.Module):
                 b, s, -1, d)
             v = dense(cfg, x, self.v_proj, qs, f"{name}.v_proj").view(
                 b, s, -1, d)
-        rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
-              else positions)
-        q, k = rope(q, k, rp, cfg)
+        q, k = qk_rope(cfg, self, q, k, positions)
         dropout_p, seed = 0.0, None
         if cfg.attn_dropout > 0.0 and dropout_seed is not None:
             dropout_p, seed = cfg.attn_dropout, dropout_seed
@@ -507,7 +599,7 @@ class Mlp(nn.Module):
         self.down_proj = nn.Linear(f, h, bias=cfg.mlp_bias, **factory)
 
     def forward(self, x, quant=None, name="mlp"):
-        """SwiGLU ``Mlp.__call__`` (:665)."""
+        """SwiGLU or GeGLU ``Mlp.__call__`` (:665)."""
         cfg = self.cfg
         qs = quant if quant_site_on(cfg, "mlp") else None
         x = _tp_in(x, self.tp_group)
@@ -515,7 +607,7 @@ class Mlp(nn.Module):
             gate = dense(cfg, x, self.gate_proj, qs, f"{name}.gate_proj")
             up = dense(cfg, x, self.up_proj, qs, f"{name}.up_proj")
         with checkpoint_name("mlp_out"):
-            return row_parallel(cfg, F.silu(gate) * up, self.down_proj,
+            return row_parallel(cfg, mlp_act(cfg, gate, up), self.down_proj,
                                 self.tp_group, qs, f"{name}.down_proj")
 
 
@@ -535,19 +627,24 @@ def _remat_layer(cfg: ModelConfig, i: int) -> bool:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, **factory):
+    def __init__(self, cfg: ModelConfig, layer: int = 0, **factory):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = RMSNorm(cfg.hidden_size, **factory)
-        self.attn = Attention(cfg, **factory)
-        self.ln2 = RMSNorm(cfg.hidden_size, **factory)
+        self.ln1 = RMSNorm(cfg, cfg.hidden_size, **factory)
+        self.attn = Attention(cfg, layer, **factory)
+        self.ln2 = RMSNorm(cfg, cfg.hidden_size, **factory)
         self.mlp = Mlp(cfg, **factory)
+        if cfg.sandwich_norms:
+            self.ln1_post = RMSNorm(cfg, cfg.hidden_size, **factory)
+            self.ln2_post = RMSNorm(cfg, cfg.hidden_size, **factory)
 
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
                 quant=None, name="block", sub_remat=False):
-        """Pre-norm ``Block.__call__`` (:722).  ``sub_remat``: the
-        attention and/or MLP named by ``cfg.remat_cls`` are checkpoint
-        regions under ``cfg.remat_policy`` (the block itself is not)."""
+        """Pre-norm ``Block.__call__`` (:722), with Gemma2's
+        post-attention and post-MLP norms under ``sandwich_norms``.
+        ``sub_remat``: the attention and/or MLP named by
+        ``cfg.remat_cls`` are checkpoint regions under
+        ``cfg.remat_policy`` (the block itself is not)."""
         cfg = self.cfg
         remat_attn = sub_remat and "Attention" in cfg.remat_cls
         remat_mlp = sub_remat and "Mlp" in cfg.remat_cls
@@ -555,12 +652,18 @@ class Block(nn.Module):
                                  quant=quant, name=f"{name}.attn")
         mlp = functools.partial(self.mlp, quant=quant, name=f"{name}.mlp")
         a_in = rms_norm(cfg, x, self.ln1.weight)
-        h = x + (checkpoint_block(attn, cfg.remat_policy, a_in, positions,
-                                  segment_ids) if remat_attn
-                 else attn(a_in, positions, segment_ids))
+        a = (checkpoint_block(attn, cfg.remat_policy, a_in, positions,
+                              segment_ids) if remat_attn
+             else attn(a_in, positions, segment_ids))
+        if cfg.sandwich_norms:
+            a = rms_norm(cfg, a, self.ln1_post.weight)
+        h = x + a
         m_in = rms_norm(cfg, h, self.ln2.weight)
-        return h + (checkpoint_block(mlp, cfg.remat_policy, m_in)
-                    if remat_mlp else mlp(m_in))
+        m = (checkpoint_block(mlp, cfg.remat_policy, m_in) if remat_mlp
+             else mlp(m_in))
+        if cfg.sandwich_norms:
+            m = rms_norm(cfg, m, self.ln2_post.weight)
+        return h + m
 
 
 class StageLayers(nn.ModuleDict):
@@ -584,9 +687,11 @@ class StageLayers(nn.ModuleDict):
 
 
 class TransformerLM(nn.Module):
-    """A Llama-family decoder: ``embed_tokens``,
-    ``layers[i].{ln1, attn.{q,k,v,o}_proj, ln2, mlp.{gate,up,down}_proj}``,
-    ``final_norm`` and ``lm_head`` (absent when ``tie_embeddings``).
+    """A Llama- or Gemma-family decoder: ``embed_tokens``,
+    ``layers[i].{ln1, attn.{q,k,v,o}_proj, ln2, mlp.{gate,up,down}_proj}``
+    (with ``attn.{q,k}_norm`` under ``qk_norm`` and ``ln{1,2}_post``
+    under ``sandwich_norms``), ``final_norm`` and ``lm_head`` (absent
+    when ``tie_embeddings``).
 
     The weights are made on ``device``: the card when it is ``None``
     (raising where there is none), ``"meta"`` for a model whose weights
@@ -620,8 +725,8 @@ class TransformerLM(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **factory)
         self.layers = nn.ModuleList(
-            [Block(cfg, **factory) for _ in range(cfg.num_layers)])
-        self.final_norm = RMSNorm(cfg.hidden_size, **factory)
+            [Block(cfg, i, **factory) for i in range(cfg.num_layers)])
+        self.final_norm = RMSNorm(cfg, cfg.hidden_size, **factory)
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                   bias=False, **factory))
@@ -704,11 +809,7 @@ class TransformerLM(nn.Module):
                 "replicated head) are not ported to torchacc_tpu_torch "
                 "yet (ROADMAP.md A8b): pass labels for the vocab-parallel "
                 "fused CE")
-        logits = head_logits(cfg, self, x)
-        if cfg.logit_softcap > 0.0:
-            logits = torch.tanh(logits / cfg.logit_softcap) \
-                * cfg.logit_softcap
-        return logits
+        return head_logits(cfg, self, x)
 
     def _positions(self, ids: torch.Tensor,
                    positions: Optional[torch.Tensor]) -> torch.Tensor:
@@ -777,7 +878,8 @@ class TransformerLM(nn.Module):
         mine = (ids >= off) & (ids < off + w.shape[0])
         x = F.embedding(torch.where(mine, ids - off, 0).long(), w)
         x = torch.where(mine[..., None], x, 0.0)
-        return _tp_out(x, self.tp_group).to(self.cfg.dtype)
+        return embed_extras(self.cfg,
+                            _tp_out(x, self.tp_group).to(self.cfg.dtype))
 
 
 def set_model_config(model: nn.Module, cfg: ModelConfig) -> None:
@@ -816,13 +918,22 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
     return total / torch.clamp(count, min=1.0)
 
 
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2's final logit soft-capping ``c * tanh(logits / c)``; a cap
+    <= 0 is a no-op (``softcap`` of the JAX package)."""
+    if cap <= 0.0:
+        return logits
+    return torch.tanh(logits / cap) * cap
+
+
 def head_logits(cfg: ModelConfig, model: TransformerLM,
                 x: torch.Tensor) -> torch.Tensor:
     """Final norm -> vocab projection in the compute dtype -> f32 logits
-    (``head_logits`` of the JAX package)."""
+    -> ``logit_softcap`` (``head_logits`` of the JAX package)."""
     xn = rms_norm(cfg, x, model.final_norm.weight)
-    return F.linear(xn.to(cfg.dtype), head_weight(model).to(cfg.dtype)
-                    ).float()
+    return softcap(F.linear(xn.to(cfg.dtype),
+                            head_weight(model).to(cfg.dtype)).float(),
+                   cfg.logit_softcap)
 
 
 def materializer(seed: int, device: torch.device):
@@ -830,23 +941,25 @@ def materializer(seed: int, device: torch.device):
     ``module`` (named ``prefix.<name>`` in the whole model) storage on
     ``device`` and the flax initialisers' values, drawn from one
     ``torch.Generator`` seeded with ``seed``: every matrix normal(0.02),
-    norm scales one, biases zero.  Called on the model's submodules in
-    the order of ``named_parameters``, it makes the weights
-    ``init_params`` makes, one module at a time."""
+    norm scales their ``RMSNorm.fill`` (one; zero under rmsnorm1p),
+    biases zero.  Called on the model's submodules in the order of
+    ``named_parameters``, it makes the weights ``init_params`` makes,
+    one module at a time."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     @torch.no_grad()
     def make(module: nn.Module, prefix: str = "") -> None:
         module.to_empty(device=device)
-        for name, p in module.named_parameters(prefix=prefix):
-            if name.endswith("ln1.weight") or name.endswith("ln2.weight") \
-                    or name == "final_norm.weight":
-                p.fill_(1.0)
-            elif name.endswith(".bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, 0.02, generator=gen)
+        for mname, mod in module.named_modules(prefix=prefix):
+            for name, p in mod.named_parameters(prefix=mname,
+                                                recurse=False):
+                if isinstance(mod, RMSNorm):
+                    p.fill_(mod.fill)
+                elif name.endswith(".bias"):
+                    p.zero_()
+                else:
+                    p.normal_(0.0, 0.02, generator=gen)
     return make
 
 
@@ -867,13 +980,22 @@ def pp_block_appliers(cfg: ModelConfig):
     """The layers of each pipeline chunk, ``[stage][chunk] -> range``
     (``pp_block_appliers`` of the JAX package, :796, whose appliers are
     the model's own blocks here: a chunk is ``TransformerLM.forward``
-    with ``layers``).  A ``layer_pattern`` (JAX's per-slot appliers) and
-    a mixture of experts (its aux-loss rider) raise by name."""
+    with ``layers``).  Under a ``layer_pattern`` JAX's slot j of every
+    chunk runs ``pattern_cfg(cfg, j)``; here each block takes the
+    config of its global index, the same one when the pattern's period
+    divides a chunk, which JAX requires (:809) and so does this.  A
+    mixture of experts (its aux-loss rider) raises by name."""
     if cfg.layer_pattern:
-        raise NotImplementedError(
-            "layer_pattern under pipeline parallelism (the per-slot "
-            "appliers of each stage chunk) is not ported to "
-            "torchacc_tpu_torch yet (ROADMAP.md A10b)")
+        plen = len(cfg.layer_pattern)
+        per_stage = cfg.num_layers // (cfg.pp_size * cfg.pp_virtual)
+        if per_stage % plen:
+            raise ValueError(
+                f"layer_pattern of period {plen} does not divide the "
+                f"per-stage chunk of {per_stage} layers (num_layers "
+                f"{cfg.num_layers} / pp {cfg.pp_size} / virtual "
+                f"{cfg.pp_virtual}): slot kinds would differ across "
+                f"stages.  Choose pp_size x virtual_stages so each chunk "
+                f"holds whole pattern repeats.")
     if cfg.num_experts > 0:
         raise NotImplementedError(
             "a mixture of experts under pipeline parallelism (the router "
@@ -955,14 +1077,11 @@ def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
                     "torchacc_tpu_torch yet (ROADMAP.md A8b)")
             if one_f:
                 # JAX's 1F1B head projects in f32
-                logits = F.linear(
+                logits = softcap(F.linear(
                     rms_norm(cfg, x, model.final_norm.weight).float(),
-                    to_local(head_weight(model)).float())
+                    to_local(head_weight(model)).float()), cfg.logit_softcap)
             else:
                 logits = head_logits(cfg, model, x)
-            if cfg.logit_softcap > 0.0:
-                logits = torch.tanh(logits / cfg.logit_softcap) \
-                    * cfg.logit_softcap
             if custom_loss is None:
                 return loss_sum_count(logits, lab)
             view = (_MicroBatchView(labels=lab) if one_f else

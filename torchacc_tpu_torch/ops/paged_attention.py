@@ -42,8 +42,8 @@ from torchacc_tpu_torch.ops._common import NEG_INF, check_local
 #: chip_smoke.py sets both to 0 before the serving run and reads them after
 launch_counts = {"decode": 0, "prefill": 0}
 
-# llama-tiny; Llama-3.2-1B and Qwen2-0.5B; llama3-8b
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+# llama-tiny; Llama-3.2-1B and Qwen2-0.5B; llama3-8b; the Gemma family
+_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the kernel bodies (paged_attention_fwd's ``body``)
 _BODY_CODE = {"f32": 0, "prefill_mma": 1, "decode_split": 2}
@@ -56,6 +56,16 @@ _MAX_SPLITS = 32        # parts a tile's keys are cut into (kMaxSplits)
 _CTAS_PER_SM = 4        # decode CTAs an SM
 _PREFILL_CTAS_PER_SM = 2   # prefill CTAs an SM (kMinBlocks)
 _MAX_GRID_YZ = 65535    # CUDA's limit on grid dims y (kv heads), z (slots)
+
+
+def _ctas_per_sm(decode: bool, d: int) -> int:
+    """The CTAs an SM the plan fills for a body at head dim ``d``: up to
+    128, 4 decode CTAs (3 resident, kMinBlocks, and one queued) and the 2
+    prefill CTAs that kMinBlocks holds; at 256 a CTA's ring (132 KB of
+    shared memory) leaves room for one an SM, of either body."""
+    if d >= 256:
+        return 1
+    return _CTAS_PER_SM if decode else _PREFILL_CTAS_PER_SM
 
 
 def _paged_attention_torch(q, k_pool, v_pool, block_tables, context_lens,
@@ -116,16 +126,17 @@ def _paged_plan(q_shape: Tuple[int, int, int, int],
 
     - f32 (any T): the CUDA-core body, 32 rows a CTA, keys unsplit;
     - bf16 prefill (T > 1): 64-row tiles on the tensor cores; the keys
-      are split where the tiles alone would not fill two CTAs an SM;
+      are split where the tiles alone would not fill the CTAs an SM
+      holds (``_ctas_per_sm``: two, one at head dim 256);
     - bf16 decode (T = 1): the group's rows (padded to 16) a CTA, the
-      keys split into about ``_CTAS_PER_SM * sms / (S * KH)`` parts.
+      keys split into about ``_ctas_per_sm * sms / (S * KH)`` parts.
 
     The kernel cuts a tile's visible keys into ``splits`` parts of whole
     64-key stages, at least ``_MIN_SPLIT_KEYS`` each, on the card: the
     grid comes from the shapes and the table width alone, never from
     ``context_lens``, which stays on the card.  The table width caps the
     parts at what a full table could fill."""
-    s_, t_, h, _ = q_shape
+    s_, t_, h, d = q_shape
     _, bs, kh, _ = pool_shape
     group = h // kh
     if s_ > _MAX_GRID_YZ or kh > _MAX_GRID_YZ:
@@ -140,14 +151,14 @@ def _paged_plan(q_shape: Tuple[int, int, int, int],
     if t_ > 1:
         tiles = cdiv(group * t_, _ROWS_MMA)
         splits = min(max_parts, max(
-            1, _PREFILL_CTAS_PER_SM * sms // (s_ * kh * tiles)))
+            1, _ctas_per_sm(False, d) * sms // (s_ * kh * tiles)))
         return PagedPlan("prefill_mma", (tiles * splits, kh, s_), _ROWS_MMA,
                          splits)
     if group > _MAX_GROUP:
         raise ValueError(
             f"the bf16 decode kernel takes at most {_MAX_GROUP} q heads per "
             f"kv head, got {group}")
-    splits = min(max_parts, cdiv(_CTAS_PER_SM * sms, s_ * kh))
+    splits = min(max_parts, cdiv(_ctas_per_sm(True, d) * sms, s_ * kh))
     return PagedPlan("decode_split", (splits, kh, s_), _DECODE_ROWS, splits)
 
 

@@ -51,17 +51,19 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from torchacc_tpu_torch.models.generate import embed, sample_slots
 from torchacc_tpu_torch.models.transformer import (
-    LLAMA_FIELDS,
-    LLAMA_SURFACE,
+    MODEL_FIELDS,
+    MODEL_PENDING,
+    MODEL_SURFACE,
     ModelConfig,
     dense,
     head_logits,
+    mlp_act,
+    qk_rope,
     rms_norm,
-    rope,
+    unsupported_fields,
 )
 from torchacc_tpu_torch.ops.paged_attention import paged_attention
 from torchacc_tpu_torch.serve.kv_cache import (
@@ -73,8 +75,14 @@ from torchacc_tpu_torch.serve.kv_cache import (
 from torchacc_tpu_torch.utils.logger import logger
 from torchacc_tpu_torch.utils.metrics import counters
 
-# ModelConfig fields the paged forward implements for any value
-_SUPPORTED_FIELDS = LLAMA_FIELDS
+# ModelConfig fields the paged forward implements (the Llama family,
+# Gemma v1, Qwen3)
+_SUPPORTED_FIELDS = MODEL_FIELDS
+# what JAX's ServeEngine rejects and its generate() decodes (JAX
+# scheduler.py :139-150): Gemma2/3's per-layer windows and sandwich
+# norms, Mistral's window
+_GENERATE_ONLY = ("layer_pattern", "rope_local_theta", "sandwich_norms",
+                  "window")
 # fields that select training-time execution only and cannot change
 # what the serving forward computes (the JAX package's audit:
 # scheduler.py _AUDITED_MODEL_FIELDS); the MoE knobs are inert while
@@ -91,20 +99,23 @@ _INERT_FIELDS = frozenset({
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The serving surface of this slice, as an allow-list
-    (``LLAMA_SURFACE``).  Every other field must keep its default; one
-    that does not raises NotImplementedError naming it."""
-    bad = []
-    for f in dataclasses.fields(cfg):
-        if f.name in _SUPPORTED_FIELDS or f.name in _INERT_FIELDS:
-            continue
-        value = getattr(cfg, f.name)
-        if value != f.default:
-            bad.append(f"{f.name}={value!r}")
+    """The serving surface, as an allow-list (``MODEL_SURFACE``).  Every
+    other field must keep its default; one that does not raises
+    NotImplementedError naming it: the sliding windows, layer patterns
+    and sandwich norms with JAX's pointer to ``models.generate``."""
+    bad = unsupported_fields(cfg, _SUPPORTED_FIELDS, _INERT_FIELDS)
+    gen = [b for b in bad if b.split("=")[0] in _GENERATE_ONLY]
+    if gen:
+        raise NotImplementedError(
+            "the serving engine of torchacc_tpu_torch does not support "
+            + ", ".join(gen) + " (per-layer or sliding windows, sandwich "
+            "norms), as JAX's does not.  Use models.generate for these "
+            "models (batch-synchronous decode covers them).")
     if bad:
         raise NotImplementedError(
             "the serving engine of torchacc_tpu_torch does not support "
-            + ", ".join(bad) + f" (it implements {LLAMA_SURFACE})")
+            + ", ".join(bad) + f" (it implements {MODEL_SURFACE}; the "
+            f"rest waits for {MODEL_PENDING})")
 
 
 class PagedDecoder:
@@ -138,9 +149,7 @@ class PagedDecoder:
         q = self._dense(h, attn.q_proj).view(s_, t_, cfg.num_heads, d)
         k = self._dense(h, attn.k_proj).view(s_, t_, kh, d)
         v = self._dense(h, attn.v_proj).view(s_, t_, kh, d)
-        rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
-              else positions)
-        q, k = rope(q, k, rp, cfg)
+        q, k = qk_rope(cfg, attn, q, k, positions)
         # bank this chunk's rotated k / raw v, then attend over the pool
         kp[flat_b, flat_o] = k.reshape(s_ * t_, kh, d).to(kp.dtype)
         vp[flat_b, flat_o] = v.reshape(s_ * t_, kh, d).to(vp.dtype)
@@ -151,8 +160,8 @@ class PagedDecoder:
         x = x + self._dense(out.reshape(s_, t_, -1), attn.o_proj)
         h2 = rms_norm(cfg, x, layer.ln2.weight)
         mlp = layer.mlp
-        ff = (F.silu(self._dense(h2, mlp.gate_proj))
-              * self._dense(h2, mlp.up_proj))
+        ff = mlp_act(cfg, self._dense(h2, mlp.gate_proj),
+                     self._dense(h2, mlp.up_proj))
         return x + self._dense(ff, mlp.down_proj)
 
     def forward(self, pools, ids, positions, tables, ctx_lens, blk, off):
