@@ -77,6 +77,15 @@ Phases, each of which exits non-zero when it fails:
    softmax picks reach the cap's bend, and a control must fail: the
    kernels' dq and dk against a plain backward that drops the cap's
    derivative;
+4d. heads of 80 (Phi-2, B-2): B1-B3 at Phi-2's 32 heads of 80 (MHA),
+   b 2, s 2048, causal packed documents, in bf16 (one ulp), f16 (two
+   ulps) and f32 (1e-5), with ALiBi and dropout in each, and a windowed
+   sq != sk case, against the plain versions; the bf16 case timed
+   beside SDPA at d 80 with a dense mask, each kernel's bound 4d, 6d and
+   8d flops a visible pair and head at 989 TFLOP/s;
+4e. B1-B3's ALiBi instantiation at GPT-2's heads (12 of 64, 8 x 1024
+   packed tokens, the model's slopes), checked and timed beside SDPA
+   with the bias in a dense float mask;
 5. the quantized-matmul kernel phase: B5 (a quantize pass and a wgmma
    GEMM, 8-bit for int8 and f16 for fp8's e4m3 values) against its
    plain version on the same CUDA tensors, int8
@@ -282,12 +291,39 @@ Phases, each of which exits non-zero when it fails:
    that a row attends to its own key there: B4 at d 256 launches
    layers x dispatches, and the last-prompt logits lie within
    _logits_limit of the plain path while two controls must not (a
-   64-key window; the last row not seeing its own key).
+   64-key window; the last row not seeing its own key);
+13e. the Phi-2 phase: microsoft/phi-2's published config.json (vocab
+   51200, hidden 2560, 32 heads of 80, ffn 10240, partial rotary 0.4,
+   the parallel block, biases and a biased head, untied) at full width
+   and depth (32 layers, 2.78 B parameters) with seeded bf16 weights in
+   Phi's HF names, through accelerate(path) (the materialising
+   converter, as in JAX) -> Trainer.fit for 6 steps of 2 x 2048 packed
+   tokens, the head bias taking the materialised logits: the first
+   batch's loss through B1 at d 80 within 1e-4 of the plain
+   attention's, and the control (partial rotary lifted to 1.0) above
+   it; B1/B2/B3 launch layers x steps; then generate() (2 prompts of
+   256, 8 new) through B1: launches layers x 8, f32 tokens equal to the
+   plain attention's.  Printed: step ms, tokens/s, MFU by
+   ModelConfig.num_params, peak memory, the host's wait on the loader;
+13f. the GPT-2 phase: openai-community/gpt2's config.json (12 layers,
+   12 heads of 64, hidden 768, 1024 learned positions, vocab 50257,
+   tied) with seeded bf16 weights in its Conv1D layout, through
+   accelerate(path) -> Trainer.fit for 6 steps of 8 x 1024 packed
+   tokens (the loss must fall); ServeEngine.from_train_state serves 4
+   greedy requests on B4 at d 64: launches layers x dispatches, the
+   last-prompt logits within GPT2_LOGITS_LIMIT of the plain path, the
+   64-key-window control above it;
+13g. the ALiBi phase: GPT-2's width and depth with pos_emb='alibi' from
+   init_params(seed), 2 fit steps of 8 x 1024 tokens on B1-B3's ALiBi
+   instantiation (launches layers x steps), the first batch's loss
+   within 1e-4 of the plain attention's and the halved-slopes control
+   above it; generate() through B1 as in 13e.
 
 No earlier phase was cut to make room: on an H100 the whole run takes
 about 440 s before the Gemma phases, which add about 80 s with
-flex_attention's compiles (the build takes 112-114 s, the nvcc of
-flash_attention.cu, with its four head dims, the longest;
+flex_attention's compiles, and the LayerNorm families' phases (4d, 4e,
+13e-13g) about 70 s more (the build, the nvcc of flash_attention.cu
+with its five head dims, the longest;
 about 45 s the Hugging Face phase, about 150 s the checkpoint phases,
 bound by the disk, a few seconds the context-parallelism phase; stderr
 has each kernel's registers and spills from nvcc's -Xptxas -v).
@@ -1062,7 +1098,8 @@ def _flash_phase(torch, args, d=D, only=None, heads=(H, KH), cases=None,
         del got, ref
         if name in timed:
             rec.update(_flash_times(torch, F, fa, args, q, k, v, do, seg,
-                                    scale, causal, window, cap))
+                                    scale, causal, window, cap,
+                                    more.get("alibi_slopes")))
         results[name] = rec
         del q, k, v, do, seg
         torch.cuda.empty_cache()
@@ -1148,10 +1185,12 @@ def _dropped_fraction(torch, fa, p=0.1, seed=4321, s=2048):
 
 
 def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
-                 window, cap):
-    """Kernel, plain, library and bound times of B1-B3 at these inputs."""
+                 window, cap, alibi=None):
+    """Kernel, plain, library and bound times of B1-B3 at these inputs
+    (``alibi``: the slopes, on the kernels' ALiBi instantiation; SDPA
+    then takes the bias in a float mask)."""
     reps = max(3, args.reps // 5)
-    geo = (seg, seg, causal, window, scale, cap)
+    geo = (seg, seg, causal, window, scale, cap, alibi)
     o, lse = fa._fwd_cuda(q, k, v, *geo)
     delta = fa._bwd_delta(o, do)
     out = {}
@@ -1164,7 +1203,7 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
     # the plain backward computes dq, dk and dv in one call: both
     # backward kernels are held against that one time
     kw = dict(causal=causal, window=window, scale=scale, logit_softcap=cap,
-              q_segment_ids=seg, kv_segment_ids=seg)
+              q_segment_ids=seg, kv_segment_ids=seg, alibi_slopes=alibi)
     out["plain_fwd_ms"] = _time_ms(torch, lambda i: fa.attention_reference(
         q, k, v, return_lse=True, **kw), 2, warm=1)
     out["plain_bwd_ms"] = _time_ms(
@@ -1179,6 +1218,14 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
             .transpose(1, 2).contiguous()
         qt, kt, vt, dot = bh(q), bh(k), bh(v), bh(do)
         m4 = mask[:, None] if mask.ndim == 3 else mask
+        if alibi is not None:
+            # the bias the kernels add, -slope |i + sk - sq - j|, on the
+            # visible pairs; -inf on the others
+            sq, sk = q.shape[1], k.shape[1]
+            dist = (torch.arange(sq, device="cuda")[:, None] + sk - sq
+                    - torch.arange(sk, device="cuda")[None]).abs().float()
+            bias = -alibi[:, None, None] * dist
+            m4 = torch.where(m4, bias, float("-inf")).to(q.dtype)
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=m4)
         lib_fwd = _time_ms(torch, lambda i: sdpa(), reps)
@@ -1195,7 +1242,8 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
         out.update(_flex_times(torch, q, k, v, do, seg, causal, window, cap,
                                scale, o, reps))
     d = q.shape[-1]
-    lib_name = "SDPA, dense mask" if cap == 0.0 else "flex_attention"
+    lib_name = ("flex_attention" if cap else "SDPA, dense float mask"
+                if alibi is not None else "SDPA, dense mask")
     flops = {"fwd": 4 * d * pairs * H, "bwd_dq": 6 * d * pairs * H,
              "bwd_dkv": 8 * d * pairs * H}
     out["visible_pairs_per_head"] = pairs
@@ -2924,9 +2972,13 @@ HF_SHARDS = 4
 
 
 def _hf_tensors(cfg, layers):
-    """HF tensor name -> shape of a Llama or Gemma2 checkpoint of ``cfg``
-    (tied: no lm_head; Gemma2's pre- and post-feedforward norms), in the
-    order the shards hold them."""
+    """HF tensor name -> shape of a Llama, Gemma2, Phi or GPT-2
+    checkpoint of ``cfg`` (tied: no lm_head; Gemma2's pre- and
+    post-feedforward norms), in the order the shards hold them."""
+    if cfg["model_type"] == "phi":
+        return _phi_tensors(cfg, layers)
+    if cfg["model_type"] == "gpt2":
+        return _gpt2_tensors(cfg, layers)
     h, f, d = cfg["hidden_size"], cfg["intermediate_size"], cfg["head_dim"]
     q, kv = cfg["num_attention_heads"] * d, cfg["num_key_value_heads"] * d
     out = {"model.embed_tokens.weight": (cfg["vocab_size"], h),
@@ -2948,6 +3000,54 @@ def _hf_tensors(cfg, layers):
             p + "mlp.up_proj.weight": (f, h),
             p + "mlp.down_proj.weight": (h, f)})
     return out
+
+
+def _phi_tensors(cfg, layers):
+    """Phi-1/1.5/2's tensors: biased q/k/v, ``dense``, ``fc1``/``fc2``
+    and LayerNorms, one norm a block, a biased untied head."""
+    h, f, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    out = {"model.embed_tokens.weight": (v, h),
+           "model.final_layernorm.weight": (h,),
+           "model.final_layernorm.bias": (h,),
+           "lm_head.weight": (v, h), "lm_head.bias": (v,)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        out.update({p + "input_layernorm.weight": (h,),
+                    p + "input_layernorm.bias": (h,)})
+        for name in ("q_proj", "k_proj", "v_proj", "dense"):
+            out.update({p + f"self_attn.{name}.weight": (h, h),
+                        p + f"self_attn.{name}.bias": (h,)})
+        out.update({p + "mlp.fc1.weight": (f, h), p + "mlp.fc1.bias": (f,),
+                    p + "mlp.fc2.weight": (h, f), p + "mlp.fc2.bias": (h,)})
+    return out
+
+
+def _gpt2_tensors(cfg, layers):
+    """GPT-2's tensors in its Conv1D layout (``[in, out]``, q|k|v packed
+    in ``c_attn``), the position table, biased LayerNorms; tied."""
+    h, v = cfg["n_embd"], cfg["vocab_size"]
+    out = {"transformer.wte.weight": (v, h),
+           "transformer.wpe.weight": (cfg["n_positions"], h),
+           "transformer.ln_f.weight": (h,), "transformer.ln_f.bias": (h,)}
+    for i in range(layers):
+        p = f"transformer.h.{i}."
+        out.update({p + "ln_1.weight": (h,), p + "ln_1.bias": (h,),
+                    p + "attn.c_attn.weight": (h, 3 * h),
+                    p + "attn.c_attn.bias": (3 * h,),
+                    p + "attn.c_proj.weight": (h, h),
+                    p + "attn.c_proj.bias": (h,),
+                    p + "ln_2.weight": (h,), p + "ln_2.bias": (h,),
+                    p + "mlp.c_fc.weight": (h, 4 * h),
+                    p + "mlp.c_fc.bias": (4 * h,),
+                    p + "mlp.c_proj.weight": (4 * h, h),
+                    p + "mlp.c_proj.bias": (h,)})
+    return out
+
+
+def _layer_of(name):
+    """The block index in an HF tensor name, None outside the blocks."""
+    parts = name.split(".")
+    return int(parts[2]) if len(parts) > 2 and parts[2].isdigit() else None
 
 
 def _write_safetensors(torch, path, tensors):
@@ -2977,11 +3077,13 @@ def _write_hf_checkpoint(torch, root, seed, layers, published=None):
     weights in HF's tensor names, bf16, in HF_SHARDS safetensors files
     named by an index: matrices normal(0, initializer_range) from numpy
     generators spawned from ``seed`` (one a tensor, drawn on 8 threads),
-    norm scales their init (one; zero for Gemma's 1 + w norms).  Returns
-    (the HF tensors by name, bytes written)."""
+    biases too, norm scales their init (one; zero for Gemma's 1 + w
+    norms).  Returns (the HF tensors by name, bytes written)."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
-    cfg = dict(published or LLAMA32_1B, num_hidden_layers=layers)
+    cfg = dict(published or LLAMA32_1B)
+    cfg["n_layer" if cfg["model_type"] == "gpt2"
+        else "num_hidden_layers"] = layers
     norm_init = 0.0 if cfg["model_type"].startswith("gemma") else 1.0
     with open(os.path.join(root, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)
@@ -2992,17 +3094,19 @@ def _write_hf_checkpoint(torch, root, seed, layers, published=None):
 
     def make(name):
         shape = shapes[name]
-        if name.endswith("norm.weight"):
+        if name.endswith(("norm.weight", ".ln_1.weight", ".ln_2.weight",
+                          ".ln_f.weight")):
             return torch.full(shape, norm_init, dtype=torch.bfloat16)
         x = np.random.default_rng(gens[name]).standard_normal(
             int(np.prod(shape)), dtype=np.float32)
         return torch.from_numpy(x).mul_(std).to(torch.bfloat16).view(shape)
 
-    # embedding and final norm first, then the layers in equal groups
+    # the tensors outside the blocks first, then the layers in equal
+    # groups
     per = -(-layers // (HF_SHARDS - 1))
-    groups = [names[:2]] + [
-        [n for n in names[2:] if int(n.split(".")[2]) // per == g]
-        for g in range(HF_SHARDS - 1)]
+    groups = [[n for n in names if _layer_of(n) is None]] + [
+        [n for n in names if _layer_of(n) is not None
+         and _layer_of(n) // per == g] for g in range(HF_SHARDS - 1)]
     written, nbytes, weight_map = {}, 0, {}
     with ThreadPoolExecutor(8) as ex:
         for g, group in enumerate(groups):
@@ -3651,6 +3755,480 @@ def _gemma_serving_phase(torch, args, pa):
     return {"launches": launches, "dispatches": dispatches,
             "tokens_per_s": stats["tokens_per_sec"],
             "logits_rel": rel["kernel"]}
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm families: Phi-2's heads of 80 (B-2), GPT-2, ALiBi
+# ---------------------------------------------------------------------------
+
+# microsoft/phi-2's published config.json: 2.78 B parameters, 32 heads
+# of 80 (MHA), partial rotary 0.4 (32 of 80 dims rotate), the parallel
+# block with one LayerNorm, gelu_new, biases everywhere and on the head
+PHI2 = {
+    "architectures": ["PhiForCausalLM"], "model_type": "phi",
+    "vocab_size": 51200, "hidden_size": 2560, "intermediate_size": 10240,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 2048,
+    "partial_rotary_factor": 0.4, "rope_theta": 10000.0,
+    "rope_scaling": None, "layer_norm_eps": 1e-05, "hidden_act": "gelu_new",
+    "tie_word_embeddings": False, "qk_layernorm": False,
+    "initializer_range": 0.02, "attention_dropout": 0.0,
+    "embd_pdrop": 0.0, "resid_pdrop": 0.1, "bos_token_id": 50256,
+    "eos_token_id": 50256, "torch_dtype": "float16",
+}
+PHI2_B, PHI2_S, PHI2_STEPS = 2, 2048, 6   # 2 x 2048 packed tokens, 6 steps
+# openai-community/gpt2's published config.json: 124 M parameters, 12
+# heads of 64, learned positions (1024), gelu_new, a tied head, Conv1D
+# weights
+GPT2 = {
+    "architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+    "vocab_size": 50257, "n_embd": 768, "n_layer": 12, "n_head": 12,
+    "n_positions": 1024, "n_ctx": 1024, "n_inner": None,
+    "activation_function": "gelu_new", "layer_norm_epsilon": 1e-05,
+    "initializer_range": 0.02, "attn_pdrop": 0.1, "embd_pdrop": 0.1,
+    "resid_pdrop": 0.1, "bos_token_id": 50256, "eos_token_id": 50256,
+}
+GPT2_B, GPT2_S, GPT2_STEPS = 8, 1024, 6   # 8 x 1024 packed tokens, 6 steps
+ALIBI_STEPS = 2
+# the served gpt2's last-prompt logits through B4 against the plain
+# path, relative: read <= 0.004 (one bf16 ulp of the largest logit) on an
+# H100 after the 6 training steps, the 64-key window's control 0.024-
+# 0.027 on the prompts it cuts, the own-key control 0.004 (attention
+# near-uniform: printed only); _logits_limit's 0.104 at 12 layers, set
+# from llama readings, lies above both controls
+GPT2_LOGITS_LIMIT = 0.01
+# the first-batch loss through B1-B3 against the plain attention's,
+# relative, for Phi-2 and the ALiBi model: like GEMMA2_LOSS_LIMIT, a
+# bound on bf16 rounding through every layer; each has a control (Phi-2:
+# every dim rotating, partial rotary lifted to 1.0; ALiBi: the slopes
+# halved) that must exceed it
+LN_LOSS_LIMIT = 1e-4
+PHI2_FLASH_HEADS = (32, 32)
+
+
+def _phi2_kernel_phase(torch, args):
+    """B1-B3 at Phi-2's heads, 32 of 80 (MHA), against the plain versions:
+    b 2, s 2048, causal packed documents in bf16 (checked and timed
+    beside SDPA with a dense mask at d 80), f16 (two ulps) and f32
+    (1e-5), ALiBi and dropout in bf16, f16 and f32, and rows that see no
+    key."""
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    slopes = 2.0 ** (-8.0 * torch.arange(1, 33, device="cuda",
+                                         dtype=torch.float32) / 32)
+    drop = dict(dropout_p=0.1, dropout_seed=80)
+    cases = {   # b, sq, sk, dtype, segments, causal, window, softcap, more
+        "train": (PHI2_B, PHI2_S, PHI2_S, bf, True, True, (-1, -1), 0.0, {}),
+        "f16": (PHI2_B, PHI2_S, PHI2_S, f16, True, True, (-1, -1), 0.0, {}),
+        "f32": (1, 1024, 1024, f32, True, True, (-1, -1), 0.0, {}),
+        "alibi": (PHI2_B, PHI2_S, PHI2_S, bf, True, True, (-1, -1), 0.0,
+                  dict(alibi_slopes=slopes)),
+        "dropout": (PHI2_B, PHI2_S, PHI2_S, bf, True, True, (-1, -1), 0.0,
+                    drop),
+        "dropout_alibi_f16": (1, PHI2_S, PHI2_S, f16, True, True, (-1, -1),
+                              0.0, dict(drop, alibi_slopes=slopes)),
+        "dropout_alibi_f32": (1, 1024, 1024, f32, True, True, (-1, -1), 0.0,
+                              dict(drop, alibi_slopes=slopes)),
+        "window_sq_ne_sk": (1, 1536, 512, bf, False, True, (300, -1), 0.0,
+                            {}),
+    }
+    return _flash_phase(torch, args, d=80, heads=PHI2_FLASH_HEADS,
+                        cases=cases, timed=("train",))
+
+
+def _gpt2_alibi_kernel_phase(torch, args):
+    """B1-B3's ALiBi instantiation at GPT-2's attention, 12 heads of 64,
+    8 x 1024 packed tokens, bf16, with the model's slopes
+    (``alibi_slopes(12)``): checked against the plain versions and timed
+    beside SDPA with the bias in a dense float mask."""
+    from torchacc_tpu_torch.models.transformer import alibi_slopes
+    slopes = torch.tensor(alibi_slopes(12), device="cuda")
+    cases = {"alibi": (GPT2_B, GPT2_S, GPT2_S, torch.bfloat16, True, True,
+                       (-1, -1), 0.0, dict(alibi_slopes=slopes))}
+    return _flash_phase(torch, args, d=64, heads=(12, 12), cases=cases,
+                        timed=("alibi",))["alibi"]
+
+
+def _first_loss(torch, model, batch, labels, cfg, **fields):
+    """The batch's loss from materialised logits (a head_bias model's
+    path) under ``cfg`` with ``fields`` replaced, without gradients."""
+    import dataclasses
+    from torchacc_tpu_torch.models.transformer import (loss_fn,
+                                                      set_model_config)
+    set_model_config(model, dataclasses.replace(cfg, **fields))
+    try:
+        with torch.no_grad():
+            logits = model(batch["input_ids"], batch["positions"],
+                           batch["segment_ids"])
+            return loss_fn(logits, labels).item()
+    finally:
+        set_model_config(model, cfg)
+
+
+def _ln_fit(torch, tag, trainer, loader, layers, steps, rows, seq,
+            n_params):
+    """``trainer.fit`` over ``loader`` (``rows`` x ``seq`` tokens a
+    step) for ``steps`` steps with the flash launches counted from its
+    start: losses, mean step ms after 2 warm-up steps (1 when there are
+    2), tokens/s, MFU, peak bytes, launches."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    cfg = trainer.model.cfg
+    tap = _StepTap(torch, trainer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launch_counts:             # counts start here ...
+        fa.launch_counts[key] = 0
+    trainer.fit(loader, max_steps=steps, log_every=0)
+    step_ms, ms = tap.finish(min(2, steps - 1))
+    launches = dict(fa.launch_counts)        # ... and are read here
+    wait_ms = loader.wait_s * 1e3 / steps     # the fit's iteration's
+    losses = [m["loss"].item() for m in tap.metrics]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = rows * seq
+    attn = cfg.num_heads * cfg.head_size
+    flops_tok = 6.0 * n_params + 6.0 * layers * attn * seq
+    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+    want = {k: layers * steps for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(f"{tag}: fit over {tokens} tokens a step: losses {_fmt(losses)}; "
+          f"step ms {_fmt(step_ms)}, mean {ms:.1f} ms, "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, MFU {mfu:.4f} of the bf16 "
+          f"peak (6N + 6*L*heads*d*s per token, N = {n_params} by "
+          f"ModelConfig.num_params); peak allocated {peak / 2**30:.2f} GiB; "
+          f"the host waiting {wait_ms:.1f} ms a step on the loader; "
+          f"B1/B2/B3 launches {launches} (expected {want}: layers x steps)",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        _fail(f"{tag}: losses {losses}")
+    if launches != want:
+        _fail(f"{tag}: flash launches {launches} != {want}")
+    return {"losses": losses, "step_ms": ms, "tokens_per_s":
+            tokens / (ms / 1e3), "mfu": mfu, "peak_bytes": peak,
+            "launches": launches, "steps": steps, "layers": layers,
+            "loader_wait_ms": wait_ms}
+
+
+def _generate_check(torch, tag, model, cfg, prompts, max_new):
+    """generate() through B1 (launches counted) and through the plain
+    attention, in bf16 (first divergence printed) and in f32 compute on
+    the same weights (tokens identical)."""
+    import dataclasses
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch.models.generate import generate
+    from torchacc_tpu_torch.models.transformer import set_model_config
+    p = prompts.shape[1]
+    out, ms = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        set_model_config(model, dataclasses.replace(cfg, dtype=dt))
+        for impl in ("cuda", "torch"):
+            for key in fa.launch_counts:     # counts start here ...
+                fa.launch_counts[key] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[dt, impl] = generate(model, prompts, max_new_tokens=max_new,
+                                     attention_impl=impl)[:, p:].tolist()
+            torch.cuda.synchronize()
+            ms[dt, impl] = (time.perf_counter() - t0) * 1e3
+            if (dt, impl) == (torch.bfloat16, "cuda"):
+                launches = dict(fa.launch_counts)    # ... and read here
+    set_model_config(model, cfg)
+    want = {"fwd": cfg.num_layers * max_new, "bwd_dq": 0, "bwd_dkv": 0}
+    bf = torch.bfloat16
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(out[bf, "cuda"], out[bf, "torch"])]
+    print(f"{tag} generate: {prompts.shape[0]} prompts of {p} tokens, "
+          f"{max_new} new, bf16 in {ms[bf, 'cuda']:.1f} ms through B1 "
+          f"({ms[bf, 'torch']:.1f} ms plain); B1 launches {launches} "
+          f"(expected {want}: layers x (the prefill + {max_new - 1} decode "
+          f"steps)); first greedy divergence from the plain path in bf16 "
+          f"(None = identical) {first}; f32 through B1 "
+          f"{out[torch.float32, 'cuda']}, plain "
+          f"{out[torch.float32, 'torch']}", flush=True)
+    if launches != want:
+        _fail(f"{tag} generate: launches {launches} != {want}")
+    if out[torch.float32, "cuda"] != out[torch.float32, "torch"]:
+        _fail(f"{tag} generate f32: the greedy tokens through B1 differ "
+              f"from the plain attention's")
+    return {"launches": launches, "ms": ms[bf, "cuda"],
+            "plain_ms": ms[bf, "torch"], "first_divergence_bf16": first}
+
+
+def _phi2_phase(torch, args):
+    """microsoft/phi-2's config.json at full width and depth with seeded
+    bf16 weights in Phi's HF names, through accelerate(path) (the
+    materialising converter, as in JAX) -> Trainer.fit over 2 x 2048
+    packed tokens a step: the first batch's loss through B1-B3 at d 80
+    against the plain attention's, with the partial-rotary-lifted
+    control; the losses, step time, MFU, peak memory and launches; then
+    generate() through B1 at d 80."""
+    import numpy as np
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, accelerate)
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
+
+    tag, layers, steps = "phi-2", PHI2["num_hidden_layers"], PHI2_STEPS
+    h, f, v = PHI2["hidden_size"], PHI2["intermediate_size"], \
+        PHI2["vocab_size"]
+    est = 2 * (2 * v * h + layers * (4 * h * h + 2 * h * f))
+    root = _hf_root(est)
+    try:
+        t0 = time.perf_counter()
+        _, nbytes = _write_hf_checkpoint(torch, root, args.seed + 51, layers,
+                                         PHI2)
+        print(f"{tag}: wrote phi-2's config.json and {nbytes} bytes of bf16 "
+              f"safetensors to {root} in {time.perf_counter() - t0:.1f} s "
+              f"(full width and depth)", flush=True)
+        conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                      data=DataConfig(max_length=PHI2_S, prefetch=2),
+                      seed=args.seed)
+        docs = _zipf_docs(args.seed + 52, (steps + 1) * PHI2_B * PHI2_S, v)
+        first = next(iter(PackedDataset(docs, seq_len=PHI2_S,
+                                        batch_rows=PHI2_B)))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        # lr 2e-5: at 1e-4 the random 32-layer model's loss rose from 11.0
+        # to 17.9 by the third step (an H100 run), where the 8-layer
+        # llama3-8b and gemma2 phases fall at 1e-4; the same model at 8
+        # layers and a fifth of the width follows JAX's Trainer step for
+        # step on the CPU
+        trainer, loader = accelerate(
+            root, PackedDataset(docs, seq_len=PHI2_S, batch_rows=PHI2_B),
+            conf, optimizer=adamw(warmup_linear(2e-5, steps, 1)))
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = trainer.model.cfg
+    if (cfg.head_size, cfg.partial_rotary, cfg.parallel_block, cfg.head_bias,
+            cfg.norm, cfg.activation, trainer._use_fused_ce) != (
+            80, 0.4, True, True, "layernorm", "gelu", False):
+        _fail(f"{tag}: config_from_hf gave {cfg}")
+    n_params = cfg.num_params()
+    if n_params != sum(p.numel() for p in trainer.state.params.values()):
+        _fail(f"{tag}: num_params {n_params} is not the model's count")
+    print(f"{tag}: accelerate(path) in {load_s:.1f} s "
+          f"({nbytes / load_s / 1e9:.2f} GB/s of checkpoint), {n_params} "
+          f"params", flush=True)
+
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    batch = {k: torch.as_tensor(x).cuda() for k, x in first.items()}
+    labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+    model = trainer.model
+    for key in fa.launch_counts:
+        fa.launch_counts[key] = 0
+    got = _first_loss(torch, model, batch, labels, cfg,
+                      attention_impl="cuda")
+    if fa.launch_counts["fwd"] != layers:
+        _fail(f"{tag}: the check's forward launched B1 "
+              f"{fa.launch_counts['fwd']} times, not {layers}")
+    ref = _first_loss(torch, model, batch, labels, cfg, attention_impl="torch")
+    control = _first_loss(torch, model, batch, labels, cfg,
+                          attention_impl="torch", partial_rotary=1.0)
+    rel, rel_control = abs(got - ref) / abs(ref), abs(control - ref) / abs(ref)
+    print(f"{tag} check: first-batch loss through B1 at d 80 {got:.6f}, "
+          f"plain attention {ref:.6f}, relative {rel:.3g} (limit "
+          f"{LN_LOSS_LIMIT:.3g}); control, plain with partial rotary lifted "
+          f"to 1.0, {control:.6f} (relative {rel_control:.3g}, must exceed "
+          f"the limit)", flush=True)
+    if not math.isfinite(got) or rel > LN_LOSS_LIMIT:
+        _fail(f"{tag}: the first-batch loss through the kernels parts from "
+              f"the plain attention's by {rel:.3g} > {LN_LOSS_LIMIT:.3g}")
+    if rel_control <= LN_LOSS_LIMIT:
+        _fail(f"{tag}: the partial-rotary control stays within "
+              f"{LN_LOSS_LIMIT:.3g}")
+    res = _ln_fit(torch, tag, trainer, loader, layers, steps, PHI2_B,
+                  PHI2_S, n_params)
+    res["check_rel"], res["control_rel"] = rel, rel_control
+    del loader
+    # generate() on the trained weights (the model's are the bf16 shadow)
+    prompts = torch.from_numpy(np.random.default_rng(args.seed + 53).integers(
+        0, v, (2, 256))).cuda()
+    res["generate"] = _generate_check(torch, tag, model, cfg, prompts, 8)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gpt2_phase(torch, args, pa):
+    """openai-community/gpt2's config.json at full width and depth with
+    seeded bf16 weights in its Conv1D layout, through accelerate(path)
+    -> Trainer.fit over 8 x 1024 packed tokens a step; then
+    ServeEngine.from_train_state serves 4 greedy requests on B4 at d 64:
+    launches layers x dispatches, and the last-prompt logits within
+    _logits_limit of the plain path while a 64-key-window control is
+    not."""
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, Request,
+                                    ServeConfig, ServeEngine, accelerate)
+    from torchacc_tpu_torch.train import adamw, warmup_linear
+    import numpy as np
+
+    tag, layers, steps = "gpt2", GPT2["n_layer"], GPT2_STEPS
+    h, v = GPT2["n_embd"], GPT2["vocab_size"]
+    root = _hf_root(2 * (v * h + 1024 * h + layers * 12 * h * h))
+    try:
+        _, nbytes = _write_hf_checkpoint(torch, root, args.seed + 61, layers,
+                                         GPT2)
+        conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                      data=DataConfig(max_length=GPT2_S, prefetch=2),
+                      serve=ServeConfig(block_size=BS, num_blocks=512,
+                                        max_slots=8, prefill_chunk=256,
+                                        decode_depth=2),
+                      seed=args.seed)
+        docs = _zipf_docs(args.seed + 62, (steps + 1) * GPT2_B * GPT2_S, v,
+                          lo=128, hi=GPT2_S)
+        trainer, loader = accelerate(
+            root, PackedDataset(docs, seq_len=GPT2_S, batch_rows=GPT2_B),
+            conf, optimizer=adamw(warmup_linear(3e-4, steps, 1)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = trainer.model.cfg
+    if (cfg.head_size, cfg.pos_emb, cfg.norm, cfg.tie_embeddings,
+            cfg.max_seq_len) != (64, "learned", "layernorm", True, 1024):
+        _fail(f"{tag}: config_from_hf gave {cfg}")
+    print(f"{tag}: {nbytes} bytes of Conv1D-layout bf16 safetensors "
+          f"converted by accelerate(path)", flush=True)
+    res = _ln_fit(torch, tag, trainer, loader, layers, steps, GPT2_B,
+                  GPT2_S, cfg.num_params())
+    if not np.mean(res["losses"][-2:]) < res["losses"][0]:
+        _fail(f"{tag}: the loss did not fall: {res['losses']}")
+    del loader
+    eng = ServeEngine.from_train_state(trainer)
+    model = eng.scheduler.decoder.model
+    rng = np.random.default_rng(args.seed + 63)
+    prompts = [rng.integers(0, v, n).tolist() for n in (64, 300, 600, 900)]
+    max_new = 16
+    eng.generate([Request(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+    eng.reset_stats()
+    sched = eng.scheduler
+    dec0, pre0 = sched.decode_dispatches, sched.prefill_dispatches
+    for shape in pa.launch_counts:           # counts start here ...
+        pa.launch_counts[shape] = 0
+    out = eng.generate([Request(prompt_ids=p, max_new_tokens=max_new)
+                        for p in prompts])
+    torch.cuda.synchronize()
+    launches = dict(pa.launch_counts)        # ... and are read here
+    dispatches = {"decode": sched.decode_dispatches - dec0,
+                  "prefill": sched.prefill_dispatches - pre0}
+    stats = eng.stats()
+    eng.close()
+    for shape, n in dispatches.items():
+        if n == 0 or launches[shape] != layers * n:
+            _fail(f"{tag} serving: {shape} launches {launches[shape]} != "
+                  f"layers {layers} x dispatches {n}")
+    if any(len(r.tokens) != max_new for r in out):
+        _fail(f"{tag} serving: streams of {[len(r.tokens) for r in out]}")
+    ref = _prompt_logits(torch, model, model.cfg, prompts, "torch")
+
+    def narrow_window(*a, **kw):
+        from torchacc_tpu_torch.ops.paged_attention import paged_attention
+        return paged_attention(*a, **dict(kw, window=(63, -1)))
+    rel = {}
+    for name, attend in (("kernel", None), ("narrow_window", narrow_window),
+                         ("drop_own_key", _drop_own_key)):
+        got = _prompt_logits(torch, model, model.cfg, prompts,
+                             "cuda" if attend is None else "torch", attend)
+        if not all(torch.isfinite(a).all() for a in got):
+            _fail(f"{tag} serving: non-finite logits ({name})")
+        rel[name] = [((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(got, ref)]
+    limit = GPT2_LOGITS_LIMIT
+    print(f"{tag} serving: ServeEngine.from_train_state, {len(prompts)} "
+          f"greedy requests (prompts {[len(p) for p in prompts]}, {max_new} "
+          f"new tokens) in bf16: {stats['tokens_per_sec']:.1f} tokens/s, "
+          f"TTFT p50 {stats['ttft_s_p50'] * 1e3:.1f} ms, per-token p50 "
+          f"{stats['per_token_s_p50'] * 1e3:.2f} ms; B4 launches at d 64 "
+          f"{launches} = {layers} x {dispatches}; last-prompt logits vs "
+          f"plain attention: kernel {_fmt(rel['kernel'])} (limit "
+          f"{limit:.3g}), control narrow_window {_fmt(rel['narrow_window'])} "
+          f"(must exceed it), drop_own_key {_fmt(rel['drop_own_key'])}",
+          flush=True)
+    if max(rel["kernel"]) > limit:
+        _fail(f"{tag} serving: logits through B4 part from the plain path "
+              f"by {max(rel['kernel']):.3g} > {limit:.3g}")
+    if max(rel["narrow_window"]) <= limit:
+        _fail(f"{tag} serving: the narrow_window control stays within "
+              f"{limit:.3g}")
+    res.update(paged_launches=launches, paged_dispatches=dispatches,
+               serve_tokens_per_s=stats["tokens_per_sec"],
+               logits_rel=rel["kernel"])
+    del eng, model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _alibi_phase(torch, args):
+    """GPT-2's width and depth with pos_emb='alibi' (and biases) from
+    init_params(seed), through accelerate() -> Trainer.fit for 2 steps
+    of 8 x 1024 packed tokens on B1-B3's ALiBi instantiation: the first
+    batch's loss against the plain attention's, with a control (the
+    plain attention with the slopes halved) that must exceed the limit;
+    launches layers x steps; then a short generate() through B1."""
+    import numpy as np
+    import torchacc_tpu_torch.models.transformer as tr
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, accelerate,
+                                    get_preset)
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
+
+    tag, steps = "gpt2 alibi", ALIBI_STEPS
+    mc = get_preset("gpt2", pos_emb="alibi", qkv_bias=True, o_bias=True,
+                    mlp_bias=True)
+    layers = mc.num_layers
+    conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                  memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                  data=DataConfig(max_length=GPT2_S, prefetch=2),
+                  seed=args.seed + 71)
+    docs = _zipf_docs(args.seed + 72, (steps + 1) * GPT2_B * GPT2_S,
+                      mc.vocab_size, lo=128, hi=GPT2_S)
+    first = next(iter(PackedDataset(docs, seq_len=GPT2_S, batch_rows=GPT2_B)))
+    trainer, loader = accelerate(
+        mc, PackedDataset(docs, seq_len=GPT2_S, batch_rows=GPT2_B), conf,
+        optimizer=adamw(warmup_linear(3e-4, steps, 1)))
+    trainer.init()
+    cfg, model = trainer.model.cfg, trainer.model
+    batch = {k: torch.as_tensor(x).cuda() for k, x in first.items()}
+    labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+    for key in fa.launch_counts:
+        fa.launch_counts[key] = 0
+    got = _first_loss(torch, model, batch, labels, cfg, attention_impl="cuda")
+    if fa.launch_counts["fwd"] != layers:
+        _fail(f"{tag}: the check's forward launched B1 "
+              f"{fa.launch_counts['fwd']} times, not {layers}")
+    ref = _first_loss(torch, model, batch, labels, cfg, attention_impl="torch")
+    slopes = tr.alibi_slopes
+    tr.alibi_slopes = lambda n: tuple(x / 2 for x in slopes(n))
+    try:
+        control = _first_loss(torch, model, batch, labels, cfg,
+                              attention_impl="torch")
+    finally:
+        tr.alibi_slopes = slopes
+    rel, rel_control = abs(got - ref) / abs(ref), abs(control - ref) / abs(ref)
+    print(f"{tag} check: first-batch loss through B1's ALiBi instantiation "
+          f"{got:.6f}, plain attention {ref:.6f}, relative {rel:.3g} (limit "
+          f"{LN_LOSS_LIMIT:.3g}); control, plain with the slopes halved, "
+          f"{control:.6f} (relative {rel_control:.3g}, must exceed the "
+          f"limit)", flush=True)
+    if not math.isfinite(got) or rel > LN_LOSS_LIMIT:
+        _fail(f"{tag}: the first-batch loss through the kernels parts from "
+              f"the plain attention's by {rel:.3g} > {LN_LOSS_LIMIT:.3g}")
+    if rel_control <= LN_LOSS_LIMIT:
+        _fail(f"{tag}: the halved-slopes control stays within "
+              f"{LN_LOSS_LIMIT:.3g}")
+    res = _ln_fit(torch, tag, trainer, loader, layers, steps, GPT2_B,
+                  GPT2_S, cfg.num_params())
+    res["check_rel"], res["control_rel"] = rel, rel_control
+    del loader
+    prompts = torch.from_numpy(np.random.default_rng(args.seed + 73).integers(
+        0, cfg.vocab_size, (2, 200))).cuda()
+    res["generate"] = _generate_check(torch, tag, model, cfg, prompts, 8)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4346,6 +4924,9 @@ def main():
                            only=("train", "f32", "sq_ne_sk_empty_rows"))
     # heads of 256 (the Gemma family)
     kern256, flash256 = _gemma_kernel_phase(torch, args, pa)
+    # heads of 80 (Phi-2) and the ALiBi instantiation at GPT-2's heads
+    flash80 = _phi2_kernel_phase(torch, args)
+    flash_alibi = _gpt2_alibi_kernel_phase(torch, args)
     cp_res = _cp_phase(torch, args)
     qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
@@ -4385,6 +4966,9 @@ def main():
     gemma2 = _gemma2_training_phase(torch, args)
     gen3 = _gemma3_generate_phase(torch, args)
     gserve = _gemma_serving_phase(torch, args, pa)
+    phi2 = _phi2_phase(torch, args)
+    gpt2 = _gpt2_phase(torch, args, pa)
+    alibi = _alibi_phase(torch, args)
     root = _ckpt_root()
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -4461,6 +5045,9 @@ def main():
             launches=hf["paged_launches"][shape],
             launches_per_dispatch=(hf["paged_launches"][shape]
                                    / hf["paged_dispatches"][shape]),
+            launches_gpt2=gpt2["paged_launches"][shape],
+            launches_per_dispatch_gpt2=(gpt2["paged_launches"][shape]
+                                        / gpt2["paged_dispatches"][shape]),
             max_abs_err=max(kern64[c]["max_abs_err"] for c in kern64
                             if (kern64[c]["t"] == 1) == (shape == "decode")),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
@@ -4552,6 +5139,50 @@ def main():
             library_no_cap_ms=nocap.get(f"library_{part}_ms"),
             tflops=mean(f"{name}_tflops"),
             bound_share=mean(f"{name}_bound_share")))
+    f80 = flash80["train"]
+    for name, replaces in FLASH.items():
+        part = "fwd" if name == "fwd" else "bwd"
+        errs = ("o", "lse") if name == "fwd" else (
+            ("dq",) if name == "bwd_dq" else ("dk", "dv"))
+        entries.append(dict(
+            name=f"flash_attention[{name},d80]", route="cuda",
+            body=FLASH_BODY[name] + ", d 80 stored as 128",
+            source=FLASH_SOURCE, replaces=replaces,
+            launches=phi2["launches"][name],
+            launches_per_step=phi2["launches"][name] / phi2["steps"],
+            launches_generate=phi2["generate"]["launches"][name],
+            max_abs_err=max(flash80[c][e]["max_abs_err"] for c in flash80
+                            for e in errs),
+            worst_over_tol=max(flash80[c][e]["worst_over_tol"]
+                               for c in flash80 for e in errs),
+            ms=f80[f"{name}_ms"], plain_ms=f80[f"plain_{part}_ms"],
+            bound_ms=f80[f"{name}_bound_ms"],
+            bound_by=f80[f"{name}_bound_by"],
+            library_ms=f80.get(f"library_{part}_ms"),
+            tflops=f80[f"{name}_tflops"],
+            bound_share=f80[f"{name}_bound_share"]))
+    for name, replaces in FLASH.items():
+        part = "fwd" if name == "fwd" else "bwd"
+        errs = ("o", "lse") if name == "fwd" else (
+            ("dq",) if name == "bwd_dq" else ("dk", "dv"))
+        entries.append(dict(
+            name=f"flash_attention[{name},alibi,d64]", route="cuda",
+            body=FLASH_BODY[name] + ", the ALiBi/dropout instantiation",
+            source=FLASH_SOURCE, replaces=replaces,
+            launches=alibi["launches"][name],
+            launches_per_step=alibi["launches"][name] / alibi["steps"],
+            launches_generate=alibi["generate"]["launches"][name],
+            max_abs_err=max(flash_alibi[e]["max_abs_err"] for e in errs),
+            worst_over_tol=max(flash_alibi[e]["worst_over_tol"]
+                               for e in errs),
+            ms=flash_alibi[f"{name}_ms"],
+            plain_ms=flash_alibi[f"plain_{part}_ms"],
+            bound_ms=flash_alibi[f"{name}_bound_ms"],
+            bound_by=flash_alibi[f"{name}_bound_by"],
+            library_ms=flash_alibi.get(f"library_{part}_ms"),
+            library="SDPA, the ALiBi bias in a dense float mask",
+            tflops=flash_alibi[f"{name}_tflops"],
+            bound_share=flash_alibi[f"{name}_bound_share"]))
     for fmt in ("int8", "fp8"):
         q, run = qmm[fmt]["per_launch"], qtrain[fmt]
         entries.append(dict(

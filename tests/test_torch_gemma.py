@@ -284,7 +284,7 @@ def test_pattern_period_must_divide_a_stage_chunk():
     (dict(quant="int8"), "quant != 'none' does not compose"),
     (dict(overlap_fsdp=True), "overlap_fsdp does not compose"),
     (dict(qk_norm=True, qk_norm_proj=True), "qk_norm_proj=True.*A10b-2"),
-    (dict(norm="layernorm"), "norm='layernorm'.*A10b-2")])
+    (dict(norm_placement="post"), "norm_placement='post'.*A10b-2")])
 def test_what_jax_rejects_and_the_rest_raise_by_name(fields, match):
     cfg = get_preset("gemma2-2b", dtype=torch.float32,
                      **dict(SMALL, **fields))

@@ -149,9 +149,8 @@ def test_unsupported_families_and_rope_types_raise_by_name():
         config_from_hf(transformers.Phi3Config(**small))
     with pytest.raises(NotImplementedError, match="'mixtral'.*A10c"):
         config_from_hf(transformers.MixtralConfig(**small))
-    with pytest.raises(NotImplementedError, match="'gpt2'.*A10b-2"):
-        config_from_hf(transformers.GPT2Config(n_embd=64, n_layer=1,
-                                               n_head=2))
+    with pytest.raises(NotImplementedError, match="'cohere'.*A10b-2"):
+        config_from_hf(transformers.CohereConfig(**small))
     yarn = transformers.LlamaConfig(**small, rope_scaling=dict(
         rope_type="yarn", factor=4.0, original_max_position_embeddings=64))
     jax_config_from_hf(yarn)        # JAX converts it; the port does not yet

@@ -25,7 +25,10 @@ kernels read above it (chip_smoke.py's control).
 
 B1-B4 at the Gemma family's head dim 256 (B-2) as at the others: B1-B3
 in f32, bf16 and f16 (with a window, the softcap and segment ids), B4
-decode with a group of 8 and prefill, in f32 and bf16.
+decode with a group of 8 and prefill, in f32 and bf16.  B1-B3 at Phi-2's
+head dim 80 (stored as 128 in the wgmma kernels), every option of
+``FLASH_OPTS`` (ALiBi and dropout among them), at the tile edges and at
+the context-parallel offsets.
 
 B1-B3 at the context-parallel global offsets (B-1) against the plain
 versions at the same offsets, at heads of 64, 128 and 256, in f32 and bf16,
@@ -305,6 +308,9 @@ FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
     "gqa_d256": (2, 200, 200, 8, 4, 256),          # gemma2-2b's heads
     "mqa_group8_d256": (1, 200, 200, 8, 1, 256),   # gemma-2b's heads
     "sq_gt_sk_d256": (1, 100, 40, 4, 2, 256),
+    "mha_d80": (2, 200, 200, 4, 4, 80),            # Phi-2's heads (MHA)
+    "sq_gt_sk_d80": (1, 100, 40, 4, 2, 80),
+    "mqa_d80_sk_gt_sq": (2, 70, 150, 4, 1, 80),
 }
 FLASH_OPTS = {
     "alibi": dict(alibi=True),
@@ -481,7 +487,7 @@ def _bwd_pair(q, k, v, do, segs, **kw):
                                    **kw) for impl in ("cuda", "torch")]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -560,7 +566,7 @@ def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype, d):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -648,9 +654,15 @@ def _offset_case(card, name, dtype, d):
     kw = dict(opts, q_offset=q_off, k_offset=k_off, h_offset=h_off,
               b_offset=b_off)
     if kw.pop("segments", False):
+        # the documents from a generator of their own, so that every head
+        # dim sees the layout the case is named for (drawn after q, k, v
+        # and do, whose sizes follow d, one layout at d 80 shared no
+        # document between the chunks)
+        seg_rng = np.random.default_rng(
+            1000 + sorted(FLASH_OFFSET_CASES).index(name))
         ids = []
         while len(ids) < 1024:
-            ids += [len(set(ids))] * int(rng.integers(100, 700))
+            ids += [len(set(ids))] * int(seg_rng.integers(100, 700))
         seg = torch.tensor(ids[:1024], dtype=torch.int32,
                            device=card).repeat(b, 1)
         kw.update(q_segment_ids=seg[:, q_off:q_off + sq].contiguous(),
@@ -661,7 +673,7 @@ def _offset_case(card, name, dtype, d):
     return q, k, v, do, kw
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", sorted(FLASH_OFFSET_CASES))

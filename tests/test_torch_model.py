@@ -18,7 +18,7 @@ from torchacc_tpu.models.transformer import Norm, _rope
 from torchacc_tpu.serve.scheduler import PagedDecoder as JaxDecoder
 from torchacc_tpu_torch.config import ServeConfig
 from torchacc_tpu_torch.models import get_preset, init_params, params_from_jax
-from torchacc_tpu_torch.models.transformer import rms_norm, rope
+from torchacc_tpu_torch.models.transformer import norm, rope
 from torchacc_tpu_torch.serve.scheduler import PagedDecoder
 
 VOCAB = 257
@@ -51,7 +51,7 @@ def test_rms_norm_matches_jax():
     scale = rng.standard_normal(64).astype(np.float32)
     ref = Norm(jcfg).apply({"params": {"scale": jnp.asarray(scale)}},
                            jnp.asarray(x))
-    out = rms_norm(cfg, torch.from_numpy(x), torch.from_numpy(scale))
+    out = norm(cfg, torch.from_numpy(x), torch.from_numpy(scale))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6,
                                rtol=1e-6)
 
@@ -152,8 +152,8 @@ def test_prefill_chunk_logits_match_jax(qkv_bias, t0, n_valid):
 
 
 def test_unsupported_fields_rejected_by_name():
-    for bad in (dict(num_experts=4), dict(norm="layernorm"),
-                dict(window=(16, -1)), dict(activation="gelu"),
+    for bad in (dict(num_experts=4), dict(rope_interleaved=True),
+                dict(window=(16, -1)), dict(logit_scale=2.0),
                 dict(qk_norm_proj=True, qk_norm=True),
                 dict(sandwich_norms=True),
                 dict(layer_pattern=("sliding", "global"))):

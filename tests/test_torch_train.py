@@ -479,15 +479,15 @@ def test_unported_settings_raise():
         with pytest.raises(NotImplementedError, match=match):
             accelerate(mc, None, conf, device="cpu")
     # a model field still outside the training forward raises by name
-    with pytest.raises(NotImplementedError, match="parallel_block=True"):
-        accelerate(dataclasses.replace(mc, parallel_block=True), None,
+    with pytest.raises(NotImplementedError, match="rope_interleaved=True"):
+        accelerate(dataclasses.replace(mc, rope_interleaved=True), None,
                    tt.Config(), device="cpu")
     # a Hugging Face checkpoint is read from a local directory only
     with pytest.raises(FileNotFoundError, match="local directories"):
         accelerate("meta-llama/Llama-3-8B", None, tt.Config(), device="cpu")
-    model = TransformerLM(dataclasses.replace(mc, norm="layernorm"),
+    model = TransformerLM(dataclasses.replace(mc, norm_placement="post"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="norm='layernorm'"):
+    with pytest.raises(NotImplementedError, match="norm_placement='post'"):
         model(torch.zeros((1, 4), dtype=torch.long))
 
 

@@ -69,10 +69,13 @@
  *    64 FMAs), rows padded to d + 4 floats so the 16 column threads hit
  *    distinct banks.
  *
- * Head dims 32, 64, 128 and 256 (Gemma) are built.  At 256 the f32 B2
- * and B3 keep three tiles in shared memory where they kept four
- * (kReloadF32), and the wgmma kernels take fewer stages and, in B3,
- * half the head dim a consumer warpgroup (WgCfg).
+ * Head dims 32, 64, 80 (Phi-2, Pythia-2.8B), 128 and 256 (Gemma) are
+ * built.  At 256 the f32 B2 and B3 keep three tiles in shared memory
+ * where they kept four (kReloadF32), and the wgmma kernels take fewer
+ * stages and, in B3, half the head dim a consumer warpgroup (WgCfg).
+ * At 80 the wgmma kernels store the head dim as 128 (two boxes, the
+ * upper 48 columns zeros from TMA) and the f32 kernels' threads own 5
+ * columns each, one at a time (Cols).
  *
  * What the design does about it, in both:
  *  - grid order: the TPU's kv axis (B1, B2) and (group, q) axes (B3)
@@ -280,7 +283,8 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
 template <int D>
 struct Cols {
   static constexpr int DPT = D / 16;              // columns per thread
-  static constexpr int VW = DPT >= 4 ? 4 : DPT;   // vector width
+  // vector width: 4, or 2 at 32, or 1 where DPT is odd (80: 5)
+  static constexpr int VW = DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
   static constexpr int NV = DPT / VW;             // vectors per row
   __device__ static int col(int e, int w, int tx) { return (e * 16 + tx) * VW + w; }
 };
@@ -308,9 +312,11 @@ __device__ __forceinline__ void pv_tile(float (&acc)[4][D / 16],
         if constexpr (C::VW == 4) {
           const float4 t = *reinterpret_cast<const float4*>(vrow + C::col(e, 0, tx));
           vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
+        } else if constexpr (C::VW == 2) {
           const float2 t = *reinterpret_cast<const float2*>(vrow + C::col(e, 0, tx));
           vv[0] = t.x; vv[1] = t.y;
+        } else {
+          vv[0] = vrow[C::col(e, 0, tx)];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -791,12 +797,15 @@ __global__ void __launch_bounds__(kThreads)
 //
 // Tiles lie in shared memory as [rows][64] 16-bit boxes of 128-byte rows
 // under the 128-byte swizzle, one box a 64 columns of the head dim (the
-// head dims built are 32, 64, 128 and 256: 64 is one box, 128 two, 256
-// four, and 32 is read as one box of 64 whose upper half TMA fills with
-// zeros, so 32 and 64 share shared-memory sizes).  At 256 (Gemma) the
-// second products are m64n256 and the shared memory holds fewer stages
-// (WgCfg), and B3 splits the head dim between its consumer warpgroups.  A rank-4 tensor map over [b, s, h, d] cuts a head's
-// rows out of the BSHD tensor; rows past s read as zeros.
+// head dims built are 32, 64, 80, 128 and 256: 64 is one box, 128 two,
+// 256 four; 32 is read as one box of 64 whose upper half TMA fills with
+// zeros, so 32 and 64 share shared-memory sizes, and 80 (Phi-2) as two
+// boxes whose columns 80-127 TMA fills with zeros, so 80 runs 128's
+// layout, stages and products, and its epilogues store columns < 80).
+// At 256 (Gemma) the second products are m64n256 and the shared memory
+// holds fewer stages (WgCfg), and B3 splits the head dim between its
+// consumer warpgroups.  A rank-4 tensor map over [b, s, h, d] cuts a
+// head's rows out of the BSHD tensor; rows past s read as zeros.
 //
 // P, P~ and dS enter the second products as hi + lo, two values of the
 // input type each (split2): rounding them once to bf16, as the JAX kernels do,
@@ -814,7 +823,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct WgCfg {
-  static constexpr int DP = D < 64 ? 64 : D;    // head dim as stored
+  static constexpr int DP = (D + 63) / 64 * 64; // head dim as stored
   static constexpr int NB = DP / 64;            // 128-byte boxes a row spans
   static constexpr int kRes = kBlk * DP * 2;    // a resident [128][DP] tile, bytes
   static constexpr int kTileB = kStep * DP * 2; // a streamed [64][DP] tile, bytes
@@ -823,9 +832,9 @@ struct WgCfg {
   // on 4 (B3 1.5% slower), so 64 keeps 32's 4.  At 256 a stage is 64 KB:
   // B1 takes 2 beside its 64 KB of Q, B2 1 beside its 128 KB of Q and dO
   // (227 KB a CTA)
-  static constexpr int kStagesFwd = D == 256 ? 2 : 4;
-  static constexpr int kStagesDq = D == 256 ? 1 : D == 128 ? 3 : 4;
-  static constexpr int kStagesDkv = D == 128 || D == 256 ? 2 : 4;
+  static constexpr int kStagesFwd = DP == 256 ? 2 : 4;
+  static constexpr int kStagesDq = DP == 256 ? 1 : DP == 128 ? 3 : 4;
+  static constexpr int kStagesDkv = DP == 128 || DP == 256 ? 2 : 4;
   // B3 past 128: dk and dv of 64 keys are 2 x 128 f32 a consumer thread,
   // past the 255 registers a thread has, so a CTA takes 64 keys and each
   // consumer warpgroup half of the head dim of both (kHalf)
@@ -2159,6 +2168,7 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
   do {                                                                     \
     if (d == 32) FLASH_DISPATCH_T(LAUNCH, 32, __VA_ARGS__);                 \
     if (d == 64) FLASH_DISPATCH_T(LAUNCH, 64, __VA_ARGS__);                 \
+    if (d == 80) FLASH_DISPATCH_T(LAUNCH, 80, __VA_ARGS__);                 \
     if (d == 128) FLASH_DISPATCH_T(LAUNCH, 128, __VA_ARGS__);               \
     if (d == 256) FLASH_DISPATCH_T(LAUNCH, 256, __VA_ARGS__);               \
     return cudaErrorInvalidValue;                                          \

@@ -8,8 +8,7 @@ kernel's reversed, and the flax kernel's ``[heads, kv]`` dims, which
 the port holds flattened into one dim, name that dim with the tuple
 ``("heads", "kv")`` (major first).  The port's layers are not stacked,
 so no leading 'layers' axis is added.  The rows cover the parameters the
-port's model has; the MoE router and experts and learned positions
-come with the model-breadth slice (ROADMAP.md A10).
+port's model has; the MoE router and experts come with ROADMAP.md A10c.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ _HEADS = ("heads", "kv")
 # first match wins
 TRANSFORMER_AXES: Tuple[AxesRule, ...] = (
     (r"embed_tokens\.weight$", ("vocab", "embed")),
+    (r"pos_embed\.weight$", (None, "embed")),
     (r"(q_proj|k_proj|v_proj)\.weight$", (_HEADS, "embed")),
     (r"(q_proj|k_proj|v_proj)\.bias$", (_HEADS,)),
     (r"o_proj\.weight$", ("embed", _HEADS)),

@@ -7,15 +7,20 @@ The tree is the JAX package's stacked ``scan_layers`` layout with numpy
 leaves (``jax.tree.map(np.asarray, params)``)::
 
     embed_tokens.embedding               [V, h]
-    layers.block.{ln1,ln2}.scale         [L, h]
+    pos_embed                            [max_seq_len, h]  (pos_emb='learned')
+    layers.block.{ln1,ln2}.scale         [L, h]  (+ bias [L, h], LayerNorms;
+                                                  no ln2 in a shared
+                                                  parallel block)
     layers.block.{ln1_post,ln2_post}.scale [L, h]          (sandwich_norms)
     layers.block.attn.{q,k}_norm.scale   [L, d]            (qk_norm)
     layers.block.attn.{q,k,v}_proj.kernel [L, h, heads, d]  (+ bias [L, heads, d])
     layers.block.attn.o_proj.kernel      [L, heads, d, h]  (+ bias [L, h])
-    layers.block.mlp.{gate,up}_proj.kernel [L, h, F]       (+ bias [L, F])
+    layers.block.mlp.{gate,up}_proj.kernel [L, h, F]       (+ bias [L, F];
+                                                  no gate when non-gated)
     layers.block.mlp.down_proj.kernel    [L, F, h]         (+ bias [L, h])
-    final_norm.scale                     [h]
-    lm_head.kernel                       [h, V]   (absent when tied)
+    final_norm.scale                     [h]     (+ bias [h])
+    lm_head.kernel                       [h, V]  (absent when tied; + bias
+                                                  [V] under head_bias)
 
 flax kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``.
 On a mesh, ``params_from_jax`` gives the full model that
@@ -49,6 +54,9 @@ from torch.distributed.tensor import DTensor
 from torchacc_tpu_torch.models.transformer import (
     ModelConfig,
     TransformerLM,
+    norm_has_bias,
+    has_ln2,
+    mlp_linears,
     quant_site_names,
 )
 from torchacc_tpu_torch.ops._common import resolve_device
@@ -82,10 +90,12 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
     h = cfg.hidden_size
     model.embed_tokens.weight.copy_(
         _t(tree["embed_tokens"]["embedding"], device, dtype))
+    if model.pos_embed is not None:
+        model.pos_embed.weight.copy_(_t(tree["pos_embed"], device, dtype))
     for i, layer in enumerate(model.layers):
         for name in _block_norms(cfg):
-            layer.get_submodule(name).weight.copy_(
-                _t(blk[name]["scale"][i], device, dtype))
+            _norm_from(layer.get_submodule(name), blk[name],
+                       lambda a: a[i], device, dtype)
         for name in _attn_norms(cfg):
             getattr(layer.attn, name).weight.copy_(
                 _t(attn[name]["scale"][i], device, dtype))
@@ -101,24 +111,36 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         if layer.attn.o_proj.bias is not None:
             layer.attn.o_proj.bias.copy_(
                 _t(attn["o_proj"]["bias"][i], device, dtype))
-        for name in ("gate_proj", "up_proj", "down_proj"):
+        for name in mlp_linears(cfg):
             lin = getattr(layer.mlp, name)
             lin.weight.copy_(
                 _t(np.asarray(mlp[name]["kernel"][i]).T, device, dtype))
             if lin.bias is not None:
                 lin.bias.copy_(_t(mlp[name]["bias"][i], device, dtype))
-    model.final_norm.weight.copy_(
-        _t(tree["final_norm"]["scale"], device, dtype))
+    _norm_from(model.final_norm, tree["final_norm"], lambda a: a, device,
+               dtype)
     if model.lm_head is not None:
         model.lm_head.weight.copy_(
             _t(np.asarray(tree["lm_head"]["kernel"]).T, device, dtype))
+        if model.lm_head.bias is not None:
+            model.lm_head.bias.copy_(
+                _t(tree["lm_head"]["bias"], device, dtype))
     return model.requires_grad_(trainable).train(trainable)
 
 
+def _norm_from(mod, node, pick, device, dtype) -> None:
+    """A norm module's scale (and LayerNorm bias) from the flax node
+    ``{scale, bias}``, ``pick`` choosing the layer's row."""
+    mod.weight.copy_(_t(pick(np.asarray(node["scale"])), device, dtype))
+    if mod.bias is not None:
+        mod.bias.copy_(_t(pick(np.asarray(node["bias"])), device, dtype))
+
+
 def _block_norms(cfg: ModelConfig):
-    """The norms of a block: Gemma2/3's sandwich adds two."""
-    return ("ln1", "ln2") + (("ln1_post", "ln2_post") if cfg.sandwich_norms
-                             else ())
+    """The norms of a block: no ``ln2`` in a parallel block sharing
+    ``ln1``; Gemma2/3's sandwich adds two."""
+    return (("ln1", "ln2") if has_ln2(cfg) else ("ln1",)) + (
+        ("ln1_post", "ln2_post") if cfg.sandwich_norms else ())
 
 
 def _attn_norms(cfg: ModelConfig):
@@ -155,22 +177,32 @@ def params_to_jax(cfg: ModelConfig,
         attn["o_proj"]["bias"] = stack(
             lambda i: t(f"layers.{i}.attn.o_proj.bias"))
     mlp = {name: {"kernel": stack(lambda i: t(f"layers.{i}.mlp.{name}.weight").T)}
-           for name in ("gate_proj", "up_proj", "down_proj")}
+           for name in mlp_linears(cfg)}
     if cfg.mlp_bias:
         for name in mlp:
             mlp[name]["bias"] = stack(
                 lambda i: t(f"layers.{i}.mlp.{name}.bias"))
+
+    def norm_node(f):
+        node = {"scale": f("weight")}
+        if norm_has_bias(cfg):
+            node["bias"] = f("bias")
+        return node
     tree = {
         "embed_tokens": {"embedding": t("embed_tokens.weight")},
         "layers": {"block": {
-            **{name: {"scale": stack(
-                lambda i: t(f"layers.{i}.{name}.weight"))}
+            **{name: norm_node(lambda leaf, name=name: stack(
+                lambda i: t(f"layers.{i}.{name}.{leaf}")))
                for name in _block_norms(cfg)},
             "attn": attn, "mlp": mlp}},
-        "final_norm": {"scale": t("final_norm.weight")},
+        "final_norm": norm_node(lambda leaf: t(f"final_norm.{leaf}")),
     }
+    if cfg.pos_emb == "learned":
+        tree["pos_embed"] = t("pos_embed.weight")
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"kernel": t("lm_head.weight").T}
+        if cfg.head_bias:
+            tree["lm_head"]["bias"] = t("lm_head.bias")
     return tree
 
 

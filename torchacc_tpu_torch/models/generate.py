@@ -8,7 +8,9 @@ heads, d]`` a layer: one forward over the prompt banks every layer's
 rotated k and raw v, then one loop takes a token at a time.  Each layer
 takes its own window and rope base under a ``layer_pattern`` (JAX's
 ``_generate_cached_pattern``, :431), so Gemma2/3's sliding and global
-layers decode through the cache on the attention kernels.  It shares
+layers decode through the cache on the attention kernels; ALiBi's
+slopes, the parallel residual, the non-gated MLPs, learned positions
+and the head bias decode the same way.  It shares
 no code with the paged serving path (``serve/scheduler.py``), so it is
 the port's own request-level reference for serving.  Prompts of one
 call have one length (JAX's left-padded ragged batches, ``prompt_mask``,
@@ -29,6 +31,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torchacc_tpu_torch.ops._common import to_local
 
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -66,25 +70,33 @@ def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
     return -torch.log(-torch.log(u))
 
 
-def embed_extras(cfg, x: torch.Tensor) -> torch.Tensor:
-    """``_embed_extras`` on the embedding ``x`` in the compute dtype:
-    under Gemma's ``embed_scale`` times sqrt(hidden), rounded to the
-    compute dtype first, as JAX and HF do (learned positions are outside
-    this slice)."""
+def embed_extras(cfg, x: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 table=None) -> torch.Tensor:
+    """``_embed_extras`` (:1296) on the embedding ``x`` in the compute
+    dtype: under Gemma's ``embed_scale`` times sqrt(hidden), rounded to
+    the compute dtype first, as JAX and HF do; under learned positions
+    the rows ``positions`` of ``table`` (the model's ``pos_embed``, an
+    ``nn.Embedding``) in the compute dtype added."""
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype,
                              device=x.device)
+    if cfg.pos_emb == "learned":
+        x = x + to_local(table.weight).to(cfg.dtype)[positions.long()]
     return x
 
 
-def embed(cfg, model, ids: torch.Tensor) -> torch.Tensor:
+def embed(cfg, model, ids: torch.Tensor,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embedding in the compute dtype with :func:`embed_extras`
-    (``_zoo_embed``).  int32 ids (the packed batches' dtype) are read as
-    they are."""
+    (``_zoo_embed``) at ``positions`` (read only under learned
+    positions).  int32 ids (the packed batches' dtype) are read as they
+    are."""
     if ids.dtype not in (torch.int32, torch.int64):
         ids = ids.long()
     return embed_extras(
-        cfg, F.embedding(ids, model.embed_tokens.weight).to(cfg.dtype))
+        cfg, F.embedding(ids, model.embed_tokens.weight).to(cfg.dtype),
+        positions, model.pos_embed)
 
 
 def sample_slots(logits: torch.Tensor, temp: torch.Tensor,
@@ -121,25 +133,28 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
     """The hidden after every layer of the tokens ``ids [b, t]`` at
     positions ``start..start + t``; each layer's k/v are written into
     its cache at those positions and attention reads the cache up to
-    them (causal, aligned to the cache's end).  Each layer runs with its
-    own config (``pattern_cfg``: its window and rope base), as JAX's
+    them (causal, aligned to the cache's end, where ALiBi reads its
+    distances too).  Each layer runs with its own config
+    (``pattern_cfg``: its window and rope base), as JAX's
     ``_pattern_layers_with_cache`` does."""
     from torchacc_tpu_torch.models.transformer import (
+        apply_norm,
         dense,
-        mlp_act,
+        has_ln2,
+        layer_slopes,
+        mlp_out,
         pattern_cfg,
         qk_rope,
-        rms_norm,
     )
     from torchacc_tpu_torch.ops.attn import attention
     base = model.cfg
     b, t = ids.shape
     d, end = base.head_size, start + t
     pos = torch.arange(start, end, device=ids.device).expand(b, t)
-    x = embed(base, model, ids)
+    x = embed(base, model, ids, pos)
     for i, layer in enumerate(model.layers):
         cfg = pattern_cfg(base, i)
-        h = rms_norm(cfg, x, layer.ln1.weight)
+        h = apply_norm(cfg, x, layer.ln1)
         a = layer.attn
         q = dense(cfg, h, a.q_proj).view(b, t, -1, d)
         k = dense(cfg, h, a.k_proj).view(b, t, -1, d)
@@ -150,17 +165,19 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
         out = attention(q, cache_k[i][:, :end].contiguous(),
                         cache_v[i][:, :end].contiguous(), causal=True,
                         window=cfg.window, scale=cfg.query_scale,
+                        alibi_slopes=layer_slopes(cfg, q),
                         logit_softcap=cfg.attn_logit_softcap, impl=impl)
         o = dense(cfg, out.reshape(b, t, -1), a.o_proj)
+        if cfg.parallel_block:
+            m_in = apply_norm(cfg, x, layer.ln2) if has_ln2(cfg) else h
+            x = x + o + mlp_out(cfg, layer.mlp, m_in)
+            continue
         if cfg.sandwich_norms:
-            o = rms_norm(cfg, o, layer.ln1_post.weight)
+            o = apply_norm(cfg, o, layer.ln1_post)
         x = x + o
-        h2 = rms_norm(cfg, x, layer.ln2.weight)
-        m = layer.mlp
-        f = dense(cfg, mlp_act(cfg, dense(cfg, h2, m.gate_proj),
-                               dense(cfg, h2, m.up_proj)), m.down_proj)
+        f = mlp_out(cfg, layer.mlp, apply_norm(cfg, x, layer.ln2))
         if cfg.sandwich_norms:
-            f = rms_norm(cfg, f, layer.ln2_post.weight)
+            f = apply_norm(cfg, f, layer.ln2_post)
         x = x + f
     return x
 
@@ -178,9 +195,14 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
     it (``sample_slots``: top-k, top-p, the counter hash of ``(seed,
     position)``), so a row's tokens depend on its seed and prompt only.
     After ``eos_id`` a row repeats it.  ``attention_impl`` defaults to
-    the model config's."""
-    from torchacc_tpu_torch.models.transformer import head_logits
+    the model config's.  Prompt and new tokens must fit a learned
+    position table (JAX :253-260)."""
+    from torchacc_tpu_torch.models.transformer import (
+        check_composition,
+        head_logits,
+    )
     cfg = model.cfg
+    check_composition(cfg)
     dev = model.device
     ids = torch.as_tensor(prompt_ids, device=dev).long()
     if ids.ndim != 2 or ids.shape[1] < 1:
@@ -189,6 +211,11 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
     if max_new_tokens <= 0:
         return ids
     b, p = ids.shape
+    total = p + max_new_tokens
+    if cfg.pos_emb == "learned" and total > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt + max_new_tokens = {total} exceeds the learned "
+            f"position table max_seq_len {cfg.max_seq_len}")
     impl = attention_impl or cfg.attention_impl
     shape = (cfg.num_layers, b, p + max_new_tokens, cfg.kv_heads,
              cfg.head_size)

@@ -5,17 +5,25 @@ Llama 1/2/3/3.1/3.2 (with ``attention_bias``, ``mlp_bias`` and the
 ``llama3`` and ``linear`` rope scalings), Qwen2 (qkv bias), Qwen3
 (per-head qk-norm), Mistral (a sliding window), Gemma v1 (1 + w
 RMSNorm, GeGLU, scaled embeddings), Gemma2 (sandwich norms, the
-sliding/global pattern, softcaps) and Gemma3 (qk-norm, the 5:1 pattern
-with a local rope base, linear scaling on the global layers).
+sliding/global pattern, softcaps), Gemma3 (qk-norm, the 5:1 pattern
+with a local rope base, linear scaling on the global layers), GPT-2
+(learned positions, biased LayerNorms, gelu_new, Conv1D weights with a
+packed q|k|v), StarCoder2 (biased LayerNorms, a non-gated ``c_fc``/
+``c_proj`` MLP), GPT-NeoX (the parallel residual with two norms, exact
+gelu, q/k/v packed per head, partial rotary), Nemotron (layernorm1p,
+relu2, partial rotary) and Phi-1/1.5/2 (the parallel residual with one
+norm, ``fc1``/``fc2``, partial rotary, a biased head).
 
 Every other ``model_type`` and rope scaling raises
 ``NotImplementedError`` naming it and the ROADMAP item that brings it
-(A10b-2: the rest of the dense forward; A10c: mixture of experts), so
+(A10b-2b: the rest of the dense forward; A10c: mixture of experts), so
 nothing converts silently wrong.  HF's weights are ``[out, in]``, the
 port's layout: the conversion renames and checks shapes
 (``hf_stream.ingestion_plan``) and never goes through the JAX package's
-``[in, heads, d]`` layout.  An HF model object is read through its
-``.config`` and ``.state_dict()`` alone, so neither ``transformers`` nor
+``[in, heads, d]`` layout; GPT-2's ``[in, out]`` Conv1D weights and
+GPT-NeoX's per-head packing are unpacked by their own converters, as
+in JAX.  An HF model object is read through its ``.config`` and
+``.state_dict()`` alone, so neither ``transformers`` nor
 ``safetensors`` is imported.
 """
 
@@ -24,6 +32,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -36,13 +45,22 @@ from torchacc_tpu_torch.models.hf_stream import (
     read_hf_config,
     resolve_checkpoint_files,
 )
-from torchacc_tpu_torch.models.transformer import ModelConfig
+from torchacc_tpu_torch.models.transformer import ModelConfig, TransformerLM
 
 #: model types whose forward the port runs
 SUPPORTED = ("llama", "qwen2", "qwen3", "mistral", "gemma", "gemma2",
-             "gemma3", "gemma3_text")
+             "gemma3", "gemma3_text", "gpt2", "starcoder2", "gpt_neox",
+             "nemotron", "phi")
+# the families whose transformers config ties the head by default
+# (config.json leaves the key out where it keeps its class's default)
+_TIED_BY_DEFAULT = ("gemma", "gemma2", "gemma3", "gemma3_text", "gpt2",
+                    "starcoder2")
+# GPT-2's config.json keeps its own names (transformers' attribute_map)
+_GPT2_NAMES = {"hidden_size": "n_embd", "num_attention_heads": "n_head",
+               "num_hidden_layers": "n_layer",
+               "max_position_embeddings": "n_positions"}
 # mixture-of-experts families wait for A10c, every other family for
-# A10b-2
+# A10b-2b
 _MOE_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "deepseek_v2",
               "deepseek_v3", "dbrx", "olmoe", "jamba")
 
@@ -52,8 +70,12 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     namespace ``hf_stream.read_hf_config`` makes of ``config.json``
     (``SUPPORTED``), field for field as JAX's (:37); ``overrides``
     (``dtype``, ``param_dtype``, ...) are applied last."""
-    get = lambda n, d=None: getattr(hf_config, n, d)
-    mt = get("model_type")
+    mt = getattr(hf_config, "model_type", None)
+
+    def get(n, d=None):
+        if mt == "gpt2" and getattr(hf_config, n, None) is None:
+            n = _GPT2_NAMES.get(n, n)
+        return getattr(hf_config, n, d)
     if mt in _MOE_TYPES:
         raise NotImplementedError(
             f"Hugging Face model_type {mt!r} (mixture of experts) is not "
@@ -62,7 +84,7 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     if mt not in SUPPORTED:
         raise NotImplementedError(
             f"Hugging Face model_type {mt!r} is not ported to "
-            f"torchacc_tpu_torch yet (ROADMAP A10b-2); it converts "
+            f"torchacc_tpu_torch yet (ROADMAP A10b-2b); it converts "
             f"{', '.join(SUPPORTED)}")
     kw = dict(
         vocab_size=get("vocab_size"),
@@ -81,9 +103,9 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         o_bias=bool(get("attention_bias", False)),
         mlp_bias=bool(get("mlp_bias", False)),
         # config.json leaves tie_word_embeddings out where it is
-        # transformers' own default, True, as Gemma's configs are
+        # transformers' own default, True, as Gemma's and GPT-2's are
         tie_embeddings=bool(get("tie_word_embeddings",
-                                mt.startswith("gemma"))),
+                                mt in _TIED_BY_DEFAULT)),
     )
     gemma = dict(norm="rmsnorm1p", activation="geglu", embed_scale=True)
     # gemma2/3: query_pre_attn_scalar ** -0.5, not head_dim ** -0.5
@@ -112,6 +134,8 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     elif mt == "qwen3":
         # per-head RMSNorm on q and k before rope (cfg.norm stays rmsnorm)
         kw.update(qk_norm=True)
+    else:
+        _layernorm_family(mt, get, kw)
     rs = get("rope_scaling")
     if rs:
         rt = rs.get("rope_type", rs.get("type", "default"))
@@ -131,7 +155,7 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         elif rt != "default":
             raise NotImplementedError(
                 f"rope_scaling type {rt!r} is not ported to "
-                f"torchacc_tpu_torch yet (ROADMAP A10b-2); it implements "
+                f"torchacc_tpu_torch yet (ROADMAP A10b-2b); it implements "
                 f"linear and llama3")
     if get("final_logit_softcapping"):
         kw["logit_softcap"] = float(get("final_logit_softcapping"))
@@ -141,6 +165,90 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         kw["window"] = (int(get("sliding_window")) - 1, -1)
     kw.update(overrides)
     return ModelConfig(**kw)
+
+
+def _check_act(mt: str, what: str, act: str, ok: Tuple[str, ...],
+               named: str) -> None:
+    """Raise as JAX does on an activation its conversion would turn
+    silently wrong."""
+    if act not in ok:
+        raise NotImplementedError(
+            f"{mt} {what} {act!r} is not implemented ({named} is)")
+
+
+def _layernorm_family(mt: str, get, kw: Dict[str, Any]) -> None:
+    """The fields of the LayerNorm families (JAX :101-205): GPT-2,
+    StarCoder2, GPT-NeoX, Nemotron and Phi; ``kw`` is updated in
+    place."""
+    if mt == "gpt2":
+        # learned positions, biased LayerNorms, gelu_new, biases on every
+        # projection, a tied head; gelu here is the tanh approximation,
+        # so an erf gelu or a relu would convert silently wrong
+        _check_act(mt, "activation_function",
+                   get("activation_function", "gelu_new"),
+                   ("gelu_new", "gelu_pytorch_tanh"), "gelu_new")
+        kw.update(norm="layernorm", activation="gelu", pos_emb="learned",
+                  qkv_bias=True, o_bias=True, mlp_bias=True,
+                  norm_eps=float(get("layer_norm_epsilon", 1e-5)))
+        if get("n_inner"):
+            kw["intermediate_size"] = int(get("n_inner"))
+    elif mt == "starcoder2":
+        # GQA, biased LayerNorms, a non-gated gelu_pytorch_tanh MLP, one
+        # use_bias switch for q/k/v/o and the MLP (7B/15B's
+        # sliding_window is read after this)
+        _check_act(mt, "hidden_act", get("hidden_act", "gelu_pytorch_tanh"),
+                   ("gelu_pytorch_tanh", "gelu_new"), "gelu_pytorch_tanh")
+        bias = bool(get("use_bias", True))
+        kw.update(norm="layernorm", activation="gelu", qkv_bias=bias,
+                  o_bias=bias, mlp_bias=bias,
+                  norm_eps=float(get("norm_epsilon", 1e-5)))
+    elif mt == "gpt_neox":
+        # the parallel residual with two norms (use_parallel_residual,
+        # Pythia's default), q/k/v packed per head, exact gelu, partial
+        # rotary by rotary_pct; attention_bias gates q/k/v and dense,
+        # the MLP is always biased
+        act = get("hidden_act", "gelu")
+        if act not in ("gelu", "gelu_new", "gelu_pytorch_tanh",
+                       "gelu_fast"):
+            raise NotImplementedError(
+                f"gpt_neox hidden_act {act!r} is not implemented")
+        bias = bool(get("attention_bias", True))
+        kw.update(norm="layernorm",
+                  activation="gelu_exact" if act == "gelu" else "gelu",
+                  parallel_block=bool(get("use_parallel_residual", True)),
+                  parallel_block_shared_norm=False, qkv_bias=bias,
+                  o_bias=bias, mlp_bias=True,
+                  norm_eps=float(get("layer_norm_eps", 1e-5)),
+                  rope_theta=float(get("rotary_emb_base",
+                                       get("rope_theta", 10000.0) or
+                                       10000.0) or 10000.0))
+        prf = float(get("rotary_pct", 1.0) or 1.0)
+        if prf != 1.0:
+            kw["partial_rotary"] = prf
+    elif mt == "nemotron":
+        # layernorm1p (scale 1 + w, a bias), a non-gated relu2 MLP with
+        # llama's up/down names, partial rotary
+        _check_act(mt, "hidden_act", get("hidden_act", "relu2"),
+                   ("relu2",), "relu2")
+        kw.update(norm="layernorm1p", activation="relu2",
+                  norm_eps=float(get("norm_eps", 1e-5)))
+        prf = float(get("partial_rotary_factor", 0.5) or 1.0)
+        if prf != 1.0:
+            kw["partial_rotary"] = prf
+    elif mt == "phi":
+        # Phi-1/1.5/2: the parallel residual with one shared biased
+        # LayerNorm, partial rotary, gelu_new fc1/fc2, biases everywhere
+        # and on the head, which cannot be tied
+        _check_act(mt, "hidden_act", get("hidden_act", "gelu_new"),
+                   ("gelu_new", "gelu_pytorch_tanh"), "gelu_new")
+        if kw.get("tie_embeddings"):
+            raise NotImplementedError(
+                "phi with tie_word_embeddings=True is not supported "
+                "(the biased lm_head cannot ride the tied head)")
+        kw.update(norm="layernorm", activation="gelu", parallel_block=True,
+                  qkv_bias=True, o_bias=True, mlp_bias=True, head_bias=True,
+                  norm_eps=float(get("layer_norm_eps", 1e-5)),
+                  partial_rotary=float(get("partial_rotary_factor", 0.5)))
 
 
 def _pattern_from_layer_types(layer_types, sliding_window_pattern=None
@@ -163,17 +271,127 @@ def _pattern_from_layer_types(layer_types, sliding_window_pattern=None
     return kinds
 
 
+def _getter(state_dict: Mapping[str, torch.Tensor], prefix: str):
+    """``get(name)``: the tensor ``name`` with or without ``prefix``."""
+    def get(name):
+        for key in (prefix + name, name):
+            if key in state_dict:
+                return state_dict[key].detach()
+        raise KeyError(f"missing weight {name!r} in state_dict")
+    return get
+
+
+def _norm_params(out, get, dst: str, src: str) -> None:
+    out[f"{dst}.weight"] = get(f"{src}.weight")
+    out[f"{dst}.bias"] = get(f"{src}.bias")
+
+
+def _params_from_gpt2(state_dict, cfg: ModelConfig
+                      ) -> Dict[str, torch.Tensor]:
+    """GPT-2's tensors (JAX ``_params_from_gpt2`` :354): Conv1D weights
+    are ``[in, out]``, so each is transposed; ``c_attn`` packs q|k|v on
+    its output dim; biases everywhere; the position table's first
+    ``max_seq_len`` rows."""
+    get = _getter(state_dict, "transformer.")
+    h = cfg.hidden_size
+    out = {"embed_tokens.weight": get("wte.weight"),
+           "pos_embed.weight": get("wpe.weight")[:cfg.max_seq_len]}
+    for i in range(cfg.num_layers):
+        p, q = f"layers.{i}.", f"h.{i}."
+        w, b = get(q + "attn.c_attn.weight"), get(q + "attn.c_attn.bias")
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{p}attn.{name}.weight"] = w[:, j * h:(j + 1) * h].t()
+            out[f"{p}attn.{name}.bias"] = b[j * h:(j + 1) * h]
+        for dst, src in (("attn.o_proj", "attn.c_proj"),
+                         ("mlp.up_proj", "mlp.c_fc"),
+                         ("mlp.down_proj", "mlp.c_proj")):
+            out[f"{p}{dst}.weight"] = get(f"{q}{src}.weight").t()
+            out[f"{p}{dst}.bias"] = get(f"{q}{src}.bias")
+        _norm_params(out, get, p + "ln1", q + "ln_1")
+        _norm_params(out, get, p + "ln2", q + "ln_2")
+    _norm_params(out, get, "final_norm", "ln_f")
+    return out
+
+
+def _params_from_neox(state_dict, cfg: ModelConfig
+                      ) -> Dict[str, torch.Tensor]:
+    """GPT-NeoX's tensors (JAX ``_params_from_neox`` :418):
+    ``attention.query_key_value`` packs q|k|v per head, its rows
+    ``[heads, 3, d]``; ``attention.dense``, ``mlp.dense_h_to_4h`` and
+    ``mlp.dense_4h_to_h``; biased LayerNorms; the ``embed_out`` head."""
+    get = _getter(state_dict, "gpt_neox.")
+    h, nh, d = cfg.hidden_size, cfg.num_heads, cfg.head_size
+    out = {"embed_tokens.weight": get("embed_in.weight")}
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        w = get(p + "attention.query_key_value.weight").reshape(nh, 3, d, h)
+        b = (get(p + "attention.query_key_value.bias").reshape(nh, 3, d)
+             if cfg.qkv_bias else None)
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{p}attn.{name}.weight"] = w[:, j].reshape(nh * d, h)
+            if b is not None:
+                out[f"{p}attn.{name}.bias"] = b[:, j].reshape(nh * d)
+        out[p + "attn.o_proj.weight"] = get(p + "attention.dense.weight")
+        if cfg.o_bias:
+            out[p + "attn.o_proj.bias"] = get(p + "attention.dense.bias")
+        for dst, src in (("up_proj", "dense_h_to_4h"),
+                         ("down_proj", "dense_4h_to_h")):
+            out[f"{p}mlp.{dst}.weight"] = get(f"{p}mlp.{src}.weight")
+            out[f"{p}mlp.{dst}.bias"] = get(f"{p}mlp.{src}.bias")
+        _norm_params(out, get, p + "ln1", p + "input_layernorm")
+        _norm_params(out, get, p + "ln2", p + "post_attention_layernorm")
+    _norm_params(out, get, "final_norm", "final_layer_norm")
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = get("embed_out.weight")
+    return out
+
+
+#: GPT-NeoX's attention tensors (JAX ``_NEOX_QKV_RE``): anchored on
+#: ``layers.<i>.``, so that Falcon's ``h.<i>.self_attention.
+#: query_key_value`` is not taken for NeoX's
+_NEOX_QKV_RE = re.compile(
+    r"(?:^|\.)layers\.\d+\.attention\.query_key_value\.weight$")
+
+
+def _is_neox_state_dict(state_dict: Mapping[str, Any]) -> bool:
+    """The GPT-NeoX layout (``_is_neox_state_dict`` :508)."""
+    return any(_NEOX_QKV_RE.search(k) for k in state_dict)
+
+
+def _checked(params: Dict[str, torch.Tensor], cfg: ModelConfig,
+             dtype) -> Dict[str, torch.Tensor]:
+    """``params`` in ``dtype``, each with the name and shape of the
+    port's model of ``cfg``, and every parameter given."""
+    want = {n: tuple(p.shape) for n, p in
+            TransformerLM(cfg, device="meta").named_parameters()}
+    if set(params) != set(want):
+        raise KeyError(
+            f"the converted tensors do not match the model: missing "
+            f"{sorted(set(want) - set(params))[:5]}, unexpected "
+            f"{sorted(set(params) - set(want))[:5]}")
+    for n, t in params.items():
+        if tuple(t.shape) != want[n]:
+            raise ValueError(f"{n}: shape {list(t.shape)} != expected "
+                             f"{list(want[n])}")
+    return {n: t.to(dtype).contiguous() for n, t in params.items()}
+
+
 def params_from_hf_state_dict(state_dict: Mapping[str, torch.Tensor],
                               cfg: ModelConfig,
                               dtype: Optional[torch.dtype] = None
                               ) -> Dict[str, torch.Tensor]:
     """The port's parameters (name -> tensor, in ``dtype``, default
-    ``cfg.param_dtype``) of an HF Llama/Qwen2 ``state_dict`` (names with
-    or without the ``model.`` prefix).  Every tensor must have a place
-    and the shape ``cfg`` gives it, and every place must be filled; a
-    tied model's ``lm_head.weight`` is dropped."""
+    ``cfg.param_dtype``) of an HF ``state_dict`` (names with or without
+    the ``model.`` prefix).  Every tensor must have a place and the
+    shape ``cfg`` gives it, and every place must be filled; a tied
+    model's ``lm_head.weight`` is dropped.  GPT-2's Conv1D layout and
+    GPT-NeoX's packing take their own converters (JAX :515-530)."""
     dtype = dtype or cfg.param_dtype
-    plan = ingestion_plan(cfg)
+    if any(k.endswith("attn.c_attn.weight") for k in state_dict):
+        return _checked(_params_from_gpt2(state_dict, cfg), cfg, dtype)
+    if _is_neox_state_dict(state_dict):
+        return _checked(_params_from_neox(state_dict, cfg), cfg, dtype)
+    plan = ingestion_plan(cfg, state_dict.keys())
     out: Dict[str, torch.Tensor] = {}
     seen = set()
     for name, t in state_dict.items():

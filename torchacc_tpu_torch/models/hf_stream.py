@@ -19,7 +19,10 @@ C2):
   BF16, F16 and F32 are read; any other dtype raises by name.
 
 HF's tensors are ``nn.Linear``'s ``[out, in]``, the port's layout, so
-the plan (``ingestion_plan``) is a renaming with shape checks.
+the plan (``ingestion_plan``) is a renaming with shape checks.  GPT-2's
+Conv1D checkpoints, GPT-NeoX's packed attention and Phi's are not in
+the plan's layout (``streamable_names``): as in JAX they go through the
+materialising converter (``models.hf.load_hf_model``).
 ``stream_params`` copies one checkpoint tensor at a time straight into
 the tensor the trainer made for it: the parameter itself on one device,
 or this rank's shard of it on a mesh (``parallel/sharding.py``'s plan;
@@ -35,12 +38,17 @@ import os
 import re
 import struct
 import types
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from torchacc_tpu_torch.models.transformer import ModelConfig
+from torchacc_tpu_torch.models.transformer import (
+    GATED,
+    ModelConfig,
+    has_ln2,
+    norm_has_bias,
+)
 
 #: safetensors dtype names the port reads
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
@@ -160,29 +168,50 @@ def checkpoint_tensor_names(path: str) -> Optional[List[str]]:
     return names
 
 
-def ingestion_plan(cfg: ModelConfig
+def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
                    ) -> Dict[str, Tuple[Optional[str], Tuple[int, ...]]]:
     """HF tensor name (without the ``model.`` prefix) -> (the port's
     parameter name, or None for a tensor read and dropped; the shape in
-    the checkpoint) for the Llama, Qwen2/3, Mistral and Gemma layouts:
-    Qwen3's and Gemma3's per-head ``q_norm``/``k_norm``, and under
-    Gemma2/3's sandwich norms ``post_attention_layernorm`` as the
-    post-attention norm (``ln1_post``), ``pre_feedforward_layernorm``
-    as ``ln2`` and ``post_feedforward_layernorm`` as ``ln2_post``.  A
-    tied model's ``lm_head.weight``, which some exporters ship as a
-    copy, is dropped."""
+    the checkpoint) for the Llama, Qwen2/3, Mistral, Gemma, StarCoder2,
+    Nemotron and Phi layouts: Qwen3's and Gemma3's per-head
+    ``q_norm``/``k_norm``, and under Gemma2/3's sandwich norms
+    ``post_attention_layernorm`` as the post-attention norm
+    (``ln1_post``), ``pre_feedforward_layernorm`` as ``ln2`` and
+    ``post_feedforward_layernorm`` as ``ln2_post``; a LayerNorm's
+    ``.bias`` beside its ``.weight``; a non-gated MLP's ``up_proj``/
+    ``down_proj`` (Nemotron), ``c_fc``/``c_proj`` (StarCoder2) or
+    ``fc1``/``fc2`` (Phi, with ``self_attn.dense`` and
+    ``final_layernorm``), chosen by the checkpoint's tensor ``names``
+    as JAX's plan chooses them (``_detect_nongated``).  A tied model's
+    ``lm_head.weight``, which some exporters ship as a copy, is
+    dropped."""
     h, L = cfg.hidden_size, cfg.num_layers
     nh, nk, d = cfg.num_heads, cfg.kv_heads, cfg.head_size
     f, v = cfg.ffn_size, cfg.vocab_size
+    names = list(names)
+    has = lambda suffix: any(n.endswith(suffix) for n in names)
+    mlp_names = (("c_fc", "c_proj") if has("mlp.c_fc.weight")
+                 else ("fc1", "fc2") if has("mlp.fc1.weight")
+                 else ("up_proj", "down_proj"))
+    o_name = "dense" if has("self_attn.dense.weight") else "o_proj"
+    final = "final_layernorm" if has("final_layernorm.weight") else "norm"
+    nb = norm_has_bias(cfg)
     plan: Dict[str, Tuple[Optional[str], Tuple[int, ...]]] = {
         "embed_tokens.weight": ("embed_tokens.weight", (v, h)),
-        "norm.weight": ("final_norm.weight", (h,)),
         "lm_head.weight": (None if cfg.tie_embeddings else "lm_head.weight",
                            (v, h)),
     }
+    if cfg.head_bias:
+        plan["lm_head.bias"] = ("lm_head.bias", (v,))
+
+    def norm(src, dst):
+        plan[src + ".weight"] = (dst + ".weight", (h,))
+        if nb:
+            plan[src + ".bias"] = (dst + ".bias", (h,))
+    norm(final, "final_norm")
     for i in range(L):
         p = f"layers.{i}."                 # the same prefix in both names
-        plan[p + "input_layernorm.weight"] = (p + "ln1.weight", (h,))
+        norm(p + "input_layernorm", p + "ln1")
         if cfg.sandwich_norms:
             plan[p + "post_attention_layernorm.weight"] = (
                 p + "ln1_post.weight", (h,))
@@ -190,28 +219,44 @@ def ingestion_plan(cfg: ModelConfig
                                                             (h,))
             plan[p + "post_feedforward_layernorm.weight"] = (
                 p + "ln2_post.weight", (h,))
-        else:
-            plan[p + "post_attention_layernorm.weight"] = (p + "ln2.weight",
-                                                           (h,))
+        elif has_ln2(cfg):
+            norm(p + "post_attention_layernorm", p + "ln2")
         if cfg.qk_norm:
             for name in ("q_norm", "k_norm"):
                 plan[f"{p}self_attn.{name}.weight"] = (
                     f"{p}attn.{name}.weight", (d,))
-        attn = [("q_proj", nh * d, h), ("k_proj", nk * d, h),
-                ("v_proj", nk * d, h), ("o_proj", h, nh * d)]
-        for name, rows, cols in attn:
-            plan[f"{p}self_attn.{name}.weight"] = (
+        attn = [("q_proj", "q_proj", nh * d, h),
+                ("k_proj", "k_proj", nk * d, h),
+                ("v_proj", "v_proj", nk * d, h),
+                (o_name, "o_proj", h, nh * d)]
+        for src, name, rows, cols in attn:
+            plan[f"{p}self_attn.{src}.weight"] = (
                 f"{p}attn.{name}.weight", (rows, cols))
             if cfg.o_bias if name == "o_proj" else cfg.qkv_bias:
-                plan[f"{p}self_attn.{name}.bias"] = (
+                plan[f"{p}self_attn.{src}.bias"] = (
                     f"{p}attn.{name}.bias", (rows,))
-        for name, rows, cols in (("gate_proj", f, h), ("up_proj", f, h),
-                                 ("down_proj", h, f)):
-            plan[f"{p}mlp.{name}.weight"] = (f"{p}mlp.{name}.weight",
-                                             (rows, cols))
+        mlp = [(mlp_names[0], "up_proj", f, h),
+               (mlp_names[1], "down_proj", h, f)]
+        if cfg.activation in GATED:
+            mlp.insert(0, ("gate_proj", "gate_proj", f, h))
+        for src, name, rows, cols in mlp:
+            plan[f"{p}mlp.{src}.weight"] = (f"{p}mlp.{name}.weight",
+                                            (rows, cols))
             if cfg.mlp_bias:
-                plan[f"{p}mlp.{name}.bias"] = (f"{p}mlp.{name}.bias", (rows,))
+                plan[f"{p}mlp.{src}.bias"] = (f"{p}mlp.{name}.bias", (rows,))
     return plan
+
+
+def streamable_names(names: Iterable[str]) -> bool:
+    """Whether a checkpoint is in the plan's layout, so that it streams
+    (``streamable_names`` of the JAX package, :270): separate q/k/v
+    projections and not Phi's ``self_attn.dense``.  GPT-2's Conv1D
+    ``c_attn`` and GPT-NeoX's ``query_key_value`` are not; they, and
+    Phi, go through the materialising converter."""
+    names = list(names)
+    if any(n.endswith("self_attn.dense.weight") for n in names):
+        return False
+    return any(n.endswith("self_attn.q_proj.weight") for n in names)
 
 
 def plan_entry(plan, name: str):
@@ -264,7 +309,11 @@ def stream_params(files: List[str], cfg: ModelConfig,
     pipeline parallelism ``dest`` holds this stage's blocks and the
     parameters every stage holds; the other blocks' tensors are checked
     and skipped.  Returns ``dest``."""
-    plan = ingestion_plan(cfg)
+    names = []
+    for fpath in files:
+        with SafetensorsFile(fpath) as f:
+            names.extend(f.keys())
+    plan = ingestion_plan(cfg, names)
     seen = set()
     for fpath in files:
         with SafetensorsFile(fpath) as f:

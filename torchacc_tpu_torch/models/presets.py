@@ -1,10 +1,30 @@
 """Model presets (torchacc_tpu/models/presets.py, field for field, for
-the families the port runs: Llama, Qwen2 and Gemma; the GPT-2 presets
-wait for ROADMAP A10b-2 and Mixtral for A10c)."""
+the families the port runs: GPT-2, Llama, Qwen2 and Gemma; Mixtral
+waits for ROADMAP A10c)."""
 
 from __future__ import annotations
 
 from torchacc_tpu_torch.models.transformer import ModelConfig
+
+
+def gpt2_tiny(**kw) -> ModelConfig:
+    """The reference's tiny-GPT benchmark model (its
+    benchmarks/transformer.py)."""
+    defaults = dict(vocab_size=50257, hidden_size=256, num_layers=4,
+                    num_heads=8, max_seq_len=512, pos_emb="learned",
+                    norm="layernorm", activation="gelu",
+                    tie_embeddings=True, rope_theta=10000.0)
+    defaults.update(kw)
+    return ModelConfig(**defaults)
+
+
+def gpt2(**kw) -> ModelConfig:
+    defaults = dict(vocab_size=50257, hidden_size=768, num_layers=12,
+                    num_heads=12, max_seq_len=1024, pos_emb="learned",
+                    norm="layernorm", activation="gelu",
+                    tie_embeddings=True, rope_theta=10000.0)
+    defaults.update(kw)
+    return ModelConfig(**defaults)
 
 
 def llama_tiny(**kw) -> ModelConfig:
@@ -94,6 +114,8 @@ def gemma3_1b(**kw) -> ModelConfig:
 
 
 PRESETS = {
+    "gpt2-tiny": gpt2_tiny,
+    "gpt2": gpt2,
     "llama-tiny": llama_tiny,
     "llama3-8b": llama3_8b,
     "llama3-70b": llama3_70b,

@@ -6,12 +6,19 @@ every field is there, so a JAX config maps onto it field by field, but
 the port implements the Llama family — rmsnorm, swiglu, RoPE
 (``rope_theta``, ``rope_scale`` and Llama-3.1's ``rope_llama3``
 banding), GQA, ``qkv_bias``, ``o_bias``, ``mlp_bias``,
-``tie_embeddings`` and ``attn_logit_softcap`` — and what the Gemma,
+``tie_embeddings`` and ``attn_logit_softcap`` — what the Gemma,
 Mistral and Qwen3 families add: ``norm='rmsnorm1p'`` (scale 1 + w),
 ``activation='geglu'``, ``embed_scale``, per-head ``qk_norm`` and the
 final ``logit_softcap``, and in training and ``generate`` also
 ``sandwich_norms``, a uniform ``window`` and ``layer_pattern`` with
-``rope_local_theta`` (``pattern_cfg``).  The training forward adds
+``rope_local_theta`` (``pattern_cfg``) — and what the GPT-2, GPT-NeoX,
+Phi, StarCoder2 and Nemotron families add: ``norm`` 'layernorm' and
+'layernorm1p' with ``norm_bias``, the non-gated MLPs (``activation``
+'gelu', 'gelu_exact', 'relu2'), ``partial_rotary``, learned positions
+(``pos_emb='learned'``, the ``pos_embed`` table) and ALiBi
+(``pos_emb='alibi'``), and in training and ``generate`` also the
+parallel residual (``parallel_block``, ``parallel_block_shared_norm``)
+and ``head_bias``.  The training forward adds
 attention dropout (``attn_dropout``) and quantized forward matmuls
 (``quant``, ``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
 ``quant_impl``).  The serving forward (serve/scheduler.py) and the
@@ -156,23 +163,82 @@ class ModelConfig:
     def ffn_size(self) -> int:
         if self.intermediate_size is not None:
             return self.intermediate_size
-        if self.activation in ("swiglu", "geglu"):
+        if self.activation in GATED:
             return ((8 * self.hidden_size // 3) + 255) // 256 * 256
         return 4 * self.hidden_size
 
+    def num_params(self) -> int:
+        """Every parameter of the model this config makes (``num_params``
+        of the JAX package, :232, for MFU): the position table, the
+        q/k/v/o/MLP and head biases, the norms' scales and biases, the
+        qk and sandwich norms, one norm a block fewer under a shared
+        parallel-block norm."""
+        h, v = self.hidden_size, self.vocab_size
+        d = self.head_size
+        emb = v * h + (self.max_seq_len * h if self.pos_emb == "learned"
+                       else 0)
+        attn = h * (self.num_heads * d) + h * (2 * self.kv_heads * d) \
+            + (self.num_heads * d) * h
+        if self.qkv_bias:
+            attn += (self.num_heads + 2 * self.kv_heads) * d
+        if self.o_bias:
+            attn += h
+        if self.qk_norm:
+            attn += ((self.num_heads + self.kv_heads) * d
+                     if self.qk_norm_proj else 2 * d)
+        n_mats = 3 if self.activation in GATED else 2
+        mlp = n_mats * h * self.ffn_size
+        if self.mlp_bias:
+            mlp += (n_mats - 1) * self.ffn_size + h
+        if self.num_experts > 0:
+            mlp = mlp * self.num_experts + h * self.num_experts
+        norm_size = 2 * h if norm_has_bias(self) else h
+        per_block = (1 if self.parallel_block
+                     and self.parallel_block_shared_norm
+                     else (4 if self.sandwich_norms else 2))
+        norms = (per_block * self.num_layers + 1) * norm_size
+        out = 0 if self.tie_embeddings else v * h
+        if self.head_bias:
+            out += v
+        return emb + self.num_layers * (attn + mlp) + norms + out
 
-def rms_norm(cfg: ModelConfig, x: torch.Tensor,
-             weight: torch.Tensor) -> torch.Tensor:
-    """``Norm`` with ``norm`` 'rmsnorm' or 'rmsnorm1p' (Gemma: the
-    stored w scales by 1 + w): computed in f32, cast back to the
-    compute dtype."""
+
+# the gated MLPs (gate_proj, up_proj, down_proj); the others have no gate
+GATED = ("swiglu", "geglu")
+_LAYERNORMS = ("layernorm", "layernorm1p")
+
+
+def norm_has_bias(cfg: ModelConfig) -> bool:
+    """A LayerNorm carries a bias unless ``norm_bias`` is off (Cohere);
+    an RMSNorm never does."""
+    return cfg.norm in _LAYERNORMS and cfg.norm_bias
+
+
+def norm(cfg: ModelConfig, x: torch.Tensor, weight: torch.Tensor,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``Norm`` (:399): 'rmsnorm', or 'layernorm' (the mean taken out,
+    then the variance about it), the stored w scaling by 1 + w under
+    'rmsnorm1p' (Gemma) and 'layernorm1p' (Nemotron), and a LayerNorm's
+    ``bias`` added after the scale; the statistics and the affine in
+    f32, cast back to the compute dtype."""
     xf = x.float()
+    if cfg.norm in _LAYERNORMS:
+        xf = xf - xf.mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True)
                          + cfg.norm_eps)
     scale = to_local(weight).float()
-    if cfg.norm == "rmsnorm1p":
+    if cfg.norm in ("rmsnorm1p", "layernorm1p"):
         scale = 1.0 + scale
-    return (y * scale).to(cfg.dtype)
+    y = y * scale
+    if bias is not None:
+        y = y + to_local(bias).float()
+    return y.to(cfg.dtype)
+
+
+def apply_norm(cfg: ModelConfig, x: torch.Tensor,
+               mod: "Norm") -> torch.Tensor:
+    """:func:`norm` with the scale and bias of the module ``mod``."""
+    return norm(cfg, x, mod.weight, mod.bias)
 
 
 def pattern_cfg(cfg: ModelConfig, i: int) -> ModelConfig:
@@ -196,25 +262,62 @@ def pattern_cfg(cfg: ModelConfig, i: int) -> ModelConfig:
                      f"got {kind!r}")
 
 
-def mlp_act(cfg: ModelConfig, gate: torch.Tensor,
-            up: torch.Tensor) -> torch.Tensor:
-    """The gated MLP's hidden: SiLU(gate) * up, or under 'geglu' flax's
-    ``nn.gelu`` (the tanh approximation, HF's gelu_pytorch_tanh)."""
-    if cfg.activation == "geglu":
+def mlp_act(cfg: ModelConfig, up: torch.Tensor,
+            gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The MLP's hidden (``Mlp`` :684): gated, SiLU(gate) * up, or under
+    'geglu' flax's ``nn.gelu`` (the tanh approximation, HF's
+    gelu_pytorch_tanh) of the gate; non-gated, 'gelu' (the same tanh
+    approximation, GPT-2's gelu_new), 'gelu_exact' (erf, GPT-NeoX) or
+    'relu2' (the square of relu, Nemotron) of ``up``."""
+    act = cfg.activation
+    if act == "swiglu":
+        return F.silu(gate) * up
+    if act == "geglu":
         return F.gelu(gate, approximate="tanh") * up
-    return F.silu(gate) * up
+    if act == "gelu":
+        return F.gelu(up, approximate="tanh")
+    if act == "gelu_exact":
+        return F.gelu(up)
+    if act == "relu2":
+        return torch.square(F.relu(up))
+    raise ValueError(f"activation {act!r}")
+
+
+def mlp_out(cfg: ModelConfig, mlp: "Mlp", x: torch.Tensor) -> torch.Tensor:
+    """The MLP of one block on ``x`` without remat names or quantized
+    sites (``generate``'s and serving's cached forwards)."""
+    gate = (dense(cfg, x, mlp.gate_proj) if cfg.activation in GATED
+            else None)
+    return dense(cfg, mlp_act(cfg, dense(cfg, x, mlp.up_proj), gate),
+                 mlp.down_proj)
+
+
+def alibi_slopes(num_heads: int) -> Tuple[float, ...]:
+    """The ALiBi slopes of ``num_heads`` heads (``alibi_slopes`` :433):
+    geometric 2^(-8i/n), with the paper's interpolation where n is not a
+    power of two."""
+    def pow2(n):
+        start = 2.0 ** (-8.0 / n)
+        return [start ** (i + 1) for i in range(n)]
+
+    if math.log2(num_heads).is_integer():
+        return tuple(pow2(num_heads))
+    m = 2 ** math.floor(math.log2(num_heads))
+    return tuple(pow2(m) + pow2(2 * m)[0::2][:num_heads - m])
 
 
 def qk_rope(cfg: ModelConfig, attn: "Attention", q: torch.Tensor,
             k: torch.Tensor, positions: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q and k ``[b, s, heads, d]`` after the per-head ``qk_norm``
-    (Gemma3, Qwen3: before RoPE, by ``cfg.norm``) and RoPE at
-    ``positions`` (divided by ``rope_scale`` when it is not 1).  ``cfg``
-    is the layer's (``pattern_cfg``)."""
+    (Gemma3, Qwen3: before RoPE, by ``cfg.norm``) and, under
+    ``pos_emb='rope'``, RoPE at ``positions`` (divided by ``rope_scale``
+    when it is not 1).  ``cfg`` is the layer's (``pattern_cfg``)."""
     if cfg.qk_norm:
-        q = rms_norm(cfg, q, attn.q_norm.weight)
-        k = rms_norm(cfg, k, attn.k_norm.weight)
+        q = apply_norm(cfg, q, attn.q_norm)
+        k = apply_norm(cfg, k, attn.k_norm)
+    if cfg.pos_emb != "rope":
+        return q, k
     rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
           else positions)
     return rope(q, k, rp, cfg)
@@ -222,16 +325,21 @@ def qk_rope(cfg: ModelConfig, attn: "Attention", q: torch.Tensor,
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_rope`` without partial rotary: llama half-split convention,
-    angles in f32, outputs cast back to the inputs' dtype.  ``positions``
-    [S, T] (already divided by ``rope_scale`` by the caller when it is
-    not 1).  Under ``rope_llama3`` the frequencies take Llama-3.1's
-    banding, in f32 as the JAX package computes it: long wavelengths
-    divided by ``factor``, short ones kept, the band between
-    interpolated."""
+    """``_rope`` (:300): llama half-split convention, angles in f32,
+    outputs cast back to the inputs' dtype.  ``positions`` [S, T]
+    (already divided by ``rope_scale`` by the caller when it is not 1).
+    Under ``partial_rotary`` < 1 only the first ``int(d *
+    partial_rotary)`` dims rotate (their own frequencies, half-split
+    among themselves) and the rest pass through (Phi, GPT-NeoX's
+    ``rotary_pct``, Nemotron).  Under ``rope_llama3`` the frequencies
+    take Llama-3.1's banding, in f32 as the JAX package computes it:
+    long wavelengths divided by ``factor``, short ones kept, the band
+    between interpolated."""
     d = q.shape[-1]
+    rot_d = int(d * cfg.partial_rotary)
     freqs = 1.0 / (cfg.rope_theta ** (
-        torch.arange(0, d, 2, dtype=torch.float32, device=q.device) / d))
+        torch.arange(0, rot_d, 2, dtype=torch.float32, device=q.device)
+        / rot_d))
     if cfg.rope_llama3 is not None:
         factor, lo, hi, old_len = cfg.rope_llama3
         wavelen = 2.0 * math.pi / freqs
@@ -247,43 +355,57 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
 
     def rot(x):
         xf = x.float()
-        x1, x2 = xf.chunk(2, dim=-1)
-        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        x1, x2 = xf[..., :rot_d].chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin,
+                         xf[..., rot_d:]], dim=-1)
         return out.to(x.dtype)
 
     return rot(q), rot(k)
 
 
-class RMSNorm(nn.Module):
+class Norm(nn.Module):
     """A norm's scale, initialised to ``fill``: one, or zero for
-    rmsnorm1p, whose stored w scales by 1 + w (flax's zeros init)."""
+    rmsnorm1p and layernorm1p, whose stored w scales by 1 + w (flax's
+    zeros init); and a LayerNorm's ``bias`` (zero; None without one).
+    Applied by :func:`apply_norm`."""
 
     def __init__(self, cfg: ModelConfig, size: int, **factory):
         super().__init__()
-        self.fill = 0.0 if cfg.norm == "rmsnorm1p" else 1.0
+        self.fill = 0.0 if cfg.norm in ("rmsnorm1p", "layernorm1p") else 1.0
         self.weight = nn.Parameter(torch.full((size,), self.fill, **factory))
+        self.bias = (nn.Parameter(torch.zeros((size,), **factory))
+                     if norm_has_bias(cfg) else None)
 
 
-# ModelConfig fields of the Llama family and of what Gemma v1 and Qwen3
-# add, which the serving and the training forward implement (``norm``
-# and ``activation`` for the values of MODEL_VALUES)
+# ModelConfig fields of the Llama family and of what Gemma v1, Qwen3
+# and the LayerNorm families add, which the serving and the training
+# forward implement (``norm``, ``activation`` and ``pos_emb`` for the
+# values of MODEL_VALUES; serving refuses ``parallel_block`` and ALiBi
+# as JAX's does)
 MODEL_FIELDS = frozenset({
     "vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
     "head_dim", "intermediate_size", "max_seq_len", "rope_theta",
     "rope_scale", "rope_llama3", "norm_eps", "qkv_bias", "o_bias",
     "mlp_bias", "tie_embeddings", "attn_logit_softcap", "query_scale",
     "dtype", "param_dtype", "norm", "activation", "embed_scale",
-    "logit_softcap", "qk_norm",
+    "logit_softcap", "qk_norm", "pos_emb", "norm_bias", "partial_rotary",
+    "parallel_block", "parallel_block_shared_norm", "head_bias",
 })
-MODEL_VALUES = {"norm": ("rmsnorm", "rmsnorm1p"),
-                "activation": ("swiglu", "geglu")}
+MODEL_VALUES = {"norm": ("rmsnorm", "rmsnorm1p", "layernorm",
+                         "layernorm1p"),
+                "activation": ("swiglu", "geglu", "gelu", "gelu_exact",
+                               "relu2"),
+                "pos_emb": ("rope", "learned", "alibi")}
 # what those fields are, for the messages that reject the others
-MODEL_SURFACE = ("rmsnorm and rmsnorm1p, swiglu and geglu, RoPE (plain, "
-                 "linear and llama3 scaling), GQA, qkv/o/mlp biases, "
-                 "tie_embeddings, embed_scale, per-head qk_norm, "
-                 "attn_logit_softcap and logit_softcap")
+MODEL_SURFACE = ("rmsnorm, rmsnorm1p, layernorm and layernorm1p (with "
+                 "norm_bias), swiglu, geglu, gelu, gelu_exact and relu2, "
+                 "RoPE (plain, partial, linear and llama3 scaling), learned "
+                 "positions and ALiBi, GQA, qkv/o/mlp/head biases, the "
+                 "parallel block, tie_embeddings, embed_scale, per-head "
+                 "qk_norm, attn_logit_softcap and logit_softcap")
 # the rest of the forward waits for these ROADMAP items
-MODEL_PENDING = "ROADMAP.md A10b-2 (A10c for the mixtures of experts)"
+MODEL_PENDING = ("ROADMAP.md A10b-2b (A10c for the mixtures of "
+                 "experts)")
 # the training forward also implements Gemma2/3's sandwich norms, the
 # sliding window and the sliding/global layer pattern with its local
 # rope base; remat (its policy, the submodules and the number of layers
@@ -302,7 +424,6 @@ _TRAIN_INERT = frozenset({
     "scan_layers", "cache_len", "logical_axis_rules",
     "tp_vocab_head", "num_experts_per_tok", "router_aux_weight",
     "moe_dispatch", "moe_renorm_topk", "moe_capacity_factor",
-    "parallel_block_shared_norm", "norm_bias",
 })
 
 
@@ -319,12 +440,29 @@ def unsupported_fields(cfg: ModelConfig, fields, inert) -> list:
                   if getattr(cfg, name) not in ok]
 
 
+def check_composition(cfg: ModelConfig) -> None:
+    """The compositions JAX's forward refuses, with its messages: the
+    parallel block with post-norms or sandwich norms (``Block`` :749)
+    and a head bias on a tied head (:1242)."""
+    if cfg.parallel_block and (cfg.norm_placement == "post"
+                               or cfg.sandwich_norms):
+        raise ValueError("parallel_block (phi) does not compose "
+                         "with norm_placement='post' or "
+                         "sandwich_norms")
+    if cfg.head_bias and cfg.tie_embeddings:
+        raise ValueError(
+            "head_bias does not compose with tie_embeddings "
+            "(the tied head has no bias parameter)")
+
+
 def check_training_supported(cfg: ModelConfig) -> None:
     """Raise naming every field the training forward of this port does
-    not implement, and the compositions JAX rejects: a layer pattern
-    with quantized matmuls (JAX :929) or with ``overlap_fsdp`` (:953),
-    and under pipeline parallelism a pattern period that does not divide
-    a stage chunk (``pp_block_appliers``)."""
+    not implement, and the compositions JAX rejects: those of
+    :func:`check_composition`, a layer pattern with quantized matmuls
+    (JAX :929) or with ``overlap_fsdp`` (:953), and under pipeline
+    parallelism a pattern period that does not divide a stage chunk
+    (``pp_block_appliers``)."""
+    check_composition(cfg)
     if cfg.layer_pattern:
         if cfg.quant != "none":
             raise NotImplementedError(
@@ -376,16 +514,20 @@ def quant_site_on(cfg: ModelConfig, site: str) -> bool:
             and not cfg.decode)
 
 
-_SITE_LINEARS = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-                 "mlp": ("gate_proj", "up_proj", "down_proj")}
+def mlp_linears(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The MLP's projections: a gated MLP's three, else up and down."""
+    return (("gate_proj",) if cfg.activation in GATED else ()) \
+        + ("up_proj", "down_proj")
 
 
 def quant_site_names(cfg: ModelConfig) -> Tuple[str, ...]:
     """The name of every quantized matmul site of ``cfg``, in forward
     order: ``layers.<i>.<attn|mlp>.<linear>`` (the module's path)."""
+    sites = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
+             "mlp": mlp_linears(cfg)}
     return tuple(f"layers.{i}.{site}.{lin}"
                  for i in range(cfg.num_layers)
-                 for site, lins in _SITE_LINEARS.items()
+                 for site, lins in sites.items()
                  if quant_site_on(cfg, site) for lin in lins)
 
 
@@ -526,8 +668,8 @@ class Attention(nn.Module):
         self.layer = layer          # its index: the layer pattern's slot
         h, d = cfg.hidden_size, cfg.head_size
         if cfg.qk_norm:
-            self.q_norm = RMSNorm(cfg, d, **factory)
-            self.k_norm = RMSNorm(cfg, d, **factory)
+            self.q_norm = Norm(cfg, d, **factory)
+            self.k_norm = Norm(cfg, d, **factory)
         self.q_proj = nn.Linear(h, cfg.num_heads * d, bias=cfg.qkv_bias,
                                 **factory)
         self.k_proj = nn.Linear(h, cfg.kv_heads * d, bias=cfg.qkv_bias,
@@ -540,9 +682,10 @@ class Attention(nn.Module):
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
                 quant=None, name="attn"):
         """``Attention.__call__`` (:480) without the KV cache: q/k/v
-        projections, the per-head qk norms, RoPE, causal attention over
-        ``segment_ids``, o projection, each with this layer's config
-        (``pattern_cfg``: its window and rope base).  The
+        projections, the per-head qk norms, RoPE (or ALiBi's slopes:
+        this rank's heads' under tensor parallelism), causal attention
+        over ``segment_ids``, o projection, each with this layer's
+        config (``pattern_cfg``: its window and rope base).  The
         ``checkpoint_name`` sites are the JAX package's names for the
         selective remat policies.  ``dropout_seed`` (this
         layer's) turns attention dropout on when ``cfg.attn_dropout`` is
@@ -573,6 +716,7 @@ class Attention(nn.Module):
             dropout_p, seed = cfg.attn_dropout, dropout_seed
         kw = dict(causal=True, window=cfg.window, scale=cfg.query_scale,
                   q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                  alibi_slopes=layer_slopes(cfg, q, self.layout),
                   dropout_p=dropout_p, dropout_seed=seed,
                   logit_softcap=cfg.attn_logit_softcap,
                   impl=cfg.attention_impl)
@@ -585,6 +729,19 @@ class Attention(nn.Module):
                                 self.tp_group, qs, f"{name}.o_proj")
 
 
+def layer_slopes(cfg: ModelConfig, q: torch.Tensor,
+                 layout=None) -> Optional[torch.Tensor]:
+    """Under ``pos_emb='alibi'`` the f32 slopes of the heads of ``q``
+    ``[b, s, heads, d]``: all of them on one device, this rank's slice
+    under tensor parallelism (``layout``'s head offset); else None."""
+    if cfg.pos_emb != "alibi":
+        return None
+    h = q.shape[2]
+    off = 0 if layout is None else layout.h_offset(h)
+    return torch.tensor(alibi_slopes(cfg.num_heads)[off:off + h],
+                        dtype=torch.float32, device=q.device)
+
+
 class Mlp(nn.Module):
     # the 'tp' process group: gate/up hold this rank's columns, down the
     # matching rows; None on one device
@@ -594,20 +751,23 @@ class Mlp(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, f = cfg.hidden_size, cfg.ffn_size
-        self.gate_proj = nn.Linear(h, f, bias=cfg.mlp_bias, **factory)
+        if cfg.activation in GATED:
+            self.gate_proj = nn.Linear(h, f, bias=cfg.mlp_bias, **factory)
         self.up_proj = nn.Linear(h, f, bias=cfg.mlp_bias, **factory)
         self.down_proj = nn.Linear(f, h, bias=cfg.mlp_bias, **factory)
 
     def forward(self, x, quant=None, name="mlp"):
-        """SwiGLU or GeGLU ``Mlp.__call__`` (:665)."""
+        """``Mlp.__call__`` (:684): SwiGLU or GeGLU, or a non-gated MLP
+        (up, then gelu, exact gelu or relu2) with no ``gate_proj``."""
         cfg = self.cfg
         qs = quant if quant_site_on(cfg, "mlp") else None
         x = _tp_in(x, self.tp_group)
         with checkpoint_name("mlp_gate_up"):
-            gate = dense(cfg, x, self.gate_proj, qs, f"{name}.gate_proj")
+            gate = (dense(cfg, x, self.gate_proj, qs, f"{name}.gate_proj")
+                    if cfg.activation in GATED else None)
             up = dense(cfg, x, self.up_proj, qs, f"{name}.up_proj")
         with checkpoint_name("mlp_out"):
-            return row_parallel(cfg, mlp_act(cfg, gate, up), self.down_proj,
+            return row_parallel(cfg, mlp_act(cfg, up, gate), self.down_proj,
                                 self.tp_group, qs, f"{name}.down_proj")
 
 
@@ -626,43 +786,56 @@ def _remat_layer(cfg: ModelConfig, i: int) -> bool:
                           or i < cfg.remat_cnt)
 
 
+def has_ln2(cfg: ModelConfig) -> bool:
+    """A block has its MLP norm ``ln2`` unless it is a parallel block
+    sharing ``ln1`` (Phi; GPT-NeoX's keeps its own)."""
+    return not (cfg.parallel_block and cfg.parallel_block_shared_norm)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, layer: int = 0, **factory):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = RMSNorm(cfg, cfg.hidden_size, **factory)
+        self.ln1 = Norm(cfg, cfg.hidden_size, **factory)
         self.attn = Attention(cfg, layer, **factory)
-        self.ln2 = RMSNorm(cfg, cfg.hidden_size, **factory)
+        if has_ln2(cfg):
+            self.ln2 = Norm(cfg, cfg.hidden_size, **factory)
         self.mlp = Mlp(cfg, **factory)
         if cfg.sandwich_norms:
-            self.ln1_post = RMSNorm(cfg, cfg.hidden_size, **factory)
-            self.ln2_post = RMSNorm(cfg, cfg.hidden_size, **factory)
+            self.ln1_post = Norm(cfg, cfg.hidden_size, **factory)
+            self.ln2_post = Norm(cfg, cfg.hidden_size, **factory)
 
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
                 quant=None, name="block", sub_remat=False):
         """Pre-norm ``Block.__call__`` (:722), with Gemma2's
-        post-attention and post-MLP norms under ``sandwich_norms``.
-        ``sub_remat``: the attention and/or MLP named by
-        ``cfg.remat_cls`` are checkpoint regions under
-        ``cfg.remat_policy`` (the block itself is not)."""
+        post-attention and post-MLP norms under ``sandwich_norms``, or
+        under ``parallel_block`` the parallel residual ``x + attn(ln1(x))
+        + mlp(ln1(x))`` (Phi; ``ln2(x)`` for the MLP without
+        ``parallel_block_shared_norm``, GPT-NeoX).  ``sub_remat``: the
+        attention and/or MLP named by ``cfg.remat_cls`` are checkpoint
+        regions under ``cfg.remat_policy`` (the block itself is not)."""
         cfg = self.cfg
         remat_attn = sub_remat and "Attention" in cfg.remat_cls
         remat_mlp = sub_remat and "Mlp" in cfg.remat_cls
         attn = functools.partial(self.attn, dropout_seed=dropout_seed,
                                  quant=quant, name=f"{name}.attn")
         mlp = functools.partial(self.mlp, quant=quant, name=f"{name}.mlp")
-        a_in = rms_norm(cfg, x, self.ln1.weight)
+        a_in = apply_norm(cfg, x, self.ln1)
         a = (checkpoint_block(attn, cfg.remat_policy, a_in, positions,
                               segment_ids) if remat_attn
              else attn(a_in, positions, segment_ids))
-        if cfg.sandwich_norms:
-            a = rms_norm(cfg, a, self.ln1_post.weight)
-        h = x + a
-        m_in = rms_norm(cfg, h, self.ln2.weight)
+        if cfg.parallel_block:
+            m_in = a_in if not has_ln2(cfg) else apply_norm(cfg, x, self.ln2)
+            h = x + a
+        else:
+            if cfg.sandwich_norms:
+                a = apply_norm(cfg, a, self.ln1_post)
+            h = x + a
+            m_in = apply_norm(cfg, h, self.ln2)
         m = (checkpoint_block(mlp, cfg.remat_policy, m_in) if remat_mlp
              else mlp(m_in))
         if cfg.sandwich_norms:
-            m = rms_norm(cfg, m, self.ln2_post.weight)
+            m = apply_norm(cfg, m, self.ln2_post)
         return h + m
 
 
@@ -687,11 +860,14 @@ class StageLayers(nn.ModuleDict):
 
 
 class TransformerLM(nn.Module):
-    """A Llama- or Gemma-family decoder: ``embed_tokens``,
+    """A decoder of the families the port runs: ``embed_tokens``,
+    ``pos_embed`` (learned positions only),
     ``layers[i].{ln1, attn.{q,k,v,o}_proj, ln2, mlp.{gate,up,down}_proj}``
-    (with ``attn.{q,k}_norm`` under ``qk_norm`` and ``ln{1,2}_post``
-    under ``sandwich_norms``), ``final_norm`` and ``lm_head`` (absent
-    when ``tie_embeddings``).
+    (with ``attn.{q,k}_norm`` under ``qk_norm``, ``ln{1,2}_post`` under
+    ``sandwich_norms``, no ``ln2`` in a parallel block sharing ``ln1``
+    and no ``gate_proj`` in a non-gated MLP), ``final_norm`` and
+    ``lm_head`` (absent when ``tie_embeddings``; biased under
+    ``head_bias``).  A LayerNorm's ``bias`` sits beside its ``weight``.
 
     The weights are made on ``device``: the card when it is ``None``
     (raising where there is none), ``"meta"`` for a model whose weights
@@ -724,12 +900,15 @@ class TransformerLM(nn.Module):
                    "dtype": dtype or cfg.param_dtype}
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          **factory)
+        self.pos_embed = (nn.Embedding(cfg.max_seq_len, cfg.hidden_size,
+                                       **factory)
+                          if cfg.pos_emb == "learned" else None)
         self.layers = nn.ModuleList(
             [Block(cfg, i, **factory) for i in range(cfg.num_layers)])
-        self.final_norm = RMSNorm(cfg, cfg.hidden_size, **factory)
+        self.final_norm = Norm(cfg, cfg.hidden_size, **factory)
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                  bias=False, **factory))
+                                  bias=cfg.head_bias, **factory))
 
     @property
     def device(self) -> torch.device:
@@ -794,21 +973,15 @@ class TransformerLM(nn.Module):
                 "through the pipeline (Trainer.step, "
                 "models.transformer.pp_forward_sum_count)")
         positions = self._positions(input_ids, positions)
-        x = self._embed(input_ids)
+        x = self._embed(input_ids, positions)
         x = self._blocks(x, positions, segment_ids, dropout_seed, scope,
                          range(cfg.num_layers))
         if return_hidden or labels is not None:
-            x = rms_norm(cfg, x, self.final_norm.weight)
+            x = apply_norm(cfg, x, self.final_norm)
         if labels is not None:
             return self._fused_ce(x, labels)
         if return_hidden:
             return x
-        if self.tp_group is not None:
-            raise NotImplementedError(
-                "full logits under tensor parallelism (the JAX package's "
-                "replicated head) are not ported to torchacc_tpu_torch "
-                "yet (ROADMAP.md A8b): pass labels for the vocab-parallel "
-                "fused CE")
         return head_logits(cfg, self, x)
 
     def _positions(self, ids: torch.Tensor,
@@ -844,7 +1017,13 @@ class TransformerLM(nn.Module):
         return x
 
     def _fused_ce(self, x: torch.Tensor, labels: torch.Tensor):
-        """The fused linear + CE head on the final-normed ``x``."""
+        """The fused linear + CE head on the final-normed ``x`` (which
+        has no bias term: a ``head_bias`` model takes the logits, as
+        JAX's gate :1507-1509 and the Trainer's send it)."""
+        if self.cfg.head_bias:
+            raise ValueError(
+                "the fused linear + CE head has no bias term: a head_bias "
+                "model takes the materialised logits")
         w = to_local(head_weight(self)).t()
         if self.tp_group is None:
             return fused_linear_cross_entropy(
@@ -857,29 +1036,33 @@ class TransformerLM(nn.Module):
                dropout_seed, layers, labels, head_loss):
         """One pipeline chunk (``forward``'s ``layers``)."""
         ref = input_ids if hidden is None else hidden[..., 0]
-        x = self._embed(input_ids) if hidden is None else hidden
-        x = self._blocks(x, self._positions(ref, positions), segment_ids,
-                         dropout_seed, None, layers)
+        positions = self._positions(ref, positions)
+        x = self._embed(input_ids, positions) if hidden is None else hidden
+        x = self._blocks(x, positions, segment_ids, dropout_seed, None,
+                         layers)
         if labels is None:
             return x
         if head_loss is not None:
             return head_loss(x, labels)
-        return self._fused_ce(rms_norm(self.cfg, x, self.final_norm.weight),
+        return self._fused_ce(apply_norm(self.cfg, x, self.final_norm),
                               labels)
 
-    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
-        """The token embedding in the compute dtype; vocab-parallel under
-        tensor parallelism: each rank looks up the ids of its rows (the
-        rest read as zero) and the ranks sum."""
+    def _embed(self, ids: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        """The token embedding in the compute dtype, with the learned
+        positions' rows added; vocab-parallel under tensor parallelism:
+        each rank looks up the ids of its rows (the rest read as zero)
+        and the ranks sum (the position table is whole on every rank)."""
         if self.tp_group is None:
-            return embed(self.cfg, self, ids)
+            return embed(self.cfg, self, ids, positions)
         w = to_local(self.embed_tokens.weight)
         off = dist.get_rank(self.tp_group) * w.shape[0]
         mine = (ids >= off) & (ids < off + w.shape[0])
         x = F.embedding(torch.where(mine, ids - off, 0).long(), w)
         x = torch.where(mine[..., None], x, 0.0)
         return embed_extras(self.cfg,
-                            _tp_out(x, self.tp_group).to(self.cfg.dtype))
+                            _tp_out(x, self.tp_group).to(self.cfg.dtype),
+                            positions, self.pos_embed)
 
 
 def set_model_config(model: nn.Module, cfg: ModelConfig) -> None:
@@ -926,14 +1109,43 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(logits / cap) * cap
 
 
+class _TPGather(torch.autograd.Function):
+    """The vocab-parallel logits ``[..., V / tp]`` of every 'tp' rank
+    joined along the vocab in rank order; the backward keeps this
+    rank's columns of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        parts = [torch.empty_like(y) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1] // dist.get_world_size(ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
 def head_logits(cfg: ModelConfig, model: TransformerLM,
-                x: torch.Tensor) -> torch.Tensor:
-    """Final norm -> vocab projection in the compute dtype -> f32 logits
-    -> ``logit_softcap`` (``head_logits`` of the JAX package)."""
-    xn = rms_norm(cfg, x, model.final_norm.weight)
-    return softcap(F.linear(xn.to(cfg.dtype),
-                            head_weight(model).to(cfg.dtype)).float(),
-                   cfg.logit_softcap)
+                x: torch.Tensor, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+    """Final norm -> vocab projection (+ ``head_bias``) in the compute
+    dtype (or ``dtype``: f32 in JAX's 1F1B head) -> f32 logits ->
+    ``logit_softcap`` (``head_logits`` of the JAX package).  Under
+    tensor parallelism each rank projects its vocab rows and the ranks'
+    logits are joined (the full logits a custom loss or a head bias
+    takes, JAX's replicated head)."""
+    dt = dtype or cfg.dtype
+    xn = _tp_in(apply_norm(cfg, x, model.final_norm), model.tp_group)
+    logits = F.linear(xn.to(dt), to_local(head_weight(model)).to(dt))
+    if cfg.head_bias:
+        logits = logits + to_local(model.lm_head.bias).to(dt)
+    if model.tp_group is not None:
+        logits = _TPGather.apply(logits, model.tp_group)
+    return softcap(logits.float(), cfg.logit_softcap)
 
 
 def materializer(seed: int, device: torch.device):
@@ -941,10 +1153,10 @@ def materializer(seed: int, device: torch.device):
     ``module`` (named ``prefix.<name>`` in the whole model) storage on
     ``device`` and the flax initialisers' values, drawn from one
     ``torch.Generator`` seeded with ``seed``: every matrix normal(0.02),
-    norm scales their ``RMSNorm.fill`` (one; zero under rmsnorm1p),
-    biases zero.  Called on the model's submodules in the order of
-    ``named_parameters``, it makes the weights ``init_params`` makes,
-    one module at a time."""
+    norm scales their ``Norm.fill`` (one; zero under rmsnorm1p and
+    layernorm1p), biases zero.  Called on the model's submodules in the
+    order of ``named_parameters``, it makes the weights ``init_params``
+    makes, one module at a time."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -954,10 +1166,10 @@ def materializer(seed: int, device: torch.device):
         for mname, mod in module.named_modules(prefix=prefix):
             for name, p in mod.named_parameters(prefix=mname,
                                                 recurse=False):
-                if isinstance(mod, RMSNorm):
-                    p.fill_(mod.fill)
-                elif name.endswith(".bias"):
+                if name.endswith(".bias"):
                     p.zero_()
+                elif isinstance(mod, Norm):
+                    p.fill_(mod.fill)
                 else:
                     p.normal_(0.0, 0.02, generator=gen)
     return make
@@ -1054,6 +1266,9 @@ def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
     kernels hash each row's place in its micro-batch."""
     cfg = model.cfg
     chunks = pp_block_appliers(cfg)
+    # the fused CE has no bias term: a head_bias model's last stage
+    # takes the logits (JAX :1509)
+    use_fused_ce = use_fused_ce and not cfg.head_bias
     ids = batch["input_ids"]
     b, M = ids.shape[0], pipeline.num_micro
     if b % M:
@@ -1070,18 +1285,9 @@ def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
             return None
 
         def head(x, lab):
-            if model.tp_group is not None:
-                raise NotImplementedError(
-                    "full logits under tensor parallelism (a custom loss "
-                    "or compute.fused_kernels=False) are not ported to "
-                    "torchacc_tpu_torch yet (ROADMAP.md A8b)")
-            if one_f:
-                # JAX's 1F1B head projects in f32
-                logits = softcap(F.linear(
-                    rms_norm(cfg, x, model.final_norm.weight).float(),
-                    to_local(head_weight(model)).float()), cfg.logit_softcap)
-            else:
-                logits = head_logits(cfg, model, x)
+            # JAX's 1F1B head projects in f32
+            logits = head_logits(cfg, model, x,
+                                 torch.float32 if one_f else None)
             if custom_loss is None:
                 return loss_sum_count(logits, lab)
             view = (_MicroBatchView(labels=lab) if one_f else

@@ -56,8 +56,9 @@ from torchacc_tpu_torch.ops.attention import (
 #: chip_smoke.py sets them to 0 before the training run and reads them after
 launch_counts = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
-# llama-tiny; Llama-3.2-1B and Qwen2-0.5B; llama3-8b; the Gemma family
-_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# llama-tiny; Llama-3.2-1B, Qwen2-0.5B and GPT-2; Phi-2 and Pythia-2.8B;
+# llama3-8b; the Gemma family
+_KERNEL_HEAD_DIMS = (32, 64, 80, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 

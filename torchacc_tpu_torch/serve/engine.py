@@ -249,6 +249,11 @@ class ServeEngine:
                 f"(min of pool size serve.num_blocks - 1 and the model's "
                 f"position reach max_seq_len); raise serve.num_blocks / "
                 f"the model max_seq_len or lower max_new_tokens")
+        total = prompt.shape[0] + max_new
+        if self.cfg.pos_emb == "learned" and total > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt + max_new_tokens = {total} exceeds the learned "
+                f"position table max_seq_len {self.cfg.max_seq_len}")
         return seq
 
     # -- the loop -----------------------------------------------------------

@@ -58,11 +58,12 @@ from torchacc_tpu_torch.models.transformer import (
     MODEL_PENDING,
     MODEL_SURFACE,
     ModelConfig,
+    apply_norm,
+    check_composition,
     dense,
     head_logits,
-    mlp_act,
+    mlp_out,
     qk_rope,
-    rms_norm,
     unsupported_fields,
 )
 from torchacc_tpu_torch.ops.paged_attention import paged_attention
@@ -76,41 +77,48 @@ from torchacc_tpu_torch.utils.logger import logger
 from torchacc_tpu_torch.utils.metrics import counters
 
 # ModelConfig fields the paged forward implements (the Llama family,
-# Gemma v1, Qwen3)
-_SUPPORTED_FIELDS = MODEL_FIELDS
+# Gemma v1, Qwen3, GPT-2, StarCoder2 and Nemotron: every field of
+# MODEL_FIELDS but the parallel block, and no ALiBi)
+_SUPPORTED_FIELDS = MODEL_FIELDS - {"parallel_block"}
 # what JAX's ServeEngine rejects and its generate() decodes (JAX
 # scheduler.py :139-150): Gemma2/3's per-layer windows and sandwich
-# norms, Mistral's window
+# norms, Mistral's window, Phi's and GPT-NeoX's parallel block, ALiBi
 _GENERATE_ONLY = ("layer_pattern", "rope_local_theta", "sandwich_norms",
-                  "window")
+                  "window", "parallel_block", "pos_emb='alibi'")
 # fields that select training-time execution only and cannot change
 # what the serving forward computes (the JAX package's audit:
 # scheduler.py _AUDITED_MODEL_FIELDS); the MoE knobs are inert while
-# num_experts == 0, norm_bias without a layernorm
+# num_experts == 0
 _INERT_FIELDS = frozenset({
     "scan_layers", "remat", "remat_policy", "remat_cls", "remat_cnt",
     "attention_impl", "decode", "cache_len", "attn_dropout", "quant",
     "quant_sites", "quant_amax_history_len", "quant_impl", "overlap_fsdp",
     "pp_num_micro", "pp_virtual", "logical_axis_rules", "tp_vocab_head",
     "num_experts_per_tok", "router_aux_weight", "moe_dispatch",
-    "moe_renorm_topk", "moe_capacity_factor", "parallel_block_shared_norm",
-    "norm_bias",
+    "moe_renorm_topk", "moe_capacity_factor",
 })
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """The serving surface, as an allow-list (``MODEL_SURFACE``).  Every
     other field must keep its default; one that does not raises
-    NotImplementedError naming it: the sliding windows, layer patterns
-    and sandwich norms with JAX's pointer to ``models.generate``."""
+    NotImplementedError naming it: the sliding windows, layer patterns,
+    sandwich norms, the parallel block and ALiBi with JAX's pointer to
+    ``models.generate``.  A head bias on a tied head raises as in
+    JAX."""
+    check_composition(cfg)
     bad = unsupported_fields(cfg, _SUPPORTED_FIELDS, _INERT_FIELDS)
-    gen = [b for b in bad if b.split("=")[0] in _GENERATE_ONLY]
+    if cfg.pos_emb == "alibi":
+        bad.append("pos_emb='alibi'")
+    gen = [b for b in bad
+           if b in _GENERATE_ONLY or b.split("=")[0] in _GENERATE_ONLY]
     if gen:
         raise NotImplementedError(
             "the serving engine of torchacc_tpu_torch does not support "
             + ", ".join(gen) + " (per-layer or sliding windows, sandwich "
-            "norms), as JAX's does not.  Use models.generate for these "
-            "models (batch-synchronous decode covers them).")
+            "norms, the parallel block, ALiBi), as JAX's does not.  Use "
+            "models.generate for these models (batch-synchronous decode "
+            "covers them).")
     if bad:
         raise NotImplementedError(
             "the serving engine of torchacc_tpu_torch does not support "
@@ -144,7 +152,7 @@ class PagedDecoder:
         cfg = self.cfg
         s_, t_ = x.shape[:2]
         kh, d = cfg.kv_heads, cfg.head_size
-        h = rms_norm(cfg, x, layer.ln1.weight)
+        h = apply_norm(cfg, x, layer.ln1)
         attn = layer.attn
         q = self._dense(h, attn.q_proj).view(s_, t_, cfg.num_heads, d)
         k = self._dense(h, attn.k_proj).view(s_, t_, kh, d)
@@ -158,16 +166,12 @@ class PagedDecoder:
             scale=cfg.query_scale, window=cfg.window,
             logit_softcap=cfg.attn_logit_softcap, impl=self.impl)
         x = x + self._dense(out.reshape(s_, t_, -1), attn.o_proj)
-        h2 = rms_norm(cfg, x, layer.ln2.weight)
-        mlp = layer.mlp
-        ff = mlp_act(cfg, self._dense(h2, mlp.gate_proj),
-                     self._dense(h2, mlp.up_proj))
-        return x + self._dense(ff, mlp.down_proj)
+        return x + mlp_out(cfg, layer.mlp, apply_norm(cfg, x, layer.ln2))
 
     def forward(self, pools, ids, positions, tables, ctx_lens, blk, off):
         """Hidden ``[S, T, h]`` after every layer; writes each layer's
         k/v for the ``[S, T]`` tokens into ``pools`` at (blk, off)."""
-        x = embed(self.cfg, self.model, ids)
+        x = embed(self.cfg, self.model, ids, positions)
         k_pools, v_pools = pools
         flat_b, flat_o = blk.reshape(-1).long(), off.reshape(-1).long()
         for i, layer in enumerate(self.model.layers):

@@ -43,9 +43,11 @@ from torchacc_tpu_torch.models.hf import (
     load_hf_model,
 )
 from torchacc_tpu_torch.models.hf_stream import (
+    checkpoint_tensor_names,
     read_hf_config,
     resolve_checkpoint_files,
     stream_params,
+    streamable_names,
 )
 from torchacc_tpu_torch.models.transformer import (
     ModelConfig,
@@ -161,15 +163,18 @@ def accelerate(
 def _hf_source(model: Any, config: Config):
     """(the ``ModelConfig`` of a Hugging Face model or checkpoint
     directory, what ``Trainer.init_from_params`` takes for its
-    weights): a directory's safetensors are streamed, every other
-    input is converted by ``load_hf_model``."""
+    weights): a directory's safetensors in the plan's layout are
+    streamed, every other input (GPT-2's, GPT-NeoX's and Phi's
+    checkpoints among them, as in JAX) is converted by
+    ``load_hf_model``."""
     dtypes = dict(dtype=config.compute.dtype,
                   param_dtype=config.compute.param_dtype)
     if isinstance(model, (str, os.PathLike)):
         path = os.fspath(model)
         check_local_dir(path)
         files = resolve_checkpoint_files(path)
-        if files is not None:
+        if files is not None and streamable_names(
+                checkpoint_tensor_names(path)):
             mc = config_from_hf(read_hf_config(path), **dtypes)
             return mc, functools.partial(stream_params, files, mc)
     return load_hf_model(model, **dtypes)
