@@ -86,6 +86,12 @@ Phases, each of which exits non-zero when it fails:
 4e. B1-B3's ALiBi instantiation at GPT-2's heads (12 of 64, 8 x 1024
    packed tokens, the model's slopes), checked and timed beside SDPA
    with the bias in a dense float mask;
+4f. heads of 96 (Phi-3-mini, B-2): B1-B3 at its 32 heads of 96 (MHA),
+   b 2, s 4096, causal packed documents and one document under its
+   2047-key window, in bf16 (one ulp; both timed beside SDPA at d 96
+   with a dense mask, bounds 4d, 6d and 8d flops a visible pair and
+   head at 989 TFLOP/s), f16 (two ulps) and f32 (1e-5), ALiBi and
+   dropout in each, and an sq != sk case with rows that see no key;
 5. the quantized-matmul kernel phase: B5 (a quantize pass and a wgmma
    GEMM, 8-bit for int8 and f16 for fp8's e4m3 values) against its
    plain version on the same CUDA tensors, int8
@@ -317,13 +323,45 @@ Phases, each of which exits non-zero when it fails:
    init_params(seed), 2 fit steps of 8 x 1024 tokens on B1-B3's ALiBi
    instantiation (launches layers x steps), the first batch's loss
    within 1e-4 of the plain attention's and the halved-slopes control
-   above it; generate() through B1 as in 13e.
+   above it; generate() through B1 as in 13e;
+13h. the Phi-3 phase: microsoft/Phi-3-mini-4k-instruct's config.json
+   (transformers' Phi3Config() widths: hidden 3072, 32 heads of 96, ffn
+   8192, vocab 32064, the published 2047-key sliding window) at
+   --phi3-layers (its 32; 3.82 B parameters) with seeded bf16 weights
+   in its packed qkv_proj/gate_up_proj layout, streamed by
+   accelerate(path) -> Trainer.fit for 6 steps of one 4096-token
+   document: the first batch's loss through B1 at d 96 within 1e-4 of
+   the plain attention's, the window-lifted control above it; B1/B2/B3
+   launch layers x steps; generate() as in 13e;
+13i. longrope: Phi-3.5-mini-instruct's config (the same widths, 131072
+   over an original 4096; its two 48-entry factor lists drawn from a
+   seed) through config_from_hf, bf16 from init_params(seed):
+   generate() from a 4090-token prompt for 16 new tokens rebuilds the
+   cache at the crossing (a prefill of 4097 tokens seen by a tap); B1
+   launches layers x 16; in f32 compute the tokens through B1 equal the
+   plain path's, the last step's logits within 1e-3 of them, and the
+   same step decoded without the rebuild must part by more;
+13j. OLMo-2-1124-7B's widths (post-norms, the flat qk-norm) at 4 of 32
+   layers and Command-R's (CohereConfig() widths: hidden 8192, 64 heads
+   of 128, ffn 22528, a tied 256000-token vocabulary, logit_scale
+   0.0625, interleaved RoPE) at 1 of 40, each through accelerate(path)
+   -> fit (4 steps of one 4096-token document) and generate(): the
+   first-batch loss through B1 within 1e-4 of the plain attention's;
+   controls OLMo2's norms moved to pre (on the loss) and Command-R's
+   RoPE taken half-split (on the final hidden, within _logits_limit
+   through B1: the random model's scaled logits leave its loss at
+   ln(vocab));
+13k. YaRN served: phase 6's llama3-8b at 4 layers with a yarn
+   rope_scaling (factor 4 over 8192) through ServeEngine: B4 launches
+   layers x dispatches, the last-prompt logits within _logits_limit of
+   the plain path, the yarn-lifted and wrong-GQA controls above it.
 
 No earlier phase was cut to make room: on an H100 the whole run takes
 about 440 s before the Gemma phases, which add about 80 s with
-flex_attention's compiles, and the LayerNorm families' phases (4d, 4e,
-13e-13g) about 70 s more (the build, the nvcc of flash_attention.cu
-with its five head dims, the longest;
+flex_attention's compiles, the LayerNorm families' phases (4d, 4e,
+13e-13g) about 70 s more, and 4f and 13h-13k about 140 s (the build,
+one nvcc a head dim of flash_attention.cu and one for each other
+source, all started together, about 45 s;
 about 45 s the Hugging Face phase, about 150 s the checkpoint phases,
 bound by the disk, a few seconds the context-parallelism phase; stderr
 has each kernel's registers and spills from nvcc's -Xptxas -v).
@@ -2972,33 +3010,49 @@ HF_SHARDS = 4
 
 
 def _hf_tensors(cfg, layers):
-    """HF tensor name -> shape of a Llama, Gemma2, Phi or GPT-2
-    checkpoint of ``cfg`` (tied: no lm_head; Gemma2's pre- and
-    post-feedforward norms), in the order the shards hold them."""
-    if cfg["model_type"] == "phi":
+    """HF tensor name -> shape of a Llama, Gemma2, Phi, GPT-2, Phi-3
+    (packed qkv_proj and gate_up_proj), OLMo2 (post-norms, flat q/k
+    norms) or Cohere (one norm a block) checkpoint of ``cfg`` (untied:
+    an lm_head; Gemma2's pre- and post-feedforward norms), in the order
+    the shards hold them."""
+    mt = cfg["model_type"]
+    if mt == "phi":
         return _phi_tensors(cfg, layers)
-    if cfg["model_type"] == "gpt2":
+    if mt == "gpt2":
         return _gpt2_tensors(cfg, layers)
-    h, f, d = cfg["hidden_size"], cfg["intermediate_size"], cfg["head_dim"]
+    h, f = cfg["hidden_size"], cfg["intermediate_size"]
+    d = cfg.get("head_dim") or h // cfg["num_attention_heads"]
     q, kv = cfg["num_attention_heads"] * d, cfg["num_key_value_heads"] * d
     out = {"model.embed_tokens.weight": (cfg["vocab_size"], h),
            "model.norm.weight": (h,)}
-    sandwich = cfg["model_type"] == "gemma2"
     for i in range(layers):
         p = f"model.layers.{i}."
-        out.update({
-            p + "input_layernorm.weight": (h,),
-            p + "self_attn.q_proj.weight": (q, h),
-            p + "self_attn.k_proj.weight": (kv, h),
-            p + "self_attn.v_proj.weight": (kv, h),
-            p + "self_attn.o_proj.weight": (h, q),
-            p + "post_attention_layernorm.weight": (h,),
-            **({p + "pre_feedforward_layernorm.weight": (h,),
-                p + "post_feedforward_layernorm.weight": (h,)}
-               if sandwich else {}),
-            p + "mlp.gate_proj.weight": (f, h),
-            p + "mlp.up_proj.weight": (f, h),
-            p + "mlp.down_proj.weight": (h, f)})
+        if mt != "olmo2":
+            out[p + "input_layernorm.weight"] = (h,)
+        if mt == "phi3":
+            out[p + "self_attn.qkv_proj.weight"] = (q + 2 * kv, h)
+        else:
+            out.update({p + "self_attn.q_proj.weight": (q, h),
+                        p + "self_attn.k_proj.weight": (kv, h),
+                        p + "self_attn.v_proj.weight": (kv, h)})
+        if mt == "olmo2":
+            out.update({p + "self_attn.q_norm.weight": (q,),
+                        p + "self_attn.k_norm.weight": (kv,)})
+        out[p + "self_attn.o_proj.weight"] = (h, q)
+        if mt != "cohere":
+            out[p + "post_attention_layernorm.weight"] = (h,)
+        if mt in ("gemma2", "olmo2"):
+            if mt == "gemma2":
+                out[p + "pre_feedforward_layernorm.weight"] = (h,)
+            out[p + "post_feedforward_layernorm.weight"] = (h,)
+        if mt == "phi3":
+            out[p + "mlp.gate_up_proj.weight"] = (2 * f, h)
+        else:
+            out.update({p + "mlp.gate_proj.weight": (f, h),
+                        p + "mlp.up_proj.weight": (f, h)})
+        out[p + "mlp.down_proj.weight"] = (h, f)
+    if not cfg.get("tie_word_embeddings", False):
+        out["lm_head.weight"] = (cfg["vocab_size"], h)
     return out
 
 
@@ -4232,6 +4286,465 @@ def _alibi_phase(torch, args):
 
 
 # ---------------------------------------------------------------------------
+# the rest of the dense forward: Phi-3's heads of 96 (B-2), longrope,
+# OLMo2, Cohere, YaRN
+# ---------------------------------------------------------------------------
+
+# microsoft/Phi-3-mini-4k-instruct's published config.json, whose widths
+# are transformers' Phi3Config() defaults: 3.82 B parameters, 32 heads
+# of 96 (MHA), packed qkv_proj/gate_up_proj, a 2047-key sliding window
+PHI3_MINI = {
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+    "vocab_size": 32064, "hidden_size": 3072, "intermediate_size": 8192,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 4096,
+    "original_max_position_embeddings": 4096, "rope_theta": 10000.0,
+    "rope_scaling": None, "rms_norm_eps": 1e-05, "sliding_window": 2047,
+    "hidden_act": "silu", "tie_word_embeddings": False,
+    "attention_bias": False, "initializer_range": 0.02,
+    "attention_dropout": 0.0, "embd_pdrop": 0.0, "resid_pdrop": 0.0,
+    "bos_token_id": 1, "eos_token_id": 32000, "pad_token_id": 32000,
+    "torch_dtype": "bfloat16",
+}
+# Phi-3.5-mini-instruct's: the same widths, a 131072-token context over
+# the original 4096 by longrope, whose two 48-entry factor lists are not
+# on this machine: they are drawn from a seed (_phi35_config)
+PHI35_MINI = dict(PHI3_MINI, max_position_embeddings=131072,
+                  sliding_window=262144)
+PHI3_STEPS = 6
+PHI3_FLASH_HEADS = (32, 32)
+LONGROPE_PROMPT, LONGROPE_NEW = 4090, 16  # crosses 4096 at the 7th token
+# the last decode step's f32 logits through B1 against the plain path's,
+# relative to the largest: both compute in f32 (the same weights, the
+# same tokens); the control, the same step without the cache rebuild
+# (keys rotated by the short factors), must exceed it
+LONGROPE_LOGITS_LIMIT = 1e-3
+# allenai/OLMo-2-1124-7B's published widths (post-norms, the flat
+# qk-norm, 32 heads of 128, untied)
+OLMO2_7B = {
+    "architectures": ["Olmo2ForCausalLM"], "model_type": "olmo2",
+    "vocab_size": 100352, "hidden_size": 4096, "intermediate_size": 11008,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 4096,
+    "rope_theta": 500000, "rope_scaling": None, "rms_norm_eps": 1e-06,
+    "attention_bias": False, "hidden_act": "silu",
+    "tie_word_embeddings": False, "initializer_range": 0.02,
+    "pad_token_id": 1, "bos_token_id": None, "eos_token_id": 100257,
+    "torch_dtype": "float32",
+}
+# Command-R's widths, transformers' CohereConfig() defaults: the parallel
+# block with one biasless LayerNorm, interleaved RoPE, logit_scale
+# 0.0625, 64 heads of 128, a tied 256000-token vocabulary
+COMMAND_R = {
+    "architectures": ["CohereForCausalLM"], "model_type": "cohere",
+    "vocab_size": 256000, "hidden_size": 8192, "intermediate_size": 22528,
+    "num_hidden_layers": 40, "num_attention_heads": 64,
+    "num_key_value_heads": 64, "max_position_embeddings": 8192,
+    "rope_theta": 10000.0, "layer_norm_eps": 1e-05, "logit_scale": 0.0625,
+    "use_qk_norm": False, "tie_word_embeddings": True, "hidden_act": "silu",
+    "attention_bias": False, "initializer_range": 0.02,
+    "pad_token_id": 0, "bos_token_id": 5, "eos_token_id": 255001,
+    "torch_dtype": "bfloat16",
+}
+# depths: OLMo2 4 of 32 and Command-R 1 of 40, so that the f32 masters
+# and AdamW state fit one card (Command-R's tied embedding alone is 2.1 B
+# parameters: 33.5 GB of master and moments)
+DENSE_LAYERS = {"olmo2": 4, "cohere": 1}
+DENSE_STEPS = 4
+# the trained families' rows: one 4096-token document each, so that
+# Phi-3's 2047-key window masks
+FAMILY_B, FAMILY_S = 1, 4096
+YARN_LAYERS = 4
+YARN_TIED_LAYERS = 2
+
+
+def _phi3_kernel_phase(torch, args):
+    """B1-B3 at Phi-3-mini's heads, 32 of 96 (MHA), against the plain
+    versions: b 2, s 4096, causal packed documents with and without its
+    2047-key window in bf16 (one ulp; both timed beside SDPA with a
+    dense mask at d 96), f16 (two ulps) and f32 (1e-5), ALiBi and
+    dropout in bf16, f16 and f32, and rows that see no key."""
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    slopes = 2.0 ** (-8.0 * torch.arange(1, 33, device="cuda",
+                                         dtype=torch.float32) / 32)
+    drop = dict(dropout_p=0.1, dropout_seed=96)
+    win = (2046, -1)
+    cases = {   # b, sq, sk, dtype, segments, causal, window, softcap, more
+        "train": (2, 4096, 4096, bf, True, True, (-1, -1), 0.0, {}),
+        "train_window": (2, 4096, 4096, bf, False, True, win, 0.0, {}),
+        "f16": (2, 4096, 4096, f16, True, True, win, 0.0, {}),
+        "f32": (1, 1024, 1024, f32, True, True, (300, -1), 0.0, {}),
+        "alibi": (1, 4096, 4096, bf, True, True, (-1, -1), 0.0,
+                  dict(alibi_slopes=slopes)),
+        "dropout": (1, 4096, 4096, bf, True, True, win, 0.0, drop),
+        "dropout_alibi_f16": (1, 2048, 2048, f16, True, True, (-1, -1),
+                              0.0, dict(drop, alibi_slopes=slopes)),
+        "dropout_alibi_f32": (1, 1024, 1024, f32, True, True, (-1, -1), 0.0,
+                              dict(drop, alibi_slopes=slopes)),
+        "sq_ne_sk_empty_rows": (1, 1536, 512, bf, False, True, (-1, -1),
+                                0.0, {}),
+    }
+    return _flash_phase(torch, args, d=96, heads=PHI3_FLASH_HEADS,
+                        cases=cases, timed=("train", "train_window"))
+
+
+def _final_hidden(torch, model, cfg, batch, **fields):
+    """The first batch's final-normed hidden (times ``logit_scale``)
+    under ``cfg`` with ``fields`` replaced, without gradients."""
+    import dataclasses
+    from torchacc_tpu_torch.models.transformer import set_model_config
+    set_model_config(model, dataclasses.replace(cfg, **fields))
+    try:
+        with torch.no_grad():
+            return model(batch["input_ids"], batch["positions"],
+                         batch["segment_ids"], return_hidden=True).float()
+    finally:
+        set_model_config(model, cfg)
+
+
+def _dense_family_phase(torch, args, tag, published, layers, control,
+                        expect, steps, seed, on_hidden=False, lean=False):
+    """``published``'s config.json at ``layers`` with seeded bf16 weights
+    in its HF names, through accelerate(path) -> Trainer.fit on rows of
+    one FAMILY_S-token document: the first batch's loss through
+    B1-B3 against the plain attention's, and ``control`` (fields that
+    undo the family's feature) above the limit; the losses, step time,
+    MFU, peak memory and launches; generate() through B1.  With
+    ``on_hidden`` (Command-R: its logit_scale leaves the random model's
+    loss within 1e-4 of ln(vocab) whatever the attention does) the
+    control is held on the final hidden instead: through B1 within
+    _logits_limit of the plain attention's, the control above it.  With
+    ``lean`` (Command-R: its 2.1 B-parameter tied embedding) the run
+    keeps no bf16 shadow and clips no gradient: the f32 masters, moments
+    and gradients of 2.92 B parameters (52.5 GB) and AdamW's two
+    temporaries the size of the embedding (15.6 GB) then fit the card,
+    where the shadow and the clip's scaled copy did not (an H100 run ran
+    out of memory in the update)."""
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    MemoryConfig, PackedDataset, accelerate)
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
+
+    full = published["num_hidden_layers"]
+    h, f, v = (published["hidden_size"], published["intermediate_size"],
+               published["vocab_size"])
+    rows, seq = FAMILY_B, FAMILY_S
+    est = 2 * (2 * v * h + layers * (4 * h * h + 3 * h * f))
+    root = _hf_root(est)
+    try:
+        t0 = time.perf_counter()
+        _, nbytes = _write_hf_checkpoint(torch, root, seed, layers,
+                                         published)
+        print(f"{tag}: wrote its config.json at {layers} of {full} layers "
+              f"(full width) and {nbytes} bytes of bf16 safetensors to "
+              f"{root} in {time.perf_counter() - t0:.1f} s", flush=True)
+        conf = Config(compute=ComputeConfig(bf16_compute_params=not lean),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                      data=DataConfig(max_length=seq, prefetch=2),
+                      seed=args.seed)
+        docs = _zipf_docs(seed + 1, (steps + 1) * rows * seq, v, lo=seq,
+                          hi=seq + 1)
+        first = next(iter(PackedDataset(docs, seq_len=seq, batch_rows=rows)))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trainer, loader = accelerate(
+            root, PackedDataset(docs, seq_len=seq, batch_rows=rows), conf,
+            optimizer=adamw(warmup_linear(2e-5, steps, 1),
+                            grad_clip_norm=None if lean else 1.0))
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = trainer.model.cfg
+    got_fields = {k: getattr(cfg, k) for k in expect}
+    if got_fields != expect:
+        _fail(f"{tag}: config_from_hf gave {got_fields}, expected {expect}")
+    n_params = cfg.num_params()
+    if n_params != sum(p.numel() for p in trainer.state.params.values()):
+        _fail(f"{tag}: num_params {n_params} is not the model's count")
+    print(f"{tag}: accelerate(path) in {load_s:.1f} s "
+          f"({nbytes / load_s / 1e9:.2f} GB/s of checkpoint), {n_params} "
+          f"params", flush=True)
+    batch = {k: torch.as_tensor(x).cuda() for k, x in first.items()}
+    labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+    model = trainer.model
+    for key in fa.launch_counts:
+        fa.launch_counts[key] = 0
+    got = _first_loss(torch, model, batch, labels, cfg,
+                      attention_impl="cuda")
+    if fa.launch_counts["fwd"] != layers:
+        _fail(f"{tag}: the check's forward launched B1 "
+              f"{fa.launch_counts['fwd']} times, not {layers}")
+    ref = _first_loss(torch, model, batch, labels, cfg,
+                      attention_impl="torch")
+    ctrl = _first_loss(torch, model, batch, labels, cfg,
+                       attention_impl="torch", **control)
+    rel, rel_control = abs(got - ref) / abs(ref), abs(ctrl - ref) / abs(ref)
+    print(f"{tag} check: first-batch loss through B1 at d {cfg.head_size} "
+          f"{got:.6f}, plain attention {ref:.6f}, relative {rel:.3g} (limit "
+          f"{LN_LOSS_LIMIT:.3g}); control, plain with {control}, "
+          f"{ctrl:.6f} (relative {rel_control:.3g}"
+          f"{'' if on_hidden else ', must exceed the limit'})", flush=True)
+    if not math.isfinite(got) or rel > LN_LOSS_LIMIT:
+        _fail(f"{tag}: the first-batch loss through the kernels parts from "
+              f"the plain attention's by {rel:.3g} > {LN_LOSS_LIMIT:.3g}")
+    if on_hidden:
+        ref_h = _final_hidden(torch, model, cfg, batch,
+                              attention_impl="torch")
+        rel_h = lambda h: ((h - ref_h).abs().max()
+                           / ref_h.abs().max()).item()
+        got_h = rel_h(_final_hidden(torch, model, cfg, batch,
+                                    attention_impl="cuda"))
+        rel_control = rel_h(_final_hidden(torch, model, cfg, batch,
+                                          attention_impl="torch", **control))
+        limit = _logits_limit(layers)
+        del ref_h
+        print(f"{tag} check: the first batch's final hidden through B1 "
+              f"against the plain attention's, relative {got_h:.3g} (limit "
+              f"{limit:.3g}); control, plain with {control}, "
+              f"{rel_control:.3g} (must exceed it)", flush=True)
+        if not math.isfinite(got_h) or got_h > limit:
+            _fail(f"{tag}: the final hidden through the kernels parts from "
+                  f"the plain attention's by {got_h:.3g} > {limit:.3g}")
+        if rel_control <= limit:
+            _fail(f"{tag}: the control {control} stays within {limit:.3g}")
+    elif rel_control <= LN_LOSS_LIMIT:
+        _fail(f"{tag}: the control {control} stays within "
+              f"{LN_LOSS_LIMIT:.3g}")
+    res = _ln_fit(torch, tag, trainer, loader, layers, steps, rows, seq,
+                  n_params)
+    res.update(check_rel=rel, control_rel=rel_control, first_loss=got,
+               first_loss_plain=ref)
+    del loader
+    prompts = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, v, (2, 256))).cuda()
+    res["generate"] = _generate_check(torch, tag, model, cfg, prompts, 8)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _phi3_phase(torch, args):
+    """Phi-3-mini-4k-instruct at full width and --phi3-layers (its 32)
+    with seeded bf16 weights in its packed qkv_proj/gate_up_proj layout,
+    streamed by accelerate(path) into the trainer: the first batch's loss
+    through B1 at d 96 (the 2047-key window on rows of one 4096-token
+    document) against the plain attention's, with the window-lifted
+    control; B1/B2/B3 launch layers x steps; generate() through B1."""
+    return _dense_family_phase(
+        torch, args, "phi-3-mini", PHI3_MINI, args.phi3_layers,
+        dict(window=(-1, -1)),
+        dict(head_size=96, window=(2046, -1), num_layers=args.phi3_layers),
+        PHI3_STEPS, args.seed + 91)
+
+
+def _phi35_config(torch, seed):
+    """Phi-3.5-mini-instruct's ModelConfig through config_from_hf, its
+    two 48-entry longrope factor lists drawn from ``seed`` (short
+    1.0-3.0, long 1.0-64.0, each rising with the dim, as the published
+    lists do)."""
+    import types
+    import numpy as np
+    from torchacc_tpu_torch.models.hf import config_from_hf
+    rng = np.random.default_rng(seed)
+    short = np.sort(rng.uniform(1.0, 3.0, 48)).tolist()
+    long = np.sort(np.exp(rng.uniform(0.0, math.log(64.0), 48))).tolist()
+    hf = dict(PHI35_MINI, rope_scaling={"type": "longrope",
+                                        "short_factor": short,
+                                        "long_factor": long})
+    return config_from_hf(types.SimpleNamespace(**hf), dtype=torch.bfloat16)
+
+
+def _longrope_phase(torch, args):
+    """Phi-3.5-mini at full width and depth from init_params(seed), bf16:
+    generate() from a 4090-token prompt for 16 new tokens crosses the
+    original 4096 at the 7th, where the cache is rebuilt under the long
+    factors (a prefill of 4097 tokens from position 0, seen by a tap).
+    B1 launches layers x 16 in bf16; in f32 compute the tokens through
+    B1 equal the plain path's and the last step's logits lie within
+    LONGROPE_LOGITS_LIMIT of them, while the control (the same tokens
+    decoded without the rebuild, the prefix's keys left on the short
+    factors) must not."""
+    import dataclasses
+    import importlib
+    import numpy as np
+    import torchacc_tpu_torch.models.transformer as tr
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import init_params
+    from torchacc_tpu_torch.models.transformer import set_model_config
+    gen = importlib.import_module("torchacc_tpu_torch.models.generate")
+
+    tag = "phi-3.5 longrope"
+    cfg = _phi35_config(torch, args.seed + 95)
+    if cfg.rope_longrope is None or cfg.rope_longrope[2] != 4096.0:
+        _fail(f"{tag}: config_from_hf gave rope_longrope "
+              f"{cfg.rope_longrope}")
+    model = init_params(cfg, seed=args.seed + 96, device="cuda",
+                        dtype=torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(args.seed + 97).integers(
+        0, cfg.vocab_size, (1, LONGROPE_PROMPT))).cuda()
+    p, n = LONGROPE_PROMPT, LONGROPE_NEW
+    calls, last = [], {}
+    real_fwd, real_head = gen._cached_forward, tr.head_logits
+
+    def fwd(m, ids, start, *a):
+        calls.append((start, ids.shape[1]))
+        return real_fwd(m, ids, start, *a)
+
+    def head(*a, **kw):
+        last["logits"] = real_head(*a, **kw)
+        return last["logits"]
+    gen._cached_forward, tr.head_logits = fwd, head
+    out, logits = {}, {}
+    try:
+        for key in fa.launch_counts:          # counts start here ...
+            fa.launch_counts[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["bf16"] = gen.generate(model, prompt, max_new_tokens=n,
+                                   attention_impl="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fa.launch_counts)     # ... and are read here
+        rebuilt = (0, 4097) in calls
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        set_model_config(model, f32)
+        for impl in ("cuda", "torch"):
+            out[impl] = gen.generate(model, prompt, max_new_tokens=n,
+                                     attention_impl=impl)
+            logits[impl] = last["logits"][:, 0].float()
+    finally:
+        gen._cached_forward, tr.head_logits = real_fwd, real_head
+    # the control: the same tokens decoded on one cache, no rebuild
+    toks = out["torch"]
+    with torch.no_grad():
+        shape = (cfg.num_layers, 1, p + n, cfg.kv_heads, cfg.head_size)
+        ck = torch.zeros(shape, dtype=torch.float32, device="cuda")
+        cv = torch.zeros_like(ck)
+        x = real_fwd(model, toks[:, :p], 0, ck, cv, "torch")
+        for j in range(p, p + n - 1):
+            x = real_fwd(model, toks[:, j:j + 1], j, ck, cv, "torch")
+        control = real_head(f32, model, x[:, -1:])[:, 0].float()
+    set_model_config(model, cfg)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    r, rc = rel(logits["cuda"], logits["torch"]), rel(control,
+                                                      logits["torch"])
+    want = {"fwd": cfg.num_layers * n, "bwd_dq": 0, "bwd_dkv": 0}
+    print(f"{tag}: generate() of {n} tokens after {p} in {ms:.1f} ms bf16 "
+          f"through B1 (launches {launches}, expected {want}); forward "
+          f"calls (start, tokens) {calls[:3]} ... {calls[-3:]}: the rebuild "
+          f"at the crossing {'fired' if rebuilt else 'did NOT fire'}; f32 "
+          f"tokens through B1 {'equal' if torch.equal(out['cuda'], toks) else 'differ from'} "
+          f"the plain path's; last step's logits relative {r:.3g} (limit "
+          f"{LONGROPE_LOGITS_LIMIT:.3g}); control without the rebuild "
+          f"{rc:.3g} (must exceed it)", flush=True)
+    if launches != want:
+        _fail(f"{tag}: launches {launches} != {want}")
+    if not rebuilt:
+        _fail(f"{tag}: no prefill of 4097 tokens from position 0")
+    if not torch.equal(out["cuda"], toks):
+        _fail(f"{tag}: f32 tokens through B1 differ from the plain path's")
+    if not math.isfinite(r) or r > LONGROPE_LOGITS_LIMIT:
+        _fail(f"{tag}: last-step logits part by {r:.3g}")
+    if rc <= LONGROPE_LOGITS_LIMIT:
+        _fail(f"{tag}: the no-rebuild control stays within the limit")
+    del model, ck, cv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "logits_rel": r,
+            "control_rel": rc, "layers": cfg.num_layers}
+
+
+def _yarn_serving_phase(torch, args, pa):
+    """Phase 6's llama3-8b at full width and YARN_LAYERS deep with a yarn
+    rope_scaling (factor 4 over an original 8192), bf16 from
+    init_params(seed), served through ServeEngine: B4 launches layers x
+    dispatches, and the last-prompt logits lie within _logits_limit of
+    the plain path while two controls do not (yarn lifted; the wrong
+    GQA map).  As in the Gemma serving phase, the first
+    YARN_TIED_LAYERS layers' q projections are their kv heads', so that
+    rows attend peakily and the rope's scaling shows."""
+    import dataclasses
+    import numpy as np
+    from torchacc_tpu_torch import (Config, Request, ServeConfig, ServeEngine,
+                                    get_preset, init_params)
+    from torchacc_tpu_torch.models.transformer import set_model_config
+
+    tag, max_new = "yarn serving", 16
+    cfg = get_preset("llama3-8b", dtype=torch.bfloat16,
+                     num_layers=YARN_LAYERS,
+                     rope_yarn=(4.0, 8192.0, 32.0, 1.0, None, True))
+    model = init_params(cfg, seed=args.seed + 81, device="cuda",
+                        dtype=torch.bfloat16)
+    group = cfg.num_heads // cfg.kv_heads
+    for layer in model.layers[:YARN_TIED_LAYERS]:
+        wk = layer.attn.k_proj.weight
+        layer.attn.q_proj.weight.copy_(wk.view(cfg.kv_heads, -1, wk.shape[1])
+                                       .repeat_interleave(group, dim=0)
+                                       .reshape_as(layer.attn.q_proj.weight))
+    rng = np.random.default_rng(args.seed + 82)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (64, 300, 700, 1000)]
+    eng = ServeEngine(model, Config(serve=ServeConfig(
+        block_size=BS, num_blocks=1024, max_slots=8, prefill_chunk=256,
+        decode_depth=2)))
+    eng.generate([Request(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+    eng.reset_stats()
+    sched = eng.scheduler
+    dec0, pre0 = sched.decode_dispatches, sched.prefill_dispatches
+    for shape in pa.launch_counts:           # counts start here ...
+        pa.launch_counts[shape] = 0
+    res = eng.generate([Request(prompt_ids=p, max_new_tokens=max_new)
+                        for p in prompts])
+    torch.cuda.synchronize()
+    launches = dict(pa.launch_counts)        # ... and are read here
+    dispatches = {"decode": sched.decode_dispatches - dec0,
+                  "prefill": sched.prefill_dispatches - pre0}
+    stats = eng.stats()
+    eng.close()
+    for shape, n in dispatches.items():
+        if n == 0 or launches[shape] != cfg.num_layers * n:
+            _fail(f"{tag}: {shape} launches {launches[shape]} != layers "
+                  f"{cfg.num_layers} x dispatches {n}")
+    if any(len(r.tokens) != max_new for r in res):
+        _fail(f"{tag}: streams of {[len(r.tokens) for r in res]} tokens")
+    ref = _prompt_logits(torch, model, cfg, prompts, "torch")
+    rel = {}
+    for name in ("kernel", "yarn_lifted", "wrong_gqa"):
+        if name == "yarn_lifted":
+            set_model_config(model, dataclasses.replace(cfg, rope_yarn=None))
+        try:
+            got = _prompt_logits(torch, model, cfg, prompts,
+                                 "cuda" if name == "kernel" else "torch",
+                                 _wrong_gqa if name == "wrong_gqa" else None)
+        finally:
+            set_model_config(model, cfg)
+        if not all(torch.isfinite(a).all() for a in got):
+            _fail(f"{tag}: non-finite logits ({name})")
+        rel[name] = [((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(got, ref)]
+    limit = _logits_limit(cfg.num_layers)
+    print(f"{tag}: llama3-8b x{cfg.num_layers} with yarn (factor 4, "
+          f"original 8192), {len(prompts)} greedy requests in bf16: "
+          f"{stats['tokens_per_sec']:.1f} tokens/s; B4 launches {launches} "
+          f"= {cfg.num_layers} x {dispatches}; last-prompt logits vs plain "
+          f"attention: kernel {_fmt(rel['kernel'])} (limit {limit:.3g}), "
+          f"controls yarn_lifted {_fmt(rel['yarn_lifted'])}, wrong_gqa "
+          f"{_fmt(rel['wrong_gqa'])}", flush=True)
+    if max(rel["kernel"]) > limit:
+        _fail(f"{tag}: logits through B4 part from the plain path by "
+              f"{max(rel['kernel']):.3g} > {limit:.3g}")
+    for name in ("yarn_lifted", "wrong_gqa"):
+        if max(rel[name]) <= limit:
+            _fail(f"{tag}: the {name} control stays within {limit:.3g}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches,
+            "logits_rel": rel["kernel"]}
+
+
+# ---------------------------------------------------------------------------
 # checkpoints and resume
 # ---------------------------------------------------------------------------
 
@@ -4865,6 +5378,9 @@ def main():
                     help="depth of the trained Hugging Face gemma-2-2b "
                          "checkpoint (width is full; a multiple of its "
                          "pattern's period 2)")
+    ap.add_argument("--phi3-layers", type=int, default=32,
+                    help="depth of the trained Phi-3-mini checkpoint (width "
+                         "is full; 32 is its published depth)")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed kernel launches per shape")
     ap.add_argument("--seed", type=int, default=0)
@@ -4927,6 +5443,8 @@ def main():
     # heads of 80 (Phi-2) and the ALiBi instantiation at GPT-2's heads
     flash80 = _phi2_kernel_phase(torch, args)
     flash_alibi = _gpt2_alibi_kernel_phase(torch, args)
+    # heads of 96 (Phi-3-mini)
+    flash96 = _phi3_kernel_phase(torch, args)
     cp_res = _cp_phase(torch, args)
     qmm = _qmm_phase(torch, args)
     launches, dispatches = _serving_phase(torch, args, pa)
@@ -4969,6 +5487,20 @@ def main():
     phi2 = _phi2_phase(torch, args)
     gpt2 = _gpt2_phase(torch, args, pa)
     alibi = _alibi_phase(torch, args)
+    phi3 = _phi3_phase(torch, args)
+    longrope = _longrope_phase(torch, args)
+    olmo2 = _dense_family_phase(
+        torch, args, "olmo2", OLMO2_7B, DENSE_LAYERS["olmo2"],
+        dict(norm_placement="pre"),
+        dict(norm_placement="post", qk_norm_proj=True, head_size=128),
+        DENSE_STEPS, args.seed + 101)
+    cohere = _dense_family_phase(
+        torch, args, "command-r", COMMAND_R, DENSE_LAYERS["cohere"],
+        dict(rope_interleaved=False),
+        dict(rope_interleaved=True, logit_scale=0.0625, parallel_block=True,
+             norm_bias=False, tie_embeddings=True, head_size=128),
+        DENSE_STEPS, args.seed + 111, on_hidden=True, lean=True)
+    yarn = _yarn_serving_phase(torch, args, pa)
     root = _ckpt_root()
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -5183,6 +5715,33 @@ def main():
             library="SDPA, the ALiBi bias in a dense float mask",
             tflops=flash_alibi[f"{name}_tflops"],
             bound_share=flash_alibi[f"{name}_bound_share"]))
+    f96 = flash96["train"]
+    for name, replaces in FLASH.items():
+        part = "fwd" if name == "fwd" else "bwd"
+        errs = ("o", "lse") if name == "fwd" else (
+            ("dq",) if name == "bwd_dq" else ("dk", "dv"))
+        entries.append(dict(
+            name=f"flash_attention[{name},d96]", route="cuda",
+            body=FLASH_BODY[name] + ", d 96 stored as 128",
+            source=FLASH_SOURCE, replaces=replaces,
+            launches=phi3["launches"][name],
+            launches_per_step=phi3["launches"][name] / phi3["steps"],
+            launches_generate=phi3["generate"]["launches"][name],
+            launches_longrope_generate=longrope["launches"][name],
+            max_abs_err=max(flash96[c][e]["max_abs_err"] for c in flash96
+                            for e in errs),
+            worst_over_tol=max(flash96[c][e]["worst_over_tol"]
+                               for c in flash96 for e in errs),
+            ms=f96[f"{name}_ms"], plain_ms=f96[f"plain_{part}_ms"],
+            bound_ms=f96[f"{name}_bound_ms"],
+            bound_by=f96[f"{name}_bound_by"],
+            library_ms=f96.get(f"library_{part}_ms"),
+            tflops=f96[f"{name}_tflops"],
+            bound_share=f96[f"{name}_bound_share"],
+            ms_window=flash96["train_window"][f"{name}_ms"],
+            library_window_ms=flash96["train_window"].get(
+                f"library_{part}_ms"),
+            bound_window_ms=flash96["train_window"][f"{name}_bound_ms"]))
     for fmt in ("int8", "fp8"):
         q, run = qmm[fmt]["per_launch"], qtrain[fmt]
         entries.append(dict(
@@ -5202,6 +5761,18 @@ def main():
                 "plain_ms", "bound_ms", "library_ms", "bf16_matmul_ms",
                 "max_abs_err")}
                 for s in QMM_SITES}))
+    print(f"dense families: phi-3-mini x{phi3['layers']} step "
+          f"{phi3['step_ms']:.1f} ms, MFU {phi3['mfu']:.4f}, peak "
+          f"{phi3['peak_bytes'] / 2**30:.2f} GiB, first loss "
+          f"{phi3['first_loss']:.6f}; olmo2 x{olmo2['layers']} step "
+          f"{olmo2['step_ms']:.1f} ms, peak "
+          f"{olmo2['peak_bytes'] / 2**30:.2f} GiB, first loss "
+          f"{olmo2['first_loss']:.6f}; command-r x{cohere['layers']} step "
+          f"{cohere['step_ms']:.1f} ms, peak "
+          f"{cohere['peak_bytes'] / 2**30:.2f} GiB, first loss "
+          f"{cohere['first_loss']:.6f}; longrope generate "
+          f"{longrope['ms']:.1f} ms; yarn served B4 launches "
+          f"{yarn['launches']}; card: {card}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -150,7 +150,7 @@ def main():
     card = cs._card()
     print(f"card: {card}", flush=True)
     build_all()
-    this = fa._kernel_fns()
+    this = fa._kernel_fns(args.head_dim)
     other = _build_other(args.other, not args.other_without_offsets)
     swapped = SWAPPED[args.kernels]
     sides = {"this": this,
@@ -161,7 +161,7 @@ def main():
              or args.kernels == "all"]
 
     def use(side):
-        fa._kernel_fns = lambda: sides[side]
+        fa._kernel_fns = lambda d: sides[side]
 
     # 1. kernels at the training shape, chip_smoke.py's inputs
     segments, causal = MASKS[args.mask]

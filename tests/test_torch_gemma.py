@@ -283,8 +283,12 @@ def test_pattern_period_must_divide_a_stage_chunk():
 @pytest.mark.parametrize("fields,match", [
     (dict(quant="int8"), "quant != 'none' does not compose"),
     (dict(overlap_fsdp=True), "overlap_fsdp does not compose"),
-    (dict(qk_norm=True, qk_norm_proj=True), "qk_norm_proj=True.*A10b-2"),
-    (dict(norm_placement="post"), "norm_placement='post'.*A10b-2")])
+    # the ids these two had while they named OLMo2's fields, which the
+    # training forward now implements (tests/test_torch_gpt.py)
+    pytest.param(dict(num_experts=4), "num_experts=4.*A10c",
+                 id="fields2-qk_norm_proj=True.*A10b-2"),
+    pytest.param(dict(decode=True), "decode=True.*A10c",
+                 id="fields3-norm_placement='post'.*A10b-2")])
 def test_what_jax_rejects_and_the_rest_raise_by_name(fields, match):
     cfg = get_preset("gemma2-2b", dtype=torch.float32,
                      **dict(SMALL, **fields))

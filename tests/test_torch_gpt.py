@@ -1,7 +1,9 @@
 """The LayerNorm / non-gated-MLP families (GPT-2, GPT-NeoX, Phi,
-StarCoder2, Nemotron) in the port against the JAX package, on the CPU
-in f32 at a narrow width: hidden 64, 4 heads of 16 (Phi's case 2 heads
-of 80), vocab 128.
+StarCoder2, Nemotron) and the rest of the dense forward (Phi-3's
+partial rotary and longrope, Cohere's interleaved RoPE and
+``logit_scale``, OLMo2's post-norms and flat qk-norm, YaRN) in the port
+against the JAX package, on the CPU in f32 at a narrow width: hidden
+64, 4 heads of 16 (Phi's case 2 heads of 80), vocab 128.
 
 Held, each from numpy-seeded inputs with the JAX weights carried over
 by ``params_from_jax`` (norm scales drawn about their init, biases and
@@ -10,24 +12,31 @@ the position table drawn too, so that nothing hides behind a zero):
 - logits and every parameter's gradient against JAX ``TransformerLM``
   for gpt2-tiny and Phi-, NeoX-, Nemotron- and StarCoder2-style
   configs, which between them hold every feature of the slice
-  (``CASES``), for ALiBi and for a LayerNorm without biases; JAX's
-  attention is its plain reference, and for Phi and ALiBi with GQA also
-  its Pallas kernels in interpret mode;
+  (``CASES``), for ALiBi and for a LayerNorm without biases, and for
+  Cohere-, OLMo2-, Phi-3- (longrope on both sides of its switch) and
+  YaRN-style configs; JAX's attention is its plain reference, and for
+  Phi, ALiBi with GQA and OLMo2 also its Pallas kernels in interpret
+  mode;
 - ``norm_bias=False`` changes the logits (the field is honoured, not
   inert);
 - ``num_params`` against the model's parameters and JAX's count;
 - a 5-step ``accelerate()`` -> ``Trainer`` trajectory of a Phi-style
-  model (the head bias takes the materialised logits) and of gpt2-tiny
-  under int8 ``compute.quant`` against the JAX Trainer;
+  model (the head bias takes the materialised logits), and of gpt2-tiny
+  and an OLMo2-style model under int8 ``compute.quant``, against the
+  JAX Trainer;
 - GPipe over virtual stages with learned positions, the parallel block
-  and the head bias against the JAX Trainer's pipeline;
+  and the head bias, and with OLMo2's post-norms, against the JAX
+  Trainer's pipeline;
 - ``generate()`` greedy, token for token, against JAX ``generate()``
-  (Phi-style; ALiBi);
-- GPT-2 and Nemotron through ``ServeEngine`` against the port's
-  ``generate()``; the parallel block and ALiBi refused there with JAX's
-  pointer;
-- what JAX refuses, with its messages, and what waits for A10b-2b by
-  name; a checkpoint of gpt2-tiny saved and restored whole.
+  (Phi-style; ALiBi; Cohere; OLMo2; Phi-3 across longrope's cache
+  rebuild at an original context of 16, with and without a row frozen
+  at eos before it);
+- GPT-2, Nemotron, YaRN and longrope (all positions on one side of the
+  switch) through ``ServeEngine`` against the port's ``generate()``;
+  the parallel block (Cohere's too), post-norms, a window (Phi-3's) and
+  ALiBi refused there with JAX's pointer;
+- what JAX refuses, with its messages, and what waits for A10c by name;
+  a checkpoint of gpt2-tiny saved and restored whole.
 
 Tolerances (f32): logits atol 2e-5; gradients within 2e-3 of each leaf's
 largest entry (other summation orders through the backward; 2e-10 for
@@ -38,6 +47,7 @@ largest (test_torch_pp.py's); tokens exactly.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -92,6 +102,26 @@ STARCODER2 = dict(BIASES, norm="layernorm", activation="gelu",
                   num_kv_heads=2)
 ALIBI = dict(BIASES, norm="layernorm", activation="gelu", pos_emb="alibi",
              num_heads=6, num_kv_heads=3, hidden_size=96)
+COHERE = dict(parallel_block=True, norm="layernorm", norm_bias=False,
+              logit_scale=0.0625, rope_interleaved=True, tie_embeddings=True)
+OLMO2 = dict(qk_norm=True, qk_norm_proj=True, norm_placement="post",
+             num_kv_heads=2)
+YARN = dict(rope_yarn=(4.0, 16.0, 32.0, 1.0, None, True))
+# another ramp: no truncation, other betas, an explicit attention factor
+YARN2 = dict(rope_yarn=(2.0, 32.0, 16.0, 2.0, 1.3, False))
+# longrope's factors for Phi-4-mini's partial rotary 0.75 at d 16 (12
+# dims rotate: 6 pairs), drawn from a seed as a checkpoint's would be
+_LR = np.random.default_rng(1234)
+SHORT_F = tuple(float(x) for x in _LR.uniform(1.0, 1.5, 6))
+LONG_F = tuple(float(x) for x in _LR.uniform(2.0, 8.0, 6))
+
+
+def phi3(original, attention_factor=None):
+    """Phi-3-style fields with longrope's switch at ``original``: the
+    batches' largest position is 22, so 16 takes the long factors and 64
+    the short ones; 4 puts every position of the serving cases past it."""
+    return dict(partial_rotary=0.75, num_kv_heads=2, rope_longrope=(
+        SHORT_F, LONG_F, float(original), attention_factor))
 
 # name: (preset, fields, JAX attention).  Each feature rides at least
 # one family: layernorm (gpt2, phi, neox, starcoder2), layernorm1p and
@@ -111,6 +141,13 @@ CASES = {
     "nemotron": ("llama-tiny", NEMOTRON, "xla"),
     "starcoder2": ("llama-tiny", STARCODER2, "xla"),
     "alibi_gqa_pallas": ("llama-tiny", ALIBI, "pallas"),
+    "cohere": ("llama-tiny", COHERE, "xla"),
+    "olmo2": ("llama-tiny", OLMO2, "xla"),
+    "olmo2_pallas": ("llama-tiny", OLMO2, "pallas"),
+    "phi3_long": ("llama-tiny", phi3(16), "xla"),
+    "phi3_short": ("llama-tiny", phi3(64, 1.19), "xla"),
+    "yarn": ("llama-tiny", YARN, "xla"),
+    "yarn_untruncated": ("llama-tiny", YARN2, "xla"),
 }
 
 
@@ -227,6 +264,7 @@ def test_alibi_slopes_and_num_params_match_jax():
                            ("llama-tiny", STARCODER2),
                            ("llama-tiny", dict(norm="layernorm",
                                                norm_bias=False)),
+                           ("llama-tiny", OLMO2), ("llama-tiny", COHERE),
                            ("gemma2-2b", dict(qk_norm=True))]:
         kw = fields if preset.startswith("gpt2") else dict(SMALL, **fields)
         cfg = get_preset(preset, **kw)
@@ -246,15 +284,22 @@ def _opt():
                 grad_clip_norm=1.0)
 
 
-@pytest.mark.parametrize("name", ["phi", "gpt2_int8"])
+# trajectory: (case, int8)
+TRAJECTORIES = {"phi": ("phi", False), "gpt2_int8": ("gpt2_tiny", True),
+                "olmo2_int8": ("olmo2", True)}
+
+
+@pytest.mark.parametrize("name", sorted(TRAJECTORIES))
 def test_trainer_trajectory_matches_jax_trainer(name):
     """Five steps of accelerate() -> Trainer.step against the JAX
     Trainer from the same weights on the same packed batches: a
     Phi-style model under save_attn_mlp remat (the head bias takes the
-    materialised logits, not the fused CE) and gpt2-tiny with int8
-    quantized matmuls at the non-gated MLP's up/down projections."""
-    preset, fields, _ = CASES["phi" if name == "phi" else "gpt2_tiny"]
-    quant = name.endswith("int8")
+    materialised logits, not the fused CE), and with int8 quantized
+    matmuls gpt2-tiny (the non-gated MLP's up/down projections) and an
+    OLMo2-style model (post-norms after the quantized o and down
+    projections, the flat qk-norm after the quantized q and k)."""
+    case, quant = TRAJECTORIES[name]
+    preset, fields, _ = CASES[case]
     params = _params(preset, fields, seed=3)
     batches = [_batch(10 + i) for i in range(5)]
     kw = dict(SMALL, **fields)
@@ -296,11 +341,20 @@ PP_FIELDS = dict(SMALL, **dict(NEOX, pos_emb="learned", head_bias=True,
 def test_pipeline_matches_jax():
     """GPipe (P 2, M 2) over virtual stages: the position table read by
     stage 0, the head bias by the last, the parallel block in each."""
-    params = _params("llama-tiny", PP_FIELDS)
+    _pipeline_matches_jax(PP_FIELDS)
+
+
+def test_pipeline_post_norms_matches_jax():
+    """GPipe (P 2, M 2) over virtual stages with OLMo2's post-norms and
+    flat qk-norm in every stage."""
+    _pipeline_matches_jax(dict(SMALL, **OLMO2, num_layers=4))
+
+
+def _pipeline_matches_jax(fields):
+    params = _params("llama-tiny", fields)
     batch = _pp_batch(71)
-    jl, jc, jg = _jax_grads(2, 2, "gpipe", 1, PP_FIELDS, params, batch,
-                            None)
-    l_sum, count, grads = _port_grads(2, 2, "gpipe", 1, PP_FIELDS, params,
+    jl, jc, jg = _jax_grads(2, 2, "gpipe", 1, fields, params, batch, None)
+    l_sum, count, grads = _port_grads(2, 2, "gpipe", 1, fields, params,
                                       batch, None)
     np.testing.assert_allclose(l_sum, jl, rtol=1e-5)
     assert count == jc
@@ -311,21 +365,58 @@ def test_pipeline_matches_jax():
             err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("case", ["phi", "alibi_gqa_pallas"])
+@pytest.mark.parametrize("case", ["phi", "alibi_gqa_pallas", "cohere",
+                                  "olmo2", "phi3_long"])
 def test_generate_token_identical_to_jax(case):
     """Greedy decode through the port's cached path (B1's ALiBi
-    instantiation on the card) against JAX's cached ``generate``."""
+    instantiation on the card) against JAX's cached ``generate``; the
+    Phi-3 case's 12-token prompts cross longrope's original context of
+    16 at the 5th new token, where both rebuild the cache."""
     preset, fields, _ = CASES[case]
     jcfg, cfg = _cfgs(preset, fields)
     params = _params(preset, fields, seed=5)
+    p = 12 if case == "phi3_long" else 20
     prompts = np.random.default_rng(6).integers(
-        0, SMALL["vocab_size"], (2, 20)).astype(np.int32)
+        0, SMALL["vocab_size"], (2, p)).astype(np.int32)
     want = np.asarray(jax_generate(JaxLM(jcfg),
                                    jax.tree.map(jnp.asarray, params),
                                    jnp.asarray(prompts), max_new_tokens=10))
     got = generate(params_from_jax(cfg, params, device="cpu"), prompts,
                    max_new_tokens=10).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_generate_longrope_rebuild_keeps_eos_rows_frozen():
+    """Across the rebuild a row that reached eos before the crossing
+    stays frozen in both packages (eos is the token row 0 emits second,
+    before the crossing at the 5th), tokens identical to JAX's; and the
+    rebuild is a re-run of the 17 tokens so far from position 0."""
+    gen_mod = importlib.import_module("torchacc_tpu_torch.models.generate")
+    preset, fields, _ = CASES["phi3_long"]
+    jcfg, cfg = _cfgs(preset, fields)
+    params = _params(preset, fields, seed=5)
+    prompts = np.random.default_rng(9).integers(
+        0, SMALL["vocab_size"], (2, 12)).astype(np.int32)
+    jmodel, jparams = JaxLM(jcfg), jax.tree.map(jnp.asarray, params)
+    free = np.asarray(jax_generate(jmodel, jparams, jnp.asarray(prompts),
+                                   max_new_tokens=10))
+    eos = int(free[0, 13])
+    want = np.asarray(jax_generate(jmodel, jparams, jnp.asarray(prompts),
+                                   max_new_tokens=10, eos_id=eos))
+    model = params_from_jax(cfg, params, device="cpu")
+    got = generate(model, prompts, max_new_tokens=10, eos_id=eos).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 13:] == eos).all()
+    cross = []
+    real = gen_mod._cached_forward
+    spy = lambda m, ids, start, *a: cross.append((start, ids.shape[1])) \
+        or real(m, ids, start, *a)
+    gen_mod._cached_forward = spy
+    try:
+        generate(model, prompts, max_new_tokens=10)
+    finally:
+        gen_mod._cached_forward = real
+    assert (0, 17) in cross                 # the re-run of 16 + 1 tokens
 
 
 def _serve(model, prompts, max_new):
@@ -337,13 +428,26 @@ def _serve(model, prompts, max_new):
         [Request(prompt_ids=p, max_new_tokens=max_new) for p in prompts])]
 
 
-@pytest.mark.parametrize("case", ["gpt2_tiny", "nemotron", "starcoder2"])
+SERVED = dict(CASES, phi3_all_long=("llama-tiny", phi3(4), "xla"),
+              olmo2_flat_qk_norm=("llama-tiny", dict(OLMO2,
+                                                    norm_placement="pre"),
+                                  "xla"),
+              cohere_rope_scale=("llama-tiny", dict(
+                  COHERE, parallel_block=False), "xla"))
+
+
+@pytest.mark.parametrize("case", ["gpt2_tiny", "nemotron", "starcoder2",
+                                  "yarn", "phi3_short", "phi3_all_long",
+                                  "olmo2_flat_qk_norm", "cohere_rope_scale"])
 def test_serving_token_identical_to_generate(case):
     """GPT-2 (learned positions, biased LayerNorms, gelu), Nemotron
-    (layernorm1p, relu2, partial rotary, GQA) and StarCoder2 through
-    ServeEngine's paged forward, prompts of three lengths in chunks of
-    8, against the port's generate() one prompt at a time."""
-    preset, fields, _ = CASES[case]
+    (layernorm1p, relu2, partial rotary, GQA), StarCoder2, YaRN,
+    longrope with every position below its switch (original 64) and
+    every one past it (original 4), the flat qk-norm, and interleaved
+    RoPE with ``logit_scale`` through ServeEngine's paged forward,
+    prompts of three lengths in chunks of 8, against the port's
+    generate() one prompt at a time."""
+    preset, fields, _ = SERVED[case]
     cfg = get_preset(preset, dtype=torch.float32, **dict(SMALL, **fields))
     model = params_from_jax(cfg, _params(preset, fields, seed=7),
                             device="cpu")
@@ -356,13 +460,19 @@ def test_serving_token_identical_to_generate(case):
         assert toks == ref
 
 
-@pytest.mark.parametrize("case", ["phi", "neox", "alibi"])
+@pytest.mark.parametrize("case", ["phi", "neox", "alibi", "cohere",
+                                  "olmo2", "phi3_window"])
 def test_serving_refuses_what_jax_serving_refuses(case):
-    preset, fields, _ = CASES[case]
+    """Refused with JAX's pointer to generate(): the parallel block
+    (Cohere's as converted), post-norms, ALiBi and a window (the
+    published Phi-3-mini configs carry one)."""
+    preset, fields, _ = (("llama-tiny", dict(phi3(16), window=(15, -1)),
+                          "xla") if case == "phi3_window" else CASES[case])
     cfg = get_preset(preset, dtype=torch.float32, **dict(SMALL, **fields))
     conf = Config(serve=ServeConfig(block_size=8, num_blocks=16))
     with pytest.raises(NotImplementedError,
-                       match="(parallel_block|alibi).*models.generate"):
+                       match="(parallel_block|alibi|norm_placement|window)"
+                             ".*models.generate"):
         ServeEngine(init_params(cfg, device="cpu"), conf, device="cpu")
 
 
@@ -374,10 +484,12 @@ def test_what_jax_refuses_and_the_rest_raise_by_name():
              "head_bias does not compose with tie_embeddings"),
             (dict(parallel_block=True, sandwich_norms=True), ValueError,
              "parallel_block \\(phi\\) does not compose"),
-            (dict(rope_interleaved=True), NotImplementedError,
-             "rope_interleaved=True.*A10b-2b"),
-            (dict(logit_scale=2.0), NotImplementedError,
-             "logit_scale=2.0.*A10b-2b")]:
+            (dict(norm_placement="post", sandwich_norms=True), ValueError,
+             "norm_placement='post' \\(OLMo2\\) does not compose"),
+            (dict(num_experts=4), NotImplementedError,
+             "num_experts=4.*A10c"),
+            (dict(overlap_fsdp=True), NotImplementedError,
+             "overlap_fsdp=True.*A10c")]:
         c = dataclasses.replace(cfg, **fields)
         with pytest.raises(err, match=match):
             TransformerLM(c, device="cpu")(ids)

@@ -13,7 +13,20 @@ shares its launches.
   positions read by stage 0, the parallel block with two norms in each
   stage, the head bias on the last stage;
 - context parallelism (the ring over sp=2): learned positions at each
-  chunk's global positions, and ALiBi at the global coordinates.
+  chunk's global positions, and ALiBi at the global coordinates;
+- tensor parallelism with OLMo2's flat qk-norm (tp=2: each rank holds
+  half the heads of q and k, and the norm's statistics are summed over
+  the ranks, forward and backward) and post-norms;
+- longrope under the ring (sp=2), on rows whose first half holds a
+  16-token document and whose second half two of 8: the batch's largest
+  position (15) crosses the original context of 12, the second chunk's
+  own (7) does not, so the switch must be taken over the sequence ranks
+  as JAX's ``jnp.max`` takes it;
+- a Phi-3 Hugging Face checkpoint (packed ``qkv_proj`` and
+  ``gate_up_proj``, saved in bf16 across several files) streamed by
+  ``accelerate(path)`` onto tp=2, each rank copying its box of each
+  packed part, then 2 steps, against JAX's ``accelerate(path)`` on the
+  same mesh.
 
 Weights are drawn by numpy (``tests/test_torch_gpt.py``'s ``_params``:
 biases and the position table non-zero), 3 steps on the same global
@@ -30,15 +43,27 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_checkpoint_ranks import HF_SCHEDULE, _hf_batch
 from test_torch_cp_ranks import _close
+from test_torch_hf import saved as hf_saved
+from test_torch_hf_gpt import hf_model
+from test_torch_gpt import OLMO2, phi3
 from test_torch_gpt import SMALL as GPT_SMALL
 from test_torch_gpt import _params as _gpt_params
-from test_torch_parallel_ranks import OPT, SCHEDULE, SMALL, _batch, _launch
+from test_torch_parallel_ranks import (
+    B,
+    OPT,
+    SCHEDULE,
+    SMALL,
+    _batch,
+    _launch,
+)
 import torchacc_tpu as ta
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.parallel.mesh import build_mesh
 from torchacc_tpu.train import accelerate as jax_accelerate
 from torchacc_tpu.train import schedules as jax_sched
+from torchacc_tpu_torch.ops.flash_attention import segment_ids_from_positions
 
 pytestmark = pytest.mark.distributed
 
@@ -59,6 +84,8 @@ CASES = {  # name: (dist, model fields)
              head_bias=True, num_layers=4)),
     "sp2_ring_learned": (RING, dict(LN, pos_emb="learned")),
     "sp2_ring_alibi": (RING, dict(LN, pos_emb="alibi")),
+    "tp2_olmo2": (dict(tp=2), OLMO2),
+    "sp2_ring_longrope": (RING, phi3(12)),
 }
 
 
@@ -74,17 +101,44 @@ def _fields(name):
     return dict(BASE, **CASES[name][1])
 
 
-def _batches():
-    return [_batch(60 + i) for i in range(STEPS)]
+def _split_batch(seed):
+    """Rows of a 16-token document and two of 8 (positions 0..15,
+    0..7, 0..7), random ids."""
+    pos = np.tile(np.concatenate([np.arange(16), np.arange(8),
+                                  np.arange(8)]), (B, 1)).astype(np.int32)
+    ids = np.random.default_rng(seed).integers(
+        0, SMALL["vocab_size"], size=pos.shape).astype(np.int32)
+    return {"input_ids": ids, "positions": pos, "segment_ids":
+            segment_ids_from_positions(torch.from_numpy(pos)).numpy()}
+
+
+def _batches(name):
+    draw = _split_batch if name == "sp2_ring_longrope" else _batch
+    return [draw(60 + i) for i in range(STEPS)]
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def phi3_dir(tmp_path_factory):
+    return hf_saved(hf_model("phi3", seed=11),
+                    tmp_path_factory.mktemp("phi3_hf") / "hf",
+                    torch.bfloat16, shard="100KB")
+
+
+def _phi3_batches():
+    return [_hf_batch(90 + i) for i in range(2)]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, phi3_dir):
     cases = {name: dict(kind="train", dist=d, model=_fields(name),
                         params=_gpt_params("llama-tiny", _fields(name)),
                         compute={}, grad_accum=1, dtype=torch.float32,
-                        batches=_batches(), schedule=SCHEDULE, opt=OPT_LN)
+                        batches=_batches(name), schedule=SCHEDULE,
+                        opt=OPT_LN)
              for name, (d, _) in CASES.items()}
+    cases["tp2_phi3_hf"] = dict(kind="hf_train", path=phi3_dir,
+                                dist=dict(tp=2), schedule=HF_SCHEDULE,
+                                opt=OPT_LN, batches=_phi3_batches())
     wait = _launch(tmp_path_factory.mktemp("gpt_ranks"), 2,
                    dict(kind="cases", cases=cases))
     got = []
@@ -119,8 +173,31 @@ def test_ln_families_on_two_ranks_match_the_jax_trainer(ranks, name):
     jtrainer = _jax_trainer(d, fields, _gpt_params("llama-tiny", fields))
     jlosses = [float(jtrainer.step({k: jnp.asarray(v) for k, v in
                                     b.items()})["loss"])
-               for b in _batches()]
+               for b in _batches(name)]
     got = ranks()[name]
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
+    flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]
+    want = jax.tree.map(np.asarray, jax.device_get(jtrainer.state.params))
+    assert [p for p, _ in flat(got["params"])] == [p for p, _ in flat(want)]
+    for (path, a), (_, w) in zip(flat(got["params"]), flat(want)):
+        _close(a, w, jax.tree_util.keystr(path))
+
+
+def test_phi3_checkpoint_streams_onto_two_tp_ranks(ranks, phi3_dir):
+    jconf = ta.Config(
+        compute=ta.ComputeConfig(dtype="float32", param_dtype="float32",
+                                 attention_impl="xla"),
+        memory=ta.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+        dist=ta.DistConfig(tp=ta.TPConfig(2)))
+    jtrainer, _ = jax_accelerate(
+        phi3_dir, None, jconf,
+        optimizer=jax_sched.adamw(jax_sched.warmup_linear(*HF_SCHEDULE),
+                                  **OPT_LN),
+        mesh=build_mesh(jconf.dist, devices=jax.devices()[:2]))
+    jlosses = [float(jtrainer.step({k: jnp.asarray(v) for k, v in
+                                    b.items()})["loss"])
+               for b in _phi3_batches()]
+    got = ranks()["tp2_phi3_hf"]
     np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
     flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]
     want = jax.tree.map(np.asarray, jax.device_get(jtrainer.state.params))

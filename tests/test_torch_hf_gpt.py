@@ -1,6 +1,10 @@
-"""Hugging Face GPT-2, StarCoder2, GPT-NeoX, Nemotron and Phi into the
-port (``models/hf.py``, ``models/hf_stream.py``) against the JAX
-package's conversion and ``transformers``' own forward, on the CPU.
+"""Hugging Face GPT-2, StarCoder2, GPT-NeoX, Nemotron, Phi, Phi-3
+(packed ``qkv_proj``/``gate_up_proj``, partial rotary, longrope),
+Cohere (interleaved RoPE, ``logit_scale``, a biasless shared norm, a
+tied head), OLMo2 (post-norms, the flat qk-norm) and a yarn-scaled
+Llama into the port (``models/hf.py``, ``models/hf_stream.py``) against
+the JAX package's conversion and ``transformers``' own forward, on the
+CPU.
 
 Small HF models are built offline by ``transformers`` from configs
 written here (hidden 64 with 4 heads, Phi's 160 with 2 heads of 80; 2
@@ -16,7 +20,9 @@ layers; vocab 256), with weights drawn from numpy seeds, and saved with
   forward and JAX's ``load_hf_model`` -> ``TransformerLM``, within 2e-5
   of the largest logit; the directory streams where JAX's plan streams
   it (StarCoder2, Nemotron) and goes through the materialising
-  converter where JAX's does (GPT-2, GPT-NeoX, Phi);
+  converter where JAX's does (GPT-2, GPT-NeoX, Phi); Phi-3's logits
+  on both sides of longrope's switch (original context 16: 40 tokens
+  and 12);
 - the activation and tied-head refusals, with JAX's messages.
 """
 
@@ -77,6 +83,25 @@ FAMILIES = {
     "phi": (transformers.PhiConfig, transformers.PhiForCausalLM,
             dict(_BASE, hidden_size=160, num_attention_heads=2,
                  intermediate_size=256, partial_rotary_factor=0.4), False),
+    # Phi-4-mini's partial rotary 0.75 (6 rotating pairs of d 16) and
+    # Phi-3.5's longrope with seeded factors, the original context 16
+    "phi3": (transformers.Phi3Config, transformers.Phi3ForCausalLM,
+             dict(_BASE, num_key_value_heads=2, partial_rotary_factor=0.75,
+                  pad_token_id=0,
+                  original_max_position_embeddings=16,
+                  rope_scaling=dict(
+                      type="longrope",
+                      short_factor=[1.0, 1.1, 1.25, 1.5, 1.75, 2.0],
+                      long_factor=[1.5, 2.0, 3.0, 4.5, 6.0, 8.0])), True),
+    "cohere": (transformers.CohereConfig, transformers.CohereForCausalLM,
+               dict(_BASE, num_key_value_heads=2, logit_scale=0.0625),
+               True),
+    "olmo2": (transformers.Olmo2Config, transformers.Olmo2ForCausalLM,
+              dict(_BASE, num_key_value_heads=2), True),
+    "llama_yarn": (transformers.LlamaConfig, transformers.LlamaForCausalLM,
+                   dict(_BASE, rope_scaling=dict(
+                       rope_type="yarn", factor=4.0,
+                       original_max_position_embeddings=32)), True),
 }
 
 
@@ -139,16 +164,17 @@ def test_checkpoint_dir_logits_match_hf_and_jax(family, tmp_path,
     trainer, _ = accelerate(path, None, tt.Config(
         compute=tt.ComputeConfig(dtype=torch.float32)), device="cpu")
     assert bool(streamed) == streams
-    ids = np.random.default_rng(5).integers(0, 256, (2, 40))
-    with torch.no_grad():
-        got = trainer.model(torch.from_numpy(ids)).numpy()
-        hf = model(torch.from_numpy(ids)).logits.numpy()
     jcfg, jparams = jax_load_hf_model(model, dtype=jnp.float32)
-    jl = np.asarray(JaxLM(jcfg).apply({"params": jparams},
-                                      jnp.asarray(ids, jnp.int32)))
-    scale = float(np.abs(hf).max())
-    np.testing.assert_allclose(got, hf, rtol=0, atol=LOGIT_TOL * scale)
-    np.testing.assert_allclose(got, jl, rtol=0, atol=LOGIT_TOL * scale)
+    for n in (40, 12) if family == "phi3" else (40,):
+        ids = np.random.default_rng(5).integers(0, 256, (2, n))
+        with torch.no_grad():
+            got = trainer.model(torch.from_numpy(ids)).numpy()
+            hf = model(torch.from_numpy(ids)).logits.numpy()
+        jl = np.asarray(JaxLM(jcfg).apply({"params": jparams},
+                                          jnp.asarray(ids, jnp.int32)))
+        scale = float(np.abs(hf).max())
+        np.testing.assert_allclose(got, hf, rtol=0, atol=LOGIT_TOL * scale)
+        np.testing.assert_allclose(got, jl, rtol=0, atol=LOGIT_TOL * scale)
 
 
 @pytest.mark.parametrize("family,fields,match", [
@@ -161,7 +187,12 @@ def test_checkpoint_dir_logits_match_hf_and_jax(family, tmp_path,
     ("nemotron", dict(hidden_act="silu"),
      "nemotron hidden_act 'silu' is not implemented"),
     ("phi", dict(tie_word_embeddings=True),
-     "phi with tie_word_embeddings=True is not supported")])
+     "phi with tie_word_embeddings=True is not supported"),
+    ("cohere", dict(use_qk_norm=True),
+     "cohere use_qk_norm=True .* is not implemented"),
+    ("llama_yarn", dict(rope_scaling=dict(rope_type="yarn", factor=4.0,
+                                          mscale=0.707)),
+     "yarn mscale variants .* are not implemented")])
 def test_refusals_match_jax(family, fields, match):
     cfg_cls, _, base, _ = FAMILIES[family]
     hc = cfg_cls(**{**base, **fields})

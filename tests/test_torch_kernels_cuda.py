@@ -26,9 +26,9 @@ kernels read above it (chip_smoke.py's control).
 B1-B4 at the Gemma family's head dim 256 (B-2) as at the others: B1-B3
 in f32, bf16 and f16 (with a window, the softcap and segment ids), B4
 decode with a group of 8 and prefill, in f32 and bf16.  B1-B3 at Phi-2's
-head dim 80 (stored as 128 in the wgmma kernels), every option of
-``FLASH_OPTS`` (ALiBi and dropout among them), at the tile edges and at
-the context-parallel offsets.
+head dim 80 and Phi-3's 96 (stored as 128 in the wgmma kernels), every
+option of ``FLASH_OPTS`` (ALiBi and dropout among them), at the tile
+edges and at the context-parallel offsets.
 
 B1-B3 at the context-parallel global offsets (B-1) against the plain
 versions at the same offsets, at heads of 64, 128 and 256, in f32 and bf16,
@@ -311,6 +311,9 @@ FLASH_GEOMS = {   # b, sq, sk, hq, hk, d
     "mha_d80": (2, 200, 200, 4, 4, 80),            # Phi-2's heads (MHA)
     "sq_gt_sk_d80": (1, 100, 40, 4, 2, 80),
     "mqa_d80_sk_gt_sq": (2, 70, 150, 4, 1, 80),
+    "mha_d96": (2, 200, 200, 4, 4, 96),            # Phi-3-mini's heads (MHA)
+    "sq_gt_sk_d96": (1, 100, 40, 4, 2, 96),
+    "mqa_d96_sk_gt_sq": (2, 70, 150, 4, 1, 96),
 }
 FLASH_OPTS = {
     "alibi": dict(alibi=True),
@@ -487,7 +490,7 @@ def _bwd_pair(q, k, v, do, segs, **kw):
                                    **kw) for impl in ("cuda", "torch")]
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -566,7 +569,7 @@ def test_flash_bwd_kernels_repeat_bit_for_bit(card, dtype, d):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("opt", sorted(FLASH_EDGE_OPTS))
 @pytest.mark.parametrize("sq,sk", FLASH_EDGE_SIZES,
                          ids=[f"sq{a}_sk{b}" for a, b in FLASH_EDGE_SIZES])
@@ -673,7 +676,7 @@ def _offset_case(card, name, dtype, d):
     return q, k, v, do, kw
 
 
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", sorted(FLASH_OFFSET_CASES))

@@ -152,9 +152,12 @@ def test_prefill_chunk_logits_match_jax(qkv_bias, t0, n_valid):
 
 
 def test_unsupported_fields_rejected_by_name():
-    for bad in (dict(num_experts=4), dict(rope_interleaved=True),
-                dict(window=(16, -1)), dict(logit_scale=2.0),
-                dict(qk_norm_proj=True, qk_norm=True),
+    # interleaved RoPE, logit_scale and the flat qk-norm are served now
+    # (tests/test_torch_gpt.py); pipeline and context parallelism and
+    # post-norms are not, as in JAX
+    for bad in (dict(num_experts=4), dict(pp_size=2),
+                dict(window=(16, -1)), dict(context_parallel=True),
+                dict(norm_placement="post"),
                 dict(sandwich_norms=True),
                 dict(layer_pattern=("sliding", "global"))):
         cfg = get_preset("llama-tiny", dtype=torch.float32, **TINY, **bad)

@@ -9,8 +9,12 @@ test workers never share a rendezvous) and step their rows of the same
 global batches through ``accelerate()`` -> ``Trainer.step``.  The
 losses of 3 steps and the whole final parameters must agree.  JAX runs
 its XLA attention (the Pallas kernels' plain reference), the port its
-plain attention.  Each subprocess has a timeout of its own, so that a
-hang fails one test.
+plain attention.  One launch a world size (2 and 4 ranks, started
+together by a module fixture, ``kind="cases"``) runs every case of that
+size in turn on meshes of the same processes, as
+``tests/test_torch_cp_ranks.py`` shares its launches; each subprocess
+has a timeout of its own, so that a hang fails the tests of its
+launch.
 
 Tolerances, set from readings.  f32: the losses rtol 1e-5 (read
 <= 9.8e-8) and every final parameter within 1e-5 of its leaf's largest
@@ -32,6 +36,7 @@ largest entry), which hides what the comparison is for; so does the
 bf16 case (read 1.1e-1 with 1e-8).
 """
 
+import functools
 import os
 import pickle
 import subprocess
@@ -76,7 +81,10 @@ def _no_jax_compile_cache():
     jax.config.update("jax_enable_compilation_cache", prev)
 
 
+@functools.lru_cache(maxsize=None)
 def _params(seed=0):
+    """JAX's init of the model (one compile per process: every case and
+    its launch read the same weights; nobody writes into them)."""
     jcfg = jax_preset("llama-tiny", dtype=jnp.float32, **SMALL)
     params = JaxLM(jcfg).init(jax.random.PRNGKey(seed),
                               jnp.zeros((1, 8), jnp.int32))["params"]
@@ -205,10 +213,10 @@ def _leaves(tree):
     return jax.tree_util.tree_flatten_with_path(tree)[0]
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_port_ranks_match_the_jax_trainer_on_a_mesh(tmp_path, case):
+def _train_case(case):
+    """(the port's spec of ``case``, its global batches, its AdamW
+    settings)."""
     world, sizes, grad_accum, dtype, compute, extra = CASES[case]
-    params = _params()
     bomb_step = extra.get("bomb_step")
     opt = dict(OPT, eps=extra.get("eps", OPT["eps"]))
     # the bomb sits in the last data rank's rows only
@@ -216,16 +224,61 @@ def test_port_ranks_match_the_jax_trainer_on_a_mesh(tmp_path, case):
                       bomb_rows=None if bomb_step is None else
                       ((B - 1,) if i == bomb_step else ()))
                for i in range(3)]
-    spec = dict(kind="train", params=params, model=SMALL,
+    spec = dict(kind="train", params=_params(), model=SMALL,
                 dtype=getattr(torch, dtype), dist=sizes, compute=compute,
                 grad_accum=grad_accum, batches=batches, schedule=SCHEDULE,
                 opt=opt, bomb=bomb_step is not None)
+    if extra.get("fit"):
+        spec.update(docs=_docs(31), dataset=DATASET, steps=len(batches))
+    return spec, batches, opt
+
+
+CAPS = (0.0, 30.0)
+
+
+def _fused_ce_case(cap):
+    """The fused CE's seeded inputs at softcap ``cap`` (its port spec)."""
+    rng = np.random.default_rng(7 + int(cap))
+    b, s, h, v = 2, 24, 32, 96
+    hidden = rng.standard_normal((b, s, h)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((h, v))).astype(np.float32)
+    labels = rng.integers(0, v, size=(b, s)).astype(np.int32)
+    labels[0, :5] = -100
+    return dict(kind="fused_ce", hidden=hidden, w=w, labels=labels,
+                chunk_rows=16, cap=cap)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """One launch a world size, started together: every trainer case of
+    that size, and on 2 ranks the fused CE at each softcap;
+    ``ranks[world]()`` waits for one and returns its cases' outputs."""
+    specs = {2: {f"fused_ce_{cap}": _fused_ce_case(cap) for cap in CAPS},
+             4: {}}
+    for case, (world, *_) in CASES.items():
+        specs[world][case] = _train_case(case)[0]
+    waits = {w: _launch(tmp_path_factory.mktemp(f"ranks{w}"), w,
+                        dict(kind="cases", cases=cases))
+             for w, cases in specs.items()}
+    got = {}
+
+    def result(world):
+        if world not in got:
+            got[world] = waits[world]()
+        return got[world]
+    return {w: (lambda w=w: result(w)) for w in waits}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_ranks_match_the_jax_trainer_on_a_mesh(ranks, case):
+    world, sizes, grad_accum, dtype, compute, extra = CASES[case]
+    params = _params()
+    bomb_step = extra.get("bomb_step")
+    _, batches, opt = _train_case(case)
     data = None
     if extra.get("fit"):
         from torchacc_tpu.data import PackedDataset as JaxDataset
-        spec.update(docs=_docs(31), dataset=DATASET, steps=len(batches))
         data = JaxDataset(_docs(31), **DATASET)
-    wait = _launch(tmp_path, world, spec)
     jtrainer, jloader = _jax_trainer(world, sizes, grad_accum, dtype,
                                      compute, params, bomb_step is not None,
                                      opt, data)
@@ -234,7 +287,7 @@ def test_port_ranks_match_the_jax_trainer_on_a_mesh(tmp_path, case):
               for b in batches]
     else:
         jm = jtrainer.fit(jloader, max_steps=len(batches), log_every=1)
-    got = wait()
+    got = ranks[world]()[case]
     assert len(got["losses"]) == len(jm) == len(batches)
     assert got["data_shard"] == (world // sizes.get("tp", 1), 0)
     loss_tol, param_tol = ((2e-3, 2e-3) if dtype == "float16" else
@@ -268,22 +321,16 @@ def test_port_ranks_match_the_jax_trainer_on_a_mesh(tmp_path, case):
             assert (a > 0).sum() == a.size // 4 * min(len(batches), 4)
 
 
-@pytest.mark.parametrize("cap", [0.0, 30.0])
-def test_fused_ce_tp_matches_jax_under_shard_map(tmp_path, cap):
+@pytest.mark.parametrize("cap", list(CAPS))
+def test_fused_ce_tp_matches_jax_under_shard_map(ranks, cap):
     """The vocab-parallel fused CE on 2 gloo ranks against JAX's
     ``fused_linear_cross_entropy_tp`` (a shard_map over 'tp' on 2
     devices): the loss sum rtol 1e-5 (read <= 6.2e-8), d(hidden) and
     d(w) within 1e-5 of each one's largest entry (read <= 3.1e-7), f32,
     the count exactly.  Labels hit
     both ranks' vocab halves, with -100 rows."""
-    rng = np.random.default_rng(7 + int(cap))
-    b, s, h, v = 2, 24, 32, 96
-    hidden = rng.standard_normal((b, s, h)).astype(np.float32)
-    w = (0.3 * rng.standard_normal((h, v))).astype(np.float32)
-    labels = rng.integers(0, v, size=(b, s)).astype(np.int32)
-    labels[0, :5] = -100
-    wait = _launch(tmp_path, 2, dict(kind="fused_ce", hidden=hidden, w=w,
-                                     labels=labels, chunk_rows=16, cap=cap))
+    spec = _fused_ce_case(cap)
+    hidden, w, labels = spec["hidden"], spec["w"], spec["labels"]
     mesh = build_mesh(ta.DistConfig(tp=ta.TPConfig(2)),
                       devices=jax.devices()[:2])
 
@@ -296,7 +343,7 @@ def test_fused_ce_tp_matches_jax_under_shard_map(tmp_path, cap):
         jdx, jdw = jax.jit(jax.grad(lambda x, w_: loss(x, w_)[0],
                                     argnums=(0, 1)))(jnp.asarray(hidden),
                                                      jnp.asarray(w))
-    got = wait()
+    got = ranks[2]()[f"fused_ce_{cap}"]
     assert got["count"] == float(jc) == (labels != -100).sum()
     np.testing.assert_allclose(got["loss"], float(jl), rtol=1e-5)
     for name, a, r in (("dx", got["dx"], jdx), ("dw", got["dw"], jdw)):

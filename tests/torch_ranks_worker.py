@@ -347,7 +347,7 @@ def cases(spec):
     """Every case of ``spec["cases"]`` in turn, on meshes of the same
     processes: name -> the case's output."""
     run = {"cp_attn": cp_attn, "train": train, "hf_train": hf_train,
-           "pp_init": pp_init}
+           "pp_init": pp_init, "fused_ce": fused_ce_tp}
     return {name: run[case["kind"]](dict(spec, **case))
             for name, case in spec["cases"].items()}
 

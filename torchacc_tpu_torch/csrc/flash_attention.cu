@@ -69,13 +69,13 @@
  *    64 FMAs), rows padded to d + 4 floats so the 16 column threads hit
  *    distinct banks.
  *
- * Head dims 32, 64, 80 (Phi-2, Pythia-2.8B), 128 and 256 (Gemma) are
- * built.  At 256 the f32 B2 and B3 keep three tiles in shared memory
+ * Head dims 32, 64, 80 (Phi-2, Pythia-2.8B), 96 (Phi-3-mini), 128 and
+ * 256 (Gemma) are built, one library a head dim (-DFLASH_HEAD_DIM).  At 256 the f32 B2 and B3 keep three tiles in shared memory
  * where they kept four (kReloadF32), and the wgmma kernels take fewer
  * stages and, in B3, half the head dim a consumer warpgroup (WgCfg).
- * At 80 the wgmma kernels store the head dim as 128 (two boxes, the
- * upper 48 columns zeros from TMA) and the f32 kernels' threads own 5
- * columns each, one at a time (Cols).
+ * At 80 and 96 the wgmma kernels store the head dim as 128 (two boxes,
+ * the upper 48 or 32 columns zeros from TMA) and the f32 kernels'
+ * threads own 5 columns each, one at a time, or 6, two at a time (Cols).
  *
  * What the design does about it, in both:
  *  - grid order: the TPU's kv axis (B1, B2) and (group, q) axes (B3)
@@ -283,7 +283,7 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
 template <int D>
 struct Cols {
   static constexpr int DPT = D / 16;              // columns per thread
-  // vector width: 4, or 2 at 32, or 1 where DPT is odd (80: 5)
+  // vector width: 4, or 2 at 32 and 96 (6), or 1 where DPT is odd (80: 5)
   static constexpr int VW = DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
   static constexpr int NV = DPT / VW;             // vectors per row
   __device__ static int col(int e, int w, int tx) { return (e * 16 + tx) * VW + w; }
@@ -797,11 +797,12 @@ __global__ void __launch_bounds__(kThreads)
 //
 // Tiles lie in shared memory as [rows][64] 16-bit boxes of 128-byte rows
 // under the 128-byte swizzle, one box a 64 columns of the head dim (the
-// head dims built are 32, 64, 80, 128 and 256: 64 is one box, 128 two,
-// 256 four; 32 is read as one box of 64 whose upper half TMA fills with
-// zeros, so 32 and 64 share shared-memory sizes, and 80 (Phi-2) as two
-// boxes whose columns 80-127 TMA fills with zeros, so 80 runs 128's
-// layout, stages and products, and its epilogues store columns < 80).
+// head dims built are 32, 64, 80, 96, 128 and 256: 64 is one box, 128
+// two, 256 four; 32 is read as one box of 64 whose upper half TMA fills
+// with zeros, so 32 and 64 share shared-memory sizes, and 80 (Phi-2) and
+// 96 (Phi-3) as two boxes whose columns 80-127 or 96-127 TMA fills with
+// zeros, so they run 128's layout, stages and products, and their
+// epilogues store columns < 80 or < 96).
 // At 256 (Gemma) the second products are m64n256 and the shared memory
 // holds fewer stages (WgCfg), and B3 splits the head dim between its
 // consumer warpgroups.  A rank-4 tensor map over [b, s, h, d] cuts a
@@ -2164,13 +2165,24 @@ Geom make_geom(const void* qseg, const void* kseg, const void* alibi, int sq, in
     if (dtype == 1) FLASH_DISPATCH_D(LAUNCH, __nv_bfloat16, DD, __VA_ARGS__); \
     if (dtype == 2) FLASH_DISPATCH_D(LAUNCH, __half, DD, __VA_ARGS__);      \
   } while (0)
+#define FLASH_ROW(DD, LAUNCH, ...)                                         \
+  if (d == DD) FLASH_DISPATCH_T(LAUNCH, DD, __VA_ARGS__);
+// -DFLASH_HEAD_DIM=<d> builds that head dim's kernels alone (one library
+// a head dim, compiled side by side: ops/_build.py); without it, all
+#ifdef FLASH_HEAD_DIM
+#define FLASH_ROWS(LAUNCH, ...) FLASH_ROW(FLASH_HEAD_DIM, LAUNCH, __VA_ARGS__)
+#else
+#define FLASH_ROWS(LAUNCH, ...)                                            \
+  FLASH_ROW(32, LAUNCH, __VA_ARGS__)                                       \
+  FLASH_ROW(64, LAUNCH, __VA_ARGS__)                                       \
+  FLASH_ROW(80, LAUNCH, __VA_ARGS__)                                       \
+  FLASH_ROW(96, LAUNCH, __VA_ARGS__)                                       \
+  FLASH_ROW(128, LAUNCH, __VA_ARGS__)                                      \
+  FLASH_ROW(256, LAUNCH, __VA_ARGS__)
+#endif
 #define FLASH_DISPATCH(LAUNCH, ...)                                        \
   do {                                                                     \
-    if (d == 32) FLASH_DISPATCH_T(LAUNCH, 32, __VA_ARGS__);                 \
-    if (d == 64) FLASH_DISPATCH_T(LAUNCH, 64, __VA_ARGS__);                 \
-    if (d == 80) FLASH_DISPATCH_T(LAUNCH, 80, __VA_ARGS__);                 \
-    if (d == 128) FLASH_DISPATCH_T(LAUNCH, 128, __VA_ARGS__);               \
-    if (d == 256) FLASH_DISPATCH_T(LAUNCH, 256, __VA_ARGS__);               \
+    FLASH_ROWS(LAUNCH, __VA_ARGS__)                                        \
     return cudaErrorInvalidValue;                                          \
   } while (0)
 

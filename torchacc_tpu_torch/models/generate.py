@@ -9,8 +9,10 @@ rotated k and raw v, then one loop takes a token at a time.  Each layer
 takes its own window and rope base under a ``layer_pattern`` (JAX's
 ``_generate_cached_pattern``, :431), so Gemma2/3's sliding and global
 layers decode through the cache on the attention kernels; ALiBi's
-slopes, the parallel residual, the non-gated MLPs, learned positions
-and the head bias decode the same way.  It shares
+slopes, the parallel residual, the non-gated MLPs, learned positions,
+the head bias, post-norms, the flat qk-norm, ``logit_scale`` and the
+rope scalings decode the same way; under longrope a decode that
+crosses the original context rebuilds the cache (JAX :260-303).  It shares
 no code with the paged serving path (``serve/scheduler.py``), so it is
 the port's own request-level reference for serving.  Prompts of one
 call have one length (JAX's left-padded ragged batches, ``prompt_mask``,
@@ -134,7 +136,9 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
     positions ``start..start + t``; each layer's k/v are written into
     its cache at those positions and attention reads the cache up to
     them (causal, aligned to the cache's end, where ALiBi reads its
-    distances too).  Each layer runs with its own config
+    distances too).  Longrope's switch reads these positions alone, as
+    JAX's cached forward does: a prefill past the original context, or
+    a decode step beyond it, takes the long factors.  Each layer runs with its own config
     (``pattern_cfg``: its window and rope base), as JAX's
     ``_pattern_layers_with_cache`` does."""
     from torchacc_tpu_torch.models.transformer import (
@@ -144,6 +148,7 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
         layer_slopes,
         mlp_out,
         pattern_cfg,
+        post_norm,
         qk_rope,
     )
     from torchacc_tpu_torch.ops.attn import attention
@@ -154,7 +159,8 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
     x = embed(base, model, ids, pos)
     for i, layer in enumerate(model.layers):
         cfg = pattern_cfg(base, i)
-        h = apply_norm(cfg, x, layer.ln1)
+        post = post_norm(cfg)
+        h = x if post else apply_norm(cfg, x, layer.ln1)
         a = layer.attn
         q = dense(cfg, h, a.q_proj).view(b, t, -1, d)
         k = dense(cfg, h, a.k_proj).view(b, t, -1, d)
@@ -174,10 +180,15 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
             continue
         if cfg.sandwich_norms:
             o = apply_norm(cfg, o, layer.ln1_post)
+        if post:
+            o = apply_norm(cfg, o, layer.ln1)
         x = x + o
-        f = mlp_out(cfg, layer.mlp, apply_norm(cfg, x, layer.ln2))
+        f = mlp_out(cfg, layer.mlp, x if post else
+                    apply_norm(cfg, x, layer.ln2))
         if cfg.sandwich_norms:
             f = apply_norm(cfg, f, layer.ln2_post)
+        if post:
+            f = apply_norm(cfg, f, layer.ln2)
         x = x + f
     return x
 
@@ -196,7 +207,14 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
     position)``), so a row's tokens depend on its seed and prompt only.
     After ``eos_id`` a row repeats it.  ``attention_impl`` defaults to
     the model config's.  Prompt and new tokens must fit a learned
-    position table (JAX :253-260)."""
+    position table (JAX :253-260).
+
+    Under longrope a decode that crosses the original context rebuilds
+    the cache there (JAX :260-303, Phi-3's intended semantics): it
+    decodes up to ``original + 1`` tokens, then runs the whole sequence
+    so far again as a prompt, whose keys take the long factors, and
+    continues from that cache; a row frozen at ``eos_id`` before the
+    crossing stays frozen."""
     from torchacc_tpu_torch.models.transformer import (
         check_composition,
         head_logits,
@@ -216,6 +234,20 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
         raise ValueError(
             f"prompt + max_new_tokens = {total} exceeds the learned "
             f"position table max_seq_len {cfg.max_seq_len}")
+    lr = cfg.rope_longrope
+    if lr is not None and p <= int(lr[2]) < p + max_new_tokens - 1:
+        n1 = int(lr[2]) + 1 - p
+        kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                  eos_id=eos_id, seed=seed, attention_impl=attention_impl)
+        first = generate(model, ids, max_new_tokens=n1, **kw)
+        out = generate(model, first, max_new_tokens=max_new_tokens - n1,
+                       **kw)
+        if eos_id is not None:
+            # phase 2 has no done-state: rows frozen in phase 1 stay so
+            done1 = first[:, -1] == eos_id
+            out[:, p + n1:] = torch.where(done1[:, None], eos_id,
+                                          out[:, p + n1:])
+        return out
     impl = attention_impl or cfg.attention_impl
     shape = (cfg.num_layers, b, p + max_new_tokens, cfg.kv_heads,
              cfg.head_size)

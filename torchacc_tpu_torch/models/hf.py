@@ -11,13 +11,17 @@ with a local rope base, linear scaling on the global layers), GPT-2
 packed q|k|v), StarCoder2 (biased LayerNorms, a non-gated ``c_fc``/
 ``c_proj`` MLP), GPT-NeoX (the parallel residual with two norms, exact
 gelu, q/k/v packed per head, partial rotary), Nemotron (layernorm1p,
-relu2, partial rotary) and Phi-1/1.5/2 (the parallel residual with one
-norm, ``fc1``/``fc2``, partial rotary, a biased head).
+relu2, partial rotary), Phi-1/1.5/2 (the parallel residual with one
+norm, ``fc1``/``fc2``, partial rotary, a biased head), Phi-3/3.5/4-mini
+(packed ``qkv_proj``/``gate_up_proj``, partial rotary, longrope),
+Cohere (the parallel residual with one biasless LayerNorm, interleaved
+RoPE, ``logit_scale``, a tied head) and OLMo2 (post-norms, the qk-norm
+over the flat projections); rope scalings linear, llama3, longrope and
+yarn.
 
-Every other ``model_type`` and rope scaling raises
-``NotImplementedError`` naming it and the ROADMAP item that brings it
-(A10b-2b: the rest of the dense forward; A10c: mixture of experts), so
-nothing converts silently wrong.  HF's weights are ``[out, in]``, the
+The mixtures of experts raise ``NotImplementedError`` naming ROADMAP
+A10c, and every other ``model_type`` and rope scaling raises naming
+what the port converts, so nothing converts silently wrong.  HF's weights are ``[out, in]``, the
 port's layout: the conversion renames and checks shapes
 (``hf_stream.ingestion_plan``) and never goes through the JAX package's
 ``[in, heads, d]`` layout; GPT-2's ``[in, out]`` Conv1D weights and
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import os
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -42,6 +47,7 @@ from torchacc_tpu_torch.models.hf_stream import (
     ingestion_plan,
     missing_tensors,
     plan_entry,
+    plan_targets,
     read_hf_config,
     resolve_checkpoint_files,
 )
@@ -50,17 +56,16 @@ from torchacc_tpu_torch.models.transformer import ModelConfig, TransformerLM
 #: model types whose forward the port runs
 SUPPORTED = ("llama", "qwen2", "qwen3", "mistral", "gemma", "gemma2",
              "gemma3", "gemma3_text", "gpt2", "starcoder2", "gpt_neox",
-             "nemotron", "phi")
+             "nemotron", "phi", "phi3", "cohere", "olmo2")
 # the families whose transformers config ties the head by default
 # (config.json leaves the key out where it keeps its class's default)
 _TIED_BY_DEFAULT = ("gemma", "gemma2", "gemma3", "gemma3_text", "gpt2",
-                    "starcoder2")
+                    "starcoder2", "cohere")
 # GPT-2's config.json keeps its own names (transformers' attribute_map)
 _GPT2_NAMES = {"hidden_size": "n_embd", "num_attention_heads": "n_head",
                "num_hidden_layers": "n_layer",
                "max_position_embeddings": "n_positions"}
-# mixture-of-experts families wait for A10c, every other family for
-# A10b-2b
+# mixture-of-experts families wait for A10c
 _MOE_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "deepseek_v2",
               "deepseek_v3", "dbrx", "olmoe", "jamba")
 
@@ -83,8 +88,8 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
             f"{', '.join(SUPPORTED)}")
     if mt not in SUPPORTED:
         raise NotImplementedError(
-            f"Hugging Face model_type {mt!r} is not ported to "
-            f"torchacc_tpu_torch yet (ROADMAP A10b-2b); it converts "
+            f"Hugging Face model_type {mt!r} is not a family "
+            f"torchacc_tpu_torch converts; it converts "
             f"{', '.join(SUPPORTED)}")
     kw = dict(
         vocab_size=get("vocab_size"),
@@ -134,6 +139,28 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     elif mt == "qwen3":
         # per-head RMSNorm on q and k before rope (cfg.norm stays rmsnorm)
         kw.update(qk_norm=True)
+    elif mt == "phi3":
+        # Llama's pre-norm block with packed qkv_proj/gate_up_proj (split
+        # at ingestion), Phi-4-mini's partial rotary; longrope below
+        prf = float(get("partial_rotary_factor", 1.0) or 1.0)
+        if prf != 1.0:
+            kw["partial_rotary"] = prf
+    elif mt == "olmo2":
+        # post-norms (x + norm(f(x)), no pre-norm) and RMSNorm over the
+        # flat q/k projections
+        kw.update(qk_norm=True, qk_norm_proj=True, norm_placement="post")
+    elif mt == "cohere":
+        # the parallel residual with one shared biasless LayerNorm, a
+        # gated silu MLP, interleaved RoPE and logit_scale on the
+        # final-normed hidden
+        if get("use_qk_norm", False):
+            raise NotImplementedError(
+                "cohere use_qk_norm=True (per-head LayerNorm q/k) is "
+                "not implemented")
+        kw.update(parallel_block=True, norm="layernorm", norm_bias=False,
+                  norm_eps=float(get("layer_norm_eps", 1e-5)),
+                  logit_scale=float(get("logit_scale", 1.0) or 1.0),
+                  rope_interleaved=True)
     else:
         _layernorm_family(mt, get, kw)
     rs = get("rope_scaling")
@@ -152,11 +179,14 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
                 float(rs["factor"]), float(rs["low_freq_factor"]),
                 float(rs["high_freq_factor"]),
                 float(rs["original_max_position_embeddings"]))
+        elif rt == "longrope":
+            kw["rope_longrope"] = _longrope(get, rs, kw["max_seq_len"])
+        elif rt == "yarn":
+            kw["rope_yarn"] = _yarn(rs, kw["max_seq_len"])
         elif rt != "default":
             raise NotImplementedError(
-                f"rope_scaling type {rt!r} is not ported to "
-                f"torchacc_tpu_torch yet (ROADMAP A10b-2b); it implements "
-                f"linear and llama3")
+                f"rope_scaling type {rt!r} is not implemented (linear, "
+                f"llama3, longrope and yarn are)")
     if get("final_logit_softcapping"):
         kw["logit_softcap"] = float(get("final_logit_softcapping"))
     if get("sliding_window") and get("use_sliding_window", True):
@@ -165,6 +195,40 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         kw["window"] = (int(get("sliding_window")) - 1, -1)
     kw.update(overrides)
     return ModelConfig(**kw)
+
+
+def _longrope(get, rs, max_len) -> Tuple:
+    """Phi-3.5/4's ``rope_longrope`` (JAX :271-291): the original
+    context from the config attribute when there is one (the effective
+    factor then max_len / original), else max_len with the scaling's own
+    ``factor``; the default attention factor computed here, so that the
+    forward never guesses the factor."""
+    attr_orig = get("original_max_position_embeddings")
+    orig = float(attr_orig or max_len)
+    f_eff = (max_len / orig if attr_orig
+             else float(rs.get("factor") or 1.0))
+    af = rs.get("attention_factor")
+    if af is None:
+        af = (1.0 if f_eff <= 1.0
+              else math.sqrt(1.0 + math.log(f_eff) / math.log(orig)))
+    return (tuple(float(x) for x in rs["short_factor"]),
+            tuple(float(x) for x in rs["long_factor"]), orig, float(af))
+
+
+def _yarn(rs, max_len) -> Tuple:
+    """Qwen's 128k ``rope_yarn`` (JAX :292-311), with HF's fallbacks: the
+    original context from the scaling or max_len (not divided by the
+    factor), betas 32 and 1 where absent or null; DeepSeek's mscale
+    variants raise."""
+    orig = float(rs.get("original_max_position_embeddings") or max_len)
+    af = rs.get("attention_factor")
+    if rs.get("mscale") or rs.get("mscale_all_dim"):
+        raise NotImplementedError(
+            "yarn mscale variants (deepseek) are not implemented")
+    return (float(rs["factor"]), orig, float(rs.get("beta_fast") or 32.0),
+            float(rs.get("beta_slow") or 1.0),
+            None if af is None else float(af),
+            bool(rs.get("truncate", True)))
 
 
 def _check_act(mt: str, what: str, act: str, ok: Tuple[str, ...],
@@ -405,7 +469,8 @@ def params_from_hf_state_dict(state_dict: Mapping[str, torch.Tensor],
             raise ValueError(f"{name}: shape {list(t.shape)} != expected "
                              f"{list(ent[1])}")
         if ent[0] is not None:
-            out[ent[0]] = t.detach().to(dtype)
+            for dst, part in plan_targets(ent[0], t.detach()):
+                out[dst] = part.to(dtype).contiguous()
     missing = missing_tensors(plan, seen)
     if missing:
         raise KeyError(f"state_dict is missing {len(missing)} expected "

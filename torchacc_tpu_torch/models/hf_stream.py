@@ -19,7 +19,9 @@ C2):
   BF16, F16 and F32 are read; any other dtype raises by name.
 
 HF's tensors are ``nn.Linear``'s ``[out, in]``, the port's layout, so
-the plan (``ingestion_plan``) is a renaming with shape checks.  GPT-2's
+the plan (``ingestion_plan``) is a renaming with shape checks, and a
+split of Phi-3's packed ``qkv_proj`` and ``gate_up_proj`` into row
+ranges, one parameter each.  GPT-2's
 Conv1D checkpoints, GPT-NeoX's packed attention and Phi's are not in
 the plan's layout (``streamable_names``): as in JAX they go through the
 materialising converter (``models.hf.load_hf_model``).
@@ -38,7 +40,7 @@ import os
 import re
 import struct
 import types
-from typing import Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -48,6 +50,7 @@ from torchacc_tpu_torch.models.transformer import (
     ModelConfig,
     has_ln2,
     norm_has_bias,
+    post_norm,
 )
 
 #: safetensors dtype names the port reads
@@ -169,12 +172,19 @@ def checkpoint_tensor_names(path: str) -> Optional[List[str]]:
 
 
 def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
-                   ) -> Dict[str, Tuple[Optional[str], Tuple[int, ...]]]:
+                   ) -> Dict[str, Tuple[Any, Tuple[int, ...]]]:
     """HF tensor name (without the ``model.`` prefix) -> (the port's
-    parameter name, or None for a tensor read and dropped; the shape in
-    the checkpoint) for the Llama, Qwen2/3, Mistral, Gemma, StarCoder2,
-    Nemotron and Phi layouts: Qwen3's and Gemma3's per-head
-    ``q_norm``/``k_norm``, and under Gemma2/3's sandwich norms
+    parameter name, or None for a tensor read and dropped, or for a
+    packed tensor a tuple of ``(name, first row, end row)`` parts; the
+    shape in the checkpoint) for the Llama, Qwen2/3, Mistral, Gemma,
+    StarCoder2, Nemotron, Phi, Phi-3, Cohere and OLMo2 layouts: Phi-3's
+    packed ``qkv_proj`` ([q | k | v] rows) and ``gate_up_proj`` ([gate |
+    up] rows), chosen by the checkpoint's names as JAX's
+    ``_detect_packed`` chooses them; Qwen3's and Gemma3's per-head
+    ``q_norm``/``k_norm`` (OLMo2's over the flat projection, ``heads *
+    d``); under OLMo2's post-norms ``post_attention_layernorm`` as
+    ``ln1`` and ``post_feedforward_layernorm`` as ``ln2``, with no
+    ``input_layernorm``; under Gemma2/3's sandwich norms
     ``post_attention_layernorm`` as the post-attention norm
     (``ln1_post``), ``pre_feedforward_layernorm`` as ``ln2`` and
     ``post_feedforward_layernorm`` as ``ln2_post``; a LayerNorm's
@@ -190,13 +200,15 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
     f, v = cfg.ffn_size, cfg.vocab_size
     names = list(names)
     has = lambda suffix: any(n.endswith(suffix) for n in names)
+    packed_qkv = has("self_attn.qkv_proj.weight")
+    packed_mlp = has("mlp.gate_up_proj.weight")
     mlp_names = (("c_fc", "c_proj") if has("mlp.c_fc.weight")
                  else ("fc1", "fc2") if has("mlp.fc1.weight")
                  else ("up_proj", "down_proj"))
     o_name = "dense" if has("self_attn.dense.weight") else "o_proj"
     final = "final_layernorm" if has("final_layernorm.weight") else "norm"
     nb = norm_has_bias(cfg)
-    plan: Dict[str, Tuple[Optional[str], Tuple[int, ...]]] = {
+    plan: Dict[str, Tuple[Any, Tuple[int, ...]]] = {
         "embed_tokens.weight": ("embed_tokens.weight", (v, h)),
         "lm_head.weight": (None if cfg.tie_embeddings else "lm_head.weight",
                            (v, h)),
@@ -211,24 +223,36 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
     norm(final, "final_norm")
     for i in range(L):
         p = f"layers.{i}."                 # the same prefix in both names
-        norm(p + "input_layernorm", p + "ln1")
-        if cfg.sandwich_norms:
+        if post_norm(cfg):
+            norm(p + "post_attention_layernorm", p + "ln1")
+            norm(p + "post_feedforward_layernorm", p + "ln2")
+        elif cfg.sandwich_norms:
+            norm(p + "input_layernorm", p + "ln1")
             plan[p + "post_attention_layernorm.weight"] = (
                 p + "ln1_post.weight", (h,))
             plan[p + "pre_feedforward_layernorm.weight"] = (p + "ln2.weight",
                                                             (h,))
             plan[p + "post_feedforward_layernorm.weight"] = (
                 p + "ln2_post.weight", (h,))
-        elif has_ln2(cfg):
-            norm(p + "post_attention_layernorm", p + "ln2")
+        else:
+            norm(p + "input_layernorm", p + "ln1")
+            if has_ln2(cfg):
+                norm(p + "post_attention_layernorm", p + "ln2")
         if cfg.qk_norm:
-            for name in ("q_norm", "k_norm"):
+            for name, heads in (("q_norm", nh), ("k_norm", nk)):
                 plan[f"{p}self_attn.{name}.weight"] = (
-                    f"{p}attn.{name}.weight", (d,))
+                    f"{p}attn.{name}.weight",
+                    (heads * d if cfg.qk_norm_proj else d,))
         attn = [("q_proj", "q_proj", nh * d, h),
                 ("k_proj", "k_proj", nk * d, h),
                 ("v_proj", "v_proj", nk * d, h),
                 (o_name, "o_proj", h, nh * d)]
+        if packed_qkv:
+            qr, kr = nh * d, nk * d
+            plan[f"{p}self_attn.qkv_proj.weight"] = (
+                _parts(p + "attn.", ("q_proj", "k_proj", "v_proj"),
+                       (qr, kr, kr)), (qr + 2 * kr, h))
+            attn = attn[3:]
         for src, name, rows, cols in attn:
             plan[f"{p}self_attn.{src}.weight"] = (
                 f"{p}attn.{name}.weight", (rows, cols))
@@ -239,6 +263,11 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
                (mlp_names[1], "down_proj", h, f)]
         if cfg.activation in GATED:
             mlp.insert(0, ("gate_proj", "gate_proj", f, h))
+        if packed_mlp:
+            plan[f"{p}mlp.gate_up_proj.weight"] = (
+                _parts(p + "mlp.", ("gate_proj", "up_proj"), (f, f)),
+                (2 * f, h))
+            mlp = mlp[-1:]
         for src, name, rows, cols in mlp:
             plan[f"{p}mlp.{src}.weight"] = (f"{p}mlp.{name}.weight",
                                             (rows, cols))
@@ -247,16 +276,36 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
     return plan
 
 
+def _parts(prefix: str, names, rows) -> Tuple[Tuple[str, int, int], ...]:
+    """The row ranges of a packed tensor: ``(prefix + name + ".weight",
+    first row, end row)`` for each part, in order."""
+    out, r = [], 0
+    for name, n in zip(names, rows):
+        out.append((f"{prefix}{name}.weight", r, r + n))
+        r += n
+    return tuple(out)
+
+
+def plan_targets(dst, t: torch.Tensor):
+    """``(parameter name, tensor)`` of each place the checkpoint tensor
+    ``t`` fills under the plan destination ``dst``: itself, or a packed
+    tensor's row range for each part."""
+    if isinstance(dst, tuple):
+        return [(name, t[lo:hi]) for name, lo, hi in dst]
+    return [(dst, t)]
+
+
 def streamable_names(names: Iterable[str]) -> bool:
     """Whether a checkpoint is in the plan's layout, so that it streams
-    (``streamable_names`` of the JAX package, :270): separate q/k/v
-    projections and not Phi's ``self_attn.dense``.  GPT-2's Conv1D
-    ``c_attn`` and GPT-NeoX's ``query_key_value`` are not; they, and
-    Phi, go through the materialising converter."""
+    (``streamable_names`` of the JAX package, :270): separate or Phi-3's
+    packed q/k/v projections and not Phi's ``self_attn.dense``.  GPT-2's
+    Conv1D ``c_attn`` and GPT-NeoX's ``query_key_value`` are not; they,
+    and Phi, go through the materialising converter."""
     names = list(names)
     if any(n.endswith("self_attn.dense.weight") for n in names):
         return False
-    return any(n.endswith("self_attn.q_proj.weight") for n in names)
+    return any(n.endswith(("self_attn.q_proj.weight",
+                           "self_attn.qkv_proj.weight")) for n in names)
 
 
 def plan_entry(plan, name: str):
@@ -305,7 +354,9 @@ def stream_params(files: List[str], cfg: ModelConfig,
     at a time in the files' order, each copied from the mapped file
     straight into its place (a shard reads only its slice).  Every
     checkpoint tensor must have a place in the plan of ``cfg`` and the
-    shape it names, appear once, and every place must be filled.  Under
+    shape it names, appear once, and every place must be filled; a
+    packed tensor fills each of its parts (a shard reads its slice of
+    each part's rows).  Under
     pipeline parallelism ``dest`` holds this stage's blocks and the
     parameters every stage holds; the other blocks' tensors are checked
     and skipped.  Returns ``dest``."""
@@ -328,13 +379,14 @@ def stream_params(files: List[str], cfg: ModelConfig,
                     raise ValueError(
                         f"{name}: checkpoint shape {list(f.shape(name))} != "
                         f"expected {list(ent[1])}")
-                if ent[0] is None or (ent[0] not in dest
-                                      and ent[0].startswith("layers.")):
-                    # dropped, or a block another pipeline stage holds
+                if ent[0] is None:
                     continue
                 view = f.view(name)
-                copy_full(dest[ent[0]], view)
-                del view
+                for dst, part in plan_targets(ent[0], view):
+                    if dst not in dest and dst.startswith("layers."):
+                        continue        # a block another stage holds
+                    copy_full(dest[dst], part)
+                del view, part
     missing = missing_tensors(plan, seen)
     if missing:
         raise ValueError(f"checkpoint is missing {len(missing)} expected "

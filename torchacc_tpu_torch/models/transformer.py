@@ -1,5 +1,5 @@
 """Decoder-only transformer LM (the port of torchacc_tpu/models/
-transformer.py, Llama subset).
+transformer.py, its dense forward).
 
 ``ModelConfig`` is a copy of the JAX package's config with torch dtypes:
 every field is there, so a JAX config maps onto it field by field, but
@@ -18,7 +18,13 @@ Phi, StarCoder2 and Nemotron families add: ``norm`` 'layernorm' and
 (``pos_emb='learned'``, the ``pos_embed`` table) and ALiBi
 (``pos_emb='alibi'``), and in training and ``generate`` also the
 parallel residual (``parallel_block``, ``parallel_block_shared_norm``)
-and ``head_bias``.  The training forward adds
+and ``head_bias`` — and what Phi-3, Cohere, OLMo2 and Qwen's long-context
+variants add: ``rope_longrope`` (its switch over the whole global batch,
+``rope_pos_max``), ``rope_yarn``, ``rope_interleaved``, ``logit_scale``
+(``scale_hidden``, on every head path) and ``qk_norm_proj`` (the flat
+qk-norm, its statistics summed over the 'tp' ranks), and in training
+and ``generate`` also ``norm_placement='post'``.  The training forward
+adds
 attention dropout (``attn_dropout``) and quantized forward matmuls
 (``quant``, ``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
 ``quant_impl``).  The serving forward (serve/scheduler.py) and the
@@ -307,39 +313,108 @@ def alibi_slopes(num_heads: int) -> Tuple[float, ...]:
 
 
 def qk_rope(cfg: ModelConfig, attn: "Attention", q: torch.Tensor,
-            k: torch.Tensor, positions: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q and k ``[b, s, heads, d]`` after the per-head ``qk_norm``
-    (Gemma3, Qwen3: before RoPE, by ``cfg.norm``) and, under
-    ``pos_emb='rope'``, RoPE at ``positions`` (divided by ``rope_scale``
-    when it is not 1).  ``cfg`` is the layer's (``pattern_cfg``)."""
-    if cfg.qk_norm:
+            k: torch.Tensor, positions: torch.Tensor,
+            pos_max: Optional[torch.Tensor] = None,
+            tp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k ``[b, s, heads, d]`` after the qk norms (by ``cfg.norm``,
+    before RoPE: per head under ``qk_norm`` (Gemma3, Qwen3), over the
+    flat ``heads * d`` projection under ``qk_norm_proj`` (OLMo2; its
+    statistics summed over the 'tp' ranks of ``tp_group``, which hold
+    the other heads) and, under ``pos_emb='rope'``, RoPE at
+    ``positions`` (divided by ``rope_scale`` when it is not 1).
+    ``pos_max`` is the largest position of the whole batch (longrope's
+    switch, taken over the data and sequence ranks on a mesh); the
+    largest of ``positions`` when None.  ``cfg`` is the layer's
+    (``pattern_cfg``)."""
+    if cfg.qk_norm and cfg.qk_norm_proj:
+        q = flat_norm(cfg, q, attn.q_norm, tp_group)
+        k = flat_norm(cfg, k, attn.k_norm, tp_group)
+    elif cfg.qk_norm:
         q = apply_norm(cfg, q, attn.q_norm)
         k = apply_norm(cfg, k, attn.k_norm)
     if cfg.pos_emb != "rope":
         return q, k
-    rp = (positions.float() / cfg.rope_scale if cfg.rope_scale != 1.0
-          else positions)
-    return rope(q, k, rp, cfg)
+    scaled = lambda p: (p.float() / cfg.rope_scale if cfg.rope_scale != 1.0
+                        else p)
+    rp = scaled(positions)
+    return rope(q, k, rp, cfg,
+                None if pos_max is None else scaled(pos_max))
+
+
+def flat_norm(cfg: ModelConfig, x: torch.Tensor, mod: "Norm",
+              tp_group=None) -> torch.Tensor:
+    """``cfg.norm`` of ``x [b, s, heads, d]`` over its flat ``heads * d``
+    (OLMo2's qk-norm, JAX :507-516) with the scale of ``mod`` (``[all
+    heads * d]``).  Under tensor parallelism ``x`` holds this rank's
+    heads: the sums behind the mean and the variance are summed over
+    the 'tp' ranks (forward and backward, :class:`_TPSumBoth`) and the
+    rank's slice of the replicated scale is read, its gradient summed
+    over the ranks (``_tp_in``)."""
+    b, s = x.shape[:2]
+    flat = x.reshape(b, s, -1)
+    if tp_group is None:
+        return apply_norm(cfg, flat, mod).view_as(x)
+    n = flat.shape[-1]
+    total = n * dist.get_world_size(tp_group)
+    lo = dist.get_rank(tp_group) * n
+    xf = flat.float()
+    if cfg.norm in _LAYERNORMS:
+        xf = xf - _TPSumBoth.apply(xf.sum(-1, keepdim=True), tp_group) / total
+    ms = _TPSumBoth.apply(xf.pow(2).sum(-1, keepdim=True), tp_group) / total
+    y = xf * torch.rsqrt(ms + cfg.norm_eps)
+    scale = _tp_in(to_local(mod.weight), tp_group)[lo:lo + n].float()
+    if cfg.norm in ("rmsnorm1p", "layernorm1p"):
+        scale = 1.0 + scale
+    y = y * scale
+    if mod.bias is not None:
+        y = y + _tp_in(to_local(mod.bias), tp_group)[lo:lo + n].float()
+    return y.to(cfg.dtype).view_as(x)
+
+
+def rope_pos_max(positions: torch.Tensor, groups=()) -> torch.Tensor:
+    """The largest position of ``positions`` and of every rank of the
+    process ``groups`` (a mesh's data and sequence ranks), as JAX's
+    ``jnp.max`` over the whole global batch reads it (:364)."""
+    m = positions.detach().max().float()
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    return m
 
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
-         cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_rope`` (:300): llama half-split convention, angles in f32,
-    outputs cast back to the inputs' dtype.  ``positions`` [S, T]
-    (already divided by ``rope_scale`` by the caller when it is not 1).
-    Under ``partial_rotary`` < 1 only the first ``int(d *
-    partial_rotary)`` dims rotate (their own frequencies, half-split
-    among themselves) and the rest pass through (Phi, GPT-NeoX's
-    ``rotary_pct``, Nemotron).  Under ``rope_llama3`` the frequencies
-    take Llama-3.1's banding, in f32 as the JAX package computes it:
-    long wavelengths divided by ``factor``, short ones kept, the band
-    between interpolated."""
+         cfg: ModelConfig, pos_max: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_rope`` (:290): angles in f32, outputs cast back to the inputs'
+    dtype.  ``positions`` [S, T] (already divided by ``rope_scale`` by
+    the caller when it is not 1).  The frequency chain, in JAX's order:
+
+    - ``partial_rotary`` < 1: only the first ``int(d * partial_rotary)``
+      dims rotate (their own frequencies) and the rest pass through
+      (Phi, GPT-NeoX's ``rotary_pct``, Nemotron, Phi-4-mini);
+    - ``rope_llama3``: Llama-3.1's banding, long wavelengths divided by
+      ``factor``, short ones kept, the band between interpolated;
+    - ``rope_yarn`` ``(factor, original, beta_fast, beta_slow,
+      attention_factor, truncate)``: YaRN's NTK-by-parts, a linear ramp
+      between the correction dims of the two betas (floored and ceiled
+      under ``truncate``, HF's guard where they meet) from the original
+      frequencies to those divided by ``factor``; cos and sin scaled by
+      the attention factor, 0.1 ln(factor) + 1 when it is None;
+    - ``rope_longrope`` ``(short, long, original, attention_factor)``:
+      the frequencies divided per dim by the long factors where the
+      largest position (``pos_max``, else that of ``positions``) + 1
+      exceeds the original context, else by the short ones (a select on
+      the device, no host read); cos and sin scaled by the attention
+      factor (JAX's default from ``max_seq_len`` when None).
+
+    Pairs rotate half-split (Llama), or under ``rope_interleaved``
+    (Cohere) as (even, odd) dims, the interleaving restored after."""
     d = q.shape[-1]
     rot_d = int(d * cfg.partial_rotary)
-    freqs = 1.0 / (cfg.rope_theta ** (
-        torch.arange(0, rot_d, 2, dtype=torch.float32, device=q.device)
-        / rot_d))
+    theta = cfg.rope_theta
+    dev = q.device
+    freqs = 1.0 / (theta ** (
+        torch.arange(0, rot_d, 2, dtype=torch.float32, device=dev) / rot_d))
+    scale = None
     if cfg.rope_llama3 is not None:
         factor, lo, hi, old_len = cfg.rope_llama3
         wavelen = 2.0 * math.pi / freqs
@@ -349,15 +424,60 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
         smoothed = ((1.0 - smooth) / factor + smooth) * freqs
         freqs = torch.where((wavelen >= high_wl) & (wavelen <= low_wl),
                             smoothed, scaled)
+    if cfg.rope_yarn is not None:
+        factor, old_len, bfast, bslow, attn_f, truncate = cfg.rope_yarn
+
+        def corr_dim(beta):
+            return (rot_d * math.log(old_len / (beta * 2 * math.pi))
+                    / (2 * math.log(theta)))
+
+        low, high = corr_dim(bfast), corr_dim(bslow)
+        if truncate:
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, rot_d - 1)
+        if low == high:
+            high += 0.001               # HF's guard
+        ramp = torch.clamp(
+            (torch.arange(rot_d // 2, dtype=torch.float32, device=dev)
+             - low) / (high - low), 0.0, 1.0)
+        mask = 1.0 - ramp               # 1 keeps the original frequency
+        freqs = (freqs / factor) * (1.0 - mask) + freqs * mask
+        if attn_f is None:
+            attn_f = (1.0 if factor <= 1.0
+                      else 0.1 * math.log(factor) + 1.0)
+        scale = attn_f
+    if cfg.rope_longrope is not None:
+        short_f, long_f, old_len, attn_f = cfg.rope_longrope
+        short = freqs / torch.tensor(short_f, dtype=torch.float32,
+                                     device=dev)
+        long = freqs / torch.tensor(long_f, dtype=torch.float32, device=dev)
+        top = (positions.detach().max() if pos_max is None else pos_max)
+        freqs = torch.where(top.float() + 1 > old_len, long, short)
+        if attn_f is None:
+            s = cfg.max_seq_len / old_len
+            attn_f = (1.0 if s <= 1.0
+                      else math.sqrt(1.0 + math.log(s) / math.log(old_len)))
+        scale = attn_f
     angles = positions[..., None].float() * freqs            # [S, T, D/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale is not None:
+        f = torch.tensor(scale, dtype=torch.float32, device=dev)
+        cos, sin = cos * f, sin * f
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
 
     def rot(x):
         xf = x.float()
-        x1, x2 = xf[..., :rot_d].chunk(2, dim=-1)
-        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin,
-                         xf[..., rot_d:]], dim=-1)
+        xr = xf[..., :rot_d]
+        if cfg.rope_interleaved:
+            x1, x2 = xr[..., 0::2], xr[..., 1::2]
+            out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                              dim=-1).reshape(xr.shape)
+        else:
+            x1, x2 = xr.chunk(2, dim=-1)
+            out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                            dim=-1)
+        if rot_d < x.shape[-1]:
+            out = torch.cat([out, xf[..., rot_d:]], dim=-1)
         return out.to(x.dtype)
 
     return rot(q), rot(k)
@@ -377,11 +497,12 @@ class Norm(nn.Module):
                      if norm_has_bias(cfg) else None)
 
 
-# ModelConfig fields of the Llama family and of what Gemma v1, Qwen3
-# and the LayerNorm families add, which the serving and the training
-# forward implement (``norm``, ``activation`` and ``pos_emb`` for the
-# values of MODEL_VALUES; serving refuses ``parallel_block`` and ALiBi
-# as JAX's does)
+# ModelConfig fields of the Llama family and of what Gemma v1, Qwen3,
+# the LayerNorm families, Phi-3, Cohere, OLMo2 and YaRN add, which the
+# serving and the training forward implement (``norm``, ``activation``,
+# ``pos_emb`` and ``norm_placement`` for the values of MODEL_VALUES;
+# serving refuses ``parallel_block``, post-norms and ALiBi as JAX's
+# does)
 MODEL_FIELDS = frozenset({
     "vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
     "head_dim", "intermediate_size", "max_seq_len", "rope_theta",
@@ -390,22 +511,26 @@ MODEL_FIELDS = frozenset({
     "dtype", "param_dtype", "norm", "activation", "embed_scale",
     "logit_softcap", "qk_norm", "pos_emb", "norm_bias", "partial_rotary",
     "parallel_block", "parallel_block_shared_norm", "head_bias",
+    "rope_interleaved", "logit_scale", "rope_longrope", "rope_yarn",
+    "norm_placement", "qk_norm_proj",
 })
 MODEL_VALUES = {"norm": ("rmsnorm", "rmsnorm1p", "layernorm",
                          "layernorm1p"),
                 "activation": ("swiglu", "geglu", "gelu", "gelu_exact",
                                "relu2"),
-                "pos_emb": ("rope", "learned", "alibi")}
+                "pos_emb": ("rope", "learned", "alibi"),
+                "norm_placement": ("pre", "post")}
 # what those fields are, for the messages that reject the others
 MODEL_SURFACE = ("rmsnorm, rmsnorm1p, layernorm and layernorm1p (with "
-                 "norm_bias), swiglu, geglu, gelu, gelu_exact and relu2, "
-                 "RoPE (plain, partial, linear and llama3 scaling), learned "
-                 "positions and ALiBi, GQA, qkv/o/mlp/head biases, the "
-                 "parallel block, tie_embeddings, embed_scale, per-head "
-                 "qk_norm, attn_logit_softcap and logit_softcap")
-# the rest of the forward waits for these ROADMAP items
-MODEL_PENDING = ("ROADMAP.md A10b-2b (A10c for the mixtures of "
-                 "experts)")
+                 "norm_bias), pre- and post-norm placement, swiglu, geglu, "
+                 "gelu, gelu_exact and relu2, RoPE (plain, partial, "
+                 "interleaved; linear, llama3, yarn and longrope scaling), "
+                 "learned positions and ALiBi, GQA, qkv/o/mlp/head "
+                 "biases, the parallel block, tie_embeddings, embed_scale, "
+                 "per-head and flat qk_norm, attn_logit_softcap, "
+                 "logit_softcap and logit_scale")
+# the rest of the forward waits for this ROADMAP item
+MODEL_PENDING = "ROADMAP.md A10c (the mixtures of experts)"
 # the training forward also implements Gemma2/3's sandwich norms, the
 # sliding window and the sliding/global layer pattern with its local
 # rope base; remat (its policy, the submodules and the number of layers
@@ -441,9 +566,13 @@ def unsupported_fields(cfg: ModelConfig, fields, inert) -> list:
 
 
 def check_composition(cfg: ModelConfig) -> None:
-    """The compositions JAX's forward refuses, with its messages: the
-    parallel block with post-norms or sandwich norms (``Block`` :749)
-    and a head bias on a tied head (:1242)."""
+    """The compositions JAX's forward refuses, with its messages:
+    post-norms with sandwich norms (``Block`` :741), the parallel block
+    with post-norms or sandwich norms (:749) and a head bias on a tied
+    head (:1242)."""
+    if cfg.norm_placement == "post" and cfg.sandwich_norms:
+        raise ValueError("norm_placement='post' (OLMo2) does not "
+                         "compose with sandwich_norms (gemma2)")
     if cfg.parallel_block and (cfg.norm_placement == "post"
                                or cfg.sandwich_norms):
         raise ValueError("parallel_block (phi) does not compose "
@@ -486,7 +615,8 @@ def check_training_supported(cfg: ModelConfig) -> None:
             "quant_sites includes 'head': the quantized vocab projection "
             "is not ported to torchacc_tpu_torch yet (the fused CE head "
             "stays in the compute dtype, and the materialised quantized "
-            "head waits for the model-breadth slice, ROADMAP.md A10); "
+            "head waits for the rest of quantized training, ROADMAP.md "
+            "A11b); "
             "drop 'head' from quant_sites")
 
 
@@ -645,6 +775,26 @@ class _TPSum(torch.autograd.Function):
         return g, None
 
 
+class _TPSumBoth(torch.autograd.Function):
+    """A sum over the 'tp' ranks whose every rank reads the result for
+    its own heads only (the flat qk-norm's statistics): the forward sums
+    the ranks' parts, and so does the backward, each rank's gradient
+    holding only its heads' share."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def _tp_in(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _TPCopy.apply(x, group)
 
@@ -668,8 +818,12 @@ class Attention(nn.Module):
         self.layer = layer          # its index: the layer pattern's slot
         h, d = cfg.hidden_size, cfg.head_size
         if cfg.qk_norm:
-            self.q_norm = Norm(cfg, d, **factory)
-            self.k_norm = Norm(cfg, d, **factory)
+            # per head (d), or over the flat projection (OLMo2)
+            flat = cfg.qk_norm_proj
+            self.q_norm = Norm(cfg, cfg.num_heads * d if flat else d,
+                               **factory)
+            self.k_norm = Norm(cfg, cfg.kv_heads * d if flat else d,
+                               **factory)
         self.q_proj = nn.Linear(h, cfg.num_heads * d, bias=cfg.qkv_bias,
                                 **factory)
         self.k_proj = nn.Linear(h, cfg.kv_heads * d, bias=cfg.qkv_bias,
@@ -680,9 +834,10 @@ class Attention(nn.Module):
                                 **factory)
 
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
-                quant=None, name="attn"):
+                quant=None, name="attn", pos_max=None):
         """``Attention.__call__`` (:480) without the KV cache: q/k/v
-        projections, the per-head qk norms, RoPE (or ALiBi's slopes:
+        projections, the qk norms, RoPE (longrope's switch at
+        ``pos_max``, the batch's largest position) (or ALiBi's slopes:
         this rank's heads' under tensor parallelism), causal attention
         over ``segment_ids``, o projection, each with this layer's
         config (``pattern_cfg``: its window and rope base).  The
@@ -710,7 +865,7 @@ class Attention(nn.Module):
                 b, s, -1, d)
             v = dense(cfg, x, self.v_proj, qs, f"{name}.v_proj").view(
                 b, s, -1, d)
-        q, k = qk_rope(cfg, self, q, k, positions)
+        q, k = qk_rope(cfg, self, q, k, positions, pos_max, self.tp_group)
         dropout_p, seed = 0.0, None
         if cfg.attn_dropout > 0.0 and dropout_seed is not None:
             dropout_p, seed = cfg.attn_dropout, dropout_seed
@@ -792,6 +947,12 @@ def has_ln2(cfg: ModelConfig) -> bool:
     return not (cfg.parallel_block and cfg.parallel_block_shared_norm)
 
 
+def post_norm(cfg: ModelConfig) -> bool:
+    """OLMo2's placement: ``ln1``/``ln2`` norm the attention's and the
+    MLP's outputs, and nothing norms their inputs."""
+    return cfg.norm_placement == "post"
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, layer: int = 0, **factory):
         super().__init__()
@@ -806,21 +967,26 @@ class Block(nn.Module):
             self.ln2_post = Norm(cfg, cfg.hidden_size, **factory)
 
     def forward(self, x, positions, segment_ids=None, dropout_seed=None,
-                quant=None, name="block", sub_remat=False):
+                quant=None, name="block", sub_remat=False, pos_max=None):
         """Pre-norm ``Block.__call__`` (:722), with Gemma2's
         post-attention and post-MLP norms under ``sandwich_norms``, or
         under ``parallel_block`` the parallel residual ``x + attn(ln1(x))
         + mlp(ln1(x))`` (Phi; ``ln2(x)`` for the MLP without
-        ``parallel_block_shared_norm``, GPT-NeoX).  ``sub_remat``: the
-        attention and/or MLP named by ``cfg.remat_cls`` are checkpoint
-        regions under ``cfg.remat_policy`` (the block itself is not)."""
+        ``parallel_block_shared_norm``, GPT-NeoX), or under
+        ``norm_placement='post'`` (OLMo2) ``x + ln(f(x))`` for each
+        sublayer with no pre-norm.  ``sub_remat``: the attention and/or
+        MLP named by ``cfg.remat_cls`` are checkpoint regions under
+        ``cfg.remat_policy`` (the block itself is not).  ``pos_max``:
+        the batch's largest position (longrope)."""
         cfg = self.cfg
         remat_attn = sub_remat and "Attention" in cfg.remat_cls
         remat_mlp = sub_remat and "Mlp" in cfg.remat_cls
         attn = functools.partial(self.attn, dropout_seed=dropout_seed,
-                                 quant=quant, name=f"{name}.attn")
+                                 quant=quant, name=f"{name}.attn",
+                                 pos_max=pos_max)
         mlp = functools.partial(self.mlp, quant=quant, name=f"{name}.mlp")
-        a_in = apply_norm(cfg, x, self.ln1)
+        post = post_norm(cfg)
+        a_in = x if post else apply_norm(cfg, x, self.ln1)
         a = (checkpoint_block(attn, cfg.remat_policy, a_in, positions,
                               segment_ids) if remat_attn
              else attn(a_in, positions, segment_ids))
@@ -830,12 +996,16 @@ class Block(nn.Module):
         else:
             if cfg.sandwich_norms:
                 a = apply_norm(cfg, a, self.ln1_post)
+            if post:
+                a = apply_norm(cfg, a, self.ln1)
             h = x + a
-            m_in = apply_norm(cfg, h, self.ln2)
+            m_in = h if post else apply_norm(cfg, h, self.ln2)
         m = (checkpoint_block(mlp, cfg.remat_policy, m_in) if remat_mlp
              else mlp(m_in))
         if cfg.sandwich_norms:
             m = apply_norm(cfg, m, self.ln2_post)
+        if post:
+            m = apply_norm(cfg, m, self.ln2)
         return h + m
 
 
@@ -977,7 +1147,7 @@ class TransformerLM(nn.Module):
         x = self._blocks(x, positions, segment_ids, dropout_seed, scope,
                          range(cfg.num_layers))
         if return_hidden or labels is not None:
-            x = apply_norm(cfg, x, self.final_norm)
+            x = final_hidden(cfg, self, x)
         if labels is not None:
             return self._fused_ce(x, labels)
         if return_hidden:
@@ -997,17 +1167,22 @@ class TransformerLM(nn.Module):
     def _blocks(self, x, positions, segment_ids, dropout_seed, scope,
                 indices) -> torch.Tensor:
         """Blocks ``indices`` (global layer numbers) applied in turn, each
-        under remat as ``cfg`` asks, with its layer's dropout seed."""
+        under remat as ``cfg`` asks, with its layer's dropout seed; under
+        longrope each reads the largest position of the global batch
+        (:func:`rope_pos_max` over the data and sequence ranks)."""
         cfg = self.cfg
         grad = torch.is_grad_enabled()
         sub = _sub_remat(cfg)
         drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
+        # longrope's switch reads the whole global batch's positions
+        pos_max = (rope_pos_max(positions, self.data_groups)
+                   if cfg.rope_longrope is not None else None)
         for i in indices:
             layer = self.layers[i]
             remat = grad and _remat_layer(cfg, i)
             kw = dict(dropout_seed=_layer_seed(dropout_seed, i) if drop
                       else None, quant=scope, name=f"layers.{i}",
-                      sub_remat=remat and sub)
+                      sub_remat=remat and sub, pos_max=pos_max)
             if remat and not sub:
                 x = checkpoint_block(functools.partial(layer, **kw),
                                      cfg.remat_policy, x, positions,
@@ -1044,8 +1219,7 @@ class TransformerLM(nn.Module):
             return x
         if head_loss is not None:
             return head_loss(x, labels)
-        return self._fused_ce(apply_norm(self.cfg, x, self.final_norm),
-                              labels)
+        return self._fused_ce(final_hidden(self.cfg, self, x), labels)
 
     def _embed(self, ids: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -1071,6 +1245,23 @@ def set_model_config(model: nn.Module, cfg: ModelConfig) -> None:
     for mod in model.modules():
         if isinstance(getattr(mod, "cfg", None), ModelConfig):
             mod.cfg = cfg
+
+
+def scale_hidden(cfg: ModelConfig, xn: torch.Tensor) -> torch.Tensor:
+    """Cohere's ``logit_scale`` on the final-normed hidden (``scale_hidden``
+    :279; logits * s == (x * s) @ W), so that every head path (the
+    module's tail, ``head_logits``, the fused CE's hidden, the 1F1B head,
+    ``generate`` and serving) takes it from this one place."""
+    if cfg.logit_scale == 1.0:
+        return xn
+    return xn * torch.tensor(cfg.logit_scale, dtype=xn.dtype,
+                             device=xn.device)
+
+
+def final_hidden(cfg: ModelConfig, model: "TransformerLM",
+                 x: torch.Tensor) -> torch.Tensor:
+    """The final norm of ``model`` on ``x``, then :func:`scale_hidden`."""
+    return scale_hidden(cfg, apply_norm(cfg, x, model.final_norm))
 
 
 def head_weight(model: TransformerLM) -> torch.Tensor:
@@ -1132,14 +1323,15 @@ class _TPGather(torch.autograd.Function):
 def head_logits(cfg: ModelConfig, model: TransformerLM,
                 x: torch.Tensor, dtype: Optional[torch.dtype] = None
                 ) -> torch.Tensor:
-    """Final norm -> vocab projection (+ ``head_bias``) in the compute
+    """Final norm (times ``logit_scale``, :func:`scale_hidden`) -> vocab
+    projection (+ ``head_bias``) in the compute
     dtype (or ``dtype``: f32 in JAX's 1F1B head) -> f32 logits ->
     ``logit_softcap`` (``head_logits`` of the JAX package).  Under
     tensor parallelism each rank projects its vocab rows and the ranks'
     logits are joined (the full logits a custom loss or a head bias
     takes, JAX's replicated head)."""
     dt = dtype or cfg.dtype
-    xn = _tp_in(apply_norm(cfg, x, model.final_norm), model.tp_group)
+    xn = _tp_in(final_hidden(cfg, model, x), model.tp_group)
     logits = F.linear(xn.to(dt), to_local(head_weight(model)).to(dt))
     if cfg.head_bias:
         logits = logits + to_local(model.lm_head.bias).to(dt)

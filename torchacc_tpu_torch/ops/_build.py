@@ -9,7 +9,11 @@ Libraries land in ``torchacc_tpu_torch/_build/`` (listed in
 and an unchanged one is loaded as it is.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
-for them together.  ``load_host()`` builds host C++ (the sequence
+for them together.  A source listed in ``SPLIT`` is built once per value
+of its macro instead (``flash_attention.cu`` once per head dim, with
+``-DFLASH_HEAD_DIM=<d>``): each library holds that value's kernels, the
+jobs run side by side, and ``load(name, value)`` loads the one a call
+needs.  Without the macro the source builds whole.  ``load_host()`` builds host C++ (the sequence
 packer, ``data/_native/pack.cc``) with ``g++`` into the same directory,
 named the same way.  Nothing here runs at import time.
 """
@@ -29,6 +33,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# sources built once per value of a macro: name -> (macro, values)
+SPLIT = {"flash_attention": ("FLASH_HEAD_DIM", (32, 64, 80, 96, 128, 256))}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -70,20 +77,37 @@ def _hashed_path(name: str, sources: List[str], flags: List[str]) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _lib_path(name: str) -> str:
+def _defines(name: str, value=None) -> List[str]:
+    """The ``-D`` of the build of ``name`` for ``value`` of its ``SPLIT``
+    macro (none for a whole build)."""
+    return [] if value is None else [f"-D{SPLIT[name][0]}={value}"]
+
+
+def _lib_path(name: str, value=None) -> str:
     return _hashed_path(name, [os.path.join(CSRC, f)
                                for f in [f"{name}.cu"] + _headers()],
-                        NVCC_FLAGS)
+                        NVCC_FLAGS + _defines(name, value))
 
 
-def _start(name: str, out: str) -> subprocess.Popen:
+def _jobs(name: str) -> List[tuple]:
+    """``(name, value)`` of each library ``name`` builds into."""
+    if name in SPLIT:
+        return [(name, v) for v in SPLIT[name][1]]
+    return [(name, None)]
+
+
+def _label(name: str, value=None) -> str:
+    return name if value is None else f"{name}[{value}]"
+
+
+def _start(name: str, out: str, value=None) -> subprocess.Popen:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *_defines(name, value), "-Xptxas", "-v",
+           "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    proc.tmp, proc.out, proc.name = tmp, out, name
+    proc.tmp, proc.out, proc.name = tmp, out, _label(name, value)
     return proc
 
 
@@ -91,21 +115,23 @@ def _finish(proc: subprocess.Popen) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed to build csrc/{proc.name}.cu "
+            f"nvcc failed to build csrc/{proc.name} "
             f"(exit {proc.returncode}):\n{log}")
     os.replace(proc.tmp, proc.out)
     return log
 
 
-def build_all(names: Iterable[str] = ()) -> Dict[str, str]:
-    """Compile every listed source (default: all of ``csrc/``) that is
+def build_all(names: Iterable = ()) -> Dict[str, str]:
+    """Compile every listed source (default: all of ``csrc/``; a
+    ``(name, value)`` pair is one library of a ``SPLIT`` source) that is
     not built yet, one ``nvcc`` each, all started together.  Returns
-    ``{name: nvcc output}`` for the sources it compiled (the ``-Xptxas
-    -v`` register and shared-memory report)."""
-    names = list(names) or kernel_sources()
+    ``{name or name[value]: nvcc output}`` for the libraries it compiled
+    (the ``-Xptxas -v`` register and shared-memory report)."""
+    jobs = [j for n in (list(names) or kernel_sources())
+            for j in ([n] if isinstance(n, tuple) else _jobs(n))]
     with _lock:
-        procs = [_start(n, _lib_path(n)) for n in names
-                 if not os.path.exists(_lib_path(n))]
+        procs = [_start(n, _lib_path(n, v), v) for n, v in jobs
+                 if not os.path.exists(_lib_path(n, v))]
         logs = {}
         try:
             for p in procs:
@@ -118,19 +144,21 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _loaded.get(name)
+def load(name: str, value=None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (for a ``SPLIT``
+    source, its library of ``value``), built if needed."""
+    key = _label(name, value)
+    lib = _loaded.get(key)
     if lib is not None:
         return lib
-    path = _lib_path(name)
+    path = _lib_path(name, value)
     if not os.path.exists(path):
-        build_all([name])
+        build_all([(name, value)])
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
             lib = ctypes.CDLL(path)
-            _loaded[name] = lib
+            _loaded[key] = lib
     return lib
 
 

@@ -57,8 +57,9 @@ from torchacc_tpu_torch.ops.attention import (
 launch_counts = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 # llama-tiny; Llama-3.2-1B, Qwen2-0.5B and GPT-2; Phi-2 and Pythia-2.8B;
-# llama3-8b; the Gemma family
-_KERNEL_HEAD_DIMS = (32, 64, 80, 128, 256)
+# Phi-3-mini; llama3-8b; the Gemma family (one library each, built side
+# by side: ops/_build.py SPLIT)
+_KERNEL_HEAD_DIMS = _build.SPLIT["flash_attention"][1]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -73,9 +74,10 @@ def segment_ids_from_positions(positions: torch.Tensor) -> torch.Tensor:
 # the kernels
 # ---------------------------------------------------------------------------
 
-def _kernel_fns():
-    """The bound C entry points (built and loaded at first use)."""
-    lib = _build.load("flash_attention")
+def _kernel_fns(d: int):
+    """The bound C entry points of head dim ``d``'s library (built and
+    loaded at first use)."""
+    lib = _build.load("flash_attention", d)
     fwd, dq, dkv = (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
                     lib.flash_attention_bwd_dkv)
     if fwd.argtypes is None:
@@ -159,7 +161,7 @@ def _fwd_cuda(q, k, v, qseg, kseg, causal, window, scale, softcap,
     _check_kernel_args({"q": q, "k": k, "v": v},
                        {"q_segment_ids": qseg, "kv_segment_ids": kseg,
                         "alibi_slopes": alibi})
-    fwd, _, _ = _kernel_fns()
+    fwd, _, _ = _kernel_fns(q.shape[-1])
     b, sq, hq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -190,7 +192,7 @@ def _dq_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
              softcap, alibi=None, dropout_p=0.0, dropout_seed=0,
              offsets=(0, 0, 0, 0)):
     """B2: dq from the saved lse and delta (one launch)."""
-    _, dq_fn, _ = _kernel_fns()
+    _, dq_fn, _ = _kernel_fns(q.shape[-1])
     dq = torch.empty_like(q)
     err = dq_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi),
                 dq.data_ptr(),
@@ -207,7 +209,7 @@ def _dkv_cuda(q, k, v, do, lse, delta, qseg, kseg, causal, window, scale,
               softcap, alibi=None, dropout_p=0.0, dropout_seed=0,
               offsets=(0, 0, 0, 0)):
     """B3: dk and dv from the saved lse and delta (one launch)."""
-    _, _, dkv_fn = _kernel_fns()
+    _, _, dkv_fn = _kernel_fns(q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = dkv_fn(*_bwd_ptrs(q, k, v, do, lse, delta, qseg, kseg, alibi),
                  dk.data_ptr(), dv.data_ptr(),

@@ -77,14 +77,18 @@ from torchacc_tpu_torch.utils.logger import logger
 from torchacc_tpu_torch.utils.metrics import counters
 
 # ModelConfig fields the paged forward implements (the Llama family,
-# Gemma v1, Qwen3, GPT-2, StarCoder2 and Nemotron: every field of
-# MODEL_FIELDS but the parallel block, and no ALiBi)
-_SUPPORTED_FIELDS = MODEL_FIELDS - {"parallel_block"}
+# Gemma v1, Qwen3, GPT-2, StarCoder2, Nemotron, Phi-3 without its
+# window, OLMo2's flat qk-norm, YaRN and Cohere's interleaved RoPE and
+# logit_scale: every field of MODEL_FIELDS but the parallel block and
+# post-norms, and no ALiBi)
+_SUPPORTED_FIELDS = MODEL_FIELDS - {"parallel_block", "norm_placement"}
 # what JAX's ServeEngine rejects and its generate() decodes (JAX
 # scheduler.py :139-150): Gemma2/3's per-layer windows and sandwich
-# norms, Mistral's window, Phi's and GPT-NeoX's parallel block, ALiBi
+# norms, Mistral's and Phi-3's windows, Phi's, GPT-NeoX's and Cohere's
+# parallel block, OLMo2's post-norms, ALiBi
 _GENERATE_ONLY = ("layer_pattern", "rope_local_theta", "sandwich_norms",
-                  "window", "parallel_block", "pos_emb='alibi'")
+                  "window", "parallel_block", "norm_placement",
+                  "pos_emb='alibi'")
 # fields that select training-time execution only and cannot change
 # what the serving forward computes (the JAX package's audit:
 # scheduler.py _AUDITED_MODEL_FIELDS); the MoE knobs are inert while
@@ -116,7 +120,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "the serving engine of torchacc_tpu_torch does not support "
             + ", ".join(gen) + " (per-layer or sliding windows, sandwich "
-            "norms, the parallel block, ALiBi), as JAX's does not.  Use "
+            "norms, the parallel block, post-norms, ALiBi), as JAX's does "
+            "not.  Use "
             "models.generate for these models (batch-synchronous decode "
             "covers them).")
     if bad:
@@ -148,7 +153,10 @@ class PagedDecoder:
     def _layer(self, layer, x, positions, kp, vp, tables, ctx_lens,
                flat_b, flat_o):
         """One decoder layer; ``flat_b``/``flat_o`` name the pool slot
-        each token writes its k/v to (the null block for masked ones)."""
+        each token writes its k/v to (the null block for masked ones).
+        Longrope's switch reads the largest position of the whole
+        dispatch, with no rebuild (JAX ``PagedDecoder._layer``
+        :237-240)."""
         cfg = self.cfg
         s_, t_ = x.shape[:2]
         kh, d = cfg.kv_heads, cfg.head_size
