@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (torchacc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--layers 32] [--train-layers 8] [--train-steps 8]
+    python3 chip_smoke.py [--layers 8] [--train-layers 4] [--train-steps 8]
                           [--quant-steps 6] [--data-steps 16]
                           [--fp16-steps 8] [--check-layers 2]
-                          [--ckpt-layers 1] [--hf-layers 16] [--hf-steps 8]
-                          [--gemma-layers 8] [--reps 50] [--seed 0]
+                          [--ckpt-layers 1] [--hf-layers 4] [--hf-steps 8]
+                          [--gemma-layers 8] [--phi2-layers 8]
+                          [--phi3-layers 4] [--mixtral-layers 2]
+                          [--qwen3-moe-layers 4] [--reps 50] [--seed 0]
                           [--profile]
 
 Phases, each of which exits non-zero when it fails:
@@ -301,7 +303,7 @@ Phases, each of which exits non-zero when it fails:
 13e. the Phi-2 phase: microsoft/phi-2's published config.json (vocab
    51200, hidden 2560, 32 heads of 80, ffn 10240, partial rotary 0.4,
    the parallel block, biases and a biased head, untied) at full width
-   and depth (32 layers, 2.78 B parameters) with seeded bf16 weights in
+   and --phi2-layers (8 of its 32) with seeded bf16 weights in
    Phi's HF names, through accelerate(path) (the materialising
    converter, as in JAX) -> Trainer.fit for 6 steps of 2 x 2048 packed
    tokens, the head bias taking the materialised logits: the first
@@ -354,16 +356,36 @@ Phases, each of which exits non-zero when it fails:
 13k. YaRN served: phase 6's llama3-8b at 4 layers with a yarn
    rope_scaling (factor 4 over 8192) through ServeEngine: B4 launches
    layers x dispatches, the last-prompt logits within _logits_limit of
-   the plain path, the yarn-lifted and wrong-GQA controls above it.
+   the plain path, the yarn-lifted and wrong-GQA controls above it;
+13l. the mixtures of experts: mixtral-8x7b's widths (hidden 4096, 8
+   experts of 14336, top-2, 32/8 heads of 128; 1.45 B parameters a
+   layer) at --mixtral-layers through accelerate(ModelConfig,
+   PackedDataset) -> Trainer.fit over 2 x 4096 packed tokens a step,
+   with dense dispatch (the first batch's loss through B1 within 1e-4
+   of the plain attention's, the top expert alone at its full-softmax
+   weight as the control) and then with ep.capacity_factor 1.25, each 4 steps: B1/B2/
+   B3 launch layers x steps, the FLOPs each step computes (every
+   expert on every token, or e x cap slots), step ms and peak memory;
+   then 8 greedy tokens of generate() through B1 against the plain
+   attention;
+13m. Qwen/Qwen3-30B-A3B's config.json (128 experts of 768, top-8 with
+   norm_topk_prob, per-head q/k norms, vocab 151936) at
+   --qwen3-moe-layers with seeded bf16 weights in its HF names,
+   streamed by accelerate(path) with ep.capacity_factor 1.25 (capacity
+   dispatch, 'auto' picking JAX's sort mechanism): as 13j, the control
+   the top-k renormalisation lifted.
 
-No earlier phase was cut to make room: on an H100 the whole run takes
-about 440 s before the Gemma phases, which add about 80 s with
-flex_attention's compiles, the LayerNorm families' phases (4d, 4e,
-13e-13g) about 70 s more, and 4f and 13h-13k about 140 s (the build,
-one nvcc a head dim of flash_attention.cu and one for each other
-source, all started together, about 45 s;
-about 45 s the Hugging Face phase, about 150 s the checkpoint phases,
-bound by the disk, a few seconds the context-parallelism phase; stderr
+Depths were cut so that the whole run, the mixtures of experts'
+phases with it, aims at 600 s of script on an H100: the served
+llama3-8b 8 of 32 layers (--layers), the trained one 4 (--train-layers;
+it was 8), the Hugging Face Llama-3.2-1B 4 of 16 layers, phi-2 8 of
+32, Phi-3-mini and Phi-3.5-mini 4 of 32 (--phi3-layers) and OLMo2 2 of
+32; flex_attention's compiles for the d 256 yardstick are shared by
+its two shapes, and a vocabulary table of a written checkpoint is drawn
+in parts on threads of their own.  Each
+phase's seconds are printed as it ends (``phase <name>: N s``) and
+together before the JSON lines (``phase seconds:``); the checkpoint
+phases, bound by the disk at one layer, take the largest share (stderr
 has each kernel's registers and spills from nvcc's -Xptxas -v).
 
 The last two lines of standard output are the ``kernels`` JSON object
@@ -1318,6 +1340,40 @@ def _flash_times(torch, F, fa, args, q, k, v, do, seg, scale, causal,
     return out
 
 
+# (softcap, sq, sk, causal, segments) -> _flex_fns, made once a run
+_FLEX = {}
+
+
+def _flex_fns(torch, cap, sq, sk, causal, seg):
+    """(compiled flex_attention, score_mod, mask_mod, window): one set a
+    softcap, shape and mask kind, the window (left, right; -1 none) read
+    from a device tensor that the caller sets, so that a sliding and a
+    global layer's calls (the same sizes) share one compile of the
+    forward and one of the backward; ``seg`` is captured where given."""
+    key = (cap, sq, sk, causal, seg is None)
+    if seg is not None or key not in _FLEX:
+        from torch.nn.attention.flex_attention import flex_attention
+        win = torch.full((2,), -1, dtype=torch.int64, device="cuda")
+
+        def mask_mod(bi, hi, qi, ki):
+            qp = qi + (sk - sq)             # bottom-right aligned
+            ok = qp >= ki if causal else qp >= 0
+            ok = ok & ((win[0] < 0) | (qp - ki <= win[0]))
+            ok = ok & ((win[1] < 0) | (ki - qp <= win[1]))
+            if seg is not None:
+                ok = ok & (seg[bi, qi] == seg[bi, ki])
+            return ok
+
+        def score_mod(s, bi, hi, qi, ki):
+            return cap * torch.tanh(s / cap)
+        fns = (torch.compile(flex_attention, dynamic=False), score_mod,
+               mask_mod, win)
+        if seg is not None:
+            return fns
+        _FLEX[key] = fns
+    return _FLEX[key]
+
+
 def _flex_times(torch, q, k, v, do, seg, causal, window, cap, scale, o,
                 reps):
     """The library's time for a softcapped attention, which SDPA cannot
@@ -1328,31 +1384,16 @@ def _flex_times(torch, q, k, v, do, seg, causal, window, cap, scale, o,
     ``o``; where flex_attention cannot run these shapes or disagrees,
     the times are left out and the reason printed (a yardstick only:
     the port never calls it)."""
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
+    from torch.nn.attention.flex_attention import create_block_mask
     b, sq, _, _ = q.shape
     sk = k.shape[1]
-    left, right = window
-
-    def mask_mod(bi, hi, qi, ki):
-        qp = qi + (sk - sq)                 # bottom-right aligned
-        ok = qp >= ki if causal else qp >= 0
-        if left >= 0:
-            ok = ok & (qp - ki <= left)
-        if right >= 0:
-            ok = ok & (ki - qp <= right)
-        if seg is not None:
-            ok = ok & (seg[bi, qi] == seg[bi, ki])
-        return ok
-
-    def score_mod(s, bi, hi, qi, ki):
-        return cap * torch.tanh(s / cap)
-
     out = {}
     try:
+        flex, score_mod, mask_mod, win = _flex_fns(torch, cap, sq, sk,
+                                                   causal, seg)
+        win.copy_(torch.tensor(window, device=q.device))
         bm = create_block_mask(mask_mod, None if seg is None else b, None,
                                sq, sk, device=q.device)
-        flex = torch.compile(flex_attention, dynamic=False)
         bh = lambda t: t.transpose(1, 2).contiguous()
         qt, kt, vt, dot = bh(q), bh(k), bh(v), bh(do)
 
@@ -3007,12 +3048,16 @@ LLAMA32_1B = {
 }
 HF_DIR = "chip_smoke_hf"                # under the checkout; git-ignored
 HF_SHARDS = 4
+# a tensor of more elements is drawn in parts of this many on threads of
+# their own (Command-R's 2.1 B-entry table took 54 s on one)
+HF_DRAW_PART = 1 << 28
 
 
 def _hf_tensors(cfg, layers):
     """HF tensor name -> shape of a Llama, Gemma2, Phi, GPT-2, Phi-3
     (packed qkv_proj and gate_up_proj), OLMo2 (post-norms, flat q/k
-    norms) or Cohere (one norm a block) checkpoint of ``cfg`` (untied:
+    norms), Cohere (one norm a block) or Qwen3-MoE (per-head q/k norms,
+    the router and the experts) checkpoint of ``cfg`` (untied:
     an lm_head; Gemma2's pre- and post-feedforward norms), in the order
     the shards hold them."""
     mt = cfg["model_type"]
@@ -3038,6 +3083,9 @@ def _hf_tensors(cfg, layers):
         if mt == "olmo2":
             out.update({p + "self_attn.q_norm.weight": (q,),
                         p + "self_attn.k_norm.weight": (kv,)})
+        elif mt == "qwen3_moe":
+            out.update({p + "self_attn.q_norm.weight": (d,),
+                        p + "self_attn.k_norm.weight": (d,)})
         out[p + "self_attn.o_proj.weight"] = (h, q)
         if mt != "cohere":
             out[p + "post_attention_layernorm.weight"] = (h,)
@@ -3045,6 +3093,17 @@ def _hf_tensors(cfg, layers):
             if mt == "gemma2":
                 out[p + "pre_feedforward_layernorm.weight"] = (h,)
             out[p + "post_feedforward_layernorm.weight"] = (h,)
+        if mt == "qwen3_moe":
+            # the router and every expert's gate/up/down at
+            # moe_intermediate_size
+            e, fe = cfg["num_experts"], cfg["moe_intermediate_size"]
+            out[p + "mlp.gate.weight"] = (e, h)
+            for j in range(e):
+                q_ = p + f"mlp.experts.{j}."
+                out.update({q_ + "gate_proj.weight": (fe, h),
+                            q_ + "up_proj.weight": (fe, h),
+                            q_ + "down_proj.weight": (h, fe)})
+            continue
         if mt == "phi3":
             out[p + "mlp.gate_up_proj.weight"] = (2 * f, h)
         else:
@@ -3146,14 +3205,24 @@ def _write_hf_checkpoint(torch, root, seed, layers, published=None):
     gens = dict(zip(names, np.random.SeedSequence(seed).spawn(len(names))))
     std = cfg["initializer_range"]
 
+    def draw(gen, n):
+        x = np.random.default_rng(gen).standard_normal(n, dtype=np.float32)
+        return torch.from_numpy(x).mul_(std).to(torch.bfloat16)
+
     def make(name):
         shape = shapes[name]
         if name.endswith(("norm.weight", ".ln_1.weight", ".ln_2.weight",
                           ".ln_f.weight")):
             return torch.full(shape, norm_init, dtype=torch.bfloat16)
-        x = np.random.default_rng(gens[name]).standard_normal(
-            int(np.prod(shape)), dtype=np.float32)
-        return torch.from_numpy(x).mul_(std).to(torch.bfloat16).view(shape)
+        n = int(np.prod(shape))
+        if n <= HF_DRAW_PART:
+            return draw(gens[name], n).view(shape)
+        # a vocabulary table: its parts drawn on threads of their own,
+        # from generators spawned from the tensor's
+        sizes = [min(HF_DRAW_PART, n - i) for i in range(0, n, HF_DRAW_PART)]
+        with ThreadPoolExecutor(8) as parts:
+            return torch.cat(list(parts.map(
+                draw, gens[name].spawn(len(sizes)), sizes))).view(shape)
 
     # the tensors outside the blocks first, then the layers in equal
     # groups
@@ -3919,11 +3988,13 @@ def _first_loss(torch, model, batch, labels, cfg, **fields):
 
 
 def _ln_fit(torch, tag, trainer, loader, layers, steps, rows, seq,
-            n_params):
+            n_params, flops=None):
     """``trainer.fit`` over ``loader`` (``rows`` x ``seq`` tokens a
     step) for ``steps`` steps with the flash launches counted from its
     start: losses, mean step ms after 2 warm-up steps (1 when there are
-    2), tokens/s, MFU, peak bytes, launches."""
+    2), tokens/s, MFU, peak bytes, launches.  ``flops``: the FLOPs a
+    step computes (a mixture of experts', ``_moe_flops``), where 6N +
+    6*L*heads*d*s a token would miscount them."""
     import numpy as np
     import torchacc_tpu_torch.ops.flash_attention as fa
     cfg = trainer.model.cfg
@@ -3940,14 +4011,17 @@ def _ln_fit(torch, tag, trainer, loader, layers, steps, rows, seq,
     peak = torch.cuda.max_memory_allocated()
     tokens = rows * seq
     attn = cfg.num_heads * cfg.head_size
-    flops_tok = 6.0 * n_params + 6.0 * layers * attn * seq
-    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+    how = (f"6N + 6*L*heads*d*s per token, N = {n_params} by "
+           f"ModelConfig.num_params" if flops is None else
+           f"{flops:.6g} FLOPs a step, _moe_flops")
+    if flops is None:
+        flops = (6.0 * n_params + 6.0 * layers * attn * seq) * tokens
+    mfu = flops / (ms / 1e3) / PEAK_BF16_FLOPS
     want = {k: layers * steps for k in ("fwd", "bwd_dq", "bwd_dkv")}
     print(f"{tag}: fit over {tokens} tokens a step: losses {_fmt(losses)}; "
           f"step ms {_fmt(step_ms)}, mean {ms:.1f} ms, "
           f"{tokens / (ms / 1e3):.0f} tokens/s, MFU {mfu:.4f} of the bf16 "
-          f"peak (6N + 6*L*heads*d*s per token, N = {n_params} by "
-          f"ModelConfig.num_params); peak allocated {peak / 2**30:.2f} GiB; "
+          f"peak ({how}); peak allocated {peak / 2**30:.2f} GiB; "
           f"the host waiting {wait_ms:.1f} ms a step on the loader; "
           f"B1/B2/B3 launches {launches} (expected {want}: layers x steps)",
           flush=True)
@@ -3958,7 +4032,7 @@ def _ln_fit(torch, tag, trainer, loader, layers, steps, rows, seq,
     return {"losses": losses, "step_ms": ms, "tokens_per_s":
             tokens / (ms / 1e3), "mfu": mfu, "peak_bytes": peak,
             "launches": launches, "steps": steps, "layers": layers,
-            "loader_wait_ms": wait_ms}
+            "loader_wait_ms": wait_ms, "flops": flops}
 
 
 def _generate_check(torch, tag, model, cfg, prompts, max_new):
@@ -4007,7 +4081,7 @@ def _generate_check(torch, tag, model, cfg, prompts, max_new):
 
 
 def _phi2_phase(torch, args):
-    """microsoft/phi-2's config.json at full width and depth with seeded
+    """microsoft/phi-2's config.json at full width and --phi2-layers with seeded
     bf16 weights in Phi's HF names, through accelerate(path) (the
     materialising converter, as in JAX) -> Trainer.fit over 2 x 2048
     packed tokens a step: the first batch's loss through B1-B3 at d 80
@@ -4019,7 +4093,7 @@ def _phi2_phase(torch, args):
                                     MemoryConfig, PackedDataset, accelerate)
     from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
 
-    tag, layers, steps = "phi-2", PHI2["num_hidden_layers"], PHI2_STEPS
+    tag, layers, steps = "phi-2", args.phi2_layers, PHI2_STEPS
     h, f, v = PHI2["hidden_size"], PHI2["intermediate_size"], \
         PHI2["vocab_size"]
     est = 2 * (2 * v * h + layers * (4 * h * h + 2 * h * f))
@@ -4030,7 +4104,8 @@ def _phi2_phase(torch, args):
                                          PHI2)
         print(f"{tag}: wrote phi-2's config.json and {nbytes} bytes of bf16 "
               f"safetensors to {root} in {time.perf_counter() - t0:.1f} s "
-              f"(full width and depth)", flush=True)
+              f"(full width, {layers} of {PHI2['num_hidden_layers']} "
+              f"layers)", flush=True)
         conf = Config(compute=ComputeConfig(bf16_compute_params=True),
                       memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
                       data=DataConfig(max_length=PHI2_S, prefetch=2),
@@ -4349,7 +4424,7 @@ COMMAND_R = {
 # depths: OLMo2 4 of 32 and Command-R 1 of 40, so that the f32 masters
 # and AdamW state fit one card (Command-R's tied embedding alone is 2.1 B
 # parameters: 33.5 GB of master and moments)
-DENSE_LAYERS = {"olmo2": 4, "cohere": 1}
+DENSE_LAYERS = {"olmo2": 2, "cohere": 1}
 DENSE_STEPS = 4
 # the trained families' rows: one 4096-token document each, so that
 # Phi-3's 2047-key window masks
@@ -4403,7 +4478,8 @@ def _final_hidden(torch, model, cfg, batch, **fields):
 
 
 def _dense_family_phase(torch, args, tag, published, layers, control,
-                        expect, steps, seed, on_hidden=False, lean=False):
+                        expect, steps, seed, on_hidden=False, lean=False,
+                        capacity_factor=None):
     """``published``'s config.json at ``layers`` with seeded bf16 weights
     in its HF names, through accelerate(path) -> Trainer.fit on rows of
     one FAMILY_S-token document: the first batch's loss through
@@ -4419,18 +4495,22 @@ def _dense_family_phase(torch, args, tag, published, layers, control,
     and gradients of 2.92 B parameters (52.5 GB) and AdamW's two
     temporaries the size of the embedding (15.6 GB) then fit the card,
     where the shadow and the clip's scaled copy did not (an H100 run ran
-    out of memory in the update)."""
+    out of memory in the update).  ``capacity_factor`` (a mixture of
+    experts) is ``dist.ep.capacity_factor``, which accelerate() folds
+    into the model; the MFU then counts the FLOPs the experts compute
+    (``_moe_flops``)."""
     import numpy as np
     import torchacc_tpu_torch.ops.flash_attention as fa
     from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
-                                    MemoryConfig, PackedDataset, accelerate)
+                                    DistConfig, EPConfig, MemoryConfig,
+                                    PackedDataset, accelerate)
     from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
 
     full = published["num_hidden_layers"]
-    h, f, v = (published["hidden_size"], published["intermediate_size"],
-               published["vocab_size"])
+    v = published["vocab_size"]
     rows, seq = FAMILY_B, FAMILY_S
-    est = 2 * (2 * v * h + layers * (4 * h * h + 3 * h * f))
+    est = 2 * sum(math.prod(shape) for shape in _hf_tensors(
+        dict(published, num_hidden_layers=layers), layers).values())
     root = _hf_root(est)
     try:
         t0 = time.perf_counter()
@@ -4442,6 +4522,8 @@ def _dense_family_phase(torch, args, tag, published, layers, control,
         conf = Config(compute=ComputeConfig(bf16_compute_params=not lean),
                       memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
                       data=DataConfig(max_length=seq, prefetch=2),
+                      dist=DistConfig(ep=EPConfig(
+                          capacity_factor=capacity_factor)),
                       seed=args.seed)
         docs = _zipf_docs(seed + 1, (steps + 1) * rows * seq, v, lo=seq,
                           hi=seq + 1)
@@ -4512,7 +4594,8 @@ def _dense_family_phase(torch, args, tag, published, layers, control,
         _fail(f"{tag}: the control {control} stays within "
               f"{LN_LOSS_LIMIT:.3g}")
     res = _ln_fit(torch, tag, trainer, loader, layers, steps, rows, seq,
-                  n_params)
+                  n_params, _moe_flops(cfg, rows * seq, seq)
+                  if cfg.num_experts else None)
     res.update(check_rel=rel, control_rel=rel_control, first_loss=got,
                first_loss_plain=ref)
     del loader
@@ -4557,7 +4640,8 @@ def _phi35_config(torch, seed):
 
 
 def _longrope_phase(torch, args):
-    """Phi-3.5-mini at full width and depth from init_params(seed), bf16:
+    """Phi-3.5-mini at full width and --phi3-layers from init_params(seed),
+    bf16:
     generate() from a 4090-token prompt for 16 new tokens crosses the
     original 4096 at the 7th, where the cache is rebuilt under the long
     factors (a prefill of 4097 tokens from position 0, seen by a tap).
@@ -4576,7 +4660,8 @@ def _longrope_phase(torch, args):
     gen = importlib.import_module("torchacc_tpu_torch.models.generate")
 
     tag = "phi-3.5 longrope"
-    cfg = _phi35_config(torch, args.seed + 95)
+    cfg = dataclasses.replace(_phi35_config(torch, args.seed + 95),
+                              num_layers=args.phi3_layers)
     if cfg.rope_longrope is None or cfg.rope_longrope[2] != 4096.0:
         _fail(f"{tag}: config_from_hf gave rope_longrope "
               f"{cfg.rope_longrope}")
@@ -4749,6 +4834,196 @@ def _yarn_serving_phase(torch, args, pa):
 # ---------------------------------------------------------------------------
 
 CKPT_ROOT = "chip_smoke_ckpt"           # under the checkout; git-ignored
+
+
+# Qwen/Qwen3-30B-A3B's published config.json (128 experts of 768, top-8
+# with norm_topk_prob, 32/4 heads of 128 with per-head q/k norms)
+QWEN3_30B_A3B = {
+    "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144,
+    "moe_intermediate_size": 768, "num_hidden_layers": 48,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128,
+    "num_experts": 128, "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "router_aux_loss_coef": 0.001, "output_router_logits": False,
+    "max_position_embeddings": 40960, "max_window_layers": 48,
+    "rope_theta": 1000000.0, "rope_scaling": None, "rms_norm_eps": 1e-06,
+    "sliding_window": None, "use_sliding_window": False,
+    "hidden_act": "silu", "attention_bias": False, "attention_dropout": 0.0,
+    "tie_word_embeddings": False, "initializer_range": 0.02,
+    "bos_token_id": 151643, "eos_token_id": 151645,
+    "torch_dtype": "bfloat16",
+}
+MOE_STEPS = 4
+MOE_CF = 1.25                           # ep.capacity_factor of the phases
+MIXTRAL_B, MIXTRAL_S = 2, 4096          # 2 x 4096 packed tokens a step
+# Mixtral's control: the top expert alone at its full-softmax weight (the
+# renormalisation lifted alone moved the random 2-layer model's first
+# loss by 1.45e-4 of it, an H100 run: too near the 1e-4 limit)
+MIXTRAL_CONTROL = dict(moe_renorm_topk=False, num_experts_per_tok=1)
+
+
+def _moe_flops(cfg, tokens, seq):
+    """The FLOPs a training step of a mixture of experts computes over
+    ``tokens`` (rows of ``seq``): 6 x tokens x the parameters outside the
+    experts, plus 6 x L x 3hf for every row an expert multiplies, plus
+    the attention's 6 x L x heads x d x seq a token.  The rows are
+    tokens x e under dense dispatch (every token through every expert)
+    and e x cap under capacity dispatch (every slot, empty or not; cap
+    of the step's tokens, models/moe.py ``capacity``)."""
+    from torchacc_tpu_torch.models.moe import capacity
+    L, e = cfg.num_layers, cfg.num_experts
+    expert = 3 * cfg.hidden_size * cfg.ffn_size
+    other = cfg.num_params() - L * e * expert
+    rows = (tokens * e if cfg.moe_capacity_factor is None
+            else e * capacity(cfg, tokens))
+    attn = 6.0 * L * cfg.num_heads * cfg.head_size * seq * tokens
+    return 6.0 * other * tokens + 6.0 * L * expert * rows + attn
+
+
+def _mixtral_phase(torch, args):
+    """mixtral-8x7b's widths (hidden 4096, 8 experts of 14336, top-2,
+    32/8 heads of 128) at --mixtral-layers through accelerate(ModelConfig,
+    PackedDataset) -> Trainer.fit over 2 x 4096 packed tokens a step,
+    once with dense dispatch (the first batch's loss through B1 against
+    the plain attention's, MIXTRAL_CONTROL as the control) and once
+    with ep.capacity_factor 1.25; B1/B2/B3 launch
+    layers x steps in each; the FLOPs each step computes
+    (``_moe_flops``); then 8 greedy tokens of generate() through B1
+    against the plain attention (capacity dispatch, the cap of each
+    call's tokens)."""
+    import dataclasses
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import (ComputeConfig, Config, DataConfig,
+                                    DistConfig, EPConfig, MemoryConfig,
+                                    PackedDataset, accelerate)
+    from torchacc_tpu_torch.models import get_preset
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_linear
+
+    tag, layers, steps = "mixtral", args.mixtral_layers, MOE_STEPS
+    rows, seq = MIXTRAL_B, MIXTRAL_S
+    mc = get_preset("mixtral-8x7b", num_layers=layers)
+    v = mc.vocab_size
+    docs = _zipf_docs(args.seed + 121, (steps + 1) * rows * seq, v)
+    first = next(iter(PackedDataset(docs, seq_len=seq, batch_rows=rows)))
+    out = {}
+    for run, cf in (("dense", None), ("capacity", MOE_CF)):
+        conf = Config(compute=ComputeConfig(bf16_compute_params=True),
+                      memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+                      data=DataConfig(max_length=seq, prefetch=2),
+                      dist=DistConfig(ep=EPConfig(capacity_factor=cf)),
+                      seed=args.seed)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trainer, loader = accelerate(
+            mc, PackedDataset(docs, seq_len=seq, batch_rows=rows), conf,
+            optimizer=adamw(warmup_linear(2e-5, steps, 1)))
+        trainer.init()
+        init_s = time.perf_counter() - t0
+        cfg = trainer.model.cfg
+        n_params = cfg.num_params()
+        if (cfg.moe_capacity_factor != cf or n_params != sum(
+                p.numel() for p in trainer.state.params.values())):
+            _fail(f"{tag}[{run}]: capacity factor {cfg.moe_capacity_factor} "
+                  f"(want {cf}), num_params {n_params}")
+        print(f"{tag}[{run}]: {layers} of 32 layers at full width, "
+              f"{n_params} params ({layers} x "
+              f"{(n_params - 2 * v * cfg.hidden_size) // layers} a layer), "
+              f"made and sharded in {init_s:.1f} s", flush=True)
+        if run == "dense":
+            batch = {k: torch.as_tensor(x).cuda() for k, x in first.items()}
+            labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+            model = trainer.model
+            for key in fa.launch_counts:
+                fa.launch_counts[key] = 0
+            got = _first_loss(torch, model, batch, labels, cfg,
+                              attention_impl="cuda")
+            if fa.launch_counts["fwd"] != layers:
+                _fail(f"{tag}: the check's forward launched B1 "
+                      f"{fa.launch_counts['fwd']} times, not {layers}")
+            ref = _first_loss(torch, model, batch, labels, cfg,
+                              attention_impl="torch")
+            ctrl = _first_loss(torch, model, batch, labels, cfg,
+                               attention_impl="torch", **MIXTRAL_CONTROL)
+            rel, rel_c = abs(got - ref) / abs(ref), abs(ctrl - ref) / abs(ref)
+            print(f"{tag} check: first-batch loss through B1 at d 128 "
+                  f"{got:.6f}, plain attention {ref:.6f}, relative "
+                  f"{rel:.3g} (limit {LN_LOSS_LIMIT:.3g}); control, plain "
+                  f"with {MIXTRAL_CONTROL}, {ctrl:.6f} (relative "
+                  f"{rel_c:.3g}, must exceed the limit)",
+                  flush=True)
+            if not math.isfinite(got) or rel > LN_LOSS_LIMIT:
+                _fail(f"{tag}: the first-batch loss through the kernels "
+                      f"parts from the plain attention's by {rel:.3g}")
+            if rel_c <= LN_LOSS_LIMIT:
+                _fail(f"{tag}: the control {MIXTRAL_CONTROL} stays within "
+                      f"{LN_LOSS_LIMIT:.3g}")
+            del model
+        flops = _moe_flops(cfg, rows * seq, seq)
+        res = _ln_fit(torch, f"{tag}[{run}]", trainer, loader, layers, steps,
+                      rows, seq, n_params, flops)
+        print(f"{tag}[{run}]: {flops:.6g} FLOPs a step (6 x tokens x the "
+              f"{n_params - layers * 8 * 3 * cfg.hidden_size * cfg.ffn_size}"
+              f" parameters outside the experts + 6 x L x 3hf x "
+              f"{'tokens x e' if cf is None else 'e x cap'} rows + "
+              f"6 x L x heads x d x s a token)", flush=True)
+        del loader
+        if run == "capacity":
+            prompts = torch.from_numpy(np.random.default_rng(
+                args.seed + 122).integers(0, v, (2, 256))).cuda()
+            res["generate"] = _generate_check(torch, tag, trainer.model,
+                                              cfg, prompts, 8)
+        out[run] = res
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    dense, cap = out["dense"], out["capacity"]
+    print(f"{tag}: dense dispatch {dense['step_ms']:.1f} ms a step "
+          f"({dense['flops'] / dense['step_ms'] / 1e9:.1f} TFLOP/s), "
+          f"capacity 1.25 {cap['step_ms']:.1f} ms "
+          f"({cap['flops'] / cap['step_ms'] / 1e9:.1f} TFLOP/s); peak "
+          f"{dense['peak_bytes'] / 2**30:.2f} and "
+          f"{cap['peak_bytes'] / 2**30:.2f} GiB at {layers} layers",
+          flush=True)
+    return out
+
+
+def _qwen3_moe_phase(torch, args):
+    """Qwen/Qwen3-30B-A3B's config.json (128 experts, top-8 with
+    norm_topk_prob, per-head q/k norms, vocab 151936) at
+    --qwen3-moe-layers with seeded bf16 weights in its HF names (each
+    expert a tensor), streamed by accelerate(path) into the trainer with
+    ep.capacity_factor 1.25 (capacity dispatch; 'auto' picks JAX's sort
+    mechanism at this size): the first batch's loss through B1 within
+    1e-4 of the plain attention's, the top-k renormalisation lifted as
+    the control above it;
+    B1/B2/B3 launch layers x steps; the FLOPs a step
+    (``_moe_flops``); generate() through B1."""
+    from torchacc_tpu_torch.models.moe import capacity, dispatch_mechanism
+    layers = args.qwen3_moe_layers
+    res = _dense_family_phase(
+        torch, args, "qwen3-30b-a3b", QWEN3_30B_A3B, layers,
+        dict(moe_renorm_topk=False),
+        dict(head_size=128, num_experts=128, num_experts_per_tok=8,
+             moe_renorm_topk=True, moe_capacity_factor=MOE_CF,
+             qk_norm=True, num_layers=layers, intermediate_size=768),
+        MOE_STEPS, args.seed + 131, capacity_factor=MOE_CF)
+    from torchacc_tpu_torch.models.hf import config_from_hf
+    import types
+    cfg = config_from_hf(types.SimpleNamespace(**dict(
+        QWEN3_30B_A3B, num_hidden_layers=layers)), moe_capacity_factor=MOE_CF)
+    n = FAMILY_B * FAMILY_S
+    cap = capacity(cfg, n)
+    mech = dispatch_mechanism(cfg, n, cap)
+    print(f"qwen3-30b-a3b: capacity dispatch over {n} tokens, cap {cap} a "
+          f"expert, 'auto' picks {mech!r} (n x e x cap = "
+          f"{n * cfg.num_experts * cap} against 2^24); {res['flops']:.6g} "
+          f"FLOPs a step (_moe_flops: e x cap rows)", flush=True)
+    if mech != "sort":
+        _fail(f"qwen3-30b-a3b: 'auto' picked {mech!r}, not 'sort'")
+    res["cap"] = cap
+    return res
 
 
 def _ckpt_root():
@@ -5344,11 +5619,25 @@ def _mesh_phase(torch, args, train):
             "control_apart": c_apart}
 
 
+# seconds of each phase of this run (_timed)
+PHASE_S = {}
+
+
+def _timed(name, fn, *a, **kw):
+    """``fn(*a, **kw)``, its seconds printed and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {PHASE_S[name]} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=32,
+    ap.add_argument("--layers", type=int, default=8,
                     help="depth of the served llama3-8b (width is full)")
-    ap.add_argument("--train-layers", type=int, default=8,
+    ap.add_argument("--train-layers", type=int, default=4,
                     help="depth of the trained llama3-8b (width is full)")
     ap.add_argument("--train-steps", type=int, default=8,
                     help="training steps on the repeated batch (the "
@@ -5367,7 +5656,7 @@ def main():
     ap.add_argument("--ckpt-layers", type=int, default=1,
                     help="depth of the checkpoint phases' llama3-8b (width "
                          "is full): 3 checkpoints of it are written")
-    ap.add_argument("--hf-layers", type=int, default=16,
+    ap.add_argument("--hf-layers", type=int, default=4,
                     help="depth of the Hugging Face Llama-3.2-1B checkpoint "
                          "(width is full; 16 is its published depth)")
     ap.add_argument("--hf-steps", type=int, default=8,
@@ -5378,9 +5667,18 @@ def main():
                     help="depth of the trained Hugging Face gemma-2-2b "
                          "checkpoint (width is full; a multiple of its "
                          "pattern's period 2)")
-    ap.add_argument("--phi3-layers", type=int, default=32,
+    ap.add_argument("--phi2-layers", type=int, default=8,
+                    help="depth of the trained phi-2 checkpoint (width is "
+                         "full; 32 is its published depth)")
+    ap.add_argument("--phi3-layers", type=int, default=4,
                     help="depth of the trained Phi-3-mini checkpoint (width "
                          "is full; 32 is its published depth)")
+    ap.add_argument("--mixtral-layers", type=int, default=2,
+                    help="depth of mixtral-8x7b's widths (1.45 B parameters "
+                         "a layer)")
+    ap.add_argument("--qwen3-moe-layers", type=int, default=4,
+                    help="depth of the Qwen3-30B-A3B checkpoint (width is "
+                         "full)")
     ap.add_argument("--reps", type=int, default=50,
                     help="timed kernel launches per shape")
     ap.add_argument("--seed", type=int, default=0)
@@ -5430,31 +5728,31 @@ def main():
         _fail("--train-steps must be at least 6")
     if args.hf_steps < 5:
         _fail("--hf-steps must be at least 5")
-    kern = _kernel_phase(torch, args, pa)
+    kern = _timed('_kernel_phase', _kernel_phase, torch, args, pa)
     # heads of 64 (Llama-3.2-1B, the Hugging Face phase's model)
-    kern64 = _kernel_phase(torch, args, pa, d=64,
-                           only=("decode", "prefill", "decode_long"))
-    flash_all = _flash_phase(torch, args)
+    kern64 = _timed("_kernel_phase[d64]", _kernel_phase, torch, args, pa,
+                    d=64, only=("decode", "prefill", "decode_long"))
+    flash_all = _timed('_flash_phase', _flash_phase, torch, args)
     flash, flash16 = flash_all["train"], flash_all["train_f16"]
-    flash64 = _flash_phase(torch, args, d=64,
-                           only=("train", "f32", "sq_ne_sk_empty_rows"))
+    flash64 = _timed("_flash_phase[d64]", _flash_phase, torch, args, d=64,
+                     only=("train", "f32", "sq_ne_sk_empty_rows"))
     # heads of 256 (the Gemma family)
-    kern256, flash256 = _gemma_kernel_phase(torch, args, pa)
+    kern256, flash256 = _timed('_gemma_kernel_phase', _gemma_kernel_phase, torch, args, pa)
     # heads of 80 (Phi-2) and the ALiBi instantiation at GPT-2's heads
-    flash80 = _phi2_kernel_phase(torch, args)
-    flash_alibi = _gpt2_alibi_kernel_phase(torch, args)
+    flash80 = _timed('_phi2_kernel_phase', _phi2_kernel_phase, torch, args)
+    flash_alibi = _timed('_gpt2_alibi_kernel_phase', _gpt2_alibi_kernel_phase, torch, args)
     # heads of 96 (Phi-3-mini)
-    flash96 = _phi3_kernel_phase(torch, args)
-    cp_res = _cp_phase(torch, args)
-    qmm = _qmm_phase(torch, args)
-    launches, dispatches = _serving_phase(torch, args, pa)
-    train = _training_phase(torch, args)
+    flash96 = _timed('_phi3_kernel_phase', _phi3_kernel_phase, torch, args)
+    cp_res = _timed('_cp_phase', _cp_phase, torch, args)
+    qmm = _timed('_qmm_phase', _qmm_phase, torch, args)
+    launches, dispatches = _timed('_serving_phase', _serving_phase, torch, args, pa)
+    train = _timed('_training_phase', _training_phase, torch, args)
     qtrain = {
-        "int8": _training_phase(torch, args, "int8", args.quant_steps,
-                                train["losses"][0]),
-        "fp8": _training_phase(torch, args, "fp8",
-                               max(4, args.quant_steps - 2),
-                               train["losses"][0])}
+        "int8": _timed("_training_phase[int8]", _training_phase, torch, args,
+                       "int8", args.quant_steps, train["losses"][0]),
+        "fp8": _timed("_training_phase[fp8]", _training_phase, torch, args,
+                      "fp8", max(4, args.quant_steps - 2),
+                      train["losses"][0])}
     for fmt, r in qtrain.items():
         print(f"training[{fmt}] beside the unquantized step: "
               f"{r['step_ms']:.1f} ms against {train['step_ms']:.1f} ms "
@@ -5466,8 +5764,8 @@ def main():
               f"{train['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     if args.data_steps < 4 or args.fp16_steps < 6:
         _fail("--data-steps must be at least 4 and --fp16-steps at least 6")
-    fed = _data_training_phase(torch, args, train)
-    fp16 = _fp16_phase(torch, args, fed)
+    fed = _timed('_data_training_phase', _data_training_phase, torch, args, train)
+    fp16 = _timed('_fp16_phase', _fp16_phase, torch, args, fed)
     print(f"data-fed step beside the hand-fed one: {fed['step_ms']:.1f} ms "
           f"for 4 x 4096 tokens in 2 micro-batches against "
           f"{train['step_ms']:.1f} ms for 2 x 4096 in one "
@@ -5475,40 +5773,44 @@ def main():
           f"tokens/s); fp16 step {fp16['step_ms']:.1f} ms for 2 x 4096, "
           f"the host waiting {fp16['flag_wait_ms']:.3f} ms a step for the "
           f"skip flag", flush=True)
-    pp = _pp_phase(torch, args, card)
-    _model_check_phase(torch, args)
-    _quant_check_phase(torch, args)
-    _accum_check_phase(torch, args)
-    _offload_check_phase(torch, args)
-    hf = _hf_phase(torch, args, pa)
-    gemma2 = _gemma2_training_phase(torch, args)
-    gen3 = _gemma3_generate_phase(torch, args)
-    gserve = _gemma_serving_phase(torch, args, pa)
-    phi2 = _phi2_phase(torch, args)
-    gpt2 = _gpt2_phase(torch, args, pa)
-    alibi = _alibi_phase(torch, args)
-    phi3 = _phi3_phase(torch, args)
-    longrope = _longrope_phase(torch, args)
-    olmo2 = _dense_family_phase(
+    pp = _timed('_pp_phase', _pp_phase, torch, args, card)
+    _timed('_model_check_phase', _model_check_phase, torch, args)
+    _timed('_quant_check_phase', _quant_check_phase, torch, args)
+    _timed('_accum_check_phase', _accum_check_phase, torch, args)
+    _timed('_offload_check_phase', _offload_check_phase, torch, args)
+    hf = _timed('_hf_phase', _hf_phase, torch, args, pa)
+    gemma2 = _timed('_gemma2_training_phase', _gemma2_training_phase, torch, args)
+    gen3 = _timed('_gemma3_generate_phase', _gemma3_generate_phase, torch, args)
+    gserve = _timed('_gemma_serving_phase', _gemma_serving_phase, torch, args, pa)
+    phi2 = _timed('_phi2_phase', _phi2_phase, torch, args)
+    gpt2 = _timed('_gpt2_phase', _gpt2_phase, torch, args, pa)
+    alibi = _timed('_alibi_phase', _alibi_phase, torch, args)
+    phi3 = _timed('_phi3_phase', _phi3_phase, torch, args)
+    longrope = _timed('_longrope_phase', _longrope_phase, torch, args)
+    olmo2 = _timed(
+        "_dense_family_phase[olmo2]", _dense_family_phase,
         torch, args, "olmo2", OLMO2_7B, DENSE_LAYERS["olmo2"],
         dict(norm_placement="pre"),
         dict(norm_placement="post", qk_norm_proj=True, head_size=128),
         DENSE_STEPS, args.seed + 101)
-    cohere = _dense_family_phase(
+    cohere = _timed(
+        "_dense_family_phase[command-r]", _dense_family_phase,
         torch, args, "command-r", COMMAND_R, DENSE_LAYERS["cohere"],
         dict(rope_interleaved=False),
         dict(rope_interleaved=True, logit_scale=0.0625, parallel_block=True,
              norm_bias=False, tie_embeddings=True, head_size=128),
         DENSE_STEPS, args.seed + 111, on_hidden=True, lean=True)
-    yarn = _yarn_serving_phase(torch, args, pa)
+    yarn = _timed('_yarn_serving_phase', _yarn_serving_phase, torch, args, pa)
+    mixtral = _timed("_mixtral_phase", _mixtral_phase, torch, args)
+    qwen3_moe = _timed("_qwen3_moe_phase", _qwen3_moe_phase, torch, args)
     root = _ckpt_root()
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
-        ckpt = _checkpoint_phase(torch, args, root)
-        _mesh_phase(torch, args, train)
-        ckpt_mesh = _checkpoint_mesh_phase(torch, args, root,
-                                           ckpt["digest"])
+        ckpt = _timed('_checkpoint_phase', _checkpoint_phase, torch, args, root)
+        _timed("_mesh_phase", _mesh_phase, torch, args, train)
+        ckpt_mesh = _timed("_checkpoint_mesh_phase", _checkpoint_mesh_phase,
+                           torch, args, root, ckpt["digest"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     saves = ckpt["saves"]
@@ -5569,7 +5871,15 @@ def main():
             # pipeline parallelism over virtual stages: one step's
             # gradient pass of each schedule
             **{f"launches_pp_{case}": r["launches"][name]
-               for case, r in pp.items()}))
+               for case, r in pp.items()},
+            # the mixtures of experts (Mixtral's widths, Qwen3-30B-A3B's)
+            launches_mixtral_dense=mixtral["dense"]["launches"][name],
+            launches_mixtral_capacity=mixtral["capacity"]["launches"][name],
+            launches_mixtral_generate=mixtral["capacity"]["generate"][
+                "launches"][name],
+            launches_qwen3_moe=qwen3_moe["launches"][name],
+            launches_qwen3_moe_generate=qwen3_moe["generate"]["launches"][
+                name]))
     for shape in ("decode", "prefill"):
         k = kern64[shape]
         entries.append(dict(
@@ -5773,6 +6083,15 @@ def main():
           f"{cohere['first_loss']:.6f}; longrope generate "
           f"{longrope['ms']:.1f} ms; yarn served B4 launches "
           f"{yarn['launches']}; card: {card}", flush=True)
+    print(f"mixtures of experts: mixtral x{args.mixtral_layers} dense "
+          f"{mixtral['dense']['step_ms']:.1f} ms a step, capacity "
+          f"{mixtral['capacity']['step_ms']:.1f} ms, peak "
+          f"{max(r['peak_bytes'] for r in mixtral.values()) / 2**30:.2f} "
+          f"GiB; qwen3-30b-a3b x{qwen3_moe['layers']} "
+          f"{qwen3_moe['step_ms']:.1f} ms a step, peak "
+          f"{qwen3_moe['peak_bytes'] / 2**30:.2f} GiB, first loss "
+          f"{qwen3_moe['first_loss']:.6f}; card: {card}", flush=True)
+    print(f"phase seconds: {json.dumps(PHASE_S)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

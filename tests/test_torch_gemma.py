@@ -284,10 +284,11 @@ def test_pattern_period_must_divide_a_stage_chunk():
     (dict(quant="int8"), "quant != 'none' does not compose"),
     (dict(overlap_fsdp=True), "overlap_fsdp does not compose"),
     # the ids these two had while they named OLMo2's fields, which the
-    # training forward now implements (tests/test_torch_gpt.py)
-    pytest.param(dict(num_experts=4), "num_experts=4.*A10c",
+    # training forward now implements (tests/test_torch_gpt.py); the
+    # mixtures of experts train too (tests/test_torch_moe.py)
+    pytest.param(dict(activation="relu"), "activation='relu'.*A8b",
                  id="fields2-qk_norm_proj=True.*A10b-2"),
-    pytest.param(dict(decode=True), "decode=True.*A10c",
+    pytest.param(dict(decode=True), "decode=True.*A8b",
                  id="fields3-norm_placement='post'.*A10b-2")])
 def test_what_jax_rejects_and_the_rest_raise_by_name(fields, match):
     cfg = get_preset("gemma2-2b", dtype=torch.float32,

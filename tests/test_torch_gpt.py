@@ -486,10 +486,10 @@ def test_what_jax_refuses_and_the_rest_raise_by_name():
              "parallel_block \\(phi\\) does not compose"),
             (dict(norm_placement="post", sandwich_norms=True), ValueError,
              "norm_placement='post' \\(OLMo2\\) does not compose"),
-            (dict(num_experts=4), NotImplementedError,
-             "num_experts=4.*A10c"),
+            (dict(decode=True), NotImplementedError,
+             "decode=True.*A8b"),
             (dict(overlap_fsdp=True), NotImplementedError,
-             "overlap_fsdp=True.*A10c")]:
+             "overlap_fsdp=True.*A8b")]:
         c = dataclasses.replace(cfg, **fields)
         with pytest.raises(err, match=match):
             TransformerLM(c, device="cpu")(ids)

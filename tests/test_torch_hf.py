@@ -1,6 +1,6 @@
-"""Hugging Face Llama/Qwen2 ingestion of the port (``models/hf.py``,
-``models/hf_stream.py``) against the JAX package's and against
-``transformers`` and ``safetensors``, on the CPU.
+"""Hugging Face Llama/Qwen2 and Mixtral/Qwen3-MoE ingestion of the port
+(``models/hf.py``, ``models/hf_stream.py``) against the JAX package's
+and against ``transformers`` and ``safetensors``, on the CPU.
 
 Small HF models are built offline from configs written here, with
 weights drawn from numpy seeds, and saved with ``save_pretrained``.
@@ -10,7 +10,9 @@ safetensors reader bitwise ``safetensors.safe_open``; the converted
 weights bitwise JAX's ``params_from_hf_state_dict``; the logits against
 HF's own forward and JAX's ``load_hf_model`` -> ``TransformerLM``, f32,
 within 2e-5 of the largest logit (read <= 1.2e-6: the same f32 math in
-other orders); and what raises by name.
+other orders); a mixture of experts' checkpoint streamed
+(``stream_params``, each expert's tensor into its row of the stacked
+parameter) bitwise as it is materialised; and what raises by name.
 """
 
 import dataclasses
@@ -71,6 +73,27 @@ HF_CASES = {
                           original_max_position_embeddings=64))),
     "qwen2_d128": ("qwen2", dict(hidden_size=256, num_attention_heads=2,
                                  num_key_value_heads=2, rope_theta=1e6)),
+    # the mixtures of experts: Mixtral's block_sparse_moe (softmax, top-k,
+    # renormalised), Qwen3-MoE's mlp.experts with norm_topk_prob both ways
+    "mixtral_d64": ("mixtral", dict(hidden_size=128, num_attention_heads=2,
+                                    num_key_value_heads=1,
+                                    num_local_experts=4,
+                                    num_experts_per_tok=2)),
+    "qwen3_moe_d64": ("qwen3_moe", dict(
+        hidden_size=128, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=64, num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=96, norm_topk_prob=False)),
+    "qwen3_moe_d64_norm_topk": ("qwen3_moe", dict(
+        hidden_size=128, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=64, num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=96, norm_topk_prob=True)),
+}
+MOE_CASES = ("mixtral_d64", "qwen3_moe_d64", "qwen3_moe_d64_norm_topk")
+_FAMILIES = {  # model_type: (config class, causal LM class)
+    "llama": ("LlamaConfig", "LlamaForCausalLM"),
+    "qwen2": ("Qwen2Config", "Qwen2ForCausalLM"),
+    "mixtral": ("MixtralConfig", "MixtralForCausalLM"),
+    "qwen3_moe": ("Qwen3MoeConfig", "Qwen3MoeForCausalLM"),
 }
 
 
@@ -84,8 +107,7 @@ def _no_jax_compile_cache():
 
 def hf_config(case, **kw):
     family, extra = HF_CASES[case]
-    cls = (transformers.LlamaConfig if family == "llama"
-           else transformers.Qwen2Config)
+    cls = getattr(transformers, _FAMILIES[family][0])
     base = dict(vocab_size=256, intermediate_size=384, num_hidden_layers=2,
                 max_position_embeddings=512, rms_norm_eps=1e-5)
     return cls(**{**base, **extra, **kw})
@@ -96,8 +118,8 @@ def hf_model(case, seed=0, **kw):
     """An HF causal LM of ``case`` in f32 with weights from a numpy seed:
     matrices and biases normal(0.05), norm scales 1 + normal(0.1)."""
     cfg = hf_config(case, **kw)
-    model = (transformers.LlamaForCausalLM(cfg) if cfg.model_type == "llama"
-             else transformers.Qwen2ForCausalLM(cfg)).float().eval()
+    model = getattr(transformers, _FAMILIES[cfg.model_type][1])(
+        cfg).float().eval()
     rng = np.random.default_rng(seed)
     for name, p in model.named_parameters():
         x = rng.standard_normal(tuple(p.shape)).astype(np.float32)
@@ -145,14 +167,16 @@ def test_config_from_hf_matches_jax_field_for_field(case, tmp_path):
 def test_unsupported_families_and_rope_types_raise_by_name():
     small = dict(vocab_size=64, hidden_size=64, intermediate_size=128,
                  num_hidden_layers=1, num_attention_heads=2)
-    # Phi-3, Cohere and yarn convert now (tests/test_torch_hf_gpt.py);
-    # the mixtures of experts wait for A10c, and a rope type neither
+    # Phi-3, Cohere and yarn convert now (tests/test_torch_hf_gpt.py),
+    # and so do Qwen3-MoE and Mixtral (the cases above); the other
+    # mixtures of experts raise by name, and a rope type neither
     # package implements raises in both
-    with pytest.raises(NotImplementedError, match="'qwen3_moe'.*A10c"):
-        config_from_hf(transformers.Qwen3MoeConfig(**small))
-    with pytest.raises(NotImplementedError, match="'mixtral'.*A10c"):
-        config_from_hf(transformers.MixtralConfig(**small))
-    with pytest.raises(NotImplementedError, match="'olmoe'.*A10c"):
+    assert config_from_hf(transformers.Qwen3MoeConfig(**small)) \
+        .num_experts == 128
+    assert config_from_hf(transformers.MixtralConfig(**small)) \
+        .num_experts == 8
+    with pytest.raises(NotImplementedError,
+                       match="'olmoe'.*mixtral and qwen3_moe"):
         config_from_hf(transformers.OlmoeConfig(**small))
     dyn = transformers.LlamaConfig(**small, rope_scaling=dict(
         rope_type="dynamic", factor=4.0))
@@ -279,6 +303,21 @@ def test_stream_params_fills_in_place_and_checks_the_checkpoint(tmp_path):
         save_file(part, str(bad / "model.safetensors"))
         with pytest.raises((ValueError, KeyError), match=match):
             stream_params([str(bad / "model.safetensors")], cfg, dest)
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_checkpoint_streams_as_it_materialises(tmp_path, case):
+    model = hf_model(case, seed=8)
+    path = saved(model, tmp_path / "ckpt", torch.bfloat16, shard="200KB")
+    cfg, want = load_hf_model(path, dtype=torch.float32)
+    assert len(resolve_checkpoint_files(path)) > 1
+    dest = {n: torch.full_like(p, float("nan")) for n, p in
+            TransformerLM(cfg, device="cpu").named_parameters()}
+    stream_params(resolve_checkpoint_files(path), cfg, dest)
+    assert sorted(dest) == sorted(want)
+    assert dest["layers.1.moe.experts.down"].shape == (4, 128, cfg.ffn_size)
+    for n, t in dest.items():
+        assert torch.equal(t, want[n]), n
 
 
 def test_bin_checkpoints_and_model_objects_load_alike(tmp_path):

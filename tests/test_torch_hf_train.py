@@ -300,11 +300,12 @@ def test_hf_trainer_adapter_matches_jax(tmp_path):
 
 
 def test_accelerate_refuses_what_it_does_not_convert(tmp_path):
-    moe = transformers.Qwen3MoeConfig(
+    moe = transformers.OlmoeConfig(
         vocab_size=64, hidden_size=64, intermediate_size=128,
         num_hidden_layers=1, num_attention_heads=2)
     moe.save_pretrained(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="'qwen3_moe'.*A10c"):
+    with pytest.raises(NotImplementedError,
+                       match="'olmoe'.*mixtral and qwen3_moe"):
         accelerate(str(tmp_path), None, tt.Config(), device="cpu")
     with pytest.raises(FileNotFoundError, match="local directories"):
         accelerate(str(tmp_path / "nowhere"), None, tt.Config(),

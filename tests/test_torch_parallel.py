@@ -89,9 +89,8 @@ AXIS_CASES = [   # (dist fields, world)
 @pytest.mark.parametrize("fields,world", AXIS_CASES)
 def test_axis_sizes_and_validation_match_jax(fields, world):
     """``axis_sizes`` (dp inferred) and the config errors, message for
-    message; ep above 1 validates in JAX and raises by name in the
-    port; pp and sp above 1 (sp in JAX's default mode, 'ulysses': all of
-    it on 'spu') validate in both."""
+    message; ep, pp and sp above 1 (sp in JAX's default mode,
+    'ulysses': all of it on 'spu') validate in both."""
     def run(pkg):
         try:
             d = _dist(pkg, **fields)
@@ -102,11 +101,10 @@ def test_axis_sizes_and_validation_match_jax(fields, world):
             return f"{type(e).__name__}: {e}"
     got = run(tt)
     assert got == run(ta)
-    unported = {"ep": "A10"}
-    for axis, item in unported.items():
+    for axis in ("ep", "pp"):
         if isinstance(got, dict) and fields.get(axis, 1) > 1:
-            with pytest.raises(NotImplementedError, match=item):
-                _dist(tt, **fields).validate()
+            _dist(tt, **fields).validate()
+            _dist(ta, **fields).validate()
     if isinstance(got, dict) and fields.get("pp", 1) > 1:
         _dist(tt, **fields).validate()
         _dist(ta, **fields).validate()

@@ -33,7 +33,11 @@ cases take AdamW's eps 1e-2: with 1e-8 its first update is lr * sign(g), so
 an element whose gradient is near zero moves by 2 lr between the
 packages on its gradient's last bits (read 6e-2 and 7e-3 of the leaf's
 largest entry), which hides what the comparison is for; so does the
-bf16 case (read 1.1e-1 with 1e-8).
+bf16 case (read 1.1e-1 with 1e-8).  The mixtures of experts (the
+experts over 'ep', over 'ep' x 'tp', and capacity dispatch over two
+data shards, whose positions, cap and router-loss means are the global
+batch's) take ``tests/test_torch_moe.py``'s widened weights and eps
+1e-2 for the same reason, and the f32 tolerances.
 """
 
 import functools
@@ -176,7 +180,17 @@ CASES = {
     "fsdp2_fit_over_a_sharded_packed_dataset": (2, dict(fsdp=2), 1,
                                                 "float32", {},
                                                 dict(fit=True)),
+    # the mixtures of experts: the experts split over 'ep', over 'ep' x
+    # 'tp', and capacity dispatch (ep.capacity_factor, folded into the
+    # model) over two data shards
+    "ep2_moe": (2, dict(ep=dict(size=2)), 1, "float32", {},
+                dict(moe=True, eps=1e-2)),
+    "ep2_tp2_moe": (4, dict(ep=dict(size=2), tp=2), 1, "float32", {},
+                    dict(moe=True, eps=1e-2)),
+    "dp2_moe_capacity": (2, dict(dp=2, ep=dict(capacity_factor=1.0)), 1,
+                         "float32", {}, dict(moe=True, eps=1e-2)),
 }
+MOE = dict(num_experts=4, num_experts_per_tok=2, router_aux_weight=0.1)
 
 DATASET = dict(seq_len=S, batch_rows=B, buffer_docs=16, shuffle_seed=3)
 
@@ -188,7 +202,7 @@ def _docs(seed, n=60):
 
 
 def _jax_trainer(world, sizes, grad_accum, dtype, compute, params, bomb,
-                 opt, data=None):
+                 opt, data=None, model=SMALL):
     jcompute = dict(compute)
     if "quant" in jcompute:
         jcompute["quant_impl"] = "xla"
@@ -198,10 +212,11 @@ def _jax_trainer(world, sizes, grad_accum, dtype, compute, params, bomb,
         memory=ta.MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
         dist=ta.DistConfig(dp=ta.DPConfig(sizes.get("dp", -1)),
                            fsdp=ta.FSDPConfig(sizes.get("fsdp", 1)),
-                           tp=ta.TPConfig(sizes.get("tp", 1))),
+                           tp=ta.TPConfig(sizes.get("tp", 1)),
+                           ep=ta.EPConfig(**sizes.get("ep", {}))),
         grad_accum=grad_accum)
     jtrainer, jloader = jax_accelerate(
-        jax_preset("llama-tiny", **SMALL), data, jconf,
+        jax_preset("llama-tiny", **model), data, jconf,
         optimizer=jax_sched.adamw(jax_sched.warmup_cosine(*SCHEDULE), **opt),
         mesh=build_mesh(jconf.dist, devices=jax.devices()[:world]),
         **(dict(loss=_jax_bomb_loss) if bomb else {}))
@@ -224,13 +239,23 @@ def _train_case(case):
                       bomb_rows=None if bomb_step is None else
                       ((B - 1,) if i == bomb_step else ()))
                for i in range(3)]
-    spec = dict(kind="train", params=_params(), model=SMALL,
+    model = dict(SMALL, **MOE) if extra.get("moe") else SMALL
+    spec = dict(kind="train", params=_moe_params() if extra.get("moe")
+                else _params(), model=model,
                 dtype=getattr(torch, dtype), dist=sizes, compute=compute,
                 grad_accum=grad_accum, batches=batches, schedule=SCHEDULE,
                 opt=opt, bomb=bomb_step is not None)
     if extra.get("fit"):
         spec.update(docs=_docs(31), dataset=DATASET, steps=len(batches))
     return spec, batches, opt
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_params():
+    """``tests/test_torch_moe.py``'s seeded MoE weights (the router and
+    the experts widened) at this file's widths."""
+    from test_torch_moe import _params as moe_params
+    return moe_params(dict(SMALL, **MOE))
 
 
 CAPS = (0.0, 30.0)
@@ -272,16 +297,16 @@ def ranks(tmp_path_factory):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_port_ranks_match_the_jax_trainer_on_a_mesh(ranks, case):
     world, sizes, grad_accum, dtype, compute, extra = CASES[case]
-    params = _params()
     bomb_step = extra.get("bomb_step")
-    _, batches, opt = _train_case(case)
+    spec, batches, opt = _train_case(case)
+    params = spec["params"]
     data = None
     if extra.get("fit"):
         from torchacc_tpu.data import PackedDataset as JaxDataset
         data = JaxDataset(_docs(31), **DATASET)
     jtrainer, jloader = _jax_trainer(world, sizes, grad_accum, dtype,
                                      compute, params, bomb_step is not None,
-                                     opt, data)
+                                     opt, data, spec["model"])
     if data is None:
         jm = [jtrainer.step({k: jnp.asarray(v) for k, v in b.items()})
               for b in batches]
@@ -289,7 +314,8 @@ def test_port_ranks_match_the_jax_trainer_on_a_mesh(ranks, case):
         jm = jtrainer.fit(jloader, max_steps=len(batches), log_every=1)
     got = ranks[world]()[case]
     assert len(got["losses"]) == len(jm) == len(batches)
-    assert got["data_shard"] == (world // sizes.get("tp", 1), 0)
+    assert got["data_shard"] == (world // sizes.get("tp", 1) // sizes.get(
+        "ep", {}).get("size", 1), 0)
     loss_tol, param_tol = ((2e-3, 2e-3) if dtype == "float16" else
                            (5e-5, 3e-3) if dtype == "bfloat16" else
                            (1e-4, 1e-3) if "quant" in compute else

@@ -22,7 +22,10 @@ against the JAX package's, in one process on the CPU.
   forward (``TransformerLM.__call__``'s pipeline path under gpipe,
   ``pp_1f1b_forward_sum_count`` under 1f1b) on an emulated mesh of the
   same 'pp' size, differentiated by ``jax.grad``; and a custom Trainer
-  loss in 1F1B's last stage, on JAX's micro-batch view of the labels.
+  loss in 1F1B's last stage, on JAX's micro-batch view of the labels;
+  and a mixture of experts under GPipe (dense dispatch) and 1F1B
+  (capacity dispatch), each chunk's router losses riding its
+  micro-batch with JAX's ``count_m`` weight.
   f32: the loss sum
   rtol 1e-5, the count exactly, every gradient within 1e-5 of its
   leaf's largest entry (the tolerances of
@@ -47,6 +50,8 @@ from jax.sharding import Mesh
 
 import torchacc_tpu as ta
 from test_torch_cp_ranks import _params
+from test_torch_moe import SMALL as MOE
+from test_torch_moe import _params as _moe_params
 from test_torch_parallel_ranks import SMALL, _batch
 from torch_pp_virtual import virtual_pipeline
 from torchacc_tpu.models import get_preset as jax_preset
@@ -313,6 +318,12 @@ MODEL_CASES = {  # name: (P, M, schedule, V, model fields)
     "1f1b_p4_v2": (4, 4, "1f1b", 2, dict(SMALL, num_layers=8)),
     # a custom Trainer loss in the last stage, on its micro-batch view
     "1f1b_p2_custom_loss": (2, 2, "1f1b", 1, dict(SMALL, num_layers=4)),
+    # a mixture of experts: each chunk's router losses ride their
+    # micro-batch (dense dispatch; capacity, whose cap is a micro-batch's)
+    "gpipe_p2_moe": (2, 2, "gpipe", 1, dict(MOE, num_layers=4,
+                                            router_aux_weight=0.5)),
+    "1f1b_p2_moe_capacity": (2, 2, "1f1b", 1, dict(
+        MOE, num_layers=4, router_aux_weight=0.5, moe_capacity_factor=1.0)),
 }
 CUSTOM = ("1f1b_p2_custom_loss",)
 
@@ -368,7 +379,8 @@ def _port_grads(P, M, schedule, V, fields, params, batch, seed,
 @pytest.mark.parametrize("name", sorted(MODEL_CASES))
 def test_llama_tiny_stages_match_jax(name):
     P, M, schedule, V, fields = MODEL_CASES[name]
-    params = _params(fields)
+    params = (_moe_params(fields) if fields.get("num_experts")
+              else _params(fields))
     batch = _batch(70)
     seed = 5 if fields.get("attn_dropout") else None
     custom = name in CUSTOM
@@ -445,11 +457,22 @@ def test_pp_rules_match_jax():
     # period divides a stage's chunk of layers, as JAX requires
     (dict(layer_pattern=("sliding", "sliding", "global")), ValueError,
      "does not divide the per-stage chunk"),
-    (dict(num_experts=2), NotImplementedError, "A10c")])
+    # experts run under 'pp' (the MoE cases above); an expert count that
+    # 'ep' does not divide raises by name in the plan of a pp 2 x ep 2
+    # mesh
+    (dict(num_experts=3), NotImplementedError,
+     "num_experts 3 is not divisible by ep 2.*A8b")])
 def test_pp_patterns_and_experts_raise_by_name(fields, exc, item):
     cfg = get_preset("llama-tiny", dtype=torch.float32, pp_size=2,
                      pp_num_micro=2, **dict(SMALL, num_layers=4), **fields)
     with pytest.raises(exc, match=item):
+        if cfg.num_experts:
+            from torchacc_tpu_torch.parallel.sharding import (
+                _check_plan,
+                make_rules,
+            )
+            _check_plan(cfg, make_rules(), dict(dp=1, pp=2, fsdp=1, sp=1,
+                                                spu=1, ep=2, tp=1))
         tt.TransformerLM(cfg, device="cpu")(torch.zeros(
             (2, 8), dtype=torch.long))
 

@@ -479,8 +479,8 @@ def test_unported_settings_raise():
         with pytest.raises(NotImplementedError, match=match):
             accelerate(mc, None, conf, device="cpu")
     # a model field still outside the training forward raises by name
-    with pytest.raises(NotImplementedError, match="num_experts=4.*A10c"):
-        accelerate(dataclasses.replace(mc, num_experts=4), None,
+    with pytest.raises(NotImplementedError, match="decode=True.*A8b"):
+        accelerate(dataclasses.replace(mc, decode=True), None,
                    tt.Config(), device="cpu")
     # a Hugging Face checkpoint is read from a local directory only
     with pytest.raises(FileNotFoundError, match="local directories"):

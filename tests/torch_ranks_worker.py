@@ -80,7 +80,8 @@ def _dist_config(d):
                          fsdp=tt.FSDPConfig(d.get("fsdp", 1)),
                          tp=tt.TPConfig(d.get("tp", 1)),
                          sp=tt.SPConfig(**d.get("sp", {})),
-                         pp=tt.PPConfig(**d.get("pp", {})))
+                         pp=tt.PPConfig(**d.get("pp", {})),
+                         ep=tt.EPConfig(**d.get("ep", {})))
 
 
 class _RingSteps:

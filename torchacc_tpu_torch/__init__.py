@@ -25,8 +25,10 @@ memory, and ``Trainer.fit`` runs gradient accumulation, fp16 with the
 loss scaler and every remat policy, host offload included.
 Parallelism: with a process group up (``parallel.initialize_distributed``)
 ``accelerate`` shards the model over the mesh of ``Config.dist``
-(``parallel``): data parallelism, FSDP2 over 'dp' x 'fsdp' and
-tensor parallelism over heads, MLP and vocab.
+(``parallel``): data parallelism, FSDP2 over 'dp' x 'fsdp', tensor
+parallelism over heads, MLP and vocab, and expert parallelism over
+'ep'.  Mixtures of experts (``models.moe``, Mixtral and Qwen3-MoE):
+dense and capacity dispatch, their router loss in the Trainer's loss.
 Checkpoints: ``checkpoint`` saves and restores the train state on
 ``torch.distributed.checkpoint`` with the JAX package's commit protocol,
 and ``Trainer.fit(checkpoint_dir=..., resume='auto')`` resumes a run.

@@ -349,12 +349,19 @@ class SPConfig:
 
 @dataclass
 class EPConfig:
-    """Expert parallelism: only size 1 is ported, so the capacity factor
-    is absent (ROADMAP.md A10)."""
+    """Expert parallelism for a mixture of experts: the experts split
+    over 'ep' (``parallel/sharding.py``, ``models/moe.py``)."""
     size: int = 1
+    # switch-style expert capacity factor: None = dense dispatch (no
+    # token dropping).  Folded into the model's ``moe_capacity_factor``
+    # by accelerate() unless the model config sets its own value.
+    capacity_factor: Optional[float] = None
 
     def validate(self) -> None:
         _check(self.size >= 1, "ep.size must be >= 1")
+        if self.capacity_factor is not None:
+            _check(self.capacity_factor > 0,
+                   "ep.capacity_factor must be > 0")
 
 
 @dataclass
@@ -381,8 +388,6 @@ class DistConfig:
                f"dist.topology must be a permutation of {MESH_AXES}, got "
                f"{self.topology}")
         _check(self.num_slices >= 1, "dist.num_slices must be >= 1")
-        _unported(self.ep.size == 1, "dist.ep.size > 1 (expert "
-                  "parallelism)", "A10")
 
     def axis_sizes(self, world_size: int) -> Dict[str, int]:
         """Every axis size, dp inferred when dp.size == -1."""

@@ -7,8 +7,10 @@ The same regex table over the port's parameter names
 kernel's reversed, and the flax kernel's ``[heads, kv]`` dims, which
 the port holds flattened into one dim, name that dim with the tuple
 ``("heads", "kv")`` (major first).  The port's layers are not stacked,
-so no leading 'layers' axis is added.  The rows cover the parameters the
-port's model has; the MoE router and experts come with ROADMAP.md A10c.
+so no leading 'layers' axis is added.  The mixture of experts' router
+``[e, h]`` and experts (``gate``/``up`` ``[e, f, h]``, ``down`` ``[e,
+h, f]``: each expert ``[out, in]``, models/moe.py) take JAX's logical
+axes, 'expert' and 'expert_mlp', in that order.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ TRANSFORMER_AXES: Tuple[AxesRule, ...] = (
     (r"(gate_proj|up_proj)\.bias$", ("mlp",)),
     (r"down_proj\.weight$", ("embed", "mlp")),
     (r"down_proj\.bias$", ("embed",)),
+    (r"moe\.router\.weight$", ("expert", "embed")),
+    (r"experts\.(gate|up)$", ("expert", "expert_mlp", "embed")),
+    (r"experts\.down$", ("expert", "embed", "expert_mlp")),
     (r"(ln1|ln2|ln1_post|ln2_post|final_norm|q_norm|k_norm)\.(weight|bias)$",
      ("norm",)),
     (r"lm_head\.weight$", ("vocab", "embed")),

@@ -18,11 +18,17 @@ leaves (``jax.tree.map(np.asarray, params)``)::
     layers.block.mlp.{gate,up}_proj.kernel [L, h, F]       (+ bias [L, F];
                                                   no gate when non-gated)
     layers.block.mlp.down_proj.kernel    [L, F, h]         (+ bias [L, h])
+    layers.block.moe.router.kernel       [L, h, e]  (num_experts > 0, in
+                                                   place of the mlp)
+    layers.block.moe.experts/{gate,up}   [L, e, h, F]
+    layers.block.moe.experts/down        [L, e, F, h]
     final_norm.scale                     [h]     (+ bias [h])
     lm_head.kernel                       [h, V]  (absent when tied; + bias
                                                   [V] under head_bias)
 
-flax kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``.
+flax kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``,
+and so are the port's experts, per expert (``models/moe.py``
+``Experts``: ``gate``/``up`` ``[e, F, h]``, ``down`` ``[e, h, F]``).
 On a mesh, ``params_from_jax`` gives the full model that
 ``Trainer.init`` then shards (``parallel/sharding.py``), and
 ``params_to_jax`` gathers sharded parameters whole.
@@ -86,7 +92,7 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
     model = TransformerLM(cfg, device="meta", dtype=dtype)
     model = model.to_empty(device=device)
     blk = tree["layers"]["block"]
-    attn, mlp = blk["attn"], blk["mlp"]
+    attn = blk["attn"]
     h = cfg.hidden_size
     model.embed_tokens.weight.copy_(
         _t(tree["embed_tokens"]["embedding"], device, dtype))
@@ -111,6 +117,16 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
         if layer.attn.o_proj.bias is not None:
             layer.attn.o_proj.bias.copy_(
                 _t(attn["o_proj"]["bias"][i], device, dtype))
+        if cfg.num_experts > 0:
+            moe = blk["moe"]
+            layer.moe.router.weight.copy_(_t(
+                np.asarray(moe["router"]["kernel"][i]).T, device, dtype))
+            for name in _EXPERTS:
+                getattr(layer.moe.experts, name).copy_(_t(np.swapaxes(
+                    np.asarray(moe[f"experts/{name}"][i]), 1, 2), device,
+                    dtype))
+            continue
+        mlp = blk["mlp"]
         for name in mlp_linears(cfg):
             lin = getattr(layer.mlp, name)
             lin.weight.copy_(
@@ -126,6 +142,10 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
             model.lm_head.bias.copy_(
                 _t(tree["lm_head"]["bias"], device, dtype))
     return model.requires_grad_(trainable).train(trainable)
+
+
+# the experts' leaves, JAX's experts/<name>
+_EXPERTS = ("gate", "up", "down")
 
 
 def _norm_from(mod, node, pick, device, dtype) -> None:
@@ -176,12 +196,21 @@ def params_to_jax(cfg: ModelConfig,
     if cfg.o_bias:
         attn["o_proj"]["bias"] = stack(
             lambda i: t(f"layers.{i}.attn.o_proj.bias"))
-    mlp = {name: {"kernel": stack(lambda i: t(f"layers.{i}.mlp.{name}.weight").T)}
-           for name in mlp_linears(cfg)}
-    if cfg.mlp_bias:
-        for name in mlp:
-            mlp[name]["bias"] = stack(
-                lambda i: t(f"layers.{i}.mlp.{name}.bias"))
+    if cfg.num_experts > 0:
+        ffn = ("moe", {"router": {"kernel": stack(
+            lambda i: t(f"layers.{i}.moe.router.weight").T)}})
+        for name in _EXPERTS:
+            ffn[1][f"experts/{name}"] = stack(lambda i: np.swapaxes(
+                t(f"layers.{i}.moe.experts.{name}"), 1, 2))
+    else:
+        mlp = {name: {"kernel": stack(
+            lambda i: t(f"layers.{i}.mlp.{name}.weight").T)}
+            for name in mlp_linears(cfg)}
+        if cfg.mlp_bias:
+            for name in mlp:
+                mlp[name]["bias"] = stack(
+                    lambda i: t(f"layers.{i}.mlp.{name}.bias"))
+        ffn = ("mlp", mlp)
 
     def norm_node(f):
         node = {"scale": f("weight")}
@@ -194,7 +223,7 @@ def params_to_jax(cfg: ModelConfig,
             **{name: norm_node(lambda leaf, name=name: stack(
                 lambda i: t(f"layers.{i}.{name}.{leaf}")))
                for name in _block_norms(cfg)},
-            "attn": attn, "mlp": mlp}},
+            "attn": attn, ffn[0]: ffn[1]}},
         "final_norm": norm_node(lambda leaf: t(f"final_norm.{leaf}")),
     }
     if cfg.pos_emb == "learned":

@@ -10,8 +10,8 @@ takes its own window and rope base under a ``layer_pattern`` (JAX's
 ``_generate_cached_pattern``, :431), so Gemma2/3's sliding and global
 layers decode through the cache on the attention kernels; ALiBi's
 slopes, the parallel residual, the non-gated MLPs, learned positions,
-the head bias, post-norms, the flat qk-norm, ``logit_scale`` and the
-rope scalings decode the same way; under longrope a decode that
+the head bias, post-norms, the flat qk-norm, ``logit_scale``, the rope
+scalings and the mixtures of experts decode the same way; under longrope a decode that
 crosses the original context rebuilds the cache (JAX :260-303).  It shares
 no code with the paged serving path (``serve/scheduler.py``), so it is
 the port's own request-level reference for serving.  Prompts of one
@@ -97,7 +97,8 @@ def embed(cfg, model, ids: torch.Tensor,
     if ids.dtype not in (torch.int32, torch.int64):
         ids = ids.long()
     return embed_extras(
-        cfg, F.embedding(ids, model.embed_tokens.weight).to(cfg.dtype),
+        cfg, F.embedding(ids, to_local(model.embed_tokens.weight))
+        .to(cfg.dtype),
         positions, model.pos_embed)
 
 
@@ -140,13 +141,15 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
     JAX's cached forward does: a prefill past the original context, or
     a decode step beyond it, takes the long factors.  Each layer runs with its own config
     (``pattern_cfg``: its window and rope base), as JAX's
-    ``_pattern_layers_with_cache`` does."""
+    ``_pattern_layers_with_cache`` does.  A mixture of experts' MLP routes
+the call's tokens alone: under capacity dispatch the cap is that of
+``b * t`` tokens, as in JAX's cached forward."""
     from torchacc_tpu_torch.models.transformer import (
         apply_norm,
+        block_mlp,
         dense,
         has_ln2,
         layer_slopes,
-        mlp_out,
         pattern_cfg,
         post_norm,
         qk_rope,
@@ -176,15 +179,15 @@ def _cached_forward(model, ids: torch.Tensor, start: int, cache_k, cache_v,
         o = dense(cfg, out.reshape(b, t, -1), a.o_proj)
         if cfg.parallel_block:
             m_in = apply_norm(cfg, x, layer.ln2) if has_ln2(cfg) else h
-            x = x + o + mlp_out(cfg, layer.mlp, m_in)
+            x = x + o + block_mlp(cfg, layer, m_in)
             continue
         if cfg.sandwich_norms:
             o = apply_norm(cfg, o, layer.ln1_post)
         if post:
             o = apply_norm(cfg, o, layer.ln1)
         x = x + o
-        f = mlp_out(cfg, layer.mlp, x if post else
-                    apply_norm(cfg, x, layer.ln2))
+        f = block_mlp(cfg, layer, x if post else
+                      apply_norm(cfg, x, layer.ln2))
         if cfg.sandwich_norms:
             f = apply_norm(cfg, f, layer.ln2_post)
         if post:

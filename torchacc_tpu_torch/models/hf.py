@@ -15,13 +15,15 @@ relu2, partial rotary), Phi-1/1.5/2 (the parallel residual with one
 norm, ``fc1``/``fc2``, partial rotary, a biased head), Phi-3/3.5/4-mini
 (packed ``qkv_proj``/``gate_up_proj``, partial rotary, longrope),
 Cohere (the parallel residual with one biasless LayerNorm, interleaved
-RoPE, ``logit_scale``, a tied head) and OLMo2 (post-norms, the qk-norm
-over the flat projections); rope scalings linear, llama3, longrope and
+RoPE, ``logit_scale``, a tied head), OLMo2 (post-norms, the qk-norm
+over the flat projections) and the mixtures of experts Mixtral
+(``block_sparse_moe``) and Qwen3-MoE (``mlp.experts``, per-head
+qk-norm, ``norm_topk_prob``); rope scalings linear, llama3, longrope and
 yarn.
 
-The mixtures of experts raise ``NotImplementedError`` naming ROADMAP
-A10c, and every other ``model_type`` and rope scaling raises naming
-what the port converts, so nothing converts silently wrong.  HF's weights are ``[out, in]``, the
+The other mixtures of experts, every other ``model_type`` and rope
+scaling raise ``NotImplementedError`` naming what the port converts,
+so nothing converts silently wrong.  HF's weights are ``[out, in]``, the
 port's layout: the conversion renames and checks shapes
 (``hf_stream.ingestion_plan``) and never goes through the JAX package's
 ``[in, heads, d]`` layout; GPT-2's ``[in, out]`` Conv1D weights and
@@ -43,6 +45,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from torchacc_tpu_torch.models.hf_stream import (
+    Row,
     SafetensorsFile,
     ingestion_plan,
     missing_tensors,
@@ -56,7 +59,8 @@ from torchacc_tpu_torch.models.transformer import ModelConfig, TransformerLM
 #: model types whose forward the port runs
 SUPPORTED = ("llama", "qwen2", "qwen3", "mistral", "gemma", "gemma2",
              "gemma3", "gemma3_text", "gpt2", "starcoder2", "gpt_neox",
-             "nemotron", "phi", "phi3", "cohere", "olmo2")
+             "nemotron", "phi", "phi3", "cohere", "olmo2", "mixtral",
+             "qwen3_moe")
 # the families whose transformers config ties the head by default
 # (config.json leaves the key out where it keeps its class's default)
 _TIED_BY_DEFAULT = ("gemma", "gemma2", "gemma3", "gemma3_text", "gpt2",
@@ -65,9 +69,10 @@ _TIED_BY_DEFAULT = ("gemma", "gemma2", "gemma3", "gemma3_text", "gpt2",
 _GPT2_NAMES = {"hidden_size": "n_embd", "num_attention_heads": "n_head",
                "num_hidden_layers": "n_layer",
                "max_position_embeddings": "n_positions"}
-# mixture-of-experts families wait for A10c
-_MOE_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "deepseek_v2",
-              "deepseek_v3", "dbrx", "olmoe", "jamba")
+# mixture-of-experts families the port does not convert (their routers,
+# shared experts or layer schedules are not Mixtral's or Qwen3-MoE's)
+_MOE_TYPES = ("qwen2_moe", "deepseek_v2", "deepseek_v3", "dbrx", "olmoe",
+              "jamba")
 
 
 def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
@@ -83,9 +88,10 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
         return getattr(hf_config, n, d)
     if mt in _MOE_TYPES:
         raise NotImplementedError(
-            f"Hugging Face model_type {mt!r} (mixture of experts) is not "
-            f"ported to torchacc_tpu_torch yet (ROADMAP A10c); it converts "
-            f"{', '.join(SUPPORTED)}")
+            f"Hugging Face model_type {mt!r} (mixture of experts) is not a "
+            f"family torchacc_tpu_torch converts; of the mixtures of "
+            f"experts it converts mixtral and qwen3_moe (all: "
+            f"{', '.join(SUPPORTED)})")
     if mt not in SUPPORTED:
         raise NotImplementedError(
             f"Hugging Face model_type {mt!r} is not a family "
@@ -139,6 +145,32 @@ def config_from_hf(hf_config: Any, **overrides) -> ModelConfig:
     elif mt == "qwen3":
         # per-head RMSNorm on q and k before rope (cfg.norm stays rmsnorm)
         kw.update(qk_norm=True)
+    elif mt == "qwen3_moe":
+        # qwen3's attention and per-expert llama FFNs at
+        # moe_intermediate_size; norm_topk_prob picks the combine
+        # weights; JAX's defaults where transformers' differ (JAX
+        # :226-242)
+        if int(get("decoder_sparse_step", 1) or 1) != 1 \
+                or get("mlp_only_layers"):
+            raise NotImplementedError(
+                "qwen3_moe mixed dense/sparse layer schedules "
+                "(decoder_sparse_step != 1 / mlp_only_layers) are not "
+                "implemented")
+        kw.update(
+            qk_norm=True,
+            num_experts=int(get("num_experts")),
+            num_experts_per_tok=int(get("num_experts_per_tok", 2)),
+            router_aux_weight=float(get("router_aux_loss_coef", 0.001)),
+            intermediate_size=int(get("moe_intermediate_size")),
+            moe_renorm_topk=bool(get("norm_topk_prob", False)))
+    elif mt == "mixtral":
+        # llama's attention and a top-k MoE MLP; HF's softmax, top-k,
+        # renormalise is the softmax over the selected logits (JAX
+        # :243-252)
+        kw.update(
+            num_experts=int(get("num_local_experts")),
+            num_experts_per_tok=int(get("num_experts_per_tok", 2)),
+            router_aux_weight=float(get("router_aux_loss_coef", 0.01)))
     elif mt == "phi3":
         # Llama's pre-norm block with packed qkv_proj/gate_up_proj (split
         # at ingestion), Phi-4-mini's partial rotary; longrope below
@@ -470,7 +502,13 @@ def params_from_hf_state_dict(state_dict: Mapping[str, torch.Tensor],
                              f"{list(ent[1])}")
         if ent[0] is not None:
             for dst, part in plan_targets(ent[0], t.detach()):
-                out[dst] = part.to(dtype).contiguous()
+                if isinstance(dst, Row):
+                    # an expert's row of the stacked [e, ...] tensor
+                    out.setdefault(dst.name, torch.empty(
+                        (dst.count,) + tuple(part.shape),
+                        dtype=dtype))[dst.index] = part
+                else:
+                    out[dst] = part.to(dtype).contiguous()
     missing = missing_tensors(plan, seen)
     if missing:
         raise KeyError(f"state_dict is missing {len(missing)} expected "

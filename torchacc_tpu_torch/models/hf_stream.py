@@ -19,9 +19,10 @@ C2):
   BF16, F16 and F32 are read; any other dtype raises by name.
 
 HF's tensors are ``nn.Linear``'s ``[out, in]``, the port's layout, so
-the plan (``ingestion_plan``) is a renaming with shape checks, and a
-split of Phi-3's packed ``qkv_proj`` and ``gate_up_proj`` into row
-ranges, one parameter each.  GPT-2's
+the plan (``ingestion_plan``) is a renaming with shape checks, a split
+of Phi-3's packed ``qkv_proj`` and ``gate_up_proj`` into row ranges,
+one parameter each, and for a mixture of experts each expert's tensor
+into its row of the stacked ``[e, ...]`` parameter (a :class:`Row`).  GPT-2's
 Conv1D checkpoints, GPT-NeoX's packed attention and Phi's are not in
 the plan's layout (``streamable_names``): as in JAX they go through the
 materialising converter (``models.hf.load_hf_model``).
@@ -40,7 +41,8 @@ import os
 import re
 import struct
 import types
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import (Any, Dict, Iterable, List, Mapping, NamedTuple,
+                    Optional, Tuple)
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -59,6 +61,22 @@ DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
 # non-parameter buffers some exporters leave in state dicts
 _IGNORE = re.compile(
     r"(rotary_emb\.inv_freq|masked_bias|attn\.bias|\.num_batches_tracked)$")
+
+
+class Row(NamedTuple):
+    """A plan destination: row ``index`` of the parameter ``name``,
+    which stacks ``count`` such rows (a mixture of experts' expert)."""
+    name: str
+    index: int
+    count: int
+
+
+def _detect_moe_style(names) -> str:
+    """'qwen' (``mlp.experts.N.gate_proj``) or 'mixtral'
+    (``block_sparse_moe.experts.N.w1``), from the checkpoint's tensor
+    names (JAX :284-289)."""
+    return ("qwen" if any(".mlp.experts." in n for n in names)
+            else "mixtral")
 
 
 def read_hf_config(path: str) -> types.SimpleNamespace:
@@ -192,8 +210,13 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
     ``down_proj`` (Nemotron), ``c_fc``/``c_proj`` (StarCoder2) or
     ``fc1``/``fc2`` (Phi, with ``self_attn.dense`` and
     ``final_layernorm``), chosen by the checkpoint's tensor ``names``
-    as JAX's plan chooses them (``_detect_nongated``).  A tied model's
-    ``lm_head.weight``, which some exporters ship as a copy, is
+    as JAX's plan chooses them (``_detect_nongated``); a mixture of
+    experts' router (``gate``) and experts, Mixtral's
+    ``block_sparse_moe.experts.<j>.w1/w3/w2`` or Qwen3-MoE's
+    ``mlp.experts.<j>.gate_proj/up_proj/down_proj`` as
+    ``_detect_moe_style`` tells them apart, each expert's tensor a
+    :class:`Row` of the stacked ``moe.experts.gate/up/down``.  A tied
+    model's ``lm_head.weight``, which some exporters ship as a copy, is
     dropped."""
     h, L = cfg.hidden_size, cfg.num_layers
     nh, nk, d = cfg.num_heads, cfg.kv_heads, cfg.head_size
@@ -206,6 +229,9 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
                  else ("fc1", "fc2") if has("mlp.fc1.weight")
                  else ("up_proj", "down_proj"))
     o_name = "dense" if has("self_attn.dense.weight") else "o_proj"
+    moe_src = (("mlp", ("gate_proj", "up_proj", "down_proj"))
+               if _detect_moe_style(names) == "qwen"
+               else ("block_sparse_moe", ("w1", "w3", "w2")))
     final = "final_layernorm" if has("final_layernorm.weight") else "norm"
     nb = norm_has_bias(cfg)
     plan: Dict[str, Tuple[Any, Tuple[int, ...]]] = {
@@ -259,6 +285,9 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
             if cfg.o_bias if name == "o_proj" else cfg.qkv_bias:
                 plan[f"{p}self_attn.{src}.bias"] = (
                     f"{p}attn.{name}.bias", (rows,))
+        if cfg.num_experts > 0:
+            _plan_experts(plan, p, moe_src, cfg.num_experts, h, f)
+            continue
         mlp = [(mlp_names[0], "up_proj", f, h),
                (mlp_names[1], "down_proj", h, f)]
         if cfg.activation in GATED:
@@ -276,6 +305,18 @@ def ingestion_plan(cfg: ModelConfig, names: Iterable[str] = ()
     return plan
 
 
+def _plan_experts(plan, p: str, src, e: int, h: int, f: int) -> None:
+    """Layer ``p``'s router and experts in ``plan`` (``src``: the
+    module's name and its gate, up and down names)."""
+    mod, names = src
+    plan[f"{p}{mod}.gate.weight"] = (f"{p}moe.router.weight", (e, h))
+    for j in range(e):
+        for name, dst, shape in zip(names, ("gate", "up", "down"),
+                                    ((f, h), (f, h), (h, f))):
+            plan[f"{p}{mod}.experts.{j}.{name}.weight"] = (
+                Row(f"{p}moe.experts.{dst}", j, e), shape)
+
+
 def _parts(prefix: str, names, rows) -> Tuple[Tuple[str, int, int], ...]:
     """The row ranges of a packed tensor: ``(prefix + name + ".weight",
     first row, end row)`` for each part, in order."""
@@ -287,10 +328,11 @@ def _parts(prefix: str, names, rows) -> Tuple[Tuple[str, int, int], ...]:
 
 
 def plan_targets(dst, t: torch.Tensor):
-    """``(parameter name, tensor)`` of each place the checkpoint tensor
-    ``t`` fills under the plan destination ``dst``: itself, or a packed
-    tensor's row range for each part."""
-    if isinstance(dst, tuple):
+    """``(destination, tensor)`` of each place the checkpoint tensor
+    ``t`` fills under the plan destination ``dst``: a parameter name or
+    a :class:`Row` of one, with ``t`` itself, or each part's name with
+    its row range of a packed tensor."""
+    if isinstance(dst, tuple) and not isinstance(dst, Row):
         return [(name, t[lo:hi]) for name, lo, hi in dst]
     return [(dst, t)]
 
@@ -328,19 +370,43 @@ def missing_tensors(plan, seen) -> List[str]:
                   if n not in seen and dst is not None)
 
 
+def _box(dst: DTensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(offsets, sizes)`` of this rank's shard of ``dst``."""
+    chunks = dst.__create_chunk_list__()
+    if len(chunks) != 1:
+        raise NotImplementedError(
+            f"a DTensor whose shard is not one box ({len(chunks)} "
+            f"chunks) cannot be filled from a full tensor")
+    return tuple(chunks[0].offsets), tuple(chunks[0].sizes)
+
+
+@torch.no_grad()
+def copy_to(dest: Mapping[str, torch.Tensor], dst,
+            src: torch.Tensor) -> None:
+    """Write ``src`` into the plan destination ``dst`` of ``dest``: a
+    parameter whole (:func:`copy_full`), or a :class:`Row` of one (on a
+    mesh, where this rank's shard holds that row, its slice)."""
+    if not isinstance(dst, Row):
+        copy_full(dest[dst], src)
+        return
+    t = dest[dst.name]
+    if not isinstance(t, DTensor):
+        t[dst.index].copy_(src)
+        return
+    offs, sizes = _box(t)
+    if offs[0] <= dst.index < offs[0] + sizes[0]:
+        box = tuple(slice(o, o + n) for o, n in zip(offs[1:], sizes[1:]))
+        t.to_local()[dst.index - offs[0]].copy_(src[box])
+
+
 @torch.no_grad()
 def copy_full(dst: torch.Tensor, src: torch.Tensor) -> None:
     """Write the full tensor ``src`` into ``dst``: a plain tensor takes
     all of it, a ``DTensor`` its local shard (the slice DCP would read
     for it), converted to ``dst``'s dtype and device."""
     if isinstance(dst, DTensor):
-        chunks = dst.__create_chunk_list__()
-        if len(chunks) != 1:
-            raise NotImplementedError(
-                f"a DTensor whose shard is not one box ({len(chunks)} "
-                f"chunks) cannot be filled from a full tensor")
-        box = tuple(slice(o, o + n) for o, n in
-                    zip(chunks[0].offsets, chunks[0].sizes))
+        offs, sizes = _box(dst)
+        box = tuple(slice(o, o + n) for o, n in zip(offs, sizes))
         dst.to_local().copy_(src[box])
         return
     dst.copy_(src)
@@ -383,9 +449,10 @@ def stream_params(files: List[str], cfg: ModelConfig,
                     continue
                 view = f.view(name)
                 for dst, part in plan_targets(ent[0], view):
-                    if dst not in dest and dst.startswith("layers."):
+                    name = dst.name if isinstance(dst, Row) else dst
+                    if name not in dest and name.startswith("layers."):
                         continue        # a block another stage holds
-                    copy_full(dest[dst], part)
+                    copy_to(dest, dst, part)
                 del view, part
     missing = missing_tensors(plan, seen)
     if missing:

@@ -1,6 +1,5 @@
-"""Model presets (torchacc_tpu/models/presets.py, field for field, for
-the families the port runs: GPT-2, Llama, Qwen2 and Gemma; Mixtral
-waits for ROADMAP A10c)."""
+"""Model presets (torchacc_tpu/models/presets.py, field for field: GPT-2,
+Llama, Qwen2, Gemma and Mixtral, every preset of the JAX package)."""
 
 from __future__ import annotations
 
@@ -113,6 +112,15 @@ def gemma3_1b(**kw) -> ModelConfig:
     return ModelConfig(**defaults)
 
 
+def mixtral_8x7b(**kw) -> ModelConfig:
+    defaults = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
+                    num_heads=32, num_kv_heads=8, intermediate_size=14336,
+                    max_seq_len=32768, rope_theta=1000000.0, num_experts=8,
+                    num_experts_per_tok=2)
+    defaults.update(kw)
+    return ModelConfig(**defaults)
+
+
 PRESETS = {
     "gpt2-tiny": gpt2_tiny,
     "gpt2": gpt2,
@@ -124,6 +132,7 @@ PRESETS = {
     "gemma-7b": gemma_7b,
     "gemma2-2b": gemma2_2b,
     "gemma3-1b": gemma3_1b,
+    "mixtral-8x7b": mixtral_8x7b,
 }
 
 

@@ -23,8 +23,11 @@ variants add: ``rope_longrope`` (its switch over the whole global batch,
 ``rope_pos_max``), ``rope_yarn``, ``rope_interleaved``, ``logit_scale``
 (``scale_hidden``, on every head path) and ``qk_norm_proj`` (the flat
 qk-norm, its statistics summed over the 'tp' ranks), and in training
-and ``generate`` also ``norm_placement='post'``.  The training forward
-adds
+and ``generate`` also ``norm_placement='post'`` — and in training and
+``generate`` the mixtures of experts (``num_experts`` > 0: the block's
+``moe``, models/moe.py, in place of its ``mlp``; Mixtral, Qwen3-MoE),
+whose router losses the forward sums over the layers and returns
+beside its output (``with_aux``).  The training forward adds
 attention dropout (``attn_dropout``) and quantized forward matmuls
 (``quant``, ``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
 ``quant_impl``).  The serving forward (serve/scheduler.py) and the
@@ -298,6 +301,16 @@ def mlp_out(cfg: ModelConfig, mlp: "Mlp", x: torch.Tensor) -> torch.Tensor:
                  mlp.down_proj)
 
 
+def block_mlp(cfg: ModelConfig, layer: "Block",
+              x: torch.Tensor) -> torch.Tensor:
+    """:func:`mlp_out` of the block ``layer``, or its mixture of experts'
+    output (its router loss dropped; under capacity dispatch the cap of
+    ``x``'s own tokens, as JAX's cached forward has it)."""
+    if cfg.num_experts > 0:
+        return layer.moe(x)[0]
+    return mlp_out(cfg, layer.mlp, x)
+
+
 def alibi_slopes(num_heads: int) -> Tuple[float, ...]:
     """The ALiBi slopes of ``num_heads`` heads (``alibi_slopes`` :433):
     geometric 2^(-8i/n), with the paper's interpolation where n is not a
@@ -529,11 +542,17 @@ MODEL_SURFACE = ("rmsnorm, rmsnorm1p, layernorm and layernorm1p (with "
                  "biases, the parallel block, tie_embeddings, embed_scale, "
                  "per-head and flat qk_norm, attn_logit_softcap, "
                  "logit_softcap and logit_scale")
-# the rest of the forward waits for this ROADMAP item
-MODEL_PENDING = "ROADMAP.md A10c (the mixtures of experts)"
+# the fields the port leaves out name this ROADMAP item: overlap_fsdp
+# (JAX's in-model KV cache, decode, is models/generate.py here)
+MODEL_PENDING = "ROADMAP.md A8b"
+# the mixture-of-experts fields (models/moe.py); moe_dispatch picks a
+# mechanism of JAX's that gives the same values as its other, so it
+# changes nothing the port computes (PARITY.md)
+MOE_FIELDS = ("num_experts", "num_experts_per_tok", "router_aux_weight",
+              "moe_renorm_topk", "moe_capacity_factor")
 # the training forward also implements Gemma2/3's sandwich norms, the
 # sliding window and the sliding/global layer pattern with its local
-# rope base; remat (its policy, the submodules and the number of layers
+# rope base, the mixtures of experts; remat (its policy, the submodules and the number of layers
 # it covers), the attention choice, attention dropout and the quantized
 # matmuls; every other field must keep its default
 _TRAIN_FIELDS = MODEL_FIELDS | {
@@ -541,14 +560,13 @@ _TRAIN_FIELDS = MODEL_FIELDS | {
     "remat", "remat_policy", "remat_cls", "remat_cnt", "attention_impl",
     "attn_dropout", "quant", "quant_sites", "quant_amax_history_len",
     "quant_impl", "context_parallel", "pp_size", "pp_num_micro",
-    "pp_virtual"}
+    "pp_virtual"} | set(MOE_FIELDS)
 # fields that pick how the JAX package lays out or shards the step, or
 # knobs inert while their feature is off; none changes what one device
 # computes
 _TRAIN_INERT = frozenset({
     "scan_layers", "cache_len", "logical_axis_rules",
-    "tp_vocab_head", "num_experts_per_tok", "router_aux_weight",
-    "moe_dispatch", "moe_renorm_topk", "moe_capacity_factor",
+    "tp_vocab_head", "moe_dispatch",
 })
 
 
@@ -654,7 +672,8 @@ def quant_site_names(cfg: ModelConfig) -> Tuple[str, ...]:
     """The name of every quantized matmul site of ``cfg``, in forward
     order: ``layers.<i>.<attn|mlp>.<linear>`` (the module's path)."""
     sites = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-             "mlp": mlp_linears(cfg)}
+             # the experts are never quantized (JAX's einsums)
+             "mlp": mlp_linears(cfg) if cfg.num_experts == 0 else ()}
     return tuple(f"layers.{i}.{site}.{lin}"
                  for i in range(cfg.num_layers)
                  for site, lins in sites.items()
@@ -961,7 +980,11 @@ class Block(nn.Module):
         self.attn = Attention(cfg, layer, **factory)
         if has_ln2(cfg):
             self.ln2 = Norm(cfg, cfg.hidden_size, **factory)
-        self.mlp = Mlp(cfg, **factory)
+        if cfg.num_experts > 0:
+            from torchacc_tpu_torch.models.moe import MoEMlp
+            self.moe = MoEMlp(cfg, **factory)
+        else:
+            self.mlp = Mlp(cfg, **factory)
         if cfg.sandwich_norms:
             self.ln1_post = Norm(cfg, cfg.hidden_size, **factory)
             self.ln2_post = Norm(cfg, cfg.hidden_size, **factory)
@@ -976,15 +999,21 @@ class Block(nn.Module):
         ``norm_placement='post'`` (OLMo2) ``x + ln(f(x))`` for each
         sublayer with no pre-norm.  ``sub_remat``: the attention and/or
         MLP named by ``cfg.remat_cls`` are checkpoint regions under
-        ``cfg.remat_policy`` (the block itself is not).  ``pos_max``:
-        the batch's largest position (longrope)."""
+        ``cfg.remat_policy`` (the block itself is not); a mixture of
+        experts' ``moe`` is one where ``remat_cls`` names 'MoEMlp' or
+        'Mlp' (JAX :738).  ``pos_max``: the batch's largest position
+        (longrope).  A mixture of experts' block returns ``(x, aux)``,
+        its router's load-balancing loss beside the output."""
         cfg = self.cfg
+        moe = cfg.num_experts > 0
         remat_attn = sub_remat and "Attention" in cfg.remat_cls
-        remat_mlp = sub_remat and "Mlp" in cfg.remat_cls
+        remat_mlp = sub_remat and ("Mlp" in cfg.remat_cls or (
+            moe and "MoEMlp" in cfg.remat_cls))
         attn = functools.partial(self.attn, dropout_seed=dropout_seed,
                                  quant=quant, name=f"{name}.attn",
                                  pos_max=pos_max)
-        mlp = functools.partial(self.mlp, quant=quant, name=f"{name}.mlp")
+        mlp = (self.moe if moe else
+               functools.partial(self.mlp, quant=quant, name=f"{name}.mlp"))
         post = post_norm(cfg)
         a_in = x if post else apply_norm(cfg, x, self.ln1)
         a = (checkpoint_block(attn, cfg.remat_policy, a_in, positions,
@@ -1002,11 +1031,13 @@ class Block(nn.Module):
             m_in = h if post else apply_norm(cfg, h, self.ln2)
         m = (checkpoint_block(mlp, cfg.remat_policy, m_in) if remat_mlp
              else mlp(m_in))
+        if moe:
+            m, aux = m
         if cfg.sandwich_norms:
             m = apply_norm(cfg, m, self.ln2_post)
         if post:
             m = apply_norm(cfg, m, self.ln2)
-        return h + m
+        return (h + m, aux) if moe else h + m
 
 
 class StageLayers(nn.ModuleDict):
@@ -1093,7 +1124,8 @@ class TransformerLM(nn.Module):
                 labels: Optional[torch.Tensor] = None,
                 hidden: Optional[torch.Tensor] = None,
                 layers: Optional[range] = None,
-                head_loss: Optional[Callable] = None):
+                head_loss: Optional[Callable] = None,
+                with_aux: bool = False):
         """``TransformerLM.__call__`` (:853): f32 logits ``[b, s, V]``, or
         with ``return_hidden`` the final-normed hidden in the compute
         dtype, or with ``labels`` the fused linear + CE head's
@@ -1122,13 +1154,19 @@ class TransformerLM(nn.Module):
         chunk's output, or with ``labels`` the final norm, the head and
         the loss's ``(loss_sum, count)``: the fused CE, or
         ``head_loss(hidden, labels)``.
+        ``with_aux``: the result is ``(result, aux)``, ``aux`` the f32
+        sum over the blocks run of the mixtures of experts' router
+        losses (JAX's sown ``moe_aux_loss``, ``_sown_aux_sum`` :1355;
+        zero for a dense model).
         Called through the module, so that FSDP2 gathers the embedding
         and the head for it."""
         cfg = self.cfg
         check_training_supported(cfg)
         if layers is not None:
-            return self._chunk(input_ids, hidden, positions, segment_ids,
-                               dropout_seed, layers, labels, head_loss)
+            out, aux = self._chunk(input_ids, hidden, positions,
+                                   segment_ids, dropout_seed, layers,
+                                   labels, head_loss)
+            return (out, aux) if with_aux else out
         scope = None
         if quant_site_names(cfg):
             if quant is None:
@@ -1144,15 +1182,17 @@ class TransformerLM(nn.Module):
                 "models.transformer.pp_forward_sum_count)")
         positions = self._positions(input_ids, positions)
         x = self._embed(input_ids, positions)
-        x = self._blocks(x, positions, segment_ids, dropout_seed, scope,
-                         range(cfg.num_layers))
+        x, aux = self._blocks(x, positions, segment_ids, dropout_seed,
+                              scope, range(cfg.num_layers))
         if return_hidden or labels is not None:
             x = final_hidden(cfg, self, x)
         if labels is not None:
-            return self._fused_ce(x, labels)
-        if return_hidden:
-            return x
-        return head_logits(cfg, self, x)
+            out = self._fused_ce(x, labels)
+        elif return_hidden:
+            out = x
+        else:
+            out = head_logits(cfg, self, x)
+        return (out, aux) if with_aux else out
 
     def _positions(self, ids: torch.Tensor,
                    positions: Optional[torch.Tensor]) -> torch.Tensor:
@@ -1165,11 +1205,13 @@ class TransformerLM(nn.Module):
         return torch.arange(start, start + s, device=ids.device).expand(b, s)
 
     def _blocks(self, x, positions, segment_ids, dropout_seed, scope,
-                indices) -> torch.Tensor:
-        """Blocks ``indices`` (global layer numbers) applied in turn, each
-        under remat as ``cfg`` asks, with its layer's dropout seed; under
-        longrope each reads the largest position of the global batch
-        (:func:`rope_pos_max` over the data and sequence ranks)."""
+                indices) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(x, aux)``: blocks ``indices`` (global layer numbers)
+        applied in turn, each under remat as ``cfg`` asks, with its
+        layer's dropout seed, and the f32 sum of their router losses;
+        under longrope each reads the largest position of the global
+        batch (:func:`rope_pos_max` over the data and sequence
+        ranks)."""
         cfg = self.cfg
         grad = torch.is_grad_enabled()
         sub = _sub_remat(cfg)
@@ -1177,6 +1219,7 @@ class TransformerLM(nn.Module):
         # longrope's switch reads the whole global batch's positions
         pos_max = (rope_pos_max(positions, self.data_groups)
                    if cfg.rope_longrope is not None else None)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in indices:
             layer = self.layers[i]
             remat = grad and _remat_layer(cfg, i)
@@ -1189,7 +1232,10 @@ class TransformerLM(nn.Module):
                                      segment_ids)
             else:
                 x = layer(x, positions, segment_ids, **kw)
-        return x
+            if isinstance(x, tuple):
+                x, a = x
+                aux = aux + a
+        return x, aux
 
     def _fused_ce(self, x: torch.Tensor, labels: torch.Tensor):
         """The fused linear + CE head on the final-normed ``x`` (which
@@ -1209,17 +1255,18 @@ class TransformerLM(nn.Module):
 
     def _chunk(self, input_ids, hidden, positions, segment_ids,
                dropout_seed, layers, labels, head_loss):
-        """One pipeline chunk (``forward``'s ``layers``)."""
+        """One pipeline chunk (``forward``'s ``layers``) and its router
+        losses' sum."""
         ref = input_ids if hidden is None else hidden[..., 0]
         positions = self._positions(ref, positions)
         x = self._embed(input_ids, positions) if hidden is None else hidden
-        x = self._blocks(x, positions, segment_ids, dropout_seed, None,
-                         layers)
+        x, aux = self._blocks(x, positions, segment_ids, dropout_seed, None,
+                              layers)
         if labels is None:
-            return x
+            return x, aux
         if head_loss is not None:
-            return head_loss(x, labels)
-        return self._fused_ce(final_hidden(self.cfg, self, x), labels)
+            return head_loss(x, labels), aux
+        return self._fused_ce(final_hidden(self.cfg, self, x), labels), aux
 
     def _embed(self, ids: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -1387,8 +1434,7 @@ def pp_block_appliers(cfg: ModelConfig):
     with ``layers``).  Under a ``layer_pattern`` JAX's slot j of every
     chunk runs ``pattern_cfg(cfg, j)``; here each block takes the
     config of its global index, the same one when the pattern's period
-    divides a chunk, which JAX requires (:809) and so does this.  A
-    mixture of experts (its aux-loss rider) raises by name."""
+    divides a chunk, which JAX requires (:809) and so does this."""
     if cfg.layer_pattern:
         plen = len(cfg.layer_pattern)
         per_stage = cfg.num_layers // (cfg.pp_size * cfg.pp_virtual)
@@ -1400,11 +1446,6 @@ def pp_block_appliers(cfg: ModelConfig):
                 f"{cfg.pp_virtual}): slot kinds would differ across "
                 f"stages.  Choose pp_size x virtual_stages so each chunk "
                 f"holds whole pattern repeats.")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "a mixture of experts under pipeline parallelism (the router "
-            "aux loss riding each micro-batch through the stages) is not "
-            "ported to torchacc_tpu_torch yet (ROADMAP.md A10c)")
     from torchacc_tpu_torch.parallel.pp import stage_layers
     return [stage_layers(cfg.num_layers, cfg.pp_size, cfg.pp_virtual, d)
             for d in range(cfg.pp_size)]
@@ -1455,7 +1496,12 @@ def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
     and ``cfg.attn_dropout``): GPipe draws every micro-batch with the
     layer seeds of ``dropout_seed`` alone, 1F1B mixes the micro index in
     first (``_micro_seed``), the JAX package's two conventions; the
-    kernels hash each row's place in its micro-batch."""
+    kernels hash each row's place in its micro-batch.  A mixture of
+    experts' router losses ride each micro-batch: every chunk adds
+    ``router_aux_weight * aux * count_m`` to the loss sum, ``count_m``
+    the micro-batch's labels that are not -100 (JAX's weight rider
+    under GPipe, :1018-1075, and ``aux_scale`` under 1F1B, :1450-1455),
+    and its gradient to the chunk's backward."""
     cfg = model.cfg
     chunks = pp_block_appliers(cfg)
     # the fused CE has no bias term: a head_bias model's last stage
@@ -1468,6 +1514,7 @@ def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
     mb = b // M
     drop = cfg.attn_dropout > 0.0 and dropout_seed is not None
     one_f = train and pipeline.schedule == "1f1b"
+    w_aux = cfg.router_aux_weight if cfg.num_experts > 0 else 0.0
 
     def part(t, m):
         return None if t is None or t.ndim == 0 else t[m * mb:(m + 1) * mb]
@@ -1496,9 +1543,17 @@ def pp_forward_sum_count(model: TransformerLM, pipeline, batch,
         seed = None
         if drop:
             seed = _micro_seed(dropout_seed, m) if one_f else dropout_seed
-        return model(part(ids, m), positions=part(batch.get("positions"), m),
-                     segment_ids=part(batch.get("segment_ids"), m),
-                     dropout_seed=seed, hidden=x, layers=chunks[d][c],
-                     labels=part(labels, m) if last else None,
-                     head_loss=head_for(m) if last else None)
+        out = model(part(ids, m), positions=part(batch.get("positions"), m),
+                    segment_ids=part(batch.get("segment_ids"), m),
+                    dropout_seed=seed, hidden=x, layers=chunks[d][c],
+                    labels=part(labels, m) if last else None,
+                    head_loss=head_for(m) if last else None,
+                    with_aux=bool(w_aux))
+        if not w_aux:
+            return out
+        res, aux = out
+        extra = w_aux * aux * (part(labels, m) != -100).sum().float()
+        if last:
+            return res[0] + extra, res[1]
+        return res, extra
     return pipeline.run(call, train=train, scale=scale)

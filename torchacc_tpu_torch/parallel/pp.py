@@ -48,7 +48,10 @@ gradient off ``.grad`` as it lands, so it is applied at the head.  What calls a 
 c, m, x, last)``: stage d's chunk c on micro-batch m from the input
 ``x`` (None for the first virtual stage, which embeds its tokens), and
 with ``last`` the head and the loss, ``(loss_sum, count)``
-(``models.transformer.pp_forward_sum_count``).
+(``models.transformer.pp_forward_sum_count``).  Another chunk may
+return ``(output, extra)``, ``extra`` a scalar loss term of its own (a
+mixture of experts' weighted router losses): it joins the stage's loss
+sum, and its gradient (times ``scale``) the chunk's backward.
 
 Not ported (no meaning here): ``micro_split_spec``, ``_micro_splitter``
 and ``_micro_merger`` (:66-114) are GSPMD layout hints, and
@@ -189,6 +192,11 @@ def _leaf(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else x.detach().requires_grad_(True)
 
 
+def _split(out) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A chunk's ``(output, extra loss term or None)``."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
 class Stage:
     """One stage's runner for one schedule run: ``act`` runs an action,
     reading its input from ``inbox`` and putting what it sends in
@@ -222,10 +230,31 @@ class Stage:
             self._backward(m, c, s, last)
         self.max_live = max(self.max_live, len(self.bank) + len(self.fused))
 
-    def _add_loss(self, l_sum: torch.Tensor, count: torch.Tensor) -> None:
-        l_sum, count = l_sum.detach().float(), count.detach().float()
+    def _add_loss(self, l_sum: torch.Tensor,
+                  count: Optional[torch.Tensor] = None) -> None:
+        l_sum = l_sum.detach().float()
         self.l_sum = l_sum if self.l_sum is None else self.l_sum + l_sum
-        self.count = count if self.count is None else self.count + count
+        if count is not None:
+            count = count.detach().float()
+            self.count = (count if self.count is None
+                          else self.count + count)
+
+    def _output(self, out):
+        """A non-last chunk's output, its extra loss term added to the
+        stage's loss sum."""
+        y, extra = _split(out)
+        if extra is not None:
+            self._add_loss(extra)
+        return y, extra
+
+    def _chunk_backward(self, y: torch.Tensor, extra, g: torch.Tensor
+                        ) -> None:
+        if extra is None:
+            torch.autograd.backward(y, g)
+            return
+        torch.autograd.backward(
+            (y, extra if self.scale is None else extra * self.scale),
+            (g, None))
 
     def _head_backward(self, l_sum: torch.Tensor) -> None:
         torch.autograd.backward(
@@ -247,7 +276,7 @@ class Stage:
             if last:
                 self._add_loss(*out)
             else:
-                self.outbox[("F", m, c)] = out
+                self.outbox[("F", m, c)] = self._output(out)[0]
             return
         if self.schedule == "gpipe":
             xg = _leaf(x)
@@ -255,10 +284,11 @@ class Stage:
                 out = self.call(self.index, c, m, xg, last)
             if last:
                 self._add_loss(*out)
-                self.bank[(m, c)] = (xg, out[0])
+                self.bank[(m, c)] = (xg, out[0], None)
             else:
-                self.bank[(m, c)] = (xg, out)
-                self.outbox[("F", m, c)] = out.detach()
+                y, extra = self._output(out)
+                self.bank[(m, c)] = (xg, y, extra)
+                self.outbox[("F", m, c)] = y.detach()
             return
         if last:
             # the head's cotangent is ready at once: chunk, head, loss and
@@ -273,7 +303,7 @@ class Stage:
                 self._send_grad(m, c, s, xg)
             return
         with torch.no_grad():
-            y = self.call(self.index, c, m, x, False)
+            y = self._output(self.call(self.index, c, m, x, False))[0]
         self.bank[(m, c)] = x
         self.outbox[("F", m, c)] = y
 
@@ -284,15 +314,16 @@ class Stage:
                 return
             xg = _leaf(self.bank.pop((m, c)))
             with torch.enable_grad():
-                y = self.call(self.index, c, m, xg, False)
-                torch.autograd.backward(y, self.inbox.pop(("B", m, c)))
+                # the re-run's extra term was counted in the F tick
+                y, extra = _split(self.call(self.index, c, m, xg, False))
+                self._chunk_backward(y, extra, self.inbox.pop(("B", m, c)))
             self._send_grad(m, c, s, xg)
             return
-        xg, out = self.bank.pop((m, c))
+        xg, out, extra = self.bank.pop((m, c))
         if last:
             self._head_backward(out)
         else:
-            torch.autograd.backward(out, self.inbox.pop(("B", m, c)))
+            self._chunk_backward(out, extra, self.inbox.pop(("B", m, c)))
         self._send_grad(m, c, s, xg)
 
 

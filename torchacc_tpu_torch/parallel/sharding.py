@@ -16,6 +16,17 @@ torch placements:
   (``models/transformer.py``) reads the local shards with ``to_local()``
   and issues the Megatron collectives itself, since the kernels take
   raw pointers.
+- ``expert`` on 'ep' and ``expert_mlp`` on 'tp': a mixture of experts'
+  stacked experts (``models/moe.py``) are split by expert over 'ep'
+  (``Shard(0)``) and by ffn column over 'tp'; every rank of one 'ep' x
+  'tp' group holds the same tokens (the batch splits over the data and
+  sequence axes only), computes its experts' share on all of them, and
+  the shares are summed over the group (:func:`axes_group`).  Where
+  'ep' is above 1 every parameter is a DTensor on the ('ep', 'tp')
+  mesh, ``Replicate()`` on 'ep' but the experts, so that the global
+  norm counts a copy once.  The router stays whole on every rank (JAX
+  splits its expert dim over 'ep' and gathers it): each rank routes
+  its tokens over all the experts.
 - ``embed`` on 'fsdp': ``fully_shard`` over the ('dp', 'fsdp')
   sub-mesh, once per decoder block and once at the root: ZeRO-3 over
   'fsdp', replicated over 'dp' (HSDP when both are above 1).  FSDP2
@@ -43,6 +54,7 @@ head offsets), so that dropout draws the global masks on any mesh.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -79,6 +91,10 @@ DEFAULT_RULES: LogicalRules = (
 # the logical axes the forward splits over 'tp' (Megatron heads and MLP,
 # the vocab-parallel embedding and head)
 _TP_AXES = ("heads", "mlp", "vocab")
+# the model-parallel mesh axes, whose ranks hold the same tokens
+MP_AXES = ("ep", "tp")
+# parameters kept whole on the model-parallel mesh whatever their axes
+_WHOLE = re.compile(r"moe\.router\.weight$")
 
 
 def make_rules(config: Optional[Config] = None) -> LogicalRules:
@@ -153,8 +169,10 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
     layout the forward does not implement."""
     table = _table(rules)
     tp = sizes["tp"]
+    moe = cfg.num_experts > 0
     if tp > 1:
-        off = [ax for ax in _TP_AXES if table.get(ax) != "tp"]
+        off = [ax for ax in _TP_AXES + (("expert_mlp",) if moe else ())
+               if table.get(ax) != "tp"]
         extra = [ax for ax, tgt in table.items() if ax not in _TP_AXES
                  and ax != "expert_mlp"
                  and "tp" in (tgt if isinstance(tgt, tuple) else (tgt,))]
@@ -174,6 +192,26 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
                     f"package replicates such a dim (and the head falls "
                     f"back to a replicated one); the port does not "
                     f"(ROADMAP.md A8b)")
+    ep = sizes.get("ep", 1)
+    if ep > 1 and moe:
+        if table.get("expert") != "ep":
+            raise NotImplementedError(
+                "a rule table that does not shard 'expert' over 'ep' is not "
+                "ported to torchacc_tpu_torch yet (ROADMAP.md A8b)")
+        if cfg.num_experts % ep:
+            raise NotImplementedError(
+                f"num_experts {cfg.num_experts} is not divisible by ep "
+                f"{ep}: the JAX package replicates such a dim; the port "
+                f"does not (ROADMAP.md A8b)")
+    shards = sizes["dp"] * sizes["fsdp"]
+    if moe and shards > 1 and (grad_accum > 1 or sizes.get("pp", 1) > 1):
+        raise NotImplementedError(
+            "a mixture of experts with grad_accum > 1 or pipeline "
+            "parallelism on more than one data shard is not ported to "
+            "torchacc_tpu_torch yet (ROADMAP.md A11b): each rank splits its "
+            "own rows into micro-batches, where the JAX package splits the "
+            "global batch, so micro-batch i's capacity, drop priorities "
+            "and router loss would cover other rows than JAX's")
     seq = sizes["sp"] * sizes["spu"]
     if seq > 1:
         if not cfg.context_parallel:
@@ -228,24 +266,28 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
             "parameter (ROADMAP.md A8b)")
 
 
-def _place_tp(module: nn.Module, prefix: str, tp_mesh: DeviceMesh,
-              rules: LogicalRules) -> None:
-    """Make every parameter of ``module`` a DTensor on the 'tp' mesh:
-    ``Shard(d)`` on the dim the rules put on 'tp', else ``Replicate()``.
-    Every rank holds the same full weights, so each keeps its own slice
-    without communication."""
+def _place_mp(module: nn.Module, prefix: str, mp_mesh: DeviceMesh,
+              axes_names: Sequence[str], rules: LogicalRules) -> None:
+    """Make every parameter of ``module`` a DTensor on the model-parallel
+    mesh ``mp_mesh`` (its dims ``axes_names``, of 'ep' and 'tp'): along
+    each, ``Shard(d)`` on the dim the rules put on that axis, else
+    ``Replicate()`` (the router always).  Every rank holds the same full
+    weights, so each keeps its own slice without communication."""
     named = list(module.named_parameters(prefix=prefix))
     axes = param_axes(named)
     for name, p in named:
         spec = spec_for(axes[name], rules)
-        dims = [d for d, tgt in enumerate(spec)
-                if "tp" in (tgt if isinstance(tgt, tuple) else (tgt,))]
-        placement = Shard(dims[0]) if dims else Replicate()
+        placements = []
+        for a in axes_names:
+            dims = [d for d, tgt in enumerate(spec)
+                    if a in (tgt if isinstance(tgt, tuple) else (tgt,))]
+            placements.append(Shard(dims[0]) if dims and not
+                              _WHOLE.search(name) else Replicate())
         local = name[len(prefix) + 1:] if prefix else name
         owner, _, leaf = local.rpartition(".")
         mod = module.get_submodule(owner) if owner else module
         setattr(mod, leaf, nn.Parameter(
-            distribute_tensor(p.detach(), tp_mesh, [placement],
+            distribute_tensor(p.detach(), mp_mesh, placements,
                               src_data_rank=None),
             requires_grad=p.requires_grad))
 
@@ -283,14 +325,18 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
     sizes = describe_mesh(mesh)
     rules = make_rules(config)
     _check_plan(model.cfg, rules, sizes, config.grad_accum)
-    tp_mesh = mesh["tp"] if sizes["tp"] > 1 else None
+    # the parameters' model-parallel mesh: 'tp', 'ep' or both, where
+    # above 1
+    mp_axes = tuple(a for a in MP_AXES if sizes[a] > 1)
+    mp_mesh = (None if not mp_axes else mesh[mp_axes[0]] if len(mp_axes) == 1
+               else mesh[mp_axes])
     fsdp_kw = dict(mesh=data_mesh(mesh), mp_policy=mixed_precision(config))
 
     def prepare(module, prefix):
         if materialize is not None:
             materialize(module, prefix)
-        if tp_mesh is not None:
-            _place_tp(module, prefix, tp_mesh, rules)
+        if mp_mesh is not None:
+            _place_mp(module, prefix, mp_mesh, mp_axes, rules)
 
     prepare(model.embed_tokens, "embed_tokens")
     n_pp, stage = pp_stage(mesh)
@@ -324,7 +370,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
         # the reduce-scatter (and HSDP's all-reduce) sums
         mod.set_gradient_divide_factor(1.0)
         mod.set_force_sum_reduction_for_comms(True)
-    group = None if tp_mesh is None else tp_mesh.get_group()
+    group = mesh.get_group("tp") if sizes["tp"] > 1 else None
     layout = CPLayout.from_mesh(mesh)
     for mod in model.modules():
         if hasattr(type(mod), "tp_group"):
@@ -333,30 +379,58 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
             mod.layout = layout
     model.seq_group = seq_group(mesh)
     model.data_groups = data_groups(mesh, model.seq_group)
+    if model.cfg.num_experts > 0:
+        _wire_experts(model, mesh, model.seq_group)
     model.pp_group = mesh.get_group("pp") if n_pp > 1 else None
     return model
+
+
+def _wire_experts(model: nn.Module, mesh: DeviceMesh, seq: Any) -> None:
+    """Hand every ``MoEMlp`` its groups (``models/moe.py``): the 'ep' x
+    'tp' group of the experts' sum, its first expert, and the groups
+    over which the tokens are split (the data axes, major first, and the
+    sequence ranks)."""
+    from torchacc_tpu_torch.models.moe import MoEMlp
+    sizes = describe_mesh(mesh)
+    group = axes_group(mesh, MP_AXES)
+    first = mesh.get_local_rank("ep") * (model.cfg.num_experts
+                                         // sizes["ep"])
+    rows = tuple(mesh.get_group(a) for a in DATA_AXES if sizes[a] > 1)
+    for mod in model.modules():
+        if isinstance(mod, MoEMlp):
+            mod.expert_group, mod.expert_offset = group, first
+            mod.row_groups, mod.seq_group = rows, seq
 
 
 SEQ_AXES = ("sp", "spu")
 
 
+def axes_group(mesh: DeviceMesh, axes: Sequence[str]) -> Any:
+    """The process group of this rank's ranks along the mesh ``axes``
+    (adjacent in ``MESH_AXES``; None where all are 1), ranked in their
+    flattened order.  Where two axes are above 1 the group is made here
+    over them flattened, which is a collective: every rank calls this
+    with the same mesh."""
+    sizes = describe_mesh(mesh)
+    live = [a for a in axes if sizes[a] > 1]
+    if len(live) < 2:
+        return mesh.get_group(live[0]) if live else None
+    names = list(mesh.mesh_dim_names)
+    order = [i for i, a in enumerate(names) if a not in axes] \
+        + [names.index(a) for a in axes]
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    ranks = mesh.mesh.permute(order).reshape(-1, n).tolist()
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return group
+
+
 def seq_group(mesh: DeviceMesh) -> Any:
     """The process group of this rank's sequence ranks, 'sp' x 'spu'
     (None where both are 1): a gradient summed over them is one
-    all-reduce.  Where both axes are above 1 the group is made here over
-    the two axes flattened, which is a collective: every rank calls this
-    with the same mesh."""
-    sizes = describe_mesh(mesh)
-    axes = [a for a in SEQ_AXES if sizes[a] > 1]
-    if len(axes) < 2:
-        return mesh.get_group(axes[0]) if axes else None
-    names = list(mesh.mesh_dim_names)
-    order = [i for i, a in enumerate(names) if a not in SEQ_AXES] \
-        + [names.index(a) for a in SEQ_AXES]
-    ranks = mesh.mesh.permute(order).reshape(
-        -1, sizes["sp"] * sizes["spu"]).tolist()
-    group, _ = dist.new_subgroups_by_enumeration(ranks)
-    return group
+    all-reduce (:func:`axes_group`)."""
+    return axes_group(mesh, SEQ_AXES)
 
 
 def data_groups(mesh: DeviceMesh, seq: Any = None) -> Tuple[Any, ...]:

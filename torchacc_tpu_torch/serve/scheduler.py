@@ -57,6 +57,7 @@ from torchacc_tpu_torch.models.transformer import (
     MODEL_FIELDS,
     MODEL_PENDING,
     MODEL_SURFACE,
+    MOE_FIELDS,
     ModelConfig,
     apply_norm,
     check_composition,
@@ -85,22 +86,22 @@ _SUPPORTED_FIELDS = MODEL_FIELDS - {"parallel_block", "norm_placement"}
 # what JAX's ServeEngine rejects and its generate() decodes (JAX
 # scheduler.py :139-150): Gemma2/3's per-layer windows and sandwich
 # norms, Mistral's and Phi-3's windows, Phi's, GPT-NeoX's and Cohere's
-# parallel block, OLMo2's post-norms, ALiBi
+# parallel block, OLMo2's post-norms, ALiBi, the mixtures of experts
 _GENERATE_ONLY = ("layer_pattern", "rope_local_theta", "sandwich_norms",
                   "window", "parallel_block", "norm_placement",
-                  "pos_emb='alibi'")
+                  "pos_emb='alibi'", "num_experts")
 # fields that select training-time execution only and cannot change
 # what the serving forward computes (the JAX package's audit:
-# scheduler.py _AUDITED_MODEL_FIELDS); the MoE knobs are inert while
-# num_experts == 0
+# scheduler.py _AUDITED_MODEL_FIELDS)
 _INERT_FIELDS = frozenset({
     "scan_layers", "remat", "remat_policy", "remat_cls", "remat_cnt",
     "attention_impl", "decode", "cache_len", "attn_dropout", "quant",
     "quant_sites", "quant_amax_history_len", "quant_impl", "overlap_fsdp",
     "pp_num_micro", "pp_virtual", "logical_axis_rules", "tp_vocab_head",
-    "num_experts_per_tok", "router_aux_weight", "moe_dispatch",
-    "moe_renorm_topk", "moe_capacity_factor",
 })
+# the mixture-of-experts knobs change nothing while num_experts is 0;
+# with experts the model is refused by name (JAX scheduler.py :133-134)
+_MOE_KNOBS = frozenset(MOE_FIELDS[1:]) | {"moe_dispatch"}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -111,7 +112,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     ``models.generate``.  A head bias on a tied head raises as in
     JAX."""
     check_composition(cfg)
-    bad = unsupported_fields(cfg, _SUPPORTED_FIELDS, _INERT_FIELDS)
+    inert = _INERT_FIELDS | (_MOE_KNOBS if cfg.num_experts == 0
+                             else frozenset())
+    bad = unsupported_fields(cfg, _SUPPORTED_FIELDS, inert)
     if cfg.pos_emb == "alibi":
         bad.append("pos_emb='alibi'")
     gen = [b for b in bad
@@ -120,8 +123,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "the serving engine of torchacc_tpu_torch does not support "
             + ", ".join(gen) + " (per-layer or sliding windows, sandwich "
-            "norms, the parallel block, post-norms, ALiBi), as JAX's does "
-            "not.  Use "
+            "norms, the parallel block, post-norms, ALiBi, MoE), as JAX's "
+            "does not.  Use "
             "models.generate for these models (batch-synchronous decode "
             "covers them).")
     if bad:

@@ -67,10 +67,16 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
     forces the host-offload remat policy, ``gc_cls``/``gc_cnt`` pick the
     submodules and the number of layers that remat, ``dist.sp.size``
     above 1 turns on ``context_parallel``, ``dist.pp`` gives the
-    pipeline's stages, micro-batches and chunks, and
+    pipeline's stages, micro-batches and chunks,
     ``perf.overlap_fsdp`` sets ``overlap_fsdp`` (which the training
-    check refuses, ROADMAP.md A8b)."""
+    check refuses, ROADMAP.md A8b), and ``dist.ep.capacity_factor``
+    becomes a mixture of experts' ``moe_capacity_factor`` unless the
+    model config sets its own (JAX :62-64)."""
     mem = config.memory
+    cf = mc.moe_capacity_factor
+    if (config.dist.ep.capacity_factor is not None
+            and mc.num_experts > 0 and cf is None):
+        cf = config.dist.ep.capacity_factor
     return dataclasses.replace(
         mc,
         dtype=config.compute.dtype,
@@ -90,6 +96,7 @@ def apply_config_to_model(mc: ModelConfig, config: Config) -> ModelConfig:
         pp_num_micro=config.dist.pp.num_micro_batches,
         pp_virtual=config.dist.pp.virtual_stages,
         overlap_fsdp=mc.overlap_fsdp or config.perf.overlap_fsdp,
+        moe_capacity_factor=cf,
     )
 
 
@@ -115,7 +122,7 @@ def accelerate(
     pp_ranks = 1 if trainer_kwargs.get("pipeline") is not None \
         else d.pp.size
     if not dist.is_initialized() and max(d.dp.size, 1) * d.tp.size \
-            * d.fsdp.size * d.sp.size * pp_ranks > 1:
+            * d.fsdp.size * d.sp.size * d.ep.size * pp_ranks > 1:
         raise ConfigError(
             "config.dist asks for more than one rank but no "
             "torch.distributed process group is up: call "

@@ -33,6 +33,12 @@ once, after the backward (a remat recompute reads the same histories
 its forward did and advances nothing twice); ``eval_step`` reads and
 records nothing.
 
+A mixture of experts (``num_experts`` > 0) adds ``router_aux_weight *
+aux * count`` to each (micro-)batch's loss sum, ``aux`` the forward's
+router losses summed over the layers and ``count`` the batch's tokens,
+as the JAX Trainer does (:133-134, :557-559); under 'pp' each chunk
+adds its own with its micro-batch's count (``pp_forward_sum_count``).
+
 With ``compute.dtype`` float16 the loss scaler of ``train/amp.py`` runs
 on the device: the backward sees the loss times ``scaler["scale"]``,
 the gradients are divided by it, and a non-finite gradient turns the
@@ -256,6 +262,11 @@ class Trainer:
         self._use_fused_ce = (loss is None and config.compute.fused_kernels
                               and isinstance(model, TransformerLM)
                               and not model.cfg.head_bias)
+        # the weight of a mixture of experts' router losses in the loss
+        # (JAX :133-134); 0 for a dense model
+        mc = getattr(model, "cfg", None)
+        self._aux_weight = (mc.router_aux_weight
+                            if getattr(mc, "num_experts", 0) > 0 else 0.0)
         self.device = (resolve_device(device) if model.device.type == "meta"
                        else model.device)
         if mesh is not None and mesh.device_type != self.device.type:
@@ -457,14 +468,26 @@ class Trainer:
         return l_sum, count, new_quant
 
     def _loss_sum_count(self, batch, kw):
+        """``(loss_sum, count)``, the sum with a mixture of experts'
+        ``router_aux_weight * aux * count`` (JAX trainer.py :557-559;
+        ``aux`` summed over the layers)."""
+        w_aux = self._aux_weight
+        if w_aux:
+            kw = dict(kw, with_aux=True)
         if self._use_fused_ce:
             labels = batch.get("labels", shift_labels(
                 batch["input_ids"], batch.get("segment_ids")))
-            return self.model(batch["input_ids"], labels=labels, **kw)
-        res = self.loss(self.model(batch["input_ids"], **kw), batch)
-        if isinstance(res, tuple):
-            return res
-        return res, torch.ones((), dtype=torch.float32, device=self.device)
+            out = self.model(batch["input_ids"], labels=labels, **kw)
+            (l_sum, count), aux = out if w_aux else (out, None)
+        else:
+            out = self.model(batch["input_ids"], **kw)
+            logits, aux = out if w_aux else (out, None)
+            res = self.loss(logits, batch)
+            l_sum, count = res if isinstance(res, tuple) else (
+                res, torch.ones((), dtype=torch.float32, device=self.device))
+        if w_aux:
+            l_sum = l_sum + w_aux * aux * count
+        return l_sum, count
 
     def _pp_sum_count(self, batch, train: bool, dropout_seed: int,
                       scale: Optional[torch.Tensor] = None):

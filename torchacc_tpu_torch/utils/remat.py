@@ -262,7 +262,9 @@ def _with_tape(tape):
 
 class _OffloadRegion(torch.autograd.Function):
     """``fn(x, *rest)`` with the 'offload_dots' residuals (module
-    docstring); ``rest`` gets no gradient."""
+    docstring); ``rest`` gets no gradient.  ``fn`` returns a tensor, or
+    a tuple of them (a mixture of experts' block: its output and its
+    router loss)."""
 
     @staticmethod
     def forward(ctx, fn, x, *rest):
@@ -274,11 +276,12 @@ class _OffloadRegion(torch.autograd.Function):
         return y
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, *gys):
         x, *rest = ctx.saved_tensors
         ctx.tape.bring_back(x.device)
         xr = x.detach().requires_grad_(True)
         with _with_tape(ctx.tape), torch.enable_grad():
             y = ctx.fn(xr, *rest)
-        torch.autograd.backward(y, gy)
+        ys = y if isinstance(y, tuple) else (y,)
+        torch.autograd.backward(ys, gys)
         return (None, xr.grad) + (None,) * len(rest)
