@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--layers 8] [--train-layers 4] [--train-steps 8]
                           [--quant-steps 6] [--data-steps 16]
-                          [--fp16-steps 8] [--check-layers 2]
+                          [--fp16-steps 8] [--quant-rest-steps 4]
+                          [--check-layers 2]
                           [--ckpt-layers 1] [--hf-layers 4] [--hf-steps 8]
                           [--gemma-layers 8] [--phi2-layers 8]
                           [--phi3-layers 4] [--mixtral-layers 2]
@@ -28,6 +29,10 @@ Phases, each of which exits non-zero when it fails:
    the least time the card could take and the host's time to issue a
    call; then the same decode, prefill and long-decode cases with heads
    of 64 (Llama-3.2-1B's attention, 32/8 heads), checked and timed;
+   then B4's f16 bodies (B-3: the model 8e trains served in its compute
+   dtype) at the Llama-3-8B heads: decode, prefill, softcap, window and
+   the long decode against the plain version at two f16 ulps (atol 2e-4
+   + rtol 2e-3), decode and prefill timed as above;
 4. the flash-attention kernel phase: B1 (forward), B2 (dq) and B3
    (dk/dv) against the plain version on the same CUDA tensors — the
    training shape b=2 s=4096 H=32 KH=8 D=128 bf16, causal, packed
@@ -109,7 +114,12 @@ Phases, each of which exits non-zero when it fails:
    the bf16 torch.matmul of the same shape (yardsticks the port never
    calls), and the least time the card could take; and the fp8 sum
    against an f64 product of the same e4m3 operands at K = 14336,
-   beside the plain f32 matmul's;
+   beside the plain f32 matmul's.  The same four shapes in float16 (the
+   fp16 step's), and the 'head' site's shape, llama3-8b's vocab
+   projection K 4096 -> N 128256 (501 tiles of 256), in bf16 and f16,
+   and GPT-2's ragged one (K 768 -> N 50257) in f16: int8 bitwise, fp8
+   within two f16 ulps (atol 1e-3 + rtol 2e-3) in f16, each timed as
+   above;
 6. the serving phase: the llama3-8b preset at full width (hidden 4096,
    32/8 heads, ffn 14336, vocab 128256) and --layers deep, bf16 weights
    from init_params(seed) on the card, served through ServeEngine —
@@ -183,6 +193,25 @@ Phases, each of which exits non-zero when it fails:
    schedule's gradient-pass ms beside the unpipelined one's (one card
    runs every stage: no bubble and no transfer can be read), the peak
    memory and the live micro-batches by stage;
+8e. quantized training, the rest (run after 8c, before 8d): the same
+   model and depth with compute.dtype float16 under the loss scaler,
+   int8 on ('attn', 'mlp', 'head') with the materialised head
+   (fused_kernels=False),
+   save_attn_mlp, one numpy-seeded batch of 2 x 4096 packed tokens for
+   --quant-rest-steps (4) steps, a custom loss forcing the third to
+   overflow.  The first-step loss must lie within 2% of the same
+   weights' and batch's loss with quant off; only the forced step's
+   loss may be non-finite; that step must leave the masters, both
+   moments, the optimizer's count and every amax history bitwise
+   unchanged (digests) and halve the scale; B5 must launch exactly
+   (7 x layers + 1) x steps times, all in f16, the head's (N = 128256)
+   once a step.  Step ms, tokens/s and peak memory are printed;
+8f. fp16 serving: ServeEngine.from_train_state of 8e's trainer, in its
+   float16 compute dtype: 4 greedy requests (prompts 64..1000, 16 new
+   tokens); B4's f16 bodies launch layers x dispatches (decode and
+   prefill); the last-prompt logits through B4 lie within
+   F16_LOGITS_LIMIT of the plain attention path's, and the wrong-GQA and
+   own-key-blind controls must not;
 9. the model-level check: --check-layers deep at full width, one
    forward + backward through the kernels and through
    attention_impl='torch' from the same weights and batch; the loss and
@@ -445,6 +474,14 @@ QMM = dict(route="cuda",
 # one llama3-8b layer's quantized sites: name -> (K, N, launches a layer)
 QMM_SITES = {"q_o": (4096, 4096, 2), "k_v": (4096, 1024, 2),
              "gate_up": (4096, 14336, 2), "down": (14336, 4096, 1)}
+# the 'head' site: llama3-8b's vocab projection, (K, N)
+QMM_HEAD = (4096, 128256)
+# 8f: the largest relative difference allowed between the float16 served
+# model's last-prompt logits through B4 and through the plain attention:
+# read 1.44e-3..1.66e-3 on an H100 (seed 0, 4 layers), the controls
+# 0.0992 and above (one row blind to its own key) and 1.48 (the GQA map
+# wrong); the limit sits 6x above the one and 10x below the other
+F16_LOGITS_LIMIT = 0.01
 TRAIN_B, TRAIN_S = 2, 4096              # tokens per training step: 8192
 # cycles the offload check's control holds the copies to host memory
 # back: about a second at an H100's clock, longer than the check's
@@ -614,19 +651,24 @@ def _time_ms(torch, fn, iters, warm=3):
     return a.elapsed_time(b) / iters
 
 
-def _kernel_phase(torch, args, pa, d=D, only=None, heads=(H, KH)):
+def _kernel_phase(torch, args, pa, d=D, only=None, heads=(H, KH),
+                  dtype=None):
     """B4 against its plain version at ``heads`` (q, kv) of ``d``
-    (``only``: the cases to run, default all), with times of the decode
-    and prefill shapes."""
+    (``only``: the cases to run, default all), in ``dtype`` (bf16, or
+    f16: a model trained under the fp16 loss scaler served in its compute
+    dtype), with times of the decode and prefill shapes."""
     H, KH = heads
     import numpy as np
     import torch.nn.functional as F
+    dtype = dtype or torch.bfloat16
     rng = np.random.default_rng(args.seed)
     # bf16 outputs from f32 accumulation: both versions compute the same
     # f32 sums in another order (relative difference ~1e-6), so after the
     # cast to bf16 they differ by at most one bf16 ulp = 2^-7 of the
-    # value; rtol 1e-2 covers that, atol 1e-3 the values near zero
-    tol = dict(atol=1e-3, rtol=1e-2)
+    # value; rtol 1e-2 covers that, atol 1e-3 the values near zero.  f16
+    # (P as hi + lo in f16, ~22 bits): two f16 ulps, F16_TOL
+    tol = (dict(atol=1e-3, rtol=1e-2) if dtype == torch.bfloat16
+           else dict(F16_TOL))
     layers = 8                      # distinct pools cycled while timing
     decode_ctx = [0, 1, 17, 255, 1000, 1231, 1999, 2032]
     # long decode up to 8192: contexts on and one past where the kernel's
@@ -649,12 +691,14 @@ def _kernel_phase(torch, args, pa, d=D, only=None, heads=(H, KH)):
     }
     timed = ("decode", "prefill", "decode_long")
     tag = "kernel" if d == D else f"kernel[d{d}]"
+    if dtype != torch.bfloat16:
+        tag = f"{tag}[{str(dtype).split('.')[-1]}]"
     results = {}
     for name, (ctx, t, window, cap, q0s) in cases.items():
         if only is not None and name not in only:
             continue
         q, k, v, tables, lens, q_start = _paged_case(
-            torch, rng, ctx, t, layers, torch.bfloat16, q0s, d, heads)
+            torch, rng, ctx, t, layers, dtype, q0s, d, heads)
         kw = dict(window=window, logit_softcap=cap)
         out = pa.paged_attention(q, k[0], v[0], tables[0], lens, q_start,
                                  impl="cuda", **kw)
@@ -673,7 +717,7 @@ def _kernel_phase(torch, args, pa, d=D, only=None, heads=(H, KH)):
             _fail(f"{tag} case {name} disagrees with the plain version: "
                   f"{e}")
         rec = {"max_abs_err": err, "tolerance": tol, "ctx": ctx, "t": t,
-               "window": list(window), "softcap": cap}
+               "window": list(window), "softcap": cap, "dtype": str(dtype)}
         if name in timed:
             iters = args.reps
             rec["host_ms"] = _host_ms(torch, lambda: pa.paged_attention(
@@ -1694,11 +1738,23 @@ def _qmm_phase(torch, args):
     # than the plain f32 matmul; the output is bf16, so one bf16 ulp
     # (atol 1e-3 + rtol 1e-2); f32 outputs: 1e-4 of the value + 1e-4 (K up
     # to 14336 f32 terms).  The atol grows with the scales of x and w.
+    # f16 outputs: two f16 ulps (2^-10 of the value each)
     fp8_tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+               torch.float16: dict(atol=1e-3, rtol=2e-3),
                torch.float32: dict(atol=1e-4, rtol=1e-4)}
     # name -> (m, k, n, dtype, weight layout, x and w multipliers)
     cases = {name: (m, k, n, torch.bfloat16, "nk", (1.0, 1.0))
              for name, (k, n, _) in QMM_SITES.items()}
+    # the fp16 step's sites (compute.dtype float16), and the 'head' site:
+    # the vocab projection of llama3-8b (K 4096 -> N 128256 = 501 tiles
+    # of 256) in bf16 and f16, and GPT-2's ragged one (K 768 -> N 50257,
+    # 8 x 1024 tokens) in f16
+    cases.update({f"{name}_f16": (m, k, n, torch.float16, "nk", (1.0, 1.0))
+                  for name, (k, n, _) in QMM_SITES.items()})
+    cases["head"] = (m,) + QMM_HEAD + (torch.bfloat16, "nk", (1.0, 1.0))
+    cases["head_f16"] = (m,) + QMM_HEAD + (torch.float16, "nk", (1.0, 1.0))
+    cases["head_ragged_f16"] = (m, 768, 50257, torch.float16, "nk",
+                                (1.0, 1.0))
     cases["ragged"] = (1000, 1111, 777, torch.bfloat16, "nk", (1.0, 1.0))
     cases["ragged_kn"] = (1000, 1111, 777, torch.bfloat16, "kn", (1.0, 1.0))
     cases["k_5_mod_16"] = (1000, 1029, 520, torch.bfloat16, "nk", (1.0, 1.0))
@@ -1715,7 +1771,8 @@ def _qmm_phase(torch, args):
         x, w = _qmm_inputs(torch, rng, mm, k, n, dtype)
         x, w = (x.float() * mx).to(dtype), (w.float() * mw).to(dtype)
         wt = w.t() if layout == "nk" else w.t().contiguous()   # [K, N]
-        timed = name in QMM_SITES
+        timed = name.replace("_f16", "") in QMM_SITES or name.startswith(
+            "head")
         if timed:
             a = torch.empty((mm, n), device="cuda", dtype=dtype)
             bf16_ms = _time_ms(torch, lambda i: torch.matmul(x, wt, out=a),
@@ -1772,7 +1829,7 @@ def _qmm_phase(torch, args):
                     torch, lambda: torch.matmul(x, wt))
                 rec["plain_ms"] = _time_ms(torch, lambda i: qm._qmm2d_plain(
                     x, wt, sx, sw, fmt), 2, warm=1)
-                rec["bf16_matmul_ms"] = bf16_ms
+                rec["bf16_matmul_ms"] = bf16_ms   # the matmul in dtype
                 # yardstick: one library call on operands quantized before
                 lq = qm.quantize(x, sx, fmt)
                 lw = qm.quantize(w, sw[:, None], fmt)        # [N, K]
@@ -1782,7 +1839,7 @@ def _qmm_phase(torch, args):
                     else:
                         lib = lambda i: torch._scaled_mm(
                             lq, lw.t(), scale_a=one, scale_b=one,
-                            out_dtype=torch.bfloat16)
+                            out_dtype=dtype)
                     rec["library_ms"] = _time_ms(torch, lib, args.reps)
                 except Exception as e:       # the private call's signature
                     print(f"qmm {fmt} {name}: no library time "
@@ -1821,21 +1878,23 @@ def _qmm_phase(torch, args):
         del x, w, wt
         torch.cuda.empty_cache()
     results["fp8_accumulation"] = _fp8_accumulation(torch, qm, rng, m)
-    # per launch on the main path: the mean over one layer's 7 launches
+    # per launch on the main path: the mean over one layer's 7 launches,
+    # in bf16 and in f16
     for fmt in ("int8", "fp8"):
         recs = results[fmt]
         per_layer = sum(c for _, _, c in QMM_SITES.values())
-        summary = {}
-        for key in ("ms", "quantize_ms", "gemm_ms", "plain_ms", "bound_ms",
-                    "library_ms", "bf16_matmul_ms"):
-            vals = [recs[s][key] for s in QMM_SITES]
-            summary[key] = (None if any(v is None for v in vals) else sum(
-                v * QMM_SITES[s][2] for v, s in zip(vals, QMM_SITES))
-                / per_layer)
-        summary["max_abs_err"] = max(recs[s]["max_abs_err"]
-                                     for s in QMM_SITES)
-        summary["bound_by"] = recs["gate_up"]["bound_by"]
-        recs["per_launch"] = summary
+        for suffix in ("", "_f16"):
+            summary = {}
+            for key in ("ms", "quantize_ms", "gemm_ms", "plain_ms",
+                        "bound_ms", "library_ms", "bf16_matmul_ms"):
+                vals = [recs[s + suffix][key] for s in QMM_SITES]
+                summary[key] = (None if any(v is None for v in vals) else
+                                sum(v * QMM_SITES[s][2] for v, s in
+                                    zip(vals, QMM_SITES)) / per_layer)
+            summary["max_abs_err"] = max(recs[s + suffix]["max_abs_err"]
+                                         for s in QMM_SITES)
+            summary["bound_by"] = recs["gate_up" + suffix]["bound_by"]
+            recs["per_launch" + suffix] = summary
     return results
 
 
@@ -2360,6 +2419,229 @@ def _fp16_phase(torch, args, data_fed):
     return {"launches": launches, "step_ms": ms, "peak_bytes": peak,
             "offloaded": moved, "losses": losses, "steps": steps,
             "flag_wait_ms": sum(wait_ms) / len(wait_ms)}
+
+
+# ---------------------------------------------------------------------------
+# quantized training, the rest: the 'head' site in float16, and serving it
+# ---------------------------------------------------------------------------
+
+def _quant_rest_phase(torch, args):
+    """8e: llama3-8b at full width, --train-layers deep, compute.dtype
+    float16 under the loss scaler, int8 on ('attn', 'mlp', 'head') with
+    the materialised head (fused_kernels=False), save_attn_mlp, 2 x 4096
+    packed tokens, --quant-rest-steps steps, one forced to overflow.
+    Returns the trainer (for 8f) and the readings."""
+    import dataclasses
+    import numpy as np
+    import torchacc_tpu_torch.ops.quantized_matmul as qm
+    from torchacc_tpu_torch import (ComputeConfig, Config, MemoryConfig,
+                                    accelerate, get_preset)
+    from torchacc_tpu_torch.models.transformer import (loss_sum_count,
+                                                       set_model_config)
+    from torchacc_tpu_torch.train import adamw, shift_labels, warmup_cosine
+
+    layers, steps, warm, bomb_at = (args.train_layers, args.quant_rest_steps,
+                                    1, 2)
+    tag = "quantized training, the rest"
+    if steps < bomb_at + 2:
+        _fail(f"{tag}: --quant-rest-steps must be at least {bomb_at + 2}")
+    cfg = get_preset("llama3-8b", num_layers=layers)
+    conf = Config(compute=ComputeConfig(
+        dtype=torch.float16, quant="int8",
+        quant_sites=("attn", "mlp", "head"), fused_kernels=False),
+        memory=MemoryConfig(gc=True, gc_policy="save_attn_mlp"),
+        seed=args.seed)
+
+    def exploding_loss(logits, batch):
+        labels = shift_labels(batch["input_ids"], batch["segment_ids"])
+        l_sum, count = loss_sum_count(logits, labels)
+        bomb = torch.where(batch["bomb"][0, 0] > 0, 3e38, 1.0)
+        return l_sum * bomb * bomb, count
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, _ = accelerate(cfg, None, conf, optimizer=adamw(
+        warmup_cosine(3e-4, steps, warmup_steps=1)), loss=exploding_loss)
+    state = trainer.init()
+    model = trainer.model
+    if model.cfg.dtype != torch.float16 or "lm_head" not in state.quant:
+        _fail(f"{tag}: the model computes in {model.cfg.dtype} with sites "
+              f"{sorted(state.quant)[-2:]}")
+    batch = _train_batch(torch, np.random.default_rng(args.seed + 2),
+                         cfg.vocab_size)
+    batches = [dict(batch, bomb=torch.full(
+        (TRAIN_B, 1), int(i == bomb_at), dtype=torch.int32, device="cuda"))
+        for i in range(steps)]
+    # the same run unquantized: the first step's loss on the same weights
+    # and batch with quant off (the plain f16 products, no kernel of B5)
+    quant_cfg = model.cfg
+    set_model_config(model, dataclasses.replace(quant_cfg, quant="none"))
+    with torch.no_grad():
+        l_sum, count = exploding_loss(model(
+            batch["input_ids"], positions=batch["positions"],
+            segment_ids=batch["segment_ids"]), batches[0])
+        ref_loss = (l_sum / count).item()
+    set_model_config(model, quant_cfg)
+
+    def digests():
+        st = trainer.state
+        return [_digest(torch, list(d.values())) for d in (
+            st.params, st.opt_state.mu, st.opt_state.nu, st.quant)]
+
+    for key in qm.launch_counts:           # counts start here ...
+        qm.launch_counts[key] = 0
+    qm.launch_shapes.clear()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    metrics, watch = [], {}
+    for i, b in enumerate(batches):
+        if i == bomb_at:
+            watch["before"] = (digests(), trainer.state.opt_state.count,
+                               trainer.state.scaler["scale"].item())
+        if i == 0:
+            first = [h.clone() for h in trainer.state.quant.values()]
+        ev[i][0].record()
+        metrics.append(trainer.step(b))
+        ev[i][1].record()
+        if i == bomb_at:
+            watch["after"] = (digests(), trainer.state.opt_state.count,
+                              trainer.state.scaler["scale"].item())
+    torch.cuda.synchronize()
+    total = dict(qm.launch_counts)         # ... and are read here
+    shapes = dict(qm.launch_shapes)
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    losses = [m["loss"].item() for m in metrics]
+    scales = [m["loss_scale"].item() for m in metrics]
+    peak = torch.cuda.max_memory_allocated()
+    kept = [i for i in range(warm, steps) if i != bomb_at]
+    ms = sum(step_ms[i] for i in kept) / len(kept)
+    tokens = TRAIN_B * TRAIN_S
+    head = shapes.get(("int8", torch.float16, cfg.vocab_size), 0)
+    rel = abs(losses[0] - ref_loss) / ref_loss
+    print(f"{tag}: llama3-8b at full width, {layers} layers, f16 compute "
+          f"over f32 masters under the loss scaler, int8 on attn, mlp and "
+          f"the materialised head, {TRAIN_B} x {TRAIN_S} tokens a step; "
+          f"losses {_fmt(losses)}; loss scales {_fmt(scales)} (step "
+          f"{bomb_at} forced to overflow); first-step loss {losses[0]:.5f} "
+          f"against the unquantized {ref_loss:.5f}: relative difference "
+          f"{rel:.3g} (limit 0.02)", flush=True)
+    print(f"{tag}: step ms {_fmt(step_ms)}; mean {ms:.1f} ms over steps "
+          f"{kept} ({tokens / (ms / 1e3):.0f} tokens/s); peak allocated "
+          f"{peak / 2**30:.2f} GiB; B5 launches {total}, by (format, dtype, "
+          f"N) {sorted((k[0], str(k[1]), k[2], n) for k, n in shapes.items())}",
+          flush=True)
+    if rel > 0.02:
+        _fail(f"{tag}: the first-step loss parts from the unquantized one "
+              f"by {rel:.3g} > 0.02")
+    if np.isfinite(losses[bomb_at]) or not all(
+            np.isfinite(x) for i, x in enumerate(losses) if i != bomb_at):
+        _fail(f"{tag}: only the forced step may have a non-finite loss: "
+              f"{losses}")
+    (b_dig, b_count, b_scale), (a_dig, a_count, a_scale) = (
+        watch["before"], watch["after"])
+    names = ("masters", "first moments", "second moments", "amax histories")
+    moved = [n for n, x, y in zip(names, b_dig, a_dig)
+             if not torch.equal(x, y)]
+    if moved or a_count != b_count:
+        _fail(f"{tag}: the overflow step changed the {moved} or the "
+              f"optimizer's count ({b_count} -> {a_count})")
+    if a_scale != b_scale / 2:
+        _fail(f"{tag}: the overflow step did not halve the scale: "
+              f"{b_scale} -> {a_scale}")
+    if all(torch.equal(a, b) for a, b in zip(
+            first, trainer.state.quant.values())):
+        _fail(f"{tag}: the applied steps recorded no amax")
+    want = (7 * layers + 1) * steps
+    if total != {"int8": want, "fp8": 0} or head != steps or set(
+            k[1] for k in shapes) != {torch.float16}:
+        _fail(f"{tag}: B5 launches {total} (head {head}, dtypes "
+              f"{set(str(k[1]) for k in shapes)}) != int8 (7 x layers "
+              f"{layers} + 1 head) x steps {steps} = {want}, all in f16")
+    print(f"{tag}: the overflow step left the masters, both moments, the "
+          f"count and all {len(trainer.state.quant)} amax histories "
+          f"bitwise as they were and halved the scale; B5 in f16 launched "
+          f"{want} = (7 x {layers} + 1) x {steps} times, the head's "
+          f"[{tokens} x {cfg.hidden_size}] x [{cfg.hidden_size} x "
+          f"{cfg.vocab_size}] {head} of them", flush=True)
+    return trainer, {"launches": total["int8"], "head_launches": head,
+                     "steps": steps, "step_ms": ms, "peak_bytes": peak,
+                     "tokens_per_s": tokens / (ms / 1e3), "losses": losses,
+                     "first_loss_rel": rel}
+
+
+def _quant_rest_serving_phase(torch, args, pa, trainer):
+    """8f: ServeEngine.from_train_state of 8e's trainer, served in its
+    float16 compute dtype through B4's f16 bodies: 4 greedy requests,
+    the launches counted, the last-prompt logits against the plain
+    attention path and two controls."""
+    import numpy as np
+    from torchacc_tpu_torch import Request, ServeEngine
+
+    tag = "fp16 serving"
+    rng = np.random.default_rng(args.seed + 19)
+    vocab = trainer.model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, n).tolist()
+               for n in (64, 300, 700, 1000)]
+    max_new = 16
+    eng = ServeEngine.from_train_state(trainer)
+    model, cfg = eng.scheduler.decoder.model, eng.cfg
+    dtypes = {p.dtype for p in model.parameters()}
+    if dtypes != {torch.float16} or cfg.dtype != torch.float16:
+        _fail(f"{tag}: the served model holds {dtypes}, computes in "
+              f"{cfg.dtype}")
+    eng.generate([Request(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+    eng.reset_stats()
+    sched = eng.scheduler
+    dec0, pre0 = sched.decode_dispatches, sched.prefill_dispatches
+    for shape in pa.launch_counts:           # counts start here ...
+        pa.launch_counts[shape] = 0
+    res = eng.generate([Request(prompt_ids=p, max_new_tokens=max_new)
+                        for p in prompts])
+    torch.cuda.synchronize()
+    launches = dict(pa.launch_counts)        # ... and are read here
+    dispatches = {"decode": sched.decode_dispatches - dec0,
+                  "prefill": sched.prefill_dispatches - pre0}
+    stats = eng.stats()
+    eng.close()
+    for shape, n in dispatches.items():
+        if n == 0 or launches[shape] != cfg.num_layers * n:
+            _fail(f"{tag}: {shape} kernel launches {launches[shape]} != "
+                  f"layers {cfg.num_layers} x dispatches {n}")
+    streams = [r.tokens for r in res]
+    if any(len(s) != max_new or not all(0 <= t < vocab for t in s)
+           for s in streams):
+        _fail(f"{tag}: streams of {[len(s) for s in streams]} tokens")
+    ref = _prompt_logits(torch, model, cfg, prompts, "torch")
+    rel = {}
+    for name, attend in (("kernel", None), ("wrong_gqa", _wrong_gqa),
+                         ("drop_own_key", _drop_own_key)):
+        got = _prompt_logits(torch, model, cfg, prompts,
+                             "cuda" if attend is None else "torch", attend)
+        if not all(torch.isfinite(a).all() for a in got):
+            _fail(f"{tag}: non-finite logits ({name})")
+        rel[name] = [((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(got, ref)]
+    limit = F16_LOGITS_LIMIT
+    print(f"{tag}: {len(prompts)} greedy requests (prompts "
+          f"{[len(p) for p in prompts]}, {max_new} new tokens) from 8e's "
+          f"trainer in float16: {stats['tokens_per_sec']:.1f} tokens/s, "
+          f"TTFT p50 {stats['ttft_s_p50'] * 1e3:.1f} ms, per-token p50 "
+          f"{stats['per_token_s_p50'] * 1e3:.2f} ms; B4 launches {launches} "
+          f"= {cfg.num_layers} x {dispatches}; last-prompt logits vs plain "
+          f"attention: kernel {_fmt(rel['kernel'])} (limit {limit:.3g}), "
+          f"controls wrong_gqa {_fmt(rel['wrong_gqa'])}, drop_own_key "
+          f"{_fmt(rel['drop_own_key'])}", flush=True)
+    if max(rel["kernel"]) > limit:
+        _fail(f"{tag}: logits through B4 part from the plain path by "
+              f"{max(rel['kernel']):.3g} > {limit:.3g}")
+    for name in ("wrong_gqa", "drop_own_key"):
+        if max(rel[name]) <= limit:
+            _fail(f"{tag}: the {name} control stays within {limit:.3g}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches,
+            "tokens_per_s": stats["tokens_per_sec"],
+            "logits_rel": rel["kernel"]}
 
 
 # ---------------------------------------------------------------------------
@@ -5651,6 +5933,9 @@ def main():
     ap.add_argument("--fp16-steps", type=int, default=8,
                     help="steps of the fp16 run (the 3rd from last "
                          "overflows on purpose)")
+    ap.add_argument("--quant-rest-steps", type=int, default=4,
+                    help="steps of the float16 int8 run with the 'head' "
+                         "site (the 3rd overflows on purpose)")
     ap.add_argument("--check-layers", type=int, default=2,
                     help="depth of the model-level kernel-vs-plain check")
     ap.add_argument("--ckpt-layers", type=int, default=1,
@@ -5732,6 +6017,11 @@ def main():
     # heads of 64 (Llama-3.2-1B, the Hugging Face phase's model)
     kern64 = _timed("_kernel_phase[d64]", _kernel_phase, torch, args, pa,
                     d=64, only=("decode", "prefill", "decode_long"))
+    # float16 (the fp16-trained model served in its compute dtype, B-3)
+    kern16 = _timed("_kernel_phase[f16]", _kernel_phase, torch, args, pa,
+                    only=("decode", "prefill", "decode_softcap",
+                          "prefill_window", "decode_long"),
+                    dtype=torch.float16)
     flash_all = _timed('_flash_phase', _flash_phase, torch, args)
     flash, flash16 = flash_all["train"], flash_all["train_f16"]
     flash64 = _timed("_flash_phase[d64]", _flash_phase, torch, args, d=64,
@@ -5773,6 +6063,13 @@ def main():
           f"tokens/s); fp16 step {fp16['step_ms']:.1f} ms for 2 x 4096, "
           f"the host waiting {fp16['flag_wait_ms']:.3f} ms a step for the "
           f"skip flag", flush=True)
+    qrest_trainer, qrest = _timed("_quant_rest_phase", _quant_rest_phase,
+                                  torch, args)
+    qserve = _timed("_quant_rest_serving_phase", _quant_rest_serving_phase,
+                    torch, args, pa, qrest_trainer)
+    del qrest_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     pp = _timed('_pp_phase', _pp_phase, torch, args, card)
     _timed('_model_check_phase', _model_check_phase, torch, args)
     _timed('_quant_check_phase', _quant_check_phase, torch, args)
@@ -6071,6 +6368,58 @@ def main():
                 "plain_ms", "bound_ms", "library_ms", "bf16_matmul_ms",
                 "max_abs_err")}
                 for s in QMM_SITES}))
+    for shape in ("decode", "prefill"):
+        k = kern16[shape]
+        entries.append(dict(
+            KERNEL, name=f"{KERNEL['name']}[{shape},f16]",
+            body="paged_mma_kernel<__half> (mma.sync f16)",
+            launches=qserve["launches"][shape],
+            launches_per_dispatch=(qserve["launches"][shape]
+                                   / qserve["dispatches"][shape]),
+            max_abs_err=max(kern16[c]["max_abs_err"] for c in kern16
+                            if (kern16[c]["t"] == 1) == (shape == "decode")),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            host_ms=k["host_ms"]))
+    q16 = qmm["int8"]["per_launch_f16"]
+    shape_keys = ("m", "k", "n", "dtype", "ms", "quantize_ms", "gemm_ms",
+                  "gemm_tops", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "bf16_matmul_ms", "max_abs_err")
+    entries.append(dict(
+        QMM, name="quantized_matmul[int8,f16]",
+        launches=qrest["launches"] - qrest["head_launches"],
+        launches_per_step=(qrest["launches"] - qrest["head_launches"])
+        / qrest["steps"],
+        max_abs_err=q16["max_abs_err"], ms=q16["ms"],
+        plain_ms=q16["plain_ms"], bound_ms=q16["bound_ms"],
+        bound_by=q16["bound_by"], library_ms=q16["library_ms"],
+        f16_matmul_ms=q16["bf16_matmul_ms"],
+        per_launch="mean over the 7 calls of one layer, float16",
+        # fp8 in float16 at the same shapes, checked and timed (no phase
+        # trains fp8 in float16)
+        fp8_f16=qmm["fp8"]["per_launch_f16"],
+        per_shape={s: {k: qmm["int8"][s + "_f16"].get(k) for k in shape_keys}
+                   for s in QMM_SITES}))
+    head = qmm["int8"]["head_f16"]
+    entries.append(dict(
+        QMM, name="quantized_matmul[int8,head,f16]",
+        launches=qrest["head_launches"],
+        launches_per_step=qrest["head_launches"] / qrest["steps"],
+        max_abs_err=head["max_abs_err"], ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        f16_matmul_ms=head["bf16_matmul_ms"],
+        shape=[head["m"], head["k"], head["n"]],
+        # the same shape in bf16 and in fp8, and GPT-2's ragged head,
+        # checked and timed
+        others={f"{fmt}:{c}": {k: qmm[fmt][c].get(k) for k in shape_keys}
+                for fmt in ("int8", "fp8")
+                for c in ("head", "head_f16", "head_ragged_f16")
+                if (fmt, c) != ("int8", "head_f16")}))
+    print(f"quantized training, the rest: f16 int8 step "
+          f"{qrest['step_ms']:.1f} ms, {qrest['tokens_per_s']:.0f} tokens/s, "
+          f"peak {qrest['peak_bytes'] / 2**30:.2f} GiB; served in f16 at "
+          f"{qserve['tokens_per_s']:.1f} tokens/s; card: {card}", flush=True)
     print(f"dense families: phi-3-mini x{phi3['layers']} step "
           f"{phi3['step_ms']:.1f} ms, MFU {phi3['mfu']:.4f}, peak "
           f"{phi3['peak_bytes'] / 2**30:.2f} GiB, first loss "

@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import torchacc_tpu as ta
-from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.ops.attn import attention as jax_attention
 from torchacc_tpu.parallel.mesh import build_mesh
@@ -97,10 +96,8 @@ def test_scaler_init_all_finite_and_select():
 
 
 def _params(seed=0):
-    jcfg = jax_preset("llama-tiny", dtype=jnp.float32, **SMALL)
-    params = JaxLM(jcfg).init(jax.random.PRNGKey(seed),
-                              jnp.zeros((1, 8), jnp.int32))["params"]
-    return jax.tree.map(np.asarray, params)
+    from test_torch_model import seeded_jax_params
+    return seeded_jax_params(seed, **SMALL)
 
 
 def _batches(n, seed=0, rows=8):

@@ -45,7 +45,6 @@ from torchacc_tpu.checkpoint.schema import (
     check_compatibility as jax_check_compatibility,
 )
 from torchacc_tpu.data import PackedDataset as JaxDataset
-from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.parallel.mesh import build_mesh
 from torchacc_tpu.train import accelerate as jax_accelerate
@@ -96,12 +95,10 @@ def _no_jax_compile_cache():
 
 @functools.lru_cache(maxsize=None)
 def _params(seed=0):
-    """Seeded JAX llama-tiny weights as numpy (shared: callers only read
-    them)."""
-    jcfg = jax_preset("llama-tiny", dtype=jnp.float32, **SMALL)
-    params = JaxLM(jcfg).init(jax.random.PRNGKey(seed),
-                              jnp.zeros((1, 8), jnp.int32))["params"]
-    return jax.tree.map(np.asarray, params)
+    """Seeded llama-tiny weights in JAX's layout as numpy (shared:
+    callers only read them)."""
+    from test_torch_model import seeded_jax_params
+    return seeded_jax_params(seed, **SMALL)
 
 
 def _docs(seed=31, n=80):

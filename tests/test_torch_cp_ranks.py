@@ -41,7 +41,6 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from test_torch_parallel_ranks import OPT, SCHEDULE, SMALL, _batch, _launch
 import torchacc_tpu as ta
-from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.ops.context_parallel import cp_attention as jax_cp
 from torchacc_tpu.parallel.mesh import build_mesh
@@ -100,10 +99,8 @@ def _no_jax_compile_cache():
 
 
 def _params(fields, seed=0):
-    jcfg = jax_preset("llama-tiny", dtype=jnp.float32, **fields)
-    params = JaxLM(jcfg).init(jax.random.PRNGKey(seed),
-                              jnp.zeros((1, 8), jnp.int32))["params"]
-    return jax.tree.map(np.asarray, params)
+    from test_torch_model import seeded_jax_params
+    return seeded_jax_params(seed, **fields)
 
 
 def _attn_inputs(name, opts):

@@ -21,7 +21,11 @@ path's own forward: see ``_autograd_tol``.  The quantized matmul: int8
 bitwise (both sides sum exact integers and share every rounding); fp8
 see ``FP8_ATOL``.  The flash kernels in f16: atol 2e-4 + rtol 2e-3, two
 f16 ulps (2^-10 of the value each); the same inputs through the bf16
-kernels read above it (chip_smoke.py's control).
+kernels read above it (chip_smoke.py's control).  B4 and B5 in f16
+(B-3: an fp16-trained model quantized and served in its compute dtype)
+likewise, B5's fp8 in f16 at atol 1e-3 + rtol 2e-3; B5 at the head's
+vocab widths (128256, over 2 'tp' ranks, and the ragged 50257 and
+51200) in bf16 and f16.
 
 B1-B4 at the Gemma family's head dim 256 (B-2) as at the others: B1-B3
 in f32, bf16 and f16 (with a window, the softcap and segment ids), B4
@@ -174,8 +178,8 @@ def _geom(name, device):
     return g
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("opt", sorted(OPTS))
 @pytest.mark.parametrize("geom", sorted(GEOMS))
 def test_paged_attention_kernel_matches_plain(card, geom, opt, dtype):
@@ -223,9 +227,9 @@ def test_kernel_rejects_what_it_does_not_take(card):
                            kp[..., :48].contiguous(),
                            vp[..., :48].contiguous(), tables, ctx, q0,
                            impl="cuda")
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        pa.paged_attention(q.half(), kp.half(), vp.half(), tables, ctx, q0,
-                           impl="cuda")
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        pa.paged_attention(q.double(), kp.double(), vp.double(), tables,
+                           ctx, q0, impl="cuda")
     with pytest.raises(ValueError, match="q_start"):
         pa.paged_attention(q, kp, vp, tables, ctx, q0[:1], impl="cuda")
 
@@ -752,7 +756,8 @@ def test_virtual_ring_on_the_kernels_matches_one_call(card, ring_n, ul_n):
 # f32 outputs: 2e-5 of the value plus 2e-5 (K up to 1029 f32 terms of a
 # few hundredths; the atol grows with the scales of x and w)
 FP8_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
-           torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+           torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+           torch.float16: dict(atol=1e-3, rtol=2e-3)}
 # the fp8 result against an f64 product of its e4m3 operands at K = 14336,
 # relative to max |ref| (read on an H100: 1.9e-6; the plain f32 matmul
 # 1.7e-7)
@@ -783,8 +788,8 @@ def _qmm_case(seed, device, dtype, m, k, n):
 
 
 @pytest.mark.parametrize("layout", ["nk", "kn"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("shape", sorted(QMM_SHAPES))
 def test_quantized_matmul_kernel_matches_plain(card, shape, fmt, dtype,
@@ -816,8 +821,8 @@ SCALE_CASES = {"plain": (1.0, 1.0), "tiny_x_huge_w": (1e-23, 1e27),
 
 
 @pytest.mark.parametrize("layout", ["nk", "kn"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("shape", sorted(QMM_SHAPES))
 def test_quantize_kernel_is_the_plain_quantize_pass(card, shape, fmt, dtype,
@@ -826,7 +831,12 @@ def test_quantize_kernel_is_the_plain_quantize_pass(card, shape, fmt, dtype,
     for bit, for normal and range-end scales; the GEMM on them gives the
     plain result (int8 bitwise)."""
     x, w = _qmm_case(2, card, dtype, *QMM_SHAPES[shape])
+    # signed zeros (an f16 value that underflowed): fp8 keeps the sign
+    x[0, 0], w[-1, -1] = -0.0, -0.0
     for case, (mx, mw) in SCALE_CASES.items():
+        if dtype == torch.float16 and case != "plain":
+            # f16 holds 6e-8..65504: such operands are zeros and infs
+            continue
         xs, ws = (x.float() * mx).to(dtype), (w.float() * mw).to(dtype)
         kernel = ws.t() if layout == "nk" else ws.t().contiguous()
         sx = qm.compute_scale(qm._amax(xs) * 0.5, fmt)
@@ -846,6 +856,41 @@ def test_quantize_kernel_is_the_plain_quantize_pass(card, shape, fmt, dtype,
             assert torch.equal(got, ref), case
         else:
             _fp8_close(got, ref, dtype, mx * mw)
+
+
+# the 'head' site's widths: llama3-8b's vocab, over 2 'tp' ranks, and the
+# ragged vocabularies of GPT-2 and Phi-2 (M, K, N)
+HEAD_SHAPES = {"llama3_vocab": (256, 4096, 128256),
+               "llama3_vocab_tp2": (256, 4096, 64128),
+               "gpt2_vocab": (300, 768, 50257),
+               "phi2_vocab": (128, 2560, 51200)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", sorted(HEAD_SHAPES))
+def test_quantized_matmul_at_the_vocab_width(card, shape, fmt, dtype):
+    """B5 at the head's N (hundreds of 256-column tiles, a ragged last
+    one): the nn.Linear weight read where it lies, int8 bitwise, fp8
+    within FP8_TOL; an f16 value past 65504 is inf on both sides."""
+    m, k, n = HEAD_SHAPES[shape]
+    x, w = _qmm_case(4, card, dtype, m, k, n)
+    w[:2] *= 1e4          # two vocab rows whose f16 logits pass 65504
+    before = dict(qm.launch_counts)
+    got = qm.quantized_dot(x, w.t(), 1, fmt=fmt, impl="cuda")
+    ref = qm.quantized_dot(x, w.t(), 1, fmt=fmt, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    if fmt == "int8":
+        assert torch.equal(got, ref)
+    else:
+        fin = torch.isfinite(ref)
+        _fp8_close(got[fin], ref[fin], dtype)
+    before[fmt] += 1
+    assert qm.launch_counts == before
+    assert qm.launch_shapes[(fmt, dtype, n)] >= 1
 
 
 def test_fp8_sum_against_an_f64_product_at_k_14336(card):
@@ -880,8 +925,8 @@ def test_quantized_matmul_zero_rows_and_grads(card):
     assert wg.grad.is_contiguous()
     with pytest.raises(ValueError, match="CUDA tensors"):
         qm.quantized_dot(x.cpu(), w.cpu().t(), impl="cuda")
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        qm.quantized_dot(x.half(), w.half().t(), impl="cuda")
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        qm.quantized_dot(x.double(), w.double().t(), impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         qm.quantized_dot(x, w.t(), impl="pallas")
 

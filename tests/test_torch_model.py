@@ -18,12 +18,26 @@ from torchacc_tpu.models.transformer import Norm, _rope
 from torchacc_tpu.serve.scheduler import PagedDecoder as JaxDecoder
 from torchacc_tpu_torch.config import ServeConfig
 from torchacc_tpu_torch.models import get_preset, init_params, params_from_jax
+from torchacc_tpu_torch.models.convert import params_to_jax
 from torchacc_tpu_torch.models.transformer import norm, rope
 from torchacc_tpu_torch.serve.scheduler import PagedDecoder
 
 VOCAB = 257
 TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2,
             intermediate_size=128, vocab_size=VOCAB, max_seq_len=128)
+
+
+def seeded_jax_params(seed=0, **fields):
+    """Seeded llama-tiny weights (with ``fields``) in the JAX package's
+    layout, as numpy: the port's ``init_params``, whose draws follow the
+    flax initialisers' distributions (normal(0.02) matrices and
+    embeddings, unit norm scales, zero biases), carried over by
+    ``params_to_jax``.  No XLA compile, where ``TransformerLM.init``
+    costs one a config; the other test files draw their JAX weights
+    here."""
+    cfg = get_preset("llama-tiny", dtype=torch.float32, **fields)
+    return params_to_jax(cfg, dict(init_params(
+        cfg, seed=seed, device="cpu").named_parameters()))
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -360,9 +360,11 @@ def test_what_raises_by_name():
     with pytest.raises(NotImplementedError,
                        match="num_experts 4 is not divisible by ep 3.*A8b"):
         _check_plan(moe, make_rules(), sizes)
-    with pytest.raises(NotImplementedError, match="grad_accum > 1.*A11b"):
-        _check_plan(moe, make_rules(), dict(sizes, ep=1, dp=2),
-                    grad_accum=2)
+    # grad_accum and 'pp' on more than one data shard take JAX's rows
+    # (tests/test_torch_parallel_ranks.py, tests/test_torch_pp_ranks.py)
+    _check_plan(moe, make_rules(), dict(sizes, ep=1, dp=2))
+    _check_plan(dataclasses.replace(moe, num_layers=2, pp_size=2),
+                make_rules(), dict(sizes, ep=1, dp=2, pp=2))
     with pytest.raises(NotImplementedError, match="num_experts=4.*generate"):
         tt.ServeEngine(init_params(moe, device="cpu"), tt.Config(),
                        device="cpu")

@@ -3,7 +3,10 @@
 random shuffled block layouts made with numpy from a seed.
 
 Tolerance: f32 inputs, atol = rtol = 1e-5 — both sides compute f32
-scores and an exact softmax, so only summation order differs.
+scores and an exact softmax, so only summation order differs.  float16
+inputs (a model trained under the fp16 loss scaler serves in float16):
+atol 2e-4 + rtol 2e-3, two f16 ulps — both sides compute in f32 and
+round the output to f16 once.
 
 The CUDA kernel itself needs the card: tests/test_torch_kernels_cuda.py
 and ``chip_smoke.py`` hold it against this plain version on the H100.
@@ -101,6 +104,20 @@ def test_plain_matches_jax_pallas_interpret(case):
     np.testing.assert_allclose(_torch_out(args), ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_xla_in_float16(case):
+    args = _case(**CASES[case])
+    f16 = [a.astype(np.float16) if a.dtype == np.float32 else a
+           for a in args]
+    ref = np.asarray(jax_paged(*[jnp.asarray(a) for a in f16], impl="xla",
+                               logit_softcap=30.0))
+    t = [torch.from_numpy(a) for a in f16]
+    out = paged_attention(*t, impl="torch", logit_softcap=30.0)
+    assert out.dtype == torch.float16 and ref.dtype == np.float16
+    np.testing.assert_allclose(out.float().numpy(), ref.astype(np.float32),
+                               atol=2e-4, rtol=2e-3)
+
+
 def test_zero_context_slot_outputs_zeros():
     q, kp, vp, tables, ctx, q_start = _case(**CASES["zero_ctx_slot"])
     tables[1, :] = 0                         # parked on the null block
@@ -192,6 +209,22 @@ def test_decode_plan_grid_from_shapes(geom):
     assert pa_mod._ctas_per_sm(True, d) == per_sm
     assert plan.splits == min(full, -(-per_sm * sms // (s * kh)))
     assert plan.splits >= 1
+
+
+@pytest.mark.parametrize("geom", sorted(PLAN_GEOMS))
+def test_float16_plan_is_the_bfloat16_plan(geom):
+    """The tensor-core bodies are one template on the 16-bit type: a
+    float16 call is laid out as a bfloat16 one (decode and prefill) and
+    launches the f16 instantiation of the same body."""
+    s, h, kh, d, bs, mb, sms = PLAN_GEOMS[geom]
+    for t in (1, 37, 256):
+        args = ((s, t, h, d), (s * mb + 1, bs, kh, d), mb)
+        p16 = pa_mod._paged_plan(*args, torch.float16, sms)
+        assert p16 == pa_mod._paged_plan(*args, torch.bfloat16, sms)
+        assert p16.body == ("decode_split" if t == 1 else "prefill_mma")
+        assert pa_mod._BODY_CODE[p16.body, torch.float16] == \
+            pa_mod._BODY_CODE[p16.body, torch.bfloat16] + 2
+    assert torch.float16 in pa_mod._KERNEL_DTYPES
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 9, 32])

@@ -13,6 +13,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -45,6 +46,7 @@ from torchacc_tpu_torch.parallel import (
 from torchacc_tpu_torch.parallel import mesh as port_mesh
 from torchacc_tpu_torch.parallel.sharding import _check_plan
 from torchacc_tpu_torch.train import accelerate
+from torchacc_tpu_torch.train.trainer import jax_micro_rows
 
 TOPO = ("pp", "dp", "fsdp", "sp", "spu", "ep", "tp")
 
@@ -253,9 +255,10 @@ def test_unported_compositions_raise_by_name():
     mc = get_preset("llama-tiny", num_layers=1)
     sizes = dict(dp=1, pp=1, fsdp=1, sp=1, spu=1, ep=1, tp=2)
     rules = make_rules(tt.Config())
-    with pytest.raises(NotImplementedError, match="compute.quant.*A8b"):
-        tt.Config(compute=tt.ComputeConfig(quant="int8"),
-                  dist=tt.DistConfig(tp=tt.TPConfig(2))).validate()
+    # quantized matmuls under 'tp' take their scales over the whole
+    # contracting dim (tests/test_torch_parallel_ranks.py)
+    tt.Config(compute=tt.ComputeConfig(quant="int8"),
+              dist=tt.DistConfig(tp=tt.TPConfig(2))).validate()
     for field, value in (("vocab_size", 32001), ("num_heads", 9),
                          ("num_kv_heads", 3), ("intermediate_size", 687)):
         bad = dataclasses.replace(mc, **{field: value},
@@ -263,12 +266,11 @@ def test_unported_compositions_raise_by_name():
                                      if field == "num_heads" else {}))
         with pytest.raises(NotImplementedError, match="A8b"):
             _check_plan(bad, rules, sizes)
-    # attention dropout on a data mesh runs (the batch offsets, B-1), but
-    # not with grad_accum on more than one data shard
+    # attention dropout on a data mesh runs (the batch offsets, B-1),
+    # with grad_accum too: each rank takes its rows of JAX's micro-batches
+    # (jax_micro_rows)
     dropout = dataclasses.replace(mc, attn_dropout=0.1)
     _check_plan(dropout, rules, dict(sizes, tp=1, dp=2))
-    with pytest.raises(NotImplementedError, match="dropout.*A8b"):
-        _check_plan(dropout, rules, dict(sizes, tp=1, dp=2), grad_accum=2)
     # the sequence axes need a context-parallel model whose heads split
     with pytest.raises(ValueError, match="context_parallel=True"):
         _check_plan(mc, rules, dict(sizes, tp=1, sp=2))
@@ -297,21 +299,31 @@ def test_unported_compositions_raise_by_name():
     (1, 1, 2, False)])
 def test_quant_with_grad_accum_raises_on_more_than_one_data_shard(
         dp, fsdp, grad_accum, raises):
-    """Each rank splits its own rows into micro-batches, where JAX splits
-    the global batch: the activation amax of micro-batch i would cover
-    other rows, so the combination raises by name."""
+    """The plan takes quant on any data mesh; where grad_accum and the
+    data shards are both above 1 (``raises``) each rank's micro-batch i
+    is its share of JAX's, which cuts the global batch (``to_micro``,
+    then the batch split over the data axes), not of its own rows: the
+    rows ``jax_micro_rows`` gives every shard are those JAX's split
+    gives it, and together they cover the batch once.  A micro-batch
+    that does not split over the shards raises by name."""
     mc = get_preset("llama-tiny", num_layers=1, quant="int8")
     sizes = dict(dp=dp, pp=1, fsdp=fsdp, sp=1, spu=1, ep=1, tp=1)
     rules = make_rules(tt.Config())
+    _check_plan(mc, rules, sizes)
+    shards, b = dp * fsdp, 16
+    micro = np.arange(b).reshape(grad_accum, b // grad_accum)
+    seen = []
+    for r in range(shards):
+        got = jax_micro_rows(b // shards, grad_accum, shards, r).tolist()
+        want = micro.reshape(grad_accum, shards, -1)[:, r].reshape(-1)
+        assert got == want.tolist()
+        own = list(range(r * b // shards, (r + 1) * b // shards))
+        assert (got != own) == raises
+        seen += got
+    assert sorted(seen) == list(range(b))
     if raises:
-        with pytest.raises(NotImplementedError,
-                           match="grad_accum > 1 on more than one.*A8b"):
-            _check_plan(mc, rules, sizes, grad_accum)
-    else:
-        _check_plan(mc, rules, sizes, grad_accum)
-    # without quant every composition is the same sum
-    _check_plan(dataclasses.replace(mc, quant="none"), rules, sizes,
-                grad_accum)
+        with pytest.raises(ValueError, match="does not split over the"):
+            jax_micro_rows(1, grad_accum, shards, 0)
 
 
 @pytest.mark.parametrize("shards", [(2, 1), (1, 0)])

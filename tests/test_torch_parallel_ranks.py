@@ -37,7 +37,11 @@ bf16 case (read 1.1e-1 with 1e-8).  The mixtures of experts (the
 experts over 'ep', over 'ep' x 'tp', and capacity dispatch over two
 data shards, whose positions, cap and router-loss means are the global
 batch's) take ``tests/test_torch_moe.py``'s widened weights and eps
-1e-2 for the same reason, and the f32 tolerances.
+1e-2 for the same reason, and the f32 tolerances.  The cases with
+``grad_accum`` 2 on two data shards hold the rows each rank takes from
+JAX's micro-batches: int8 under 'tp' with the 'head' site (the int8
+tolerances, the 'head' history among those compared) and attention
+dropout with capacity dispatch (the f32 tolerances).
 """
 
 import functools
@@ -189,6 +193,22 @@ CASES = {
                     dict(moe=True, eps=1e-2)),
     "dp2_moe_capacity": (2, dict(dp=2, ep=dict(capacity_factor=1.0)), 1,
                          "float32", {}, dict(moe=True, eps=1e-2)),
+    # JAX's micro-batches cut the global batch: each rank takes its rows
+    # of them.  The quantized scales under 'tp' (the row-parallel sites'
+    # over the whole contracting dim) and the 'head' site on the
+    # vocab-parallel materialised head, with gradient accumulation over
+    # two data shards (each micro-batch's amax JAX's); attention dropout
+    # and capacity dispatch under gradient accumulation (each row's
+    # dropout coordinate, each micro-batch's cap, drops and router loss
+    # JAX's)
+    "dp2_tp2_int8_grad_accum2_head": (
+        4, dict(dp=2, tp=2), 2, "float32",
+        dict(quant="int8", quant_amax_history_len=4,
+             quant_sites=("attn", "mlp", "head"), fused_kernels=False),
+        dict(eps=1e-2)),
+    "dp2_grad_accum2_dropout_moe": (
+        2, dict(dp=2, ep=dict(capacity_factor=1.0)), 2, "float32", {},
+        dict(moe=True, dropout=0.1, eps=1e-2)),
 }
 MOE = dict(num_experts=4, num_experts_per_tok=2, router_aux_weight=0.1)
 
@@ -240,6 +260,8 @@ def _train_case(case):
                       ((B - 1,) if i == bomb_step else ()))
                for i in range(3)]
     model = dict(SMALL, **MOE) if extra.get("moe") else SMALL
+    if extra.get("dropout"):
+        model = dict(model, attn_dropout=extra["dropout"])
     spec = dict(kind="train", params=_moe_params() if extra.get("moe")
                 else _params(), model=model,
                 dtype=getattr(torch, dtype), dist=sizes, compute=compute,
@@ -344,7 +366,9 @@ def test_port_ranks_match_the_jax_trainer_on_a_mesh(ranks, case):
         for (path, a), (_, w) in zip(_leaves(got["quant"]), _leaves(jq)):
             np.testing.assert_allclose(a, w, rtol=2e-4,
                                        err_msg=jax.tree_util.keystr(path))
-            assert (a > 0).sum() == a.size // 4 * min(len(batches), 4)
+            # each micro-batch advances the histories once
+            assert (a > 0).sum() == a.size // 4 * min(
+                len(batches) * grad_accum, 4)
 
 
 @pytest.mark.parametrize("cap", list(CAPS))

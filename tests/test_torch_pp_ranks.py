@@ -14,8 +14,9 @@ has a timeout of its own.
   and pp 2 beside dp 2, beside fsdp 2 (gpipe, and interleaved 1f1b of
   2 chunks a stage: FSDP2 gathers under the no-grad forwards, again
   under the B tick's re-run, and reduce-scatters each micro-batch),
-  beside tp 2 (1f1b, the vocab-parallel head) and beside a ring of 2
-  (1f1b), against the JAX
+  beside tp 2 (1f1b, the vocab-parallel head), beside a ring of 2
+  (1f1b), and beside dp 2 with attention dropout and capacity dispatch
+  (1f1b: each rank's rows of JAX's micro-batches), against the JAX
   Trainer on a mesh of the same shape from the same JAX weights.  The
   tolerances of ``tests/test_torch_parallel_ranks.py``, f32: the losses
   rtol 1e-5 and every final parameter within 1e-5 of its leaf's
@@ -75,6 +76,11 @@ FOUR = dict(SMALL, num_layers=4)
 EIGHT = dict(SMALL, num_layers=8)
 # the tp x pp case needs kv heads that split over tp
 WIDE = dict(FOUR, num_heads=8, num_kv_heads=4)
+# attention dropout and a mixture of experts with capacity dispatch on two
+# data shards: each rank takes its rows of JAX's pipeline micro-batches
+DROPOUT_MOE = dict(FOUR, attn_dropout=0.1, num_experts=4,
+                   num_experts_per_tok=2, router_aux_weight=0.1,
+                   moe_capacity_factor=1.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,7 +89,11 @@ def _cached_params(items, seed):
 
 
 def _params(fields, seed=0):
-    """The JAX weights of ``fields`` (made once a module run)."""
+    """The JAX weights of ``fields`` (made once a module run); a mixture
+    of experts takes ``tests/test_torch_moe.py``'s widened weights."""
+    if fields.get("num_experts"):
+        from test_torch_moe import _params as moe_params
+        return moe_params(fields, seed)
     return _cached_params(tuple(sorted(fields.items())), seed)
 
 
@@ -109,6 +119,8 @@ CASES = {  # name: (world, dist, model fields)
     "pp2_tp2_1f1b": (4, dict(tp=2, pp=_pp(2, 2, "1f1b")), WIDE),
     "pp2_sp2_ring_1f1b": (4, dict(sp=dict(size=2, mode="ring"),
                                   pp=_pp(2, 2, "1f1b")), FOUR),
+    "pp2_dp2_1f1b_dropout_moe": (4, dict(dp=2, pp=_pp(2, 2, "1f1b")),
+                                 DROPOUT_MOE),
 }
 # pp4_1f1b_m8's batches carry 8 rows, one a micro-batch
 ROWS = {"pp4_1f1b_m8": 8}

@@ -7,8 +7,9 @@ B5 in interpret mode.  Every input is made from a numpy seed.
 Tolerances.
 - Scales, quantize, dequantize, histories: bitwise (the same f32
   operations).
-- int8 ``quantized_dot``: bitwise, f32 and bf16 inputs, against both JAX
-  paths (both sides sum exact integers and share every rounding).
+- int8 ``quantized_dot``: bitwise, f32, bf16 and f16 inputs, against
+  both JAX paths (both sides sum exact integers and share every
+  rounding, the f16 output's overflow to inf included).
 - fp8 ``quantized_dot``: the products are exact in f32 and only the
   order of the f32 sum differs: atol = rtol = 1e-6 of values of
   magnitude ~1 (JAX's own two paths differ by 6e-8 here); against the
@@ -56,7 +57,8 @@ from torchacc_tpu_torch.train import accelerate
 
 FMTS = ("int8", "fp8")
 DTYPES = {"f32": (torch.float32, jnp.float32),
-          "bf16": (torch.bfloat16, jnp.bfloat16)}
+          "bf16": (torch.bfloat16, jnp.bfloat16),
+          "f16": (torch.float16, jnp.float16)}
 B, S = 2, 64
 
 
@@ -273,8 +275,23 @@ def test_qmm_plan_lays_out_the_launches():
     # neither layout: the weight is copied to [K, N]
     p = tq._qmm_plan(xs, torch.zeros(30, 37 * 2).t()[::2], "int8")
     assert (p.w_layout, p.ldw, p.w_copy) == ("kn", 30, True)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        tq._qmm_plan(xs.half(), w_kn.half(), "int8")
+    # float16 takes the same layout (dtype code 2); the head's shapes:
+    # N = llama3-8b's vocab (501 tiles of 256), over 2 'tp' ranks, and
+    # the ragged vocabs of GPT-2 and Phi-2
+    assert tq._DTYPE_CODE[torch.float16] == 2
+    p16 = tq._qmm_plan(x.half(), w_nk.half().t(), "int8")
+    assert p16 == tq._qmm_plan(x, w_nk.t(), "int8")
+    for n, tiles in ((128256, 501), (128256 // 2, 251), (50257, 197),
+                     (51200, 200)):
+        head = torch.empty(n, 4096, dtype=torch.float16, device="meta").t()
+        for fmt in FMTS:
+            p = tq._qmm_plan(x.half().to("meta"), head, fmt)
+            row = 4096 * tq._OPERAND_DTYPE[fmt].itemsize
+            assert (p.n, p.bn, p.w_layout, p.w_copy) == (n, 256, "nk", False)
+            assert p.map_b == ((row, n), row, (128, 256))
+            assert -(-p.n // p.bn) == tiles
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tq._qmm_plan(xs.double(), w_kn.double(), "int8")
     with pytest.raises(ValueError, match="must match"):
         tq._qmm_plan(xs, w_kn.to(bf), "int8")
     with pytest.raises(ValueError, match="overflow the int32"):
@@ -421,29 +438,64 @@ def tiny():
     """(jax params as numpy, a realistic 'quant' collection as numpy):
     llama-tiny in f32; the histories are those one JAX forward leaves,
     so the scales sit where training puts them."""
+    from test_torch_model import seeded_jax_params
     jcfg = jax_preset("llama-tiny", dtype=jnp.float32, quant="int8",
                       quant_impl="xla", quant_amax_history_len=4)
-    var = JaxLM(jcfg).init(jax.random.PRNGKey(0),
-                           jnp.zeros((1, 8), jnp.int32))
+    params = seeded_jax_params()
+    cfg = get_preset("llama-tiny", quant="int8", quant_amax_history_len=4)
     _, mut = JaxLM(jcfg).apply(
-        {"params": var["params"], "quant": var["quant"]},
+        {"params": jax.tree.map(jnp.asarray, params),
+         "quant": quant_to_jax(cfg, init_quant_state(cfg, "cpu"))},
         jnp.asarray(_batch(100)["input_ids"]), mutable=["quant"])
-    return (jax.tree.map(np.asarray, var["params"]),
-            jax.tree.map(np.asarray, mut["quant"]))
+    return params, jax.tree.map(np.asarray, mut["quant"])
+
+
+# the 'head' site: the materialised head's lm_head, with the blocks' sites,
+# and alone on a head_bias model (its bias added after the quantized
+# product); its history is a mid-run one, the blocks' fresh.  These
+# cases take a narrow model, its weights the port's seeded init carried
+# to JAX, and JAX's XLA paths (its Pallas kernels are the other cases'
+# and the dot tests')
+HEAD_HISTORY = np.asarray([3.25, 4.0, 2.5, 0.0], np.float32)
+NARROW = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+              num_kv_heads=2, intermediate_size=128)
+
+
+def _narrow_params(seed=3, **fields):
+    """Seeded weights of NARROW (with ``fields``) in JAX's layout."""
+    from test_torch_model import seeded_jax_params
+    return seeded_jax_params(seed, **NARROW, **fields)
 
 
 @pytest.mark.parametrize("fmt,sites", [("int8", ("attn", "mlp")),
                                        ("fp8", ("attn", "mlp")),
-                                       ("int8", ("mlp",))])
+                                       ("int8", ("mlp",)),
+                                       ("int8", ("attn", "mlp", "head")),
+                                       ("int8", ("head",))])
 def test_quant_model_logits_and_gradients_match_jax(tiny, fmt, sites):
-    params, quant = tiny
-    kw = dict(quant=fmt, quant_sites=sites, quant_amax_history_len=4)
+    head = "head" in sites
+    head_bias = sites == ("head",)
+    kw = dict(quant=fmt, quant_sites=sites, quant_amax_history_len=4,
+              head_bias=head_bias, **(NARROW if head else {}))
+    impl = "xla" if head else "pallas"
     jcfg = jax_preset("llama-tiny", dtype=jnp.float32,
-                      attention_impl="pallas", quant_impl="pallas", **kw)
+                      attention_impl=impl, quant_impl=impl, **kw)
     cfg = get_preset("llama-tiny", dtype=torch.float32, **kw)
-    if sites == ("mlp",):
-        quant = {"layers": {"block": {"mlp": quant["layers"]["block"]["mlp"]}}}
-    ids = _batch(5)["input_ids"]
+    if head:
+        params = _narrow_params(head_bias=head_bias)
+        if head_bias:
+            rng = np.random.default_rng(12)
+            params["lm_head"]["bias"] = rng.standard_normal(
+                NARROW["vocab_size"]).astype(np.float32)
+        quant = {"lm_head": {"amax_history": HEAD_HISTORY}}
+        if len(sites) > 1:
+            quant["layers"] = quant_to_jax(
+                cfg, init_quant_state(cfg, "cpu"))["layers"]
+    else:
+        params, quant = tiny
+        quant = {"layers": {"block": {
+            s: quant["layers"]["block"][s] for s in sites}}}
+    ids = _batch(5, vocab=cfg.vocab_size)["input_ids"]
     labels = np.concatenate([ids[:, 1:], np.full((B, 1), -100, np.int32)], 1)
 
     def jloss(p):
@@ -459,11 +511,14 @@ def test_quant_model_logits_and_gradients_match_jax(tiny, fmt, sites):
     # execution flips, the layout does not
     assert [n for n, _ in model.named_parameters()] == \
         [n for n, _ in params_from_jax(
-            get_preset("llama-tiny", dtype=torch.float32), params,
+            dataclasses.replace(cfg, quant="none"), params,
             device="cpu").named_parameters()]
     hist = quant_from_jax(cfg, quant, device="cpu")
     assert tuple(hist) == quant_site_names(cfg)
-    assert len(hist) == 4 * (7 if len(sites) == 2 else 3)
+    assert len(hist) == (cfg.num_layers * (4 * ("attn" in sites)
+                                           + 3 * ("mlp" in sites))
+                         + ("head" in sites))
+    assert (tuple(hist)[-1] == "lm_head") == ("head" in sites)
     new = {}
     logits = model(torch.from_numpy(ids), quant=hist, quant_out=new)
     loss = loss_fn(logits, torch.from_numpy(labels).long())
@@ -482,7 +537,7 @@ def test_quant_model_logits_and_gradients_match_jax(tiny, fmt, sites):
         assert path == path_j
         np.testing.assert_allclose(a, b, rtol=2e-2,
                                    err_msg=jax.tree_util.keystr(path))
-        np.testing.assert_array_equal(a[:, 1:], b[:, 1:])
+        np.testing.assert_array_equal(a[..., 1:], b[..., 1:])
     got = params_to_jax(cfg, {n: p.grad for n, p in model.named_parameters()})
     want = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
     for path, g in _leaves(got):
@@ -498,6 +553,20 @@ def test_quant_round_trips_through_convert(tiny):
     for (pa, a), (pb, b) in zip(_leaves(back), _leaves(quant)):
         assert pa == pb
         np.testing.assert_array_equal(a, b)
+    # the 'head' site's lm_head history, beside the blocks' and alone
+    for sites in (("attn", "mlp", "head"), ("head",)):
+        c = dataclasses.replace(cfg, quant_sites=sites)
+        tree = {"lm_head": {"amax_history": HEAD_HISTORY}}
+        if len(sites) > 1:
+            tree["layers"] = quant["layers"]
+        hist = quant_from_jax(c, tree, device="cpu")
+        assert list(hist)[-1] == "lm_head" and len(hist) == len(
+            quant_site_names(c))
+        back = quant_to_jax(c, hist)
+        assert sorted(back) == sorted(tree)
+        for (pa, a), (pb, b) in zip(_leaves(back), _leaves(tree)):
+            assert pa == pb
+            np.testing.assert_array_equal(a, b)
     assert quant_from_jax(get_preset("llama-tiny"), quant,
                           device="cpu") is None
     with pytest.raises(ValueError, match="history of shape"):
@@ -647,17 +716,32 @@ def test_quant_trained_model_serves_in_the_compute_dtype():
 # -- (9) what is not ported raises by name; quant off changes nothing ----------
 
 def test_unported_quant_compositions_raise():
+    """What still raises, with JAX's types and messages: quant under
+    'pp' (a ConfigError), the 'head' site on a tied head (a ValueError
+    of the forward) and with the fused CE head (a TrainerStateError).
+    The 'head' site, float16 and 'tp' run (the parity cases above,
+    tests/test_torch_quant_steps.py and the ranks tests)."""
+    from torchacc_tpu_torch.errors import TrainerStateError
     mc = get_preset("llama-tiny", num_layers=1)
-    with pytest.raises(NotImplementedError, match="'head'"):
-        accelerate(mc, None, tt.Config(compute=tt.ComputeConfig(
-            quant="int8", quant_sites=("mlp", "head"))), device="cpu")
-    with pytest.raises(NotImplementedError, match="float16"):
-        accelerate(mc, None, tt.Config(
-            compute=tt.ComputeConfig(quant="int8", dtype=torch.float16)),
-            device="cpu")
+    with pytest.raises(tt.ConfigError, match="pipeline"):
+        tt.Config(compute=tt.ComputeConfig(quant="int8"),
+                  dist=tt.DistConfig(pp=tt.PPConfig(
+                      size=2, num_micro_batches=2))).validate()
+    head = tt.ComputeConfig(quant="int8", quant_sites=("mlp", "head"))
+    with pytest.raises(TrainerStateError, match="fused_kernels=False"):
+        accelerate(mc, None, tt.Config(compute=head), device="cpu")
+    # the materialised head (fused_kernels=False, or a head_bias model)
+    # takes the site; float16 and tp validate
+    accelerate(mc, None, tt.Config(compute=dataclasses.replace(
+        head, fused_kernels=False)), device="cpu")
+    accelerate(dataclasses.replace(mc, head_bias=True), None,
+               tt.Config(compute=head), device="cpu")
+    tt.Config(compute=tt.ComputeConfig(quant="int8", dtype=torch.float16),
+              dist=tt.DistConfig(tp=tt.TPConfig(2))).validate()
     model = TransformerLM(dataclasses.replace(
-        mc, quant="int8", quant_sites=("attn", "head")), device="cpu")
-    with pytest.raises(NotImplementedError, match="'head'"):
+        mc, quant="int8", quant_sites=("attn", "head"),
+        tie_embeddings=True), device="cpu")
+    with pytest.raises(ValueError, match="tie_embeddings"):
         model(torch.zeros((1, 4), dtype=torch.long),
               quant=init_quant_state(model.cfg, "cpu"))
     for bad, match in ((dict(quant="int4"), "none.int8.fp8"),

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import torchacc_tpu as ta
-from test_torch_quant import _batch, _leaves, tiny
+from test_torch_quant import NARROW, _batch, _leaves, _narrow_params, tiny
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.parallel.mesh import build_mesh
 from torchacc_tpu.train import accelerate as jax_accelerate
@@ -38,57 +38,139 @@ def _no_jax_compile_cache():
     jax.config.update("jax_enable_compilation_cache", prev)
 
 
-def test_quant_trainer_trajectory_matches_jax_trainer(tiny):
+def _jax_bomb_loss(logits, batch):
+    """The loss times 3e38 squared (inf in f32) where the batch's
+    ``bomb`` is set: a step the fp16 scaler must skip."""
+    from torchacc_tpu.models.transformer import loss_sum_count
+    from torchacc_tpu.train.trainer import shift_labels
+    s, c = loss_sum_count(logits, shift_labels(batch["input_ids"]))
+    bomb = jnp.where(batch["bomb"][0, 0] > 0, 3e38, 1.0)
+    return s * bomb * bomb, c
+
+
+def _bomb_loss(logits, batch):
+    from torchacc_tpu_torch.models.transformer import loss_sum_count
+    from torchacc_tpu_torch.train import shift_labels
+    s, c = loss_sum_count(logits, shift_labels(batch["input_ids"]))
+    bomb = torch.where(batch["bomb"][0, 0] > 0, 3e38, 1.0)
+    return s * bomb * bomb, c
+
+
+# case: (the compute fields of both packages, the JAX impls, the loss,
+# the model: llama-tiny from the mid-run fixture, or the narrow model of
+# tests/test_torch_quant.py from fresh histories, as float16 matmuls are
+# slow on the CPU)
+TRAJECTORIES = {
+    # the fused CE and save_attn_mlp remat, JAX on its Pallas kernels
+    "int8_fused": (dict(), "pallas", None, None),
+    # the 'head' site on the materialised logits
+    "int8_head": (dict(quant_sites=("attn", "mlp", "head"),
+                       fused_kernels=False), "xla", None, NARROW),
+    # float16 under the loss scaler, step 2 forced to overflow
+    "int8_fp16_overflow": (dict(dtype="float16"), "xla", "bomb", NARROW),
+}
+BOMB_STEP = 2
+
+
+@pytest.mark.parametrize("case", sorted(TRAJECTORIES))
+def test_quant_trainer_trajectory_matches_jax_trainer(tiny, case):
     """Five steps of accelerate() -> Trainer.step with compute.quant =
-    'int8' against the JAX Trainer (B5 and B1-B3 in interpret mode, fused
-    CE, save_attn_mlp remat) from the same weights and the same mid-run
-    histories: the loss and every history after every step."""
-    params, quant = tiny
-    batches = [_batch(20 + i) for i in range(5)]
+    'int8' against the JAX Trainer (save_attn_mlp remat) from the same
+    weights and histories (llama-tiny's mid-run ones, or a narrow
+    model's fresh ones): the loss (and the fp16 loss scale) and every
+    history after every step.  Under float16 a
+    step the scaler skips (the forced overflow, and any the scale
+    itself overflows) leaves the masters and the histories bitwise as
+    they were, in both packages; the 5-step float16 losses rtol 2e-3,
+    as ``tests/test_torch_amp.py`` holds the fp16 trajectory."""
+    fields, impl, loss, narrow = TRAJECTORIES[case]
+    if narrow is None:
+        params, quant = tiny
+    else:
+        params = _narrow_params()
+        quant = None                # fresh: all zero in both packages
+    fp16 = fields.get("dtype") == "float16"
+    batches = [_batch(20 + i, vocab=(narrow or {}).get("vocab_size", 32000))
+               for i in range(5)]
+    if loss:
+        for i, b in enumerate(batches):
+            b["bomb"] = np.full((2, 1), int(i == BOMB_STEP), np.int32)
     opt = dict(weight_decay=0.01, b1=0.9, b2=0.95, eps=1e-8,
                grad_clip_norm=1.0)
-    qkw = dict(quant="int8", quant_amax_history_len=4)
+    qkw = dict(fields, quant="int8", quant_amax_history_len=4)
 
     jconf = ta.Config(
-        compute=ta.ComputeConfig(dtype="float32", attention_impl="pallas",
-                                 quant_impl="pallas", **qkw),
+        compute=ta.ComputeConfig(**dict(dict(dtype="float32"), **qkw),
+                                 attention_impl=impl, quant_impl=impl),
         memory=ta.MemoryConfig(gc=True, gc_policy="save_attn_mlp"))
     jtrainer, _ = jax_accelerate(
-        jax_preset("llama-tiny"), None, jconf,
+        jax_preset("llama-tiny", **(narrow or {})), None, jconf,
         optimizer=jax_sched.adamw(jax_sched.warmup_cosine(3e-3, 10, 1),
                                   **opt),
-        mesh=build_mesh(jconf.dist, devices=jax.devices()[:1]))
+        mesh=build_mesh(jconf.dist, devices=jax.devices()[:1]),
+        **(dict(loss=_jax_bomb_loss) if loss else {}))
     jtrainer.init_from_params(jax.tree.map(jnp.asarray, params))
-    jtrainer.state = jtrainer.state.replace(
-        quant=jax.tree.map(jnp.asarray, quant))
+    if quant is not None:
+        jtrainer.state = jtrainer.state.replace(
+            quant=jax.tree.map(jnp.asarray, quant))
 
+    dtype = torch.float16 if fp16 else torch.float32
     conf = tt.Config(
-        compute=tt.ComputeConfig(dtype=torch.float32, **qkw),
+        compute=tt.ComputeConfig(**dict(qkw, dtype=dtype)),
         memory=tt.MemoryConfig(gc=True, gc_policy="save_attn_mlp"))
-    model = params_from_jax(get_preset("llama-tiny", dtype=torch.float32),
+    model = params_from_jax(get_preset("llama-tiny", dtype=dtype,
+                                       **(narrow or {})),
                             params, device="cpu", trainable=True)
     trainer, _ = accelerate(
         model, None, conf,
-        optimizer=adamw(port_sched.warmup_cosine(3e-3, 10, 1), **opt))
+        optimizer=adamw(port_sched.warmup_cosine(3e-3, 10, 1), **opt),
+        **(dict(loss=_bomb_loss) if loss else {}))
     cfg = trainer.model.cfg
     assert (cfg.quant, cfg.quant_amax_history_len, cfg.quant_impl) == \
         ("int8", 4, "auto")
     state = trainer.init()
     assert all((h == 0).all() for h in state.quant.values())
-    state.quant = quant_from_jax(cfg, quant, device="cpu")
+    assert ("lm_head" in state.quant) == ("head" in cfg.quant_sites)
+    if quant is not None:
+        state.quant = quant_from_jax(cfg, quant, device="cpu")
 
+    skipped = 0
     for i, b in enumerate(batches):
-        jl = float(jtrainer.step({k: jnp.asarray(v)
-                                  for k, v in b.items()})["loss"])
-        tl = trainer.step(b)["loss"].item()
-        np.testing.assert_allclose(tl, jl, rtol=2e-3, err_msg=f"step {i}")
+        before = ({n: h.clone() for n, h in trainer.state.quant.items()},
+                  {n: p.clone() for n, p in trainer.state.params.items()})
+        jbefore = jax.tree.map(np.asarray, jtrainer.state.quant)
+        jm = jtrainer.step({k: jnp.asarray(v) for k, v in b.items()})
+        m = trainer.step(b)
+        tl, jl = m["loss"].item(), float(jm["loss"])
+        assert np.isfinite(tl) == np.isfinite(jl), f"step {i}"
+        if np.isfinite(jl):
+            np.testing.assert_allclose(tl, jl, rtol=2e-3,
+                                       err_msg=f"step {i}")
         got = quant_to_jax(cfg, trainer.state.quant)
         want = jax.tree.map(np.asarray, jax.device_get(jtrainer.state.quant))
         for (path, a), (_, w_) in zip(_leaves(got), _leaves(want)):
             np.testing.assert_allclose(
                 a, w_, rtol=2e-2,
                 err_msg=f"step {i} {jax.tree_util.keystr(path)}")
+        if not fp16:
+            continue
+        assert m["loss_scale"].item() == float(jm["loss_scale"])
+        if not np.isfinite(m["grad_norm"].item()):
+            # skipped: the histories and masters as they were, in both
+            skipped += 1
+            for n, h in trainer.state.quant.items():
+                assert torch.equal(h, before[0][n]), (i, n)
+            for n, p in trainer.state.params.items():
+                assert torch.equal(p, before[1][n]), (i, n)
+            for (_, a), (_, w_) in zip(_leaves(want), _leaves(jbefore)):
+                np.testing.assert_array_equal(a, w_)
+        else:
+            assert not all(torch.equal(h, before[0][n])
+                           for n, h in trainer.state.quant.items())
     assert trainer.state.step == 5
+    if fp16:
+        assert 1 <= skipped < 5 and trainer.state.opt_state.count == \
+            5 - skipped
 
 
 # -- (10) the int8 loss against the port's own bf16 run ------------------------

@@ -8,10 +8,8 @@ shedding, preemption and graceful drain of serving, the perf and obs
 blocks of training, and every resilience field but the checkpoint
 path's (``ResilienceConfig``) are not ported yet (ROADMAP.md, queue A),
 so their switches are absent rather than silently ignored.
-A field that is here but takes a value the port does not implement (the
-quantized vocab head; quantized matmuls under float16; an expert axis
-above 1; quantized matmuls with tensor parallelism) raises by name in
-``validate``; ``perf.overlap_fsdp`` is folded into the model config and
+A field that is here but takes a value the port does not implement
+raises by name in ``validate``; ``perf.overlap_fsdp`` is folded into the model config and
 refused with the model's other unported fields.
 """
 
@@ -122,7 +120,9 @@ class ComputeConfig:
     # 'none' is the unquantized step: no quant state exists
     quant: str = "none"
     # which dense sites quantize: 'attn' = q/k/v/o projections, 'mlp' =
-    # gate/up/down; 'head' (the vocab projection) is not ported
+    # gate/up/down; 'head' = the materialised vocab projection (with
+    # compute.fused_kernels=False, or a head_bias model: the fused CE
+    # head stays in the compute dtype and the Trainer refuses it)
     quant_sites: Tuple[str, ...] = ("attn", "mlp")
     # rolling amax window per site
     quant_amax_history_len: int = 16
@@ -166,12 +166,6 @@ class ComputeConfig:
                 _check(s in self._QUANT_SITES,
                        f"compute.quant_sites entries must be in "
                        f"{self._QUANT_SITES}, got {s!r}")
-            _unported("head" not in self.quant_sites,
-                      "compute.quant_sites containing 'head' (the "
-                      "quantized vocab projection)")
-            _unported(self.dtype != torch.float16,
-                      "compute.quant with dtype=float16 (B4 and B5 in "
-                      "float16, ROADMAP B-3)")
 
 
 @dataclass
@@ -513,8 +507,6 @@ class Config:
         _check(not self.perf.overlap_fsdp or self.dist.pp.size == 1,
                "perf.overlap_fsdp does not compose with pipeline "
                "parallelism (the pp schedules own their layer loop)")
-        _unported(self.compute.quant == "none" or self.dist.tp.size == 1,
-                  "compute.quant with dist.tp.size > 1", "A8b")
 
     def get_mesh(self, device_type: str = "cuda"):
         """The device mesh of ``dist`` over the process group, built at

@@ -21,10 +21,18 @@
  * (ops/paged_attention.py::_paged_plan) from the dtype and T, never on
  * a failure:
  *
- *  paged_mma_kernel<D, 4, 2>   bf16, T > 1: a prefill chunk
- *  paged_mma_kernel<D, 1, 4>   bf16, T = 1: decode, split contexts
- *  paged_f32_kernel<D>         f32, any T: the exact comparison path,
- *                              on the CUDA cores (the first port's body)
+ *  paged_mma_kernel<T, D, 4, 2>   bf16 or f16, T > 1: a prefill chunk
+ *  paged_mma_kernel<T, D, 1, 4>   bf16 or f16, T = 1: decode, split
+ *                                 contexts
+ *  paged_f32_kernel<D>            f32, any T: the exact comparison path,
+ *                                 on the CUDA cores (the first port's
+ *                                 body)
+ *
+ * The tensor-core kernel is a template on the 16-bit type T (bf16, or
+ * f16 for a model trained under the fp16 loss scaler and served in its
+ * compute dtype, as csrc/flash_attention.cu templates B1-B3): the pages
+ * stay in T, the products run mma.sync on T with f32 sums, P enters P.V
+ * as hi + lo in T, and the output is stored in T.
  *
  * What bounds each shape on an H100 (3.35 TB/s; 989 TFLOP/s bf16 on the
  * tensor cores):
@@ -36,7 +44,7 @@
  *    (row, key) pair over the same bytes: ~400 flops per byte, bound by
  *    operations, which belong on the tensor cores.
  *
- * One tensor-core kernel serves both bf16 shapes.  A CTA takes a tile
+ * One tensor-core kernel serves both 16-bit shapes.  A CTA takes a tile
  * of rows, the (token, q head) pairs that share one kv head, so a K/V
  * page is read once per kv head and tile, not once per q head, against
  * one part of the keys the tile can see.  Its warps form a grid WR x
@@ -50,7 +58,7 @@
  *    group's rows padded to one m16 tile (WR = 1) x 4 key quarters, 3
  *    CTAs an SM; the 12 pad rows cost nothing that matters in a body
  *    bound by bytes.
- *  - Products: QK^T and P.V on mma.sync m16n8k16 (bf16 in, f32
+ *  - Products: QK^T and P.V on mma.sync m16n8k16 (bf16 or f16 in, f32
  *    accumulate), q and K fragments by ldmatrix (q read again each
  *    step, which costs less than the registers it would hold), V by
  *    ldmatrix.trans.  Online softmax in f32 with m and l in registers;
@@ -64,7 +72,7 @@
  *  - Stages: K and V pages stream through a ring of 2 stages of 64 keys
  *    (34 KB at D = 128: 87 KB of shared memory for a prefill CTA, 74 KB
  *    for a decode CTA; 66 KB at D = 256: 165 KB and 140 KB, one CTA an
- *    SM), bf16, never widened; rows padded by 8 elements
+ *    SM), in the 16-bit type, never widened; rows padded by 8 elements
  *    so that the fragment loads of a warp and the 16-byte copies spread
  *    over all 32 banks, as a swizzle would.  cp.async copies one
  *    16-byte chunk per thread and chunk of a page row (D * 2 bytes at
@@ -104,12 +112,14 @@
  */
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kThreads = 128;     // 4 warps: the f32 body
 constexpr float kNegInf = -1e30f;
@@ -207,10 +217,10 @@ __device__ __forceinline__ void page_rows(int (&rows)[PageCopy<D, NT>::N], const
   }
 }
 
-// those rows of kv head kvh into dst [kKeys][D + 8] bf16, one cp.async a
-// 16-byte chunk; rows -1 are zero-filled
-template <int D, int NT>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* pool,
+// those rows of kv head kvh into dst [kKeys][D + 8] (16-bit), one cp.async
+// a 16-byte chunk; rows -1 are zero-filled
+template <int D, int NT, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* pool,
                                           const int (&rows)[PageCopy<D, NT>::N], int kv_heads,
                                           int kvh) {
   using P = PageCopy<D, NT>;
@@ -219,25 +229,43 @@ __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* pool,
 #pragma unroll
   for (int n = 0; n < P::N; ++n) {
     const bool ok = rows[n] >= 0;
-    const bf16* src = ok ? pool + (size_t(rows[n]) * kv_heads + kvh) * D + col * 8 : pool;
+    const T* src = ok ? pool + (size_t(rows[n]) * kv_heads + kvh) * D + col * 8 : pool;
     cp_async16(dst + (r0 + n * P::RSTEP) * (D + 8) + col * 8, src, ok);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16
+// bf16 and f16 on the tensor cores: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxGroup = 16;     // decode rows: one m16 tile (ops: _MAX_GROUP)
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// d += a . b on the 16-bit type T, f32 sums
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<bf16>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16<f16>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to the 16-bit type T
+__device__ __forceinline__ void store16(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store16(f16* p, float x) { *p = __float2half(x); }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -246,11 +274,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(addr));
 }
 
-// x0, x1 as the sum of two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+// x0, x1 as the sum of two pairs of the 16-bit type T: hi = T(x),
+// lo = T(x - hi)
+template <typename T>
+__device__ __forceinline__ void split16(float x0, float x1, uint32_t& hi, uint32_t& lo);
+template <>
+__device__ __forceinline__ void split16<bf16>(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const float2 hf = __bfloat1622float2(h);
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+template <>
+__device__ __forceinline__ void split16<f16>(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
@@ -299,12 +339,12 @@ struct MmaCfg {
 // whatever its context.  With more than one part, the parts' (o, m, l)
 // go to ws [S, KH, tiles, splits, kRows, D + 2] and the last CTA of the
 // tile to finish merges them.
-template <int D, int WR, int WK>
+template <typename T, int D, int WR, int WK>
 __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>::kMinBlocks)
-    paged_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-                     const bf16* __restrict__ v_pool, const int* __restrict__ tables,
+    paged_mma_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                     const T* __restrict__ v_pool, const int* __restrict__ tables,
                      const int* __restrict__ ctx_lens, const int* __restrict__ q_start,
-                     bf16* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                     T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
                      int t_len, int heads, int kv_heads, int block_size, int max_blocks,
                      int splits, float scale, float softcap, int win_left, int win_right) {
   using Cfg = MmaCfg<D, WR, WK>;
@@ -316,8 +356,8 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
   constexpr int CPR = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int merges;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [ROWS][LD]
-  bf16* ring = q_s + ROWS * LD;                     // stage i: K, then V
+  T* q_s = reinterpret_cast<T*>(smem_raw);         // [ROWS][LD]
+  T* ring = q_s + ROWS * LD;                        // stage i: K, then V
 
   const int s = blockIdx.z, kvh = blockIdx.y;
   const int group = heads / kv_heads;
@@ -351,7 +391,7 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
   if (span <= 0) {   // no row sees a key: part 0 writes the zeros
     if (part == 0)
       for (int i = threadIdx.x; i < rows * D; i += NT)
-        out_row(i / D)[i % D] = __float2bfloat16(0.f);
+        store16(out_row(i / D) + i % D, 0.f);
     return;
   }
   const int per_part = (span + splits - 1) / splits;
@@ -368,7 +408,7 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
   for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR;
     const bool ok = r < rows;
-    const bf16* src = q;
+    const T* src = q;
     if (ok) {
       const int rr = row0 + r;
       src = q + ((size_t(s) * t_len + rr / group) * heads + kvh * group + rr % group) * D +
@@ -380,7 +420,7 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
   page_rows<D, NT>(pool_rows, table, lo, hi, block_size);
   auto issue = [&](int j) {   // step j's K and V into stage j % kStages
     if (j < steps) {
-      bf16* st = ring + (j % kStages) * 2 * TILE;
+      T* st = ring + (j % kStages) * 2 * TILE;
       copy_rows<D, NT>(st, k_pool, pool_rows, kv_heads, kvh);
       copy_rows<D, NT>(st + TILE, v_pool, pool_rows, kv_heads, kvh);
       if (j + 1 < steps)   // read now, used at the next issue
@@ -403,8 +443,8 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
     issue(j + kStages - 1);
     cp_async_wait<kStages - 1>();   // step j has landed
     __syncthreads();
-    const bf16* k_s = ring + (j % kStages) * 2 * TILE + wkey * LD;
-    const bf16* v_s = k_s + TILE;
+    const T* k_s = ring + (j % kStages) * 2 * TILE + wkey * LD;
+    const T* v_s = k_s + TILE;
     const int k0 = lo + j * kKeys + wkey;   // this warp's first key
 
     // S = Q K^T; ldmatrix gives a q fragment, and the K fragments of two
@@ -424,8 +464,8 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
         uint32_t b[4];
         ldmatrix_x4(b, k_s + (n * 8 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 +
                            ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[n], a, b[0], b[1]);
-        mma_bf16(sc[n + 1], a, b[2], b[3]);
+        mma16<T>(sc[n], a, b[0], b[1]);
+        mma16<T>(sc[n + 1], a, b[2], b[3]);
       }
     }
 
@@ -471,23 +511,23 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
       }
     }
 
-    // acc += P . V, P as hi + lo bf16, V read transposed with ldmatrix
+    // acc += P . V, P as hi + lo in T, V read transposed with ldmatrix
 #pragma unroll
     for (int kk = 0; kk < KPW / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      split16<T>(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split16<T>(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split16<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split16<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
       const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
       for (int dn = 0; dn < D / 16; ++dn) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, v_s + row * LD + dn * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dn], ph, b[0], b[1]);
-        mma_bf16(acc[2 * dn], pl, b[0], b[1]);
-        mma_bf16(acc[2 * dn + 1], ph, b[2], b[3]);
-        mma_bf16(acc[2 * dn + 1], pl, b[2], b[3]);
+        mma16<T>(acc[2 * dn], ph, b[0], b[1]);
+        mma16<T>(acc[2 * dn], pl, b[0], b[1]);
+        mma16<T>(acc[2 * dn + 1], ph, b[2], b[3]);
+        mma16<T>(acc[2 * dn + 1], pl, b[2], b[3]);
       }
     }
   }
@@ -534,7 +574,7 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
         pp[D + 1] = den;
       }
     } else {
-      out_row(r)[d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+      store16(out_row(r) + d, den == 0.f ? 0.f : num / den);
     }
   }
   if (parts == nullptr) return;
@@ -575,7 +615,7 @@ __global__ void __launch_bounds__(MmaCfg<D, WR, WK>::kThreads, MmaCfg<D, WR, WK>
 #pragma unroll 8
     for (int p = 0; p < active; ++p)
       num = fmaf(wgt[r * active + p], __ldcg(parts + (size_t(p) * ROWS + r) * (D + 2) + d), num);
-    out_row(r)[d] = __float2bfloat16(num);
+    store16(out_row(r) + d, num);
   }
   if (threadIdx.x == 0) counters[unit] = 0;
 }
@@ -760,8 +800,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-// prefill: 64 rows x 8 warps; decode: the group's rows x 4 warps
-template <int D, bool DECODE>
+// prefill: 64 rows x 8 warps; decode: the group's rows x 4 warps; T the
+// 16-bit type
+template <typename T, int D, bool DECODE>
 cudaError_t launch_mma(const Args& a) {
   constexpr int WR = DECODE ? 1 : 4, WK = DECODE ? 4 : 2;
   using Cfg = MmaCfg<D, WR, WK>;
@@ -769,14 +810,14 @@ cudaError_t launch_mma(const Args& a) {
       a.grid_x % a.splits != 0 || (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)))
     return cudaErrorInvalidValue;
   static bool done[kMaxDevices];
-  const auto kernel = paged_mma_kernel<D, WR, WK>;
+  const auto kernel = paged_mma_kernel<T, D, WR, WK>;
   cudaError_t r = allow_smem(kernel, Cfg::kSmem, done);
   if (r != cudaSuccess) return r;
   kernel<<<dim3(a.grid_x, a.kv_heads, a.num_slots), Cfg::kThreads, Cfg::kSmem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k_pool),
-      static_cast<const bf16*>(a.v_pool), static_cast<const int*>(a.tables),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
+      static_cast<const T*>(a.v_pool), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.ctx_lens), static_cast<const int*>(a.q_start),
-      static_cast<bf16*>(a.out), static_cast<float*>(a.ws), static_cast<int*>(a.counters),
+      static_cast<T*>(a.out), static_cast<float*>(a.ws), static_cast<int*>(a.counters),
       a.t_len, a.heads, a.kv_heads, a.block_size, a.max_blocks, a.splits, a.scale,
       a.softcap, a.win_left, a.win_right);
   return cudaGetLastError();
@@ -801,8 +842,10 @@ template <int D>
 cudaError_t launch_body(int body, const Args& a) {
   switch (body) {
     case 0: return launch_f32<D>(a);
-    case 1: return launch_mma<D, false>(a);
-    case 2: return launch_mma<D, true>(a);
+    case 1: return launch_mma<bf16, D, false>(a);
+    case 2: return launch_mma<bf16, D, true>(a);
+    case 3: return launch_mma<f16, D, false>(a);
+    case 4: return launch_mma<f16, D, true>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -811,7 +854,8 @@ cudaError_t launch_body(int body, const Args& a) {
 
 // body (ops/paged_attention.py _BODY_CODE): 0 = f32 on the CUDA cores,
 // 1 = bf16 prefill on the tensor cores (T > 1), 2 = bf16 split decode
-// (T = 1; ws and counters needed when grid_x > 1).  The grid is
+// (T = 1; ws and counters needed when grid_x > 1), 3 and 4 the same two
+// in f16.  The grid is
 // (grid_x, kv_heads, num_slots).  Returns the cudaError_t of the launch
 // (0 = success); launches on `stream` and does not synchronise.
 extern "C" int paged_attention_fwd(

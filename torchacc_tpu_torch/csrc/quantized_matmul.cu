@@ -7,14 +7,16 @@
  * _qmm2d_pallas) — B5.
  *
  * What it computes (the plain version is ops/quantized_matmul.py
- * _qmm2d_plain): for x [M, K] and w [K, N] in the compute dtype (bf16
- * or f32), one f32 activation scale sx and per-column weight scales
+ * _qmm2d_plain): for x [M, K] and w [K, N] in the compute dtype (bf16,
+ * f16 or f32), one f32 activation scale sx and per-column weight scales
  * sw [N],
  *
  *     qx = Q(clip(x / sx, +-qmax)),  qw = Q(clip(w / sw[n], +-qmax))
  *     out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * (sx * sw[n])
  *
- * cast to x's dtype.  int8: qmax 127, Q rounds half to even, the sum is
+ * cast to x's dtype (rounded to nearest even; in f16 a value beyond
+ * 65504 becomes +-inf, as JAX's astype gives it and the fp16 loss
+ * scaler skips the step).  int8: qmax 127, Q rounds half to even, the sum is
  * an exact int32 (127^2 * K < 2^31 needs K < 133 144; the wrapper
  * refuses more).  fp8: qmax 448, Q is the e4m3 cast (round to nearest
  * even, saturating), the products are exact and summed in f32.
@@ -70,6 +72,7 @@
  */
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,6 +85,7 @@ namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ void store_out(T* p, float v);
@@ -91,12 +95,19 @@ template <>
 __device__ __forceinline__ void store_out<__nv_bfloat16>(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+template <>
+__device__ __forceinline__ void store_out<__half>(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 
 __device__ __forceinline__ void store_out2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store_out2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_out2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -121,15 +132,19 @@ __device__ __forceinline__ Scale make_scale(float s) {
 // r = x - q * s is exact in one fma, and q + r * inv rounds to a
 // faithful quotient, then (Markstein's theorem: a faithful quotient
 // corrected once with a correctly rounded reciprocal) to RN(x / s).
-// Five instructions against ~15 for div.rn with its range checks, and
+// Six instructions against ~15 for div.rn with its range checks, and
 // no branch.  Holds while nothing under- or overflows: |s| in
 // [1e-20, 1e20] (Scale::fast), x finite; a quotient too small for its
-// residual to be exact (< 1e-15) quantizes to zero either way.
+// residual to be exact (< 1e-15) quantizes to zero either way.  The
+// corrections add +0 to a zero quotient, so its sign is taken from x
+// (s > 0): -0 / s is -0, as IEEE division gives it (fp8 keeps the sign
+// of zero, e4m3 0x80; an f16 activation or weight that underflowed is
+// -0).
 __device__ __forceinline__ float quotient(float x, const Scale& sc) {
   float q = __fmul_rn(x, sc.inv);
   q = __fmaf_rn(__fmaf_rn(-q, sc.s, x), sc.inv, q);
   q = __fmaf_rn(__fmaf_rn(-q, sc.s, x), sc.inv, q);
-  return q;
+  return copysignf(q, x);
 }
 
 // int8: clip(y, +-127), round half to even, as a two's complement byte in
@@ -586,8 +601,8 @@ int dispatch_gemm(const void* qx, const void* qw, const void* sx, const void* sw
 // the runtime does not reach cuTensorMapEncodeTiled, or 200000 + its
 // CUresult when it refuses a map.
 //
-// qmm_quantize: x [M, K] contiguous, of dtype 0 = float32 or 1 =
-// bfloat16; w of the same dtype holds [K, N] either as [N, K] row-major
+// qmm_quantize: x [M, K] contiguous, of dtype 0 = float32, 1 =
+// bfloat16 or 2 = float16; w of the same dtype holds [K, N] either as [N, K] row-major
 // with leading dimension ldw (w_kn = 0) or as [K, N] row-major with
 // leading dimension ldw (w_kn = 1); sx one float32 and sw [N] float32.
 // Writes qx [M, Kp] and qw [N, Kp] (int8 for fmt 0; for fmt 1 the e4m3
@@ -605,10 +620,12 @@ extern "C" int qmm_quantize(const void* x, const void* w, const void* sx, const 
   if (dtype == 1)
     return dispatch_quantize<__nv_bfloat16>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, w_kn, fmt,
                                             st);
+  if (dtype == 2)
+    return dispatch_quantize<__half>(x, w, sx, sw, qx, qw, M, N, K, Kp, ldw, w_kn, fmt, st);
   return cudaErrorInvalidValue;
 }
 
-// qmm_gemm: out [M, N] (dtype 0 = float32, 1 = bfloat16) =
+// qmm_gemm: out [M, N] (dtype 0 = float32, 1 = bfloat16, 2 = float16) =
 // float(qx [M, Kp] . qw [N, Kp]^T) * (sx * sw[n]), on what qmm_quantize
 // wrote for fmt; bn 128 or 256 columns a CTA.
 extern "C" int qmm_gemm(const void* qx, const void* qw, const void* sx, const void* sw,
@@ -619,5 +636,6 @@ extern "C" int qmm_gemm(const void* qx, const void* qw, const void* sx, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_gemm<float>(qx, qw, sx, sw, out, M, N, Kp, bn, fmt, st);
   if (dtype == 1) return dispatch_gemm<__nv_bfloat16>(qx, qw, sx, sw, out, M, N, Kp, bn, fmt, st);
+  if (dtype == 2) return dispatch_gemm<__half>(qx, qw, sx, sw, out, M, N, Kp, bn, fmt, st);
   return cudaErrorInvalidValue;
 }

@@ -37,9 +37,10 @@ On a mesh, ``params_from_jax`` gives the full model that
 histories of the quantized matmul sites the same way: the flax
 ``'quant'`` collection, which the JAX model keeps stacked over the
 layers whether or not it scans them
-(``layers.block.<attn|mlp>.<linear>.amax_history [L, len]``), against the
-port's ``TrainState.quant`` (``layers.<i>.<attn|mlp>.<linear>`` ->
-``[len]``).
+(``layers.block.<attn|mlp>.<linear>.amax_history [L, len]``), and the
+'head' site's ``lm_head.amax_history [len]``, against the port's
+``TrainState.quant`` (``layers.<i>.<attn|mlp>.<linear>`` and ``lm_head``
+-> ``[len]``).
 
 ``state_from_jax`` / ``state_to_jax`` carry a whole JAX ``TrainState``
 (numpy leaves, as the JAX package restores a checkpoint host-side) into
@@ -239,17 +240,22 @@ def quant_from_jax(cfg: ModelConfig, tree: Mapping,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Optional[Dict[str, torch.Tensor]]:
     """The port's amax histories (``TrainState.quant``) from the flax
-    ``'quant'`` collection ``tree`` (numpy leaves), on the card unless
-    ``device`` says otherwise; None when ``cfg`` quantizes no site."""
+    ``'quant'`` collection ``tree`` (numpy leaves): the blocks' stacked
+    ``layers/block/<site>/<linear>`` and the head's
+    ``lm_head/amax_history``, on the card unless ``device`` says
+    otherwise; None when ``cfg`` quantizes no site."""
     names = quant_site_names(cfg)
     if not names:
         return None
     device = resolve_device(device)
-    blk = tree["layers"]["block"]
     out = {}
     for name in names:
-        _, i, site, lin = name.split(".")
-        hist = np.asarray(blk[site][lin]["amax_history"])[int(i)]
+        if name == "lm_head":
+            hist = np.asarray(tree["lm_head"]["amax_history"])
+        else:
+            _, i, site, lin = name.split(".")
+            hist = np.asarray(
+                tree["layers"]["block"][site][lin]["amax_history"])[int(i)]
         if hist.shape != (cfg.quant_amax_history_len,):
             raise ValueError(
                 f"{name}: history of shape {hist.shape}, expected "
@@ -261,17 +267,26 @@ def quant_from_jax(cfg: ModelConfig, tree: Mapping,
 def quant_to_jax(cfg: ModelConfig,
                  quant: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`quant_from_jax`: the flax ``'quant'``
-    collection (stacked ``[L, len]`` f32 numpy leaves)."""
+    collection (the blocks' stacked ``[L, len]`` and the head's
+    ``[len]`` f32 numpy leaves; a collection holds only the parts that
+    quantize, as JAX's does)."""
     blk: Dict = {}
+    out: Dict = {}
     for name in quant_site_names(cfg):
+        hist = quant[name].detach().float().cpu().numpy()
+        if name == "lm_head":
+            out["lm_head"] = {"amax_history": hist}
+            continue
         _, i, site, lin = name.split(".")
         rows = blk.setdefault(site, {}).setdefault(lin, [])
         assert len(rows) == int(i)
-        rows.append(quant[name].detach().float().cpu().numpy())
-    return {"layers": {"block": {
-        site: {lin: {"amax_history": np.stack(rows)}
-               for lin, rows in lins.items()}
-        for site, lins in blk.items()}}}
+        rows.append(hist)
+    if blk:
+        out["layers"] = {"block": {
+            site: {lin: {"amax_history": np.stack(rows)}
+                   for lin, rows in lins.items()}
+            for site, lins in blk.items()}}
+    return out
 
 
 def _field(node: Any, key: str) -> Any:

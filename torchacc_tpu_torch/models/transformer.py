@@ -29,8 +29,8 @@ and ``generate`` also ``norm_placement='post'`` — and in training and
 whose router losses the forward sums over the layers and returns
 beside its output (``with_aux``).  The training forward adds
 attention dropout (``attn_dropout``) and quantized forward matmuls
-(``quant``, ``quant_sites`` 'attn' and 'mlp', ``quant_amax_history_len``,
-``quant_impl``).  The serving forward (serve/scheduler.py) and the
+(``quant``, ``quant_sites`` 'attn', 'mlp' and 'head': the materialised
+head's ``lm_head``, ``quant_amax_history_len``, ``quant_impl``).  The serving forward (serve/scheduler.py) and the
 training forward here both reject the rest by name.
 
 Quantized sites keep ``nn.Linear``'s parameter names and shapes:
@@ -605,11 +605,17 @@ def check_composition(cfg: ModelConfig) -> None:
 def check_training_supported(cfg: ModelConfig) -> None:
     """Raise naming every field the training forward of this port does
     not implement, and the compositions JAX rejects: those of
-    :func:`check_composition`, a layer pattern with quantized matmuls
-    (JAX :929) or with ``overlap_fsdp`` (:953), and under pipeline
-    parallelism a pattern period that does not divide a stage chunk
+    :func:`check_composition`, the 'head' quant site on a tied head (JAX
+    :1244), a layer pattern with quantized matmuls (JAX :929) or with
+    ``overlap_fsdp`` (:953), and under pipeline parallelism a pattern period that does not divide a stage chunk
     (``pp_block_appliers``)."""
     check_composition(cfg)
+    if cfg.tie_embeddings and quant_site_on(cfg, "head"):
+        raise ValueError(
+            "quant_sites includes 'head' but tie_embeddings "
+            "projects through the embedding table — drop "
+            "'head' from quant_sites (the tied head stays in "
+            "the compute dtype)")
     if cfg.layer_pattern:
         if cfg.quant != "none":
             raise NotImplementedError(
@@ -628,14 +634,6 @@ def check_training_supported(cfg: ModelConfig) -> None:
             "the training forward of torchacc_tpu_torch does not support "
             + ", ".join(bad) + f" (it implements {MODEL_SURFACE}; the "
             f"rest waits for {MODEL_PENDING})")
-    if cfg.quant != "none" and "head" in cfg.quant_sites:
-        raise NotImplementedError(
-            "quant_sites includes 'head': the quantized vocab projection "
-            "is not ported to torchacc_tpu_torch yet (the fused CE head "
-            "stays in the compute dtype, and the materialised quantized "
-            "head waits for the rest of quantized training, ROADMAP.md "
-            "A11b); "
-            "drop 'head' from quant_sites")
 
 
 _M32 = 0xFFFFFFFF
@@ -670,14 +668,19 @@ def mlp_linears(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def quant_site_names(cfg: ModelConfig) -> Tuple[str, ...]:
     """The name of every quantized matmul site of ``cfg``, in forward
-    order: ``layers.<i>.<attn|mlp>.<linear>`` (the module's path)."""
+    order: ``layers.<i>.<attn|mlp>.<linear>`` (the module's path), then
+    ``lm_head`` where the 'head' site quantizes the materialised vocab
+    projection (a tied head has no ``lm_head``: JAX refuses it,
+    :func:`check_training_supported`)."""
     sites = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
              # the experts are never quantized (JAX's einsums)
              "mlp": mlp_linears(cfg) if cfg.num_experts == 0 else ()}
+    head = (("lm_head",) if quant_site_on(cfg, "head")
+            and not cfg.tie_embeddings else ())
     return tuple(f"layers.{i}.{site}.{lin}"
                  for i in range(cfg.num_layers)
                  for site, lins in sites.items()
-                 if quant_site_on(cfg, site) for lin in lins)
+                 if quant_site_on(cfg, site) for lin in lins) + head
 
 
 def init_quant_state(cfg: ModelConfig,
@@ -707,16 +710,21 @@ class QuantScope:
         self.amax_groups = amax_groups
 
     def linear(self, cfg: ModelConfig, name: str, x: torch.Tensor,
-               lin: nn.Linear, bias: bool = True) -> torch.Tensor:
+               lin: nn.Linear, bias: bool = True,
+               k_group=None) -> torch.Tensor:
+        """The quantized product of the site ``name``; ``k_group``: the
+        'tp' group of a row-parallel site, whose contracting dim is split
+        over it (``quant_linear``)."""
         if name not in self.histories:
             raise KeyError(
                 f"no amax history for the quantized site {name!r}: pass "
                 f"the TrainState.quant of this model config")
         y, hist = quant_linear(
-            x, lin.weight, lin.bias if bias else None, self.histories[name],
-            fmt=cfg.quant,
+            x, to_local(lin.weight), to_local(lin.bias) if bias else None,
+            self.histories[name], fmt=cfg.quant,
             impl=cfg.quant_impl, dtype=cfg.dtype,
-            update=self.new is not None, amax_groups=self.amax_groups)
+            update=self.new is not None, amax_groups=self.amax_groups,
+            k_group=k_group)
         if self.new is not None:
             self.new[name] = hist
         return y
@@ -724,7 +732,8 @@ class QuantScope:
 
 def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
           quant: Optional[QuantScope] = None,
-          name: Optional[str] = None, bias: bool = True) -> torch.Tensor:
+          name: Optional[str] = None, bias: bool = True,
+          k_group=None) -> torch.Tensor:
     """A projection with both operands in the compute dtype (flax
     ``Dense(dtype=cfg.dtype)``); ``.to`` is free when the weight already
     is (the bf16 shadow).  With ``quant`` the product is the quantized
@@ -735,12 +744,13 @@ def dense(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
     ``DTensor``) is read as this rank's shard: the product is this
     rank's heads or MLP columns (column-parallel), or its partial sum
     (row-parallel, which the caller reduces and then adds the bias to:
-    ``bias=False`` leaves it out here, see :func:`row_parallel`)."""
+    ``bias=False`` leaves it out here, and ``k_group`` names the 'tp'
+    group for the quantized scales, see :func:`row_parallel`)."""
     dt = cfg.dtype
     operands = lambda: (x.to(dt), to_local(lin.weight).to(dt))
     if quant is not None:
         return offload_product(
-            operands, lambda: quant.linear(cfg, name, x, lin, bias))
+            operands, lambda: quant.linear(cfg, name, x, lin, bias, k_group))
     y = offload_product(operands, lambda: F.linear(*operands()))
     if bias and lin.bias is not None:
         y = y + to_local(lin.bias).to(dt)
@@ -752,10 +762,13 @@ def row_parallel(cfg: ModelConfig, x: torch.Tensor, lin: nn.Linear,
                  name: Optional[str] = None) -> torch.Tensor:
     """An output projection (o_proj, down_proj): under tensor
     parallelism each rank's partial product is summed over the 'tp'
-    ranks and the bias, replicated, is added once after the sum."""
+    ranks and the bias, replicated, is added once after the sum.  A
+    quantized site takes its scales over the whole contracting dim,
+    all-reduced over the 'tp' group (``quant_linear``'s ``k_group``)."""
     if group is None:
         return dense(cfg, x, lin, quant, name)
-    y = _tp_out(dense(cfg, x, lin, quant, name, bias=False), group)
+    y = _tp_out(dense(cfg, x, lin, quant, name, bias=False, k_group=group),
+                group)
     if lin.bias is not None:
         y = y + to_local(lin.bias).to(cfg.dtype)
     return y
@@ -1191,7 +1204,7 @@ class TransformerLM(nn.Module):
         elif return_hidden:
             out = x
         else:
-            out = head_logits(cfg, self, x)
+            out = head_logits(cfg, self, x, quant=scope)
         return (out, aux) if with_aux else out
 
     def _positions(self, ids: torch.Tensor,
@@ -1368,20 +1381,28 @@ class _TPGather(torch.autograd.Function):
 
 
 def head_logits(cfg: ModelConfig, model: TransformerLM,
-                x: torch.Tensor, dtype: Optional[torch.dtype] = None
-                ) -> torch.Tensor:
+                x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                quant: Optional[QuantScope] = None) -> torch.Tensor:
     """Final norm (times ``logit_scale``, :func:`scale_hidden`) -> vocab
     projection (+ ``head_bias``) in the compute
     dtype (or ``dtype``: f32 in JAX's 1F1B head) -> f32 logits ->
-    ``logit_softcap`` (``head_logits`` of the JAX package).  Under
-    tensor parallelism each rank projects its vocab rows and the ranks'
-    logits are joined (the full logits a custom loss or a head bias
-    takes, JAX's replicated head)."""
+    ``logit_softcap`` (``head_logits`` of the JAX package).  With
+    ``quant`` and the 'head' site on, the projection is the quantized
+    product of the site ``lm_head``, the bias added after it in the
+    compute dtype (JAX's materialised quantized head, :1254-1260).
+    Under tensor parallelism each rank projects its vocab rows and the
+    ranks' logits are joined (the full logits a custom loss or a head
+    bias takes, JAX's replicated head); a quantized head's rows are
+    column-parallel, each holding the whole hidden dim, so its scales
+    need no 'tp' reduce."""
     dt = dtype or cfg.dtype
     xn = _tp_in(final_hidden(cfg, model, x), model.tp_group)
-    logits = F.linear(xn.to(dt), to_local(head_weight(model)).to(dt))
-    if cfg.head_bias:
-        logits = logits + to_local(model.lm_head.bias).to(dt)
+    if quant is not None and quant_site_on(cfg, "head"):
+        logits = quant.linear(cfg, "lm_head", xn, model.lm_head)
+    else:
+        logits = F.linear(xn.to(dt), to_local(head_weight(model)).to(dt))
+        if cfg.head_bias:
+            logits = logits + to_local(model.lm_head.bias).to(dt)
     if model.tp_group is not None:
         logits = _TPGather.apply(logits, model.tp_group)
     return softcap(logits.float(), cfg.logit_softcap)

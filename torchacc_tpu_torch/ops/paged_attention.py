@@ -12,8 +12,9 @@ is the position of the slot's first query row, so causality is
 - ``_paged_attention_cuda``: the hand-written Hopper kernels
   (``csrc/paged_attention.cu``), built at first use and bound with
   ctypes.  :func:`_paged_plan` picks the body and lays out its launch:
-  bf16 prefill chunks on the tensor cores, bf16 decode with the context
-  split across CTAs and merged in the kernel, f32 on the CUDA cores.
+  bf16 or f16 prefill chunks on the tensor cores, bf16 or f16 decode
+  with the context split across CTAs and merged in the kernel, f32 on
+  the CUDA cores.
   Each call is one launch and adds one to :data:`launch_counts`, under
   its shape: ``"decode"`` for ``T == 1``, ``"prefill"`` for a chunk.
 - ``_paged_attention_torch``: the plain PyTorch version, numerically the
@@ -44,9 +45,14 @@ launch_counts = {"decode": 0, "prefill": 0}
 
 # llama-tiny; Llama-3.2-1B and Qwen2-0.5B; llama3-8b; the Gemma family
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the kernel bodies (paged_attention_fwd's ``body``)
-_BODY_CODE = {"f32": 0, "prefill_mma": 1, "decode_split": 2}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the kernel bodies (paged_attention_fwd's ``body``) by (plan body,
+# dtype): the tensor-core bodies are one template on the 16-bit type
+_BODY_CODE = {("f32", torch.float32): 0,
+              ("prefill_mma", torch.bfloat16): 1,
+              ("decode_split", torch.bfloat16): 2,
+              ("prefill_mma", torch.float16): 3,
+              ("decode_split", torch.float16): 4}
 _ROWS_F32 = 32          # rows a CTA of the f32 body (kRowsF32)
 _ROWS_MMA = 64          # rows a CTA of the tensor-core prefill
 _DECODE_ROWS = 16       # rows of a decode CTA: the group, padded to m16
@@ -125,11 +131,14 @@ def _paged_plan(q_shape: Tuple[int, int, int, int],
     KH, D]`` with tables ``[S, max_blocks]`` on a card of ``sms`` SMs.
 
     - f32 (any T): the CUDA-core body, 32 rows a CTA, keys unsplit;
-    - bf16 prefill (T > 1): 64-row tiles on the tensor cores; the keys
-      are split where the tiles alone would not fill the CTAs an SM
-      holds (``_ctas_per_sm``: two, one at head dim 256);
-    - bf16 decode (T = 1): the group's rows (padded to 16) a CTA, the
-      keys split into about ``_ctas_per_sm * sms / (S * KH)`` parts.
+    - bf16 or f16 prefill (T > 1): 64-row tiles on the tensor cores;
+      the keys are split where the tiles alone would not fill the CTAs
+      an SM holds (``_ctas_per_sm``: two, one at head dim 256);
+    - bf16 or f16 decode (T = 1): the group's rows (padded to 16) a
+      CTA, the keys split into about ``_ctas_per_sm * sms / (S * KH)``
+      parts.
+
+    The two 16-bit types take the same layout.
 
     The kernel cuts a tile's visible keys into ``splits`` parts of whole
     64-key stages, at least ``_MIN_SPLIT_KEYS`` each, on the card: the
@@ -156,7 +165,7 @@ def _paged_plan(q_shape: Tuple[int, int, int, int],
                          splits)
     if group > _MAX_GROUP:
         raise ValueError(
-            f"the bf16 decode kernel takes at most {_MAX_GROUP} q heads per "
+            f"the 16-bit decode kernel takes at most {_MAX_GROUP} q heads per "
             f"kv head, got {group}")
     splits = min(max_parts, cdiv(_ctas_per_sm(True, d) * sms, s_ * kh))
     return PagedPlan("decode_split", (splits, kh, s_), _DECODE_ROWS, splits)
@@ -197,7 +206,8 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, context_lens,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"kernel takes float32, bfloat16 or float16, got "
+                         f"{q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype}/{v_pool.dtype} must "
                          f"match q dtype {q.dtype}")
@@ -255,7 +265,8 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, context_lens,
              block_tables.data_ptr(), context_lens.data_ptr(),
              q_start.data_ptr(), out.data_ptr(),
              0 if ws is None else ws.data_ptr(), counters,
-             s_, t_, h, kh, d, bs, mb, _BODY_CODE[plan.body], plan.grid[0],
+             s_, t_, h, kh, d, bs, mb, _BODY_CODE[plan.body, q.dtype],
+             plan.grid[0],
              plan.splits, float(scale), float(logit_softcap),
              int(window[0]), int(window[1]), stream)
     if err != 0:

@@ -16,9 +16,12 @@ Two executable paths, chosen like ``ops/flash_attention.py``:
   as float16, which holds each exactly), then a GEMM on TMA-fed shared
   memory and ``wgmma`` (int8 with an int32 accumulator; f16 with an f32
   one, since Hopper's e4m3 ``wgmma`` keeps fewer bits of its sums than
-  f32) writes ``acc * (sx * sw[n])`` in ``x``'s dtype.
+  f32) writes ``acc * (sx * sw[n])`` in ``x``'s dtype (f32, bf16 or
+  f16; in f16 a value beyond 65504 rounds to +-inf, as JAX's
+  ``.astype`` does, and the fp16 loss scaler skips that step).
   :func:`_qmm_plan` lays out what both are launched with.  Each call
-  adds one to :data:`launch_counts` under the format's name, where the
+  adds one to :data:`launch_counts` under the format's name, and to
+  :data:`launch_shapes` under its format, dtype and N, where the
   kernels launch.
 - the plain version (:func:`_qmm2d_plain`): the plain counterparts of
   the two kernels, :func:`_quantize_pass_plain` (explicit quantize into
@@ -55,7 +58,7 @@ its history and returns the new one (:class:`QuantLinear`,
 from __future__ import annotations
 
 import ctypes
-from typing import Any, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -79,7 +82,7 @@ _FMT_CODE = {"int8": 0, "fp8": 1}
 #: the dtype of the quantized operands the GEMM reads: fp8's e4m3 values
 #: as float16 (every one exact), for the f16 tensor cores' f32 sums
 _OPERAND_DTYPE = {"int8": torch.int8, "fp8": torch.float16}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # int32 accumulation is exact while 127^2 * K < 2^31, i.e. K < 133 144
 _INT8_MAX_K = 133_000
 
@@ -87,6 +90,9 @@ _INT8_MAX_K = 133_000
 #: kernels launch; chip_smoke.py sets them to 0 before the quantized
 #: training run and reads them after
 launch_counts = {"int8": 0, "fp8": 0}
+#: the same calls by (format, compute dtype, N): which instantiation ran
+#: and at which output width (the vocab-wide head's among a layer's)
+launch_shapes: Dict[Tuple[str, torch.dtype, int], int] = {}
 #: the GEMM's CTA tile: rows of M (two warpgroups of 64) and bytes of K
 #: a stage (one 128-byte swizzle row)
 _BM, _BK = 128, 128
@@ -270,8 +276,8 @@ def _qmm_plan(x2d: torch.Tensor, w2d: torch.Tensor, fmt: str) -> QmmPlan:
     m, k = x2d.shape
     n = w2d.shape[1]
     if x2d.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the kernel takes float32 or bfloat16, got "
-                         f"{x2d.dtype}")
+        raise ValueError(f"the kernel takes float32, bfloat16 or float16, "
+                         f"got {x2d.dtype}")
     if w2d.dtype != x2d.dtype:
         raise ValueError(f"kernel dtype {w2d.dtype} must match x "
                          f"{x2d.dtype}")
@@ -380,6 +386,8 @@ def _qmm2d_cuda(x2d: torch.Tensor, w2d: torch.Tensor, sx: torch.Tensor,
     qx, qw = _quantize_cuda(plan, x2d, w2d, sx, sw, fmt)
     out = _gemm_cuda(plan, qx, qw, sx, sw, fmt, x2d.dtype)
     launch_counts[fmt] += 1
+    key = (fmt, x2d.dtype, plan.n)
+    launch_shapes[key] = launch_shapes.get(key, 0) + 1
     return out
 
 
@@ -457,6 +465,13 @@ def quantized_dot(
     ``max|x|``.  Weights always use just-in-time per-channel scales.
     ``impl``: 'auto' (the kernel for CUDA tensors, the plain version for
     CPU tensors) | 'cuda' | 'torch'.  Returns ``x.dtype``."""
+    return _quantized_dot(x, kernel, contract_ndim, fmt, x_scale, None,
+                          impl)
+
+
+def _quantized_dot(x, kernel, contract_ndim, fmt, x_scale, w_scale, impl):
+    """:func:`quantized_dot` with, where ``w_scale`` is given, those
+    per-channel weight scales in place of the kernel's own."""
     check_local(x=x, kernel=kernel, x_scale=x_scale)
     _fmt(fmt)
     _use_kernel(impl, x)                          # validate impl
@@ -478,7 +493,7 @@ def quantized_dot(
     with torch.no_grad():
         if x_scale is None:
             x_scale = compute_scale(_amax(x2d), fmt)
-        sw = per_channel_scale(w2d, fmt)
+        sw = per_channel_scale(w2d, fmt) if w_scale is None else w_scale
         sx = _f32(x_scale, x2d).to(x2d.device).reshape(())
     y = _qmm_fwd_op(x2d, w2d, sx, sw, fmt, impl)
     return y.reshape(batch_shape + feat_shape)
@@ -517,7 +532,8 @@ def quant_linear(x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor], history: torch.Tensor, *,
                  fmt: str, impl: str = "auto",
                  dtype: torch.dtype = torch.float32,
-                 update: bool = True, amax_groups: Sequence[Any] = ()
+                 update: bool = True, amax_groups: Sequence[Any] = (),
+                 k_group: Any = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The quantized forward of a Linear site (``QuantDenseGeneral.
     __call__``, :410): ``x [..., K]`` and ``weight [N, K]`` go to the
@@ -532,18 +548,36 @@ def quant_linear(x: torch.Tensor, weight: torch.Tensor,
     batch is split over ranks, ``max|x|`` is all-reduced (MAX) over them
     before it is used, as GSPMD takes the JAX package's amax over the
     whole global batch; otherwise the ranks' scales and histories would
-    part.  The weight's amax needs no reduce: inside FSDP2's forward the
-    weight is the all-gathered one."""
+    part.  Inside FSDP2's forward the weight is the all-gathered one.
+
+    ``k_group``: on a row-parallel site under tensor parallelism
+    (``o_proj``, ``down_proj``), the 'tp' group over which the
+    contracting dim is split: each rank holds K / tp of ``x``'s features
+    and of the weight's columns.  JAX takes ``max|x|`` over the whole
+    tensor (:439) and each output channel's amax over the whole K
+    (``per_channel_scale``), so both are all-reduced (MAX) over the
+    group as well, and each rank's partial product uses the global
+    scales (the caller sums the partials).  A column-parallel site (q,
+    k, v, gate, up, the vocab-parallel head) holds the whole K, with ``x`` the same on every
+    'tp' rank, and passes None: its scales are already the global
+    ones."""
     xc = x.to(dtype)
     wc = weight.to(dtype)
     with torch.no_grad():
         amax_now = _amax(xc)
-        for group in amax_groups:
+        groups = tuple(amax_groups) + (() if k_group is None
+                                       else (k_group,))
+        for group in groups:
             dist.all_reduce(amax_now, op=dist.ReduceOp.MAX, group=group)
         sx = delayed_scale(history, amax_now, fmt)
         new_history = (update_amax_history(history, amax_now) if update
                        else history)
-    y = quantized_dot(xc, wc.t(), 1, fmt=fmt, x_scale=sx, impl=impl)
+        sw = None
+        if k_group is not None:
+            w_amax = _amax(wc, dim=1)
+            dist.all_reduce(w_amax, op=dist.ReduceOp.MAX, group=k_group)
+            sw = compute_scale(w_amax, fmt)
+    y = _quantized_dot(xc, wc.t(), 1, fmt, sx, sw, impl)
     if bias is not None:
         y = y + bias.to(dtype)
     return y, new_history

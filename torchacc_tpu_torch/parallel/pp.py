@@ -34,7 +34,10 @@ port runs the same tick tables imperatively, one process a stage:
   every rank, activations to the next stage and cotangents to the
   previous one.  Only the activation travels: every stage of one data
   shard has the step's rows, so each reads its micro-batch's positions,
-  segment ids and labels itself (JAX's riders).  A failed send or
+  segment ids and labels itself (JAX's riders).  On more than one data
+  shard those rows are the rank's share of JAX's micro-batches, which
+  cut the global batch (``Trainer._jax_rows``), so that micro-batch m's
+  dropout coordinates and mixture-of-experts routing are JAX's.  A failed send or
   receive raises; there is no fallback.
 
 The schedule computes the gradients of the loss *sum* times ``scale``

@@ -163,10 +163,9 @@ def batch_spec(config: Optional[Config] = None) -> Tuple[Any, ...]:
     return spec_for(("batch", "seq"), make_rules(config))
 
 
-def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
-                grad_accum: int = 1) -> None:
-    """Raise where the rule table, the model or the step asks for a
-    layout the forward does not implement."""
+def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int]) -> None:
+    """Raise where the rule table or the model asks for a layout the
+    forward does not implement."""
     table = _table(rules)
     tp = sizes["tp"]
     moe = cfg.num_experts > 0
@@ -203,15 +202,6 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
                 f"num_experts {cfg.num_experts} is not divisible by ep "
                 f"{ep}: the JAX package replicates such a dim; the port "
                 f"does not (ROADMAP.md A8b)")
-    shards = sizes["dp"] * sizes["fsdp"]
-    if moe and shards > 1 and (grad_accum > 1 or sizes.get("pp", 1) > 1):
-        raise NotImplementedError(
-            "a mixture of experts with grad_accum > 1 or pipeline "
-            "parallelism on more than one data shard is not ported to "
-            "torchacc_tpu_torch yet (ROADMAP.md A11b): each rank splits its "
-            "own rows into micro-batches, where the JAX package splits the "
-            "global batch, so micro-batch i's capacity, drop priorities "
-            "and router loss would cover other rows than JAX's")
     seq = sizes["sp"] * sizes["spu"]
     if seq > 1:
         if not cfg.context_parallel:
@@ -225,22 +215,6 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
                 raise ValueError(
                     f"{what} {n} over tp {tp} is not divisible by the "
                     f"ulysses degree {sizes['spu']}")
-    if cfg.attn_dropout > 0.0 and grad_accum > 1 \
-            and sizes["dp"] * sizes["fsdp"] > 1:
-        raise NotImplementedError(
-            "attention dropout with grad_accum > 1 on more than one data "
-            "shard is not ported to torchacc_tpu_torch yet (ROADMAP.md "
-            "A8b): each rank splits its own rows into micro-batches, where "
-            "the JAX package splits the global batch, so a row would draw "
-            "the masks of another batch coordinate than JAX's")
-    if cfg.quant != "none" and grad_accum > 1 \
-            and sizes["dp"] * sizes["fsdp"] > 1:
-        raise NotImplementedError(
-            "compute.quant with grad_accum > 1 on more than one data shard "
-            "is not ported to torchacc_tpu_torch yet (ROADMAP.md A8b): "
-            "each rank splits its own rows into micro-batches, where the "
-            "JAX package splits the global batch, so micro-batch i's "
-            "activation amax would cover other rows than JAX's")
     pp = sizes.get("pp", 1)
     if pp > 1:
         if cfg.pp_size != pp:
@@ -251,14 +225,6 @@ def _check_plan(cfg, rules: LogicalRules, sizes: Dict[str, int],
             raise ValueError(
                 f"num_layers {cfg.num_layers} not divisible by pp size {pp} "
                 f"x virtual_stages {cfg.pp_virtual}")
-        if cfg.attn_dropout > 0.0 and sizes["dp"] * sizes["fsdp"] > 1:
-            raise NotImplementedError(
-                "attention dropout under pipeline parallelism on more than "
-                "one data shard is not ported to torchacc_tpu_torch yet "
-                "(ROADMAP.md A8b): each rank splits its own rows into "
-                "micro-batches, where the JAX package splits the global "
-                "batch, so a row would draw the masks of another "
-                "micro-batch than JAX's")
     if sizes["fsdp"] > 1 and table.get("embed") != "fsdp":
         raise NotImplementedError(
             "a rule table that does not shard 'embed' over 'fsdp' is not "
@@ -324,7 +290,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, config: Config,
     come from a checkpoint next) it is never made."""
     sizes = describe_mesh(mesh)
     rules = make_rules(config)
-    _check_plan(model.cfg, rules, sizes, config.grad_accum)
+    _check_plan(model.cfg, rules, sizes)
     # the parameters' model-parallel mesh: 'tp', 'ep' or both, where
     # above 1
     mp_axes = tuple(a for a in MP_AXES if sizes[a] > 1)

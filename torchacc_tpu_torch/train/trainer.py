@@ -30,8 +30,10 @@ With ``compute.quant`` on, the delayed-scaling amax histories ride
 previous one left (the first reads the step's), the sites put the
 advanced histories aside, and the step commits the last micro-batch's
 once, after the backward (a remat recompute reads the same histories
-its forward did and advances nothing twice); ``eval_step`` reads and
-records nothing.
+its forward did and advances nothing twice); a step the fp16 scaler
+skips keeps the old ones, by a device-side select.  The 'head' site
+needs the materialised logits: with the fused CE on it raises, as in
+JAX.  ``eval_step`` reads and records nothing.
 
 A mixture of experts (``num_experts`` > 0) adds ``router_aux_weight *
 aux * count`` to each (micro-)batch's loss sum, ``aux`` the forward's
@@ -64,11 +66,12 @@ global sum over the global valid-token count, as in JAX (trainer.py
 axes, FSDP2 sums the gradients (divide factor 1), and the step divides
 by the global count.  Under ``grad_accum`` each micro-batch's gradients
 are reduce-scattered as its backward ends and the hooks add the local
-shards into ``accum_dtype`` buffers of the shard's shape.  With
-``grad_accum`` the micro-batches split each rank's rows, where JAX
-splits the global batch: the same sum, but quantized matmuls would see
-other rows per micro-batch, so that combination raises on more than one
-data shard (ROADMAP.md C2, A8b).  ``fit`` logs on rank 0 only.
+shards into ``accum_dtype`` buffers of the shard's shape.  Where a step
+splits micro-batches (``grad_accum`` or 'pp') on more than one data
+shard, each rank first takes its share of JAX's micro-batches, which
+cut the global batch (``_jax_rows``): micro-batch i's quantized amax,
+dropout coordinates and mixture-of-experts routing are JAX's.  ``fit``
+logs on rank 0 only.
 
 Under context parallelism ('sp' x 'spu' above 1) the sequence ranks of
 one data shard take the same rows; ``step`` and ``eval_step`` compute
@@ -126,7 +129,7 @@ from torchacc_tpu_torch.checkpoint.io import (
     restore_checkpoint,
     save_checkpoint,
 )
-from torchacc_tpu_torch.config import Config
+from torchacc_tpu_torch.config import DATA_AXES, Config
 from torchacc_tpu_torch.errors import (
     CheckpointCorruptionError,
     CheckpointNotFoundError,
@@ -146,6 +149,7 @@ from torchacc_tpu_torch.models.transformer import (
 from torchacc_tpu_torch.ops._common import resolve_device, to_local
 from torchacc_tpu_torch.parallel.distributed import is_primary
 from torchacc_tpu_torch.parallel.mesh import (
+    data_shard,
     describe_mesh,
     pp_ranks,
     pp_stage,
@@ -183,6 +187,26 @@ def shift_labels(input_ids: torch.Tensor,
         valid = (next_seg == segment_ids) & (segment_ids >= 0)
         labels = torch.where(valid, labels, -100)
     return labels
+
+
+def jax_micro_rows(local_rows: int, units: int, shards: int,
+                   index: int) -> torch.Tensor:
+    """The global rows, in order, that data shard ``index`` of
+    ``shards`` steps when a step cuts its global batch of ``local_rows
+    * shards`` rows into ``units`` micro-batches as JAX does (consecutive
+    rows, each micro-batch split over the data shards): ``units`` runs of
+    ``B / (units * shards)`` rows.  A micro-batch that does not split
+    over the shards raises by name."""
+    b = local_rows * shards
+    if b % (units * shards):
+        raise ValueError(
+            f"a global batch of {b} rows in {units} micro-batches "
+            f"(grad_accum x pp.num_micro_batches) does not split over the "
+            f"{shards} data shards: JAX's micro-batch of {b // units} rows "
+            f"must be a multiple of {shards}")
+    rows = b // (units * shards)
+    first = torch.arange(units) * (b // units) + index * rows
+    return (first[:, None] + torch.arange(rows)).reshape(-1)
 
 
 def _copy_named(dest: Dict[str, torch.Tensor],
@@ -262,6 +286,18 @@ class Trainer:
         self._use_fused_ce = (loss is None and config.compute.fused_kernels
                               and isinstance(model, TransformerLM)
                               and not model.cfg.head_bias)
+        if (config.compute.quant != "none"
+                and "head" in getattr(getattr(model, "cfg", None),
+                                      "quant_sites", ())
+                and self._use_fused_ce):
+            # JAX :150-160: the fused CE never reaches lm_head, so a
+            # 'head' site would be silently inert
+            raise TrainerStateError(
+                "compute.quant_sites includes 'head' but the fused "
+                "linear+CE loss path is active — the chunked head "
+                "stays in the compute dtype.  Set "
+                "compute.fused_kernels=False to quantize the "
+                "materialised head, or drop 'head' from quant_sites.")
         # the weight of a mixture of experts' router losses in the loss
         # (JAX :133-134); 0 for a dense model
         mc = getattr(model, "cfg", None)
@@ -413,10 +449,56 @@ class Trainer:
         return dict(self.model.named_parameters())
 
     # -- train step -----------------------------------------------------------
-    def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _batch(self, batch: Dict[str, Any], split: bool = False
+               ) -> Dict[str, torch.Tensor]:
+        """``batch`` on the device; with ``split`` (a train step) in the
+        rows of JAX's micro-batches (:meth:`_jax_rows`); under context
+        parallelism this rank's chunk of the sequence."""
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                  for k, v in batch.items()}
+        if split:
+            batch = self._jax_rows(batch)
         return self._seq_chunk(batch) if self._seq[0] > 1 else batch
+
+    def _jax_rows(self, batch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of each of JAX's micro-batches, in order.
+
+        JAX cuts the global batch ``[B, ...]`` into ``U`` micro-batches
+        of consecutive rows (``to_micro`` :646-651, then the pipeline's
+        own split :1438-1453), each split over the data ranks, so rank
+        ``r`` of ``S`` takes rows ``u B/U + [r B/(U S), (r+1) B/(U S))``
+        of micro-batch ``u``; a rank is fed rows ``[r B/S, (r+1)
+        B/S)``.  Where ``U`` and ``S`` are both above 1 the step's
+        tensors are all-gathered over the data axes (integer ids,
+        labels, positions and segment ids: a few hundred kilobytes) and
+        those rows kept, in micro-batch order, so that the step's
+        contiguous splits take JAX's rows: micro-batch ``i``'s amax, its
+        mixture of experts' cap and drops, and its rows' dropout
+        coordinates (``CPLayout.b_offset``) are JAX's.  The sum of the
+        gradients is the same either way."""
+        # grad_accum's split, then the pipeline's inside each (JAX's)
+        units = self.config.grad_accum * (
+            self.config.dist.pp.num_micro_batches if self._pp_on else 1)
+        shards = self._data_shards
+        if units == 1 or shards == 1:
+            return batch
+        keep = jax_micro_rows(batch["input_ids"].shape[0], units,
+                              *data_shard(self.mesh)).to(self.device)
+        sizes = describe_mesh(self.mesh)
+        groups = [self.mesh.get_group(a) for a in DATA_AXES if sizes[a] > 1]
+        out = {}
+        for k, v in batch.items():
+            if v.ndim:
+                # the minor data axis first: the whole batch in rank order
+                for group in reversed(groups):
+                    parts = [torch.empty_like(v) for _ in range(
+                        dist.get_world_size(group))]
+                    dist.all_gather(parts, v.contiguous(), group=group)
+                    v = torch.cat(parts)
+                v = v.index_select(0, keep)
+            out[k] = v
+        return out
 
     def _seq_chunk(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
@@ -690,19 +772,24 @@ class Trainer:
         without synchronising."""
         if self.state is None:
             self.init()
-        batch = self._batch(batch)
+        batch = self._batch(batch, split=True)
         scaler = self.state.scaler
         scale = None if scaler is None else scaler["scale"]
         if self.config.grad_accum > 1 or self._pp_on:
             loss, grads, new_quant = self._grads_accumulated(batch, scale)
         else:
             loss, grads, new_quant = self._grads_one(batch, scale)
+        finite = None if scaler is None else all_finite(grads.values())
         if new_quant is not None:
             # committed once, after the backward: a recompute has read
-            # the histories its micro-batch started with
+            # the histories its micro-batch started with.  A step the
+            # fp16 scaler skips keeps the old ones (JAX :725-728): its
+            # activations may be the non-finite values it skips
             self._check_quant(new_quant)
+            if finite is not None:
+                new_quant = {n: torch.where(finite, h, self.state.quant[n])
+                             for n, h in new_quant.items()}
             self.state.quant = new_quant
-        finite = None if scaler is None else all_finite(grads.values())
         # the sequence ranks hold the same gradients: one counts them
         grad_norm = self.optimizer.update_(
             grads, self.state.opt_state, self.state.params, keep=finite,
