@@ -212,6 +212,21 @@ Phases, each of which exits non-zero when it fails:
    prefill); the last-prompt logits through B4 lie within
    F16_LOGITS_LIMIT of the plain attention path's, and the wrong-GQA and
    own-key-blind controls must not;
+8g. the pipelined decode (A12d, run after 8d): llama3-8b at full width
+   and 4 layers in bf16 over 2 stages in one process (each stage's
+   blocks with their own KV cache; the activation handed on), a ragged
+   batch of 4 left-padded prompts of 128 to 512 tokens and 64 new
+   tokens through generate(pipeline=): B1 launches layers x 64, the
+   greedy tokens equal the unpipelined generate()'s, the ragged
+   prefill's logits through B1 lie within the serving limit of the
+   plain attention's; both decodes' tokens/s are printed;
+6b. the request journal (A2b, run after 6): llama3-8b at full width and
+   4 layers in f32; an engine journals 8 requests and is closed once
+   half completed, a second engine recover()s the rest (B4 launches
+   layers x dispatches over the recovered run) and their greedy streams
+   equal generate()'s; under shed_deadlines and preempt_deadlines 2
+   expired requests come back 'shed' and one whose deadline passes
+   mid-decode 'preempted' with its partial tokens, each journaled;
 9. the model-level check: --check-layers deep at full width, one
    forward + backward through the kernels and through
    attention_impl='torch' from the same weights and batch; the loss and
@@ -449,6 +464,11 @@ F16_TOL = dict(atol=2e-4, rtol=2e-3)
 SOFTCAP_Q_MUL = 8.0
 
 H, KH, D, BS = 32, 8, 128, 16           # Llama-3-8B attention geometry
+# the pipelined decode's depth (2 stages of 2) and new tokens
+PP_DECODE_LAYERS, PP_DECODE_NEW = 4, 64
+# the journal phase's served depth, and the deadline that passes while
+# its long request decodes (thousands of tokens take longer)
+JOURNAL_LAYERS, PREEMPT_DEADLINE_S = 4, 0.5
 KERNEL = dict(name="paged_attention", route="cuda",
               source="torchacc_tpu_torch/csrc/paged_attention.cu",
               replaces="torchacc_tpu/ops/paged_attention.py:103")
@@ -1039,6 +1059,130 @@ def _serving_phase(torch, args, pa):
     print(f"serving: first greedy divergence kernel vs plain per request "
           f"(None = identical): {firsts}", flush=True)
     return launches, dispatches
+
+
+def _journal_phase(torch, args, pa, card):
+    """Serving's request journal and recovery (A2b): llama3-8b at full
+    width and JOURNAL_LAYERS deep, f32 from init_params(seed), so that B4
+    (the served streams) and B1 (generate()) agree token for token.
+    Engine A journals 8 requests into a new directory and is closed once
+    half of them completed; engine B over the same directory recover()s
+    the rest under their ids, and its B4 launches, counted from 0 over
+    that run, must be layers x its dispatches; the recovered streams
+    must equal generate()'s greedy tokens on the same prompts.  Then,
+    under shed_deadlines and preempt_deadlines, 2 requests whose
+    deadlines passed before a step must come back 'shed' (no tokens),
+    and 1 whose deadline passes mid-decode 'preempted' with its partial
+    tokens, each counted and journaled."""
+    import numpy as np
+    from torchacc_tpu_torch import (
+        Config, Request, ServeConfig, ServeEngine, get_preset, init_params)
+    from torchacc_tpu_torch.models.generate import generate
+    from torchacc_tpu_torch.serve.journal import read_journal, replay_state
+
+    layers = JOURNAL_LAYERS
+    cfg = get_preset("llama3-8b", dtype=torch.float32, num_layers=layers)
+    model = init_params(cfg, seed=args.seed + 131, device="cuda",
+                        dtype=torch.float32)
+    rng = np.random.default_rng(args.seed + 132)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in (40, 300, 129, 511, 77, 260, 1000, 16)]
+    max_new = 24
+    jdir = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    try:
+        serve = dict(block_size=BS, num_blocks=1024, max_slots=4,
+                     prefill_chunk=256, decode_depth=2, journal_dir=jdir)
+        t0 = time.perf_counter()
+        first = ServeEngine(model, Config(serve=ServeConfig(**serve)))
+        ids = [first.submit(Request(prompt_ids=p, max_new_tokens=max_new))
+               for p in prompts]
+        while first._completed < len(prompts) // 2 and first.step():
+            pass
+        done = sorted(s.sid for s in first._all.values() if s.finished)
+        first.close()
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = ServeEngine(model, Config(serve=ServeConfig(**serve)))
+        sched = second.scheduler
+        for shape in pa.launch_counts:       # counts start here ...
+            pa.launch_counts[shape] = 0
+        rec = second.recover()
+        second.run()
+        torch.cuda.synchronize()
+        launches = dict(pa.launch_counts)    # ... and are read here
+        t_recover = time.perf_counter() - t0
+        dispatches = {"decode": sched.decode_dispatches,
+                      "prefill": sched.prefill_dispatches}
+        if rec["completed"] != done or sorted(rec["replayed"]) != sorted(
+                set(ids) - set(done)) or not rec["replayed"]:
+            _fail(f"journal: recover() gave {rec}, the first engine had "
+                  f"completed {done}")
+        for shape, n in dispatches.items():
+            if n == 0 or launches[shape] != layers * n:
+                _fail(f"journal: {shape} B4 launches {launches[shape]} != "
+                      f"layers {layers} x {shape} dispatches {n}")
+        same = []
+        for rid in rec["replayed"]:
+            got = second.result(rid).tokens
+            want = generate(model, [prompts[rid]], max_new_tokens=max_new,
+                            attention_impl="cuda")[0, len(prompts[rid]):]
+            same.append(got == want.tolist())
+        second.close()
+        if not all(same):
+            _fail(f"journal: recovered streams differ from generate()'s: "
+                  f"{same}")
+        _, completed, shed = replay_state(read_journal(jdir))
+        if sorted(completed) != sorted(ids) or shed:
+            _fail(f"journal: the journal folds to completed "
+                  f"{sorted(completed)}, shed {sorted(shed)}")
+
+        # deadlines: 2 shed in the queue, 1 preempted mid-decode
+        deadlines = ServeEngine(model, Config(serve=ServeConfig(
+            **serve, shed_deadlines=True, preempt_deadlines=True)))
+        deadlines.generate([Request(prompt_ids=prompts[0][:16],
+                                    max_new_tokens=2)])     # warm-up
+        late = [deadlines.submit(Request(prompt_ids=p, max_new_tokens=8,
+                                         deadline_s=1e-3))
+                for p in prompts[:2]]
+        time.sleep(0.01)
+        deadlines.step()
+        slow = deadlines.submit(Request(prompt_ids=prompts[2],
+                                        max_new_tokens=2000,
+                                        deadline_s=PREEMPT_DEADLINE_S))
+        deadlines.run()
+        shed_r = [deadlines.result(r) for r in late]
+        pre = deadlines.result(slow)
+        stats = deadlines.stats()
+        deadlines.close()
+        if [(r.finish_reason, r.tokens) for r in shed_r] != [("shed", [])] * 2:
+            _fail(f"journal: expired requests came back "
+                  f"{[(r.finish_reason, len(r.tokens)) for r in shed_r]}")
+        if pre.finish_reason != "preempted" or not 0 < len(pre.tokens) < 2000:
+            _fail(f"journal: the mid-decode deadline gave "
+                  f"{pre.finish_reason} with {len(pre.tokens)} tokens")
+        if (stats["shed"], stats["preempted"]) != (2, 1):
+            _fail(f"journal: stats count shed {stats['shed']}, preempted "
+                  f"{stats['preempted']}")
+        _, _, shed = replay_state(read_journal(jdir))
+        if sorted(shed) != sorted(late + [slow]):
+            _fail(f"journal: shed records {sorted(shed)}")
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    print(f"journal: llama3-8b x{layers} f32, 8 requests x {max_new} "
+          f"tokens; engine A served {len(done)} then closed "
+          f"({t_first:.2f} s); engine B recovered {len(rec['replayed'])} in "
+          f"{t_recover:.2f} s, B4 launches decode {launches['decode']} = "
+          f"{layers} x {dispatches['decode']}, prefill "
+          f"{launches['prefill']} = {layers} x {dispatches['prefill']}, "
+          f"streams equal to generate(): {sum(same)}/{len(same)}; shed 2 "
+          f"(no tokens), preempted 1 after {len(pre.tokens)} tokens "
+          f"(deadline {PREEMPT_DEADLINE_S} s); card: {card}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches,
+            "recover_s": t_recover, "replayed": len(rec["replayed"]),
+            "preempted_tokens": len(pre.tokens)}
 
 
 # ---------------------------------------------------------------------------
@@ -2657,6 +2801,100 @@ PP_CASES = {
     "1f1b_p4_dropout": (4, 4, "1f1b", 1, 0.1),
 }
 PP_ROWS = 4                             # rows of 4096 tokens a step
+
+
+def _pp_decode_phase(torch, args, card):
+    """The pipelined decode (A12d): llama3-8b at full width and
+    PP_DECODE_LAYERS deep, bf16 from init_params(seed), split over 2
+    stages that run in this process (tests/torch_pp_virtual.py's
+    pipeline; the ring's hand-offs are in place).  A ragged batch of 4
+    left-padded prompts of 128 to 512 tokens decodes PP_DECODE_NEW
+    tokens through generate(pipeline=): B1, counted from 0 over that
+    call, must launch layers x new tokens (one prefill and new - 1
+    decode steps a layer), and the greedy tokens must equal the
+    unpipelined generate()'s on the same weights.  The ragged prefill's
+    last-column logits through B1 (segment ids, sq != sk in decode) must
+    lie within _logits_limit of the plain attention's.  Tokens/s of both
+    decodes are printed beside the card."""
+    import importlib
+    import numpy as np
+    import torchacc_tpu_torch.ops.flash_attention as fa
+    from torchacc_tpu_torch import get_preset, init_params
+    from torchacc_tpu_torch.models.transformer import head_logits
+    gen = importlib.import_module("torchacc_tpu_torch.models.generate")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_pp_virtual import virtual_pipeline
+
+    layers, new = PP_DECODE_LAYERS, PP_DECODE_NEW
+    cfg = get_preset("llama3-8b", dtype=torch.bfloat16, num_layers=layers)
+    model = init_params(cfg, seed=args.seed + 141, device="cuda",
+                        dtype=torch.bfloat16)
+    rng = np.random.default_rng(args.seed + 142)
+    lens = (128, 512, 300, 200)
+    p = max(lens)
+    ids = torch.zeros((len(lens), p), dtype=torch.long)
+    mask = torch.zeros((len(lens), p), dtype=torch.int32)
+    for r, n in enumerate(lens):
+        ids[r, p - n:] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, size=n))
+        mask[r, p - n:] = 1
+    ids, mask = ids.cuda(), mask.cuda()
+    pipe = virtual_pipeline(2, 1, "gpipe", 1)
+    kw = dict(prompt_mask=mask, max_new_tokens=new, attention_impl="cuda")
+    out, ms = {}, {}
+    # in turns, twice; the second turn's times are kept (the first pays
+    # for the new shapes' cuBLAS choices)
+    for _ in range(2):
+        for name, extra in (("pipelined", dict(pipeline=pipe)),
+                            ("unpipelined", {})):
+            for key in fa.launch_counts:     # counts start here ...
+                fa.launch_counts[key] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = gen.generate(model, ids, **kw, **extra)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == "pipelined":
+                launches = dict(fa.launch_counts)    # ... and read here
+    want = {"fwd": layers * new, "bwd_dq": 0, "bwd_dkv": 0}
+    if launches != want:
+        _fail(f"pp decode: B1 launches {launches} != {want}")
+    if not torch.equal(out["pipelined"], out["unpipelined"]):
+        _fail("pp decode: the pipelined tokens differ from the "
+              "unpipelined generate()'s")
+    toks = out["pipelined"][:, p:]
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        _fail("pp decode: a token out of the vocabulary")
+    # the ragged prefill's logits through B1 against the plain attention
+    positions, _, seg = gen.prompt_geometry(ids, mask)
+    logits = {}
+    with torch.no_grad():
+        for impl in ("cuda", "torch"):
+            dec = gen._Decoder(model, pipe, len(lens), p + 1, ids.device,
+                               seg, impl)
+            x = dec(ids, positions, 0)
+            logits[impl] = head_logits(cfg, model, x[:, -1:])[:, 0].float()
+    rel = ((logits["cuda"] - logits["torch"]).abs().max()
+           / logits["torch"].abs().max()).item()
+    limit = _logits_limit(layers)
+    if not math.isfinite(rel) or rel > limit:
+        _fail(f"pp decode: ragged prefill logits part by {rel:.3g} > "
+              f"{limit:.3g}")
+    tps = {k: len(lens) * new / (v / 1e3) for k, v in ms.items()}
+    print(f"pp decode: llama3-8b x{layers} bf16 over 2 stages, 4 ragged "
+          f"prompts {lens} + {new} new tokens: pipelined "
+          f"{ms['pipelined']:.1f} ms ({tps['pipelined']:.1f} tokens/s), "
+          f"unpipelined {ms['unpipelined']:.1f} ms "
+          f"({tps['unpipelined']:.1f} tokens/s); B1 launches {launches} "
+          f"(= {layers} x {new}); tokens equal; ragged prefill logits B1 "
+          f"vs plain {rel:.3g} (limit {limit:.3g}); card: {card}",
+          flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "tokens_per_s": tps,
+            "logits_rel": rel}
 
 
 def _pp_limit():
@@ -4986,12 +5224,12 @@ def _longrope_phase(torch, args):
     # the control: the same tokens decoded on one cache, no rebuild
     toks = out["torch"]
     with torch.no_grad():
-        shape = (cfg.num_layers, 1, p + n, cfg.kv_heads, cfg.head_size)
-        ck = torch.zeros(shape, dtype=torch.float32, device="cuda")
-        cv = torch.zeros_like(ck)
-        x = real_fwd(model, toks[:, :p], 0, ck, cv, "torch")
+        cache = gen.KVCache(f32, range(cfg.num_layers), 1, p + n, "cuda")
+        pos = torch.arange(p + n, device="cuda")[None]
+        x = real_fwd(model, toks[:, :p], 0, cache, "torch", pos[:, :p])
         for j in range(p, p + n - 1):
-            x = real_fwd(model, toks[:, j:j + 1], j, ck, cv, "torch")
+            x = real_fwd(model, toks[:, j:j + 1], j, cache, "torch",
+                         pos[:, j:j + 1])
         control = real_head(f32, model, x[:, -1:])[:, 0].float()
     set_model_config(model, cfg)
     rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
@@ -5016,7 +5254,7 @@ def _longrope_phase(torch, args):
         _fail(f"{tag}: last-step logits part by {r:.3g}")
     if rc <= LONGROPE_LOGITS_LIMIT:
         _fail(f"{tag}: the no-rebuild control stays within the limit")
-    del model, ck, cv
+    del model, cache
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "ms": ms, "logits_rel": r,
@@ -6036,6 +6274,7 @@ def main():
     cp_res = _timed('_cp_phase', _cp_phase, torch, args)
     qmm = _timed('_qmm_phase', _qmm_phase, torch, args)
     launches, dispatches = _timed('_serving_phase', _serving_phase, torch, args, pa)
+    journal = _timed("_journal_phase", _journal_phase, torch, args, pa, card)
     train = _timed('_training_phase', _training_phase, torch, args)
     qtrain = {
         "int8": _timed("_training_phase[int8]", _training_phase, torch, args,
@@ -6071,6 +6310,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     pp = _timed('_pp_phase', _pp_phase, torch, args, card)
+    pp_decode = _timed("_pp_decode_phase", _pp_decode_phase, torch, args,
+                       card)
     _timed('_model_check_phase', _model_check_phase, torch, args)
     _timed('_quant_check_phase', _quant_check_phase, torch, args)
     _timed('_accum_check_phase', _accum_check_phase, torch, args)

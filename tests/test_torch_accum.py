@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from test_torch_train import B, S, _batch, _leaves, tiny
 from torchacc_tpu.models import get_preset as jax_preset
@@ -29,10 +30,8 @@ from torchacc_tpu_torch.train import schedules as port_sched
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 _OPT = dict(weight_decay=0.01, b1=0.9, b2=0.95, eps=1e-8, grad_clip_norm=1.0)

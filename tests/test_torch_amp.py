@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.ops.attn import attention as jax_attention
@@ -43,10 +44,8 @@ SMALL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 @pytest.mark.parametrize("finite", [True, False])

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.checkpoint import CheckpointManager as JaxManager
 from torchacc_tpu.checkpoint import consolidate_checkpoint as jax_consolidate
@@ -87,10 +88,8 @@ FAST = dict(max_retries=1, base_delay_s=0.001, max_delay_s=0.002)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 @functools.lru_cache(maxsize=None)

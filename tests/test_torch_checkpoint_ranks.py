@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 from test_torch_hf import hf_model, saved as hf_saved
 from test_torch_parallel_ranks import OPT, SCHEDULE, SMALL, _batch, _launch, \
     _params
@@ -51,6 +52,13 @@ from torchacc_tpu_torch.train import accelerate, adamw, warmup_cosine
 from torchacc_tpu_torch.train.state import flat_state
 
 pytestmark = pytest.mark.distributed
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _module_env():
+    # JAX's compile cache stays as tests/conftest.py sets it here
+    with port_module_env(compile_cache_off=False):
+        yield
 
 
 def _assert_bitwise(got, want):

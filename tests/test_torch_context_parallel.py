@@ -26,6 +26,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.ops.attention import _dropout_keep_dense
 from torchacc_tpu.ops.context_parallel import cp_attention as jax_cp
@@ -61,10 +62,8 @@ GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _global_segments(rng, b, s):

@@ -39,6 +39,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from torch_module_env import port_module_env
 from test_torch_parallel_ranks import OPT, SCHEDULE, SMALL, _batch, _launch
 import torchacc_tpu as ta
 from torchacc_tpu.models import get_preset as jax_preset
@@ -92,10 +93,8 @@ B, S, H, KH, D = 2, 64, 8, 4, 16
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _params(fields, seed=0):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.data import AsyncLoader as JaxLoader
 from torchacc_tpu.data import PackedDataset as JaxDataset
@@ -35,10 +36,8 @@ from torchacc_tpu_torch.data import (
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _docs(seed, n=60, lo=1, hi=90, vocab=1000):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 from torchacc_tpu.ops.flash_attention import (
     flash_attention as jax_flash,
     flash_attention_bwd as jax_flash_bwd,
@@ -47,10 +48,8 @@ GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _packed_positions(rng, b, s):

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from test_torch_parallel_ranks import _batch as _pp_batch
 from test_torch_pp import _jax_grads, _port_grads
@@ -104,10 +105,8 @@ for _name, (_preset, _fields, _impl) in CASES.items():
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _params(preset, fields, seed=0):

@@ -55,6 +55,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from test_torch_gemma import _batch, _leaves
 from test_torch_parallel_ranks import _batch as _pp_batch
@@ -153,10 +154,8 @@ CASES = {
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _cfgs(preset, fields, impl="xla"):

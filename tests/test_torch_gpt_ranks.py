@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 from test_torch_checkpoint_ranks import HF_SCHEDULE, _hf_batch
 from test_torch_cp_ranks import _close
 from test_torch_hf import saved as hf_saved
@@ -91,10 +92,8 @@ CASES = {  # name: (dist, model fields)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _fields(name):

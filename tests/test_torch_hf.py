@@ -27,6 +27,7 @@ import transformers
 from safetensors import safe_open
 from safetensors.torch import save_file
 
+from torch_module_env import port_module_env
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models.hf import config_from_hf as jax_config_from_hf
 from torchacc_tpu.models.hf import load_hf_model as jax_load_hf_model
@@ -99,10 +100,8 @@ _FAMILIES = {  # model_type: (config class, causal LM class)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def hf_config(case, **kw):

@@ -35,6 +35,7 @@ import pytest
 import torch
 import transformers
 
+from torch_module_env import port_module_env
 from test_torch_hf import _same_config
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models.hf import config_from_hf as jax_config_from_hf
@@ -107,10 +108,8 @@ FAMILIES = {
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 @torch.no_grad()

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models.generate import generate as jax_generate
 from torchacc_tpu.models.hf import load_hf_model as jax_load_hf_model
@@ -31,10 +32,8 @@ SERVE = tt.ServeConfig(block_size=16, num_blocks=64, max_slots=3,
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _jax_tokens(model, prompts, **kw):

@@ -20,6 +20,7 @@ import torch
 import torch.utils.data as tud
 import transformers
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.models.hf import load_hf_model as jax_load_hf_model
 from torchacc_tpu.parallel.mesh import build_mesh
@@ -44,10 +45,8 @@ SCHEDULE = (3e-3, 10, 2)        # warmup_linear(peak, total, warmup)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _batch(seed):

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_module_env import port_module_env
 from torchacc_tpu.config import ServeConfig as JaxServeConfig
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
@@ -42,10 +43,8 @@ def seeded_jax_params(seed=0, **fields):
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _tiny(**kw):
@@ -178,3 +177,183 @@ def test_unsupported_fields_rejected_by_name():
         model = init_params(cfg, seed=0, device="cpu")
         with pytest.raises(NotImplementedError, match=next(iter(bad))):
             PagedDecoder(model, ServeConfig())
+
+
+# -- generate(): ragged batches, the recompute path, param_dtype, the
+# pipelined decode in one process, and the demotion of a 'pp' config.
+# The weights: llama-tiny at TINY's width and 4 layers (two stages of
+# two, or four chunks of one), f32, from the port's seeded init; JAX's
+# generate() runs its XLA attention.  Tokens are compared exactly.
+
+DEC = dict(TINY, num_layers=4)
+LENS = (9, 4, 7)
+
+
+def _dec_models():
+    jcfg = jax_preset("llama-tiny", dtype=jnp.float32,
+                      attention_impl="xla", **DEC)
+    params = jax.tree.map(jnp.asarray, seeded_jax_params(4, **DEC))
+    cfg = get_preset("llama-tiny", dtype=torch.float32, **DEC)
+    return jcfg, params, params_from_jax(cfg, params, device="cpu")
+
+
+def _left_padded(lens, seed=5):
+    rng = np.random.default_rng(seed)
+    p = max(lens)
+    ids = np.zeros((len(lens), p), np.int32)
+    mask = np.zeros((len(lens), p), np.int32)
+    rows = [rng.integers(1, VOCAB, n) for n in lens]
+    for r, row in enumerate(rows):
+        ids[r, p - len(row):], mask[r, p - len(row):] = row, 1
+    return ids, mask, rows
+
+
+def test_ragged_generate_matches_jax():
+    """Greedy tokens of a left-padded batch equal JAX's
+    ``generate(prompt_mask=)``; ``use_cache=False`` equals the cached
+    path, and each row equals that row decoded alone."""
+    from torchacc_tpu.models.generate import generate as jax_generate
+    from torchacc_tpu_torch.models.generate import generate
+    jcfg, params, model = _dec_models()
+    ids, mask, rows = _left_padded(LENS)
+    want = np.asarray(jax_generate(JaxLM(jcfg), params, jnp.asarray(ids),
+                                   prompt_mask=jnp.asarray(mask),
+                                   max_new_tokens=6))
+    got = generate(model, ids, prompt_mask=mask, max_new_tokens=6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    slow = generate(model, ids, prompt_mask=mask, max_new_tokens=6,
+                    use_cache=False)
+    np.testing.assert_array_equal(slow.numpy(), got.numpy())
+    for r, row in enumerate(rows):
+        alone = generate(model, [row], max_new_tokens=6)[0, len(row):]
+        np.testing.assert_array_equal(alone.numpy(),
+                                      got[r, ids.shape[1]:].numpy())
+
+
+def test_sampled_ragged_rows_ignore_their_batch_mates():
+    """A sampled row draws at its own positions: its tokens stay the
+    same when a batch-mate's length changes, and equal the row alone."""
+    from torchacc_tpu_torch.models.generate import generate
+    _, _, model = _dec_models()
+    kw = dict(max_new_tokens=8, temperature=0.9, top_k=40, seed=11)
+    ids, mask, rows = _left_padded(LENS)
+    first = generate(model, ids, prompt_mask=mask, **kw)
+    ids2, mask2, rows2 = _left_padded((3, 4, 12))
+    ids2[1, -4:] = rows[1]
+    second = generate(model, ids2, prompt_mask=mask2, **kw)
+    alone = generate(model, [rows[1]], **kw)[0, 4:]
+    np.testing.assert_array_equal(first[1, ids.shape[1]:].numpy(),
+                                  alone.numpy())
+    np.testing.assert_array_equal(second[1, ids2.shape[1]:].numpy(),
+                                  alone.numpy())
+
+
+@pytest.mark.parametrize("bad,match", [
+    ([[1, 1, 1], [1, 0, 1]], "LEFT-padded"),
+    ([[1, 1, 0], [0, 1, 1]], "LEFT-padded|last column"),
+    ([[0, 1, 1], [0, 1, 0]], "LEFT-padded|last column"),
+    ([[1, 1], [1, 1]], "shape"),
+])
+def test_prompt_mask_refusals_match_jax(bad, match):
+    """JAX's ValueErrors for a mask of another shape or one that is not
+    left-padded, in both packages (the port's message names the
+    same)."""
+    from torchacc_tpu.models.generate import generate as jax_generate
+    from torchacc_tpu_torch.models.generate import generate
+    jcfg, params, model = _dec_models()
+    ids = np.ones((2, 3), np.int32)
+    msgs = []
+    for call in (lambda: jax_generate(JaxLM(jcfg), params, jnp.asarray(ids),
+                                      prompt_mask=jnp.asarray(bad),
+                                      max_new_tokens=2),
+                 lambda: generate(model, ids, prompt_mask=bad,
+                                  max_new_tokens=2)):
+        with pytest.raises(ValueError, match=match) as e:
+            call()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_generate_param_dtype_cast():
+    """``param_dtype`` (JAX's test_generate_param_dtype_cast): the tokens
+    of a bf16 copy cast once equal those of a model cast by hand and
+    JAX's ``generate(param_dtype=bf16)`` in f32 compute; the caller's
+    model stays f32."""
+    from torchacc_tpu.models.generate import generate as jax_generate
+    from torchacc_tpu_torch.models.generate import generate
+    jcfg, params, model = _dec_models()
+    ids, mask, _ = _left_padded(LENS, seed=6)
+    auto = generate(model, ids, prompt_mask=mask, max_new_tokens=8,
+                    param_dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    manual = params_from_jax(model.cfg, params, device="cpu",
+                             dtype=torch.bfloat16)
+    np.testing.assert_array_equal(
+        auto.numpy(), generate(manual, ids, prompt_mask=mask,
+                               max_new_tokens=8).numpy())
+    want = jax_generate(JaxLM(jcfg), params, jnp.asarray(ids),
+                        prompt_mask=jnp.asarray(mask), max_new_tokens=8,
+                        param_dtype=jnp.bfloat16)
+    np.testing.assert_array_equal(auto.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("virtual", [1, 2])
+def test_pipelined_decode_in_one_process(virtual):
+    """Every stage of a 2-stage pipeline in this process
+    (``tests/torch_pp_virtual.py``): the same tokens as the unpipelined
+    decode, greedy and sampled, ragged; each stage's chunks run its own
+    blocks against the cache of those blocks."""
+    import importlib
+    from torch_pp_virtual import virtual_pipeline
+    gen = importlib.import_module("torchacc_tpu_torch.models.generate")
+    _, _, model = _dec_models()
+    ids, mask, _ = _left_padded(LENS)
+    pipe = virtual_pipeline(2, 1, "gpipe", virtual)
+    for kw in (dict(), dict(temperature=0.8, seed=3)):
+        want = gen.generate(model, ids, prompt_mask=mask, max_new_tokens=5,
+                            **kw)
+        got = gen.generate(model, ids, prompt_mask=mask, max_new_tokens=5,
+                           pipeline=pipe, **kw)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    calls = []
+    real = gen._cached_forward
+
+    def spy(m, ids, start, cache, impl, positions, layers=None,
+            hidden=None):
+        calls.append((start, list(layers), hidden is None))
+        return real(m, ids, start, cache, impl, positions, layers, hidden)
+    gen._cached_forward = spy
+    try:
+        gen.generate(model, ids, prompt_mask=mask, max_new_tokens=2,
+                     pipeline=pipe)
+    finally:
+        gen._cached_forward = real
+    per = 4 // (2 * virtual)
+    order = [list(range(s * per, (s + 1) * per)) for s in range(2 * virtual)]
+    assert calls == [(start, layers, s == 0) for start in (0, ids.shape[1])
+                     for s, layers in enumerate(order)]
+
+
+def test_generate_pp_config_without_mesh_demotes():
+    """A model whose config has pp_size 2 but holds every block decodes
+    as one device, as JAX demotes it (test_extras.py:417); one that
+    holds a stage's blocks and is given no mesh raises by name."""
+    import dataclasses
+    from torchacc_tpu.models.generate import generate as jax_generate
+    from torchacc_tpu_torch.models.generate import generate
+    from torchacc_tpu_torch.models.transformer import StageLayers
+    jcfg, params, model = _dec_models()
+    ids = np.random.default_rng(0).integers(1, VOCAB, (2, 7))
+    ref = generate(model, ids, max_new_tokens=6)
+    jpp = dataclasses.replace(jcfg, pp_size=2, pp_num_micro=2)
+    want = jax_generate(JaxLM(jpp), params, jnp.asarray(ids, jnp.int32),
+                        max_new_tokens=6)
+    pp_cfg = dataclasses.replace(model.cfg, pp_size=2, pp_num_micro=2)
+    pp_model = params_from_jax(pp_cfg, params, device="cpu")
+    got = generate(pp_model, ids, max_new_tokens=6)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    pp_model.layers = StageLayers({0: pp_model.layers[0],
+                                   1: pp_model.layers[1]})
+    with pytest.raises(ValueError, match="mesh"):
+        generate(pp_model, ids, max_new_tokens=2)

@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
@@ -79,10 +80,8 @@ SCHEDULE = (3e-3, 10, 1)
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _close(a, want, what, tol=1e-5):

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_module_env import port_module_env
 from torchacc_tpu.ops.paged_attention import paged_attention as jax_paged
 import torchacc_tpu_torch.ops.paged_attention as pa_mod
 from torchacc_tpu_torch.ops._common import NEG_INF
@@ -31,10 +32,8 @@ from torchacc_tpu_torch.ops.paged_attention import paged_attention
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _case(seed, *, slots, heads, kv_heads, d, bs, mb, t=1, ctx_lens=None):

@@ -18,6 +18,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
@@ -53,10 +54,8 @@ TOPO = ("pp", "dp", "fsdp", "sp", "spu", "ep", "tp")
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 @contextlib.contextmanager

@@ -53,6 +53,7 @@ from test_torch_cp_ranks import _params
 from test_torch_moe import SMALL as MOE
 from test_torch_moe import _params as _moe_params
 from test_torch_parallel_ranks import SMALL, _batch
+from torch_module_env import port_module_env
 from torch_pp_virtual import virtual_pipeline
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.parallel.mesh import build_mesh
@@ -75,6 +76,14 @@ from torchacc_tpu_torch.parallel.pp import (
     tick_messages,
 )
 from torchacc_tpu_torch.train.trainer import shift_labels
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _module_env():
+    # JAX's compile cache stays as tests/conftest.py sets it here
+    with port_module_env(compile_cache_off=False):
+        yield
+
 
 GRID = [(P, M, V) for P, M, V in itertools.product((2, 4), (2, 4, 8), (1, 2))
         if not (V > 1 and M % P)] + [(4, 2, 2), (2, 3, 1)]

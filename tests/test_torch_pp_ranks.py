@@ -41,6 +41,16 @@ has a timeout of its own.
   holds storage at once and none after; its own blocks equal the
   one-device ``init_params``' bitwise.  Given storage only (a
   checkpoint's load) it makes only its own blocks.
+- The pipelined decode (``generate(model, ..., mesh=trainer.mesh)``,
+  before the steps) of a ragged batch of 3 left-padded prompts, in the
+  launches above: pp 2, pp 2 beside dp 2, beside fsdp 2 (FSDP2's
+  shards gathered around the decode) and over 2 virtual stages.  The
+  greedy tokens of every rank equal JAX's ``generate(prompt_mask=)``
+  on the same weights; the prefill's last-stage hidden, the same on
+  every rank, lies within atol 2e-5 (f32) of JAX's
+  ``pp_forward_with_cache`` on an emulated 'pp' mesh of 2; each rank
+  holds the blocks of its own stage (under virtual stages its chunks d
+  and d + 2) and keeps the cache of those blocks only.
 - A checkpoint: pp 2 (1f1b) saves after step 2 through a
   ``CheckpointManager``; a trainer made from other weights restores it
   and its step 3 must equal the uninterrupted run's, loss and every
@@ -57,6 +67,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 from test_torch_checkpoint_ranks import HF_SCHEDULE, _hf_batch
 from test_torch_cp_ranks import _close
 from test_torch_cp_ranks import _params as _jax_params
@@ -127,16 +138,17 @@ ROWS = {"pp4_1f1b_m8": 8}
 # the cases that also run eval_step after their steps
 EVAL = ("pp2_dp2",)
 ACCUM = {"pp2_1f1b_accum2_dropout": 2}
+# the cases that also decode, before their steps (same weights: FOUR)
+DECODE = ("pp2_gpipe", "pp2_dp2", "pp2_fsdp2", "pp2_v2_1f1b")
+DECODE_LENS, DECODE_NEW = (9, 5, 7), 6
 HF_DIST = dict(pp=_pp(2, 2, "1f1b"))
 INIT_DIST = dict(pp=_pp(2, 2, "1f1b", 2))
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _batches(name):
@@ -162,6 +174,10 @@ def _specs(world):
                 schedule=SCHEDULE, opt=OPT_PP)
             if name in EVAL:
                 cases[name]["eval_batch"] = _batch(90)
+            if name in DECODE:
+                ids, mask = _ragged_prompts()
+                cases[name]["decode"] = dict(ids=ids, mask=mask,
+                                             new=DECODE_NEW)
     if world == 2:
         cases["ckpt"] = dict(
             kind="train", dist=dict(pp=_pp(2, 2, "1f1b")),
@@ -192,6 +208,63 @@ def ranks(tmp_path_factory):
             got[world] = waits[world]()
         return got[world]
     return {w: (lambda w=w: result(w)) for w in waits}
+
+
+def _ragged_prompts():
+    """Left-padded prompts of ``DECODE_LENS`` tokens and their mask."""
+    rng = np.random.default_rng(41)
+    p = max(DECODE_LENS)
+    ids = np.zeros((len(DECODE_LENS), p), np.int64)
+    mask = np.zeros((len(DECODE_LENS), p), np.int32)
+    for r, n in enumerate(DECODE_LENS):
+        ids[r, p - n:] = rng.integers(1, SMALL["vocab_size"], n)
+        mask[r, p - n:] = 1
+    return ids, mask
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode():
+    """JAX's greedy ``generate(prompt_mask=)`` of the ragged prompts on
+    FOUR's weights (one device), and the prefill hidden of its
+    ``pp_forward_with_cache`` on an emulated 'pp' mesh of 2."""
+    import dataclasses
+    from jax.sharding import Mesh
+    from torchacc_tpu.models import TransformerLM as JaxLM
+    from torchacc_tpu.models.generate import _prompt_geometry, _zoo_embed
+    from torchacc_tpu.models.generate import generate as jax_generate
+    from torchacc_tpu.parallel.pp import pp_forward_with_cache
+    ids, mask = (jnp.asarray(a) for a in _ragged_prompts())
+    params = jax.tree.map(jnp.asarray, _params(FOUR))
+    jcfg = jax_preset("llama-tiny", dtype=jnp.float32, attention_impl="xla",
+                      **FOUR)
+    tokens = jax_generate(JaxLM(jcfg), params, ids.astype(jnp.int32),
+                          prompt_mask=mask, max_new_tokens=DECODE_NEW)
+    b, p = ids.shape
+    blk = dataclasses.replace(jcfg, cache_len=p + DECODE_NEW)
+    positions, _, seg = _prompt_geometry(ids, mask)
+    x = _zoo_embed(jcfg, params, ids, positions)
+    mesh = Mesh(np.array(jax.devices()[:2]), ("pp",))
+    hidden, _ = jax.jit(lambda lp, x: pp_forward_with_cache(
+        blk, lp, None, x, positions, seg, 2, mesh=mesh))(
+        params["layers"], x)
+    return np.asarray(tokens), np.asarray(hidden)
+
+
+@pytest.mark.parametrize("name", DECODE)
+def test_pp_decode_matches_jax_generate(ranks, name):
+    world, d, _ = CASES[name]
+    want_tokens, want_hidden = _jax_decode()
+    got = ranks[world]()[name]["decode"]
+    virtual = d["pp"]["virtual_stages"]
+    assert sorted(r["stage"] for r in got) == sorted(
+        list(range(2)) * (world // 2))
+    for r in got:
+        np.testing.assert_array_equal(r["tokens"], want_tokens)
+        np.testing.assert_allclose(r["hidden"], want_hidden, atol=2e-5)
+        own = [c * 2 + r["stage"] for c in range(virtual)]
+        own = sorted(i for c in own for i in range(
+            c * 4 // (2 * virtual), (c + 1) * 4 // (2 * virtual)))
+        assert r["blocks"] == own and r["cache"] == own
 
 
 def _hf_spec(d):

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_module_env import port_module_env
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
 from torchacc_tpu.models.generate import generate
@@ -29,10 +30,8 @@ TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2,
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 @pytest.fixture(scope="module")

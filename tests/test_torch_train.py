@@ -24,6 +24,7 @@ import optax
 import pytest
 import torch
 
+from torch_module_env import port_module_env
 import torchacc_tpu as ta
 from torchacc_tpu.models import TransformerLM as JaxLM
 from torchacc_tpu.models import get_preset as jax_preset
@@ -54,10 +55,8 @@ B, S = 2, 64
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_compile_cache():
-    prev = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    yield
-    jax.config.update("jax_enable_compilation_cache", prev)
+    with port_module_env():
+        yield
 
 
 def _batch(seed, vocab=32000):

@@ -20,7 +20,8 @@ chunk of seeded inputs (``cp_attn``), and context-parallel training
 (``train`` with ``dist["sp"]``), which also counts the ring's forward
 steps.  For tests/test_torch_pp_ranks.py the same ``cases`` launch
 trains under 'pp' (``train`` with ``dist["pp"]``; the stages' blocks
-put together for the result; ``eval_batch`` for an ``eval_step``),
+put together for the result; ``eval_batch`` for an ``eval_step``;
+``decode`` for the pipelined decode before the steps),
 saves and resumes a pipelined run (``train`` with ``ckpt``),
 streams a Hugging Face directory into the stages (``hf_train``) and
 notes which blocks a stage makes while it shards (``pp_init``).  Only torch, numpy and the port are
@@ -125,6 +126,8 @@ def train(spec):
     if "ckpt" in spec:
         return pp_ckpt(spec, trainer, n, i)
     out = {"losses": [], "norms": [], "scales": [], "skipped": []}
+    if "decode" in spec:
+        out["decode"] = pp_decode(spec["decode"], trainer)
     steps = _RingSteps()
     if loader is not None:
         hist = trainer.fit(loader, max_steps=spec["steps"], log_every=1)
@@ -158,6 +161,32 @@ def train(spec):
     if trainer.state.quant is not None:
         out["quant"] = quant_to_jax(trainer.model.cfg, trainer.state.quant)
     return out
+
+
+def pp_decode(spec, trainer):
+    """Before any step: ``generate()`` of the ragged prompts on the
+    trainer's model over its mesh, and one prefill pass of them through
+    the decode's pipeline.  By rank: the stage, the tokens, the prefill
+    hidden (the last stage's output, shared with every stage), the
+    layers of the blocks this rank holds and of the cache it kept."""
+    import importlib
+    from torchacc_tpu_torch.parallel.mesh import pp_stage
+    gen = importlib.import_module("torchacc_tpu_torch.models.generate")
+    model, mesh = trainer.model, trainer.mesh
+    ids, mask = torch.from_numpy(spec["ids"]), torch.from_numpy(spec["mask"])
+    toks = gen.generate(model, ids, prompt_mask=mask,
+                        max_new_tokens=spec["new"], mesh=mesh)
+    b, p = ids.shape
+    ring = gen._decode_ring(model, mesh, None)
+    with torch.no_grad(), gen._decode_weights(model, None) as m:
+        positions, _, seg = gen.prompt_geometry(ids, mask.to(torch.int32))
+        forward = gen._Decoder(m, ring, b, p + spec["new"], ids.device,
+                               seg, "torch")
+        hidden = forward(ids, positions, 0)
+    return _gathered({"stage": pp_stage(mesh)[1], "tokens": toks.numpy(),
+                      "hidden": hidden.numpy(),
+                      "blocks": sorted(i for i, _ in model.layers.items()),
+                      "cache": sorted(forward.cache.k)})
 
 
 def _all_params(trainer):

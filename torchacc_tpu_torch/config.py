@@ -71,6 +71,24 @@ class ServeConfig:
     max_new_tokens: int = 128
     # bound on the admission queue; submit() raises when full
     max_queue: int = 4096
+    # the durable request journal (serve/journal.py): every accepted
+    # request and every completed or shed result appends one strict-JSON
+    # line to <journal_dir>/journal.jsonl, and ServeEngine.recover()
+    # re-admits the journaled requests that did not finish.  None: no
+    # journal
+    journal_dir: Optional[str] = None
+    # fsync every journal append (False: flushed only)
+    journal_fsync: bool = True
+    # rotate and compact the active journal file past these bounds
+    # (None or 0: never)
+    journal_rotate_bytes: Optional[int] = None
+    journal_rotate_age_s: Optional[float] = None
+    # a queued request whose deadline has passed gets a typed 'shed'
+    # result (counted, journaled) instead of being served late
+    shed_deadlines: bool = False
+    # an admitted request whose deadline has passed is evicted with a
+    # typed 'preempted' result carrying its partial tokens
+    preempt_deadlines: bool = False
 
     def validate(self) -> None:
         _check(self.block_size >= 1, "serve.block_size must be >= 1")

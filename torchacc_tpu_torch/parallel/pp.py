@@ -59,8 +59,14 @@ sum, and its gradient (times ``scale``) the chunk's backward.
 Not ported (no meaning here): ``micro_split_spec``, ``_micro_splitter``
 and ``_micro_merger`` (:66-114) are GSPMD layout hints, and
 ``_boundary_needs_f32`` (:42) an XLA:CPU workaround whose f32 round trip
-of a bf16 activation is exact.  The pipelined decode
-(``pp_forward_with_cache`` :963) is queued (ROADMAP.md).
+of a bf16 activation is exact.
+
+The pipelined decode (:func:`pp_forward_with_cache`, JAX :963) runs one
+micro-batch over the virtual stages in order: each stage runs its chunk
+with the KV cache of its own blocks, which never leaves it, hands the
+activation to the next stage (one message a hop, through the same
+transport), and the last stage's output goes to every stage (JAX's
+``psum`` over 'pp'), so that every stage samples the same token.
 """
 
 from __future__ import annotations
@@ -342,8 +348,10 @@ class ProcessGroupTransport:
     apart."""
 
     def __init__(self, ranks: Sequence[int], stage: int,
-                 like: torch.Tensor):
+                 like: torch.Tensor, group=None):
         self.ranks, self.stage, self.like = list(ranks), stage, like
+        # the 'pp' process group of these ranks (the decode's broadcast)
+        self.group = group
 
     def warm(self) -> None:
         """One exchange in which every stage sends to both neighbours and
@@ -382,6 +390,65 @@ class ProcessGroupTransport:
             req.wait()
         for key, buf in received:
             me.inbox[key] = buf
+
+    def share_last(self, y: Optional[torch.Tensor]) -> torch.Tensor:
+        """The last stage's ``y`` on every stage: one broadcast over the
+        'pp' group (``like`` gives the other stages' buffer)."""
+        last = len(self.ranks) - 1
+        buf = (y.contiguous() if self.stage == last
+               else torch.empty_like(self.like))
+        dist.broadcast(buf, src=self.ranks[last], group=self.group)
+        return buf
+
+
+class _Hop:
+    """A decode stage's mailboxes, keyed as :class:`Stage`'s are."""
+
+    def __init__(self):
+        self.inbox: Dict[Tuple[str, int, int], torch.Tensor] = {}
+        self.outbox: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def pp_forward_with_cache(chunk: Callable, pipeline: "Pipeline",
+                          like: torch.Tensor) -> torch.Tensor:
+    """One pass of a decode's micro-batch over ``pipeline``'s virtual
+    stages (JAX's ``pp_forward_with_cache`` :963): virtual stage ``s =
+    c * P + d`` is stage d's chunk c, run in the order s = 0, 1, ..., so
+    the layers run in their order, stage d running the blocks it holds
+    (with ``virtual`` chunks a stage, the activation laps the ring V
+    times).  ``chunk(d, c, x)`` runs stage d's chunk c on ``x`` (None
+    for the first virtual stage, which embeds its tokens) against the
+    cache of those blocks, which stays with the stage.  Each hop is one
+    message of ``like``'s shape and dtype ``[b, t, hidden]`` through the
+    pipeline's transport (every stage in this process: handed over in
+    place); the last stage's output is returned on every stage, shared
+    by the transport's ``share_last`` where the stages are in other
+    processes."""
+    P, V = pipeline.pp_size, pipeline.virtual
+    hops = {d: _Hop() for d in pipeline.stages}
+    transport = pipeline.transport
+    if hasattr(transport, "like"):
+        transport.like = like
+    y = None
+    for s in range(V * P):
+        d, c = s % P, s // P
+        actions = [[("F", 0, c)] if e == d else [] for e in range(P)]
+        if d in hops:
+            x = None if s == 0 else hops[d].inbox.pop(("F", 0, c))
+            y = chunk(d, c, x)
+            hops[d].outbox[("F", 0, c)] = y
+        messages = tick_messages(actions, P, V)
+        if not messages:
+            continue
+        if len(hops) == P:
+            for kind, src, dst, m, c_src, c_dst in messages:
+                hops[dst].inbox[(kind, m, c_dst)] = hops[src].outbox.pop(
+                    (kind, m, c_src))
+        else:
+            transport.exchange(messages, hops)
+    if len(hops) == P:
+        return y
+    return transport.share_last(y if P - 1 in hops else None)
 
 
 class Pipeline:

@@ -259,6 +259,8 @@ class Sequence:
     deadline: float = float("inf")
     # streaming: on_token(token, t_monotonic) as the ring resolves each
     on_token: Any = None
+    # RequestResult.trace_id (the journal records it)
+    trace_id: str = ""
     # runtime
     slot: int = -1
     blocks: List[int] = dataclasses.field(default_factory=list)
@@ -636,6 +638,16 @@ class Scheduler:
         seq.t_finish = now
         self.finished.append(seq)
         self._evict(seq)
+
+    def preempt(self, seq: Sequence, now: float) -> None:
+        """Evict an admitted sequence before its natural finish (the
+        engine's ``serve.preempt_deadlines``): ``finish_reason
+        'preempted'`` with the tokens resolved so far, its blocks freed
+        through the same deferred path as any eviction (ring entries of
+        the slot still in flight are dropped by :meth:`_record`'s
+        post-finish guard)."""
+        if not seq.finished:
+            self._finish(seq, "preempted", now)
 
     def _evict(self, seq: Sequence) -> None:
         slot = seq.slot
