@@ -214,11 +214,12 @@ Phases, each of which exits non-zero when it fails:
    own-key-blind controls must not;
 8g. the pipelined decode (A12d, run after 8d): llama3-8b at full width
    and 4 layers in bf16 over 2 stages in one process (each stage's
-   blocks with their own KV cache; the activation handed on), a ragged
-   batch of 4 left-padded prompts of 128 to 512 tokens and 64 new
-   tokens through generate(pipeline=): B1 launches layers x 64, the
-   greedy tokens equal the unpipelined generate()'s, the ragged
-   prefill's logits through B1 lie within the serving limit of the
+   blocks with their own KV cache; the activation handed on through
+   the pipeline's transport), a ragged batch of 4 left-padded prompts
+   of 128 to 512 tokens and 64 new tokens through generate(pipeline=):
+   B1 launches layers x 64, the greedy tokens equal the unpipelined
+   generate()'s; fed those tokens, the ragged prefill's and the last
+   decode step's logits through B1 lie within the serving limit of the
    plain attention's; both decodes' tokens/s are printed;
 6b. the request journal (A2b, run after 6): llama3-8b at full width and
    4 layers in f32; an engine journals 8 requests and is closed once
@@ -2807,15 +2808,18 @@ def _pp_decode_phase(torch, args, card):
     """The pipelined decode (A12d): llama3-8b at full width and
     PP_DECODE_LAYERS deep, bf16 from init_params(seed), split over 2
     stages that run in this process (tests/torch_pp_virtual.py's
-    pipeline; the ring's hand-offs are in place).  A ragged batch of 4
+    pipeline: each hop goes through its transport).  A ragged batch of 4
     left-padded prompts of 128 to 512 tokens decodes PP_DECODE_NEW
     tokens through generate(pipeline=): B1, counted from 0 over that
     call, must launch layers x new tokens (one prefill and new - 1
     decode steps a layer), and the greedy tokens must equal the
-    unpipelined generate()'s on the same weights.  The ragged prefill's
-    last-column logits through B1 (segment ids, sq != sk in decode) must
-    lie within _logits_limit of the plain attention's.  Tokens/s of both
-    decodes are printed beside the card."""
+    unpipelined generate()'s on the same weights.  The same batch then
+    runs teacher-forced with those tokens through B1 and through the
+    plain attention: the ragged prefill's last-column logits and the
+    last decode step's (sq = 1 against sk = 575, each row's pad run
+    masked by its segment ids) must each lie within _logits_limit of
+    the plain attention's.  Tokens/s of both decodes are printed beside
+    the card."""
     import importlib
     import numpy as np
     import torchacc_tpu_torch.ops.flash_attention as fa
@@ -2866,29 +2870,39 @@ def _pp_decode_phase(torch, args, card):
     toks = out["pipelined"][:, p:]
     if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         _fail("pp decode: a token out of the vocabulary")
-    # the ragged prefill's logits through B1 against the plain attention
-    positions, _, seg = gen.prompt_geometry(ids, mask)
-    logits = {}
+    # the ragged prefill's and the last decode step's logits through B1
+    # against the plain attention, both fed the pipelined run's tokens
+    positions, row_len, seg = gen.prompt_geometry(ids, mask)
+    logits = {"prefill": {}, "decode": {}}
     with torch.no_grad():
         for impl in ("cuda", "torch"):
-            dec = gen._Decoder(model, pipe, len(lens), p + 1, ids.device,
+            dec = gen._Decoder(model, pipe, len(lens), p + new, ids.device,
                                seg, impl)
             x = dec(ids, positions, 0)
-            logits[impl] = head_logits(cfg, model, x[:, -1:])[:, 0].float()
-    rel = ((logits["cuda"] - logits["torch"]).abs().max()
-           / logits["torch"].abs().max()).item()
+            logits["prefill"][impl] = head_logits(
+                cfg, model, x[:, -1:])[:, 0].float()
+            for slot in range(p, p + new - 1):
+                x = dec(out["pipelined"][:, slot:slot + 1],
+                        (row_len + (slot - p))[:, None], slot)
+            logits["decode"][impl] = head_logits(
+                cfg, model, x[:, -1:])[:, 0].float()
     limit = _logits_limit(layers)
-    if not math.isfinite(rel) or rel > limit:
-        _fail(f"pp decode: ragged prefill logits part by {rel:.3g} > "
-              f"{limit:.3g}")
+    rel = {}
+    for step, pair in logits.items():
+        rel[step] = ((pair["cuda"] - pair["torch"]).abs().max()
+                     / pair["torch"].abs().max()).item()
+        if not math.isfinite(rel[step]) or rel[step] > limit:
+            _fail(f"pp decode: ragged {step} logits part by "
+                  f"{rel[step]:.3g} > {limit:.3g}")
     tps = {k: len(lens) * new / (v / 1e3) for k, v in ms.items()}
     print(f"pp decode: llama3-8b x{layers} bf16 over 2 stages, 4 ragged "
           f"prompts {lens} + {new} new tokens: pipelined "
           f"{ms['pipelined']:.1f} ms ({tps['pipelined']:.1f} tokens/s), "
           f"unpipelined {ms['unpipelined']:.1f} ms "
           f"({tps['unpipelined']:.1f} tokens/s); B1 launches {launches} "
-          f"(= {layers} x {new}); tokens equal; ragged prefill logits B1 "
-          f"vs plain {rel:.3g} (limit {limit:.3g}); card: {card}",
+          f"(= {layers} x {new}); tokens equal; ragged logits B1 vs "
+          f"plain: prefill {rel['prefill']:.3g}, last decode step "
+          f"{rel['decode']:.3g} (limit {limit:.3g}); card: {card}",
           flush=True)
     del model
     gc.collect()

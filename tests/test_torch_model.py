@@ -334,10 +334,52 @@ def test_pipelined_decode_in_one_process(virtual):
                      for s, layers in enumerate(order)]
 
 
+@pytest.mark.parametrize("virtual", [1, 2])
+def test_pipelined_decode_goes_through_the_transport(virtual):
+    """Every hop of the one-process decode is a message through the
+    pipeline's transport: V * P - 1 of them a pass, one pass for the
+    prefill and one a decode step; a transport that zeroes the
+    activations it hands on (a control) changes the greedy tokens."""
+    import importlib
+    from torch_pp_virtual import VirtualTransport, virtual_pipeline
+    gen = importlib.import_module("torchacc_tpu_torch.models.generate")
+
+    class Counting(VirtualTransport):
+        def __init__(self):
+            self.shapes = []
+
+        def deliver(self, kind, dst, m, tensor):
+            self.shapes.append((kind, dst, tuple(tensor.shape)))
+            return tensor
+
+    class Zeroing(VirtualTransport):
+        def deliver(self, kind, dst, m, tensor):
+            return torch.zeros_like(tensor)
+
+    _, _, model = _dec_models()
+    ids, mask, _ = _left_padded(LENS)
+    b, p = ids.shape
+    new = 4
+    want = gen.generate(model, ids, prompt_mask=mask, max_new_tokens=new)
+    counting = Counting()
+    got = gen.generate(model, ids, prompt_mask=mask, max_new_tokens=new,
+                       pipeline=virtual_pipeline(2, 1, "gpipe", virtual,
+                                                 transport=counting))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    h = model.cfg.hidden_size
+    hops = [("F", (s + 1) % 2, t) for t in [(b, p, h)] + [(b, 1, h)] *
+            (new - 1) for s in range(2 * virtual - 1)]
+    assert counting.shapes == hops
+    broken = gen.generate(model, ids, prompt_mask=mask, max_new_tokens=new,
+                          pipeline=virtual_pipeline(2, 1, "gpipe", virtual,
+                                                    transport=Zeroing()))
+    assert not torch.equal(broken[:, p:], want[:, p:])
+
+
 def test_generate_pp_config_without_mesh_demotes():
     """A model whose config has pp_size 2 but holds every block decodes
     as one device, as JAX demotes it (test_extras.py:417); one that
-    holds a stage's blocks and is given no mesh raises by name."""
+    holds a stage's blocks and is given no pipeline raises by name."""
     import dataclasses
     from torchacc_tpu.models.generate import generate as jax_generate
     from torchacc_tpu_torch.models.generate import generate
@@ -355,5 +397,5 @@ def test_generate_pp_config_without_mesh_demotes():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     pp_model.layers = StageLayers({0: pp_model.layers[0],
                                    1: pp_model.layers[1]})
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="pipeline of its stages"):
         generate(pp_model, ids, max_new_tokens=2)

@@ -41,7 +41,8 @@ has a timeout of its own.
   holds storage at once and none after; its own blocks equal the
   one-device ``init_params``' bitwise.  Given storage only (a
   checkpoint's load) it makes only its own blocks.
-- The pipelined decode (``generate(model, ..., mesh=trainer.mesh)``,
+- The pipelined decode (``generate(model, ..., pipeline=decode_pipeline(
+  trainer.mesh, ...))``,
   before the steps) of a ragged batch of 3 left-padded prompts, in the
   launches above: pp 2, pp 2 beside dp 2, beside fsdp 2 (FSDP2's
   shards gathered around the decode) and over 2 virtual stages.  The

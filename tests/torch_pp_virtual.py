@@ -18,9 +18,10 @@ from torchacc_tpu_torch.parallel.pp import Pipeline
 
 class VirtualTransport:
     """Moves each message from its source stage's outbox to its
-    destination stage's inbox."""
+    destination stage's inbox (``like``, the receive buffers' tensor
+    over a process group, has no use here)."""
 
-    def exchange(self, messages, stages):
+    def exchange(self, messages, stages, like=None):
         for kind, src, dst, m, c_src, c_dst in messages:
             stages[dst].inbox[(kind, m, c_dst)] = self.deliver(
                 kind, dst, m, stages[src].outbox.pop((kind, m, c_src)))

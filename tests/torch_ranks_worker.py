@@ -171,13 +171,14 @@ def pp_decode(spec, trainer):
     layers of the blocks this rank holds and of the cache it kept."""
     import importlib
     from torchacc_tpu_torch.parallel.mesh import pp_stage
+    from torchacc_tpu_torch.parallel.pp import decode_pipeline
     gen = importlib.import_module("torchacc_tpu_torch.models.generate")
     model, mesh = trainer.model, trainer.mesh
     ids, mask = torch.from_numpy(spec["ids"]), torch.from_numpy(spec["mask"])
+    ring = decode_pipeline(mesh, model.cfg.pp_virtual, model.device)
     toks = gen.generate(model, ids, prompt_mask=mask,
-                        max_new_tokens=spec["new"], mesh=mesh)
+                        max_new_tokens=spec["new"], pipeline=ring)
     b, p = ids.shape
-    ring = gen._decode_ring(model, mesh, None)
     with torch.no_grad(), gen._decode_weights(model, None) as m:
         positions, _, seg = gen.prompt_geometry(ids, mask.to(torch.int32))
         forward = gen._Decoder(m, ring, b, p + spec["new"], ids.device,

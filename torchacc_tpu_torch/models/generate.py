@@ -306,38 +306,18 @@ class _Decoder:
         return pp_forward_with_cache(chunk, self.ring, like)
 
 
-def _decode_ring(model, mesh, pipeline):
-    """The pipeline a decode runs over: ``pipeline`` as given (every
-    stage in one process, e.g.), else this rank's stage of ``mesh``'s
-    'pp' axis over a process-group transport (as
-    ``Trainer._pipeline_for`` builds it), else None (one device).  A
-    model that holds one stage's blocks needs one of them."""
+def _decode_ring(model, pipeline):
+    """The pipeline a decode runs over: ``pipeline`` as given, else None
+    (one device), which a model that holds one stage's blocks refuses."""
     from torchacc_tpu_torch.models.transformer import StageLayers
-    cfg = model.cfg
-    if pipeline is None and mesh is not None:
-        from torchacc_tpu_torch.parallel.mesh import pp_ranks, pp_stage
-        from torchacc_tpu_torch.parallel.pp import (
-            Pipeline,
-            ProcessGroupTransport,
-        )
-        n_pp, stage = pp_stage(mesh)
-        if n_pp > 1:
-            # each pass sets ``like`` to its activation's shape
-            transport = ProcessGroupTransport(
-                pp_ranks(mesh), stage, torch.empty(0, device=model.device),
-                group=mesh.get_group("pp"))
-            transport.warm()
-            pipeline = Pipeline(n_pp, 1, "gpipe", cfg.pp_virtual,
-                                stages=[stage], transport=transport)
-    if pipeline is None:
-        if isinstance(model.layers, StageLayers):
-            raise ValueError(
-                "this model holds one pipeline stage's blocks: pass the "
-                "mesh it was sharded on (generate(..., mesh=trainer.mesh)) "
-                "or a pipeline of its stages")
-        # a 'pp' config with no live 'pp' mesh decodes as one device, as
-        # JAX demotes it (:234-248): the blocks are the same either way
-        return None
+    if pipeline is None and isinstance(model.layers, StageLayers):
+        raise ValueError(
+            "this model holds one pipeline stage's blocks: pass the "
+            "pipeline of its stages (generate(..., pipeline="
+            "parallel.pp.decode_pipeline(trainer.mesh, cfg.pp_virtual, "
+            "device)))")
+    # a 'pp' config with no pipeline decodes as one device, as JAX
+    # demotes it (:234-248): the blocks are the same either way
     return pipeline
 
 
@@ -397,8 +377,7 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
              eos_id: Optional[int] = None, seed: int = 0,
              use_cache: bool = True, prompt_mask=None,
-             param_dtype: Optional[torch.dtype] = None, mesh=None,
-             pipeline=None,
+             param_dtype: Optional[torch.dtype] = None, pipeline=None,
              attention_impl: Optional[str] = None) -> torch.Tensor:
     """Decode ``max_new_tokens`` after ``prompt_ids [b, p]`` with a port
     ``TransformerLM`` (computing in ``cfg.dtype``); returns ``[b, p +
@@ -419,9 +398,9 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
     (JAX's ``_generate_recompute``) through the same forward.
     ``param_dtype`` decodes from a copy of the weights cast to it once.
 
-    Under pipeline parallelism ``mesh`` (the trainer's, on which the
-    model was sharded) or ``pipeline`` (a ``parallel.pp.Pipeline``, e.g.
-    every stage in one process) runs each token as one pass over the
+    Under pipeline parallelism ``pipeline`` (a ``parallel.pp.Pipeline``:
+    ``parallel.pp.decode_pipeline`` of the trainer's mesh, or every
+    stage in one process) runs each token as one pass over the
     stages (``parallel.pp.pp_forward_with_cache``): each process keeps
     the KV cache of its own blocks only, the activation goes stage to
     stage, and every stage samples the same token from the last
@@ -452,7 +431,7 @@ def generate(model, prompt_ids, *, max_new_tokens: int = 32,
         raise ValueError(
             f"prompt + max_new_tokens = {total} exceeds the learned "
             f"position table max_seq_len {cfg.max_seq_len}")
-    ring = _decode_ring(model, mesh, pipeline)
+    ring = _decode_ring(model, pipeline)
     kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
               eos_id=eos_id, seed=seed,
               impl=attention_impl or cfg.attention_impl)

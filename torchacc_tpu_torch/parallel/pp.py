@@ -370,8 +370,13 @@ class ProcessGroupTransport:
             req.wait()
 
     def exchange(self, messages: Sequence[Message],
-                 stages: Dict[int, Stage]) -> None:
+                 stages: Dict[int, Stage],
+                 like: Optional[torch.Tensor] = None) -> None:
+        """Post this rank's sends and receives of ``messages``; each
+        receive lands in a buffer like ``like`` (default the
+        transport's own)."""
         me = stages[self.stage]
+        like = self.like if like is None else like
         ops, received = [], []
         for kind, src, dst, m, c_src, c_dst in messages:
             tag = 0 if kind == "F" else 1
@@ -380,7 +385,7 @@ class ProcessGroupTransport:
                 ops.append(dist.P2POp(dist.isend, t, self.ranks[dst],
                                       tag=tag))
             if dst == self.stage:
-                buf = torch.empty_like(self.like)
+                buf = torch.empty_like(like)
                 ops.append(dist.P2POp(dist.irecv, buf, self.ranks[src],
                                       tag=tag))
                 received.append(((kind, m, c_dst), buf))
@@ -391,12 +396,13 @@ class ProcessGroupTransport:
         for key, buf in received:
             me.inbox[key] = buf
 
-    def share_last(self, y: Optional[torch.Tensor]) -> torch.Tensor:
+    def share_last(self, y: Optional[torch.Tensor],
+                   like: torch.Tensor) -> torch.Tensor:
         """The last stage's ``y`` on every stage: one broadcast over the
         'pp' group (``like`` gives the other stages' buffer)."""
         last = len(self.ranks) - 1
         buf = (y.contiguous() if self.stage == last
-               else torch.empty_like(self.like))
+               else torch.empty_like(like))
         dist.broadcast(buf, src=self.ranks[last], group=self.group)
         return buf
 
@@ -420,15 +426,13 @@ def pp_forward_with_cache(chunk: Callable, pipeline: "Pipeline",
     for the first virtual stage, which embeds its tokens) against the
     cache of those blocks, which stays with the stage.  Each hop is one
     message of ``like``'s shape and dtype ``[b, t, hidden]`` through the
-    pipeline's transport (every stage in this process: handed over in
-    place); the last stage's output is returned on every stage, shared
-    by the transport's ``share_last`` where the stages are in other
+    pipeline's transport (``exchange(messages, stages, like)``); the
+    last stage's output is returned on every stage, shared by the
+    transport's ``share_last`` where the stages are in other
     processes."""
     P, V = pipeline.pp_size, pipeline.virtual
     hops = {d: _Hop() for d in pipeline.stages}
     transport = pipeline.transport
-    if hasattr(transport, "like"):
-        transport.like = like
     y = None
     for s in range(V * P):
         d, c = s % P, s // P
@@ -438,17 +442,32 @@ def pp_forward_with_cache(chunk: Callable, pipeline: "Pipeline",
             y = chunk(d, c, x)
             hops[d].outbox[("F", 0, c)] = y
         messages = tick_messages(actions, P, V)
-        if not messages:
-            continue
-        if len(hops) == P:
-            for kind, src, dst, m, c_src, c_dst in messages:
-                hops[dst].inbox[(kind, m, c_dst)] = hops[src].outbox.pop(
-                    (kind, m, c_src))
-        else:
-            transport.exchange(messages, hops)
+        if messages:
+            transport.exchange(messages, hops, like)
     if len(hops) == P:
         return y
-    return transport.share_last(y if P - 1 in hops else None)
+    return transport.share_last(y if P - 1 in hops else None, like)
+
+
+def decode_pipeline(mesh, virtual: int, device) -> Optional["Pipeline"]:
+    """The pipeline a decode runs over on ``mesh`` (the trainer's, on
+    which the model was sharded): this rank's stage of the 'pp' axis,
+    ``virtual`` chunks a stage (the model config's ``pp_virtual``), over
+    a process-group transport, as ``Trainer._pipeline_for`` builds it;
+    None where the mesh has no 'pp' axis above 1.  Pass it to
+    ``generate(..., pipeline=)``."""
+    from torchacc_tpu_torch.parallel.mesh import pp_ranks, pp_stage
+    n_pp, stage = pp_stage(mesh)
+    if n_pp == 1:
+        return None
+    # each pass hands ``exchange`` and ``share_last`` its activation's
+    # shape; this one only places ``warm``'s buffers
+    transport = ProcessGroupTransport(
+        pp_ranks(mesh), stage, torch.empty(0, device=device),
+        group=mesh.get_group("pp"))
+    transport.warm()
+    return Pipeline(n_pp, 1, "gpipe", virtual, stages=[stage],
+                    transport=transport)
 
 
 class Pipeline:
